@@ -1,0 +1,129 @@
+"""Build the port's CUDA sources and bind them with ctypes.
+
+Each ``resnetc_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` into its
+own shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), for ``sm_90a``.  All sources build in parallel, once, at the
+first launch, into ``resnetc_tpu_torch/_build/<hash>/``; the hash covers the
+sources and the flags, so an edited source rebuilds and an unchanged one is
+reused.  Nothing outside the repository is needed but the CUDA toolkit.
+
+Also home of the launch counters: every wrapper adds one to
+``LAUNCHES[name]`` where it launches its kernel, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+SOURCES = ("chain_block", "gemm")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+#: Launches per wrapper name since the last reset.
+LAUNCHES: collections.Counter = collections.Counter()
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def _build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build_all(verbose: bool = False) -> Path:
+    """Compile every source that is not built yet, all in parallel; return
+    the build directory.  Raises with the compiler's output on failure."""
+    out_dir = _build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in SOURCES:
+        lib = out_dir / f"lib{name}.so"
+        if lib.exists():
+            continue
+        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs.append((name, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    errors = []
+    for name, lib, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}")
+            continue
+        if verbose and out:
+            print(f"[nvcc {name}.cu]\n{out}", flush=True)
+        os.replace(tmp, lib)  # atomic: a concurrent build sees old or new
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out_dir
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<name>.cu`` (built on first use)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
+        _LIBS[name] = lib
+    return lib
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """Device pointer of a tensor, or None (NULL) for an absent operand."""
+    return None if t is None else t.data_ptr()
+
+
+def stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device, shape=None):
+    """Validate what a kernel takes before its pointer is passed on."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")

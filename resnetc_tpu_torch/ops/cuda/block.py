@@ -1,0 +1,550 @@
+"""Int8 bottleneck blocks over the chained padded-row layout.
+
+Counterpart of ``resnetc_tpu/ops/pallas/block.py`` for the int8_chain
+serving path: the layout helpers (``chain_meta``, ``pad_for_chain``,
+``unpad_from_chain``), weight quantization (``quantize_chain_block``,
+``quantize_ds_block``) and three kernels, each with its plain PyTorch
+version beside it:
+
+- ``bottleneck_block_chained_int8``  (block.py:718) — one stride-1 block;
+- ``bottleneck_run_chained_int8``    (block.py:2908) — a run of N blocks;
+- ``downsample_block_s2_int8``       (block.py:3460) — the stride-2
+  transition.
+
+The kernels are CUDA C++ in ``resnetc_tpu_torch/csrc/chain_block.cu`` (see
+its header for the design and what bounds it).  A wrapper runs the plain
+version when its input lies on the CPU, and launches the kernel for a CUDA
+tensor, or raises; there is no fallback.  Each wrapper first folds the
+scalar requant scales into per-channel vectors exactly as the JAX wrapper
+does (block.py:789-797, 822-823, 2966-2980, 3545-3554), so the kernel and
+the plain version see identical constants.
+
+Chain ring rows carry no meaning (the JAX kernels leave garbage there); the
+port writes zeros, and the tests compare interiors only.  The TPU
+scheduling arguments (``bt``, ``interpret``, ``manual_dma``, ``pipe_dma``,
+``conv2_chunked``, ``pair_dma``, ``onedot``, ``pipe_out``) are accepted and
+ignored.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from resnetc_tpu_torch.ops.cuda import _build
+from resnetc_tpu_torch.ops.cuda.quant import quantize_per_channel
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# ctypes signatures of csrc/chain_block.cu's C functions, in its order.
+_ARGTYPES = {
+    # x; B h w hp wp cin c c4; w1 a1 c1 w2p a2 c2 w3 a3 c3; s_res wd ad cd;
+    # z1 z2 y; out_kind out inv_hw stream
+    "chain_block_int8": [_P] + [_I] * 8 + [_P] * 9 + [_P] * 4 + [_P] * 3 + [_I, _P, _F, _P],
+    # x; n_blocks B h w hp wp cin c c4; w1s w10; a1s c1s w2ps a2s c2s w3s
+    # a3s c3s s_res; wd ad cd; z1 z2 act0 act1; last_bf16 out stream
+    "chain_run_int8": [_P] + [_I] * 9 + [_P] * 2 + [_P] * 9 + [_P] * 3 + [_P] * 4 + [_I, _P, _P],
+    # x; B h w hp wp cin c c4 oh ow hp2 wp2; w1 a1 c1 w2 a2 c2 w3 a3 c3;
+    # wd ad cd; z1 z2; out_kind out stream
+    "ds_block_s2_int8": [_P] + [_I] * 12 + [_P] * 9 + [_P] * 3 + [_P] * 2 + [_I, _P, _P],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("chain_block")
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------------------
+# Layout
+# ---------------------------------------------------------------------------
+
+
+def chain_meta(b: int, h: int, w_sp: int) -> tuple[int, int]:
+    """(hp, wp) of the chained padded-row layout for (B, H, W, C) inputs:
+    wp = round_up(w+2, 8), or w+1 when w+1 is already a multiple of 8 (the
+    right pad column is then the next row's left pad column)."""
+    w2 = w_sp + 1 if (w_sp + 1) % 8 == 0 else _round_up(w_sp + 2, 8)
+    return h + 2, w2
+
+
+def pad_for_chain(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> flat zero-ring padded rows (B*Hp*Wp, C)."""
+    b, h, w_sp, c = x.shape
+    hp, wp = chain_meta(b, h, w_sp)
+    x_pad = F.pad(x, (0, 0, 1, wp - w_sp - 1, 1, 1))
+    return x_pad.reshape(b * hp * wp, c)
+
+
+def unpad_from_chain(xr: torch.Tensor, b: int, h: int, w_sp: int) -> torch.Tensor:
+    """Flat padded rows -> NHWC interior (a view)."""
+    hp, wp = chain_meta(b, h, w_sp)
+    return xr.reshape(b, hp, wp, xr.shape[-1])[:, 1 : 1 + h, 1 : 1 + w_sp, :]
+
+
+def _chain_from_interior(y: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """(B, h, w, C) interior -> zero-ring chain rows (B*hp*wp, C)."""
+    b, h, w_sp, c = y.shape
+    out = torch.zeros((b, hp, wp, c), dtype=y.dtype, device=y.device)
+    out[:, 1 : 1 + h, 1 : 1 + w_sp] = y
+    return out.reshape(b * hp * wp, c)
+
+
+# ---------------------------------------------------------------------------
+# Weight quantization
+# ---------------------------------------------------------------------------
+
+
+def _as_1x1(w: torch.Tensor) -> torch.Tensor:
+    return w[0, 0] if w.ndim == 4 else w
+
+
+def quantize_chain_block(blk: dict) -> dict:
+    """Quantize one BN-folded stride-1 bottleneck block: per-output-channel
+    int8, with conv2 packed kh-batched ((kw, k) rows x (kh, j) columns) and
+    its scales per (kh, j) column (block.py:3657)."""
+    w1 = _as_1x1(blk["conv1"]["weight"])
+    w2 = blk["conv2"]["weight"]
+    w3 = _as_1x1(blk["conv3"]["weight"])
+    c = w1.shape[-1]
+    w2p = w2.permute(1, 2, 0, 3).reshape(3 * c, 3 * c)
+    w1q, sw1 = quantize_per_channel(w1)
+    w2pq, sw2p = quantize_per_channel(w2p)
+    w3q, sw3 = quantize_per_channel(w3)
+    return {
+        "w1q": w1q, "sw1": sw1, "b1": blk["conv1"]["bias"],
+        "w2pq": w2pq, "sw2p": sw2p, "b2": blk["conv2"]["bias"],
+        "w3q": w3q, "sw3": sw3, "b3": blk["conv3"]["bias"],
+    }
+
+
+def quantize_ds_block(blk: dict) -> dict:
+    """Quantize one BN-folded stride-2 downsample block: conv2 with JOINT
+    per-output-channel scales over the nine taps (block.py:3627)."""
+    w1 = _as_1x1(blk["conv1"]["weight"])
+    w2 = blk["conv2"]["weight"]
+    w3 = _as_1x1(blk["conv3"]["weight"])
+    wd = _as_1x1(blk["downsample"]["weight"])
+    c = w1.shape[-1]
+    w2q_flat, sw2 = quantize_per_channel(w2.reshape(9 * c, c))
+    w1q, sw1 = quantize_per_channel(w1)
+    w3q, sw3 = quantize_per_channel(w3)
+    wdq, swd = quantize_per_channel(wd)
+    return {
+        "w1q": w1q, "sw1": sw1, "b1": blk["conv1"]["bias"],
+        "w2q": w2q_flat.reshape(3, 3, c, c), "sw2": sw2, "b2": blk["conv2"]["bias"],
+        "w3q": w3q, "sw3": sw3, "b3": blk["conv3"]["bias"],
+        "wdq": wdq, "swd": swd, "bd": blk["downsample"]["bias"],
+    }
+
+
+# ---------------------------------------------------------------------------
+# Plain arithmetic shared by the plain versions
+# ---------------------------------------------------------------------------
+
+
+def _idot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact integer product of int8-valued operands: a float64 matmul
+    (exact: |sum| < 2**53; PyTorch has no int32 matmul on the card), then
+    int32."""
+    return torch.matmul(a.to(torch.float64), w.to(torch.float64)).to(torch.int32)
+
+
+def _requant(v: torch.Tensor) -> torch.Tensor:
+    """Round half to even, clip to +-127, int8."""
+    return torch.clamp(torch.round(v), -127.0, 127.0).to(torch.int8)
+
+
+def _check_i8(dev, **tensors):
+    """Validate the int8 operands a kernel reads as 32-bit words."""
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        _build.require(t, name, torch.int8, dev)
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name}: must be 4-byte aligned")
+
+
+def _one(ref: torch.Tensor) -> torch.Tensor:
+    return torch.ones((), dtype=torch.float32, device=ref.device)
+
+
+# ---------------------------------------------------------------------------
+# Kernel 1: one stride-1 bottleneck block
+# ---------------------------------------------------------------------------
+
+
+def _fold_block(scales, sw1, b1, sw2p, b2, sw3, b3, swd, bd, emit_i8):
+    """Host-side scale folding of block.py:789-797 and 822-823, op for op."""
+    s_x, s_z1, s_z2 = scales[0], scales[1], scales[2]
+    s_y = scales[3] if emit_i8 else _one(scales)
+    c = sw1.shape[-1]
+    f = {
+        "a1": sw1.float() * (s_x / s_z1),
+        "c1": b1.float() * (1.0 / s_z1),
+        "a2": (sw2p.float() * (s_z1 / s_z2)).reshape(3, c),
+        "c2": b2.float() * (1.0 / s_z2),
+        "a3": sw3.float() * (s_z2 / s_y),
+        "c3": b3.float() * (1.0 / s_y),
+        "s_res": (s_x / s_y).float().reshape(1),
+        "ad": None,
+        "cd": None,
+    }
+    if swd is not None:
+        f["ad"] = swd.float() * (s_x / s_y)
+        f["cd"] = bd.float() * (1.0 / s_y)
+    return f
+
+
+def _block_geometry(xq, w1q, w3q, wdq, h, w_sp, emit_i8, emit_mean):
+    cin, c = w1q.shape
+    c4 = w3q.shape[-1]
+    if wdq is None and cin != c4:
+        raise ValueError(f"identity shortcut needs cin == 4c, got {cin} vs {c4}")
+    if emit_mean and emit_i8:
+        raise ValueError("emit_mean is the bf16-exit head fold; pass emit_i8=False")
+    hp, wp = chain_meta(0, h, w_sp)
+    rows, cin_in = xq.shape
+    b = rows // (hp * wp)
+    if b * hp * wp != rows or cin_in != cin:
+        raise ValueError(f"xq {tuple(xq.shape)} is not a ({hp}x{wp}) chain of {cin} channels")
+    return b, hp, wp, cin, c, c4
+
+
+def _inv_hw(h: int, w_sp: int) -> float:
+    # The JAX head fold multiplies by the f32 value mask / (h*w).
+    return float(np.float32(1.0) / np.float32(h * w_sp))
+
+
+def _block_plain_folded(xq, b, h, w_sp, hp, wp, w1q, w2pq, w3q, wdq, f, *,
+                        emit_i8, emit_mean):
+    cin = xq.shape[1]
+    c = w1q.shape[1]
+    x = xq.reshape(b, hp, wp, cin)[:, 1 : 1 + h, 1 : 1 + w_sp]
+    z1 = _requant(torch.relu(_idot(x, w1q).float() * f["a1"] + f["c1"]))
+    z1p = F.pad(z1, (0, 0, 1, 1, 1, 1))
+    p = []
+    for kh in range(3):
+        taps = torch.cat([z1p[:, kh : kh + h, kw : kw + w_sp] for kw in range(3)], dim=-1)
+        p.append(_idot(taps, w2pq[:, kh * c : (kh + 1) * c]).float())
+    a2 = f["a2"]
+    acc2 = ((p[0] * a2[0] + p[1] * a2[1]) + p[2] * a2[2]) + f["c2"]
+    z2 = _requant(torch.relu(acc2))
+    y = _idot(z2, w3q).float() * f["a3"] + f["c3"]
+    if wdq is None:
+        y = y + x.float() * f["s_res"]
+    else:
+        y = y + (_idot(x, wdq).float() * f["ad"] + f["cd"])
+    y = torch.relu(y)
+    if emit_mean:
+        return (y * _inv_hw(h, w_sp)).sum(dim=(1, 2))
+    return _chain_from_interior(_requant(y) if emit_i8 else y.to(torch.bfloat16), hp, wp)
+
+
+def bottleneck_block_chained_int8_plain(
+    xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False, manual_dma=False,
+    emit_mean=False, conv2_chunked=False, pipe_dma=False,
+    wdq=None, swd=None, bd=None,
+):
+    """Plain PyTorch version of ``bottleneck_block_chained_int8``."""
+    b, hp, wp, _, _, _ = _block_geometry(xq, w1q, w3q, wdq, h, w_sp, emit_i8, emit_mean)
+    f = _fold_block(scales, sw1, b1, sw2p, b2, sw3, b3, swd, bd, emit_i8)
+    return _block_plain_folded(xq, b, h, w_sp, hp, wp, w1q, w2pq, w3q, wdq, f,
+                               emit_i8=emit_i8, emit_mean=emit_mean)
+
+
+def bottleneck_block_chained_int8(
+    xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False, manual_dma=False,
+    emit_mean=False, conv2_chunked=False, pipe_dma=False,
+    wdq=None, swd=None, bd=None,
+):
+    """Int8 stride-1 bottleneck block over the chained padded-row layout.
+
+    xq: (B*Hp*Wp, cin) int8 chain at scale scales[0]; w1q (cin, c), w2pq
+    (3c, 3c) kh-batched, w3q (c, 4c) int8 with per-column scales; biases
+    f32; scales (4,) = [s_x, s_z1, s_z2, s_y].  With wdq/swd/bd the
+    shortcut is the 1x1 projection instead of identity.  Returns the same
+    chain layout, int8 at s_y (emit_i8) or unscaled bf16; or with emit_mean
+    the (B, 4c) f32 per-image interior means (the head fold).
+    """
+    if not xq.is_cuda:
+        return bottleneck_block_chained_int8_plain(
+            xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales,
+            h=h, w_sp=w_sp, emit_i8=emit_i8, emit_mean=emit_mean,
+            wdq=wdq, swd=swd, bd=bd,
+        )
+    b, hp, wp, cin, c, c4 = _block_geometry(xq, w1q, w3q, wdq, h, w_sp, emit_i8, emit_mean)
+    f = _fold_block(scales, sw1, b1, sw2p, b2, sw3, b3, swd, bd, emit_i8)
+    dev = xq.device
+    _check_i8(dev, xq=xq, w1q=w1q, w2pq=w2pq, w3q=w3q, wdq=wdq)
+    if cin % 4 or c % 4:
+        raise ValueError(f"channel counts must be multiples of 4, got cin={cin}, c={c}")
+    rows = b * hp * wp
+    z1 = torch.empty((rows, c), dtype=torch.int8, device=dev)
+    z2 = torch.empty((rows, c), dtype=torch.int8, device=dev)
+    yscr = None
+    if emit_mean:
+        out = torch.empty((b, c4), dtype=torch.float32, device=dev)
+        yscr = torch.empty((rows, c4), dtype=torch.float32, device=dev)
+        kind = 2
+    else:
+        out = torch.empty((rows, c4), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
+        kind = 0 if emit_i8 else 1
+    fc = {k: (None if v is None else v.contiguous()) for k, v in f.items()}
+    rc = _lib().chain_block_int8(
+        xq.data_ptr(), b, h, w_sp, hp, wp, cin, c, c4,
+        w1q.data_ptr(), fc["a1"].data_ptr(), fc["c1"].data_ptr(),
+        w2pq.data_ptr(), fc["a2"].data_ptr(), fc["c2"].data_ptr(),
+        w3q.data_ptr(), fc["a3"].data_ptr(), fc["c3"].data_ptr(),
+        fc["s_res"].data_ptr(), _build.ptr(wdq), _build.ptr(fc["ad"]), _build.ptr(fc["cd"]),
+        z1.data_ptr(), z2.data_ptr(), _build.ptr(yscr), kind, out.data_ptr(),
+        _inv_hw(h, w_sp), _build.stream(),
+    )
+    _build.check(rc, "bottleneck_block_chained_int8")
+    _build.LAUNCHES["bottleneck_block_chained_int8"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2: a run of N stride-1 blocks
+# ---------------------------------------------------------------------------
+
+
+def _fold_run(scales_s, sw1_s, b1_s, sw2p_s, b2_s, sw3_s, b3_s, swd, bd, emit_i8):
+    """Per-block host folding of block.py:2966-2980 (and 3013-3014)."""
+    n_blocks, c = sw1_s.shape
+    s_x = scales_s[:, 0]
+    s_z1 = scales_s[:, 1]
+    s_z2 = scales_s[:, 2]
+    s_y = scales_s[:, 3]
+    if not emit_i8:
+        s_y = s_y.clone()
+        s_y[n_blocks - 1] = 1.0
+    f = {
+        "a1": sw1_s.float() * (s_x / s_z1)[:, None],
+        "c1": b1_s.float() * (1.0 / s_z1)[:, None],
+        "a2": (sw2p_s.float() * (s_z1 / s_z2)[:, None]).reshape(n_blocks * 3, c),
+        "c2": b2_s.float() * (1.0 / s_z2)[:, None],
+        "a3": sw3_s.float() * (s_z2 / s_y)[:, None],
+        "c3": b3_s.float() * (1.0 / s_y)[:, None],
+        "s_res": (s_x / s_y).float(),
+        "ad": None,
+        "cd": None,
+    }
+    if swd is not None:
+        f["ad"] = swd.float() * (s_x[0] / scales_s[0, 3])
+        f["cd"] = bd.float() * (1.0 / scales_s[0, 3])
+    return f
+
+
+def _run_geometry(xq, w1q_s, w3q_s, w1q0, wdq, h, w_sp):
+    has_proj = w1q0 is not None
+    if has_proj:
+        n_m1, c4, c = w1q_s.shape
+        n_blocks = n_m1 + 1
+        cin = w1q0.shape[0]
+        if wdq is None or tuple(wdq.shape) != (cin, c4):
+            raise ValueError("the projection form needs wdq of shape (cin, 4c)")
+    else:
+        n_blocks, c4, c = w1q_s.shape
+        cin = c4
+    if n_blocks < 2 and has_proj:
+        raise ValueError("a lone projection block is bottleneck_block_chained_int8's job")
+    hp, wp = chain_meta(0, h, w_sp)
+    rows, cin_in = xq.shape
+    b = rows // (hp * wp)
+    if b * hp * wp != rows or cin_in != cin:
+        raise ValueError(f"xq {tuple(xq.shape)} is not a ({hp}x{wp}) chain of {cin} channels")
+    return n_blocks, b, hp, wp, cin, c, c4
+
+
+def bottleneck_run_chained_int8_plain(
+    xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False, pipe_dma=False,
+    w1q0=None, wdq=None, swd=None, bd=None,
+):
+    """Plain PyTorch version of ``bottleneck_run_chained_int8``."""
+    n_blocks, b, hp, wp, _, _, _ = _run_geometry(xq, w1q_s, w3q_s, w1q0, wdq, h, w_sp)
+    f = _fold_run(scales_s, sw1_s, b1_s, sw2p_s, b2_s, sw3_s, b3_s, swd, bd, emit_i8)
+    has_proj = w1q0 is not None
+    y = xq
+    for n in range(n_blocks):
+        last = n == n_blocks - 1
+        proj_n = has_proj and n == 0
+        w1 = w1q0 if proj_n else w1q_s[n - 1 if has_proj else n]
+        fn = {
+            "a1": f["a1"][n], "c1": f["c1"][n], "a2": f["a2"][3 * n : 3 * n + 3],
+            "c2": f["c2"][n], "a3": f["a3"][n], "c3": f["c3"][n],
+            "s_res": f["s_res"][n : n + 1],
+            "ad": f["ad"] if proj_n else None, "cd": f["cd"] if proj_n else None,
+        }
+        y = _block_plain_folded(
+            y, b, h, w_sp, hp, wp, w1, w2pq_s[n], w3q_s[n],
+            wdq if proj_n else None, fn,
+            emit_i8=emit_i8 or not last, emit_mean=False,
+        )
+    return y
+
+
+def bottleneck_run_chained_int8(
+    xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False, pipe_dma=False,
+    w1q0=None, wdq=None, swd=None, bd=None,
+):
+    """A run of N stride-1 bottleneck blocks as one call (see the JAX
+    wrapper's contract): stacked w1q_s (N, c4, c), sw1_s/b1_s (N, c), w2pq_s
+    (N, 3c, 3c), sw2p_s (N, 3c), b2_s (N, c), w3q_s (N, c, c4), sw3_s/b3_s
+    (N, c4); scales_s (N, 4) rows [s_x, s_z1, s_z2, s_y].  With w1q0/wdq/
+    swd/bd block 0 is the projection block over xq (rows, cin) and w1q_s
+    stacks blocks 1..N-1 only."""
+    if not xq.is_cuda:
+        return bottleneck_run_chained_int8_plain(
+            xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s,
+            h=h, w_sp=w_sp, emit_i8=emit_i8, w1q0=w1q0, wdq=wdq, swd=swd, bd=bd,
+        )
+    n_blocks, b, hp, wp, cin, c, c4 = _run_geometry(xq, w1q_s, w3q_s, w1q0, wdq, h, w_sp)
+    f = _fold_run(scales_s, sw1_s, b1_s, sw2p_s, b2_s, sw3_s, b3_s, swd, bd, emit_i8)
+    dev = xq.device
+    _check_i8(dev, xq=xq, w1q_s=w1q_s, w1q0=w1q0, w2pq_s=w2pq_s, w3q_s=w3q_s, wdq=wdq)
+    if cin % 4 or c % 4:
+        raise ValueError(f"channel counts must be multiples of 4, got cin={cin}, c={c}")
+    rows = b * hp * wp
+    z1 = torch.empty((rows, c), dtype=torch.int8, device=dev)
+    z2 = torch.empty((rows, c), dtype=torch.int8, device=dev)
+    act = torch.empty((2, rows, c4), dtype=torch.int8, device=dev)
+    out = torch.empty((rows, c4), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
+    fc = {k: (None if v is None else v.contiguous()) for k, v in f.items()}
+    rc = _lib().chain_run_int8(
+        xq.data_ptr(), n_blocks, b, h, w_sp, hp, wp, cin, c, c4,
+        w1q_s.data_ptr(), _build.ptr(w1q0),
+        fc["a1"].data_ptr(), fc["c1"].data_ptr(), w2pq_s.data_ptr(), fc["a2"].data_ptr(),
+        fc["c2"].data_ptr(), w3q_s.data_ptr(), fc["a3"].data_ptr(), fc["c3"].data_ptr(),
+        fc["s_res"].data_ptr(), _build.ptr(wdq), _build.ptr(fc["ad"]), _build.ptr(fc["cd"]),
+        z1.data_ptr(), z2.data_ptr(), act[0].data_ptr(), act[1].data_ptr(),
+        0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+    )
+    _build.check(rc, "bottleneck_run_chained_int8")
+    _build.LAUNCHES["bottleneck_run_chained_int8"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel 3: the stride-2 transition block
+# ---------------------------------------------------------------------------
+
+
+def _fold_ds(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8):
+    """Host-side scale folding of block.py:3545-3554, op for op."""
+    s_x, s_z1, s_z2 = scales[0], scales[1], scales[2]
+    s_y = scales[3] if emit_i8 else _one(scales)
+    return {
+        "a1": sw1.float() * (s_x / s_z1),
+        "c1": b1.float() * (1.0 / s_z1),
+        "a2": sw2.float() * (s_z1 / s_z2),
+        "c2": b2.float() * (1.0 / s_z2),
+        "a3": sw3.float() * (s_z2 / s_y),
+        "c3": b3.float() * (1.0 / s_y),
+        "ad": swd.float() * (s_x / s_y),
+        "cd": bd.float() * (1.0 / s_y),
+    }
+
+
+def _ds_geometry(xr, h, w_sp):
+    hp, wp = chain_meta(0, h, w_sp)
+    rows, cin = xr.shape
+    b = rows // (hp * wp)
+    if b * hp * wp != rows:
+        raise ValueError(f"xr {tuple(xr.shape)} is not a ({hp}x{wp}) chain")
+    oh, ow = (h + 1) // 2, (w_sp + 1) // 2
+    hp2, wp2 = chain_meta(0, oh, ow)
+    return b, hp, wp, cin, oh, ow, hp2, wp2
+
+
+def downsample_block_s2_int8_plain(
+    xr, w1q, sw1, b1, w2q, sw2, b2, w3q, sw3, b3, wdq, swd, bd, scales, *,
+    h, w_sp, emit_i8=True, bt=None, pair_dma=False, onedot=False,
+    pipe_out=False, interpret=False,
+):
+    """Plain PyTorch version of ``downsample_block_s2_int8``."""
+    b, hp, wp, cin, oh, ow, hp2, wp2 = _ds_geometry(xr, h, w_sp)
+    f = _fold_ds(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8)
+    c = w1q.shape[-1]
+    x = xr.reshape(b, hp, wp, cin)[:, 1 : 1 + h, 1 : 1 + w_sp]
+    z1 = _requant(torch.relu(_idot(x, w1q).float() * f["a1"] + f["c1"]))
+    z1p = F.pad(z1, (0, 0, 1, 1, 1, 1))
+    taps = torch.cat(
+        [
+            z1p[:, u : u + 2 * oh - 1 : 2, v : v + 2 * ow - 1 : 2]
+            for u in range(3)
+            for v in range(3)
+        ],
+        dim=-1,
+    )
+    acc2 = _idot(taps, w2q.reshape(9 * c, c))
+    z2 = _requant(torch.relu(acc2.float() * f["a2"] + f["c2"]))
+    y = _idot(z2, w3q).float() * f["a3"] + f["c3"]
+    y = y + (_idot(x[:, ::2, ::2], wdq).float() * f["ad"] + f["cd"])
+    y = torch.relu(y)
+    return _chain_from_interior(_requant(y) if emit_i8 else y.to(torch.bfloat16), hp2, wp2)
+
+
+def downsample_block_s2_int8(
+    xr, w1q, sw1, b1, w2q, sw2, b2, w3q, sw3, b3, wdq, swd, bd, scales, *,
+    h, w_sp, emit_i8=True, bt=None, pair_dma=False, onedot=False,
+    pipe_out=False, interpret=False,
+):
+    """Whole stride-2 bottleneck downsample block, chain to chain.
+
+    xr: (B*Hp*Wp, cin) int8 chain of the (h, w_sp) input stage at scale
+    scales[0]; weights per ``quantize_ds_block``; scales [s_x, s_z1, s_z2,
+    s_y].  Output: the (ceil(h/2), ceil(w_sp/2)) stage's chain, (.., 4c).
+    Output pixel (i, j) taps z1 at (2i+u-1, 2j+v-1), zero outside the
+    image; the shortcut reads x[2i, 2j].
+    """
+    if not xr.is_cuda:
+        return downsample_block_s2_int8_plain(
+            xr, w1q, sw1, b1, w2q, sw2, b2, w3q, sw3, b3, wdq, swd, bd, scales,
+            h=h, w_sp=w_sp, emit_i8=emit_i8,
+        )
+    b, hp, wp, cin, oh, ow, hp2, wp2 = _ds_geometry(xr, h, w_sp)
+    f = _fold_ds(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8)
+    c = w1q.shape[-1]
+    c4 = w3q.shape[-1]
+    dev = xr.device
+    _check_i8(dev, xr=xr, w1q=w1q, w2q=w2q, w3q=w3q, wdq=wdq)
+    if cin % 4 or c % 4:
+        raise ValueError(f"channel counts must be multiples of 4, got cin={cin}, c={c}")
+    z1 = torch.empty((b * hp * wp, c), dtype=torch.int8, device=dev)
+    z2 = torch.empty((b * hp2 * wp2, c), dtype=torch.int8, device=dev)
+    out = torch.empty(
+        (b * hp2 * wp2, c4), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev
+    )
+    fc = {k: v.contiguous() for k, v in f.items()}
+    rc = _lib().ds_block_s2_int8(
+        xr.data_ptr(), b, h, w_sp, hp, wp, cin, c, c4, oh, ow, hp2, wp2,
+        w1q.data_ptr(), fc["a1"].data_ptr(), fc["c1"].data_ptr(),
+        w2q.data_ptr(), fc["a2"].data_ptr(), fc["c2"].data_ptr(),
+        w3q.data_ptr(), fc["a3"].data_ptr(), fc["c3"].data_ptr(),
+        wdq.data_ptr(), fc["ad"].data_ptr(), fc["cd"].data_ptr(),
+        z1.data_ptr(), z2.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(),
+        _build.stream(),
+    )
+    _build.check(rc, "downsample_block_s2_int8")
+    _build.LAUNCHES["downsample_block_s2_int8"] += 1
+    return out

@@ -1,0 +1,351 @@
+"""The int8_chain serving forward for the bottleneck family.
+
+Counterpart of ``resnetc_tpu/ops/pallas/fused.py``: ``calibrate_chain_scales``
+(fused.py:497), ``quantize_chain`` (:637), ``_chain_scale_lookups`` (:802)
+and ``fused_forward_int8_chain`` (:1025) with the code-default flags.
+
+The forward: the 7x7 stem is a stock convolution (XLA's in the JAX
+package); its output is quantized at the first block's input scale BEFORE
+the 3x3/2 max pool (max commutes with the monotone quantizer), pooled in
+int8, padded once into the chain layout, and from there every bottleneck
+block is an int8 kernel — the layer1 projection block and every identity
+block of stages 2-4 through ``bottleneck_block_chained_int8``, layer1
+blocks 1..n-1 through ``bottleneck_run_chained_int8``, the three stride-2
+transitions through ``downsample_block_s2_int8`` — and the network's last
+block pools in-kernel (``emit_mean``) for the fc GEMM (``matmul``).
+
+Not yet ported (each raises ``NotImplementedError``): the basic family
+(ResNet-18/34), ``HYBRID_XLA_STAGES``, ``STAGE_FUSE_PROJ``,
+``L1_PIXEL_PAIR`` and per-channel interior calibration.
+"""
+
+from __future__ import annotations
+
+import typing
+
+import torch
+
+from resnetc_tpu_torch.models.resnet import ResNetConfig
+from resnetc_tpu_torch.ops import torch_ops
+from resnetc_tpu_torch.ops.cuda import block, gemm
+from resnetc_tpu_torch.ops.cuda.quant import quantize_per_channel, quantize_with_scale
+from resnetc_tpu_torch.tensor import BF16, DtypePolicy
+
+Tree = dict
+
+#: Stages (0-based) whose identity blocks 1..n-1 run through
+#: bottleneck_run_chained_int8 (the JAX package's code default).
+RUN_FUSE_STAGES: tuple = (0,)
+
+#: JAX-package flags not ported yet; a non-default value raises.
+HYBRID_XLA_STAGES: tuple = ()
+STAGE_FUSE_PROJ: bool = False
+L1_PIXEL_PAIR: bool = False
+
+
+class Kernels(typing.NamedTuple):
+    """The four kernels of the path.  ``KERNELS`` dispatches on the device
+    (CUDA kernel for a CUDA tensor, plain version on the CPU); ``PLAIN``
+    runs the plain versions anywhere — the on-card reference."""
+
+    block: typing.Callable
+    run: typing.Callable
+    ds: typing.Callable
+    matmul: typing.Callable
+
+
+KERNELS = Kernels(
+    block.bottleneck_block_chained_int8,
+    block.bottleneck_run_chained_int8,
+    block.downsample_block_s2_int8,
+    gemm.matmul,
+)
+PLAIN = Kernels(
+    block.bottleneck_block_chained_int8_plain,
+    block.bottleneck_run_chained_int8_plain,
+    block.downsample_block_s2_int8_plain,
+    gemm.matmul_plain,
+)
+
+
+def _require_bottleneck(cfg: ResNetConfig) -> None:
+    if cfg.groups != 1:
+        raise ValueError(
+            "int8 chain serving does not support grouped convolutions "
+            "(ResNeXt); use the fp backend"
+        )
+    if cfg.block != "bottleneck":
+        raise NotImplementedError(
+            "the int8_chain path for the basic family (ResNet-18/34) is not ported yet"
+        )
+
+
+def _conv(x, entry, *, stride, relu, policy):
+    """A folded conv(+bias)(+relu) as a stock convolution."""
+    w = entry["weight"].to(policy.compute)
+    y = torch_ops.conv2d(x, w, stride=stride, padding=w.shape[0] // 2)
+    y = y + entry["bias"].to(y.dtype)
+    return torch_ops.relu(y) if relu else y
+
+
+# ---------------------------------------------------------------------------
+# Calibration and quantization
+# ---------------------------------------------------------------------------
+
+
+def _percentile(a: torch.Tensor, pct: float) -> torch.Tensor:
+    """numpy's default ("linear") percentile of a flat tensor, through two
+    order statistics (torch.quantile caps its input size)."""
+    flat = a.reshape(-1)
+    n = flat.numel()
+    pos = (n - 1) * (pct / 100.0)
+    lo = int(pos)
+    hi = min(lo + 1, n - 1)
+    v_lo = torch.kthvalue(flat, lo + 1).values
+    v_hi = torch.kthvalue(flat, hi + 1).values if hi != lo else v_lo
+    return v_lo + (v_hi - v_lo) * (pos - lo)
+
+
+def _mse_clip(a: torch.Tensor) -> torch.Tensor:
+    """argmin over 24 clip candidates in [0.25, 1] x max of the int8
+    quantization MSE, on a strided subsample (fused.py:539-555)."""
+    flat = a.reshape(-1)
+    step = max(1, flat.numel() // (1 << 18))
+    sample = flat[::step]
+    hi = sample.max()
+    cands = hi * torch.linspace(0.25, 1.0, 24, device=a.device)[:, None]
+    s = torch.clamp(cands / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(sample[None, :] / s), -127.0, 127.0) * s
+    err = ((q - sample[None, :]) ** 2).mean(dim=1)
+    return cands[torch.argmin(err), 0]
+
+
+def calibrate_chain_scales(
+    cfg: ResNetConfig,
+    folded: Tree,
+    x: torch.Tensor,
+    *,
+    policy: DtypePolicy = BF16,
+    method: str = "absmax",
+    pct: float = 99.9,
+    per_channel_interior: bool = False,
+) -> Tree:
+    """Static activation scales for the int8 block kernels.
+
+    Runs the fp folded forward over ``x`` (NHWC) and records a range
+    statistic /127 at every residual block: its input ("in"), conv1's
+    post-relu output ("z1") and conv2's ("z2").  Block k's output scale is
+    block k+1's "in".  ``method``: "absmax", "percentile" (at ``pct``) or
+    "mse".  Returns {layerN: {b: {"in", "z1", "z2"}}} of 0-d fp32 tensors.
+    """
+    if method not in ("absmax", "percentile", "mse"):
+        raise ValueError(f"unknown calibration method {method!r}")
+    if per_channel_interior:
+        raise NotImplementedError(
+            "per-channel interior scales (bake_interior_scales) are not ported yet"
+        )
+    _require_bottleneck(cfg)
+
+    def s_of(act):
+        a = act.float().abs()
+        if method == "absmax":
+            stat = a.max()
+        elif method == "percentile":
+            stat = _percentile(a, pct)
+        else:
+            stat = _mse_clip(a)
+        return torch.clamp(stat / 127.0, min=1e-8)
+
+    with torch.no_grad():
+        x = x.to(policy.compute)
+        y = _conv(x, folded["conv1"], stride=2, relu=True, policy=policy)
+        y = torch_ops.max_pool2d(y, kernel_size=3, stride=2, padding=1)
+        scales: Tree = {}
+        for stage in range(4):
+            blocks = folded[f"layer{stage + 1}"]
+            stage_stride = 1 if stage == 0 else 2
+            layer_scales: Tree = {}
+            for b in range(cfg.stage_blocks[stage]):
+                blk = blocks[str(b)]
+                s = stage_stride if b == 0 else 1
+                short = (
+                    _conv(y, blk["downsample"], stride=s, relu=False, policy=policy)
+                    if "downsample" in blk
+                    else y
+                )
+                z1 = _conv(y, blk["conv1"], stride=1, relu=True, policy=policy)
+                z2 = _conv(z1, blk["conv2"], stride=s, relu=True, policy=policy)
+                layer_scales[str(b)] = {"in": s_of(y), "z1": s_of(z1), "z2": s_of(z2)}
+                y = torch_ops.relu(
+                    _conv(z2, blk["conv3"], stride=1, relu=False, policy=policy) + short
+                )
+            scales[f"layer{stage + 1}"] = layer_scales
+    return scales
+
+
+def quantize_chain(cfg: ResNetConfig, folded: Tree) -> Tree:
+    """Quantize every bottleneck block for the int8 kernels: stride-1
+    blocks (layer1's projection block included, with its wdq/swd/bd) for the
+    chain kernel, stride-2 blocks for the transition kernel.  Other entries
+    (stem, fc) pass through."""
+    _require_bottleneck(cfg)
+    out = {k: v for k, v in folded.items() if not k.startswith("layer")}
+    for stage in range(4):
+        blocks = folded[f"layer{stage + 1}"]
+        qblocks = {}
+        for b_str, blk in blocks.items():
+            if b_str == "0" and stage > 0:
+                qblocks[b_str] = block.quantize_ds_block(blk)
+                continue
+            q = block.quantize_chain_block(blk)
+            if "downsample" in blk:  # layer1 block 0: stride-1 projection
+                wd = blk["downsample"]["weight"]
+                q["wdq"], q["swd"] = quantize_per_channel(wd[0, 0] if wd.ndim == 4 else wd)
+                q["bd"] = blk["downsample"]["bias"]
+            qblocks[b_str] = q
+        out[f"layer{stage + 1}"] = qblocks
+    return out
+
+
+def _chain_scale_lookups(cfg: ResNetConfig, chain_scales: Tree):
+    """(site, s_after): block k's output scale is block k+1's "in", across
+    stage boundaries too; None at the network tail."""
+
+    def site(stage, b):
+        return chain_scales[f"layer{stage + 1}"][str(b)]
+
+    def s_after(stage, b):
+        if b + 1 < cfg.stage_blocks[stage]:
+            return site(stage, b + 1)["in"]
+        if stage + 1 < 4:
+            return site(stage + 1, 0)["in"]
+        return None
+
+    return site, s_after
+
+
+# ---------------------------------------------------------------------------
+# The forward
+# ---------------------------------------------------------------------------
+
+
+def fused_forward_int8_chain(
+    cfg: ResNetConfig,
+    qtree: Tree,
+    chain_scales: Tree,
+    x: torch.Tensor,
+    *,
+    policy: DtypePolicy = BF16,
+    stage_taps: list | None = None,
+    kernels: Kernels = KERNELS,
+) -> torch.Tensor:
+    """Serving forward with every bottleneck block as an int8 kernel call.
+    ``x`` is NHWC; returns (B, num_classes) logits in ``policy.output``.
+
+    ``stage_taps``: pass a list to receive the dequantized fp32 NHWC
+    activation after each stage (then the tail block exits bf16 and the
+    head pools outside the kernel, as in the JAX package).  ``kernels``
+    picks the implementations (``PLAIN`` for the on-card reference).
+    """
+    _require_bottleneck(cfg)
+    if HYBRID_XLA_STAGES:
+        raise NotImplementedError("HYBRID_XLA_STAGES is not ported yet")
+    if STAGE_FUSE_PROJ:
+        raise NotImplementedError("STAGE_FUSE_PROJ is not ported yet")
+    if L1_PIXEL_PAIR:
+        raise NotImplementedError("L1_PIXEL_PAIR (the _pp kernels) is not ported yet")
+
+    site, s_after = _chain_scale_lookups(cfg, chain_scales)
+
+    def scale_row(stage, b):
+        st = site(stage, b)
+        s_y = s_after(stage, b)
+        one = torch.ones((), dtype=torch.float32, device=st["in"].device)
+        return torch.stack(
+            [st["in"], st["z1"], st["z2"], s_y if s_y is not None else one]
+        ).float()
+
+    x = x.to(policy.compute)
+    y = _conv(x, qtree["conv1"], stride=2, relu=True, policy=policy)
+    yq = quantize_with_scale(y, site(0, 0)["in"])
+    yq = torch_ops.max_pool2d(yq, kernel_size=3, stride=2, padding=1)
+
+    bsz, h, w_sp, _ = yq.shape
+    yr = block.pad_for_chain(yq)
+
+    head_folded = False
+    for stage in range(4):
+        blocks = qtree[f"layer{stage + 1}"]
+        nb = cfg.stage_blocks[stage]
+
+        blk = blocks["0"]
+        last0 = s_after(stage, 0) is None
+        if stage > 0:
+            yr = kernels.ds(
+                yr,
+                blk["w1q"], blk["sw1"], blk["b1"],
+                blk["w2q"], blk["sw2"], blk["b2"],
+                blk["w3q"], blk["sw3"], blk["b3"],
+                blk["wdq"], blk["swd"], blk["bd"],
+                scale_row(stage, 0),
+                h=h, w_sp=w_sp, emit_i8=not last0,
+            )
+            h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
+        else:
+            yr = kernels.block(
+                yr,
+                blk["w1q"], blk["sw1"], blk["b1"],
+                blk["w2pq"], blk["sw2p"], blk["b2"],
+                blk["w3q"], blk["sw3"], blk["b3"],
+                scale_row(stage, 0),
+                h=h, w_sp=w_sp, emit_i8=not last0,
+                wdq=blk.get("wdq"), swd=blk.get("swd"), bd=blk.get("bd"),
+            )
+
+        if nb > 1 and stage in RUN_FUSE_STAGES:
+            run = [blocks[str(i)] for i in range(1, nb)]
+
+            def stk(key):
+                return torch.stack([r[key] for r in run])
+
+            yr = kernels.run(
+                yr,
+                stk("w1q"), stk("sw1"), stk("b1"),
+                stk("w2pq"), stk("sw2p"), stk("b2"),
+                stk("w3q"), stk("sw3"), stk("b3"),
+                torch.stack([scale_row(stage, i) for i in range(1, nb)]),
+                h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None,
+            )
+        else:
+            for i in range(1, nb):
+                blk = blocks[str(i)]
+                last_i = s_after(stage, i) is None
+                # Head fold on the tail block (not when taps are asked for):
+                # the kernel emits (B, 4c) pooled features directly.
+                fold_head = last_i and stage_taps is None
+                yr = kernels.block(
+                    yr,
+                    blk["w1q"], blk["sw1"], blk["b1"],
+                    blk["w2pq"], blk["sw2p"], blk["b2"],
+                    blk["w3q"], blk["sw3"], blk["b3"],
+                    scale_row(stage, i),
+                    h=h, w_sp=w_sp, emit_i8=not last_i, emit_mean=fold_head,
+                )
+                head_folded = head_folded or fold_head
+
+        if stage_taps is not None:
+            s_out = s_after(stage, nb - 1)
+            tap = block.unpad_from_chain(yr, bsz, h, w_sp).float()
+            stage_taps.append(tap * s_out if s_out is not None else tap)
+
+    if head_folded:
+        feats = yr.to(policy.compute)  # (B, 4c): pooled in-kernel
+    else:
+        y = block.unpad_from_chain(yr, bsz, h, w_sp)
+        feats = y.float().mean(dim=(1, 2)).to(policy.compute)
+    return kernels.matmul(
+        feats,
+        qtree["fc"]["weight"].t().to(policy.compute).contiguous(),
+        qtree["fc"]["bias"],
+        out_dtype=policy.output,
+    )
