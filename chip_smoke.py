@@ -5,19 +5,24 @@
 
 Builds the CUDA kernels from ``resnetc_tpu_torch/csrc`` and then:
 
-1. holds every kernel of the int8_chain path against its plain PyTorch
-   version on the card, at ResNet-152's shapes (224 px, batch 8): int8
-   outputs must be equal, bf16 outputs within rtol 8e-3 (one bf16 step),
-   fp32 per-image means and the fp32-accumulating GEMM within rtol 1e-4;
-2. serves ResNet-152 at full width (random weights from seed 0) through
-   ``InferenceEngine(backend="int8_chain")`` at batch 32: the launch count
-   of every kernel in that forward must be > 0; the logits must stay within
-   rel-MAE 0.05 and argmax agreement 0.9 of the fp32 folded forward (the
-   bf16 fp engine's agreement is reported too), and within 1e-2 (max error
-   over max |logit|) of the same forward run through the plain versions;
-3. times the engine (images/s, p50 ms per batch) for int8_chain and fp,
-   and each kernel per launch at the main path's shapes, beside the plain
-   version, the bound and, for the GEMM, torch.matmul.
+1. holds every kernel of the int8_chain paths against its plain PyTorch
+   version on the card, at the shapes of ResNet-152 (the bottleneck
+   kernels) and ResNet-34 (the basic kernels), 224 px, batch 8: int8 and
+   bf16 outputs must be equal, fp32 per-image means and the
+   fp32-accumulating GEMM within rtol 1e-4;
+2. serves ResNet-152 and then ResNet-34 at full width and depth (random
+   weights from seed 0) through ``InferenceEngine(backend="int8_chain")``
+   at batch 32, the launch counters set to 0 just before each forward and
+   read just after: every kernel of that path must have launched exactly
+   as often as the model has blocks of its kind; the logits must stay
+   within the JAX package's gate of the fp32 folded forward (rel-MAE 0.05
+   for the bottleneck route, 0.08 for the basic one, argmax agreement 0.9;
+   the bf16 fp engine's agreement is reported too), and within 1e-2 (max
+   error over max |logit|) of the same forward run through the plain
+   versions;
+3. times both engines (images/s, p50 / p99 ms per batch) for int8_chain and
+   fp, and each kernel per launch at the main paths' shapes, beside the
+   plain version, the bound and, for the GEMM, torch.matmul.
 
 Prints the card (``nvidia-smi`` name and power limit), one JSON line of
 per-kernel results, and as its last line ``{"ok": true, "device": ...}``.
@@ -40,6 +45,8 @@ PEAK_BYTES = 3.35e12
 
 # ResNet-152 at 224 px: (h, c, c4) per stage after the stem and pool.
 STAGES = [(56, 64, 256), (28, 128, 512), (14, 256, 1024), (7, 512, 2048)]
+# ResNet-34 at 224 px: (h, c) per stage.
+BASIC_STAGES = [(56, 64), (28, 128), (14, 256), (7, 512)]
 
 
 def log(msg: str) -> None:
@@ -227,6 +234,104 @@ def make_cases(b: int, dev) -> list:
     return cases
 
 
+def _basic_weights(gen, cin, c, dev, *, ds=False):
+    import torch
+
+    from resnetc_tpu_torch.ops.cuda import block
+
+    def entry(shape, fan_in):
+        return {
+            "weight": torch.randn(shape, generator=gen) / fan_in**0.5,
+            "bias": torch.randn(shape[-1], generator=gen) * 0.02,
+        }
+
+    blk = {"conv1": entry((3, 3, cin, c), 9 * cin), "conv2": entry((3, 3, c, c), 9 * c)}
+    if ds:
+        blk["downsample"] = entry((1, 1, cin, c), cin)
+        q = block.quantize_basic_ds_block(blk)
+    else:
+        q = block.quantize_basic_block(blk)
+    return {k: v.to(dev) for k, v in q.items() if isinstance(v, torch.Tensor)}
+
+
+def make_basic_cases(b: int, dev) -> list:
+    """Every basic kernel at the ResNet-34 main path's shapes: the stage-0
+    run of three blocks, the stride-1 block at stages 1-3 (int8 exit, and
+    the bf16 exit of the network's last block at 7x7, where wp = w+1), the
+    three stride-2 transitions."""
+    import torch
+
+    from resnetc_tpu_torch.ops.cuda import block
+    from resnetc_tpu_torch.ops.cuda.block import chain_meta
+
+    gen = torch.Generator().manual_seed(4321)
+    scales = torch.full((3,), 0.05, dtype=torch.float32, device=dev)
+    keys = ("w1pq", "sw1p", "b1", "w2pq", "sw2p", "b2")
+    cases = []
+
+    def block_case(label, h, c, *, emit_i8=True):
+        q = _basic_weights(gen, c, c, dev)
+        hp, wp = chain_meta(b, h, h)
+        ops = 2 * b * h * h * 18 * c * c
+        nbytes = b * hp * wp * c * (2 if emit_i8 else 3) + 18 * c * c
+        cases.append(Case(
+            label, "basic_block_chained_int8", block.basic_block_chained_int8,
+            block.basic_block_chained_int8_plain,
+            (_chain(gen, b, h, c, dev), *(q[k] for k in keys), scales),
+            dict(h=h, w_sp=h, emit_i8=emit_i8), ops, nbytes, PEAK_INT8_OPS,
+            "int8" if emit_i8 else "bf16",
+        ))
+
+    for s in (1, 2, 3):
+        h, c = BASIC_STAGES[s]
+        block_case(f"basic/block/s{s}", h, c)
+    h3, c3 = BASIC_STAGES[3]
+    block_case("basic/block/bf16_exit/s3", h3, c3, emit_i8=False)
+
+    h0, c0 = BASIC_STAGES[0]
+    qs = [_basic_weights(gen, c0, c0, dev) for _ in range(3)]
+    hp, wp = chain_meta(b, h0, h0)
+    cases.append(Case(
+        "basic/run/n3/s0", "basic_run_chained_int8", block.basic_run_chained_int8,
+        block.basic_run_chained_int8_plain,
+        (_chain(gen, b, h0, c0, dev), *(torch.stack([q[k] for q in qs]) for k in keys),
+         torch.full((3, 3), 0.05, dtype=torch.float32, device=dev)),
+        dict(h=h0, w_sp=h0),
+        3 * 2 * b * h0 * h0 * 18 * c0 * c0, 2 * b * hp * wp * c0 + 3 * 18 * c0 * c0,
+        PEAK_INT8_OPS, "int8",
+    ))
+
+    dkeys = ("w1pq", "sw1", "b1", "w2pq", "sw2p", "b2", "wdq", "swd", "bd")
+    for s in (1, 2, 3):
+        h_in, cin = BASIC_STAGES[s - 1]
+        h, c = BASIC_STAGES[s]
+        q = _basic_weights(gen, cin, c, dev, ds=True)
+        hp, wp = chain_meta(b, h_in, h_in)
+        hp2, wp2 = chain_meta(b, h, h)
+        ops = 2 * b * h * h * (9 * cin * c + 9 * c * c + cin * c)
+        nbytes = b * hp * wp * cin + 12 * cin * c + 9 * c * c + cin * c + b * hp2 * wp2 * c
+        cases.append(Case(
+            f"basic/ds/s{s}", "basic_ds_block_s2_int8", block.basic_ds_block_s2_int8,
+            block.basic_ds_block_s2_int8_plain,
+            (_chain(gen, b, h_in, cin, dev), *(q[k] for k in dkeys), scales),
+            dict(h=h_in, w_sp=h_in), ops, nbytes, PEAK_INT8_OPS, "int8",
+        ))
+
+    # The fc head of ResNet-34 (512 -> 1000).
+    from resnetc_tpu_torch.ops.cuda import gemm
+
+    feats = torch.randn((b, 512), generator=gen).to(dev, torch.bfloat16)
+    w = (torch.randn((512, 1000), generator=gen) / 512**0.5).to(dev, torch.bfloat16)
+    bias = (torch.randn(1000, generator=gen) * 0.01).to(dev)
+    cases.append(Case(
+        "basic/matmul/fc", "matmul", gemm.matmul, gemm.matmul_plain,
+        (feats, w, bias), dict(out_dtype=torch.float32),
+        2 * b * 512 * 1000, b * 512 * 2 + 512 * 1000 * 2 + 1000 * 4 + b * 1000 * 4,
+        PEAK_BF16_FLOPS, "f32",
+    ))
+    return cases
+
+
 def check_case(case) -> float:
     """Kernel vs plain on the same inputs; returns the max abs error."""
     import torch
@@ -235,15 +340,12 @@ def check_case(case) -> float:
     want = case.run_plain()
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    if case.check == "int8":
-        if not torch.equal(got, want):
-            raise AssertionError(f"{case.name}: int8 output differs from plain (max {err})")
+    if case.check in ("int8", "bf16"):
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"{case.name}: {case.check} output differs from plain (max {err})")
         distinct = int(torch.unique(got).numel())
         if distinct < 20:
             raise AssertionError(f"{case.name}: degenerate output ({distinct} values)")
-    elif case.check == "bf16":
-        torch.testing.assert_close(got.float(), want.float(), rtol=8e-3, atol=0,
-                                   msg=lambda m: f"{case.name}: {m}")
     else:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
                                    msg=lambda m: f"{case.name}: {m}")
@@ -255,8 +357,7 @@ def check_case(case) -> float:
 # ---------------------------------------------------------------------------
 
 
-def phase_kernels(dev) -> dict:
-    cases = make_cases(8, dev)
+def phase_kernels(cases: list) -> dict:
     errs = {}
     for case in cases:
         errs[case.name] = check_case(case)
@@ -265,10 +366,12 @@ def phase_kernels(dev) -> dict:
 
 
 def main_path_counts() -> dict:
-    """Launches of each kernel per ResNet-152 forward, by case name."""
+    """Launches of each kernel case per forward of its model (ResNet-152
+    for the bottleneck cases, ResNet-34 for the basic ones), by case name."""
     from resnetc_tpu_torch.models import get_config
 
     blocks = get_config("resnet152").stage_blocks
+    basic = get_config("resnet34").stage_blocks
     return {
         "block/proj/s0": 1,
         "block/identity/s1": blocks[1] - 1,
@@ -278,10 +381,34 @@ def main_path_counts() -> dict:
         "run/n2/s0": 1,
         "ds/s1": 1, "ds/s2": 1, "ds/s3": 1,
         "matmul/fc": 1,
+        "basic/run/n3/s0": 1,
+        "basic/block/s1": basic[1] - 1,
+        "basic/block/s2": basic[2] - 1,
+        "basic/block/s3": basic[3] - 2,
+        "basic/block/bf16_exit/s3": 1,
+        "basic/ds/s1": 1, "basic/ds/s2": 1, "basic/ds/s3": 1,
+        "basic/matmul/fc": 1,
     }
 
 
-def phase_end_to_end(batch: int, dev) -> dict:
+def expected_launches(cases: list) -> dict:
+    """Launches of each kernel in one forward of the cases' model."""
+    counts = main_path_counts()
+    want: dict = {}
+    for case in cases:
+        if counts.get(case.name, 0):
+            want[case.kernel] = want.get(case.kernel, 0) + counts[case.name]
+    return want
+
+
+#: The main paths driven end to end: the model, the rel-MAE bound of the JAX
+#: package's own gate for its route against the fp forward
+#: (tests/test_pallas.py:573-598 bottleneck, :1444-1446 basic), and the
+#: kernel cases at its shapes.
+MODELS = (("resnet152", 0.05, make_cases), ("resnet34", 0.08, make_basic_cases))
+
+
+def phase_end_to_end(name: str, rel_mae_gate: float, want: dict, batch: int, dev) -> dict:
     import torch
 
     from resnetc_tpu_torch.models import resnet
@@ -291,7 +418,8 @@ def phase_end_to_end(batch: int, dev) -> dict:
     from resnetc_tpu_torch.tensor import FP32
     from resnetc_tpu_torch.verify import compare_logits
 
-    cfg = resnet.get_config("resnet152")
+    tag = f"[e2e {name}]"
+    cfg = resnet.get_config(name)
     t0 = time.perf_counter()
     variables = resnet.init(cfg, torch.Generator().manual_seed(0))
     calib = torch.randn((8, 224, 224, 3), generator=torch.Generator().manual_seed(1))
@@ -299,50 +427,48 @@ def phase_end_to_end(batch: int, dev) -> dict:
     fp = InferenceEngine(cfg, variables, backend="fp", device=dev)
     x = torch.randn((batch, 224, 224, 3), generator=torch.Generator().manual_seed(2)).to(dev)
     torch.cuda.synchronize()
-    log(f"[e2e] resnet152 engines built in {time.perf_counter() - t0:.1f} s")
+    log(f"{tag} engines built in {time.perf_counter() - t0:.1f} s")
 
     _build.reset_launches()
     logits = eng.logits(x)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    log(f"[e2e] launches in one int8_chain forward: {json.dumps(launches)}")
-    for name in ("bottleneck_block_chained_int8", "bottleneck_run_chained_int8",
-                 "downsample_block_s2_int8", "matmul"):
-        if launches.get(name, 0) <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    log(f"{tag} launches in one int8_chain forward: {json.dumps(launches)}")
+    if launches != want:
+        raise AssertionError(f"{tag} launches {launches}, expected {want}")
     if tuple(logits.shape) != (batch, 1000) or not bool(torch.isfinite(logits).all()):
-        raise AssertionError(f"bad logits: shape {tuple(logits.shape)}")
+        raise AssertionError(f"{tag} bad logits: shape {tuple(logits.shape)}")
     classes = eng.classify(x)
     if classes.shape != (batch,):
-        raise AssertionError(f"classify returned shape {classes.shape}")
+        raise AssertionError(f"{tag} classify returned shape {classes.shape}")
 
     ref = fp.logits(x)
     with torch.inference_mode():
         ref32 = resnet.forward_folded(cfg, fp.folded, x, policy=FP32)
         plain = fused_forward_int8_chain(cfg, eng.folded, eng.chain_scales, x, kernels=PLAIN)
     top2 = ref32.topk(2, dim=-1).values
-    log(f"[e2e] fp32 logits: mean|logit|={float(ref32.abs().mean())} "
+    log(f"{tag} fp32 logits: mean|logit|={float(ref32.abs().mean())} "
         f"median top1-top2 gap={float((top2[:, 0] - top2[:, 1]).median())}")
     rel_mae = float((logits - ref).abs().mean() / ref.abs().mean())
     rep = compare_logits(logits, ref)
-    log(f"[e2e] int8_chain vs fp (bf16) folded forward: rel_mae={rel_mae} "
+    log(f"{tag} int8_chain vs fp (bf16) folded forward: rel_mae={rel_mae} "
         f"argmax_agreement={rep.argmax_match_rate} mae={rep.mae}")
     rel_mae32 = float((logits - ref32).abs().mean() / ref32.abs().mean())
     rep32 = compare_logits(logits, ref32)
-    log(f"[e2e] int8_chain vs fp32 folded forward: rel_mae={rel_mae32} "
+    log(f"{tag} int8_chain vs fp32 folded forward: rel_mae={rel_mae32} "
         f"argmax_agreement={rep32.argmax_match_rate}")
     plain_rel = float((logits - plain).abs().max() / plain.abs().max())
     prep = compare_logits(logits, plain)
-    log(f"[e2e] kernels vs plain versions, whole forward: max_err/max|logit|={plain_rel} "
+    log(f"{tag} kernels vs plain versions, whole forward: max_err/max|logit|={plain_rel} "
         f"argmax_agreement={prep.argmax_match_rate}")
     # The gate's oracle is the fp32 folded forward (TF32 off): with random
     # weights the top-1 margins are ~1.5% of |logit|, inside the bf16 fp
     # path's own rounding error, so bf16-vs-fp32 argmax agreement is itself
     # ~0.6 here (measured); the bf16 comparison is reported, not gated.
-    if not (rel_mae32 < 0.05 and rep32.argmax_match_rate >= 0.9):
-        raise AssertionError("int8_chain logits outside the fp gate")
+    if not (rel_mae32 < rel_mae_gate and rep32.argmax_match_rate >= 0.9):
+        raise AssertionError(f"{tag} int8_chain logits outside the fp gate")
     if plain_rel > 1e-2:
-        raise AssertionError("the kernels' forward disagrees with the plain versions")
+        raise AssertionError(f"{tag} the kernels' forward disagrees with the plain versions")
     return {
         "engine": eng, "fp": fp, "x": x, "launches": launches,
         "rel_mae_vs_fp_bf16": rel_mae, "argmax_vs_fp_bf16": rep.argmax_match_rate,
@@ -351,26 +477,52 @@ def phase_end_to_end(batch: int, dev) -> dict:
     }
 
 
-def phase_timing(e2e: dict, batch: int, dev, errs: dict) -> tuple[dict, list, list]:
-    import torch
-
+def phase_engine_timing(name: str, e2e: dict, batch: int) -> dict:
     from resnetc_tpu_torch.serve import bench_latency, bench_throughput
 
-    engine_times = {}
-    for name in ("engine", "fp"):
-        eng = e2e[name]
+    times = {}
+    for key in ("engine", "fp"):
+        eng = e2e[key]
         thr = bench_throughput(eng, e2e["x"], steps=10, warmup=3)
         lat = bench_latency(eng, e2e["x"], samples=10, warmup=2)
-        engine_times[eng.backend] = {
+        times[eng.backend] = {
             "images_per_s": thr.images_per_sec, "p50_ms_per_batch": lat.p50_ms,
             "p99_ms_per_batch": lat.p99_ms, "batch": batch,
         }
-        log(f"[timing] {eng.backend}: {thr.images_per_sec:.1f} img/s, "
-            f"p50 {lat.p50_ms:.3f} ms per batch of {batch}")
+        log(f"[timing {name}] {eng.backend}: {thr.images_per_sec:.1f} img/s, "
+            f"p50 {lat.p50_ms:.3f} p99 {lat.p99_ms:.3f} ms per batch of {batch}")
+    return times
+
+
+#: Each kernel: its CUDA source and the TPU kernel it replaces.
+SOURCES = {
+    "bottleneck_block_chained_int8": ("resnetc_tpu_torch/csrc/chain_block.cu",
+                                      "resnetc_tpu/ops/pallas/block.py:718"),
+    "bottleneck_run_chained_int8": ("resnetc_tpu_torch/csrc/chain_block.cu",
+                                    "resnetc_tpu/ops/pallas/block.py:2908"),
+    "downsample_block_s2_int8": ("resnetc_tpu_torch/csrc/chain_block.cu",
+                                 "resnetc_tpu/ops/pallas/block.py:3460"),
+    "matmul": ("resnetc_tpu_torch/csrc/gemm.cu", "resnetc_tpu/ops/pallas/gemm.py:100"),
+    "basic_block_chained_int8": ("resnetc_tpu_torch/csrc/basic_block.cu",
+                                 "resnetc_tpu/ops/pallas/block.py:1646"),
+    "basic_run_chained_int8": ("resnetc_tpu_torch/csrc/basic_block.cu",
+                               "resnetc_tpu/ops/pallas/block.py:1830"),
+    "basic_ds_block_s2_int8": ("resnetc_tpu_torch/csrc/basic_block.cu",
+                               "resnetc_tpu/ops/pallas/block.py:2542"),
+}
+
+
+def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[list, list]:
+    """Every case timed at the main paths' batch; per kernel, ms / plain ms /
+    bound weighted by its launches per forward over the shapes of the main
+    paths (cases off the path are timed and listed, not weighed), the
+    largest error of all its cases, and its launches summed over the
+    end-to-end runs."""
+    import torch
 
     counts = main_path_counts()
     per_case = []
-    for case in make_cases(batch, dev):
+    for case in [c for _, _, make in MODELS for c in make(batch, dev)]:
         ms = time_ms(case.run, iters=10)
         plain_ms = time_ms(case.run_plain, iters=2, warmup=1)
         lib_ms = None
@@ -386,17 +538,9 @@ def phase_timing(e2e: dict, batch: int, dev, errs: dict) -> tuple[dict, list, li
         per_case.append(row)
         log(f"[timing] {json.dumps(row)}")
 
-    sources = {
-        "bottleneck_block_chained_int8": ("resnetc_tpu_torch/csrc/chain_block.cu",
-                                          "resnetc_tpu/ops/pallas/block.py:718"),
-        "bottleneck_run_chained_int8": ("resnetc_tpu_torch/csrc/chain_block.cu",
-                                        "resnetc_tpu/ops/pallas/block.py:2908"),
-        "downsample_block_s2_int8": ("resnetc_tpu_torch/csrc/chain_block.cu",
-                                     "resnetc_tpu/ops/pallas/block.py:3460"),
-        "matmul": ("resnetc_tpu_torch/csrc/gemm.cu", "resnetc_tpu/ops/pallas/gemm.py:100"),
-    }
     kernels = []
-    for name, (source, replaces) in sources.items():
+    for name, (source, replaces) in SOURCES.items():
+        checked = [r["case"] for r in per_case if r["kernel"] == name]
         rows = [r for r in per_case if r["kernel"] == name and r["per_forward"] > 0]
         n = sum(r["per_forward"] for r in rows)
 
@@ -404,17 +548,17 @@ def phase_timing(e2e: dict, batch: int, dev, errs: dict) -> tuple[dict, list, li
             return sum(r[key] * r["per_forward"] for r in rows) / n
 
         by_ops = sum(r["per_forward"] for r in rows if r["bound_by"] == "operations")
-        lib = [r["library_ms"] for r in rows if r["library_ms"] is not None]
+        lib = [r for r in rows if r["library_ms"] is not None]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": e2e["launches"].get(name, 0),
-            "max_abs_err": max(v for k, v in errs.items()
-                               if any(r["case"] == k for r in per_case if r["kernel"] == name)),
+            "launches": launches.get(name, 0),
+            "max_abs_err": max(errs[c] for c in checked),
             "ms": avg("ms"), "plain_ms": avg("plain_ms"), "bound_ms": avg("bound_ms"),
             "bound_by": "operations" if 2 * by_ops >= n else "bytes",
-            "library_ms": lib[0] if lib else None,
+            "library_ms": avg("library_ms", lib, sum(r["per_forward"] for r in lib))
+            if lib else None,
         })
-    return engine_times, kernels, per_case
+    return kernels, per_case
 
 
 def main() -> int:
@@ -444,14 +588,25 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"[build] kernels built in {build_s:.1f} s")
 
-    errs = phase_kernels(dev)
-    e2e = phase_end_to_end(args.batch, dev)
-    engine_times, kernels, per_case = phase_timing(e2e, args.batch, dev, errs)
+    cases = {name: make(8, dev) for name, _, make in MODELS}
+    errs = phase_kernels([c for cs in cases.values() for c in cs])
+    summaries, engine_times, launches = {}, {}, {}
+    for name, gate, _ in MODELS:
+        want = expected_launches(cases[name])
+        e2e = phase_end_to_end(name, gate, want, args.batch, dev)
+        engine_times[name] = phase_engine_timing(name, e2e, args.batch)
+        for k, v in e2e["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        summaries[name] = {k: v for k, v in e2e.items() if k not in ("engine", "fp", "x")}
+        del e2e
+        torch.cuda.empty_cache()
+    kernels, per_case = phase_kernel_timing(args.batch, dev, errs, launches)
+    total_s = time.perf_counter() - t0
+    log(f"[done] build and all phases in {total_s:.1f} s")
 
     if args.out:
-        summary = {k: v for k, v in e2e.items() if k not in ("engine", "fp", "x")}
         with open(args.out, "w") as f:
-            json.dump({"card": card, "build_s": build_s, "e2e": summary,
+            json.dump({"card": card, "build_s": build_s, "total_s": total_s, "e2e": summaries,
                        "engines": engine_times, "cases": per_case, "kernels": kernels,
                        "max_abs_err": errs}, f, indent=1)
     log(card)

@@ -1,23 +1,32 @@
-"""Int8 bottleneck blocks over the chained padded-row layout.
+"""Int8 residual blocks over the chained padded-row layout.
 
 Counterpart of ``resnetc_tpu/ops/pallas/block.py`` for the int8_chain
 serving path: the layout helpers (``chain_meta``, ``pad_for_chain``,
 ``unpad_from_chain``), weight quantization (``quantize_chain_block``,
-``quantize_ds_block``) and three kernels, each with its plain PyTorch
-version beside it:
+``quantize_ds_block``, ``quantize_basic_block``,
+``quantize_basic_ds_block``) and six kernels, each with its plain PyTorch
+version beside it.  The bottleneck family (CUDA in
+``resnetc_tpu_torch/csrc/chain_block.cu``):
 
 - ``bottleneck_block_chained_int8``  (block.py:718) — one stride-1 block;
 - ``bottleneck_run_chained_int8``    (block.py:2908) — a run of N blocks;
 - ``downsample_block_s2_int8``       (block.py:3460) — the stride-2
   transition.
 
-The kernels are CUDA C++ in ``resnetc_tpu_torch/csrc/chain_block.cu`` (see
-its header for the design and what bounds it).  A wrapper runs the plain
-version when its input lies on the CPU, and launches the kernel for a CUDA
-tensor, or raises; there is no fallback.  Each wrapper first folds the
-scalar requant scales into per-channel vectors exactly as the JAX wrapper
-does (block.py:789-797, 822-823, 2966-2980, 3545-3554), so the kernel and
-the plain version see identical constants.
+The basic family, ResNet-18/34 (CUDA in ``csrc/basic_block.cu``):
+
+- ``basic_block_chained_int8``       (block.py:1646) — one stride-1 block;
+- ``basic_run_chained_int8``         (block.py:1830) — a run of N blocks;
+- ``basic_ds_block_s2_int8``         (block.py:2542) — the stride-2
+  transition.
+
+Both sources share the implicit GEMM of ``csrc/igemm.cuh`` (see its header
+for the design and what bounds it).  A wrapper runs the plain version when
+its input lies on the CPU, and launches the kernel for a CUDA tensor, or
+raises; there is no fallback.  Each wrapper first folds the scalar requant
+scales into per-channel vectors exactly as the JAX wrapper does
+(block.py:789-797, 822-823, 2966-2980, 3545-3554, 1684-1690, 1866-1879,
+2631-2641), so the kernel and the plain version see identical constants.
 
 Chain ring rows carry no meaning (the JAX kernels leave garbage there); the
 port writes zeros, and the tests compare interiors only.  The TPU
@@ -41,24 +50,37 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# ctypes signatures of csrc/chain_block.cu's C functions, in its order.
+# ctypes signatures of each library's C functions, in its source's order.
 _ARGTYPES = {
-    # x; B h w hp wp cin c c4; w1 a1 c1 w2p a2 c2 w3 a3 c3; s_res wd ad cd;
-    # z1 z2 y; out_kind out inv_hw stream
-    "chain_block_int8": [_P] + [_I] * 8 + [_P] * 9 + [_P] * 4 + [_P] * 3 + [_I, _P, _F, _P],
-    # x; n_blocks B h w hp wp cin c c4; w1s w10; a1s c1s w2ps a2s c2s w3s
-    # a3s c3s s_res; wd ad cd; z1 z2 act0 act1; last_bf16 out stream
-    "chain_run_int8": [_P] + [_I] * 9 + [_P] * 2 + [_P] * 9 + [_P] * 3 + [_P] * 4 + [_I, _P, _P],
-    # x; B h w hp wp cin c c4 oh ow hp2 wp2; w1 a1 c1 w2 a2 c2 w3 a3 c3;
-    # wd ad cd; z1 z2; out_kind out stream
-    "ds_block_s2_int8": [_P] + [_I] * 12 + [_P] * 9 + [_P] * 3 + [_P] * 2 + [_I, _P, _P],
+    "chain_block": {
+        # x; B h w hp wp cin c c4; w1 a1 c1 w2p a2 c2 w3 a3 c3; s_res wd ad cd;
+        # z1 z2 y; out_kind out inv_hw stream
+        "chain_block_int8": [_P] + [_I] * 8 + [_P] * 9 + [_P] * 4 + [_P] * 3 + [_I, _P, _F, _P],
+        # x; n_blocks B h w hp wp cin c c4; w1s w10; a1s c1s w2ps a2s c2s w3s
+        # a3s c3s s_res; wd ad cd; z1 z2 act0 act1; last_bf16 out stream
+        "chain_run_int8": [_P] + [_I] * 9 + [_P] * 2 + [_P] * 9 + [_P] * 3 + [_P] * 4
+        + [_I, _P, _P],
+        # x; B h w hp wp cin c c4 oh ow hp2 wp2; w1 a1 c1 w2 a2 c2 w3 a3 c3;
+        # wd ad cd; z1 z2; out_kind out stream
+        "ds_block_s2_int8": [_P] + [_I] * 12 + [_P] * 9 + [_P] * 3 + [_P] * 2 + [_I, _P, _P],
+    },
+    "basic_block": {
+        # x; B h w hp wp c; w1p a1 c1 w2p a2 c2 s_res; z1; out_kind out stream
+        "basic_block_int8": [_P] + [_I] * 6 + [_P] * 7 + [_P] + [_I, _P, _P],
+        # x; n_blocks B h w hp wp c; w1ps a1s c1s w2ps a2s c2s s_res;
+        # z1 act0 act1; last_bf16 out stream
+        "basic_run_int8": [_P] + [_I] * 7 + [_P] * 7 + [_P] * 3 + [_I, _P, _P],
+        # x; B h w hp wp cin c oh ow hp2 wp2; w1p a1 c1 w2p a2 c2 wd ad cd;
+        # z1; out_kind out stream
+        "basic_ds_block_s2_int8": [_P] + [_I] * 11 + [_P] * 9 + [_P] + [_I, _P, _P],
+    },
 }
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("chain_block")
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
+def _lib(name: str) -> ctypes.CDLL:
+    lib = _build.library(name)
+    for fn_name, argtypes in _ARGTYPES[name].items():
+        fn = getattr(lib, fn_name)
         if fn.argtypes is None:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -113,6 +135,11 @@ def _as_1x1(w: torch.Tensor) -> torch.Tensor:
     return w[0, 0] if w.ndim == 4 else w
 
 
+def _pack_kh(w: torch.Tensor) -> torch.Tensor:
+    """HWIO 3x3 (3, 3, cin, c) -> kh-batched (kw, k) x (kh, j): (3cin, 3c)."""
+    return w.permute(1, 2, 0, 3).reshape(3 * w.shape[2], 3 * w.shape[3])
+
+
 def quantize_chain_block(blk: dict) -> dict:
     """Quantize one BN-folded stride-1 bottleneck block: per-output-channel
     int8, with conv2 packed kh-batched ((kw, k) rows x (kh, j) columns) and
@@ -120,10 +147,8 @@ def quantize_chain_block(blk: dict) -> dict:
     w1 = _as_1x1(blk["conv1"]["weight"])
     w2 = blk["conv2"]["weight"]
     w3 = _as_1x1(blk["conv3"]["weight"])
-    c = w1.shape[-1]
-    w2p = w2.permute(1, 2, 0, 3).reshape(3 * c, 3 * c)
     w1q, sw1 = quantize_per_channel(w1)
-    w2pq, sw2p = quantize_per_channel(w2p)
+    w2pq, sw2p = quantize_per_channel(_pack_kh(w2))
     w3q, sw3 = quantize_per_channel(w3)
     return {
         "w1q": w1q, "sw1": sw1, "b1": blk["conv1"]["bias"],
@@ -152,6 +177,41 @@ def quantize_ds_block(blk: dict) -> dict:
     }
 
 
+def quantize_basic_block(blk: dict) -> dict:
+    """Quantize one BN-folded stride-1 BasicBlock: both 3x3s kh-batched,
+    with scales per (kh, j) column (block.py:2277)."""
+    out = {}
+    for key in ("1", "2"):
+        conv = blk[f"conv{key}"]
+        out[f"w{key}pq"], out[f"sw{key}p"] = quantize_per_channel(_pack_kh(conv["weight"]))
+        out[f"b{key}"] = conv["bias"]
+    return out
+
+
+def quantize_basic_ds_block(blk: dict) -> dict:
+    """Quantize one BN-folded stride-2 BasicBlock (block.py:2690): conv1
+    with JOINT per-output-channel scales over its nine taps, packed
+    (3, 4cin, c) — for kernel row u, rows [0, 3cin) are its (kw, k) taps
+    and [3cin, 4cin) zero; conv2 kh-batched; the 1x1/2 projection per
+    output channel.  The folded fp entries stay beside them, as in JAX."""
+    w1 = blk["conv1"]["weight"]
+    _, _, cin, c = w1.shape
+    w1q, sw1 = quantize_per_channel(w1.reshape(9 * cin, c))
+    w1pq = torch.cat(
+        [w1q.reshape(3, 3 * cin, c), torch.zeros((3, cin, c), dtype=torch.int8, device=w1.device)],
+        dim=1,
+    )
+    w2pq, sw2p = quantize_per_channel(_pack_kh(blk["conv2"]["weight"]))
+    wdq, swd = quantize_per_channel(_as_1x1(blk["downsample"]["weight"]))
+    out = {
+        "w1pq": w1pq, "sw1": sw1, "b1": blk["conv1"]["bias"],
+        "w2pq": w2pq, "sw2p": sw2p, "b2": blk["conv2"]["bias"],
+        "wdq": wdq, "swd": swd, "bd": blk["downsample"]["bias"],
+    }
+    out.update({k: blk[k] for k in ("conv1", "conv2", "downsample")})
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Plain arithmetic shared by the plain versions
 # ---------------------------------------------------------------------------
@@ -164,9 +224,42 @@ def _idot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(torch.float64), w.to(torch.float64)).to(torch.int32)
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """fp32 a*b + c with ONE rounding.  The Pallas epilogues write each
+    ``a*b + c`` as two ops, but XLA fuses every such pair into a fused
+    multiply-add (CPU backend, where the tests run the Pallas kernels), so
+    this is the order of operations the port matches; the CUDA kernels use
+    __fmaf_rn.  Computed in float64, where the product of two fp32 values is
+    exact; the sum is rounded to odd (its error term, from TwoSum, sets the
+    last bit), so rounding it on to fp32 rounds only once."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    away = torch.nextafter(s, torch.copysign(torch.full_like(s, float("inf")), err))
+    return torch.where((err != 0) & even, away, s).float()
+
+
 def _requant(v: torch.Tensor) -> torch.Tensor:
     """Round half to even, clip to +-127, int8."""
     return torch.clamp(torch.round(v), -127.0, 127.0).to(torch.int8)
+
+
+def _kh3(z: torch.Tensor, wpq: torch.Tensor, a: torch.Tensor, h: int, w_sp: int) -> torch.Tensor:
+    """The kh-batched 3x3/1 over a zero-padded (B, h, w, c) int8 interior:
+    ((P0*a[0] + P1*a[1]) + P2*a[2]), one exact int32 sum P_kh per kernel
+    row, each with its own per-(kh, j) scale (block.py:1584-1593).  wpq is
+    the (kw, k) x (kh, j) packing; a is (3, n).  XLA fuses the sum as
+    fma(P2, a2, fma(P0, a0, P1*a1))."""
+    n = wpq.shape[1] // 3
+    zp = F.pad(z, (0, 0, 1, 1, 1, 1))
+    p = []
+    for kh in range(3):
+        taps = torch.cat([zp[:, kh : kh + h, kw : kw + w_sp] for kw in range(3)], dim=-1)
+        p.append(_idot(taps, wpq[:, kh * n : (kh + 1) * n]).float())
+    return _fma(p[2], a[2], _fma(p[0], a[0], p[1] * a[1]))
 
 
 def _check_i8(dev, **tensors):
@@ -233,22 +326,14 @@ def _inv_hw(h: int, w_sp: int) -> float:
 def _block_plain_folded(xq, b, h, w_sp, hp, wp, w1q, w2pq, w3q, wdq, f, *,
                         emit_i8, emit_mean):
     cin = xq.shape[1]
-    c = w1q.shape[1]
     x = xq.reshape(b, hp, wp, cin)[:, 1 : 1 + h, 1 : 1 + w_sp]
-    z1 = _requant(torch.relu(_idot(x, w1q).float() * f["a1"] + f["c1"]))
-    z1p = F.pad(z1, (0, 0, 1, 1, 1, 1))
-    p = []
-    for kh in range(3):
-        taps = torch.cat([z1p[:, kh : kh + h, kw : kw + w_sp] for kw in range(3)], dim=-1)
-        p.append(_idot(taps, w2pq[:, kh * c : (kh + 1) * c]).float())
-    a2 = f["a2"]
-    acc2 = ((p[0] * a2[0] + p[1] * a2[1]) + p[2] * a2[2]) + f["c2"]
-    z2 = _requant(torch.relu(acc2))
-    y = _idot(z2, w3q).float() * f["a3"] + f["c3"]
+    z1 = _requant(torch.relu(_fma(_idot(x, w1q).float(), f["a1"], f["c1"])))
+    z2 = _requant(torch.relu(_kh3(z1, w2pq, f["a2"], h, w_sp) + f["c2"]))
+    y = _fma(_idot(z2, w3q).float(), f["a3"], f["c3"])
     if wdq is None:
-        y = y + x.float() * f["s_res"]
+        y = _fma(x.float(), f["s_res"], y)
     else:
-        y = y + (_idot(x, wdq).float() * f["ad"] + f["cd"])
+        y = y + _fma(_idot(x, wdq).float(), f["ad"], f["cd"])
     y = torch.relu(y)
     if emit_mean:
         return (y * _inv_hw(h, w_sp)).sum(dim=(1, 2))
@@ -307,7 +392,7 @@ def bottleneck_block_chained_int8(
         out = torch.empty((rows, c4), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
         kind = 0 if emit_i8 else 1
     fc = {k: (None if v is None else v.contiguous()) for k, v in f.items()}
-    rc = _lib().chain_block_int8(
+    rc = _lib("chain_block").chain_block_int8(
         xq.data_ptr(), b, h, w_sp, hp, wp, cin, c, c4,
         w1q.data_ptr(), fc["a1"].data_ptr(), fc["c1"].data_ptr(),
         w2pq.data_ptr(), fc["a2"].data_ptr(), fc["c2"].data_ptr(),
@@ -430,7 +515,7 @@ def bottleneck_run_chained_int8(
     act = torch.empty((2, rows, c4), dtype=torch.int8, device=dev)
     out = torch.empty((rows, c4), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
     fc = {k: (None if v is None else v.contiguous()) for k, v in f.items()}
-    rc = _lib().chain_run_int8(
+    rc = _lib("chain_block").chain_run_int8(
         xq.data_ptr(), n_blocks, b, h, w_sp, hp, wp, cin, c, c4,
         w1q_s.data_ptr(), _build.ptr(w1q0),
         fc["a1"].data_ptr(), fc["c1"].data_ptr(), w2pq_s.data_ptr(), fc["a2"].data_ptr(),
@@ -486,7 +571,7 @@ def downsample_block_s2_int8_plain(
     f = _fold_ds(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8)
     c = w1q.shape[-1]
     x = xr.reshape(b, hp, wp, cin)[:, 1 : 1 + h, 1 : 1 + w_sp]
-    z1 = _requant(torch.relu(_idot(x, w1q).float() * f["a1"] + f["c1"]))
+    z1 = _requant(torch.relu(_fma(_idot(x, w1q).float(), f["a1"], f["c1"])))
     z1p = F.pad(z1, (0, 0, 1, 1, 1, 1))
     taps = torch.cat(
         [
@@ -497,9 +582,9 @@ def downsample_block_s2_int8_plain(
         dim=-1,
     )
     acc2 = _idot(taps, w2q.reshape(9 * c, c))
-    z2 = _requant(torch.relu(acc2.float() * f["a2"] + f["c2"]))
-    y = _idot(z2, w3q).float() * f["a3"] + f["c3"]
-    y = y + (_idot(x[:, ::2, ::2], wdq).float() * f["ad"] + f["cd"])
+    z2 = _requant(torch.relu(_fma(acc2.float(), f["a2"], f["c2"])))
+    y = _fma(_idot(z2, w3q).float(), f["a3"], f["c3"])
+    y = y + _fma(_idot(x[:, ::2, ::2], wdq).float(), f["ad"], f["cd"])
     y = torch.relu(y)
     return _chain_from_interior(_requant(y) if emit_i8 else y.to(torch.bfloat16), hp2, wp2)
 
@@ -536,7 +621,7 @@ def downsample_block_s2_int8(
         (b * hp2 * wp2, c4), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev
     )
     fc = {k: v.contiguous() for k, v in f.items()}
-    rc = _lib().ds_block_s2_int8(
+    rc = _lib("chain_block").ds_block_s2_int8(
         xr.data_ptr(), b, h, w_sp, hp, wp, cin, c, c4, oh, ow, hp2, wp2,
         w1q.data_ptr(), fc["a1"].data_ptr(), fc["c1"].data_ptr(),
         w2q.data_ptr(), fc["a2"].data_ptr(), fc["c2"].data_ptr(),
@@ -547,4 +632,268 @@ def downsample_block_s2_int8(
     )
     _build.check(rc, "downsample_block_s2_int8")
     _build.LAUNCHES["downsample_block_s2_int8"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The basic family (ResNet-18/34): csrc/basic_block.cu
+# ---------------------------------------------------------------------------
+
+
+def _check_f32(dev, **tensors):
+    for name, t in tensors.items():
+        _build.require(t, name, torch.float32, dev)
+
+
+def _fold_basic(scales, sw1p, b1, sw2p, b2, emit_i8):
+    """Host-side scale folding of block.py:1684-1690, op for op."""
+    s_x, s_z1 = scales[0], scales[1]
+    s_y = scales[2] if emit_i8 else _one(scales)
+    c = b1.shape[-1]
+    return {
+        "a1": (sw1p.float() * (s_x / s_z1)).reshape(3, c),
+        "c1": b1.float() * (1.0 / s_z1),
+        "a2": (sw2p.float() * (s_z1 / s_y)).reshape(3, c),
+        "c2": b2.float() * (1.0 / s_y),
+        "s_res": (s_x / s_y).float().reshape(1),
+    }
+
+
+def _fold_basic_run(scales_s, sw1p_s, b1_s, sw2p_s, b2_s, emit_i8):
+    """Per-block host folding of block.py:1866-1879, op for op (s_y of the
+    last block is 1 on a bf16 exit)."""
+    n_blocks, c = b1_s.shape
+    s_x = scales_s[:, 0]
+    s_z1 = scales_s[:, 1]
+    s_y = scales_s[:, 2]
+    if not emit_i8:
+        s_y = s_y.clone()
+        s_y[n_blocks - 1] = 1.0
+    return {
+        "a1": (sw1p_s.float() * (s_x / s_z1)[:, None]).reshape(n_blocks * 3, c),
+        "c1": b1_s.float() * (1.0 / s_z1)[:, None],
+        "a2": (sw2p_s.float() * (s_z1 / s_y)[:, None]).reshape(n_blocks * 3, c),
+        "c2": b2_s.float() * (1.0 / s_y)[:, None],
+        "s_res": (s_x / s_y).float(),
+    }
+
+
+def _basic_geometry(xq, c, h, w_sp):
+    hp, wp = chain_meta(0, h, w_sp)
+    rows, cin = xq.shape
+    b = rows // (hp * wp)
+    if b * hp * wp != rows or cin != c:
+        raise ValueError(f"xq {tuple(xq.shape)} is not a ({hp}x{wp}) chain of {c} channels")
+    return b, hp, wp
+
+
+def _basic_plain_folded(xq, b, h, w_sp, hp, wp, w1pq, w2pq, f, *, emit_i8):
+    c = xq.shape[1]
+    x = xq.reshape(b, hp, wp, c)[:, 1 : 1 + h, 1 : 1 + w_sp]
+    z1 = _requant(torch.relu(_kh3(x, w1pq, f["a1"], h, w_sp) + f["c1"]))
+    y = _kh3(z1, w2pq, f["a2"], h, w_sp) + f["c2"]
+    y = torch.relu(_fma(x.float(), f["s_res"], y))
+    return _chain_from_interior(_requant(y) if emit_i8 else y.to(torch.bfloat16), hp, wp)
+
+
+def basic_block_chained_int8_plain(
+    xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False,
+):
+    """Plain PyTorch version of ``basic_block_chained_int8``."""
+    b, hp, wp = _basic_geometry(xq, sw1p.shape[-1] // 3, h, w_sp)
+    f = _fold_basic(scales, sw1p, b1, sw2p, b2, emit_i8)
+    return _basic_plain_folded(xq, b, h, w_sp, hp, wp, w1pq, w2pq, f, emit_i8=emit_i8)
+
+
+def basic_block_chained_int8(
+    xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False,
+):
+    """Int8 stride-1 BasicBlock over the chained padded-row layout.
+
+    xq: (B*Hp*Wp, c) int8 chain at scale scales[0]; w1pq/w2pq (3c, 3c) the
+    kh-batched 3x3s (``quantize_basic_block``) with per-(kh, j) scales
+    sw1p/sw2p (3c,); biases (c,) f32; scales (3,) = [s_x, s_z1, s_y].
+    Returns the same chain layout, int8 at s_y (emit_i8) or unscaled bf16.
+    """
+    if not xq.is_cuda:
+        return basic_block_chained_int8_plain(
+            xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, h=h, w_sp=w_sp, emit_i8=emit_i8,
+        )
+    c = sw1p.shape[-1] // 3
+    b, hp, wp = _basic_geometry(xq, c, h, w_sp)
+    f = _fold_basic(scales, sw1p, b1, sw2p, b2, emit_i8)
+    dev = xq.device
+    _check_i8(dev, xq=xq, w1pq=w1pq, w2pq=w2pq)
+    for name, wq in (("w1pq", w1pq), ("w2pq", w2pq)):
+        _build.require(wq, name, torch.int8, dev, (3 * c, 3 * c))
+    if c % 4:
+        raise ValueError(f"the channel count must be a multiple of 4, got c={c}")
+    fc = {k: v.contiguous() for k, v in f.items()}
+    _check_f32(dev, **fc)
+    rows = b * hp * wp
+    z1 = torch.empty((rows, c), dtype=torch.int8, device=dev)
+    out = torch.empty((rows, c), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
+    rc = _lib("basic_block").basic_block_int8(
+        xq.data_ptr(), b, h, w_sp, hp, wp, c,
+        w1pq.data_ptr(), fc["a1"].data_ptr(), fc["c1"].data_ptr(),
+        w2pq.data_ptr(), fc["a2"].data_ptr(), fc["c2"].data_ptr(), fc["s_res"].data_ptr(),
+        z1.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+    )
+    _build.check(rc, "basic_block_chained_int8")
+    _build.LAUNCHES["basic_block_chained_int8"] += 1
+    return out
+
+
+def basic_run_chained_int8_plain(
+    xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False,
+):
+    """Plain PyTorch version of ``basic_run_chained_int8``."""
+    n_blocks, c = b1_s.shape
+    b, hp, wp = _basic_geometry(xq, c, h, w_sp)
+    f = _fold_basic_run(scales_s, sw1p_s, b1_s, sw2p_s, b2_s, emit_i8)
+    y = xq
+    for n in range(n_blocks):
+        fn = {
+            "a1": f["a1"][3 * n : 3 * n + 3], "c1": f["c1"][n],
+            "a2": f["a2"][3 * n : 3 * n + 3], "c2": f["c2"][n],
+            "s_res": f["s_res"][n : n + 1],
+        }
+        y = _basic_plain_folded(
+            y, b, h, w_sp, hp, wp, w1pq_s[n], w2pq_s[n], fn,
+            emit_i8=emit_i8 or n < n_blocks - 1,
+        )
+    return y
+
+
+def basic_run_chained_int8(
+    xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False,
+):
+    """A run of N stride-1 BasicBlocks as one call: stacked w1pq_s/w2pq_s
+    (N, 3c, 3c), sw1p_s/sw2p_s (N, 3c), b1_s/b2_s (N, c); scales_s (N, 3)
+    rows [s_x, s_z1, s_y], row i's s_y equal to row i+1's s_x.  Blocks
+    before the last always hand on int8; ``emit_i8`` picks the last one's
+    exit."""
+    if not xq.is_cuda:
+        return basic_run_chained_int8_plain(
+            xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s,
+            h=h, w_sp=w_sp, emit_i8=emit_i8,
+        )
+    n_blocks, c = b1_s.shape
+    b, hp, wp = _basic_geometry(xq, c, h, w_sp)
+    f = _fold_basic_run(scales_s, sw1p_s, b1_s, sw2p_s, b2_s, emit_i8)
+    dev = xq.device
+    _check_i8(dev, xq=xq, w1pq_s=w1pq_s, w2pq_s=w2pq_s)
+    for name, wq in (("w1pq_s", w1pq_s), ("w2pq_s", w2pq_s)):
+        _build.require(wq, name, torch.int8, dev, (n_blocks, 3 * c, 3 * c))
+    if c % 4:
+        raise ValueError(f"the channel count must be a multiple of 4, got c={c}")
+    fc = {k: v.contiguous() for k, v in f.items()}
+    _check_f32(dev, **fc)
+    rows = b * hp * wp
+    z1 = torch.empty((rows, c), dtype=torch.int8, device=dev)
+    act = torch.empty((2, rows, c), dtype=torch.int8, device=dev)
+    out = torch.empty((rows, c), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
+    rc = _lib("basic_block").basic_run_int8(
+        xq.data_ptr(), n_blocks, b, h, w_sp, hp, wp, c,
+        w1pq_s.data_ptr(), fc["a1"].data_ptr(), fc["c1"].data_ptr(),
+        w2pq_s.data_ptr(), fc["a2"].data_ptr(), fc["c2"].data_ptr(), fc["s_res"].data_ptr(),
+        z1.data_ptr(), act[0].data_ptr(), act[1].data_ptr(),
+        0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+    )
+    _build.check(rc, "basic_run_chained_int8")
+    _build.LAUNCHES["basic_run_chained_int8"] += 1
+    return out
+
+
+def _fold_basic_ds(scales, sw1, b1, sw2p, b2, swd, bd, emit_i8):
+    """Host-side scale folding of block.py:2631-2641, op for op."""
+    s_x, s_z1 = scales[0], scales[1]
+    s_y = scales[2] if emit_i8 else _one(scales)
+    c = sw1.shape[-1]
+    return {
+        "a1": sw1.float() * (s_x / s_z1),
+        "c1": b1.float() * (1.0 / s_z1),
+        "a2": (sw2p.float() * (s_z1 / s_y)).reshape(3, c),
+        "c2": b2.float() * (1.0 / s_y),
+        "ad": swd.float() * (s_x / s_y),
+        "cd": bd.float() * (1.0 / s_y),
+    }
+
+
+def basic_ds_block_s2_int8_plain(
+    xr, w1pq, sw1, b1, w2pq, sw2p, b2, wdq, swd, bd, scales, *,
+    h, w_sp, emit_i8=True, bt=None, onedot=False, interpret=False,
+):
+    """Plain PyTorch version of ``basic_ds_block_s2_int8``."""
+    b, hp, wp, cin, oh, ow, hp2, wp2 = _ds_geometry(xr, h, w_sp)
+    f = _fold_basic_ds(scales, sw1, b1, sw2p, b2, swd, bd, emit_i8)
+    c = sw1.shape[-1]
+    x = xr.reshape(b, hp, wp, cin)[:, 1 : 1 + h, 1 : 1 + w_sp]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    taps = torch.cat(
+        [
+            xp[:, u : u + 2 * oh - 1 : 2, v : v + 2 * ow - 1 : 2]
+            for u in range(3)
+            for v in range(3)
+        ],
+        dim=-1,
+    )
+    acc1 = _idot(taps, w1pq[:, : 3 * cin].reshape(9 * cin, c))
+    z1 = _requant(torch.relu(_fma(acc1.float(), f["a1"], f["c1"])))
+    y = _kh3(z1, w2pq, f["a2"], oh, ow) + f["c2"]
+    sc = _idot(x[:, ::2, ::2], wdq)
+    y = torch.relu(_fma(sc.float(), f["ad"], y) + f["cd"])
+    return _chain_from_interior(_requant(y) if emit_i8 else y.to(torch.bfloat16), hp2, wp2)
+
+
+def basic_ds_block_s2_int8(
+    xr, w1pq, sw1, b1, w2pq, sw2p, b2, wdq, swd, bd, scales, *,
+    h, w_sp, emit_i8=True, bt=None, onedot=False, interpret=False,
+):
+    """Whole stride-2 BasicBlock (a ResNet-18/34 stage transition), chain
+    to chain.
+
+    xr: (B*Hp*Wp, cin) int8 chain of the (h, w_sp) input stage at scale
+    scales[0]; weights per ``quantize_basic_ds_block``: w1pq (3, 4cin, c)
+    with joint per-channel scales sw1 (c,), w2pq (3c, 3c) kh-batched with
+    sw2p (3c,), wdq (cin, c) the 1x1/2 projection; scales (3,) = [s_x,
+    s_z1, s_y].  Output: the (ceil(h/2), ceil(w_sp/2)) stage's chain of c
+    channels, int8 at s_y (emit_i8) or unscaled bf16.  Output pixel (i, j)
+    of conv1 taps x at (2i+u-1, 2j+v-1), zero outside the image; the
+    shortcut reads x[2i, 2j].
+    """
+    if not xr.is_cuda:
+        return basic_ds_block_s2_int8_plain(
+            xr, w1pq, sw1, b1, w2pq, sw2p, b2, wdq, swd, bd, scales,
+            h=h, w_sp=w_sp, emit_i8=emit_i8,
+        )
+    b, hp, wp, cin, oh, ow, hp2, wp2 = _ds_geometry(xr, h, w_sp)
+    f = _fold_basic_ds(scales, sw1, b1, sw2p, b2, swd, bd, emit_i8)
+    c = sw1.shape[-1]
+    dev = xr.device
+    _check_i8(dev, xr=xr)
+    _build.require(w1pq, "w1pq", torch.int8, dev, (3, 4 * cin, c))
+    _build.require(w2pq, "w2pq", torch.int8, dev, (3 * c, 3 * c))
+    _build.require(wdq, "wdq", torch.int8, dev, (cin, c))
+    if cin % 4 or c % 4:
+        raise ValueError(f"channel counts must be multiples of 4, got cin={cin}, c={c}")
+    fc = {k: v.contiguous() for k, v in f.items()}
+    _check_f32(dev, **fc)
+    z1 = torch.empty((b * hp2 * wp2, c), dtype=torch.int8, device=dev)
+    out = torch.empty(
+        (b * hp2 * wp2, c), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev
+    )
+    rc = _lib("basic_block").basic_ds_block_s2_int8(
+        xr.data_ptr(), b, h, w_sp, hp, wp, cin, c, oh, ow, hp2, wp2,
+        w1pq.data_ptr(), fc["a1"].data_ptr(), fc["c1"].data_ptr(),
+        w2pq.data_ptr(), fc["a2"].data_ptr(), fc["c2"].data_ptr(),
+        wdq.data_ptr(), fc["ad"].data_ptr(), fc["cd"].data_ptr(),
+        z1.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+    )
+    _build.check(rc, "basic_ds_block_s2_int8")
+    _build.LAUNCHES["basic_ds_block_s2_int8"] += 1
     return out

@@ -1,22 +1,30 @@
-"""The int8_chain serving forward for the bottleneck family.
+"""The int8_chain serving forward.
 
 Counterpart of ``resnetc_tpu/ops/pallas/fused.py``: ``calibrate_chain_scales``
-(fused.py:497), ``quantize_chain`` (:637), ``_chain_scale_lookups`` (:802)
-and ``fused_forward_int8_chain`` (:1025) with the code-default flags.
+(fused.py:497), ``quantize_chain`` (:637), ``_chain_scale_lookups`` (:802),
+``_basic_int8_chain_forward`` (:821) and ``fused_forward_int8_chain``
+(:1025), with the code-default flags plus ``BASIC_DS_INT8`` on (the JAX
+package's TUNED.json value).
 
-The forward: the 7x7 stem is a stock convolution (XLA's in the JAX
-package); its output is quantized at the first block's input scale BEFORE
-the 3x3/2 max pool (max commutes with the monotone quantizer), pooled in
-int8, padded once into the chain layout, and from there every bottleneck
+The bottleneck forward: the 7x7 stem is a stock convolution (XLA's in the
+JAX package); its output is quantized at the first block's input scale
+BEFORE the 3x3/2 max pool (max commutes with the monotone quantizer), pooled
+in int8, padded once into the chain layout, and from there every bottleneck
 block is an int8 kernel — the layer1 projection block and every identity
 block of stages 2-4 through ``bottleneck_block_chained_int8``, layer1
 blocks 1..n-1 through ``bottleneck_run_chained_int8``, the three stride-2
 transitions through ``downsample_block_s2_int8`` — and the network's last
 block pools in-kernel (``emit_mean``) for the fc GEMM (``matmul``).
 
-Not yet ported (each raises ``NotImplementedError``): the basic family
-(ResNet-18/34), ``HYBRID_XLA_STAGES``, ``STAGE_FUSE_PROJ``,
-``L1_PIXEL_PAIR`` and per-channel interior calibration.
+The basic forward (ResNet-18/34) shares the stem and the chain: the stage-0
+blocks run as one ``basic_run_chained_int8``, each stride-2 transition is
+one ``basic_ds_block_s2_int8`` and every other block one
+``basic_block_chained_int8``; the last block exits bf16 and the head pools
+outside the kernel, as in the JAX package.
+
+Not yet ported (each raises ``NotImplementedError``): ``HYBRID_XLA_STAGES``,
+``STAGE_FUSE_PROJ``, ``L1_PIXEL_PAIR``, ``BASIC_DS_INT8=False`` and
+per-channel interior calibration.
 """
 
 from __future__ import annotations
@@ -37,6 +45,18 @@ Tree = dict
 #: bottleneck_run_chained_int8 (the JAX package's code default).
 RUN_FUSE_STAGES: tuple = (0,)
 
+#: Stages (0-based) whose stride-1 basic blocks run as one
+#: basic_run_chained_int8 (the JAX package's code default).  The run kernel
+#: takes any stage.
+BASIC_RUN_FUSE_STAGES: tuple = (0,)
+
+#: Serve the basic family's stride-2 transitions through
+#: basic_ds_block_s2_int8.  True is the JAX package's serving value (its
+#: TUNED.json sets it; the code default there is False).  False needs
+#: conv3x3_s1_fused / conv3x3_s2_fused (kernel table rows 13-14), not
+#: ported yet, and raises.
+BASIC_DS_INT8: bool = True
+
 #: JAX-package flags not ported yet; a non-default value raises.
 HYBRID_XLA_STAGES: tuple = ()
 STAGE_FUSE_PROJ: bool = False
@@ -44,7 +64,7 @@ L1_PIXEL_PAIR: bool = False
 
 
 class Kernels(typing.NamedTuple):
-    """The four kernels of the path.  ``KERNELS`` dispatches on the device
+    """The kernels of the path.  ``KERNELS`` dispatches on the device
     (CUDA kernel for a CUDA tensor, plain version on the CPU); ``PLAIN``
     runs the plain versions anywhere — the on-card reference."""
 
@@ -52,6 +72,9 @@ class Kernels(typing.NamedTuple):
     run: typing.Callable
     ds: typing.Callable
     matmul: typing.Callable
+    basic_block: typing.Callable
+    basic_run: typing.Callable
+    basic_ds: typing.Callable
 
 
 KERNELS = Kernels(
@@ -59,24 +82,26 @@ KERNELS = Kernels(
     block.bottleneck_run_chained_int8,
     block.downsample_block_s2_int8,
     gemm.matmul,
+    block.basic_block_chained_int8,
+    block.basic_run_chained_int8,
+    block.basic_ds_block_s2_int8,
 )
 PLAIN = Kernels(
     block.bottleneck_block_chained_int8_plain,
     block.bottleneck_run_chained_int8_plain,
     block.downsample_block_s2_int8_plain,
     gemm.matmul_plain,
+    block.basic_block_chained_int8_plain,
+    block.basic_run_chained_int8_plain,
+    block.basic_ds_block_s2_int8_plain,
 )
 
 
-def _require_bottleneck(cfg: ResNetConfig) -> None:
+def _require_ungrouped(cfg: ResNetConfig) -> None:
     if cfg.groups != 1:
         raise ValueError(
             "int8 chain serving does not support grouped convolutions "
             "(ResNeXt); use the fp backend"
-        )
-    if cfg.block != "bottleneck":
-        raise NotImplementedError(
-            "the int8_chain path for the basic family (ResNet-18/34) is not ported yet"
         )
 
 
@@ -134,9 +159,10 @@ def calibrate_chain_scales(
 
     Runs the fp folded forward over ``x`` (NHWC) and records a range
     statistic /127 at every residual block: its input ("in"), conv1's
-    post-relu output ("z1") and conv2's ("z2").  Block k's output scale is
-    block k+1's "in".  ``method``: "absmax", "percentile" (at ``pct``) or
-    "mse".  Returns {layerN: {b: {"in", "z1", "z2"}}} of 0-d fp32 tensors.
+    post-relu output ("z1") and, for a bottleneck block, conv2's ("z2").
+    Block k's output scale is block k+1's "in".  ``method``: "absmax",
+    "percentile" (at ``pct``) or "mse".  Returns {layerN: {b: {"in", "z1"
+    [, "z2"]}}} of 0-d fp32 tensors.
     """
     if method not in ("absmax", "percentile", "mse"):
         raise ValueError(f"unknown calibration method {method!r}")
@@ -144,7 +170,7 @@ def calibrate_chain_scales(
         raise NotImplementedError(
             "per-channel interior scales (bake_interior_scales) are not ported yet"
         )
-    _require_bottleneck(cfg)
+    _require_ungrouped(cfg)
 
     def s_of(act):
         a = act.float().abs()
@@ -173,27 +199,40 @@ def calibrate_chain_scales(
                     if "downsample" in blk
                     else y
                 )
-                z1 = _conv(y, blk["conv1"], stride=1, relu=True, policy=policy)
-                z2 = _conv(z1, blk["conv2"], stride=s, relu=True, policy=policy)
-                layer_scales[str(b)] = {"in": s_of(y), "z1": s_of(z1), "z2": s_of(z2)}
-                y = torch_ops.relu(
-                    _conv(z2, blk["conv3"], stride=1, relu=False, policy=policy) + short
-                )
+                if cfg.block == "bottleneck":
+                    z1 = _conv(y, blk["conv1"], stride=1, relu=True, policy=policy)
+                    z2 = _conv(z1, blk["conv2"], stride=s, relu=True, policy=policy)
+                    layer_scales[str(b)] = {"in": s_of(y), "z1": s_of(z1), "z2": s_of(z2)}
+                    z = _conv(z2, blk["conv3"], stride=1, relu=False, policy=policy)
+                else:
+                    z1 = _conv(y, blk["conv1"], stride=s, relu=True, policy=policy)
+                    layer_scales[str(b)] = {"in": s_of(y), "z1": s_of(z1)}
+                    z = _conv(z1, blk["conv2"], stride=1, relu=False, policy=policy)
+                y = torch_ops.relu(z + short)
             scales[f"layer{stage + 1}"] = layer_scales
     return scales
 
 
 def quantize_chain(cfg: ResNetConfig, folded: Tree) -> Tree:
-    """Quantize every bottleneck block for the int8 kernels: stride-1
-    blocks (layer1's projection block included, with its wdq/swd/bd) for the
-    chain kernel, stride-2 blocks for the transition kernel.  Other entries
-    (stem, fc) pass through."""
-    _require_bottleneck(cfg)
+    """Quantize every residual block for the int8 kernels.  Bottleneck:
+    stride-1 blocks (layer1's projection block included, with its
+    wdq/swd/bd) for the chain kernel, stride-2 blocks for the transition
+    kernel.  Basic: stride-1 blocks for the basic block kernel, stride-2
+    blocks for the basic transition kernel (with their folded fp entries
+    kept, as in JAX).  Other entries (stem, fc) pass through."""
+    _require_ungrouped(cfg)
     out = {k: v for k, v in folded.items() if not k.startswith("layer")}
     for stage in range(4):
         blocks = folded[f"layer{stage + 1}"]
         qblocks = {}
         for b_str, blk in blocks.items():
+            if cfg.block != "bottleneck":
+                transition = b_str == "0" and stage > 0
+                qblocks[b_str] = (
+                    block.quantize_basic_ds_block(blk) if transition
+                    else block.quantize_basic_block(blk)
+                )
+                continue
             if b_str == "0" and stage > 0:
                 qblocks[b_str] = block.quantize_ds_block(blk)
                 continue
@@ -208,8 +247,12 @@ def quantize_chain(cfg: ResNetConfig, folded: Tree) -> Tree:
 
 
 def _chain_scale_lookups(cfg: ResNetConfig, chain_scales: Tree):
-    """(site, s_after): block k's output scale is block k+1's "in", across
-    stage boundaries too; None at the network tail."""
+    """(scale_row, s_after): block k's output scale is block k+1's "in",
+    across stage boundaries too; s_after is None at the network tail.
+    scale_row(stage, b) is the (4,) [s_x, s_z1, s_z2, s_y] of a bottleneck
+    block or the (3,) [s_x, s_z1, s_y] of a basic block, s_y = 1 at the
+    tail."""
+    keys = ("in", "z1", "z2") if cfg.block == "bottleneck" else ("in", "z1")
 
     def site(stage, b):
         return chain_scales[f"layer{stage + 1}"][str(b)]
@@ -221,12 +264,54 @@ def _chain_scale_lookups(cfg: ResNetConfig, chain_scales: Tree):
             return site(stage + 1, 0)["in"]
         return None
 
-    return site, s_after
+    def scale_row(stage, b):
+        st = site(stage, b)
+        s_y = s_after(stage, b)
+        if s_y is None:
+            s_y = torch.ones((), dtype=torch.float32, device=st["in"].device)
+        return torch.stack([*(st[k] for k in keys), s_y]).float()
+
+    return scale_row, s_after
 
 
 # ---------------------------------------------------------------------------
 # The forward
 # ---------------------------------------------------------------------------
+
+
+def _stem_chain(qtree: Tree, x: torch.Tensor, s_in: torch.Tensor, policy: DtypePolicy):
+    """Stem conv, quantize at the first block's input scale, int8 max pool,
+    chain pad.  Returns (chain rows, B, h, w)."""
+    x = x.to(policy.compute)
+    y = _conv(x, qtree["conv1"], stride=2, relu=True, policy=policy)
+    yq = quantize_with_scale(y, s_in)
+    yq = torch_ops.max_pool2d(yq, kernel_size=3, stride=2, padding=1)
+    bsz, h, w_sp, _ = yq.shape
+    return block.pad_for_chain(yq), bsz, h, w_sp
+
+
+def _head(qtree: Tree, feats: torch.Tensor, policy: DtypePolicy, kernels: Kernels):
+    return kernels.matmul(
+        feats,
+        qtree["fc"]["weight"].t().to(policy.compute).contiguous(),
+        qtree["fc"]["bias"],
+        out_dtype=policy.output,
+    )
+
+
+def _mean_feats(yr, bsz, h, w_sp, policy):
+    y = block.unpad_from_chain(yr, bsz, h, w_sp)
+    return y.float().mean(dim=(1, 2)).to(policy.compute)
+
+
+def _tap(stage_taps, yr, bsz, h, w_sp, s_out):
+    if stage_taps is not None:
+        tap = block.unpad_from_chain(yr, bsz, h, w_sp).float()
+        stage_taps.append(tap * s_out if s_out is not None else tap)
+
+
+def _stack(blocks: list, key: str) -> torch.Tensor:
+    return torch.stack([blk[key] for blk in blocks])
 
 
 def fused_forward_int8_chain(
@@ -239,39 +324,29 @@ def fused_forward_int8_chain(
     stage_taps: list | None = None,
     kernels: Kernels = KERNELS,
 ) -> torch.Tensor:
-    """Serving forward with every bottleneck block as an int8 kernel call.
+    """Serving forward with every residual block as an int8 kernel call.
     ``x`` is NHWC; returns (B, num_classes) logits in ``policy.output``.
+    Basic configs (ResNet-18/34) go through ``_basic_int8_chain_forward``.
 
     ``stage_taps``: pass a list to receive the dequantized fp32 NHWC
     activation after each stage (then the tail block exits bf16 and the
     head pools outside the kernel, as in the JAX package).  ``kernels``
     picks the implementations (``PLAIN`` for the on-card reference).
     """
-    _require_bottleneck(cfg)
+    _require_ungrouped(cfg)
+    if L1_PIXEL_PAIR:
+        raise NotImplementedError("L1_PIXEL_PAIR (the _pp kernels) is not ported yet")
+    if cfg.block != "bottleneck":
+        return _basic_int8_chain_forward(
+            cfg, qtree, chain_scales, x, policy=policy, stage_taps=stage_taps, kernels=kernels,
+        )
     if HYBRID_XLA_STAGES:
         raise NotImplementedError("HYBRID_XLA_STAGES is not ported yet")
     if STAGE_FUSE_PROJ:
         raise NotImplementedError("STAGE_FUSE_PROJ is not ported yet")
-    if L1_PIXEL_PAIR:
-        raise NotImplementedError("L1_PIXEL_PAIR (the _pp kernels) is not ported yet")
 
-    site, s_after = _chain_scale_lookups(cfg, chain_scales)
-
-    def scale_row(stage, b):
-        st = site(stage, b)
-        s_y = s_after(stage, b)
-        one = torch.ones((), dtype=torch.float32, device=st["in"].device)
-        return torch.stack(
-            [st["in"], st["z1"], st["z2"], s_y if s_y is not None else one]
-        ).float()
-
-    x = x.to(policy.compute)
-    y = _conv(x, qtree["conv1"], stride=2, relu=True, policy=policy)
-    yq = quantize_with_scale(y, site(0, 0)["in"])
-    yq = torch_ops.max_pool2d(yq, kernel_size=3, stride=2, padding=1)
-
-    bsz, h, w_sp, _ = yq.shape
-    yr = block.pad_for_chain(yq)
+    scale_row, s_after = _chain_scale_lookups(cfg, chain_scales)
+    yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy)
 
     head_folded = False
     for stage in range(4):
@@ -304,15 +379,10 @@ def fused_forward_int8_chain(
 
         if nb > 1 and stage in RUN_FUSE_STAGES:
             run = [blocks[str(i)] for i in range(1, nb)]
-
-            def stk(key):
-                return torch.stack([r[key] for r in run])
-
             yr = kernels.run(
                 yr,
-                stk("w1q"), stk("sw1"), stk("b1"),
-                stk("w2pq"), stk("sw2p"), stk("b2"),
-                stk("w3q"), stk("sw3"), stk("b3"),
+                *(_stack(run, k) for k in ("w1q", "sw1", "b1", "w2pq", "sw2p", "b2",
+                                           "w3q", "sw3", "b3")),
                 torch.stack([scale_row(stage, i) for i in range(1, nb)]),
                 h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None,
             )
@@ -333,19 +403,80 @@ def fused_forward_int8_chain(
                 )
                 head_folded = head_folded or fold_head
 
-        if stage_taps is not None:
-            s_out = s_after(stage, nb - 1)
-            tap = block.unpad_from_chain(yr, bsz, h, w_sp).float()
-            stage_taps.append(tap * s_out if s_out is not None else tap)
+        _tap(stage_taps, yr, bsz, h, w_sp, s_after(stage, nb - 1))
 
     if head_folded:
         feats = yr.to(policy.compute)  # (B, 4c): pooled in-kernel
     else:
-        y = block.unpad_from_chain(yr, bsz, h, w_sp)
-        feats = y.float().mean(dim=(1, 2)).to(policy.compute)
-    return kernels.matmul(
-        feats,
-        qtree["fc"]["weight"].t().to(policy.compute).contiguous(),
-        qtree["fc"]["bias"],
-        out_dtype=policy.output,
-    )
+        feats = _mean_feats(yr, bsz, h, w_sp, policy)
+    return _head(qtree, feats, policy, kernels)
+
+
+def _basic_int8_chain_forward(
+    cfg: ResNetConfig,
+    qtree: Tree,
+    chain_scales: Tree,
+    x: torch.Tensor,
+    *,
+    policy: DtypePolicy,
+    stage_taps: list | None,
+    kernels: Kernels,
+) -> torch.Tensor:
+    """The int8_chain forward for basic configs (ResNet-18/34), fused.py:821
+    with BASIC_DS_INT8 on: every stride-2 transition one
+    ``basic_ds_block_s2_int8``, the stride-1 blocks of a stage in
+    BASIC_RUN_FUSE_STAGES one ``basic_run_chained_int8``, every other block
+    one ``basic_block_chained_int8``.  Same calibration contract as the
+    bottleneck path; the last block exits bf16 and the head pools outside
+    the kernel.  The JAX package falls back to per-block kernels or XLA
+    when a TPU kernel would not fit VMEM; the card has no such limit, so
+    the kernel route is always taken (at every size served here the JAX
+    guards pass too, and the two routes agree)."""
+    if not BASIC_DS_INT8:
+        raise NotImplementedError(
+            "BASIC_DS_INT8=False serves the stage transitions through "
+            "conv3x3_s1_fused / conv3x3_s2_fused (kernel table rows 13-14), "
+            "not ported yet"
+        )
+    scale_row, s_after = _chain_scale_lookups(cfg, chain_scales)
+    yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy)
+
+    for stage in range(4):
+        blocks = qtree[f"layer{stage + 1}"]
+        nb = cfg.stage_blocks[stage]
+        start = 0
+        if stage > 0:
+            blk = blocks["0"]
+            yr = kernels.basic_ds(
+                yr,
+                blk["w1pq"], blk["sw1"], blk["b1"],
+                blk["w2pq"], blk["sw2p"], blk["b2"],
+                blk["wdq"], blk["swd"], blk["bd"],
+                scale_row(stage, 0),
+                h=h, w_sp=w_sp, emit_i8=s_after(stage, 0) is not None,
+            )
+            h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
+            start = 1
+
+        if nb - start > 1 and stage in BASIC_RUN_FUSE_STAGES:
+            run = [blocks[str(i)] for i in range(start, nb)]
+            yr = kernels.basic_run(
+                yr,
+                *(_stack(run, k) for k in ("w1pq", "sw1p", "b1", "w2pq", "sw2p", "b2")),
+                torch.stack([scale_row(stage, i) for i in range(start, nb)]),
+                h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None,
+            )
+        else:
+            for i in range(start, nb):
+                blk = blocks[str(i)]
+                yr = kernels.basic_block(
+                    yr,
+                    blk["w1pq"], blk["sw1p"], blk["b1"],
+                    blk["w2pq"], blk["sw2p"], blk["b2"],
+                    scale_row(stage, i),
+                    h=h, w_sp=w_sp, emit_i8=s_after(stage, i) is not None,
+                )
+
+        _tap(stage_taps, yr, bsz, h, w_sp, s_after(stage, nb - 1))
+
+    return _head(qtree, _mean_feats(yr, bsz, h, w_sp, policy), policy, kernels)

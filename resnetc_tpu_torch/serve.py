@@ -3,8 +3,8 @@
 Counterpart of ``resnetc_tpu/serve.py:34-363``.  Two backends:
 
 - ``"int8_chain"`` — calibrate static activation scales, quantize, and run
-  ``fused_forward_int8_chain`` (every bottleneck block an int8 CUDA
-  kernel);
+  ``fused_forward_int8_chain`` (every residual block an int8 CUDA kernel,
+  for the bottleneck family and the basic family, ResNet-18/34, alike);
 - ``"fp"`` — ``forward_folded`` on stock PyTorch ops (the JAX package's
   ``xla`` backend).
 
@@ -30,7 +30,9 @@ BACKENDS = ("fp", "int8_chain")
 
 class InferenceEngine:
     """A classifier: folded (and for int8_chain, quantized) weights resident
-    on the device."""
+    on the device.  ``int8_chain`` serves every ungrouped config of
+    ``models.resnet``, ResNet-18/34 through the basic kernels and the
+    bottleneck nets through theirs; ``fp`` serves every config."""
 
     def __init__(
         self,

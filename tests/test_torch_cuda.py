@@ -8,8 +8,8 @@ runs where only PyTorch is installed:
 
 Inputs come from a seeded numpy generator.  Tolerances: int8 and bf16
 outputs EQUAL (exact integer dots, fp32 epilogues in the same order of
-operations); the fp32 per-image means and the fp32-accumulating GEMM sum in
-another order: rtol 1e-5 and 1e-5 / 1e-4.
+operations and roundings); the fp32 per-image means and the
+fp32-accumulating GEMM sum in another order: rtol 1e-5 and 1e-5 / 1e-4.
 """
 
 from __future__ import annotations
@@ -154,6 +154,76 @@ def test_matmul_kernel_close_to_plain(cuda, gen, dtype):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
+BASIC_SCALES = np.asarray([4.0 / 127, 3.0 / 127, 5.0 / 127], np.float32)
+BASIC_KEYS = ("w1pq", "sw1p", "b1", "w2pq", "sw2p", "b2")
+BASIC_DS_KEYS = ("w1pq", "sw1", "b1", "w2pq", "sw2p", "b2", "wdq", "swd", "bd")
+
+
+def _basic_quantized(gen, cin, c, dev, *, ds=False):
+    def entry(shape):
+        return {
+            "weight": torch.from_numpy((gen.standard_normal(shape) * 0.1).astype(np.float32)),
+            "bias": torch.from_numpy((gen.standard_normal(shape[-1]) * 0.1).astype(np.float32)),
+        }
+
+    blk = {"conv1": entry((3, 3, cin, c)), "conv2": entry((3, 3, c, c))}
+    if ds:
+        blk["downsample"] = entry((1, 1, cin, c))
+        q = block.quantize_basic_ds_block(blk)
+        q = {k: v for k, v in q.items() if k in BASIC_DS_KEYS}
+    else:
+        q = block.quantize_basic_block(blk)
+    return {k: v.to(dev) for k, v in q.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c", [(8, 16), (7, 32), (14, 64)])
+def test_basic_block_kernel_equals_plain(cuda, gen, h, c):
+    b = 2
+    q = _basic_quantized(gen, c, c, cuda)
+    args = (_chain(gen, b, h, c, cuda), *(q[k] for k in BASIC_KEYS),
+            torch.from_numpy(BASIC_SCALES).to(cuda))
+    for emit_i8 in (True, False):
+        _build.reset_launches()
+        got = block.basic_block_chained_int8(*args, h=h, w_sp=h, emit_i8=emit_i8)
+        assert _build.LAUNCHES["basic_block_chained_int8"] == 1
+        want = block.basic_block_chained_int8_plain(*args, h=h, w_sp=h, emit_i8=emit_i8)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks", [2, 3])
+def test_basic_run_kernel_equals_plain(cuda, gen, n_blocks):
+    b, h, c = 2, 8, 16
+    qs = [_basic_quantized(gen, c, c, cuda) for _ in range(n_blocks)]
+    scales = torch.from_numpy(np.stack([BASIC_SCALES] * n_blocks)).to(cuda)
+    args = (_chain(gen, b, h, c, cuda), *(torch.stack([q[k] for q in qs]) for k in BASIC_KEYS),
+            scales)
+    for emit_i8 in (True, False):
+        got = block.basic_run_chained_int8(*args, h=h, w_sp=h, emit_i8=emit_i8)
+        want = block.basic_run_chained_int8_plain(*args, h=h, w_sp=h, emit_i8=emit_i8)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(10, 10), (7, 7), (10, 14), (14, 14)])
+def test_basic_ds_kernel_equals_plain(cuda, gen, h, w):
+    b, cin, c = 2, 16, 32
+    q = _basic_quantized(gen, cin, c, cuda, ds=True)
+    hp, wp = block.chain_meta(b, h, w)
+    x = torch.from_numpy(
+        gen.integers(-127, 128, size=(b * hp * wp, cin), dtype=np.int8)
+    ).to(cuda)
+    args = (x, *(q[k] for k in BASIC_DS_KEYS), torch.from_numpy(BASIC_SCALES).to(cuda))
+    for emit_i8 in (True, False):
+        got = block.basic_ds_block_s2_int8(*args, h=h, w_sp=w, emit_i8=emit_i8)
+        want = block.basic_ds_block_s2_int8_plain(*args, h=h, w_sp=w, emit_i8=emit_i8)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda, gen):
     q = _quantized(gen, 64, 16, 64, cuda)
@@ -184,6 +254,26 @@ def test_tiny_engine_on_the_card_matches_plain(cuda):
     counts = dict(_build.LAUNCHES)
     assert counts == {"bottleneck_block_chained_int8": 4, "bottleneck_run_chained_int8": 1,
                       "downsample_block_s2_int8": 3, "matmul": 1}, counts
+    want = fused_forward_int8_chain(cfg, eng.folded, eng.chain_scales, x.to(cuda), kernels=PLAIN)
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.cuda
+def test_tiny_basic_engine_on_the_card_matches_plain(cuda):
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda.fused import PLAIN, fused_forward_int8_chain
+    from resnetc_tpu_torch.serve import InferenceEngine
+
+    cfg = resnet.ResNetConfig("tiny_basic", "basic", (3, 2, 2, 2), num_classes=11, stem_width=16)
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    eng = InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=x)
+    _build.reset_launches()
+    got = eng.logits(x)
+    counts = dict(_build.LAUNCHES)
+    assert counts == {"basic_run_chained_int8": 1, "basic_ds_block_s2_int8": 3,
+                      "basic_block_chained_int8": 3, "matmul": 1}, counts
     want = fused_forward_int8_chain(cfg, eng.folded, eng.chain_scales, x.to(cuda), kernels=PLAIN)
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
