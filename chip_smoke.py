@@ -9,20 +9,29 @@ Builds the CUDA kernels from ``resnetc_tpu_torch/csrc`` and then:
    version on the card, at the shapes of ResNet-152 (the bottleneck
    kernels) and ResNet-34 (the basic kernels), 224 px, batch 8: int8 and
    bf16 outputs must be equal, fp32 per-image means and the
-   fp32-accumulating GEMM within rtol 1e-4;
-2. serves ResNet-152 and then ResNet-34 at full width and depth (random
-   weights from seed 0) through ``InferenceEngine(backend="int8_chain")``
-   at batch 32, the launch counters set to 0 just before each forward and
-   read just after: every kernel of that path must have launched exactly
-   as often as the model has blocks of its kind; the logits must stay
-   within the JAX package's gate of the fp32 folded forward (rel-MAE 0.05
-   for the bottleneck route, 0.08 for the basic one, argmax agreement 0.9;
-   the bf16 fp engine's agreement is reported too), and within 1e-2 (max
-   error over max |logit|) of the same forward run through the plain
-   versions;
-3. times both engines (images/s, p50 / p99 ms per batch) for int8_chain and
-   fp, and each kernel per launch at the main paths' shapes, beside the
-   plain version, the bound and, for the GEMM, torch.matmul.
+   fp32-accumulating GEMM within rtol 1e-4.  The pixel-paired stage-0
+   kernels are also held against their standard twins (equal) and, through
+   their pair-space entries, checked on dense random pair-space weights;
+2. prints the TUNED.json flags the port laid over its code defaults (they
+   must turn on L1_PIXEL_PAIR and BASIC_DS_INT8), then serves ResNet-152
+   and ResNet-34 at full width and depth (random weights from seed 0)
+   through ``InferenceEngine(backend="int8_chain")`` at batch 32, on the
+   served route (pixel-paired stage 0) and on the standard route
+   (L1_PIXEL_PAIR off), the launch counters set to 0 just before each
+   forward and read just after: every kernel of that route must have
+   launched exactly as often as the model has blocks of its kind, and the
+   two routes' logits must be equal bit for bit.  The served logits must
+   stay within the JAX package's gate of the fp32 folded forward (rel-MAE
+   0.05 for the bottleneck route, 0.08 for the basic one, argmax agreement
+   0.9; the bf16 fp engine's agreement is reported too), and within 1e-2
+   (max error over max |logit|) of the same forward run through the plain
+   versions.  A ResNet-152 cut to (3, 2, 2, 2) blocks then runs with
+   STAGE_FUSE_PROJ (all of layer1 one run kernel), paired and standard,
+   equal bit for bit to the served route;
+3. times the engines (images/s, p50 / p99 ms per batch) for int8_chain on
+   both routes and fp, and each kernel per launch at the main paths'
+   shapes, beside the plain version, the bound (for a pixel-paired kernel,
+   the work of its standard twin) and, for the GEMM, torch.matmul.
 
 Prints the card (``nvidia-smi`` name and power limit), one JSON line of
 per-kernel results, and as its last line ``{"ok": true, "device": ...}``.
@@ -86,10 +95,12 @@ class Case:
     """One kernel call: the wrapper, its plain version, the arguments, and
     the least work it must do (ops at the peak rate, bytes at HBM rate)."""
 
-    def __init__(self, name, kernel, fn, plain, args, kwargs, ops, nbytes, peak, check):
+    def __init__(self, name, kernel, fn, plain, args, kwargs, ops, nbytes, peak, check,
+                 twin=None):
         self.name, self.kernel = name, kernel
         self.fn, self.plain, self.args, self.kwargs = fn, plain, args, kwargs
         self.ops, self.nbytes, self.peak, self.check = ops, nbytes, peak, check
+        self.twin = twin  # the standard kernel a pixel-paired one must equal
 
     def run(self):
         return self.fn(*self.args, **self.kwargs)
@@ -145,9 +156,37 @@ def _chain(gen, b, h, cin, dev):
     return torch.randint(-127, 128, (b * hp * wp, cin), generator=gen, dtype=torch.int8).to(dev)
 
 
+def _dense_pairs(gen, dev, rows2):
+    """Makers of dense random pair-space operands: pair rows, int8 weights in
+    [-20, 20] over every block (no zero block), multipliers sized to the
+    dot's depth k (an output spread of about ten int8 steps), biases."""
+    import torch
+
+    def x(width):
+        return torch.randint(-127, 128, (rows2, width), generator=gen, dtype=torch.int8).to(dev)
+
+    def wq(*shape):
+        return torch.randint(-20, 21, shape, generator=gen, dtype=torch.int8).to(dev)
+
+    def mul(*shape, k):
+        u = torch.rand(shape, generator=gen) + 0.5
+        return (u * 10.0 / (k**0.5 * 40.0 * 12.0)).to(dev)
+
+    def bias(*shape):
+        return (torch.randn(shape, generator=gen) * 0.5).to(dev)
+
+    return x, wq, mul, bias
+
+
+KEYS = ("w1q", "sw1", "b1", "w2pq", "sw2p", "b2", "w3q", "sw3", "b3")
+BASIC_KEYS = ("w1pq", "sw1p", "b1", "w2pq", "sw2p", "b2")
+
+
 def make_cases(b: int, dev) -> list:
-    """Every kernel at the main path's ResNet-152 shapes, plus the bf16
-    exit form of kernel 1 (not on the path; checked all the same)."""
+    """Every bottleneck kernel at the main path's ResNet-152 shapes, plus
+    the bf16 exit form of kernel 1 (not on the path; checked all the same),
+    the pixel-paired stage-0 kernels in every form, and those on dense
+    pair-space weights."""
     import torch
 
     from resnetc_tpu_torch.ops.cuda import block, gemm
@@ -155,13 +194,15 @@ def make_cases(b: int, dev) -> list:
 
     gen = torch.Generator().manual_seed(1234)
     scales = torch.full((4,), 0.05, dtype=torch.float32, device=dev)
-    keys = ("w1q", "sw1", "b1", "w2pq", "sw2p", "b2", "w3q", "sw3", "b3")
     cases = []
 
-    def block_case(label, h, cin, c, c4, *, proj=False, emit_i8=True, emit_mean=False):
+    def block_case(label, h, cin, c, c4, *, proj=False, emit_i8=True, emit_mean=False,
+                   pp=False):
         q = _block_weights(gen, cin, c, c4, dev, proj=proj)
         x = _chain(gen, b, h, cin, dev)
-        kw = dict(h=h, w_sp=h, emit_i8=emit_i8, emit_mean=emit_mean)
+        kw = dict(h=h, w_sp=h, emit_i8=emit_i8)
+        if emit_mean:
+            kw["emit_mean"] = True
         if proj:
             kw.update(wdq=q["wdq"], swd=q["swd"], bd=q["bd"])
         hp, wp = chain_meta(b, h, h)
@@ -171,10 +212,17 @@ def make_cases(b: int, dev) -> list:
         out_bytes = b * c4 * 4 if emit_mean else b * hp * wp * c4 * (1 if emit_i8 else 2)
         nbytes = b * hp * wp * cin + w_bytes + out_bytes
         check = "int8" if emit_i8 else ("f32" if emit_mean else "bf16")
+        if pp:
+            kernel, fn, plain = ("bottleneck_block_chained_int8_pp",
+                                 block.bottleneck_block_chained_int8_pp,
+                                 block.bottleneck_block_chained_int8_pp_plain)
+        else:
+            kernel, fn, plain = ("bottleneck_block_chained_int8",
+                                 block.bottleneck_block_chained_int8,
+                                 block.bottleneck_block_chained_int8_plain)
         cases.append(Case(
-            label, "bottleneck_block_chained_int8", block.bottleneck_block_chained_int8,
-            block.bottleneck_block_chained_int8_plain,
-            (x, *(q[k] for k in keys), scales), kw, ops, nbytes, PEAK_INT8_OPS, check,
+            label, kernel, fn, plain, (x, *(q[k] for k in KEYS), scales), kw, ops, nbytes,
+            PEAK_INT8_OPS, check, twin=block.bottleneck_block_chained_int8 if pp else None,
         ))
 
     h0, c0, c40 = STAGES[0]
@@ -186,21 +234,35 @@ def make_cases(b: int, dev) -> list:
     block_case("block/emit_mean/s3", h3, c43, c3, c43, emit_i8=False, emit_mean=True)
     block_case("block/bf16_exit/s3", h3, c43, c3, c43, emit_i8=False)
 
-    # Kernel 2: layer1 blocks 1-2 as one run.
-    qs = [_block_weights(gen, c40, c0, c40, dev) for _ in range(2)]
-    x = _chain(gen, b, h0, c40, dev)
-    hp, wp = chain_meta(b, h0, h0)
-    px = b * h0 * h0
-    cases.append(Case(
-        "run/n2/s0", "bottleneck_run_chained_int8", block.bottleneck_run_chained_int8,
-        block.bottleneck_run_chained_int8_plain,
-        (x, *(torch.stack([q[k] for q in qs]) for k in keys),
-         torch.full((2, 4), 0.05, dtype=torch.float32, device=dev)),
-        dict(h=h0, w_sp=h0),
-        2 * 2 * px * (c40 * c0 + 9 * c0 * c0 + c0 * c40),
-        2 * b * hp * wp * c40 + 2 * (c40 * c0 + 9 * c0 * c0 + c0 * c40),
-        PEAK_INT8_OPS, "int8",
-    ))
+    # Kernels 2 and 6: layer1 blocks 1-2 as one run; the projection form
+    # (all of layer1, STAGE_FUSE_PROJ).
+    def run_case(label, n, *, proj=False, emit_i8=True, pp=False):
+        qs = [_block_weights(gen, c40, c0, c40, dev) for _ in range(n)]
+        kw = dict(h=h0, w_sp=h0, emit_i8=emit_i8)
+        cin = c40
+        if proj:
+            cin = c0
+            qs[0] = _block_weights(gen, c0, c0, c40, dev, proj=True)
+            kw.update(w1q0=qs[0]["w1q"], wdq=qs[0]["wdq"], swd=qs[0]["swd"], bd=qs[0]["bd"])
+        hp, wp = chain_meta(b, h0, h0)
+        px = b * h0 * h0
+        w_elems = n * (c40 * c0 + 9 * c0 * c0 + c0 * c40) + (
+            (c0 - c40) * c0 + c0 * c40 if proj else 0)
+        kernel = "bottleneck_run_chained_int8" + ("_pp" if pp else "")
+        fn = getattr(block, kernel)
+        cases.append(Case(
+            label, kernel, fn, getattr(block, kernel + "_plain"),
+            (_chain(gen, b, h0, cin, dev),
+             torch.stack([q["w1q"] for q in qs[1 if proj else 0:]]),
+             *(torch.stack([q[k] for q in qs]) for k in KEYS[1:]),
+             torch.full((n, 4), 0.05, dtype=torch.float32, device=dev)),
+            kw, 2 * px * w_elems,
+            b * hp * wp * (cin + c40 * (1 if emit_i8 else 2)) + w_elems,
+            PEAK_INT8_OPS, "int8" if emit_i8 else "bf16",
+            twin=block.bottleneck_run_chained_int8 if pp else None,
+        ))
+
+    run_case("run/n2/s0", 2)
 
     # Kernel 3: the three stride-2 transitions.
     dkeys = ("w1q", "sw1", "b1", "w2q", "sw2", "b2", "w3q", "sw3", "b3", "wdq", "swd", "bd")
@@ -231,6 +293,40 @@ def make_cases(b: int, dev) -> list:
         2 * b * 2048 * 1000, b * 2048 * 2 + 2048 * 1000 * 2 + 1000 * 4 + b * 1000 * 4,
         PEAK_BF16_FLOPS, "f32",
     ))
+
+    # Kernels 5 and 6, the pixel-paired stage 0 (the served route).  The
+    # bound counts the standard twin's work.
+    block_case("pp/block/proj/s0", h0, c0, c0, c40, proj=True, pp=True)
+    block_case("pp/block/identity/s0", h0, c40, c0, c40, pp=True)
+    block_case("pp/block/bf16_exit/s0", h0, c40, c0, c40, emit_i8=False, pp=True)
+    run_case("pp/run/n2/s0", 2, pp=True)
+    run_case("pp/run/bf16_exit/n2/s0", 2, emit_i8=False, pp=True)
+    run_case("pp/run/proj/n3/s0", 3, proj=True, pp=True)
+
+    # ... and their pair-space entries on dense random pair-space weights.
+    hp, wp = chain_meta(b, h0, h0)
+    x, wq, mul, bias = _dense_pairs(gen, dev, b * hp * wp // 2)
+    c2, c4p, n = 2 * c0, 2 * c40, 3
+    s_res = torch.full((n,), 0.5, dtype=torch.float32, device=dev)
+    px = b * h0 * h0
+    twin_ops = 2 * px * (c40 * c0 + 9 * c0 * c0 + c0 * c40)
+    cases.append(Case(
+        "pp/dense/block/s0", "bottleneck_block_chained_int8_pp", block.bottleneck_block_pp_pairs,
+        block.bottleneck_block_pp_pairs_plain,
+        (x(c4p), wq(c4p, c2), mul(c2, k=c4p), bias(c2), wq(3 * c2, 3 * c2),
+         mul(3, c2, k=3 * c2), bias(c2), wq(c2, c4p), mul(c4p, k=c2), bias(c4p), s_res[:1]),
+        dict(h=h0, w_sp=h0), twin_ops, 2 * b * hp * wp * c40, PEAK_INT8_OPS, "int8",
+    ))
+    cases.append(Case(
+        "pp/dense/run/proj/n3/s0", "bottleneck_run_chained_int8_pp",
+        block.bottleneck_run_pp_pairs, block.bottleneck_run_pp_pairs_plain,
+        (x(c2), wq(n - 1, c4p, c2), mul(n, c2, k=c4p), bias(n, c2), wq(n, 3 * c2, 3 * c2),
+         mul(3 * n, c2, k=3 * c2), bias(n, c2), wq(n, c2, c4p), mul(n, c4p, k=c2),
+         bias(n, c4p), s_res),
+        dict(h=h0, w_sp=h0, w10bd=wq(c2, c2), wdbd=wq(c2, c4p), ad=mul(c4p, k=c2),
+             cd=bias(c4p)),
+        n * twin_ops, b * hp * wp * (c0 + c40), PEAK_INT8_OPS, "int8",
+    ))
     return cases
 
 
@@ -258,7 +354,8 @@ def make_basic_cases(b: int, dev) -> list:
     """Every basic kernel at the ResNet-34 main path's shapes: the stage-0
     run of three blocks, the stride-1 block at stages 1-3 (int8 exit, and
     the bf16 exit of the network's last block at 7x7, where wp = w+1), the
-    three stride-2 transitions."""
+    three stride-2 transitions; and the pixel-paired stage-0 block and run,
+    also on dense pair-space weights."""
     import torch
 
     from resnetc_tpu_torch.ops.cuda import block
@@ -266,20 +363,20 @@ def make_basic_cases(b: int, dev) -> list:
 
     gen = torch.Generator().manual_seed(4321)
     scales = torch.full((3,), 0.05, dtype=torch.float32, device=dev)
-    keys = ("w1pq", "sw1p", "b1", "w2pq", "sw2p", "b2")
     cases = []
 
-    def block_case(label, h, c, *, emit_i8=True):
+    def block_case(label, h, c, *, emit_i8=True, pp=False):
         q = _basic_weights(gen, c, c, dev)
         hp, wp = chain_meta(b, h, h)
         ops = 2 * b * h * h * 18 * c * c
         nbytes = b * hp * wp * c * (2 if emit_i8 else 3) + 18 * c * c
+        kernel = "basic_block_chained_int8" + ("_pp" if pp else "")
         cases.append(Case(
-            label, "basic_block_chained_int8", block.basic_block_chained_int8,
-            block.basic_block_chained_int8_plain,
-            (_chain(gen, b, h, c, dev), *(q[k] for k in keys), scales),
+            label, kernel, getattr(block, kernel), getattr(block, kernel + "_plain"),
+            (_chain(gen, b, h, c, dev), *(q[k] for k in BASIC_KEYS), scales),
             dict(h=h, w_sp=h, emit_i8=emit_i8), ops, nbytes, PEAK_INT8_OPS,
             "int8" if emit_i8 else "bf16",
+            twin=block.basic_block_chained_int8 if pp else None,
         ))
 
     for s in (1, 2, 3):
@@ -289,17 +386,23 @@ def make_basic_cases(b: int, dev) -> list:
     block_case("basic/block/bf16_exit/s3", h3, c3, emit_i8=False)
 
     h0, c0 = BASIC_STAGES[0]
-    qs = [_basic_weights(gen, c0, c0, dev) for _ in range(3)]
-    hp, wp = chain_meta(b, h0, h0)
-    cases.append(Case(
-        "basic/run/n3/s0", "basic_run_chained_int8", block.basic_run_chained_int8,
-        block.basic_run_chained_int8_plain,
-        (_chain(gen, b, h0, c0, dev), *(torch.stack([q[k] for q in qs]) for k in keys),
-         torch.full((3, 3), 0.05, dtype=torch.float32, device=dev)),
-        dict(h=h0, w_sp=h0),
-        3 * 2 * b * h0 * h0 * 18 * c0 * c0, 2 * b * hp * wp * c0 + 3 * 18 * c0 * c0,
-        PEAK_INT8_OPS, "int8",
-    ))
+
+    def run_case(label, n, *, emit_i8=True, pp=False):
+        qs = [_basic_weights(gen, c0, c0, dev) for _ in range(n)]
+        hp, wp = chain_meta(b, h0, h0)
+        kernel = "basic_run_chained_int8" + ("_pp" if pp else "")
+        cases.append(Case(
+            label, kernel, getattr(block, kernel), getattr(block, kernel + "_plain"),
+            (_chain(gen, b, h0, c0, dev), *(torch.stack([q[k] for q in qs]) for k in BASIC_KEYS),
+             torch.full((n, 3), 0.05, dtype=torch.float32, device=dev)),
+            dict(h=h0, w_sp=h0, emit_i8=emit_i8),
+            n * 2 * b * h0 * h0 * 18 * c0 * c0,
+            b * hp * wp * c0 * (2 if emit_i8 else 3) + n * 18 * c0 * c0,
+            PEAK_INT8_OPS, "int8" if emit_i8 else "bf16",
+            twin=block.basic_run_chained_int8 if pp else None,
+        ))
+
+    run_case("basic/run/n3/s0", 3)
 
     dkeys = ("w1pq", "sw1", "b1", "w2pq", "sw2p", "b2", "wdq", "swd", "bd")
     for s in (1, 2, 3):
@@ -329,15 +432,44 @@ def make_basic_cases(b: int, dev) -> list:
         2 * b * 512 * 1000, b * 512 * 2 + 512 * 1000 * 2 + 1000 * 4 + b * 1000 * 4,
         PEAK_BF16_FLOPS, "f32",
     ))
+
+    # Kernels 9 and 10, the pixel-paired stage 0 (the served route, a run of
+    # three in ResNet-34); bound: the standard twin's work.
+    block_case("pp/basic/block/s0", h0, c0, pp=True)
+    block_case("pp/basic/block/bf16_exit/s0", h0, c0, emit_i8=False, pp=True)
+    run_case("pp/basic/run/n3/s0", 3, pp=True)
+    run_case("pp/basic/run/bf16_exit/n3/s0", 3, emit_i8=False, pp=True)
+
+    hp, wp = chain_meta(b, h0, h0)
+    x, wq, mul, bias = _dense_pairs(gen, dev, b * hp * wp // 2)
+    c2, n = 2 * c0, 3
+    s_res = torch.full((n,), 0.5, dtype=torch.float32, device=dev)
+    twin_ops = 2 * b * h0 * h0 * 18 * c0 * c0
+    cases.append(Case(
+        "pp/dense/basic/block/s0", "basic_block_chained_int8_pp", block.basic_block_pp_pairs,
+        block.basic_block_pp_pairs_plain,
+        (x(c2), wq(3 * c2, 3 * c2), mul(3, c2, k=3 * c2), bias(c2), wq(3 * c2, 3 * c2),
+         mul(3, c2, k=3 * c2), bias(c2), s_res[:1]),
+        dict(h=h0, w_sp=h0), twin_ops, 2 * b * hp * wp * c0, PEAK_INT8_OPS, "int8",
+    ))
+    cases.append(Case(
+        "pp/dense/basic/run/n3/s0", "basic_run_chained_int8_pp", block.basic_run_pp_pairs,
+        block.basic_run_pp_pairs_plain,
+        (x(c2), wq(n, 3 * c2, 3 * c2), mul(3 * n, c2, k=3 * c2), bias(n, c2),
+         wq(n, 3 * c2, 3 * c2), mul(3 * n, c2, k=3 * c2), bias(n, c2), s_res),
+        dict(h=h0, w_sp=h0), n * twin_ops, 2 * b * hp * wp * c0, PEAK_INT8_OPS, "int8",
+    ))
     return cases
 
 
 def check_case(case) -> float:
-    """Kernel vs plain on the same inputs; returns the max abs error."""
+    """Kernel vs plain on the same inputs (and a pixel-paired kernel vs its
+    standard twin); returns the max abs error against the plain version."""
     import torch
 
     got = case.run()
     want = case.run_plain()
+    twin = case.twin(*case.args, **case.kwargs) if case.twin else None
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     if case.check in ("int8", "bf16"):
@@ -349,6 +481,8 @@ def check_case(case) -> float:
     else:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
                                    msg=lambda m: f"{case.name}: {m}")
+    if twin is not None and not torch.equal(got, twin):
+        raise AssertionError(f"{case.name}: differs from its standard twin")
     return err
 
 
@@ -361,13 +495,15 @@ def phase_kernels(cases: list) -> dict:
     errs = {}
     for case in cases:
         errs[case.name] = check_case(case)
-        log(f"[kernels] {case.name}: equal to plain, max_abs_err={errs[case.name]}")
+        twin = " and to its standard twin" if case.twin else ""
+        log(f"[kernels] {case.name}: equal to plain{twin}, max_abs_err={errs[case.name]}")
     return errs
 
 
 def main_path_counts() -> dict:
     """Launches of each kernel case per forward of its model (ResNet-152
-    for the bottleneck cases, ResNet-34 for the basic ones), by case name."""
+    for the bottleneck cases, ResNet-34 for the basic ones) on the route
+    that runs it, by case name."""
     from resnetc_tpu_torch.models import get_config
 
     blocks = get_config("resnet152").stage_blocks
@@ -381,6 +517,8 @@ def main_path_counts() -> dict:
         "run/n2/s0": 1,
         "ds/s1": 1, "ds/s2": 1, "ds/s3": 1,
         "matmul/fc": 1,
+        "pp/block/proj/s0": 1,
+        "pp/run/n2/s0": 1,
         "basic/run/n3/s0": 1,
         "basic/block/s1": basic[1] - 1,
         "basic/block/s2": basic[2] - 1,
@@ -388,15 +526,28 @@ def main_path_counts() -> dict:
         "basic/block/bf16_exit/s3": 1,
         "basic/ds/s1": 1, "basic/ds/s2": 1, "basic/ds/s3": 1,
         "basic/matmul/fc": 1,
+        "pp/basic/run/n3/s0": 1,
+        "pp/basic/block/s0": basic[0],
     }
 
 
-def expected_launches(cases: list) -> dict:
-    """Launches of each kernel in one forward of the cases' model."""
+#: The stage-0 cases of each full-depth route: the served (pixel-paired)
+#: one and the standard one (L1_PIXEL_PAIR off).
+ROUTE_ONLY = {
+    True: {"pp/block/proj/s0", "pp/run/n2/s0", "pp/basic/run/n3/s0"},
+    False: {"block/proj/s0", "run/n2/s0", "basic/run/n3/s0"},
+}
+#: Cases whose stage-0 route runs only in phase_reduced_routes (per block).
+REDUCED_ONLY = {"pp/basic/block/s0"}
+
+
+def expected_launches(cases: list, pp: bool) -> dict:
+    """Launches of each kernel in one forward of the cases' model, on the
+    pixel-paired route or the standard one."""
     counts = main_path_counts()
     want: dict = {}
     for case in cases:
-        if counts.get(case.name, 0):
+        if counts.get(case.name, 0) and case.name not in ROUTE_ONLY[not pp] | REDUCED_ONLY:
             want[case.kernel] = want.get(case.kernel, 0) + counts[case.name]
     return want
 
@@ -408,11 +559,45 @@ def expected_launches(cases: list) -> dict:
 MODELS = (("resnet152", 0.05, make_cases), ("resnet34", 0.08, make_basic_cases))
 
 
-def phase_end_to_end(name: str, rel_mae_gate: float, want: dict, batch: int, dev) -> dict:
+def forward_counted(eng, x, **flags):
+    """One int8_chain forward with the given module flags of ``fused`` (the
+    route), the launch counters set to 0 just before it and read just
+    after; the flags restored."""
+    import torch
+
+    from resnetc_tpu_torch.ops.cuda import _build, fused
+
+    saved = {k: getattr(fused, k) for k in flags}
+    for k, v in flags.items():
+        setattr(fused, k, v)
+    try:
+        _build.reset_launches()
+        logits = eng.logits(x)
+        torch.cuda.synchronize()
+        return logits, dict(_build.LAUNCHES)
+    finally:
+        for k, v in saved.items():
+            setattr(fused, k, v)
+
+
+def phase_tuned() -> dict:
+    """The flags TUNED.json laid over the code defaults: the served
+    configuration must pair stage 0 and serve the basic transitions int8."""
+    from resnetc_tpu_torch.ops.cuda import fused
+
+    log(f"[tuned] TUNED_DEFAULTS={json.dumps(fused.TUNED_DEFAULTS)} "
+        f"L1_PIXEL_PAIR={fused.L1_PIXEL_PAIR} STAGE_FUSE_PROJ={fused.STAGE_FUSE_PROJ} "
+        f"BASIC_DS_INT8={fused.BASIC_DS_INT8}")
+    if not (fused.TUNED_DEFAULTS.get("L1_PIXEL_PAIR") is True
+            and fused.TUNED_DEFAULTS.get("BASIC_DS_INT8") is True):
+        raise AssertionError("TUNED.json did not turn on L1_PIXEL_PAIR and BASIC_DS_INT8")
+    return dict(fused.TUNED_DEFAULTS)
+
+
+def phase_end_to_end(name: str, rel_mae_gate: float, cases: list, batch: int, dev) -> dict:
     import torch
 
     from resnetc_tpu_torch.models import resnet
-    from resnetc_tpu_torch.ops.cuda import _build
     from resnetc_tpu_torch.ops.cuda.fused import PLAIN, fused_forward_int8_chain
     from resnetc_tpu_torch.serve import InferenceEngine
     from resnetc_tpu_torch.tensor import FP32
@@ -429,13 +614,20 @@ def phase_end_to_end(name: str, rel_mae_gate: float, want: dict, batch: int, dev
     torch.cuda.synchronize()
     log(f"{tag} engines built in {time.perf_counter() - t0:.1f} s")
 
-    _build.reset_launches()
-    logits = eng.logits(x)
-    torch.cuda.synchronize()
-    launches = dict(_build.LAUNCHES)
-    log(f"{tag} launches in one int8_chain forward: {json.dumps(launches)}")
-    if launches != want:
-        raise AssertionError(f"{tag} launches {launches}, expected {want}")
+    launches, logits_of = {}, {}
+    for pp in (True, False):
+        route = "pp" if pp else "standard"
+        logits_of[pp], launches[route] = forward_counted(eng, x, L1_PIXEL_PAIR=pp)
+        want = expected_launches(cases, pp)
+        log(f"{tag} launches in one int8_chain forward, {route} route: "
+            f"{json.dumps(launches[route])}")
+        if launches[route] != want:
+            raise AssertionError(f"{tag} {route} route launched {launches[route]}, expected {want}")
+    if not torch.equal(logits_of[True], logits_of[False]):
+        diff = float((logits_of[True] - logits_of[False]).abs().max())
+        raise AssertionError(f"{tag} pp and standard routes differ (max {diff})")
+    log(f"{tag} pixel-paired and standard routes: logits equal bit for bit")
+    logits = logits_of[True]
     if tuple(logits.shape) != (batch, 1000) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{tag} bad logits: shape {tuple(logits.shape)}")
     classes = eng.classify(x)
@@ -474,22 +666,80 @@ def phase_end_to_end(name: str, rel_mae_gate: float, want: dict, batch: int, dev
         "rel_mae_vs_fp_bf16": rel_mae, "argmax_vs_fp_bf16": rep.argmax_match_rate,
         "rel_mae_vs_fp32": rel_mae32, "argmax_vs_fp32": rep32.argmax_match_rate,
         "plain_rel_max_err": plain_rel, "argmax_vs_plain": prep.argmax_match_rate,
+        "routes_bit_equal": True,
     }
 
 
+def phase_reduced_routes(dev) -> dict:
+    """The other stage-0 routes, at full width with the stages cut to
+    (3, 2, 2, 2) blocks, batch 8, each equal bit for bit to the served
+    route of its model: all of layer1 as one run kernel (STAGE_FUSE_PROJ),
+    paired and standard; stage 0 per block (RUN_FUSE_STAGES /
+    BASIC_RUN_FUSE_STAGES empty), which is where the pixel-paired block
+    kernels 5 (identity form) and 9 run.  Returns each route's launches."""
+    import torch
+
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.serve import InferenceEngine
+
+    tag = "[e2e reduced]"
+    rest = {"downsample_block_s2_int8": 3, "bottleneck_block_chained_int8": 3, "matmul": 1}
+    basic_rest = {"basic_ds_block_s2_int8": 3, "basic_block_chained_int8": 3, "matmul": 1}
+    routes = {
+        "resnet152": [
+            ("stage_fuse_proj/pp", dict(STAGE_FUSE_PROJ=True),
+             {"bottleneck_run_chained_int8_pp": 1, **rest}),
+            ("stage_fuse_proj/standard", dict(STAGE_FUSE_PROJ=True, L1_PIXEL_PAIR=False),
+             {"bottleneck_run_chained_int8": 1, **rest}),
+            ("per_block/pp", dict(RUN_FUSE_STAGES=()),
+             {"bottleneck_block_chained_int8_pp": 3, **rest}),
+        ],
+        "resnet34": [
+            ("per_block/pp", dict(BASIC_RUN_FUSE_STAGES=()),
+             {"basic_block_chained_int8_pp": 3, **basic_rest}),
+        ],
+    }
+    out = {}
+    for name, cuts in routes.items():
+        cfg = resnet.get_config(name)
+        cfg = cfg.__class__(**{**cfg.__dict__, "stage_blocks": (3, 2, 2, 2)})
+        variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+        x = torch.randn((8, 224, 224, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+        eng = InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=x, device=dev)
+        served, _ = forward_counted(eng, x)
+        for label, flags, want in cuts:
+            logits, launches = forward_counted(eng, x, **flags)
+            log(f"{tag} {name} {label} {json.dumps(flags)}: {json.dumps(launches)}")
+            if launches != want:
+                raise AssertionError(f"{tag} {name} {label} launched {launches}, expected {want}")
+            if not torch.equal(logits, served):
+                raise AssertionError(f"{tag} {name} {label} differs from the served route")
+            out[f"{name}/{label}"] = launches
+        log(f"{tag} {name}: every route equals the served route bit for bit")
+    return out
+
+
 def phase_engine_timing(name: str, e2e: dict, batch: int) -> dict:
+    from resnetc_tpu_torch.ops.cuda import fused
     from resnetc_tpu_torch.serve import bench_latency, bench_throughput
 
     times = {}
-    for key in ("engine", "fp"):
+    for key, label, pp in (("engine", "int8_chain", True),
+                           ("engine", "int8_chain_standard", False), ("fp", "fp", None)):
         eng = e2e[key]
-        thr = bench_throughput(eng, e2e["x"], steps=10, warmup=3)
-        lat = bench_latency(eng, e2e["x"], samples=10, warmup=2)
-        times[eng.backend] = {
+        saved = fused.L1_PIXEL_PAIR
+        if pp is not None:
+            fused.L1_PIXEL_PAIR = pp
+        try:
+            thr = bench_throughput(eng, e2e["x"], steps=10, warmup=3)
+            lat = bench_latency(eng, e2e["x"], samples=10, warmup=2)
+        finally:
+            fused.L1_PIXEL_PAIR = saved
+        times[label] = {
             "images_per_s": thr.images_per_sec, "p50_ms_per_batch": lat.p50_ms,
             "p99_ms_per_batch": lat.p99_ms, "batch": batch,
         }
-        log(f"[timing {name}] {eng.backend}: {thr.images_per_sec:.1f} img/s, "
+        log(f"[timing {name}] {label}: {thr.images_per_sec:.1f} img/s, "
             f"p50 {lat.p50_ms:.3f} p99 {lat.p99_ms:.3f} ms per batch of {batch}")
     return times
 
@@ -503,10 +753,18 @@ SOURCES = {
     "downsample_block_s2_int8": ("resnetc_tpu_torch/csrc/chain_block.cu",
                                  "resnetc_tpu/ops/pallas/block.py:3460"),
     "matmul": ("resnetc_tpu_torch/csrc/gemm.cu", "resnetc_tpu/ops/pallas/gemm.py:100"),
+    "bottleneck_block_chained_int8_pp": ("resnetc_tpu_torch/csrc/pp_block.cu",
+                                         "resnetc_tpu/ops/pallas/block.py:1113"),
+    "bottleneck_run_chained_int8_pp": ("resnetc_tpu_torch/csrc/pp_block.cu",
+                                       "resnetc_tpu/ops/pallas/block.py:1387"),
     "basic_block_chained_int8": ("resnetc_tpu_torch/csrc/basic_block.cu",
                                  "resnetc_tpu/ops/pallas/block.py:1646"),
     "basic_run_chained_int8": ("resnetc_tpu_torch/csrc/basic_block.cu",
                                "resnetc_tpu/ops/pallas/block.py:1830"),
+    "basic_block_chained_int8_pp": ("resnetc_tpu_torch/csrc/pp_block.cu",
+                                    "resnetc_tpu/ops/pallas/block.py:2002"),
+    "basic_run_chained_int8_pp": ("resnetc_tpu_torch/csrc/pp_block.cu",
+                                  "resnetc_tpu/ops/pallas/block.py:2175"),
     "basic_ds_block_s2_int8": ("resnetc_tpu_torch/csrc/basic_block.cu",
                                "resnetc_tpu/ops/pallas/block.py:2542"),
 }
@@ -514,10 +772,10 @@ SOURCES = {
 
 def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[list, list]:
     """Every case timed at the main paths' batch; per kernel, ms / plain ms /
-    bound weighted by its launches per forward over the shapes of the main
-    paths (cases off the path are timed and listed, not weighed), the
-    largest error of all its cases, and its launches summed over the
-    end-to-end runs."""
+    bound weighted by its launches per forward over the shapes of the routes
+    that run it (cases off every route are timed and listed, not weighed),
+    the largest error of all its cases, and its launches summed over every
+    route driven end to end."""
     import torch
 
     counts = main_path_counts()
@@ -590,25 +848,31 @@ def main() -> int:
 
     cases = {name: make(8, dev) for name, _, make in MODELS}
     errs = phase_kernels([c for cs in cases.values() for c in cs])
+    tuned = phase_tuned()
     summaries, engine_times, launches = {}, {}, {}
     for name, gate, _ in MODELS:
-        want = expected_launches(cases[name])
-        e2e = phase_end_to_end(name, gate, want, args.batch, dev)
+        e2e = phase_end_to_end(name, gate, cases[name], args.batch, dev)
         engine_times[name] = phase_engine_timing(name, e2e, args.batch)
-        for k, v in e2e["launches"].items():
-            launches[k] = launches.get(k, 0) + v
+        for route in e2e["launches"].values():
+            for k, v in route.items():
+                launches[k] = launches.get(k, 0) + v
         summaries[name] = {k: v for k, v in e2e.items() if k not in ("engine", "fp", "x")}
         del e2e
         torch.cuda.empty_cache()
+    summaries["reduced_routes"] = phase_reduced_routes(dev)
+    for route in summaries["reduced_routes"].values():
+        for k, v in route.items():
+            launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
     kernels, per_case = phase_kernel_timing(args.batch, dev, errs, launches)
     total_s = time.perf_counter() - t0
     log(f"[done] build and all phases in {total_s:.1f} s")
 
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "build_s": build_s, "total_s": total_s, "e2e": summaries,
-                       "engines": engine_times, "cases": per_case, "kernels": kernels,
-                       "max_abs_err": errs}, f, indent=1)
+            json.dump({"card": card, "build_s": build_s, "total_s": total_s, "tuned": tuned,
+                       "e2e": summaries, "engines": engine_times, "cases": per_case,
+                       "kernels": kernels, "max_abs_err": errs}, f, indent=1)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -87,12 +87,14 @@ def variables_from_jax_numpy(tree: Tree) -> Tree:
     """Carry a JAX-package tree, already converted to numpy leaves, into the
     port: same nesting and layouts (HWIO convs), torch tensors on the CPU.
 
-    Works for a parameter tree and for a ``chain_scales`` tree alike (its
-    scalar leaves become 0-d float32 tensors)."""
+    Works for a parameter tree, a quantized tree and a ``chain_scales`` tree
+    alike (its scalar leaves become 0-d float32 tensors).  Float leaves of
+    other widths, bfloat16 included (numpy has no such type of its own),
+    become float32."""
 
     def leaf(a):
         arr = np.asarray(a)
-        if arr.dtype.kind == "f" and arr.dtype != np.float32:
+        if arr.dtype != np.float32 and (arr.dtype.kind == "f" or arr.dtype.name == "bfloat16"):
             arr = arr.astype(np.float32)
         return torch.from_numpy(np.array(arr, copy=True))
 

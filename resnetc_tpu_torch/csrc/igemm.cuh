@@ -1,5 +1,6 @@
 // The int8 implicit GEMM shared by the chain-layout block kernels
-// (chain_block.cu: bottleneck family; basic_block.cu: basic family).
+// (chain_block.cu: bottleneck family; basic_block.cu: basic family;
+// pp_block.cu: both families' pixel-paired stage-0 kernels).
 //
 // Layout.  An activation is a "chain": flat rows (B*hp*wp, C) int8 of the
 // zero-ring padded image, pixel (r, q) at row (b*hp + r+1)*wp + q+1, with
@@ -64,6 +65,18 @@ struct Geo {
 // kk + (kk / (3*cin)) * wpad: wpad zero rows follow each kernel row's 3*cin
 // taps (the basic-ds conv1 packing).  WPAD is a template flag so that the
 // other launches carry no division in their weight loads.
+//
+// Pair geometry (the kernel's PAIR flag, pp_block.cu).  The chain is viewed
+// as M = B*hp*wp/2 pair rows of two W-adjacent pixels, each row `cin` int8
+// wide (two halves of cin/2 channels: the even pixel, then the odd one), and
+// every row of the GEMM is one pair row.  A 1x1 operand reads pair row m, a
+// 3x3 kernel row kh reads pair rows m + (kh-1)*wp/2 + (kwp-1) for kwp in
+// 0..2 (K = (kwp, half, k) = 3*cin), the flat pair index read as is (the
+// pair-packed weights place each pixel tap).  Interior-ness is per half: the
+// gather reads a half only if its pixel is inside the image and zeroes it
+// otherwise, and the epilogue writes zeros to the ring half of a boundary
+// pair.  Stride 1 only.  PAIR is a template flag so that the per-half test
+// stays out of the other kernels' hot loops.
 struct Operand {
   const int8_t* a;
   int cin;
@@ -134,19 +147,45 @@ __device__ __forceinline__ void store(const EpiArgs& ep, size_t o, float y) {
     static_cast<float*>(ep.out)[o] = y;
 }
 
-template <int NG, int EPI, bool WPAD>
+// Bit of a pair-geometry row tag: half pi of pair row m + dy*wp/2 + dx is
+// an interior pixel.  Bit 8 (dy = dx = 0) is the row's own half.
+__device__ __forceinline__ int pair_bit(int dy, int dx, int pi) {
+  return ((dy + 1) * 3 + dx + 1) * 2 + pi;
+}
+
+template <int NG, int EPI, bool WPAD, bool PAIR>
 __global__ void __launch_bounds__(THREADS)
 igemm_kernel(Operands ops, Geo og, int M, int N, EpiArgs ep) {
   __shared__ int As[BM][PITCH];
   __shared__ int Bs[BN][PITCH];
+  // Per tile row: image (or -1) and interior pixel; with PAIR, rowImg holds
+  // the row's interior bits (pair_bit) instead.
   __shared__ int rowImg[BM], rowR[BM], rowQ[BM];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int wpp = og.wp / 2;
 
   // Decode the tile's output rows once: image and interior pixel, or -1.
-  if (tid < BM) {
+  if (PAIR && tid < BM) {
+    const int m = m0 + tid;
+    int bits = 0;
+    if (m < M) {
+      const int per = og.hp * og.wp;
+      for (int dy = -1; dy <= 1; ++dy)
+        for (int dx = -1; dx <= 1; ++dx) {
+          const int f = m + dy * wpp + dx;
+          if (f < 0 || f >= M) continue;
+          for (int pi = 0; pi < 2; ++pi) {
+            const int rem = (2 * f + pi) % per;
+            const int py = rem / og.wp, px = rem - py * og.wp;
+            if (py >= 1 && py <= og.h && px >= 1 && px <= og.w) bits |= 1 << pair_bit(dy, dx, pi);
+          }
+        }
+    }
+    rowImg[tid] = bits;
+  } else if (tid < BM) {
     const int m = m0 + tid;
     int img = -1, r = 0, q = 0;
     if (m < M) {
@@ -186,7 +225,18 @@ igemm_kernel(Operands ops, Geo og, int M, int N, EpiArgs ep) {
         const int kk = k0 + 4 * wk;
         const int img = rowImg[row];
         int v = 0;
-        if (img >= 0 && kk < op.K) {
+        if (PAIR) {
+          if (kk < op.K) {
+            const int tap = kk / op.cin;
+            const int within = kk - tap * op.cin;
+            const int dy = op.taps == 1 ? 0 : op.kh - 1;
+            const int dx = op.taps == 1 ? 0 : tap - 1;
+            if ((img >> pair_bit(dy, dx, 2 * within >= op.cin)) & 1) {
+              const size_t f = (size_t)(m0 + row + dy * wpp + dx);
+              v = *reinterpret_cast<const int*>(op.a + f * op.cin + within);
+            }
+          }
+        } else if (img >= 0 && kk < op.K) {
           const int tap = kk / op.cin;
           const int ch = kk - tap * op.cin;
           int dy, dx;
@@ -252,11 +302,14 @@ igemm_kernel(Operands ops, Geo og, int M, int N, EpiArgs ep) {
     const int lr = ty + 16 * i;
     const int m = m0 + lr;
     if (m >= M) continue;
-    const bool inside = rowImg[lr] >= 0;
+    const int tag = rowImg[lr];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n >= N) continue;
+      // With PAIR the output's halves are the two pixels: columns [0, N/2)
+      // the even one, [N/2, N) the odd one.
+      const bool inside = PAIR ? ((tag >> pair_bit(0, 0, 2 * n >= N)) & 1) : tag >= 0;
       const size_t o = (size_t)m * N + n;
       if (EPI == EPI_RELU_Q) {
         float v = __fmaf_rn(static_cast<float>(acc[0][i][j]), ep.a[0][n], ep.c[n]);
@@ -285,13 +338,14 @@ igemm_kernel(Operands ops, Geo og, int M, int N, EpiArgs ep) {
   }
 }
 
-template <int NG, int EPI, bool WPAD = false>
+// M is the number of output rows: chain rows, or pair rows with PAIR.
+template <int NG, int EPI, bool WPAD = false, bool PAIR = false>
 int launch(const Operand* o, Geo og, int M, int N, const EpiArgs& ep,
            cudaStream_t stream) {
   Operands ops{};
   for (int g = 0; g < NG; ++g) ops.o[g] = o[g];
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  igemm_kernel<NG, EPI, WPAD><<<grid, THREADS, 0, stream>>>(ops, og, M, N, ep);
+  igemm_kernel<NG, EPI, WPAD, PAIR><<<grid, THREADS, 0, stream>>>(ops, og, M, N, ep);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,7 @@ Counterpart of ``resnetc_tpu/ops/pallas/block.py`` for the int8_chain
 serving path: the layout helpers (``chain_meta``, ``pad_for_chain``,
 ``unpad_from_chain``), weight quantization (``quantize_chain_block``,
 ``quantize_ds_block``, ``quantize_basic_block``,
-``quantize_basic_ds_block``) and six kernels, each with its plain PyTorch
+``quantize_basic_ds_block``) and ten kernels, each with its plain PyTorch
 version beside it.  The bottleneck family (CUDA in
 ``resnetc_tpu_torch/csrc/chain_block.cu``):
 
@@ -20,7 +20,13 @@ The basic family, ResNet-18/34 (CUDA in ``csrc/basic_block.cu``):
 - ``basic_ds_block_s2_int8``         (block.py:2542) — the stride-2
   transition.
 
-Both sources share the implicit GEMM of ``csrc/igemm.cuh`` (see its header
+The pixel-paired twins for stage 0 at c = 64 (CUDA in ``csrc/pp_block.cu``;
+see the section comment below): ``bottleneck_block_chained_int8_pp``
+(block.py:1113), ``bottleneck_run_chained_int8_pp`` (:1387),
+``basic_block_chained_int8_pp`` (:2002) and ``basic_run_chained_int8_pp``
+(:2175).
+
+All sources share the implicit GEMM of ``csrc/igemm.cuh`` (see its header
 for the design and what bounds it).  A wrapper runs the plain version when
 its input lies on the CPU, and launches the kernel for a CUDA tensor, or
 raises; there is no fallback.  Each wrapper first folds the scalar requant
@@ -34,7 +40,6 @@ scheduling arguments (``bt``, ``interpret``, ``manual_dma``, ``pipe_dma``,
 ``conv2_chunked``, ``pair_dma``, ``onedot``, ``pipe_out``) are accepted and
 ignored.
 """
-
 from __future__ import annotations
 
 import ctypes
@@ -73,6 +78,20 @@ _ARGTYPES = {
         # x; B h w hp wp cin c oh ow hp2 wp2; w1p a1 c1 w2p a2 c2 wd ad cd;
         # z1; out_kind out stream
         "basic_ds_block_s2_int8": [_P] + [_I] * 11 + [_P] * 9 + [_P] + [_I, _P, _P],
+    },
+    "pp_block": {
+        # x; B h w hp wp cin2 c2 c4p; w1 a1 c1 w2 a2 c2 w3 a3 c3; s_res wd ad cd;
+        # z1 z2; out_kind out stream
+        "pp_block_int8": [_P] + [_I] * 8 + [_P] * 9 + [_P] * 4 + [_P] * 2 + [_I, _P, _P],
+        # x; n_blocks B h w hp wp cin2 c2 c4p; w1s w10; a1s c1s w2s a2s c2s w3s
+        # a3s c3s s_res; wd ad cd; z1 z2 act0 act1; last_bf16 out stream
+        "pp_run_int8": [_P] + [_I] * 9 + [_P] * 2 + [_P] * 9 + [_P] * 3 + [_P] * 4
+        + [_I, _P, _P],
+        # x; B h w hp wp c2; w1 a1 c1 w2 a2 c2 s_res; z1; out_kind out stream
+        "pp_basic_block_int8": [_P] + [_I] * 6 + [_P] * 7 + [_P] + [_I, _P, _P],
+        # x; n_blocks B h w hp wp c2; w1s a1s c1s w2s a2s c2s s_res;
+        # z1 act0 act1; last_bf16 out stream
+        "pp_basic_run_int8": [_P] + [_I] * 7 + [_P] * 7 + [_P] * 3 + [_I, _P, _P],
     },
 }
 
@@ -897,3 +916,562 @@ def basic_ds_block_s2_int8(
     _build.check(rc, "basic_ds_block_s2_int8")
     _build.LAUNCHES["basic_ds_block_s2_int8"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# The pixel-paired stage-0 kernels (c = 64): csrc/pp_block.cu
+#
+# Two W-adjacent pixels per row: the chain (B*hp*wp, C) viewed as pair rows
+# (B*hp*wp/2, 2C), a free view since wp is even.  The pairing lives in the
+# weights, built from the standard quantized tensors on every call as in
+# the JAX wrappers: block-diagonal 1x1s and the pair-packed 3x3.  Each
+# public wrapper keeps its JAX contract (chain rows in and out) and hands
+# the pair-space operands to a pair-space entry (``*_pp_pairs``), which
+# launches the kernel for a CUDA tensor or runs its own plain version on the
+# CPU.  Interior-ness is per half of a pair row (the pad parity differs
+# inside boundary pairs): every source half whose pixel lies outside the
+# image reads as zero, and ring halves are written as zeros.
+# ---------------------------------------------------------------------------
+
+
+def _pp_block_diag(w: torch.Tensor) -> torch.Tensor:
+    """(..., k, n) -> (..., 2k, 2n) block-diagonal [[w, 0], [0, w]]
+    (block.py:1103)."""
+    z = torch.zeros_like(w)
+    return torch.cat([torch.cat([w, z], dim=-1), torch.cat([z, w], dim=-1)], dim=-2)
+
+
+_PACK_INDEX: dict = {}
+
+
+def _pp_pack_index(c: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """For each entry [(kwp, pi, k), (kh, pj, j)] of the (6c, 6c) pair-space
+    3x3, its flat index into the (3c, 3c) kh-batched [(kw, k), (kh, j)]
+    packing, kw = 2(kwp-1) + pi - pj + 1, and whether that kw exists (else
+    the entry is zero).  Cached per channel count and device."""
+    key = (c, str(device))
+    if key not in _PACK_INDEX:
+        kwp, pi, k, kh, pj, j = np.meshgrid(
+            *(np.arange(n) for n in (3, 2, c, 3, 2, c)), indexing="ij"
+        )
+        kw = 2 * (kwp - 1) + pi - pj + 1
+        valid = (kw >= 0) & (kw <= 2)
+        src = np.where(valid, (kw * c + k) * (3 * c) + kh * c + j, 0)
+        _PACK_INDEX[key] = (
+            torch.from_numpy(src.reshape(6 * c, 6 * c)).to(device),
+            torch.from_numpy(valid.reshape(6 * c, 6 * c)).to(device),
+        )
+    return _PACK_INDEX[key]
+
+
+def _pp_pack_conv2(w2pq: torch.Tensor, c: int) -> torch.Tensor:
+    """(..., 3c, 3c) kh-batched 3x3 -> the (..., 6c, 6c) pair-space packing
+    [(kwp, pi, k), (kh, pj, j)] of block.py:1083: entry = W2[kh, kw, k, j]
+    at kw = 2(kwp-1) + pi - pj + 1 where that is in 0..2, else 0.  The
+    entries are copies of the int8 values, so each column keeps its
+    per-(kh, j) scale.  One gather through a cached index map."""
+    src, valid = _pp_pack_index(c, w2pq.device)
+    flat = w2pq.reshape(*w2pq.shape[:-2], 9 * c * c)
+    return torch.where(valid, flat[..., src], torch.zeros((), dtype=w2pq.dtype, device=w2pq.device))
+
+
+def _pp_tile(f: dict) -> dict:
+    """Lane-tile a fold's per-channel vectors to pair width, as the JAX
+    wrappers' jnp.tile(v, 2) / (1, 2) do; the residual scale stays."""
+    return {k: v if v is None or k == "s_res" else torch.cat([v, v], dim=-1) for k, v in f.items()}
+
+
+def _pp_require(c: int, wp: int) -> None:
+    if c != 64:
+        raise ValueError(f"the pixel-paired kernels are for the c=64 stage only, got c={c}")
+    if wp % 2:
+        raise ValueError(f"pixel pairing needs an even padded width, got wp={wp}")
+
+
+def _pp_geometry(xpp: torch.Tensor, h: int, w_sp: int) -> tuple[int, int, int]:
+    hp, wp = chain_meta(0, h, w_sp)
+    rows2 = xpp.shape[0]
+    b = 2 * rows2 // (hp * wp)
+    if b * hp * wp != 2 * rows2:
+        raise ValueError(f"xpp {tuple(xpp.shape)} is not the pair view of a ({hp}x{wp}) chain")
+    return b, hp, wp
+
+
+def _pp_halves(b: int, hp: int, wp: int, h: int, w_sp: int, device) -> torch.Tensor:
+    """(B*hp*wp/2, 2) bool: whether each half of each pair row is an
+    interior pixel."""
+    r = torch.arange(hp, device=device)[:, None]
+    q = torch.arange(wp, device=device)[None, :]
+    inner = (r >= 1) & (r <= h) & (q >= 1) & (q <= w_sp)
+    return inner.reshape(1, hp * wp // 2, 2).expand(b, -1, -1).reshape(-1, 2)
+
+
+def _pp_mask(a: torch.Tensor, halves: torch.Tensor) -> torch.Tensor:
+    """Zero the halves of pair rows (rows, 2k) whose pixel is not interior."""
+    rows, k2 = a.shape
+    zero = torch.zeros((), dtype=a.dtype, device=a.device)
+    return torch.where(halves[:, :, None], a.reshape(rows, 2, k2 // 2), zero).reshape(rows, k2)
+
+
+def _pp_shift(a: torch.Tensor, s: int) -> torch.Tensor:
+    """Pair row f -> a[f + s], zero outside the buffer."""
+    out = torch.zeros_like(a)
+    n = a.shape[0]
+    if s >= 0:
+        out[: n - s] = a[s:]
+    else:
+        out[-s:] = a[: n + s]
+    return out
+
+
+def _pp_kh3(z: torch.Tensor, w2pp: torch.Tensor, a: torch.Tensor, wpp: int,
+            halves: torch.Tensor) -> torch.Tensor:
+    """The pair-space kh-batched 3x3 over pair rows z (rows, c2): kernel row
+    kh sums, over kwp, the masked pair rows f + (kh-1)*wpp + (kwp-1) times
+    w2pp's (kwp, half, k) rows and its kh column block; the three sums are
+    dequantized with a (3, c2) as XLA fuses them (``_kh3``)."""
+    c2 = w2pp.shape[1] // 3
+    zm = _pp_mask(z, halves)
+    p = []
+    for kh in range(3):
+        taps = torch.cat([_pp_shift(zm, (kh - 1) * wpp + kwp - 1) for kwp in range(3)], dim=-1)
+        p.append(_idot(taps, w2pp[:, kh * c2 : (kh + 1) * c2]).float())
+    return _fma(p[2], a[2], _fma(p[0], a[0], p[1] * a[1]))
+
+
+def _pp_out(y: torch.Tensor, emit_i8: bool, halves: torch.Tensor) -> torch.Tensor:
+    return _pp_mask(_requant(y) if emit_i8 else y.to(torch.bfloat16), halves)
+
+
+# --- Kernel 5: one pixel-paired bottleneck block ----------------------------
+
+
+def _pp_block_folded(xpp, halves, wpp, w1, w2pp, w3, wd, f, *, emit_i8):
+    """One pair-space bottleneck block on folded, lane-tiled vectors f."""
+    x = _pp_mask(xpp, halves)
+    z1 = _pp_mask(_requant(torch.relu(_fma(_idot(x, w1).float(), f["a1"], f["c1"]))), halves)
+    z2 = _pp_mask(_requant(torch.relu(_pp_kh3(z1, w2pp, f["a2"], wpp, halves) + f["c2"])), halves)
+    y = _fma(_idot(z2, w3).float(), f["a3"], f["c3"])
+    if wd is None:
+        y = _fma(xpp.float(), f["s_res"], y)
+    else:
+        y = y + _fma(_idot(x, wd).float(), f["ad"], f["cd"])
+    return _pp_out(torch.relu(y), emit_i8, halves)
+
+
+def bottleneck_block_pp_pairs_plain(
+    xpp, w1bd, a1, c1, w2pp, a2, c2, w3bd, a3, c3, s_res, *,
+    h, w_sp, emit_i8=True, wdbd=None, ad=None, cd=None,
+):
+    """Plain PyTorch version of ``bottleneck_block_pp_pairs``."""
+    b, hp, wp = _pp_geometry(xpp, h, w_sp)
+    halves = _pp_halves(b, hp, wp, h, w_sp, xpp.device)
+    f = {"a1": a1, "c1": c1, "a2": a2, "c2": c2, "a3": a3, "c3": c3, "s_res": s_res,
+         "ad": ad, "cd": cd}
+    return _pp_block_folded(xpp, halves, wp // 2, w1bd, w2pp, w3bd, wdbd, f, emit_i8=emit_i8)
+
+
+def bottleneck_block_pp_pairs(
+    xpp, w1bd, a1, c1, w2pp, a2, c2, w3bd, a3, c3, s_res, *,
+    h, w_sp, emit_i8=True, wdbd=None, ad=None, cd=None,
+):
+    """The pair-space entry of ``bottleneck_block_chained_int8_pp``: xpp
+    (B*hp*wp/2, cin2) int8 pair rows; w1bd (cin2, c2), w2pp (3c2, 3c2), w3bd
+    (c2, c4p) int8; a1, c1, c2 (c2,), a2 (3, c2), a3, c3 (c4p,) fp32; s_res
+    (1,); optional projection wdbd (cin2, c4p), ad, cd (c4p,).  Any int8
+    values: the kernel is a dense pair-space GEMM.  Returns (B*hp*wp/2, c4p)
+    pair rows, int8 or bf16, zero on ring halves."""
+    if not xpp.is_cuda:
+        return bottleneck_block_pp_pairs_plain(
+            xpp, w1bd, a1, c1, w2pp, a2, c2, w3bd, a3, c3, s_res,
+            h=h, w_sp=w_sp, emit_i8=emit_i8, wdbd=wdbd, ad=ad, cd=cd,
+        )
+    b, hp, wp = _pp_geometry(xpp, h, w_sp)
+    rows2, cin2 = xpp.shape
+    cw = w1bd.shape[1]
+    c4p = w3bd.shape[1]
+    dev = xpp.device
+    _check_i8(dev, xpp=xpp)
+    _build.require(w1bd, "w1bd", torch.int8, dev, (cin2, cw))
+    _build.require(w2pp, "w2pp", torch.int8, dev, (3 * cw, 3 * cw))
+    _build.require(w3bd, "w3bd", torch.int8, dev, (cw, c4p))
+    vecs = {"a1": a1, "c1": c1, "a2": a2, "c2": c2, "a3": a3, "c3": c3, "s_res": s_res}
+    shapes = {"a1": (cw,), "c1": (cw,), "a2": (3, cw), "c2": (cw,), "a3": (c4p,), "c3": (c4p,),
+              "s_res": (1,)}
+    if wdbd is None:
+        if cin2 != c4p:
+            raise ValueError(f"identity shortcut needs cin2 == c4p, got {cin2} vs {c4p}")
+    else:
+        _build.require(wdbd, "wdbd", torch.int8, dev, (cin2, c4p))
+        vecs.update(ad=ad, cd=cd)
+        shapes.update(ad=(c4p,), cd=(c4p,))
+    for name, v in vecs.items():
+        _build.require(v, name, torch.float32, dev, shapes[name])
+    if cin2 % 8 or cw % 8:
+        raise ValueError(f"pair widths must be multiples of 8, got cin2={cin2}, c2={cw}")
+    z1 = torch.empty((rows2, cw), dtype=torch.int8, device=dev)
+    z2 = torch.empty((rows2, cw), dtype=torch.int8, device=dev)
+    out = torch.empty((rows2, c4p), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
+    rc = _lib("pp_block").pp_block_int8(
+        xpp.data_ptr(), b, h, w_sp, hp, wp, cin2, cw, c4p,
+        w1bd.data_ptr(), a1.data_ptr(), c1.data_ptr(),
+        w2pp.data_ptr(), a2.data_ptr(), c2.data_ptr(),
+        w3bd.data_ptr(), a3.data_ptr(), c3.data_ptr(),
+        s_res.data_ptr(), _build.ptr(wdbd), _build.ptr(ad), _build.ptr(cd),
+        z1.data_ptr(), z2.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+    )
+    _build.check(rc, "bottleneck_block_chained_int8_pp")
+    _build.LAUNCHES["bottleneck_block_chained_int8_pp"] += 1
+    return out
+
+
+def _block_pp_operands(xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales,
+                       h, w_sp, emit_i8, wdq, swd, bd):
+    """The pair-space operands of kernel 5, folded and lane-tiled as
+    block.py:1166-1175 and :1203-1204 do."""
+    _, _, wp, cin, c, c4 = _block_geometry(xq, w1q, w3q, wdq, h, w_sp, emit_i8, False)
+    _pp_require(c, wp)
+    f = _pp_tile(_fold_block(scales, sw1, b1, sw2p, b2, sw3, b3, swd, bd, emit_i8))
+    args = (
+        xq.reshape(-1, 2 * cin), _pp_block_diag(w1q), f["a1"], f["c1"],
+        _pp_pack_conv2(w2pq, c), f["a2"], f["c2"], _pp_block_diag(w3q), f["a3"], f["c3"],
+        f["s_res"],
+    )
+    kw = dict(h=h, w_sp=w_sp, emit_i8=emit_i8, ad=f["ad"], cd=f["cd"],
+              wdbd=None if wdq is None else _pp_block_diag(wdq))
+    return args, kw, c4
+
+
+def bottleneck_block_chained_int8_pp_plain(
+    xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False, wdq=None, swd=None, bd=None,
+):
+    """Plain PyTorch version of ``bottleneck_block_chained_int8_pp``."""
+    args, kw, c4 = _block_pp_operands(xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3,
+                                      scales, h, w_sp, emit_i8, wdq, swd, bd)
+    return bottleneck_block_pp_pairs_plain(*args, **kw).reshape(-1, c4)
+
+
+def bottleneck_block_chained_int8_pp(
+    xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False, wdq=None, swd=None, bd=None,
+):
+    """Pixel-paired stride-1 bottleneck block for the c=64 stage: the same
+    contract as ``bottleneck_block_chained_int8`` (chain rows (B*Hp*Wp, cin)
+    in, (B*Hp*Wp, 4c) out, identity or projection shortcut, int8 or bf16
+    exit), computed in pair space.  Needs c == 64 and an even wp."""
+    args, kw, c4 = _block_pp_operands(xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3,
+                                      scales, h, w_sp, emit_i8, wdq, swd, bd)
+    return bottleneck_block_pp_pairs(*args, **kw).reshape(-1, c4)
+
+
+# --- Kernel 6: a pixel-paired run of bottleneck blocks ----------------------
+
+
+def bottleneck_run_pp_pairs_plain(
+    xpp, w1bd_s, a1s, c1s, w2pp_s, a2s, c2s, w3bd_s, a3s, c3s, s_res, *,
+    h, w_sp, emit_i8=True, w10bd=None, wdbd=None, ad=None, cd=None,
+):
+    """Plain PyTorch version of ``bottleneck_run_pp_pairs``."""
+    b, hp, wp = _pp_geometry(xpp, h, w_sp)
+    halves = _pp_halves(b, hp, wp, h, w_sp, xpp.device)
+    n_blocks = w2pp_s.shape[0]
+    has_proj = w10bd is not None
+    y = xpp
+    for n in range(n_blocks):
+        proj_n = has_proj and n == 0
+        w1 = w10bd if proj_n else w1bd_s[n - 1 if has_proj else n]
+        fn = {
+            "a1": a1s[n], "c1": c1s[n], "a2": a2s[3 * n : 3 * n + 3], "c2": c2s[n],
+            "a3": a3s[n], "c3": c3s[n], "s_res": s_res[n : n + 1],
+            "ad": ad if proj_n else None, "cd": cd if proj_n else None,
+        }
+        y = _pp_block_folded(y, halves, wp // 2, w1, w2pp_s[n], w3bd_s[n],
+                             wdbd if proj_n else None, fn,
+                             emit_i8=emit_i8 or n < n_blocks - 1)
+    return y
+
+
+def bottleneck_run_pp_pairs(
+    xpp, w1bd_s, a1s, c1s, w2pp_s, a2s, c2s, w3bd_s, a3s, c3s, s_res, *,
+    h, w_sp, emit_i8=True, w10bd=None, wdbd=None, ad=None, cd=None,
+):
+    """The pair-space entry of ``bottleneck_run_chained_int8_pp``: stacked
+    w1bd_s (N, c4p, c2) (N-1 with the projection form), w2pp_s (N, 3c2, 3c2),
+    w3bd_s (N, c2, c4p) int8; a1s, c1s, c2s (N, c2), a2s (3N, c2), a3s, c3s
+    (N, c4p), s_res (N,) fp32; the projection form adds w10bd (cin2, c2),
+    wdbd (cin2, c4p), ad, cd (c4p,).  Dense pair-space GEMMs, as kernel 5."""
+    if not xpp.is_cuda:
+        return bottleneck_run_pp_pairs_plain(
+            xpp, w1bd_s, a1s, c1s, w2pp_s, a2s, c2s, w3bd_s, a3s, c3s, s_res,
+            h=h, w_sp=w_sp, emit_i8=emit_i8, w10bd=w10bd, wdbd=wdbd, ad=ad, cd=cd,
+        )
+    b, hp, wp = _pp_geometry(xpp, h, w_sp)
+    rows2, cin2 = xpp.shape
+    n_blocks, cw, c4p = w3bd_s.shape
+    has_proj = w10bd is not None
+    dev = xpp.device
+    _check_i8(dev, xpp=xpp)
+    _build.require(w1bd_s, "w1bd_s", torch.int8, dev, (n_blocks - has_proj, c4p, cw))
+    _build.require(w2pp_s, "w2pp_s", torch.int8, dev, (n_blocks, 3 * cw, 3 * cw))
+    _build.require(w3bd_s, "w3bd_s", torch.int8, dev, (n_blocks, cw, c4p))
+    vecs = {"a1s": a1s, "c1s": c1s, "a2s": a2s, "c2s": c2s, "a3s": a3s, "c3s": c3s,
+            "s_res": s_res}
+    shapes = {"a1s": (n_blocks, cw), "c1s": (n_blocks, cw), "a2s": (3 * n_blocks, cw),
+              "c2s": (n_blocks, cw), "a3s": (n_blocks, c4p), "c3s": (n_blocks, c4p),
+              "s_res": (n_blocks,)}
+    if has_proj:
+        if n_blocks < 2:
+            raise ValueError("a lone projection block is bottleneck_block_pp_pairs' job")
+        _build.require(w10bd, "w10bd", torch.int8, dev, (cin2, cw))
+        _build.require(wdbd, "wdbd", torch.int8, dev, (cin2, c4p))
+        vecs.update(ad=ad, cd=cd)
+        shapes.update(ad=(c4p,), cd=(c4p,))
+    elif cin2 != c4p:
+        raise ValueError(f"identity runs need cin2 == c4p, got {cin2} vs {c4p}")
+    for name, v in vecs.items():
+        _build.require(v, name, torch.float32, dev, shapes[name])
+    if cin2 % 8 or cw % 8:
+        raise ValueError(f"pair widths must be multiples of 8, got cin2={cin2}, cw={cw}")
+    z1 = torch.empty((rows2, cw), dtype=torch.int8, device=dev)
+    z2 = torch.empty((rows2, cw), dtype=torch.int8, device=dev)
+    act = torch.empty((2, rows2, c4p), dtype=torch.int8, device=dev)
+    out = torch.empty((rows2, c4p), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
+    rc = _lib("pp_block").pp_run_int8(
+        xpp.data_ptr(), n_blocks, b, h, w_sp, hp, wp, cin2, cw, c4p,
+        w1bd_s.data_ptr(), _build.ptr(w10bd),
+        a1s.data_ptr(), c1s.data_ptr(), w2pp_s.data_ptr(), a2s.data_ptr(), c2s.data_ptr(),
+        w3bd_s.data_ptr(), a3s.data_ptr(), c3s.data_ptr(), s_res.data_ptr(),
+        _build.ptr(wdbd), _build.ptr(ad), _build.ptr(cd),
+        z1.data_ptr(), z2.data_ptr(), act[0].data_ptr(), act[1].data_ptr(),
+        0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+    )
+    _build.check(rc, "bottleneck_run_chained_int8_pp")
+    _build.LAUNCHES["bottleneck_run_chained_int8_pp"] += 1
+    return out
+
+
+def _run_pp_operands(xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s,
+                     scales_s, h, w_sp, emit_i8, w1q0, wdq, swd, bd):
+    """The pair-space operands of kernel 6, folded and lane-tiled as
+    block.py:1444-1461 and :1490-1491 do."""
+    _, _, _, wp, cin, c, c4 = _run_geometry(xq, w1q_s, w3q_s, w1q0, wdq, h, w_sp)
+    _pp_require(c, wp)
+    f = _pp_tile(_fold_run(scales_s, sw1_s, b1_s, sw2p_s, b2_s, sw3_s, b3_s, swd, bd, emit_i8))
+    args = (
+        xq.reshape(-1, 2 * cin), _pp_block_diag(w1q_s), f["a1"], f["c1"],
+        _pp_pack_conv2(w2pq_s, c), f["a2"], f["c2"], _pp_block_diag(w3q_s), f["a3"], f["c3"],
+        f["s_res"],
+    )
+    kw = dict(h=h, w_sp=w_sp, emit_i8=emit_i8)
+    if w1q0 is not None:
+        kw.update(w10bd=_pp_block_diag(w1q0), wdbd=_pp_block_diag(wdq), ad=f["ad"], cd=f["cd"])
+    return args, kw, c4
+
+
+def bottleneck_run_chained_int8_pp_plain(
+    xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False,
+    w1q0=None, wdq=None, swd=None, bd=None,
+):
+    """Plain PyTorch version of ``bottleneck_run_chained_int8_pp``."""
+    args, kw, c4 = _run_pp_operands(xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s,
+                                    sw3_s, b3_s, scales_s, h, w_sp, emit_i8, w1q0, wdq, swd, bd)
+    return bottleneck_run_pp_pairs_plain(*args, **kw).reshape(-1, c4)
+
+
+def bottleneck_run_chained_int8_pp(
+    xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False,
+    w1q0=None, wdq=None, swd=None, bd=None,
+):
+    """Pixel-paired run of N stride-1 bottleneck blocks for the c=64 stage:
+    the contract of ``bottleneck_run_chained_int8`` (stacked weights, the
+    projection form with w1q0/wdq/swd/bd), computed in pair space."""
+    args, kw, c4 = _run_pp_operands(xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s,
+                                    sw3_s, b3_s, scales_s, h, w_sp, emit_i8, w1q0, wdq, swd, bd)
+    return bottleneck_run_pp_pairs(*args, **kw).reshape(-1, c4)
+
+
+# --- Kernels 9 and 10: the pixel-paired basic block and run -----------------
+
+
+def _pp_basic_folded(xpp, halves, wpp, w1pp, w2pp, f, *, emit_i8):
+    """One pair-space BasicBlock: x enters conv1 masked (block.py:1960), the
+    residual reads it as it is."""
+    z1 = _pp_mask(
+        _requant(torch.relu(_pp_kh3(xpp, w1pp, f["a1"], wpp, halves) + f["c1"])), halves
+    )
+    y = _pp_kh3(z1, w2pp, f["a2"], wpp, halves) + f["c2"]
+    return _pp_out(torch.relu(_fma(xpp.float(), f["s_res"], y)), emit_i8, halves)
+
+
+def basic_block_pp_pairs_plain(
+    xpp, w1pp, a1, c1, w2pp, a2, c2, s_res, *, h, w_sp, emit_i8=True,
+):
+    """Plain PyTorch version of ``basic_block_pp_pairs``."""
+    b, hp, wp = _pp_geometry(xpp, h, w_sp)
+    halves = _pp_halves(b, hp, wp, h, w_sp, xpp.device)
+    f = {"a1": a1, "c1": c1, "a2": a2, "c2": c2, "s_res": s_res}
+    return _pp_basic_folded(xpp, halves, wp // 2, w1pp, w2pp, f, emit_i8=emit_i8)
+
+
+def _check_basic_pp(xpp, w1, w2, vecs, n_blocks):
+    dev = xpp.device
+    c2 = xpp.shape[1]
+    lead = () if n_blocks is None else (n_blocks,)
+    n = 1 if n_blocks is None else n_blocks
+    _check_i8(dev, xpp=xpp)
+    _build.require(w1, "w1pp", torch.int8, dev, (*lead, 3 * c2, 3 * c2))
+    _build.require(w2, "w2pp", torch.int8, dev, (*lead, 3 * c2, 3 * c2))
+    shapes = {"a1": (3 * n, c2), "c1": (*lead, c2), "a2": (3 * n, c2), "c2": (*lead, c2),
+              "s_res": (n,)}
+    for name, v in vecs.items():
+        _build.require(v, name, torch.float32, dev, shapes[name])
+    if c2 % 8:
+        raise ValueError(f"the pair width must be a multiple of 8, got c2={c2}")
+
+
+def basic_block_pp_pairs(
+    xpp, w1pp, a1, c1, w2pp, a2, c2, s_res, *, h, w_sp, emit_i8=True,
+):
+    """The pair-space entry of ``basic_block_chained_int8_pp``: xpp
+    (B*hp*wp/2, c2) int8 pair rows; w1pp, w2pp (3c2, 3c2) int8; a1, a2
+    (3, c2), c1, c2 (c2,), s_res (1,) fp32.  Dense pair-space GEMMs.
+    Returns (B*hp*wp/2, c2) pair rows, int8 or bf16, zero on ring halves."""
+    if not xpp.is_cuda:
+        return basic_block_pp_pairs_plain(
+            xpp, w1pp, a1, c1, w2pp, a2, c2, s_res, h=h, w_sp=w_sp, emit_i8=emit_i8,
+        )
+    b, hp, wp = _pp_geometry(xpp, h, w_sp)
+    _check_basic_pp(xpp, w1pp, w2pp, {"a1": a1, "c1": c1, "a2": a2, "c2": c2,
+                                      "s_res": s_res}, None)
+    rows2, cp = xpp.shape
+    dev = xpp.device
+    z1 = torch.empty((rows2, cp), dtype=torch.int8, device=dev)
+    out = torch.empty((rows2, cp), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
+    rc = _lib("pp_block").pp_basic_block_int8(
+        xpp.data_ptr(), b, h, w_sp, hp, wp, cp,
+        w1pp.data_ptr(), a1.data_ptr(), c1.data_ptr(),
+        w2pp.data_ptr(), a2.data_ptr(), c2.data_ptr(), s_res.data_ptr(),
+        z1.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+    )
+    _build.check(rc, "basic_block_chained_int8_pp")
+    _build.LAUNCHES["basic_block_chained_int8_pp"] += 1
+    return out
+
+
+def _basic_pp_operands(xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, h, w_sp, emit_i8):
+    """The pair-space operands of kernel 9, folded and lane-tiled as
+    block.py:2033-2041 do."""
+    c = sw1p.shape[-1] // 3
+    _, _, wp = _basic_geometry(xq, c, h, w_sp)
+    _pp_require(c, wp)
+    f = _pp_tile(_fold_basic(scales, sw1p, b1, sw2p, b2, emit_i8))
+    return (
+        xq.reshape(-1, 2 * c), _pp_pack_conv2(w1pq, c), f["a1"], f["c1"],
+        _pp_pack_conv2(w2pq, c), f["a2"], f["c2"], f["s_res"],
+    ), c
+
+
+def basic_block_chained_int8_pp_plain(
+    xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False,
+):
+    """Plain PyTorch version of ``basic_block_chained_int8_pp``."""
+    args, c = _basic_pp_operands(xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, h, w_sp, emit_i8)
+    return basic_block_pp_pairs_plain(*args, h=h, w_sp=w_sp, emit_i8=emit_i8).reshape(-1, c)
+
+
+def basic_block_chained_int8_pp(
+    xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False,
+):
+    """Pixel-paired stride-1 BasicBlock for the c=64 stage: the contract of
+    ``basic_block_chained_int8``, computed in pair space."""
+    args, c = _basic_pp_operands(xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, h, w_sp, emit_i8)
+    return basic_block_pp_pairs(*args, h=h, w_sp=w_sp, emit_i8=emit_i8).reshape(-1, c)
+
+
+def basic_run_pp_pairs_plain(
+    xpp, w1pp_s, a1s, c1s, w2pp_s, a2s, c2s, s_res, *, h, w_sp, emit_i8=True,
+):
+    """Plain PyTorch version of ``basic_run_pp_pairs``."""
+    b, hp, wp = _pp_geometry(xpp, h, w_sp)
+    halves = _pp_halves(b, hp, wp, h, w_sp, xpp.device)
+    n_blocks = w1pp_s.shape[0]
+    y = xpp
+    for n in range(n_blocks):
+        fn = {
+            "a1": a1s[3 * n : 3 * n + 3], "c1": c1s[n],
+            "a2": a2s[3 * n : 3 * n + 3], "c2": c2s[n], "s_res": s_res[n : n + 1],
+        }
+        y = _pp_basic_folded(y, halves, wp // 2, w1pp_s[n], w2pp_s[n], fn,
+                             emit_i8=emit_i8 or n < n_blocks - 1)
+    return y
+
+
+def basic_run_pp_pairs(
+    xpp, w1pp_s, a1s, c1s, w2pp_s, a2s, c2s, s_res, *, h, w_sp, emit_i8=True,
+):
+    """The pair-space entry of ``basic_run_chained_int8_pp``: stacked w1pp_s,
+    w2pp_s (N, 3c2, 3c2) int8; a1s, a2s (3N, c2), c1s, c2s (N, c2), s_res
+    (N,) fp32.  Dense pair-space GEMMs, as kernel 9."""
+    if not xpp.is_cuda:
+        return basic_run_pp_pairs_plain(
+            xpp, w1pp_s, a1s, c1s, w2pp_s, a2s, c2s, s_res, h=h, w_sp=w_sp, emit_i8=emit_i8,
+        )
+    b, hp, wp = _pp_geometry(xpp, h, w_sp)
+    n_blocks = w1pp_s.shape[0]
+    _check_basic_pp(xpp, w1pp_s, w2pp_s, {"a1": a1s, "c1": c1s, "a2": a2s, "c2": c2s,
+                                          "s_res": s_res}, n_blocks)
+    rows2, cp = xpp.shape
+    dev = xpp.device
+    z1 = torch.empty((rows2, cp), dtype=torch.int8, device=dev)
+    act = torch.empty((2, rows2, cp), dtype=torch.int8, device=dev)
+    out = torch.empty((rows2, cp), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
+    rc = _lib("pp_block").pp_basic_run_int8(
+        xpp.data_ptr(), n_blocks, b, h, w_sp, hp, wp, cp,
+        w1pp_s.data_ptr(), a1s.data_ptr(), c1s.data_ptr(),
+        w2pp_s.data_ptr(), a2s.data_ptr(), c2s.data_ptr(), s_res.data_ptr(),
+        z1.data_ptr(), act[0].data_ptr(), act[1].data_ptr(),
+        0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+    )
+    _build.check(rc, "basic_run_chained_int8_pp")
+    _build.LAUNCHES["basic_run_chained_int8_pp"] += 1
+    return out
+
+
+def _basic_run_pp_operands(xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s,
+                           h, w_sp, emit_i8):
+    """The pair-space operands of kernel 10, folded and lane-tiled as
+    block.py:2211-2230 do."""
+    c = b1_s.shape[-1]
+    _, _, wp = _basic_geometry(xq, c, h, w_sp)
+    _pp_require(c, wp)
+    f = _pp_tile(_fold_basic_run(scales_s, sw1p_s, b1_s, sw2p_s, b2_s, emit_i8))
+    return (
+        xq.reshape(-1, 2 * c), _pp_pack_conv2(w1pq_s, c), f["a1"], f["c1"],
+        _pp_pack_conv2(w2pq_s, c), f["a2"], f["c2"], f["s_res"],
+    ), c
+
+
+def basic_run_chained_int8_pp_plain(
+    xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False,
+):
+    """Plain PyTorch version of ``basic_run_chained_int8_pp``."""
+    args, c = _basic_run_pp_operands(xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s,
+                                     scales_s, h, w_sp, emit_i8)
+    return basic_run_pp_pairs_plain(*args, h=h, w_sp=w_sp, emit_i8=emit_i8).reshape(-1, c)
+
+
+def basic_run_chained_int8_pp(
+    xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s, *,
+    h, w_sp, emit_i8=True, bt=None, interpret=False,
+):
+    """Pixel-paired run of N stride-1 BasicBlocks for the c=64 stage: the
+    contract of ``basic_run_chained_int8``, computed in pair space."""
+    args, c = _basic_run_pp_operands(xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s,
+                                     scales_s, h, w_sp, emit_i8)
+    return basic_run_pp_pairs(*args, h=h, w_sp=w_sp, emit_i8=emit_i8).reshape(-1, c)

@@ -1,10 +1,13 @@
 """The int8_chain serving forward.
 
-Counterpart of ``resnetc_tpu/ops/pallas/fused.py``: ``calibrate_chain_scales``
-(fused.py:497), ``quantize_chain`` (:637), ``_chain_scale_lookups`` (:802),
+Counterpart of ``resnetc_tpu/ops/pallas/fused.py``: the tunable flags and
+their ``TUNED.json`` overlay (fused.py:32-211), ``calibrate_chain_scales``
+(:497), ``quantize_chain`` (:637), ``_chain_scale_lookups`` (:802),
 ``_basic_int8_chain_forward`` (:821) and ``fused_forward_int8_chain``
-(:1025), with the code-default flags plus ``BASIC_DS_INT8`` on (the JAX
-package's TUNED.json value).
+(:1025).  The flags are read at forward time, so the engine serves what the
+module holds: the code defaults with ``TUNED.json`` laid over them at import
+(``L1_PIXEL_PAIR`` and ``BASIC_DS_INT8`` on, the JAX package's serving
+configuration) unless ``RESNETC_NO_TUNED=1``.
 
 The bottleneck forward: the 7x7 stem is a stock convolution (XLA's in the
 JAX package); its output is quantized at the first block's input scale
@@ -14,22 +17,29 @@ block is an int8 kernel — the layer1 projection block and every identity
 block of stages 2-4 through ``bottleneck_block_chained_int8``, layer1
 blocks 1..n-1 through ``bottleneck_run_chained_int8``, the three stride-2
 transitions through ``downsample_block_s2_int8`` — and the network's last
-block pools in-kernel (``emit_mean``) for the fc GEMM (``matmul``).
+block pools in-kernel (``emit_mean``) for the fc GEMM (``matmul``).  Under
+``L1_PIXEL_PAIR`` stage 0 (c = 64) takes the pixel-paired twins instead
+(``bottleneck_block_chained_int8_pp``, ``bottleneck_run_chained_int8_pp``);
+under ``STAGE_FUSE_PROJ`` the whole of layer1 is one run kernel, projection
+block included, standard or paired.
 
 The basic forward (ResNet-18/34) shares the stem and the chain: the stage-0
-blocks run as one ``basic_run_chained_int8``, each stride-2 transition is
-one ``basic_ds_block_s2_int8`` and every other block one
+blocks run as one ``basic_run_chained_int8`` (``basic_run_chained_int8_pp``
+under ``L1_PIXEL_PAIR``), each stride-2 transition is one
+``basic_ds_block_s2_int8`` and every other block one
 ``basic_block_chained_int8``; the last block exits bf16 and the head pools
 outside the kernel, as in the JAX package.
 
 Not yet ported (each raises ``NotImplementedError``): ``HYBRID_XLA_STAGES``,
-``STAGE_FUSE_PROJ``, ``L1_PIXEL_PAIR``, ``BASIC_DS_INT8=False`` and
-per-channel interior calibration.
+``BASIC_DS_INT8=False`` and per-channel interior calibration.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import typing
+from pathlib import Path
 
 import torch
 
@@ -51,16 +61,98 @@ RUN_FUSE_STAGES: tuple = (0,)
 BASIC_RUN_FUSE_STAGES: tuple = (0,)
 
 #: Serve the basic family's stride-2 transitions through
-#: basic_ds_block_s2_int8.  True is the JAX package's serving value (its
-#: TUNED.json sets it; the code default there is False).  False needs
-#: conv3x3_s1_fused / conv3x3_s2_fused (kernel table rows 13-14), not
-#: ported yet, and raises.
+#: basic_ds_block_s2_int8.  The JAX package's code default is False, which
+#: routes them through conv3x3_s1_fused / conv3x3_s2_fused (kernel table
+#: rows 13-14), not ported yet: False raises here.  So the port's code
+#: default is True, the JAX package's serving value (its TUNED.json sets
+#: it), and the basic family is served under RESNETC_NO_TUNED=1 too.  It
+#: becomes the JAX default when rows 13-14 land.
 BASIC_DS_INT8: bool = True
 
-#: JAX-package flags not ported yet; a non-default value raises.
-HYBRID_XLA_STAGES: tuple = ()
-STAGE_FUSE_PROJ: bool = False
+#: Serve stage 0 (c = 64) through the pixel-paired kernels: two W-adjacent
+#: pixels per row, the pairing carried by block-diagonal / pair-packed
+#: weights (block.py's pp section).  Bit-identical to the standard route.
+#: Off by default; TUNED.json turns it on.
 L1_PIXEL_PAIR: bool = False
+
+#: When stage 0 run-fuses, pull the projection block 0 into the run too:
+#: all of layer1 as one run kernel (standard, or pixel-paired under
+#: L1_PIXEL_PAIR).  Bit-identical to the per-block route.
+STAGE_FUSE_PROJ: bool = False
+
+#: Not ported yet (kernel table rows 13-14 and the XLA bf16 prefix): a
+#: non-empty value raises.
+HYBRID_XLA_STAGES: tuple = ()
+
+#: The JAX package's other tunable flags, accepted with its code defaults
+#: and no effect here: TPU scheduling of the same computation (the
+#: transition's pair DMA and one-dot conv3, the pipelined chain DMA), or an
+#: exact re-layout (STEM_CIN_PAD zero-pads the stem's input channels, which
+#: tests/test_pallas.py pins exact).
+STEM_CIN_PAD: int = 0
+DS_PAIR_DMA: bool = False
+DS_PAIR_DMA_STAGES: tuple = ()
+DS_CONV3_ONEDOT: bool = False
+CHAIN_PIPE_DMA: bool = False
+
+#: The flags TUNED.json may set (fused.py:152).
+_TUNABLE_FLAGS = (
+    "STAGE_FUSE_PROJ",
+    "STEM_CIN_PAD",
+    "DS_PAIR_DMA",
+    "DS_PAIR_DMA_STAGES",
+    "DS_CONV3_ONEDOT",
+    "BASIC_DS_INT8",
+    "RUN_FUSE_STAGES",
+    "BASIC_RUN_FUSE_STAGES",
+    "CHAIN_PIPE_DMA",
+    "HYBRID_XLA_STAGES",
+    "L1_PIXEL_PAIR",
+)
+
+
+def _apply_tuned_defaults() -> dict:
+    """Lay TUNED.json's flags over the code defaults (fused.py:167).
+
+    Resolution order: RESNETC_NO_TUNED=1 applies nothing (the CPU test
+    suite sets it, so tests pin the code defaults and opt into flags
+    explicitly); else RESNETC_TUNED_JSON names the file; else
+    <repo>/TUNED.json.  Keys outside _TUNABLE_FLAGS are ignored; a value
+    applies only if its type is exactly the default's (a bool is not an
+    int), a list becoming a tuple of ints for a tuple flag.  A malformed or
+    missing file applies nothing.  Returns what was applied.
+    """
+    if os.environ.get("RESNETC_NO_TUNED") == "1":
+        return {}
+    path = os.environ.get("RESNETC_TUNED_JSON") or str(
+        Path(__file__).resolve().parents[3] / "TUNED.json"
+    )
+    try:
+        data = json.loads(Path(path).read_text())
+        flags = data.get("flags") if isinstance(data, dict) else None
+        if not isinstance(flags, dict):
+            return {}
+        applied = {}
+        for k, v in flags.items():
+            if k not in _TUNABLE_FLAGS:
+                continue
+            default = globals()[k]
+            if isinstance(default, tuple) and isinstance(v, list):
+                if not all(type(e) is int for e in v):
+                    continue
+                v = tuple(v)
+            if type(v) is not type(default):
+                continue
+            globals()[k] = v
+            applied[k] = v
+        return applied
+    except Exception:
+        # A bad TUNED.json must never break importing the serving path.
+        return {}
+
+
+#: What TUNED.json set at import (empty when absent or disabled).
+TUNED_DEFAULTS = _apply_tuned_defaults()
 
 
 class Kernels(typing.NamedTuple):
@@ -75,6 +167,10 @@ class Kernels(typing.NamedTuple):
     basic_block: typing.Callable
     basic_run: typing.Callable
     basic_ds: typing.Callable
+    block_pp: typing.Callable
+    run_pp: typing.Callable
+    basic_block_pp: typing.Callable
+    basic_run_pp: typing.Callable
 
 
 KERNELS = Kernels(
@@ -85,6 +181,10 @@ KERNELS = Kernels(
     block.basic_block_chained_int8,
     block.basic_run_chained_int8,
     block.basic_ds_block_s2_int8,
+    block.bottleneck_block_chained_int8_pp,
+    block.bottleneck_run_chained_int8_pp,
+    block.basic_block_chained_int8_pp,
+    block.basic_run_chained_int8_pp,
 )
 PLAIN = Kernels(
     block.bottleneck_block_chained_int8_plain,
@@ -94,6 +194,10 @@ PLAIN = Kernels(
     block.basic_block_chained_int8_plain,
     block.basic_run_chained_int8_plain,
     block.basic_ds_block_s2_int8_plain,
+    block.bottleneck_block_chained_int8_pp_plain,
+    block.bottleneck_run_chained_int8_pp_plain,
+    block.basic_block_chained_int8_pp_plain,
+    block.basic_run_chained_int8_pp_plain,
 )
 
 
@@ -334,74 +438,103 @@ def fused_forward_int8_chain(
     picks the implementations (``PLAIN`` for the on-card reference).
     """
     _require_ungrouped(cfg)
-    if L1_PIXEL_PAIR:
-        raise NotImplementedError("L1_PIXEL_PAIR (the _pp kernels) is not ported yet")
     if cfg.block != "bottleneck":
         return _basic_int8_chain_forward(
             cfg, qtree, chain_scales, x, policy=policy, stage_taps=stage_taps, kernels=kernels,
         )
     if HYBRID_XLA_STAGES:
         raise NotImplementedError("HYBRID_XLA_STAGES is not ported yet")
-    if STAGE_FUSE_PROJ:
-        raise NotImplementedError("STAGE_FUSE_PROJ is not ported yet")
 
     scale_row, s_after = _chain_scale_lookups(cfg, chain_scales)
     yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy)
+    keys = ("w1q", "sw1", "b1", "w2pq", "sw2p", "b2", "w3q", "sw3", "b3")
 
     head_folded = False
     for stage in range(4):
         blocks = qtree[f"layer{stage + 1}"]
         nb = cfg.stage_blocks[stage]
 
-        blk = blocks["0"]
-        last0 = s_after(stage, 0) is None
-        if stage > 0:
-            yr = kernels.ds(
-                yr,
-                blk["w1q"], blk["sw1"], blk["b1"],
-                blk["w2q"], blk["sw2"], blk["b2"],
-                blk["w3q"], blk["sw3"], blk["b3"],
-                blk["wdq"], blk["swd"], blk["bd"],
-                scale_row(stage, 0),
-                h=h, w_sp=w_sp, emit_i8=not last0,
-            )
-            h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
-        else:
-            yr = kernels.block(
-                yr,
-                blk["w1q"], blk["sw1"], blk["b1"],
-                blk["w2pq"], blk["sw2p"], blk["b2"],
-                blk["w3q"], blk["sw3"], blk["b3"],
-                scale_row(stage, 0),
-                h=h, w_sp=w_sp, emit_i8=not last0,
-                wdq=blk.get("wdq"), swd=blk.get("swd"), bd=blk.get("bd"),
-            )
+        # Whole-stage fusion (stage 0 only, fused.py:1125-1179): the
+        # projection block 0 joins the identity run, all of layer1 one
+        # kernel; the pixel-paired form under L1_PIXEL_PAIR at c = 64.
+        stage_fused = False
+        if stage == 0 and nb > 1 and stage in RUN_FUSE_STAGES and STAGE_FUSE_PROJ:
+            blk0 = blocks["0"]
+            if "wdq" in blk0:
+                _, wp = block.chain_meta(0, h, w_sp)
+                c = blocks["1"]["w1q"].shape[-1]
+                use_pp = L1_PIXEL_PAIR and c == 64 and wp % 2 == 0
+                run = [blocks[str(i)] for i in range(nb)]
+                yr = (kernels.run_pp if use_pp else kernels.run)(
+                    yr,
+                    _stack(run[1:], "w1q"), *(_stack(run, k) for k in keys[1:]),
+                    torch.stack([scale_row(stage, i) for i in range(nb)]),
+                    h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None,
+                    w1q0=blk0["w1q"], wdq=blk0["wdq"], swd=blk0["swd"], bd=blk0["bd"],
+                )
+                stage_fused = True
 
-        if nb > 1 and stage in RUN_FUSE_STAGES:
-            run = [blocks[str(i)] for i in range(1, nb)]
-            yr = kernels.run(
-                yr,
-                *(_stack(run, k) for k in ("w1q", "sw1", "b1", "w2pq", "sw2p", "b2",
-                                           "w3q", "sw3", "b3")),
-                torch.stack([scale_row(stage, i) for i in range(1, nb)]),
-                h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None,
-            )
-        else:
-            for i in range(1, nb):
-                blk = blocks[str(i)]
-                last_i = s_after(stage, i) is None
-                # Head fold on the tail block (not when taps are asked for):
-                # the kernel emits (B, 4c) pooled features directly.
-                fold_head = last_i and stage_taps is None
-                yr = kernels.block(
+        if not stage_fused:
+            blk = blocks["0"]
+            last0 = s_after(stage, 0) is None
+            if stage > 0:
+                yr = kernels.ds(
                     yr,
                     blk["w1q"], blk["sw1"], blk["b1"],
-                    blk["w2pq"], blk["sw2p"], blk["b2"],
+                    blk["w2q"], blk["sw2"], blk["b2"],
                     blk["w3q"], blk["sw3"], blk["b3"],
-                    scale_row(stage, i),
-                    h=h, w_sp=w_sp, emit_i8=not last_i, emit_mean=fold_head,
+                    blk["wdq"], blk["swd"], blk["bd"],
+                    scale_row(stage, 0),
+                    h=h, w_sp=w_sp, emit_i8=not last0,
                 )
-                head_folded = head_folded or fold_head
+                h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
+            else:
+                # Pixel-paired only at c = 64: wide variants run stage 0 at
+                # c >= 128 through the standard kernel.
+                pp0 = L1_PIXEL_PAIR and blk["w1q"].shape[-1] == 64
+                yr = (kernels.block_pp if pp0 else kernels.block)(
+                    yr,
+                    *(blk[k] for k in keys),
+                    scale_row(stage, 0),
+                    h=h, w_sp=w_sp, emit_i8=not last0,
+                    wdq=blk.get("wdq"), swd=blk.get("swd"), bd=blk.get("bd"),
+                )
+
+            # Blocks 1..nb-1: one run kernel, or per block.  Under
+            # L1_PIXEL_PAIR a stage 0 at c != 64 takes no run fusion
+            # (fused.py:1250).  The JAX package also falls back to per-block
+            # kernels when a run would not fit VMEM; the card has no such
+            # limit.
+            use_run = False
+            pp_stage = stage == 0 and L1_PIXEL_PAIR
+            if nb > 1 and stage in RUN_FUSE_STAGES:
+                if pp_stage:
+                    _, wp = block.chain_meta(0, h, w_sp)
+                    use_run = blocks["1"]["w1q"].shape[-1] == 64 and wp % 2 == 0
+                else:
+                    use_run = True
+            if use_run:
+                run = [blocks[str(i)] for i in range(1, nb)]
+                yr = (kernels.run_pp if pp_stage else kernels.run)(
+                    yr,
+                    *(_stack(run, k) for k in keys),
+                    torch.stack([scale_row(stage, i) for i in range(1, nb)]),
+                    h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None,
+                )
+            else:
+                for i in range(1, nb):
+                    blk = blocks[str(i)]
+                    last_i = s_after(stage, i) is None
+                    # Head fold on the tail block (not when taps are asked
+                    # for): the kernel emits (B, 4c) pooled features.
+                    fold_head = last_i and stage_taps is None
+                    args = (yr, *(blk[k] for k in keys), scale_row(stage, i))
+                    if pp_stage and not fold_head and blk["w1q"].shape[-1] == 64:
+                        yr = kernels.block_pp(*args, h=h, w_sp=w_sp, emit_i8=not last_i)
+                    else:
+                        yr = kernels.block(*args, h=h, w_sp=w_sp, emit_i8=not last_i,
+                                           emit_mean=fold_head)
+                        head_folded = head_folded or fold_head
 
         _tap(stage_taps, yr, bsz, h, w_sp, s_after(stage, nb - 1))
 
@@ -426,7 +559,8 @@ def _basic_int8_chain_forward(
     with BASIC_DS_INT8 on: every stride-2 transition one
     ``basic_ds_block_s2_int8``, the stride-1 blocks of a stage in
     BASIC_RUN_FUSE_STAGES one ``basic_run_chained_int8``, every other block
-    one ``basic_block_chained_int8``.  Same calibration contract as the
+    one ``basic_block_chained_int8`` (at stage 0 under L1_PIXEL_PAIR their
+    pixel-paired twins).  Same calibration contract as the
     bottleneck path; the last block exits bf16 and the head pools outside
     the kernel.  The JAX package falls back to per-block kernels or XLA
     when a TPU kernel would not fit VMEM; the card has no such limit, so
@@ -458,9 +592,15 @@ def _basic_int8_chain_forward(
             h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
             start = 1
 
+        # Pixel-paired stage 0 (fused.py:935-986): c = 64 and an even wp.
+        pp_stage = (
+            stage == 0 and L1_PIXEL_PAIR
+            and blocks[str(start)]["sw1p"].shape[-1] // 3 == 64
+            and block.chain_meta(0, h, w_sp)[1] % 2 == 0
+        )
         if nb - start > 1 and stage in BASIC_RUN_FUSE_STAGES:
             run = [blocks[str(i)] for i in range(start, nb)]
-            yr = kernels.basic_run(
+            yr = (kernels.basic_run_pp if pp_stage else kernels.basic_run)(
                 yr,
                 *(_stack(run, k) for k in ("w1pq", "sw1p", "b1", "w2pq", "sw2p", "b2")),
                 torch.stack([scale_row(stage, i) for i in range(start, nb)]),
@@ -469,7 +609,7 @@ def _basic_int8_chain_forward(
         else:
             for i in range(start, nb):
                 blk = blocks[str(i)]
-                yr = kernels.basic_block(
+                yr = (kernels.basic_block_pp if pp_stage else kernels.basic_block)(
                     yr,
                     blk["w1pq"], blk["sw1p"], blk["b1"],
                     blk["w2pq"], blk["sw2p"], blk["b2"],

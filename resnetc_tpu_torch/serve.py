@@ -4,7 +4,11 @@ Counterpart of ``resnetc_tpu/serve.py:34-363``.  Two backends:
 
 - ``"int8_chain"`` — calibrate static activation scales, quantize, and run
   ``fused_forward_int8_chain`` (every residual block an int8 CUDA kernel,
-  for the bottleneck family and the basic family, ResNet-18/34, alike);
+  for the bottleneck family and the basic family, ResNet-18/34, alike).
+  The route follows the flags of ``ops.cuda.fused`` at forward time, as in
+  the JAX engine: the code defaults with the repository's ``TUNED.json``
+  laid over them at import (stage 0 through the pixel-paired kernels),
+  unless ``RESNETC_NO_TUNED=1``;
 - ``"fp"`` — ``forward_folded`` on stock PyTorch ops (the JAX package's
   ``xla`` backend).
 

@@ -6,10 +6,17 @@ runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
+Without the suite's conftest ``RESNETC_NO_TUNED`` is unset there, so the
+TUNED.json overlay is live: the engine tests set ``L1_PIXEL_PAIR``
+explicitly.
+
 Inputs come from a seeded numpy generator.  Tolerances: int8 and bf16
 outputs EQUAL (exact integer dots, fp32 epilogues in the same order of
 operations and roundings); the fp32 per-image means and the
 fp32-accumulating GEMM sum in another order: rtol 1e-5 and 1e-5 / 1e-4.
+The pixel-paired kernels are also driven through their pair-space entries
+with dense random pair-space weights, so a kernel that skipped the zero
+blocks or ran the unpaired GEMM would disagree with its plain version.
 """
 
 from __future__ import annotations
@@ -239,11 +246,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda, gen):
 
 
 @pytest.mark.cuda
-def test_tiny_engine_on_the_card_matches_plain(cuda):
+def test_tiny_engine_on_the_card_matches_plain(cuda, monkeypatch):
     from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused
     from resnetc_tpu_torch.ops.cuda.fused import PLAIN, fused_forward_int8_chain
     from resnetc_tpu_torch.serve import InferenceEngine
 
+    monkeypatch.setattr(fused, "L1_PIXEL_PAIR", False)
     cfg = resnet.ResNetConfig("tiny", "bottleneck", (3, 2, 2, 2), num_classes=11, stem_width=16)
     variables = resnet.init(cfg, torch.Generator().manual_seed(0))
     x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
@@ -260,11 +269,13 @@ def test_tiny_engine_on_the_card_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-def test_tiny_basic_engine_on_the_card_matches_plain(cuda):
+def test_tiny_basic_engine_on_the_card_matches_plain(cuda, monkeypatch):
     from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused
     from resnetc_tpu_torch.ops.cuda.fused import PLAIN, fused_forward_int8_chain
     from resnetc_tpu_torch.serve import InferenceEngine
 
+    monkeypatch.setattr(fused, "L1_PIXEL_PAIR", False)
     cfg = resnet.ResNetConfig("tiny_basic", "basic", (3, 2, 2, 2), num_classes=11, stem_width=16)
     variables = resnet.init(cfg, torch.Generator().manual_seed(0))
     x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
@@ -277,3 +288,187 @@ def test_tiny_basic_engine_on_the_card_matches_plain(cuda):
     want = fused_forward_int8_chain(cfg, eng.folded, eng.chain_scales, x.to(cuda), kernels=PLAIN)
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# The pixel-paired stage-0 kernels (c = 64)
+# ---------------------------------------------------------------------------
+
+
+def _assert_equal(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert len(torch.unique(got.float())) > 20  # not a degenerate case
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [8, 7, 14])
+@pytest.mark.parametrize("proj", [False, True], ids=["identity", "proj"])
+def test_pp_block_kernel_equals_plain(cuda, gen, h, proj):
+    b, c = 2, 64
+    cin = 64 if proj else 256
+    q = _quantized(gen, cin, c, 256, cuda, proj=proj)
+    kw = dict(h=h, w_sp=h)
+    if proj:
+        kw.update(wdq=q["wdq"], swd=q["swd"], bd=q["bd"])
+    args = (_chain(gen, b, h, cin, cuda), *(q[k] for k in KEYS), torch.from_numpy(SCALES).to(cuda))
+    for emit_i8 in (True, False):
+        _build.reset_launches()
+        got = block.bottleneck_block_chained_int8_pp(*args, emit_i8=emit_i8, **kw)
+        assert dict(_build.LAUNCHES) == {"bottleneck_block_chained_int8_pp": 1}
+        _assert_equal(got, block.bottleneck_block_chained_int8_pp_plain(*args, emit_i8=emit_i8, **kw))
+        # ... and the standard kernel's output, bit for bit.
+        _assert_equal(got, block.bottleneck_block_chained_int8(*args, emit_i8=emit_i8, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks,proj", [(2, False), (3, False), (3, True)])
+def test_pp_run_kernel_equals_plain(cuda, gen, n_blocks, proj):
+    b, h, c, c4 = 2, 8, 64, 256
+    qs = [_quantized(gen, c4, c, c4, cuda) for _ in range(n_blocks)]
+    kw = dict(h=h, w_sp=h)
+    w1q_s = torch.stack([q["w1q"] for q in qs])
+    x = _chain(gen, b, h, c4, cuda)
+    if proj:
+        p = _quantized(gen, c, c, c4, cuda, proj=True)
+        kw.update(w1q0=p["w1q"], wdq=p["wdq"], swd=p["swd"], bd=p["bd"])
+        w1q_s = w1q_s[1:]
+        x = _chain(gen, b, h, c, cuda)
+    scales = torch.from_numpy(np.stack([SCALES] * n_blocks)).to(cuda)
+    args = (x, w1q_s, *(torch.stack([q[k] for q in qs]) for k in KEYS[1:]), scales)
+    for emit_i8 in (True, False):
+        _build.reset_launches()
+        got = block.bottleneck_run_chained_int8_pp(*args, emit_i8=emit_i8, **kw)
+        assert dict(_build.LAUNCHES) == {"bottleneck_run_chained_int8_pp": 1}
+        _assert_equal(got, block.bottleneck_run_chained_int8_pp_plain(*args, emit_i8=emit_i8, **kw))
+        _assert_equal(got, block.bottleneck_run_chained_int8(*args, emit_i8=emit_i8, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [8, 7, 14])
+def test_pp_basic_kernels_equal_plain(cuda, gen, h):
+    b, c, n_blocks = 2, 64, 3
+    qs = [_basic_quantized(gen, c, c, cuda) for _ in range(n_blocks)]
+    x = _chain(gen, b, h, c, cuda)
+    s1 = torch.from_numpy(BASIC_SCALES).to(cuda)
+    stacked = (*(torch.stack([q[k] for q in qs]) for k in BASIC_KEYS),
+               torch.from_numpy(np.stack([BASIC_SCALES] * n_blocks)).to(cuda))
+    for emit_i8 in (True, False):
+        kw = dict(h=h, w_sp=h, emit_i8=emit_i8)
+        args = (x, *(qs[0][k] for k in BASIC_KEYS), s1)
+        _build.reset_launches()
+        got = block.basic_block_chained_int8_pp(*args, **kw)
+        run = block.basic_run_chained_int8_pp(x, *stacked, **kw)
+        assert dict(_build.LAUNCHES) == {"basic_block_chained_int8_pp": 1,
+                                         "basic_run_chained_int8_pp": 1}
+        _assert_equal(got, block.basic_block_chained_int8_pp_plain(*args, **kw))
+        _assert_equal(got, block.basic_block_chained_int8(*args, **kw))
+        _assert_equal(run, block.basic_run_chained_int8_pp_plain(x, *stacked, **kw))
+        _assert_equal(run, block.basic_run_chained_int8(x, *stacked, **kw))
+
+
+def _dense_pair_cases(gen, dev, b, h):
+    """Each pair-space entry with dense random operands: int8 weights in
+    [-20, 20] over every block, multipliers sized to each dot's depth k (an
+    output spread of about ten int8 steps), biases, and a residual scale 0.5.
+    Returns {name: (entry, plain, args, kwargs)}."""
+    hp, wp = block.chain_meta(b, h, h)
+    rows2 = b * hp * wp // 2
+    c2, c4p, n = 128, 512, 2
+
+    def x(width):
+        return torch.from_numpy(gen.integers(-127, 128, size=(rows2, width), dtype=np.int8)).to(dev)
+
+    def wq(*shape):
+        return torch.from_numpy(gen.integers(-20, 21, size=shape, dtype=np.int8)).to(dev)
+
+    def mul(*shape, k):
+        v = gen.uniform(0.5, 1.5, size=shape) * 10.0 / (np.sqrt(k) * 40.0 * 12.0)
+        return torch.from_numpy(v.astype(np.float32)).to(dev)
+
+    def bias(*shape):
+        return torch.from_numpy((gen.standard_normal(shape) * 0.5).astype(np.float32)).to(dev)
+
+    def s_res(k):
+        return torch.full((k,), 0.5, dtype=torch.float32, device=dev)
+
+    def conv2(n_blocks):
+        """A pair-packed 3x3 stack and its (3N, c2) multipliers."""
+        return wq(n_blocks, 3 * c2, 3 * c2), mul(3 * n_blocks, c2, k=3 * c2)
+
+    kw = dict(h=h, w_sp=h)
+    w2, a2 = conv2(1)
+    w2s, a2s = conv2(n)
+    bw1, ba1 = conv2(1)
+    rw1, ra1 = conv2(n)
+    return {
+        "block": (block.bottleneck_block_pp_pairs, block.bottleneck_block_pp_pairs_plain,
+                  (x(c4p), wq(c4p, c2), mul(c2, k=c4p), bias(c2), w2[0], a2, bias(c2),
+                   wq(c2, c4p), mul(c4p, k=c2), bias(c4p), s_res(1)), kw),
+        "block-proj": (block.bottleneck_block_pp_pairs, block.bottleneck_block_pp_pairs_plain,
+                       (x(c2), wq(c2, c2), mul(c2, k=c2), bias(c2), w2[0], a2, bias(c2),
+                        wq(c2, c4p), mul(c4p, k=c2), bias(c4p), s_res(1)),
+                       dict(kw, wdbd=wq(c2, c4p), ad=mul(c4p, k=c2), cd=bias(c4p))),
+        "run-proj": (block.bottleneck_run_pp_pairs, block.bottleneck_run_pp_pairs_plain,
+                     (x(c2), wq(n - 1, c4p, c2), mul(n, c2, k=c4p), bias(n, c2), w2s, a2s,
+                      bias(n, c2), wq(n, c2, c4p), mul(n, c4p, k=c2), bias(n, c4p), s_res(n)),
+                     dict(kw, w10bd=wq(c2, c2), wdbd=wq(c2, c4p), ad=mul(c4p, k=c2),
+                          cd=bias(c4p))),
+        "basic": (block.basic_block_pp_pairs, block.basic_block_pp_pairs_plain,
+                  (x(c2), bw1[0], ba1, bias(c2), w2[0], a2, bias(c2), s_res(1)), kw),
+        "basic-run": (block.basic_run_pp_pairs, block.basic_run_pp_pairs_plain,
+                      (x(c2), rw1, ra1, bias(n, c2), w2s, a2s, bias(n, c2), s_res(n)), kw),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["block", "block-proj", "run-proj", "basic", "basic-run"])
+def test_pp_kernels_equal_plain_on_dense_pair_weights(cuda, gen, case):
+    """The pair-space entries with dense random weights (no zero blocks):
+    the kernels are dense pair-space GEMMs, so they must still equal their
+    plain versions."""
+    fn, plain, args, kw = _dense_pair_cases(gen, cuda, 2, 7)[case]
+    for emit_i8 in (True, False):
+        got = fn(*args, emit_i8=emit_i8, **kw)
+        _assert_equal(got, plain(*args, emit_i8=emit_i8, **kw))
+
+
+def _pp_route(cfg_name, stage_blocks, cuda, monkeypatch):
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused
+    from resnetc_tpu_torch.serve import InferenceEngine
+
+    cfg = resnet.get_config(cfg_name, num_classes=11)
+    cfg = cfg.__class__(**{**cfg.__dict__, "stage_blocks": stage_blocks})
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    eng = InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=x)
+    out = {}
+    for pp in (False, True):
+        monkeypatch.setattr(fused, "L1_PIXEL_PAIR", pp)
+        _build.reset_launches()
+        out[pp] = (eng.logits(x), dict(_build.LAUNCHES))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+def test_pp_route_logits_equal_standard_route(cuda, monkeypatch):
+    out = _pp_route("resnet50", (3, 2, 2, 2), cuda, monkeypatch)
+    assert out[False][1] == {"bottleneck_block_chained_int8": 4, "bottleneck_run_chained_int8": 1,
+                             "downsample_block_s2_int8": 3, "matmul": 1}, out[False][1]
+    assert out[True][1] == {"bottleneck_block_chained_int8_pp": 1,
+                            "bottleneck_run_chained_int8_pp": 1,
+                            "bottleneck_block_chained_int8": 3,
+                            "downsample_block_s2_int8": 3, "matmul": 1}, out[True][1]
+    assert torch.equal(out[True][0], out[False][0])
+
+
+@pytest.mark.cuda
+def test_pp_basic_route_logits_equal_standard_route(cuda, monkeypatch):
+    out = _pp_route("resnet34", (3, 2, 2, 2), cuda, monkeypatch)
+    assert out[False][1] == {"basic_run_chained_int8": 1, "basic_ds_block_s2_int8": 3,
+                             "basic_block_chained_int8": 3, "matmul": 1}, out[False][1]
+    assert out[True][1] == {"basic_run_chained_int8_pp": 1, "basic_ds_block_s2_int8": 3,
+                            "basic_block_chained_int8": 3, "matmul": 1}, out[True][1]
+    assert torch.equal(out[True][0], out[False][0])
