@@ -5,33 +5,48 @@
 
 Builds the CUDA kernels from ``resnetc_tpu_torch/csrc`` and then:
 
-1. holds every kernel of the int8_chain paths against its plain PyTorch
+1. holds every kernel of the serving paths against its plain PyTorch
    version on the card, at the shapes of ResNet-152 (the bottleneck
-   kernels) and ResNet-34 (the basic kernels), 224 px, batch 8: int8 and
-   bf16 outputs must be equal, fp32 per-image means and the
-   fp32-accumulating GEMM within rtol 1e-4.  The pixel-paired stage-0
-   kernels are also held against their standard twins (equal) and, through
-   their pair-space entries, checked on dense random pair-space weights;
+   kernels, every 1x1 conv and the fc for ``int8_matmul`` and ``matmul``)
+   and ResNet-34 (the basic kernels), both models' 3x3 shapes for the
+   fused convolutions and the stem pool, 224 px, batch 8: int8 and bf16
+   block outputs, ``int8_matmul`` and ``max_pool2d`` must be equal, the
+   fused convolutions (and the bf16 GEMM) within 1 bf16 ulp or, in fp32,
+   rtol 1e-4, fp32 per-image means and the fp32 GEMM within rtol 1e-4.  The
+   pixel-paired stage-0 kernels are also held against their standard twins
+   (equal) and, through their pair-space entries, checked on dense random
+   pair-space weights;
 2. prints the TUNED.json flags the port laid over its code defaults (they
    must turn on L1_PIXEL_PAIR and BASIC_DS_INT8), then serves ResNet-152
-   and ResNet-34 at full width and depth (random weights from seed 0)
-   through ``InferenceEngine(backend="int8_chain")`` at batch 32, on the
-   served route (pixel-paired stage 0) and on the standard route
-   (L1_PIXEL_PAIR off), the launch counters set to 0 just before each
-   forward and read just after: every kernel of that route must have
-   launched exactly as often as the model has blocks of its kind, and the
-   two routes' logits must be equal bit for bit.  The served logits must
-   stay within the JAX package's gate of the fp32 folded forward (rel-MAE
-   0.05 for the bottleneck route, 0.08 for the basic one, argmax agreement
-   0.9; the bf16 fp engine's agreement is reported too), and within 1e-2
-   (max error over max |logit|) of the same forward run through the plain
-   versions.  A ResNet-152 cut to (3, 2, 2, 2) blocks then runs with
-   STAGE_FUSE_PROJ (all of layer1 one run kernel), paired and standard,
-   equal bit for bit to the served route;
+   and ResNet-34 at full width and depth (random weights from seed 0) at
+   batch 32, the launch counters set to 0 just before each forward and read
+   just after, every kernel of the route launched exactly as often as the
+   model has convolutions or blocks of its kind:
+   - ``InferenceEngine(backend="int8_chain")`` on the served route
+     (pixel-paired stage 0) and on the standard route (L1_PIXEL_PAIR off),
+     the two routes' logits equal bit for bit, within the JAX package's
+     gate of the fp32 folded forward (rel-MAE 0.05 for the bottleneck route,
+     0.08 for the basic one, argmax agreement 0.9; the bf16 fp engine's
+     agreement is reported too); for ResNet-34 also the BASIC_DS_INT8=False
+     route (transitions through the conv kernels), within the same gate;
+   - ``InferenceEngine(backend="int8")`` and ``backend="pallas"``, each
+     under BF16 (served) and FP32, and on ResNet-152
+     ``fused_forward_int8_static`` under FP32, gated under FP32 as the JAX
+     package gates them: int8 rel-MAE 0.15 of the fp32 forward, int8_static
+     0.2, pallas max error 1e-3 of max |logit|;
+   every forward within 1e-2 (max error over max |logit|) of the same
+   forward run through the plain versions, the int8 ones within 5e-2 (see
+   INT8_PLAIN_LIMIT).  A ResNet-152 cut to (3, 2, 2, 2)
+   blocks then runs with STAGE_FUSE_PROJ (all of layer1 one run kernel),
+   paired and standard, equal bit for bit to the served route;
 3. times the engines (images/s, p50 / p99 ms per batch) for int8_chain on
-   both routes and fp, and each kernel per launch at the main paths'
-   shapes, beside the plain version, the bound (for a pixel-paired kernel,
-   the work of its standard twin) and, for the GEMM, torch.matmul.
+   both routes (and ResNet-34's BASIC_DS_INT8=False route), int8, pallas
+   and fp, and each kernel per launch at the main paths' shapes, beside the
+   plain version, the bound (for a pixel-paired kernel, the work of its
+   standard twin) and a library call that the port never makes:
+   torch.matmul for the GEMM, torch._int_mm for int8_matmul (int32 out, no
+   epilogue), F.conv2d (bf16, channels-last) for the fused convolutions,
+   F.max_pool2d for the pool.
 
 Prints the card (``nvidia-smi`` name and power limit), one JSON line of
 per-kernel results, and as its last line ``{"ok": true, "device": ...}``.
@@ -41,15 +56,18 @@ Exits non-zero, without that line, when CUDA is absent or a phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 #: Peak rates of one H100 SXM (dense): int8 tensor cores, bf16 tensor
-#: cores, HBM bandwidth.
+#: cores, fp32 outside the tensor cores, HBM bandwidth.
 PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 # ResNet-152 at 224 px: (h, c, c4) per stage after the stem and pool.
@@ -96,11 +114,14 @@ class Case:
     the least work it must do (ops at the peak rate, bytes at HBM rate)."""
 
     def __init__(self, name, kernel, fn, plain, args, kwargs, ops, nbytes, peak, check,
-                 twin=None):
+                 twin=None, per_forward=None):
         self.name, self.kernel = name, kernel
         self.fn, self.plain, self.args, self.kwargs = fn, plain, args, kwargs
         self.ops, self.nbytes, self.peak, self.check = ops, nbytes, peak, check
         self.twin = twin  # the standard kernel a pixel-paired one must equal
+        # Launches per forward on the route that runs it, where
+        # main_path_counts has no entry for the case.
+        self.per_forward = per_forward
 
     def run(self):
         return self.fn(*self.args, **self.kwargs)
@@ -115,6 +136,37 @@ class Case:
     @property
     def bound_by(self) -> str:
         return "operations" if self.ops / self.peak >= self.nbytes / PEAK_BYTES else "bytes"
+
+    def library(self):
+        """One PyTorch call computing the same function on these inputs (a
+        yardstick the port never calls), or None: torch.matmul for the GEMM
+        (no epilogue), torch._int_mm for int8_matmul (int32 out, no
+        epilogue; it takes M > 16 and K, N multiples of 8), F.conv2d with
+        the bias in bf16 / fp32 channels-last for the fused convolutions
+        (no residual), F.max_pool2d for the pool."""
+        import torch
+        import torch.nn.functional as F
+
+        a = self.args
+        if self.kernel == "matmul":
+            return lambda: torch.matmul(a[0], a[1])
+        if self.kernel == "int8_matmul":
+            m, k = a[0].shape
+            n = a[1].shape[1]
+            if m <= 16 or k % 8 or n % 8:
+                return None
+            return lambda: torch._int_mm(a[0], a[1])
+        if self.kernel in ("conv3x3_s1_fused", "conv_s2_fused"):
+            x = a[0].permute(0, 3, 1, 2)  # NHWC memory: channels-last NCHW
+            w = a[1].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            stride = 1 if self.kernel == "conv3x3_s1_fused" else 2
+            return lambda: F.conv2d(x, w, a[2].to(x.dtype), stride=stride,
+                                    padding=w.shape[-1] // 2)
+        if self.kernel == "max_pool2d":
+            x = a[0].permute(0, 3, 1, 2)
+            return lambda: F.max_pool2d(x, self.kwargs["kernel_size"], self.kwargs["stride"],
+                                        self.kwargs["padding"])
+        return None
 
 
 def _block_weights(gen, cin, c, c4, dev, *, proj=False, ds=False):
@@ -462,6 +514,118 @@ def make_basic_cases(b: int, dev) -> list:
     return cases
 
 
+# ResNet-152's 1x1 convolutions at 224 px on the int8 and pallas paths,
+# per stage: (label, output h, K, N, residual, relu, launches per forward).
+# Block 0's conv1 runs at the stage's input size (the stride is on conv2).
+def _one_by_one_shapes() -> list:
+    blocks = (3, 8, 36, 3)
+    out = []
+    for s, (h, c, c4) in enumerate(STAGES):
+        cin = 64 if s == 0 else STAGES[s - 1][2]
+        out += [
+            (f"s{s}/b0/conv1", h if s == 0 else 2 * h, cin, c, False, True, 1),
+            (f"s{s}/b0/downsample", h, cin, c4, False, False, 1),
+            (f"s{s}/b0/conv3", h, c, c4, True, True, 1),
+            (f"s{s}/id/conv1", h, c4, c, False, True, blocks[s] - 1),
+            (f"s{s}/id/conv3", h, c, c4, True, True, blocks[s] - 1),
+        ]
+    return out
+
+
+def make_backend_cases(b: int, dev) -> list:
+    """The kernels of the int8 and pallas backends at the main paths'
+    shapes: every 1x1 conv and the fc of ResNet-152 through int8_matmul
+    (and, for the pallas backend, through matmul in bf16), every 3x3 of
+    ResNet-152 and ResNet-34 through the fused convolutions (bf16, plus an
+    fp32 form of two shapes, off the served path), and the stem pool."""
+    import torch
+
+    from resnetc_tpu_torch.ops.cuda import conv, gemm, pool, quant
+
+    gen = torch.Generator().manual_seed(5678)
+    cases = []
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    for label, h, k, n, res, relu, count in _one_by_one_shapes():
+        m = b * h * h
+        xq = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).to(dev)
+        wq = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8).to(dev)
+        sw = (torch.rand(n, generator=gen) * 2e-4 + 1e-5).to(dev)
+        bias = randn(n, scale=0.1, dtype=torch.float32)
+        r = randn(m, n) if res else None
+        cases.append(Case(
+            f"int8/{label}", "int8_matmul", quant.int8_matmul, quant.int8_matmul_plain,
+            (xq, wq, torch.tensor(0.02, device=dev), sw, bias, r),
+            dict(relu=relu, out_dtype=torch.bfloat16), 2 * m * k * n,
+            m * k + k * n + 8 * n + m * n * (4 if res else 2), PEAK_INT8_OPS, "bf16",
+            per_forward=count,
+        ))
+        cases.append(Case(
+            f"pallas/{label}", "matmul", gemm.matmul, gemm.matmul_plain,
+            (randn(m, k), randn(k, n, scale=k**-0.5), bias, r), dict(relu=relu),
+            2 * m * k * n, 2 * (m * k + k * n) + 4 * n + m * n * (4 if res else 2),
+            PEAK_BF16_FLOPS, "bf16ulp", per_forward=count,
+        ))
+    m, k, n = b, 2048, 1000
+    cases.append(Case(
+        "int8/fc", "int8_matmul", quant.int8_matmul, quant.int8_matmul_plain,
+        (torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).to(dev),
+         torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8).to(dev),
+         torch.tensor(0.02, device=dev), (torch.rand(n, generator=gen) * 2e-4).to(dev),
+         randn(n, scale=0.1, dtype=torch.float32)),
+        dict(out_dtype=torch.float32), 2 * m * k * n, m * k + k * n + 8 * n + 4 * m * n,
+        PEAK_INT8_OPS, "f32eq", per_forward=1,
+    ))
+
+    def conv_case(label, kernel, h, cin, cout, k, stride, count, *, res=False,
+                  dtype=torch.bfloat16):
+        oh = (h + 2 * (k // 2) - k) // stride + 1
+        x = randn(b, h, h, cin, dtype=dtype)
+        w = randn(k, k, cin, cout, scale=(k * k * cin) ** -0.5, dtype=dtype)
+        bias = randn(cout, scale=0.1, dtype=torch.float32)
+        args = (x, w, bias) + ((randn(b, oh, oh, cout, dtype=dtype),) if res else ())
+        fn, plain = ((conv.conv3x3_s1_fused, conv.conv3x3_s1_fused_plain) if stride == 1
+                     else (conv.conv_s2_fused, conv.conv_s2_fused_plain))
+        size = 2 if dtype == torch.bfloat16 else 4
+        nbytes = size * (b * h * h * cin + k * k * cin * cout
+                         + b * oh * oh * cout * (2 if res else 1))
+        cases.append(Case(
+            label, kernel, fn, plain, args, dict(relu=True),
+            2 * b * oh * oh * k * k * cin * cout, nbytes + 4 * cout,
+            PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS,
+            "bf16ulp" if dtype == torch.bfloat16 else "f32", per_forward=count,
+        ))
+
+    blocks = (3, 8, 36, 3)
+    for s, (h, c, _) in enumerate(STAGES):
+        conv_case(f"conv3x3/r152/s{s}", "conv3x3_s1_fused", h, c, c, 3, 1,
+                  blocks[s] - (s > 0))
+    basic = (3, 4, 6, 3)
+    for s, (h, c) in enumerate(BASIC_STAGES):
+        conv_case(f"conv3x3/r34/s{s}/conv1", "conv3x3_s1_fused", h, c, c, 3, 1,
+                  basic[s] - (s > 0))
+        conv_case(f"conv3x3/r34/s{s}/conv2", "conv3x3_s1_fused", h, c, c, 3, 1, basic[s],
+                  res=True)
+    for s in (1, 2, 3):
+        h, c, _ = STAGES[s]
+        conv_case(f"conv_s2/r152/s{s}", "conv_s2_fused", 2 * h, c, c, 3, 2, 1)
+        h, c = BASIC_STAGES[s]
+        conv_case(f"conv_s2/r34/s{s}", "conv_s2_fused", 2 * h, c // 2, c, 3, 2, 1)
+    conv_case("conv3x3/fp32/s1", "conv3x3_s1_fused", 28, 128, 128, 3, 1, 0, res=True,
+              dtype=torch.float32)
+    conv_case("conv_s2/fp32/s1", "conv_s2_fused", 56, 128, 128, 3, 2, 0, dtype=torch.float32)
+
+    x = randn(b, 112, 112, 64)
+    cases.append(Case(
+        "max_pool/stem", "max_pool2d", pool.max_pool2d, pool.max_pool2d_plain, (x,),
+        dict(kernel_size=3, stride=2, padding=1), 0, 2 * b * 64 * (112 * 112 + 56 * 56),
+        PEAK_BF16_FLOPS, "bf16", per_forward=1,
+    ))
+    return cases
+
+
 def check_case(case) -> float:
     """Kernel vs plain on the same inputs (and a pixel-paired kernel vs its
     standard twin); returns the max abs error against the plain version."""
@@ -472,12 +636,26 @@ def check_case(case) -> float:
     twin = case.twin(*case.args, **case.kwargs) if case.twin else None
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
-    if case.check in ("int8", "bf16"):
-        if got.dtype != want.dtype or not torch.equal(got, want):
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{case.name}: {got.dtype} {tuple(got.shape)} vs plain "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if case.check in ("int8", "bf16", "f32eq"):
+        if not torch.equal(got, want):
             raise AssertionError(f"{case.name}: {case.check} output differs from plain (max {err})")
         distinct = int(torch.unique(got).numel())
         if distinct < 20:
             raise AssertionError(f"{case.name}: degenerate output ({distinct} values)")
+    elif case.check == "bf16ulp":
+        # The same fp32 sums in another order, rounded to bf16: within one
+        # bf16 step of the larger magnitude, or of zero where relu cuts a
+        # sum that is zero to fp32 rounding.
+        g, w = got.float(), want.float()
+        diff = (g - w).abs()
+        _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+        ulp = torch.ldexp(torch.ones_like(g), e - 8)
+        bad = int(((diff > ulp) & (diff > 1e-5 * w.abs().max())).sum())
+        if bad:
+            raise AssertionError(f"{case.name}: {bad} elements beyond 1 bf16 ulp (max {err})")
     else:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
                                    msg=lambda m: f"{case.name}: {m}")
@@ -496,7 +674,9 @@ def phase_kernels(cases: list) -> dict:
     for case in cases:
         errs[case.name] = check_case(case)
         twin = " and to its standard twin" if case.twin else ""
-        log(f"[kernels] {case.name}: equal to plain{twin}, max_abs_err={errs[case.name]}")
+        how = {"bf16ulp": "within 1 bf16 ulp of", "f32": "within rtol 1e-4 of"}.get(
+            case.check, "equal to")
+        log(f"[kernels] {case.name}: {how} plain{twin}, max_abs_err={errs[case.name]}")
     return errs
 
 
@@ -559,25 +739,40 @@ def expected_launches(cases: list, pp: bool) -> dict:
 MODELS = (("resnet152", 0.05, make_cases), ("resnet34", 0.08, make_basic_cases))
 
 
-def forward_counted(eng, x, **flags):
-    """One int8_chain forward with the given module flags of ``fused`` (the
-    route), the launch counters set to 0 just before it and read just
-    after; the flags restored."""
-    import torch
-
-    from resnetc_tpu_torch.ops.cuda import _build, fused
+@contextlib.contextmanager
+def module_flags(**flags):
+    """Set module flags of ``fused`` (the route) for the duration."""
+    from resnetc_tpu_torch.ops.cuda import fused
 
     saved = {k: getattr(fused, k) for k in flags}
     for k, v in flags.items():
         setattr(fused, k, v)
     try:
-        _build.reset_launches()
-        logits = eng.logits(x)
-        torch.cuda.synchronize()
-        return logits, dict(_build.LAUNCHES)
+        yield
     finally:
         for k, v in saved.items():
             setattr(fused, k, v)
+
+
+def counted(fn, **flags):
+    """``fn()`` under the given flags, the launch counters set to 0 just
+    before it and read just after: (result, launches)."""
+    import torch
+
+    from resnetc_tpu_torch.ops.cuda import _build
+
+    with module_flags(**flags):
+        _build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(_build.LAUNCHES)
+
+
+def forward_counted(eng, x, **flags):
+    """One engine forward with the given module flags of ``fused`` (the
+    route), the launch counters set to 0 just before it and read just
+    after; the flags restored."""
+    return counted(lambda: eng.logits(x), **flags)
 
 
 def phase_tuned() -> dict:
@@ -662,12 +857,164 @@ def phase_end_to_end(name: str, rel_mae_gate: float, cases: list, batch: int, de
     if plain_rel > 1e-2:
         raise AssertionError(f"{tag} the kernels' forward disagrees with the plain versions")
     return {
-        "engine": eng, "fp": fp, "x": x, "launches": launches,
+        "engine": eng, "fp": fp, "x": x, "ref32": ref32, "launches": launches,
         "rel_mae_vs_fp_bf16": rel_mae, "argmax_vs_fp_bf16": rep.argmax_match_rate,
         "rel_mae_vs_fp32": rel_mae32, "argmax_vs_fp32": rep32.argmax_match_rate,
         "plain_rel_max_err": plain_rel, "argmax_vs_plain": prep.argmax_match_rate,
         "routes_bit_equal": True,
     }
+
+
+def backend_launches(cfg, backend: str) -> dict:
+    """Launches of each kernel in one forward of the int8 backend (and of
+    fused_forward_int8_static) or the pallas backend: one per convolution
+    of its kind, the stem's pool, and the fc."""
+    nb = sum(cfg.stage_blocks)
+    if cfg.block == "bottleneck":
+        n3, n1 = nb, 2 * nb + 4  # conv2 of each block; conv1, conv3, the projections
+    else:
+        n3, n1 = 2 * nb, 3
+    gemm = "matmul" if backend == "pallas" else "int8_matmul"
+    return {"max_pool2d": 1, "conv_s2_fused": 3, "conv3x3_s1_fused": n3 - 3, gemm: n1 + 1}
+
+
+def _against(tag: str, label: str, logits, ref32, plain, *, limit: float = 1e-2) -> dict:
+    """A forward's logits against the fp32 folded forward and against the
+    same forward on the plain versions; logged and returned.  Fails when
+    the max error over max |logit| from the plain forward exceeds
+    ``limit``."""
+    import torch
+
+    from resnetc_tpu_torch.verify import compare_logits
+
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag} {label}: non-finite logits")
+    logits, plain = logits.float(), plain.float()
+    out = {
+        "rel_mae_vs_fp32": float((logits - ref32).abs().mean() / ref32.abs().mean()),
+        "rel_max_vs_fp32": float((logits - ref32).abs().max() / ref32.abs().max()),
+        "argmax_vs_fp32": compare_logits(logits, ref32).argmax_match_rate,
+        "plain_rel_max_err": float((logits - plain).abs().max() / plain.abs().max()),
+        "plain_rel_mae": float((logits - plain).abs().mean() / plain.abs().mean()),
+        "argmax_vs_plain": compare_logits(logits, plain).argmax_match_rate,
+    }
+    log(f"{tag} {label}: {json.dumps(out)}")
+    if out["plain_rel_max_err"] > limit:
+        raise AssertionError(f"{tag} {label}: the kernels' forward disagrees with the plain "
+                             f"versions ({out['plain_rel_max_err']} > {limit})")
+    return out
+
+
+#: Kernels vs plain versions, whole forward, for the int8 backend (dynamic
+#: and static scales).  Its fused convolutions sum in another order than
+#: their plain versions, and the per-tensor requantization before each of
+#: ResNet-152's 105 GEMMs turns a last-bit difference that straddles an
+#: int8 rounding boundary into a whole int8 step: on an H100 with the
+#: seed-0 weights, 1.5-1.7e-2 of max |logit| under both policies, about
+#: what the same forward differs from the fp32 forward (rel-MAE 0.016),
+#: where every other forward stays within 1e-2.  A kernel fault moves
+#: logits by O(1).
+INT8_PLAIN_LIMIT = 5e-2
+
+
+def phase_backends(name: str, e2e: dict, batch: int, dev) -> dict:
+    """The int8 and pallas engines of one model at full width and depth,
+    each forward counted and checked; fused_forward_int8_static on the
+    bottleneck model.
+
+    Each runs under the served BF16 policy and under FP32.  The gates
+    against the fp32 forward are the JAX package's own, which it runs under
+    FP32 (tests/test_quant.py:86-127, tests/test_pallas.py:95-106): int8
+    rel-MAE 0.15, int8_static 0.2, pallas max error 1e-3 of max |logit|.
+    Each forward stays within 1e-2 of max |logit| of the same forward on
+    the plain versions, the int8 ones within INT8_PLAIN_LIMIT."""
+    import torch
+
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused
+    from resnetc_tpu_torch.serve import InferenceEngine
+    from resnetc_tpu_torch.tensor import BF16, FP32
+
+    tag = f"[backends {name}]"
+    cfg = resnet.get_config(name)
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    x, ref32 = e2e["x"], e2e["ref32"]
+    policies = {"": BF16, "/fp32": FP32}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the pallas backend's deprecation notice
+        engines = {b + p: InferenceEngine(cfg, variables, backend=b, policy=pol, device=dev)
+                   for b in ("int8", "pallas") for p, pol in policies.items()}
+    forwards = {"int8": fused.fused_forward_int8, "pallas": fused.fused_forward}
+    out = {"engines": engines, "launches": {}, "gates": {}}
+
+    def check_launches(label, launches, want):
+        log(f"{tag} launches in one {label} forward: {json.dumps(launches)}")
+        if launches != want:
+            raise AssertionError(f"{tag} {label} launched {launches}, expected {want}")
+        out["launches"][label] = launches
+
+    for label, eng in engines.items():
+        backend = label.split("/")[0]
+        logits, launches = forward_counted(eng, x)
+        check_launches(label, launches, backend_launches(cfg, backend))
+        if tuple(logits.shape) != (batch, 1000):
+            raise AssertionError(f"{tag} {label}: logits of shape {tuple(logits.shape)}")
+        with torch.inference_mode():
+            plain = forwards[backend](cfg, eng.folded, x, policy=eng.policy, kernels=fused.PLAIN)
+        out["gates"][label] = rep = _against(
+            tag, label, logits, ref32, plain,
+            limit=INT8_PLAIN_LIMIT if backend == "int8" else 1e-2)
+        if label == "int8/fp32" and not rep["rel_mae_vs_fp32"] < 0.15:
+            raise AssertionError(f"{tag} int8 logits outside the rel-MAE 0.15 gate")
+        if label == "pallas/fp32" and not rep["rel_max_vs_fp32"] < 1e-3:
+            raise AssertionError(f"{tag} FP32 pallas logits beyond 1e-3 of the fp32 forward")
+
+    if cfg.block == "bottleneck":
+        # Calibrated on the served batch, as the JAX package's own gate
+        # (tests/test_quant.py:104-127) does.
+        with torch.inference_mode():
+            scales = fused.calibrate_activation_scales(cfg, e2e["fp"].folded, x, policy=FP32)
+            qtree = engines["int8/fp32"].folded
+            logits, launches = counted(lambda: fused.fused_forward_int8_static(
+                cfg, qtree, scales, x, policy=FP32))
+            plain = fused.fused_forward_int8_static(cfg, qtree, scales, x, policy=FP32,
+                                                    kernels=fused.PLAIN)
+        check_launches("int8_static/fp32", launches, backend_launches(cfg, "int8"))
+        out["gates"]["int8_static/fp32"] = rep = _against(
+            tag, "int8_static/fp32", logits, ref32, plain, limit=INT8_PLAIN_LIMIT)
+        if not rep["rel_mae_vs_fp32"] < 0.2:
+            raise AssertionError(f"{tag} int8_static logits outside the rel-MAE 0.2 gate")
+    return out
+
+
+def phase_basic_ds_off(e2e: dict, dev) -> dict:
+    """ResNet-34's int8_chain forward on the BASIC_DS_INT8=False route (the
+    JAX code default), standard stage 0: the transitions through the conv
+    kernels between the int8 chains, counted and gated."""
+    import torch
+
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused
+
+    tag = "[e2e resnet34]"
+    cfg = resnet.get_config("resnet34")
+    eng, x = e2e["engine"], e2e["x"]
+    flags = dict(BASIC_DS_INT8=False, L1_PIXEL_PAIR=False)
+    logits, launches = forward_counted(eng, x, **flags)
+    want = {"basic_run_chained_int8": 1, "basic_block_chained_int8": sum(cfg.stage_blocks[1:]) - 3,
+            "conv3x3_s1_fused": 3, "conv_s2_fused": 3, "matmul": 4}
+    log(f"{tag} launches in one int8_chain forward, BASIC_DS_INT8=False route: "
+        f"{json.dumps(launches)}")
+    if launches != want:
+        raise AssertionError(
+            f"{tag} BASIC_DS_INT8=False route launched {launches}, expected {want}")
+    with module_flags(**flags), torch.inference_mode():
+        plain = fused.fused_forward_int8_chain(cfg, eng.folded, eng.chain_scales, x,
+                                               kernels=fused.PLAIN)
+    rep = _against(tag, "int8_chain BASIC_DS_INT8=False", logits, e2e["ref32"], plain)
+    if not (rep["rel_mae_vs_fp32"] < 0.08 and rep["argmax_vs_fp32"] >= 0.9):
+        raise AssertionError(f"{tag} BASIC_DS_INT8=False logits outside the fp gate")
+    return {"launches": launches, **rep}
 
 
 def phase_reduced_routes(dev) -> dict:
@@ -719,22 +1066,16 @@ def phase_reduced_routes(dev) -> dict:
     return out
 
 
-def phase_engine_timing(name: str, e2e: dict, batch: int) -> dict:
-    from resnetc_tpu_torch.ops.cuda import fused
+def phase_engine_timing(name: str, runs: list, x, batch: int) -> dict:
+    """Throughput and per-batch latency of each (label, engine, flags) on
+    the images ``x``."""
     from resnetc_tpu_torch.serve import bench_latency, bench_throughput
 
     times = {}
-    for key, label, pp in (("engine", "int8_chain", True),
-                           ("engine", "int8_chain_standard", False), ("fp", "fp", None)):
-        eng = e2e[key]
-        saved = fused.L1_PIXEL_PAIR
-        if pp is not None:
-            fused.L1_PIXEL_PAIR = pp
-        try:
-            thr = bench_throughput(eng, e2e["x"], steps=10, warmup=3)
-            lat = bench_latency(eng, e2e["x"], samples=10, warmup=2)
-        finally:
-            fused.L1_PIXEL_PAIR = saved
+    for label, eng, flags in runs:
+        with module_flags(**flags):
+            thr = bench_throughput(eng, x, steps=10, warmup=3)
+            lat = bench_latency(eng, x, samples=10, warmup=2)
         times[label] = {
             "images_per_s": thr.images_per_sec, "p50_ms_per_batch": lat.p50_ms,
             "p99_ms_per_batch": lat.p99_ms, "batch": batch,
@@ -767,6 +1108,10 @@ SOURCES = {
                                   "resnetc_tpu/ops/pallas/block.py:2175"),
     "basic_ds_block_s2_int8": ("resnetc_tpu_torch/csrc/basic_block.cu",
                                "resnetc_tpu/ops/pallas/block.py:2542"),
+    "int8_matmul": ("resnetc_tpu_torch/csrc/int8_gemm.cu", "resnetc_tpu/ops/pallas/quant.py:78"),
+    "conv3x3_s1_fused": ("resnetc_tpu_torch/csrc/conv.cu", "resnetc_tpu/ops/pallas/conv.py:150"),
+    "conv_s2_fused": ("resnetc_tpu_torch/csrc/conv.cu", "resnetc_tpu/ops/pallas/conv.py:287"),
+    "max_pool2d": ("resnetc_tpu_torch/csrc/pool.cu", "resnetc_tpu/ops/pallas/pool.py:65"),
 }
 
 
@@ -780,16 +1125,21 @@ def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[li
 
     counts = main_path_counts()
     per_case = []
-    for case in [c for _, _, make in MODELS for c in make(batch, dev)]:
+    makers = [make for _, _, make in MODELS] + [make_backend_cases]
+    for case in [c for make in makers for c in make(batch, dev)]:
         ms = time_ms(case.run, iters=10)
         plain_ms = time_ms(case.run_plain, iters=2, warmup=1)
         lib_ms = None
-        if case.kernel == "matmul":
-            xx, ww = case.args[0], case.args[1]
-            lib_ms = time_ms(lambda: torch.matmul(xx, ww), iters=50)
+        lib = case.library()
+        if lib is not None:
+            try:
+                lib_ms = time_ms(lib, iters=20)
+            except RuntimeError as e:  # a library call that refuses the shape
+                log(f"[timing] {case.name}: library call refused: {e}")
+        per_forward = case.per_forward if case.per_forward is not None else counts.get(case.name, 0)
         row = {
             "case": case.name, "kernel": case.kernel, "batch": batch,
-            "per_forward": counts.get(case.name, 0), "ms": ms, "plain_ms": plain_ms,
+            "per_forward": per_forward, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": case.bound_ms, "bound_by": case.bound_by, "library_ms": lib_ms,
             "ops": case.ops, "bytes": case.nbytes,
         }
@@ -847,22 +1197,37 @@ def main() -> int:
     log(f"[build] kernels built in {build_s:.1f} s")
 
     cases = {name: make(8, dev) for name, _, make in MODELS}
-    errs = phase_kernels([c for cs in cases.values() for c in cs])
+    errs = phase_kernels([c for cs in cases.values() for c in cs] + make_backend_cases(8, dev))
     tuned = phase_tuned()
     summaries, engine_times, launches = {}, {}, {}
+
+    def add(route_launches):
+        for k, v in route_launches.items():
+            launches[k] = launches.get(k, 0) + v
+
     for name, gate, _ in MODELS:
         e2e = phase_end_to_end(name, gate, cases[name], args.batch, dev)
-        engine_times[name] = phase_engine_timing(name, e2e, args.batch)
-        for route in e2e["launches"].values():
-            for k, v in route.items():
-                launches[k] = launches.get(k, 0) + v
-        summaries[name] = {k: v for k, v in e2e.items() if k not in ("engine", "fp", "x")}
-        del e2e
+        back = phase_backends(name, e2e, args.batch, dev)
+        runs = [("int8_chain", e2e["engine"], {"L1_PIXEL_PAIR": True}),
+                ("int8_chain_standard", e2e["engine"], {"L1_PIXEL_PAIR": False})]
+        summary = {k: v for k, v in e2e.items() if k not in ("engine", "fp", "x", "ref32")}
+        if name == "resnet34":
+            summary["basic_ds_int8_off"] = off = phase_basic_ds_off(e2e, dev)
+            add(off["launches"])
+            runs.append(("int8_chain_basic_ds_int8_off", e2e["engine"],
+                         {"BASIC_DS_INT8": False, "L1_PIXEL_PAIR": False}))
+        runs += [(label, back["engines"][label], {}) for label in ("int8", "pallas")]
+        runs.append(("fp", e2e["fp"], {}))
+        engine_times[name] = phase_engine_timing(name, runs, e2e["x"], args.batch)
+        for route in list(e2e["launches"].values()) + list(back["launches"].values()):
+            add(route)
+        summary["backends"] = {"launches": back["launches"], "gates": back["gates"]}
+        summaries[name] = summary
+        del e2e, back, runs
         torch.cuda.empty_cache()
     summaries["reduced_routes"] = phase_reduced_routes(dev)
     for route in summaries["reduced_routes"].values():
-        for k, v in route.items():
-            launches[k] = launches.get(k, 0) + v
+        add(route)
     torch.cuda.empty_cache()
     kernels, per_case = phase_kernel_timing(args.batch, dev, errs, launches)
     total_s = time.perf_counter() - t0

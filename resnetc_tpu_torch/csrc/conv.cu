@@ -1,0 +1,193 @@
+// Fused convolutions of the `pallas` and `int8` serving backends:
+//
+//     out = relu?(conv(x, w) + bias + residual)
+//
+// x NHWC (B, H, W, Cin), w HWIO (k, k, Cin, Cout), both bf16 or both fp32;
+// bias (Cout,) fp32, optional; residual (B, OH, OW, Cout) bf16 or fp32,
+// optional; out bf16 or fp32.  Zero padding k/2, stride S (a template
+// parameter): OH = (H + 2*(k/2) - k) / S + 1.
+//
+// Replaces two TPU kernels:
+//   resnetc_tpu/ops/pallas/conv.py:150 `conv3x3_s1_fused` (pallas_call :232),
+//     k = 3, S = 1: every stride-1 3x3 of the two backends, with the
+//     residual for the basic family's second conv;
+//   resnetc_tpu/ops/pallas/conv.py:287 `conv_s2_fused` (pallas_call :379;
+//     `conv3x3_s2_fused` :402 is an alias), odd k, S = 2, no residual: the
+//     three stride-2 3x3s of each network.
+//
+// Design.  One implicit GEMM per launch: M = B*OH*OW output pixels, N =
+// Cout, K = k*k*Cin ordered (u, v, ci) as the HWIO weight rows are.  A block
+// computes a 64-pixel x 64-channel tile with 256 threads (4 x 4 outputs a
+// thread), staging K sixteen values at a time through shared memory as
+// fp32: the A tile is gathered straight from x, tap (u, v) of output pixel
+// (r, c) reading x[r*S + u - k/2, c*S + v - k/2] with a bounds check that
+// stands for the zero padding, so no padded copy of x is ever written.  The
+// TPU kernel's padded row layout, batch tiles and (for stride 2) phase
+// planes exist because Mosaic wants static contiguous slices; none of that
+// carries over.  Products and sums are fp32 FMAs on the CUDA cores (a
+// product of two bf16 values is exact in fp32), in a different order than
+// XLA's per-tap dots: outputs agree with the plain version to fp32 rounding.
+//
+// What bounds it.  A ResNet 3x3 at batch 32 does 2*9*Cin*Cout flops per
+// pixel (7.4 GFLOP for each bottleneck 3x3 of ResNet-152) against a few tens
+// of MB: far above the ridge, so the bound is the bf16 tensor-core rate
+// (~7.5 us).  This first version runs at the CUDA cores' fp32 FMA rate,
+// roughly fifteen times below that; tensor cores (mma.sync / wgmma on bf16
+// tiles), TMA and a pipelined ring of stages are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int BM = 64;  // output pixels per block
+constexpr int BN = 64;  // output channels per block
+constexpr int BK = 16;  // K values per stage
+constexpr int THREADS = 256;
+
+enum DataKind { KIND_NONE = 0, KIND_BF16 = 1, KIND_F32 = 2 };
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T, int S>
+__global__ void __launch_bounds__(THREADS)
+conv_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
+            const void* __restrict__ res, void* __restrict__ out, int res_kind, int out_bf16,
+            int B, int H, int W, int Cin, int OH, int OW, int Cout, int k, int relu) {
+  __shared__ float As[BK][BM + 4];  // As[kk][m]
+  __shared__ float Bs[BK][BN + 4];  // Bs[kk][n]
+  __shared__ int rowB[BM], rowY[BM], rowX[BM];  // image and top-left input pixel
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int M = B * OH * OW;
+  const int K = k * k * Cin;
+  const int pad = k / 2;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  if (tid < BM) {
+    const int m = m0 + tid;
+    int b = -1, y = 0, xx = 0;
+    if (m < M) {
+      b = m / (OH * OW);
+      const int rem = m - b * OH * OW;
+      const int r = rem / OW;
+      y = r * S - pad;
+      xx = (rem - r * OW) * S - pad;
+    }
+    rowB[tid] = b;
+    rowY[tid] = y;
+    rowX[tid] = xx;
+  }
+  __syncthreads();
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    // A tile, gathered: neighbouring threads on neighbouring channels.
+#pragma unroll
+    for (int t = 0; t < (BM * BK) / THREADS; ++t) {
+      const int e = tid + t * THREADS;
+      const int m = e / BK, kk = e % BK;
+      const int gk = k0 + kk;
+      const int b = rowB[m];
+      float v = 0.f;
+      if (b >= 0 && gk < K) {
+        const int tap = gk / Cin;
+        const int ci = gk - tap * Cin;
+        const int u = tap / k;
+        const int iy = rowY[m] + u;
+        const int ix = rowX[m] + tap - u * k;
+        if (iy >= 0 && iy < H && ix >= 0 && ix < W)
+          v = to_f32(x[(((size_t)b * H + iy) * W + ix) * Cin + ci]);
+      }
+      As[kk][m] = v;
+    }
+    // B tile: rows of the HWIO weight, coalesced over the output channels.
+#pragma unroll
+    for (int t = 0; t < (BK * BN) / THREADS; ++t) {
+      const int e = tid + t * THREADS;
+      const int kk = e / BN, n = e % BN;
+      const int gk = k0 + kk, gn = n0 + n;
+      Bs[kk][n] = (gk < K && gn < Cout) ? to_f32(w[(size_t)gk * Cout + gn]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  // Epilogue in the Pallas kernel's order: + bias, + residual, relu, cast.
+  // Rows past M and channels past Cout are masked, never written.
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + ty + 16 * i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gn = n0 + tx + 16 * j;
+      if (gn >= Cout) continue;
+      const size_t o = (size_t)gm * Cout + gn;
+      float v = acc[i][j];
+      if (bias) v = __fadd_rn(v, bias[gn]);
+      if (res_kind == KIND_BF16)
+        v = __fadd_rn(v, __bfloat162float(static_cast<const __nv_bfloat16*>(res)[o]));
+      else if (res_kind == KIND_F32)
+        v = __fadd_rn(v, static_cast<const float*>(res)[o]);
+      if (relu) v = fmaxf(v, 0.f);
+      if (out_bf16)
+        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
+      else
+        static_cast<float*>(out)[o] = v;
+    }
+  }
+}
+
+template <typename T, int S>
+int launch(const void* x, const void* w, const float* bias, const void* res, void* out,
+           int res_kind, int out_bf16, int B, int H, int W, int Cin, int OH, int OW,
+           int Cout, int k, int relu, cudaStream_t stream) {
+  const int M = B * OH * OW;
+  const dim3 grid((Cout + BN - 1) / BN, (M + BM - 1) / BM);
+  conv_kernel<T, S><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), bias, res, out, res_kind, out_bf16,
+      B, H, W, Cin, OH, OW, Cout, k, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// in_kind: KIND_BF16 or KIND_F32 (x and w); stride 1 or 2.
+extern "C" int conv_fused(const void* x, const void* w, const float* bias, const void* res,
+                          void* out, int in_kind, int res_kind, int out_bf16, int B, int H,
+                          int W, int Cin, int OH, int OW, int Cout, int k, int stride,
+                          int relu, cudaStream_t stream) {
+  if (stride != 1 && stride != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (in_kind == KIND_BF16)
+    return stride == 1
+               ? launch<__nv_bfloat16, 1>(x, w, bias, res, out, res_kind, out_bf16, B, H, W,
+                                          Cin, OH, OW, Cout, k, relu, stream)
+               : launch<__nv_bfloat16, 2>(x, w, bias, res, out, res_kind, out_bf16, B, H, W,
+                                          Cin, OH, OW, Cout, k, relu, stream);
+  return stride == 1 ? launch<float, 1>(x, w, bias, res, out, res_kind, out_bf16, B, H, W, Cin,
+                                        OH, OW, Cout, k, relu, stream)
+                     : launch<float, 2>(x, w, bias, res, out, res_kind, out_bf16, B, H, W, Cin,
+                                        OH, OW, Cout, k, relu, stream);
+}

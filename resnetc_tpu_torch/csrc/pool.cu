@@ -1,0 +1,121 @@
+// Max pool, NHWC: out[b, r, c, ch] = max over the k x k window at
+// (r*s - p, c*s - p) of x[b, ., ., ch]; taps outside the image never win
+// (the -inf / integer-min padding of the TPU kernel).  bf16, fp32 or int8.
+//
+// Replaces resnetc_tpu/ops/pallas/pool.py:65 `max_pool2d` (pallas_call at
+// :126).  On the `int8` and `pallas` paths it is the pool after the stem:
+// (B, 112, 112, 64) bf16 -> (B, 56, 56, 64), k 3, s 2, p 1.
+//
+// What bounds it.  Nine compares per output against one read of the input
+// and one write of the output: bytes-bound (~64 MB at batch 32, ~19 us at
+// 3.35 TB/s).  Design: one thread per output pixel and 16-byte group of
+// channels (8 bf16, 4 fp32 or 16 int8 values) when the channel row allows
+// 16-byte access, else one channel per thread; neighbouring threads take
+// neighbouring channel groups, so every load and store is coalesced, and
+// the window's overlapping reads come from L1/L2.  The TPU kernel's phase
+// planes (strided access Mosaic lacks) and the padded copy are not carried
+// over.  A max is exact, so the output equals the plain version bit for
+// bit.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int THREADS = 256;
+
+enum Kind { KIND_BF16 = 1, KIND_F32 = 2, KIND_I8 = 3 };
+
+__device__ __forceinline__ float key(float v) { return v; }
+__device__ __forceinline__ float key(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ int key(int8_t v) { return v; }
+
+template <typename T>
+__device__ __forceinline__ T lowest();
+template <>
+__device__ __forceinline__ float lowest<float>() { return -__int_as_float(0x7f800000); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 lowest<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(static_cast<unsigned short>(0xFF80u));  // -inf
+}
+template <>
+__device__ __forceinline__ int8_t lowest<int8_t>() { return INT8_MIN; }
+
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Vec {
+  T v[VEC];
+};
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS)
+max_pool_kernel(const T* __restrict__ x, T* __restrict__ out, int B, int H, int W, int C,
+                int OH, int OW, int k, int s, int p) {
+  const int groups = C / VEC;
+  const size_t total = (size_t)B * OH * OW * groups;
+  const size_t idx = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= total) return;
+  const int g = static_cast<int>(idx % groups);
+  size_t pix = idx / groups;
+  const int c = static_cast<int>(pix % OW);
+  pix /= OW;
+  const int r = static_cast<int>(pix % OH);
+  const int b = static_cast<int>(pix / OH);
+
+  Vec<T, VEC> m;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) m.v[i] = lowest<T>();
+  const int y0 = r * s - p, x0 = c * s - p;
+  for (int u = 0; u < k; ++u) {
+    const int iy = y0 + u;
+    if (iy < 0 || iy >= H) continue;
+    for (int v = 0; v < k; ++v) {
+      const int ix = x0 + v;
+      if (ix < 0 || ix >= W) continue;
+      const Vec<T, VEC> t = *reinterpret_cast<const Vec<T, VEC>*>(
+          x + (((size_t)b * H + iy) * W + ix) * C + (size_t)g * VEC);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        if (key(t.v[i]) > key(m.v[i])) m.v[i] = t.v[i];
+    }
+  }
+  *reinterpret_cast<Vec<T, VEC>*>(out + (((size_t)b * OH + r) * OW + c) * C + (size_t)g * VEC) =
+      m;
+}
+
+template <typename T>
+int launch(const void* x, void* out, int vec, int B, int H, int W, int C, int OH, int OW,
+           int k, int s, int p, cudaStream_t stream) {
+  constexpr int V16 = 16 / sizeof(T);
+  const int v = vec ? V16 : 1;
+  const size_t total = (size_t)B * OH * OW * (C / v);
+  const unsigned blocks = static_cast<unsigned>((total + THREADS - 1) / THREADS);
+  if (blocks == 0) return 0;
+  if (vec)
+    max_pool_kernel<T, V16><<<blocks, THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), B, H, W, C, OH, OW, k, s, p);
+  else
+    max_pool_kernel<T, 1><<<blocks, THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), B, H, W, C, OH, OW, k, s, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// vec: 1 when C * sizeof(T) is a multiple of 16 and x, out are 16-byte
+// aligned (16-byte groups of channels), else 0 (one channel per thread).
+extern "C" int max_pool2d_nhwc(const void* x, void* out, int kind, int vec, int B, int H,
+                               int W, int C, int OH, int OW, int k, int s, int p,
+                               cudaStream_t stream) {
+  switch (kind) {
+    case KIND_BF16:
+      return launch<__nv_bfloat16>(x, out, vec, B, H, W, C, OH, OW, k, s, p, stream);
+    case KIND_F32:
+      return launch<float>(x, out, vec, B, H, W, C, OH, OW, k, s, p, stream);
+    case KIND_I8:
+      return launch<int8_t>(x, out, vec, B, H, W, C, OH, OW, k, s, p, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}

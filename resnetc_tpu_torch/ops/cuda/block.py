@@ -49,7 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from resnetc_tpu_torch.ops.cuda import _build
-from resnetc_tpu_torch.ops.cuda.quant import quantize_per_channel
+from resnetc_tpu_torch.ops.cuda.quant import _fma, _idot, quantize_per_channel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -234,31 +234,6 @@ def quantize_basic_ds_block(blk: dict) -> dict:
 # ---------------------------------------------------------------------------
 # Plain arithmetic shared by the plain versions
 # ---------------------------------------------------------------------------
-
-
-def _idot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Exact integer product of int8-valued operands: a float64 matmul
-    (exact: |sum| < 2**53; PyTorch has no int32 matmul on the card), then
-    int32."""
-    return torch.matmul(a.to(torch.float64), w.to(torch.float64)).to(torch.int32)
-
-
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """fp32 a*b + c with ONE rounding.  The Pallas epilogues write each
-    ``a*b + c`` as two ops, but XLA fuses every such pair into a fused
-    multiply-add (CPU backend, where the tests run the Pallas kernels), so
-    this is the order of operations the port matches; the CUDA kernels use
-    __fmaf_rn.  Computed in float64, where the product of two fp32 values is
-    exact; the sum is rounded to odd (its error term, from TwoSum, sets the
-    last bit), so rounding it on to fp32 rounds only once."""
-    p = a.double() * b.double()
-    c = c.double()
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    away = torch.nextafter(s, torch.copysign(torch.full_like(s, float("inf")), err))
-    return torch.where((err != 0) & even, away, s).float()
 
 
 def _requant(v: torch.Tensor) -> torch.Tensor:

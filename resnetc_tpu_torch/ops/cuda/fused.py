@@ -1,37 +1,53 @@
-"""The int8_chain serving forward.
+"""The serving forwards of the ``pallas``, ``int8`` and ``int8_chain`` backends.
 
 Counterpart of ``resnetc_tpu/ops/pallas/fused.py``: the tunable flags and
-their ``TUNED.json`` overlay (fused.py:32-211), ``calibrate_chain_scales``
-(:497), ``quantize_chain`` (:637), ``_chain_scale_lookups`` (:802),
-``_basic_int8_chain_forward`` (:821) and ``fused_forward_int8_chain``
-(:1025).  The flags are read at forward time, so the engine serves what the
-module holds: the code defaults with ``TUNED.json`` laid over them at import
-(``L1_PIXEL_PAIR`` and ``BASIC_DS_INT8`` on, the JAX package's serving
-configuration) unless ``RESNETC_NO_TUNED=1``.
+their ``TUNED.json`` overlay (fused.py:32-211), the conv router ``_conv``
+(:221), ``fused_forward`` (:260), ``fused_forward_int8`` (:372),
+``calibrate_activation_scales`` (:425), ``calibrate_chain_scales`` (:497),
+``quantize_chain`` (:637), ``_chain_scale_lookups`` (:802),
+``_basic_int8_chain_forward`` (:821), ``fused_forward_int8_chain`` (:1025)
+and ``fused_forward_int8_static`` (:1397).  The flags are read at forward
+time, so the engine serves what the module holds: the code defaults with
+``TUNED.json`` laid over them at import (``L1_PIXEL_PAIR`` and
+``BASIC_DS_INT8`` on, the JAX package's serving configuration) unless
+``RESNETC_NO_TUNED=1``.
 
-The bottleneck forward: the 7x7 stem is a stock convolution (XLA's in the
-JAX package); its output is quantized at the first block's input scale
-BEFORE the 3x3/2 max pool (max commutes with the monotone quantizer), pooled
-in int8, padded once into the chain layout, and from there every bottleneck
-block is an int8 kernel — the layer1 projection block and every identity
-block of stages 2-4 through ``bottleneck_block_chained_int8``, layer1
-blocks 1..n-1 through ``bottleneck_run_chained_int8``, the three stride-2
-transitions through ``downsample_block_s2_int8`` — and the network's last
-block pools in-kernel (``emit_mean``) for the fc GEMM (``matmul``).  Under
-``L1_PIXEL_PAIR`` stage 0 (c = 64) takes the pixel-paired twins instead
+The ``pallas`` forward routes every folded conv through ``_conv``: 1x1 to
+``conv1x1_fused`` (the ``matmul`` GEMM), 3x3/1 to ``conv3x3_s1_fused``,
+3x3/2 to ``conv3x3_s2_fused``, the 7x7 stem to a stock convolution; the
+stem's pool is ``max_pool2d`` and the head ``matmul``.  The ``int8`` forward
+is the same with every 1x1 conv and the fc dynamically quantized per tensor
+through ``int8_matmul``; ``fused_forward_int8_static`` takes calibrated
+scales instead.
+
+The int8_chain bottleneck forward: the 7x7 stem is a stock convolution
+(XLA's in the JAX package); its output is quantized at the first block's
+input scale BEFORE the 3x3/2 max pool (max commutes with the monotone
+quantizer), pooled in int8, padded once into the chain layout, and from
+there every bottleneck block is an int8 kernel — the layer1 projection
+block and every identity block of stages 2-4 through
+``bottleneck_block_chained_int8``, layer1 blocks 1..n-1 through
+``bottleneck_run_chained_int8``, the three stride-2 transitions through
+``downsample_block_s2_int8`` — and the network's last block pools in-kernel
+(``emit_mean``) for the fc GEMM (``matmul``).  Under ``L1_PIXEL_PAIR`` stage
+0 (c = 64) takes the pixel-paired twins instead
 (``bottleneck_block_chained_int8_pp``, ``bottleneck_run_chained_int8_pp``);
 under ``STAGE_FUSE_PROJ`` the whole of layer1 is one run kernel, projection
 block included, standard or paired.
 
-The basic forward (ResNet-18/34) shares the stem and the chain: the stage-0
-blocks run as one ``basic_run_chained_int8`` (``basic_run_chained_int8_pp``
-under ``L1_PIXEL_PAIR``), each stride-2 transition is one
-``basic_ds_block_s2_int8`` and every other block one
+The int8_chain basic forward (ResNet-18/34) shares the stem and the chain:
+the stage-0 blocks run as one ``basic_run_chained_int8``
+(``basic_run_chained_int8_pp`` under ``L1_PIXEL_PAIR``), each stride-2
+transition is one ``basic_ds_block_s2_int8`` under ``BASIC_DS_INT8``, or
+else is dequantized and run through ``_conv`` (two 3x3 kernels and the 1x1
+projection) and requantized, and every other block is one
 ``basic_block_chained_int8``; the last block exits bf16 and the head pools
 outside the kernel, as in the JAX package.
 
-Not yet ported (each raises ``NotImplementedError``): ``HYBRID_XLA_STAGES``,
-``BASIC_DS_INT8=False`` and per-channel interior calibration.
+Every forward takes ``kernels=`` (``PLAIN`` runs the plain versions, the
+on-card reference).  Not yet ported (each raises ``NotImplementedError``):
+``HYBRID_XLA_STAGES``, ``fused_forward(block_fusion=True)`` and per-channel
+interior calibration.
 """
 
 from __future__ import annotations
@@ -45,7 +61,7 @@ import torch
 
 from resnetc_tpu_torch.models.resnet import ResNetConfig
 from resnetc_tpu_torch.ops import torch_ops
-from resnetc_tpu_torch.ops.cuda import block, gemm
+from resnetc_tpu_torch.ops.cuda import block, conv, gemm, pool, quant
 from resnetc_tpu_torch.ops.cuda.quant import quantize_per_channel, quantize_with_scale
 from resnetc_tpu_torch.tensor import BF16, DtypePolicy
 
@@ -61,13 +77,11 @@ RUN_FUSE_STAGES: tuple = (0,)
 BASIC_RUN_FUSE_STAGES: tuple = (0,)
 
 #: Serve the basic family's stride-2 transitions through
-#: basic_ds_block_s2_int8.  The JAX package's code default is False, which
-#: routes them through conv3x3_s1_fused / conv3x3_s2_fused (kernel table
-#: rows 13-14), not ported yet: False raises here.  So the port's code
-#: default is True, the JAX package's serving value (its TUNED.json sets
-#: it), and the basic family is served under RESNETC_NO_TUNED=1 too.  It
-#: becomes the JAX default when rows 13-14 land.
-BASIC_DS_INT8: bool = True
+#: basic_ds_block_s2_int8.  False (the JAX package's code default) serves
+#: each transition through _conv instead — dequantize, conv3x3_s2_fused,
+#: conv3x3_s1_fused with the residual, the 1x1 projection through matmul —
+#: and requantizes at the next block's scale.  TUNED.json turns it on.
+BASIC_DS_INT8: bool = False
 
 #: Serve stage 0 (c = 64) through the pixel-paired kernels: two W-adjacent
 #: pixels per row, the pairing carried by block-diagonal / pair-packed
@@ -80,8 +94,7 @@ L1_PIXEL_PAIR: bool = False
 #: L1_PIXEL_PAIR).  Bit-identical to the per-block route.
 STAGE_FUSE_PROJ: bool = False
 
-#: Not ported yet (kernel table rows 13-14 and the XLA bf16 prefix): a
-#: non-empty value raises.
+#: Not ported yet (the XLA bf16 prefix): a non-empty value raises.
 HYBRID_XLA_STAGES: tuple = ()
 
 #: The JAX package's other tunable flags, accepted with its code defaults
@@ -171,6 +184,10 @@ class Kernels(typing.NamedTuple):
     run_pp: typing.Callable
     basic_block_pp: typing.Callable
     basic_run_pp: typing.Callable
+    int8_matmul: typing.Callable
+    conv3x3_s1: typing.Callable
+    conv_s2: typing.Callable
+    max_pool: typing.Callable
 
 
 KERNELS = Kernels(
@@ -185,6 +202,10 @@ KERNELS = Kernels(
     block.bottleneck_run_chained_int8_pp,
     block.basic_block_chained_int8_pp,
     block.basic_run_chained_int8_pp,
+    quant.int8_matmul,
+    conv.conv3x3_s1_fused,
+    conv.conv_s2_fused,
+    pool.max_pool2d,
 )
 PLAIN = Kernels(
     block.bottleneck_block_chained_int8_plain,
@@ -198,6 +219,10 @@ PLAIN = Kernels(
     block.bottleneck_run_chained_int8_pp_plain,
     block.basic_block_chained_int8_pp_plain,
     block.basic_run_chained_int8_pp_plain,
+    quant.int8_matmul_plain,
+    conv.conv3x3_s1_fused_plain,
+    conv.conv_s2_fused_plain,
+    pool.max_pool2d_plain,
 )
 
 
@@ -209,12 +234,251 @@ def _require_ungrouped(cfg: ResNetConfig) -> None:
         )
 
 
-def _conv(x, entry, *, stride, relu, policy):
-    """A folded conv(+bias)(+relu) as a stock convolution."""
+def _xla_conv(x, entry, *, stride, relu, policy):
+    """A folded conv(+bias)(+relu) as a stock convolution (XLA's in the JAX
+    package): the 7x7 stem, and every conv of the fp calibration passes."""
     w = entry["weight"].to(policy.compute)
     y = torch_ops.conv2d(x, w, stride=stride, padding=w.shape[0] // 2)
     y = y + entry["bias"].to(y.dtype)
     return torch_ops.relu(y) if relu else y
+
+
+def _conv(x, entry, *, stride, relu, residual=None, policy, kernels):
+    """Route one folded conv (+bias+residual+relu) to a kernel: 1x1 to
+    ``conv1x1_fused``, 3x3/1 to ``conv3x3_s1_fused``, 3x3/2 without a
+    residual to ``conv3x3_s2_fused``, anything else (the 7x7 stem) to a
+    stock convolution."""
+    w = entry["weight"].to(policy.compute)
+    bias = entry["bias"]
+    kh, kw_ = w.shape[:2]
+    if (kh, kw_) == (1, 1):
+        return conv.conv1x1_fused(
+            x, w, bias, residual, stride=stride, relu=relu, matmul_fn=kernels.matmul
+        )
+    if (kh, kw_) == (3, 3) and stride == 1:
+        return kernels.conv3x3_s1(x, w, bias, residual, relu=relu)
+    if (kh, kw_) == (3, 3) and stride == 2 and residual is None:
+        return kernels.conv_s2(x, w, bias, relu=relu)
+    y = _xla_conv(x, entry, stride=stride, relu=False, policy=policy)
+    if residual is not None:
+        y = y + residual.to(y.dtype)
+    return torch_ops.relu(y) if relu else y
+
+
+# ---------------------------------------------------------------------------
+# The pallas and int8 forwards
+# ---------------------------------------------------------------------------
+
+
+def _residual_blocks(cfg: ResNetConfig, y, tree: Tree, conv_fn):
+    """Every residual block of the network over ``tree``, each conv through
+    ``conv_fn(x, entry, stride=, relu=, residual=, site=, key=)``, where
+    ``site`` names the block ("layerN", "b") and ``key`` the conv."""
+    for stage in range(4):
+        blocks = tree[f"layer{stage + 1}"]
+        stage_stride = 1 if stage == 0 else 2
+        for b in range(cfg.stage_blocks[stage]):
+            blk = blocks[str(b)]
+            s = stage_stride if b == 0 else 1
+            site = (f"layer{stage + 1}", str(b))
+
+            def c(x, key, stride, relu, residual=None):
+                return conv_fn(x, blk[key], stride=stride, relu=relu, residual=residual,
+                               site=site, key=key)
+
+            short = c(y, "downsample", s, False) if "downsample" in blk else y
+            if cfg.block == "bottleneck":
+                z = c(y, "conv1", 1, True)
+                z = c(z, "conv2", s, True)
+                # Final 1x1: residual add and relu in the GEMM epilogue.
+                y = c(z, "conv3", 1, True, short)
+            else:
+                z = c(y, "conv1", s, True)
+                y = c(z, "conv2", 1, True, short)
+    return y
+
+
+def fused_forward(
+    cfg: ResNetConfig,
+    folded: Tree,
+    x: torch.Tensor,
+    *,
+    policy: DtypePolicy = BF16,
+    block_fusion: bool = False,
+    interpret: bool = False,
+    kernels: Kernels = KERNELS,
+) -> torch.Tensor:
+    """The ``pallas`` backend: every conv of a BN-folded tree through
+    ``_conv``, the stem's pool through ``max_pool2d``, global mean and the fc
+    through ``matmul``.  ``x`` is NHWC; returns (B, num_classes) logits in
+    ``policy.output``.  ``block_fusion=True`` (the ``pallas_block`` backend)
+    needs ``bottleneck_block_chained`` (kernel table row 17), not ported
+    yet."""
+    if block_fusion:
+        raise NotImplementedError(
+            "block_fusion=True runs bottleneck_block_chained (kernel table row 17), "
+            "not ported yet"
+        )
+    x = x.to(policy.compute)
+    y = _conv(x, folded["conv1"], stride=2, relu=True, policy=policy, kernels=kernels)
+    y = kernels.max_pool(y, kernel_size=3, stride=2, padding=1)
+
+    def conv_fn(xx, entry, *, stride, relu, residual, site, key):
+        return _conv(xx, entry, stride=stride, relu=relu, residual=residual, policy=policy,
+                     kernels=kernels)
+
+    y = _residual_blocks(cfg, y, folded, conv_fn)
+    feats = y.float().mean(dim=(1, 2)).to(policy.compute)
+    return kernels.matmul(
+        feats,
+        folded["fc"]["weight"].t().to(policy.compute).contiguous(),
+        folded["fc"]["bias"],
+        out_dtype=policy.output,
+    )
+
+
+def _conv_q(x, entry, *, stride, relu, residual=None, policy, kernels):
+    """Like ``_conv``, but an int8-quantized 1x1 entry goes through the
+    dynamically quantized ``conv1x1_int8``."""
+    if "w_q" in entry:
+        return quant.conv1x1_int8(
+            x, entry["w_q"], entry["scale_w"], entry["bias"], residual,
+            stride=stride, relu=relu, out_dtype=policy.compute, matmul_fn=kernels.int8_matmul,
+        )
+    return _conv(x, entry, stride=stride, relu=relu, residual=residual, policy=policy,
+                 kernels=kernels)
+
+
+def fused_forward_int8(
+    cfg: ResNetConfig,
+    qfolded: Tree,
+    x: torch.Tensor,
+    *,
+    policy: DtypePolicy = BF16,
+    interpret: bool = False,
+    kernels: Kernels = KERNELS,
+) -> torch.Tensor:
+    """The ``int8`` backend over a ``quantize_folded`` tree: every 1x1 conv
+    and the fc through ``int8_matmul`` with a per-tensor scale taken over
+    the whole batch at each call, the 3x3 / 7x7 convs in ``policy.compute``
+    as in ``fused_forward``."""
+    x = x.to(policy.compute)
+    y = _conv(x, qfolded["conv1"], stride=2, relu=True, policy=policy, kernels=kernels)
+    y = kernels.max_pool(y, kernel_size=3, stride=2, padding=1)
+
+    def conv_fn(xx, entry, *, stride, relu, residual, site, key):
+        return _conv_q(xx, entry, stride=stride, relu=relu, residual=residual, policy=policy,
+                       kernels=kernels)
+
+    y = _residual_blocks(cfg, y, qfolded, conv_fn)
+    feats = y.float().mean(dim=(1, 2))
+    fc = qfolded["fc"]
+    fq, fscale = quant.quantize_per_tensor(feats)
+    return kernels.int8_matmul(fq, fc["w_q"], fscale, fc["scale_w"], fc["bias"],
+                               out_dtype=policy.output)
+
+
+def calibrate_activation_scales(
+    cfg: ResNetConfig,
+    folded: Tree,
+    x: torch.Tensor,
+    *,
+    policy: DtypePolicy = BF16,
+) -> Tree:
+    """Static per-site activation scales (absmax / 127, at least 1e-8) for
+    ``fused_forward_int8_static``: runs the fp folded forward on stock ops
+    over ``x`` (NHWC) and records the input of every op the int8 path
+    quantizes — each downsample, a bottleneck's conv1 and conv3 — and the
+    pooled features ("fc").  Returns {layerN: {b: {site: s}}, "fc": s} of
+    0-d fp32 tensors."""
+
+    def s_of(act):
+        return torch.clamp(act.float().abs().max() / 127.0, min=1e-8)
+
+    with torch.no_grad():
+        x = x.to(policy.compute)
+        y = _xla_conv(x, folded["conv1"], stride=2, relu=True, policy=policy)
+        y = torch_ops.max_pool2d(y, kernel_size=3, stride=2, padding=1)
+        scales: Tree = {}
+        for stage in range(4):
+            blocks = folded[f"layer{stage + 1}"]
+            stage_stride = 1 if stage == 0 else 2
+            layer_scales: Tree = {}
+            for b in range(cfg.stage_blocks[stage]):
+                blk = blocks[str(b)]
+                s = stage_stride if b == 0 else 1
+                site: Tree = {}
+                if "downsample" in blk:
+                    site["downsample"] = s_of(y)
+                    short = _xla_conv(y, blk["downsample"], stride=s, relu=False, policy=policy)
+                else:
+                    short = y
+                if cfg.block == "bottleneck":
+                    site["conv1"] = s_of(y)
+                    z = _xla_conv(y, blk["conv1"], stride=1, relu=True, policy=policy)
+                    z = _xla_conv(z, blk["conv2"], stride=s, relu=True, policy=policy)
+                    site["conv3"] = s_of(z)
+                    z = _xla_conv(z, blk["conv3"], stride=1, relu=False, policy=policy)
+                else:
+                    z = _xla_conv(y, blk["conv1"], stride=s, relu=True, policy=policy)
+                    z = _xla_conv(z, blk["conv2"], stride=1, relu=False, policy=policy)
+                y = torch_ops.relu(z + short)
+                if site:
+                    layer_scales[str(b)] = site
+            if layer_scales:
+                scales[f"layer{stage + 1}"] = layer_scales
+        scales["fc"] = s_of(y.float().mean(dim=(1, 2)))
+    return scales
+
+
+def _conv_q_static(x, entry, scale_x, *, stride, relu, residual=None, policy, kernels):
+    """An int8 1x1 conv at a calibrated activation scale (no absmax); other
+    entries, or a site without a scale, as ``_conv_q``."""
+    if "w_q" not in entry or scale_x is None:
+        return _conv_q(x, entry, stride=stride, relu=relu, residual=residual, policy=policy,
+                       kernels=kernels)
+    if stride > 1:
+        x = x[:, ::stride, ::stride, :]
+    b, h, w_sp, cin = x.shape
+    cout = entry["w_q"].shape[-1]
+    x_q = quantize_with_scale(x, scale_x)
+    res2d = residual.reshape(b * h * w_sp, cout) if residual is not None else None
+    out = kernels.int8_matmul(
+        x_q.reshape(b * h * w_sp, cin), entry["w_q"], scale_x, entry["scale_w"],
+        entry["bias"], res2d, relu=relu, out_dtype=policy.compute,
+    )
+    return out.reshape(b, h, w_sp, cout)
+
+
+def fused_forward_int8_static(
+    cfg: ResNetConfig,
+    qfolded: Tree,
+    act_scales: Tree,
+    x: torch.Tensor,
+    *,
+    policy: DtypePolicy = BF16,
+    interpret: bool = False,
+    kernels: Kernels = KERNELS,
+) -> torch.Tensor:
+    """``fused_forward_int8`` with the activation scales of
+    ``calibrate_activation_scales`` in place of the per-call absmax (a
+    bottleneck's conv2 and a basic block's convs are 3x3 and stay fp, as
+    in the JAX package)."""
+    x = x.to(policy.compute)
+    y = _conv(x, qfolded["conv1"], stride=2, relu=True, policy=policy, kernels=kernels)
+    y = kernels.max_pool(y, kernel_size=3, stride=2, padding=1)
+
+    def conv_fn(xx, entry, *, stride, relu, residual, site, key):
+        scale = act_scales.get(site[0], {}).get(site[1], {}).get(key)
+        return _conv_q_static(xx, entry, scale, stride=stride, relu=relu, residual=residual,
+                              policy=policy, kernels=kernels)
+
+    y = _residual_blocks(cfg, y, qfolded, conv_fn)
+    feats = y.float().mean(dim=(1, 2))
+    fc = qfolded["fc"]
+    fq = quantize_with_scale(feats, act_scales["fc"])
+    return kernels.int8_matmul(fq, fc["w_q"], act_scales["fc"], fc["scale_w"], fc["bias"],
+                               out_dtype=policy.output)
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +552,7 @@ def calibrate_chain_scales(
 
     with torch.no_grad():
         x = x.to(policy.compute)
-        y = _conv(x, folded["conv1"], stride=2, relu=True, policy=policy)
+        y = _xla_conv(x, folded["conv1"], stride=2, relu=True, policy=policy)
         y = torch_ops.max_pool2d(y, kernel_size=3, stride=2, padding=1)
         scales: Tree = {}
         for stage in range(4):
@@ -299,19 +563,19 @@ def calibrate_chain_scales(
                 blk = blocks[str(b)]
                 s = stage_stride if b == 0 else 1
                 short = (
-                    _conv(y, blk["downsample"], stride=s, relu=False, policy=policy)
+                    _xla_conv(y, blk["downsample"], stride=s, relu=False, policy=policy)
                     if "downsample" in blk
                     else y
                 )
                 if cfg.block == "bottleneck":
-                    z1 = _conv(y, blk["conv1"], stride=1, relu=True, policy=policy)
-                    z2 = _conv(z1, blk["conv2"], stride=s, relu=True, policy=policy)
+                    z1 = _xla_conv(y, blk["conv1"], stride=1, relu=True, policy=policy)
+                    z2 = _xla_conv(z1, blk["conv2"], stride=s, relu=True, policy=policy)
                     layer_scales[str(b)] = {"in": s_of(y), "z1": s_of(z1), "z2": s_of(z2)}
-                    z = _conv(z2, blk["conv3"], stride=1, relu=False, policy=policy)
+                    z = _xla_conv(z2, blk["conv3"], stride=1, relu=False, policy=policy)
                 else:
-                    z1 = _conv(y, blk["conv1"], stride=s, relu=True, policy=policy)
+                    z1 = _xla_conv(y, blk["conv1"], stride=s, relu=True, policy=policy)
                     layer_scales[str(b)] = {"in": s_of(y), "z1": s_of(z1)}
-                    z = _conv(z1, blk["conv2"], stride=1, relu=False, policy=policy)
+                    z = _xla_conv(z1, blk["conv2"], stride=1, relu=False, policy=policy)
                 y = torch_ops.relu(z + short)
             scales[f"layer{stage + 1}"] = layer_scales
     return scales
@@ -387,7 +651,7 @@ def _stem_chain(qtree: Tree, x: torch.Tensor, s_in: torch.Tensor, policy: DtypeP
     """Stem conv, quantize at the first block's input scale, int8 max pool,
     chain pad.  Returns (chain rows, B, h, w)."""
     x = x.to(policy.compute)
-    y = _conv(x, qtree["conv1"], stride=2, relu=True, policy=policy)
+    y = _xla_conv(x, qtree["conv1"], stride=2, relu=True, policy=policy)
     yq = quantize_with_scale(y, s_in)
     yq = torch_ops.max_pool2d(yq, kernel_size=3, stride=2, padding=1)
     bsz, h, w_sp, _ = yq.shape
@@ -555,23 +819,20 @@ def _basic_int8_chain_forward(
     stage_taps: list | None,
     kernels: Kernels,
 ) -> torch.Tensor:
-    """The int8_chain forward for basic configs (ResNet-18/34), fused.py:821
-    with BASIC_DS_INT8 on: every stride-2 transition one
-    ``basic_ds_block_s2_int8``, the stride-1 blocks of a stage in
-    BASIC_RUN_FUSE_STAGES one ``basic_run_chained_int8``, every other block
-    one ``basic_block_chained_int8`` (at stage 0 under L1_PIXEL_PAIR their
-    pixel-paired twins).  Same calibration contract as the
-    bottleneck path; the last block exits bf16 and the head pools outside
-    the kernel.  The JAX package falls back to per-block kernels or XLA
-    when a TPU kernel would not fit VMEM; the card has no such limit, so
-    the kernel route is always taken (at every size served here the JAX
-    guards pass too, and the two routes agree)."""
-    if not BASIC_DS_INT8:
-        raise NotImplementedError(
-            "BASIC_DS_INT8=False serves the stage transitions through "
-            "conv3x3_s1_fused / conv3x3_s2_fused (kernel table rows 13-14), "
-            "not ported yet"
-        )
+    """The int8_chain forward for basic configs (ResNet-18/34), fused.py:821:
+    the stride-1 blocks of a stage in BASIC_RUN_FUSE_STAGES as one
+    ``basic_run_chained_int8``, every other stride-1 block one
+    ``basic_block_chained_int8`` (at stage 0 under L1_PIXEL_PAIR their
+    pixel-paired twins).  A stride-2 transition is one
+    ``basic_ds_block_s2_int8`` under BASIC_DS_INT8; without it the chain is
+    dequantized at the block's input scale, the block runs through ``_conv``
+    in ``policy.compute`` and its output is requantized at the next block's
+    scale and padded back into the chain (fused.py:905-933).  Same
+    calibration contract as the bottleneck path; the last block exits bf16
+    and the head pools outside the kernel.  The JAX package falls back to
+    per-block kernels or XLA when a TPU kernel would not fit VMEM; the card
+    has no such limit, so the kernel route is always taken (at every size
+    served here the JAX guards pass too, and the two routes agree)."""
     scale_row, s_after = _chain_scale_lookups(cfg, chain_scales)
     yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy)
 
@@ -579,7 +840,7 @@ def _basic_int8_chain_forward(
         blocks = qtree[f"layer{stage + 1}"]
         nb = cfg.stage_blocks[stage]
         start = 0
-        if stage > 0:
+        if stage > 0 and BASIC_DS_INT8:
             blk = blocks["0"]
             yr = kernels.basic_ds(
                 yr,
@@ -590,6 +851,21 @@ def _basic_int8_chain_forward(
                 h=h, w_sp=w_sp, emit_i8=s_after(stage, 0) is not None,
             )
             h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
+            start = 1
+        elif stage > 0:
+            blk = blocks["0"]
+            s_in = chain_scales[f"layer{stage + 1}"]["0"]["in"]
+            y = (block.unpad_from_chain(yr, bsz, h, w_sp).float() * s_in).to(policy.compute)
+
+            def c(xx, key, stride, relu, residual=None):
+                return _conv(xx, blk[key], stride=stride, relu=relu, residual=residual,
+                             policy=policy, kernels=kernels)
+
+            short = c(y, "downsample", 2, False) if "downsample" in blk else y
+            y = c(c(y, "conv1", 2, True), "conv2", 1, True, short)
+            h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
+            s_out0 = s_after(stage, 0)
+            yr = block.pad_for_chain(y if s_out0 is None else quantize_with_scale(y, s_out0))
             start = 1
 
         # Pixel-paired stage 0 (fused.py:935-986): c = 64 and an even wp.

@@ -1,6 +1,6 @@
 """Serving path: an inference engine over BN-folded weights, and benchmarks.
 
-Counterpart of ``resnetc_tpu/serve.py:34-363``.  Two backends:
+Counterpart of ``resnetc_tpu/serve.py:34-363``.  Four backends:
 
 - ``"int8_chain"`` — calibrate static activation scales, quantize, and run
   ``fused_forward_int8_chain`` (every residual block an int8 CUDA kernel,
@@ -9,8 +9,19 @@ Counterpart of ``resnetc_tpu/serve.py:34-363``.  Two backends:
   the JAX engine: the code defaults with the repository's ``TUNED.json``
   laid over them at import (stage 0 through the pixel-paired kernels),
   unless ``RESNETC_NO_TUNED=1``;
+- ``"int8"`` — ``quantize_folded`` at construction, then
+  ``fused_forward_int8``: every 1x1 conv and the fc through ``int8_matmul``
+  with a per-tensor scale taken over the batch at each call, the 3x3 convs
+  through ``conv3x3_s1_fused`` / ``conv3x3_s2_fused``;
+- ``"pallas"`` — ``fused_forward`` over the folded tree, every conv a
+  kernel in ``policy.compute`` (a reference path: the JAX engine warns that
+  it is slower than its ``xla`` backend, and so does this one);
 - ``"fp"`` — ``forward_folded`` on stock PyTorch ops (the JAX package's
   ``xla`` backend).
+
+``"pallas_block"`` (the JAX engine's ``fused_forward(block_fusion=True)``)
+needs kernel table row 17 and raises ``NotImplementedError`` until it is
+ported.
 
 The engine runs on the card unless ``device="cpu"`` is asked for; on the
 CPU the kernels' plain versions run.  Benchmarks time on the card only,
@@ -29,14 +40,15 @@ from resnetc_tpu_torch.models import resnet
 from resnetc_tpu_torch.tensor import BF16, DtypePolicy, resolve_device, tree_map
 
 Tree = dict
-BACKENDS = ("fp", "int8_chain")
+BACKENDS = ("fp", "pallas", "int8", "int8_chain")
 
 
 class InferenceEngine:
-    """A classifier: folded (and for int8_chain, quantized) weights resident
-    on the device.  ``int8_chain`` serves every ungrouped config of
-    ``models.resnet``, ResNet-18/34 through the basic kernels and the
-    bottleneck nets through theirs; ``fp`` serves every config."""
+    """A classifier: folded (and for int8 / int8_chain, quantized) weights
+    resident on the device.  The kernel backends serve every ungrouped
+    config of ``models.resnet`` (``int8_chain``: ResNet-18/34 through the
+    basic kernels, the bottleneck nets through theirs); ``fp`` serves every
+    config."""
 
     def __init__(
         self,
@@ -49,8 +61,27 @@ class InferenceEngine:
         calib_method: str = "absmax",
         device: str | torch.device | None = None,
     ):
+        if backend == "pallas_block":
+            raise NotImplementedError(
+                "backend 'pallas_block' needs bottleneck_block_chained (kernel table row "
+                "17), not ported yet (slice 5 of the port)"
+            )
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        if backend != "fp" and model_cfg.groups > 1:
+            raise ValueError(
+                f"backend {backend!r} does not support grouped convolutions (ResNeXt, "
+                f"groups={model_cfg.groups}); serve grouped models with backend='fp'"
+            )
+        if backend == "pallas":
+            # The JAX engine's deprecation notice (serve.py:69-82), kept word
+            # for word: the bf16 kernel path is a reference, not a server.
+            warnings.warn(
+                f"backend {backend!r} is a bf16 Pallas reference path, "
+                "~2.6-3x slower than 'xla' (see PERF.md); use 'int8_chain' "
+                "(fastest for bottleneck models) or 'xla' for serving.",
+                stacklevel=2,
+            )
         self.model_cfg = model_cfg
         self.policy = policy
         self.backend = backend
@@ -77,6 +108,10 @@ class InferenceEngine:
                 model_cfg, folded, calib, policy=policy, method=calib_method
             )
             folded = quantize_chain(model_cfg, folded)
+        elif backend == "int8":
+            from resnetc_tpu_torch.ops.cuda.quant import quantize_folded
+
+            folded = quantize_folded(folded)
         self.folded = folded
 
     def logits(self, images) -> torch.Tensor:
@@ -93,9 +128,17 @@ class InferenceEngine:
                 return resnet.forward_folded(
                     self.model_cfg, self.folded, images, policy=self.policy
                 )
-            from resnetc_tpu_torch.ops.cuda.fused import fused_forward_int8_chain
+            from resnetc_tpu_torch.ops.cuda import fused
 
-            return fused_forward_int8_chain(
+            if self.backend == "pallas":
+                return fused.fused_forward(
+                    self.model_cfg, self.folded, images, policy=self.policy
+                )
+            if self.backend == "int8":
+                return fused.fused_forward_int8(
+                    self.model_cfg, self.folded, images, policy=self.policy
+                )
+            return fused.fused_forward_int8_chain(
                 self.model_cfg, self.folded, self.chain_scales, images,
                 policy=self.policy,
             )

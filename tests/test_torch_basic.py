@@ -303,6 +303,7 @@ def _counting(kernels, counts):
 def test_basic_int8_chain_forward_matches_jax(setup, policy, monkeypatch):
     jcfg, tcfg, jvars, tvars, x = setup
     monkeypatch.setattr(jfused, "BASIC_DS_INT8", True)
+    monkeypatch.setattr(tfused, "BASIC_DS_INT8", True)
     jpol, tpol = (JFP32, FP32) if policy == "fp32" else (JBF16, BF16)
     jfold = jresnet.fold_inference_params(jcfg, jvars)
     jscales = jfused.calibrate_chain_scales(jcfg, jfold, jnp.asarray(x), policy=jpol)
@@ -360,11 +361,22 @@ def test_basic_calibration_and_quantize_chain_match_jax(setup):
         np.testing.assert_array_equal(_np(tflat[k]), np.asarray(jflat[k]), err_msg=k)
 
 
-def test_basic_ds_int8_off_raises(setup, monkeypatch):
+def test_basic_ds_int8_off_runs_and_equals_plain(setup, monkeypatch):
+    """BASIC_DS_INT8=False (the code default): each stride-2 transition
+    through the conv kernels between the int8 chains, the same as the
+    forward on the plain versions (the JAX parity of this route is in
+    tests/test_torch_backends.py)."""
     _, tcfg, _, tvars, x = setup
     tfold = tresnet.fold_inference_params(tcfg, tvars)
     scales = tfused.calibrate_chain_scales(tcfg, tfold, torch.from_numpy(x))
     tq = tfused.quantize_chain(tcfg, tfold)
     monkeypatch.setattr(tfused, "BASIC_DS_INT8", False)
-    with pytest.raises(NotImplementedError, match="rows 13-14"):
-        tfused.fused_forward_int8_chain(tcfg, tq, scales, torch.from_numpy(x))
+    counts: dict = {}
+    got = tfused.fused_forward_int8_chain(tcfg, tq, scales, torch.from_numpy(x),
+                                          kernels=_counting(tfused.KERNELS, counts))
+    assert counts == {"basic_run": 1, "conv_s2": 3, "conv3x3_s1": 3, "matmul": 4,
+                      "basic_block": 3}, counts
+    want = tfused.fused_forward_int8_chain(tcfg, tq, scales, torch.from_numpy(x),
+                                           kernels=tfused.PLAIN)
+    assert got.shape == (2, 11) and torch.isfinite(got).all()
+    assert torch.equal(got, want)

@@ -1,0 +1,174 @@
+"""The port's fused convolutions and max pool vs the JAX package's kernels.
+
+The plain versions of ``conv3x3_s1_fused``, ``conv_s2_fused`` (k = 3, 5, 7)
+and ``max_pool2d`` — what the wrappers run for a CPU tensor — and
+``conv1x1_fused`` (stride 1 and 2, through ``gemm.matmul``'s plain version)
+against the Pallas kernels run with ``interpret=True``, on the same inputs
+made from a seeded numpy generator, at the JAX tests' small shapes
+(``tests/test_pallas.py``).
+
+Tolerances.  The convolutions sum up to 9*Cin fp32 products in another
+order than XLA's per-tap dots: fp32 outputs are held to rtol 1e-4 (atol
+1e-4), the JAX oracle tests' bound.  bf16 outputs are the same fp32 sums
+rounded once more, so a sum within an fp32 rounding of a bf16 rounding
+boundary may land one bf16 step apart: each element within 1 bf16 ulp (of
+the larger magnitude), or within 1e-5 of the largest output where relu
+cuts a sum that is zero to fp32 rounding.  The max pool compares values,
+so its outputs are EQUAL, in bf16 and int8 alike.
+"""
+
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from resnetc_tpu.ops.pallas import conv as jconv
+from resnetc_tpu.ops.pallas import pool as jpool
+from resnetc_tpu_torch.ops.cuda import conv as tconv
+from resnetc_tpu_torch.ops.cuda import gemm as tgemm
+from resnetc_tpu_torch.ops.cuda import pool as tpool
+
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _np(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a.astype(jnp.float32) if a.dtype == jnp.bfloat16 else a)
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values in both frameworks (rounded to bf16 once, by JAX)."""
+    jd, td = DTYPES[dtype]
+    j = jnp.asarray(a).astype(jd)
+    return j, torch.from_numpy(np.array(_np(j))).to(td)
+
+
+def bf16_ulp(a: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 values at |a| (8 significant bits)."""
+    _, e = np.frexp(np.abs(a).astype(np.float32))
+    return np.ldexp(np.float32(1.0), e - 8).astype(np.float32)
+
+
+def assert_conv_close(got, want, dtype: str):
+    g, w = _np(got), _np(want)
+    assert g.shape == w.shape
+    if dtype == "f32":
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
+        return
+    err = np.abs(g - w)
+    ulp = np.maximum(bf16_ulp(g), bf16_ulp(w))
+    ok = (err <= ulp) | (err <= 1e-5 * np.abs(w).max())
+    assert ok.all(), f"{(~ok).sum()} elements beyond 1 bf16 ulp, max err {err.max()}"
+
+
+def _inputs(rng, b, h, w, cin, cout, k, dtype, *, bias=True, residual=False):
+    x = rng.standard_normal((b, h, w, cin)).astype(np.float32)
+    wt = (rng.standard_normal((k, k, cin, cout)) * 0.1).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    jw, tw = _pair(wt, dtype)
+    out = {"x": (jx, tx), "w": (jw, tw), "bias": (None, None), "res": (None, None)}
+    if bias:
+        bv = rng.standard_normal((cout,)).astype(np.float32)
+        out["bias"] = (jnp.asarray(bv), torch.from_numpy(bv))
+    if residual:
+        out["res"] = _pair(rng.standard_normal((b, h, w, cout)).astype(np.float32), dtype)
+    return out
+
+
+# (b, h, w, cin, cout, dtype): tests/test_pallas.py:55-58, odd and
+# non-square sizes, Cout off the kernel's 64-wide tile.
+S1_CASES = [(2, 8, 8, 16, 32, "f32"), (2, 8, 8, 16, 32, "bf16"), (3, 9, 9, 24, 40, "f32"),
+            (2, 7, 9, 8, 72, "bf16")]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,dtype", S1_CASES)
+def test_conv3x3_s1_plain_matches_pallas(rng, b, h, w, cin, cout, dtype):
+    t = _inputs(rng, b, h, w, cin, cout, 3, dtype, residual=True)
+    (jx, tx), (jw, tw), (jb, tb), (jr, tr) = t["x"], t["w"], t["bias"], t["res"]
+    want = jconv.conv3x3_s1_fused(jx, jw, jb, jr, relu=True, interpret=True)
+    got = tconv.conv3x3_s1_fused(tx, tw, tb, tr, relu=True)
+    assert got.dtype == DTYPES[dtype][1]
+    assert_conv_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_conv3x3_s1_no_bias_no_relu(rng, dtype):
+    t = _inputs(rng, 2, 6, 6, 8, 16, 3, dtype, bias=False)
+    (jx, tx), (jw, tw) = t["x"], t["w"]
+    want = jconv.conv3x3_s1_fused(jx, jw, interpret=True)
+    got = tconv.conv3x3_s1_fused_plain(tx, tw)
+    assert_conv_close(got, want, dtype)
+    assert (_np(got) < 0).any()  # no relu
+
+
+# (b, h, cin, cout, k, dtype): tests/test_pallas.py:214-238, odd and even
+# sizes, Cout off the tile, k = 5 and 7.
+S2_CASES = [(2, 8, 16, 32, 3, "f32"), (2, 8, 16, 32, 3, "bf16"), (2, 9, 16, 72, 3, "f32"),
+            (2, 7, 8, 8, 3, "bf16"), (2, 13, 8, 16, 5, "f32"), (2, 13, 8, 16, 7, "bf16")]
+
+
+@pytest.mark.parametrize("b,h,cin,cout,k,dtype", S2_CASES)
+def test_conv_s2_plain_matches_pallas(rng, b, h, cin, cout, k, dtype):
+    t = _inputs(rng, b, h, h, cin, cout, k, dtype, bias=k == 3)
+    (jx, tx), (jw, tw), (jb, tb) = t["x"], t["w"], t["bias"]
+    want = jconv.conv_s2_fused(jx, jw, jb, relu=k == 3, interpret=True)
+    got = tconv.conv_s2_fused(tx, tw, tb, relu=k == 3)
+    assert got.shape == (b, (h + 2 * (k // 2) - k) // 2 + 1, (h + 2 * (k // 2) - k) // 2 + 1, cout)
+    assert_conv_close(got, want, dtype)
+    if k == 3:
+        alias = tconv.conv3x3_s2_fused(tx, tw, tb, relu=True)
+        assert torch.equal(alias, got)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv1x1_fused_matches_pallas(rng, stride, dtype):
+    t = _inputs(rng, 2, 8, 8, 16, 32, 1, dtype, residual=False)
+    (jx, tx), (jw, tw), (jb, tb) = t["x"], t["w"], t["bias"]
+    res = rng.standard_normal((2, 8 // stride, 8 // stride, 32)).astype(np.float32)
+    jr, tr = _pair(res, dtype)
+    want = jconv.conv1x1_fused(jx, jw, jb, jr, stride=stride, relu=True, interpret=True)
+    got = tconv.conv1x1_fused(tx, tw, tb, tr, stride=stride, relu=True,
+                              matmul_fn=tgemm.matmul_plain)
+    assert got.dtype == DTYPES[dtype][1]
+    assert_conv_close(got, want, dtype)
+
+
+def test_conv_wrappers_reject_a_mismatched_weight(rng):
+    x = torch.zeros((1, 8, 8, 16))
+    with pytest.raises(ValueError):
+        tconv.conv3x3_s1_fused(x, torch.zeros((3, 3, 8, 16)))
+    with pytest.raises(ValueError):
+        tconv.conv3x3_s1_fused(x, torch.zeros((5, 5, 16, 16)))
+    with pytest.raises(ValueError):
+        tconv.conv_s2_fused(x, torch.zeros((2, 2, 16, 16)))
+
+
+POOL_CASES = [(3, 2, 1, 12), (2, 2, 0, 8), (3, 1, 1, 7), (3, 3, 1, 9)]
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("k,s,p,hw", POOL_CASES)
+def test_max_pool2d_plain_equals_pallas(rng, k, s, p, hw, dtype):
+    if dtype == "int8":
+        # -128 included: it must beat the integer-min padding only as itself.
+        x = rng.integers(-128, 128, size=(4, hw, hw, 24), dtype=np.int8)
+        jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    else:
+        jx, tx = _pair(rng.standard_normal((4, hw, hw, 24)).astype(np.float32), "bf16")
+    want = jpool.max_pool2d(jx, kernel_size=k, stride=s, padding=p, interpret=True)
+    got = tpool.max_pool2d(tx, kernel_size=k, stride=s, padding=p)
+    assert got.dtype == tx.dtype and got.is_contiguous()
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_max_pool2d_window_all_negative_keeps_its_max(rng):
+    """A window of negative values at the border: the padding must not win."""
+    x = -np.abs(rng.standard_normal((1, 5, 5, 3))).astype(np.float32) - 1.0
+    got = tpool.max_pool2d_plain(torch.from_numpy(x), kernel_size=3, stride=2, padding=1)
+    want = jpool.max_pool2d(jnp.asarray(x), kernel_size=3, stride=2, padding=1, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert np.isfinite(got.numpy()).all()

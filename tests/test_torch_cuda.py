@@ -12,8 +12,13 @@ explicitly.
 
 Inputs come from a seeded numpy generator.  Tolerances: int8 and bf16
 outputs EQUAL (exact integer dots, fp32 epilogues in the same order of
-operations and roundings); the fp32 per-image means and the
-fp32-accumulating GEMM sum in another order: rtol 1e-5 and 1e-5 / 1e-4.
+operations and roundings), ``int8_matmul`` and ``max_pool2d`` included; the
+fp32 per-image means and the fp32-accumulating GEMM sum in another order:
+rtol 1e-5 and 1e-5 / 1e-4.  The fused convolutions sum up to 9*Cin fp32
+products in another order than their plain versions: fp32 outputs within
+rtol 1e-4 (atol 1e-4), bf16 outputs within 1 bf16 ulp of the larger
+magnitude (or 1e-5 of the largest output, where relu cuts a sum that is
+zero to fp32 rounding).
 The pixel-paired kernels are also driven through their pair-space entries
 with dense random pair-space weights, so a kernel that skipped the zero
 blocks or ran the unpaired GEMM would disagree with its plain version.
@@ -276,6 +281,7 @@ def test_tiny_basic_engine_on_the_card_matches_plain(cuda, monkeypatch):
     from resnetc_tpu_torch.serve import InferenceEngine
 
     monkeypatch.setattr(fused, "L1_PIXEL_PAIR", False)
+    monkeypatch.setattr(fused, "BASIC_DS_INT8", True)
     cfg = resnet.ResNetConfig("tiny_basic", "basic", (3, 2, 2, 2), num_classes=11, stem_width=16)
     variables = resnet.init(cfg, torch.Generator().manual_seed(0))
     x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
@@ -443,6 +449,7 @@ def _pp_route(cfg_name, stage_blocks, cuda, monkeypatch):
     variables = resnet.init(cfg, torch.Generator().manual_seed(0))
     x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
     eng = InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=x)
+    monkeypatch.setattr(fused, "BASIC_DS_INT8", True)
     out = {}
     for pp in (False, True):
         monkeypatch.setattr(fused, "L1_PIXEL_PAIR", pp)
@@ -472,3 +479,203 @@ def test_pp_basic_route_logits_equal_standard_route(cuda, monkeypatch):
     assert out[True][1] == {"basic_run_chained_int8_pp": 1, "basic_ds_block_s2_int8": 3,
                             "basic_block_chained_int8": 3, "matmul": 1}, out[True][1]
     assert torch.equal(out[True][0], out[False][0])
+
+
+# ---------------------------------------------------------------------------
+# The int8 and pallas backends: int8_matmul, the fused convs, max pool
+# ---------------------------------------------------------------------------
+
+
+def _bf16_within_one_ulp(got, want):
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    ulp = torch.ldexp(torch.ones_like(g), e - 8)
+    return bool(((err <= ulp) | (err <= 1e-5 * w.abs().max())).all())
+
+
+def _assert_conv_close(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        assert _bf16_within_one_ulp(got, want)
+
+
+# (id, m, k, n, bias, residual dtype, relu, out dtype): ResNet-152 1x1
+# shapes at batch 2, the fc, and a K off the 4-byte word.
+INT8_GEMM_CASES = [
+    ("l1-conv1", 2 * 56 * 56, 256, 64, True, None, True, torch.bfloat16),
+    ("l1-conv3-res", 2 * 56 * 56, 64, 256, True, torch.bfloat16, True, torch.bfloat16),
+    ("l4-conv3-res-f32", 2 * 49, 512, 2048, True, torch.float32, True, torch.float32),
+    ("fc", 2, 2048, 1000, True, None, False, torch.float32),
+    ("no-bias-res", 300, 132, 72, False, torch.float32, False, torch.float32),
+    ("odd-k", 100, 130, 40, True, None, False, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "m,k,n,bias,res,relu,out", [c[1:] for c in INT8_GEMM_CASES],
+    ids=[c[0] for c in INT8_GEMM_CASES],
+)
+def test_int8_matmul_kernel_equals_plain(cuda, gen, m, k, n, bias, res, relu, out):
+    from resnetc_tpu_torch.ops.cuda import quant
+
+    def t(a, dtype=None):
+        return torch.from_numpy(a).to(cuda, dtype)
+
+    x = t(gen.integers(-127, 128, size=(m, k), dtype=np.int8))
+    w = t(gen.integers(-127, 128, size=(k, n), dtype=np.int8))
+    sx = torch.tensor(0.0371, device=cuda)
+    sw = t((gen.random(n) * 2e-3 + 1e-4).astype(np.float32))
+    b = t((gen.standard_normal(n) * 4).astype(np.float32)) if bias else None
+    r = t((gen.standard_normal((m, n)) * 4).astype(np.float32), res) if res else None
+    _build.reset_launches()
+    got = quant.int8_matmul(x, w, sx, sw, b, r, relu=relu, out_dtype=out)
+    assert _build.LAUNCHES["int8_matmul"] == 1
+    want = quant.int8_matmul_plain(x, w, sx, sw, b, r, relu=relu, out_dtype=out)
+    _assert_equal(got, want)
+
+
+# (id, b, h, w, cin, cout, residual, dtype): ResNet-152 / ResNet-34 3x3
+# stride-1 shapes at batch 2, and odd sizes off the 64-wide tile.
+CONV_S1_CASES = [
+    ("r152-l1", 2, 56, 56, 64, 64, False, torch.bfloat16),
+    ("r34-l4-res", 2, 7, 7, 512, 512, True, torch.bfloat16),
+    ("r152-l3-f32", 2, 14, 14, 256, 256, False, torch.float32),
+    ("odd-res-f32", 3, 9, 7, 24, 40, True, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,w,cin,cout,res,dtype", [c[1:] for c in CONV_S1_CASES],
+    ids=[c[0] for c in CONV_S1_CASES],
+)
+def test_conv3x3_s1_kernel_close_to_plain(cuda, gen, b, h, w, cin, cout, res, dtype):
+    from resnetc_tpu_torch.ops.cuda import conv
+
+    def t(shape, scale=1.0, dt=dtype):
+        return torch.from_numpy((gen.standard_normal(shape) * scale).astype(np.float32)).to(
+            cuda, dt)
+
+    args = (t((b, h, w, cin)), t((3, 3, cin, cout), (9 * cin) ** -0.5),
+            t((cout,), 0.1, torch.float32), t((b, h, w, cout)) if res else None)
+    _build.reset_launches()
+    got = conv.conv3x3_s1_fused(*args, relu=True)
+    assert _build.LAUNCHES["conv3x3_s1_fused"] == 1
+    _assert_conv_close(got, conv.conv3x3_s1_fused_plain(*args, relu=True))
+    # no bias, no relu
+    _assert_conv_close(conv.conv3x3_s1_fused(*args[:2]), conv.conv3x3_s1_fused_plain(*args[:2]))
+
+
+# (id, b, h, cin, cout, k, dtype): the stride-2 3x3s of ResNet-152 (layer2
+# conv2) and ResNet-34 (layer2 conv1) at batch 2, odd sizes, k = 5 and 7.
+CONV_S2_CASES = [
+    ("r152-l2", 2, 56, 128, 128, 3, torch.bfloat16),
+    ("r34-l2", 2, 56, 64, 128, 3, torch.bfloat16),
+    ("r34-l4-f32", 2, 14, 256, 512, 3, torch.float32),
+    ("odd-f32", 2, 9, 16, 72, 3, torch.float32),
+    ("k5", 2, 13, 8, 16, 5, torch.float32),
+    ("k7", 2, 13, 8, 16, 7, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,cin,cout,k,dtype", [c[1:] for c in CONV_S2_CASES], ids=[c[0] for c in CONV_S2_CASES]
+)
+def test_conv_s2_kernel_close_to_plain(cuda, gen, b, h, cin, cout, k, dtype):
+    from resnetc_tpu_torch.ops.cuda import conv
+
+    def t(shape, scale=1.0, dt=dtype):
+        return torch.from_numpy((gen.standard_normal(shape) * scale).astype(np.float32)).to(
+            cuda, dt)
+
+    args = (t((b, h, h, cin)), t((k, k, cin, cout), (k * k * cin) ** -0.5),
+            t((cout,), 0.1, torch.float32))
+    _build.reset_launches()
+    got = conv.conv_s2_fused(*args, relu=True)
+    assert _build.LAUNCHES["conv_s2_fused"] == 1
+    _assert_conv_close(got, conv.conv_s2_fused_plain(*args, relu=True))
+
+
+# (k, s, p, h, c, dtype): the stem pool of both models at batch 2, the JAX
+# tests' windows, and a channel count off the 16-byte groups.
+POOL_CASES = [
+    (3, 2, 1, 112, 64, torch.bfloat16), (3, 2, 1, 112, 64, torch.int8),
+    (2, 2, 0, 8, 24, torch.float32), (3, 1, 1, 7, 24, torch.bfloat16),
+    (3, 3, 1, 9, 3, torch.int8), (3, 2, 1, 11, 5, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,s,p,h,c,dtype", POOL_CASES)
+def test_max_pool2d_kernel_equals_plain(cuda, gen, k, s, p, h, c, dtype):
+    from resnetc_tpu_torch.ops.cuda import pool
+
+    if dtype == torch.int8:
+        x = torch.from_numpy(gen.integers(-128, 128, size=(2, h, h, c), dtype=np.int8)).to(cuda)
+    else:
+        x = torch.from_numpy(gen.standard_normal((2, h, h, c)).astype(np.float32)).to(cuda, dtype)
+    _build.reset_launches()
+    got = pool.max_pool2d(x, kernel_size=k, stride=s, padding=p)
+    assert _build.LAUNCHES["max_pool2d"] == 1
+    want = pool.max_pool2d_plain(x, kernel_size=k, stride=s, padding=p)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["int8", "pallas"])
+@pytest.mark.parametrize("block_kind", ["bottleneck", "basic"])
+def test_tiny_int8_and_pallas_engines_on_the_card_match_plain(cuda, backend, block_kind):
+    import warnings
+
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused
+    from resnetc_tpu_torch.serve import InferenceEngine
+
+    cfg = resnet.ResNetConfig("tiny", block_kind, (3, 2, 2, 2), num_classes=11, stem_width=16)
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the pallas backend's deprecation notice
+        eng = InferenceEngine(cfg, variables, backend=backend)
+    _build.reset_launches()
+    got = eng.logits(x)
+    counts = dict(_build.LAUNCHES)
+    n3 = 9 * (2 if block_kind == "basic" else 1)
+    n1 = 3 + (9 * 2 + 1 if block_kind == "bottleneck" else 0) + 1
+    gemm_name = "int8_matmul" if backend == "int8" else "matmul"
+    assert counts == {"max_pool2d": 1, "conv_s2_fused": 3, "conv3x3_s1_fused": n3 - 3,
+                      gemm_name: n1}, counts
+    forward = fused.fused_forward_int8 if backend == "int8" else fused.fused_forward
+    want = forward(cfg, eng.folded, x.to(cuda), kernels=fused.PLAIN)
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.cuda
+def test_basic_ds_int8_off_route_on_the_card_matches_plain(cuda, monkeypatch):
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused
+    from resnetc_tpu_torch.serve import InferenceEngine
+
+    monkeypatch.setattr(fused, "L1_PIXEL_PAIR", False)
+    monkeypatch.setattr(fused, "BASIC_DS_INT8", False)
+    cfg = resnet.ResNetConfig("tiny_basic", "basic", (3, 2, 2, 2), num_classes=11, stem_width=16)
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    eng = InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=x)
+    _build.reset_launches()
+    got = eng.logits(x)
+    counts = dict(_build.LAUNCHES)
+    assert counts == {"basic_run_chained_int8": 1, "conv_s2_fused": 3, "conv3x3_s1_fused": 3,
+                      "matmul": 4, "basic_block_chained_int8": 3}, counts
+    want = fused.fused_forward_int8_chain(cfg, eng.folded, eng.chain_scales, x.to(cuda),
+                                          kernels=fused.PLAIN)
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))

@@ -427,6 +427,7 @@ def test_pp_forward_matches_jax(bottleneck_model, basic_model, family, policy, m
     jcfg, tcfg, jfold, x = bottleneck_model if family == "bottleneck" else basic_model
     jpol, tpol = (JFP32, FP32) if policy == "fp32" else (JBF16, BF16)
     monkeypatch.setattr(jfused, "BASIC_DS_INT8", True)
+    monkeypatch.setattr(tfused, "BASIC_DS_INT8", True)
     monkeypatch.setattr(jfused, "L1_PIXEL_PAIR", True)
     monkeypatch.setattr(tfused, "L1_PIXEL_PAIR", True)
     jq, jscales, tq, tscales = _served(jcfg, jfold, x, jpol)
@@ -468,8 +469,10 @@ ROUTES = [
 def test_pp_routes_equal_the_standard_route(fp32_trees, family, flags, want, monkeypatch):
     """Each route under L1_PIXEL_PAIR takes the kernels it should, and its
     logits equal, bit for bit, those of the same flags without pairing
-    and of the slice-1/2 standard route."""
+    and of the slice-1/2 standard route (the basic transitions int8, as
+    served)."""
     tcfg, tq, tscales, x = fp32_trees[family]
+    monkeypatch.setattr(tfused, "BASIC_DS_INT8", True)
     base, _ = _forward(tcfg, tq, tscales, x)
     for k, v in flags.items():
         monkeypatch.setattr(tfused, k, v)

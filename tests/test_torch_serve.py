@@ -166,14 +166,18 @@ def test_unported_flags_raise(setup, monkeypatch):
         m.setattr(tfused, "HYBRID_XLA_STAGES", (0,))
         with pytest.raises(NotImplementedError):
             tfused.fused_forward_int8_chain(tcfg, tq, scales, torch.from_numpy(x))
-    # The basic family's transitions without BASIC_DS_INT8 need kernels not
-    # ported yet.
+    # The basic family's transitions without BASIC_DS_INT8 are ported: the
+    # route runs (its JAX parity is in tests/test_torch_backends.py).
+    basic = tresnet.ResNetConfig(**{**TINY, "name": "tiny_basic", "block": "basic"})
+    bvars = tresnet.init(basic, torch.Generator().manual_seed(0))
+    bfold = tresnet.fold_inference_params(basic, bvars)
+    bscales = tfused.calibrate_chain_scales(basic, bfold, torch.from_numpy(x))
     with monkeypatch.context() as m:
         m.setattr(tfused, "BASIC_DS_INT8", False)
-        with pytest.raises(NotImplementedError):
-            tfused.fused_forward_int8_chain(
-                tresnet.get_config("resnet18"), {}, {}, torch.from_numpy(x)
-            )
+        logits = tfused.fused_forward_int8_chain(
+            basic, tfused.quantize_chain(basic, bfold), bscales, torch.from_numpy(x)
+        )
+    assert logits.shape == (2, 11) and torch.isfinite(logits).all()
 
 
 def test_entry_point_without_cuda_raises_instead_of_running_on_cpu(setup):
