@@ -15,7 +15,15 @@ Builds the CUDA kernels from ``resnetc_tpu_torch/csrc`` and then:
    rtol 1e-4, fp32 per-image means and the fp32 GEMM within rtol 1e-4.  The
    pixel-paired stage-0 kernels are also held against their standard twins
    (equal) and, through their pair-space entries, checked on dense random
-   pair-space weights;
+   pair-space weights.  The kernels of the ``pallas_block`` backend and the
+   op library at batch 8: ``bottleneck_block_chained`` at ResNet-152's four
+   stage shapes in bf16, one in fp32, and as a 3-block chain at 7x7 (wp = w
+   + 1) whose input ring holds NaN; ``bottleneck_block_fused`` at the four
+   stage shapes; ``avg_pool2d`` (the 7x7 head pool in fp32 and bf16, and
+   3x3/2/p1); ``relu``, ``add`` and ``add_relu`` at (8, 56, 56, 256) and
+   (3, 17, 50) in bf16 and fp32.  The blocks within max error / max |plain|
+   1e-2 in bf16 (z1 and z2 are rounded to bf16 inside the block) and rtol
+   1e-4 in fp32, the pool and the elementwise ops equal;
 2. prints the TUNED.json flags the port laid over its code defaults (they
    must turn on L1_PIXEL_PAIR and BASIC_DS_INT8), then serves ResNet-152
    and ResNet-34 at full width and depth (random weights from seed 0) at
@@ -29,24 +37,31 @@ Builds the CUDA kernels from ``resnetc_tpu_torch/csrc`` and then:
      0.08 for the basic one, argmax agreement 0.9; the bf16 fp engine's
      agreement is reported too); for ResNet-34 also the BASIC_DS_INT8=False
      route (transitions through the conv kernels), within the same gate;
-   - ``InferenceEngine(backend="int8")`` and ``backend="pallas"``, each
-     under BF16 (served) and FP32, and on ResNet-152
-     ``fused_forward_int8_static`` under FP32, gated under FP32 as the JAX
-     package gates them: int8 rel-MAE 0.15 of the fp32 forward, int8_static
-     0.2, pallas max error 1e-3 of max |logit|;
+   - ``InferenceEngine(backend="int8")``, ``backend="pallas"`` and
+     ``backend="pallas_block"``, each under BF16 (served) and FP32, and on
+     ResNet-152 ``fused_forward_int8_static`` under FP32, gated under FP32
+     as the JAX package gates them: int8 rel-MAE 0.15 of the fp32 forward,
+     int8_static 0.2, pallas and pallas_block max error 1e-3 of max
+     |logit|; a ResNet-34 pallas_block forward launches what a pallas one
+     does;
    every forward within 1e-2 (max error over max |logit|) of the same
    forward run through the plain versions, the int8 ones within 5e-2 (see
    INT8_PLAIN_LIMIT).  A ResNet-152 cut to (3, 2, 2, 2)
    blocks then runs with STAGE_FUSE_PROJ (all of layer1 one run kernel),
-   paired and standard, equal bit for bit to the served route;
+   paired and standard, equal bit for bit to the served route.  The op
+   library is driven once through ``resnetc_tpu_torch.ops.cuda`` at batch
+   32: a residual join (``add``, ``relu``, ``add_relu``) at ResNet-152's
+   layer1 shape, and a layer4 block (``bottleneck_block_fused``) followed
+   by the 7x7 head pool (``avg_pool2d``), each counted;
 3. times the engines (images/s, p50 / p99 ms per batch) for int8_chain on
-   both routes (and ResNet-34's BASIC_DS_INT8=False route), int8, pallas
-   and fp, and each kernel per launch at the main paths' shapes, beside the
+   both routes (and ResNet-34's BASIC_DS_INT8=False route), int8, pallas,
+   pallas_block and fp, and each kernel per launch at the main paths' shapes, beside the
    plain version, the bound (for a pixel-paired kernel, the work of its
    standard twin) and a library call that the port never makes:
    torch.matmul for the GEMM, torch._int_mm for int8_matmul (int32 out, no
    epilogue), F.conv2d (bf16, channels-last) for the fused convolutions,
-   F.max_pool2d for the pool.
+   F.max_pool2d and F.avg_pool2d for the pools, torch.relu and torch.add
+   for relu and add (none computes add_relu or a whole block).
 
 Prints the card (``nvidia-smi`` name and power limit), one JSON line of
 per-kernel results, and as its last line ``{"ok": true, "device": ...}``.
@@ -143,7 +158,8 @@ class Case:
         (no epilogue), torch._int_mm for int8_matmul (int32 out, no
         epilogue; it takes M > 16 and K, N multiples of 8), F.conv2d with
         the bias in bf16 / fp32 channels-last for the fused convolutions
-        (no residual), F.max_pool2d for the pool."""
+        (no residual), F.max_pool2d and F.avg_pool2d (channels-last) for the
+        pools, torch.relu and torch.add."""
         import torch
         import torch.nn.functional as F
 
@@ -162,10 +178,15 @@ class Case:
             stride = 1 if self.kernel == "conv3x3_s1_fused" else 2
             return lambda: F.conv2d(x, w, a[2].to(x.dtype), stride=stride,
                                     padding=w.shape[-1] // 2)
-        if self.kernel == "max_pool2d":
+        if self.kernel in ("max_pool2d", "avg_pool2d"):
             x = a[0].permute(0, 3, 1, 2)
-            return lambda: F.max_pool2d(x, self.kwargs["kernel_size"], self.kwargs["stride"],
-                                        self.kwargs["padding"])
+            pool = F.max_pool2d if self.kernel == "max_pool2d" else F.avg_pool2d
+            return lambda: pool(x, self.kwargs["kernel_size"], self.kwargs["stride"],
+                                self.kwargs["padding"])
+        if self.kernel == "relu":
+            return lambda: torch.relu(a[0])
+        if self.kernel == "add":
+            return lambda: torch.add(a[0], a[1])
         return None
 
 
@@ -626,6 +647,114 @@ def make_backend_cases(b: int, dev) -> list:
     return cases
 
 
+def _fp_block_weights(randn, c, c4, dtype):
+    """One bottleneck's weights for the bf16 / fp32 blocks: w1, b1, w2, b2,
+    w3, b3 (weights in ``dtype``, fp32 biases)."""
+    import torch
+
+    f32 = torch.float32
+    return (randn(c4, c, scale=c4**-0.5, dtype=dtype), randn(c, scale=0.1, dtype=f32),
+            randn(3, 3, c, c, scale=(9 * c) ** -0.5, dtype=dtype), randn(c, scale=0.1, dtype=f32),
+            randn(c, c4, scale=c**-0.5, dtype=dtype), randn(c4, scale=0.1, dtype=f32))
+
+
+def _repeat(fn, n: int):
+    """``fn`` applied ``n`` times, its output the next call's input."""
+    def run(x, *args, **kwargs):
+        for _ in range(n):
+            x = fn(x, *args, **kwargs)
+        return x
+
+    return run
+
+
+def make_fp_cases(b: int, dev) -> list:
+    """The kernels of the pallas_block backend (bottleneck_block_chained at
+    ResNet-152's four stage shapes in bf16, one stage in fp32, and a chain of
+    three at 7x7, where wp = w + 1, whose input ring holds NaN) and of the
+    op library: bottleneck_block_fused at the four stage shapes, the 7x7
+    head pool (fp32 and bf16) and the 3x3/2/p1 pool, relu / add / add_relu
+    at ResNet-152's layer1 shape and at an odd size, bf16 and fp32."""
+    import torch
+
+    from resnetc_tpu_torch.ops.cuda import block, elementwise, pool
+    from resnetc_tpu_torch.ops.cuda.block import chain_meta
+
+    gen = torch.Generator().manual_seed(8765)
+    cases = []
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    blocks = (3, 8, 36, 3)
+
+    def fp_case(label, kernel, s, dtype, *, n=1, count=0, nan_ring=False):
+        h, c, c4 = STAGES[s]
+        size = 2 if dtype == torch.bfloat16 else 4
+        x = randn(b, h, h, c4, dtype=dtype)
+        if kernel == "bottleneck_block_chained":
+            hp, wp = chain_meta(b, h, h)
+            x = block.pad_for_chain(x)
+            if nan_ring:
+                ring = ~block.pad_for_chain(torch.ones((b, h, h, 1), device=dev)).bool()[:, 0]
+                x[ring] = float("nan")
+            kw = dict(h=h, w_sp=h)
+            rows = b * hp * wp
+        else:
+            kw, rows = {}, b * h * h
+        fn, plain = getattr(block, kernel), getattr(block, kernel + "_plain")
+        if n > 1:
+            fn, plain = _repeat(fn, n), _repeat(plain, n)
+        cases.append(Case(
+            label, kernel, fn, plain, (x, *_fp_block_weights(randn, c, c4, dtype)), kw,
+            n * 2 * b * h * h * 17 * c * c,
+            size * (2 * rows * c4 + 17 * c * c) + 4 * (2 * c + c4),
+            PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS,
+            "rel" if dtype == torch.bfloat16 else "f32", per_forward=count,
+        ))
+
+    for s in range(4):
+        fp_case(f"fp_block/s{s}", "bottleneck_block_chained", s, torch.bfloat16,
+                count=blocks[s] - 1)
+    fp_case("fp_block/fp32/s1", "bottleneck_block_chained", 1, torch.float32)
+    fp_case("fp_block/chain3/nan_ring/s3", "bottleneck_block_chained", 3, torch.bfloat16, n=3,
+            nan_ring=True)
+    for s in range(4):
+        fp_case(f"fp_block_fused/s{s}", "bottleneck_block_fused", s, torch.bfloat16)
+
+    for label, shape, k, st, p, dtype in (
+        ("avg_pool/head/fp32", (b, 7, 7, 2048), 7, 1, 0, torch.float32),
+        ("avg_pool/head", (b, 7, 7, 2048), 7, 1, 0, torch.bfloat16),
+        ("avg_pool/3x3s2", (b, 112, 112, 64), 3, 2, 1, torch.bfloat16),
+    ):
+        oh = (shape[1] + 2 * p - k) // st + 1
+        size = 2 if dtype == torch.bfloat16 else 4
+        cases.append(Case(
+            label, "avg_pool2d", pool.avg_pool2d, pool.avg_pool2d_plain, (randn(*shape, dtype=dtype),),
+            dict(kernel_size=k, stride=st, padding=p), 0,
+            size * shape[0] * shape[3] * (shape[1] * shape[2] + oh * oh), PEAK_F32_FLOPS,
+            "bf16" if dtype == torch.bfloat16 else "f32eq",
+        ))
+
+    for op in ("relu", "add", "add_relu"):
+        for where, shape in (("l1", (b, 56, 56, 256)), ("odd", (3, 17, 50))):
+            for dtype in (torch.bfloat16, torch.float32):
+                n_in = 1 if op == "relu" else 2
+                numel = 1
+                for d in shape:
+                    numel *= d
+                size = 2 if dtype == torch.bfloat16 else 4
+                tag = where + ("" if dtype == torch.bfloat16 else "/fp32")
+                cases.append(Case(
+                    f"{op}/{tag}", op, getattr(elementwise, op),
+                    getattr(elementwise, op + "_plain"),
+                    tuple(randn(*shape, dtype=dtype) for _ in range(n_in)), {}, 0,
+                    size * numel * (n_in + 1), PEAK_F32_FLOPS,
+                    "bf16" if dtype == torch.bfloat16 else "f32eq",
+                ))
+    return cases
+
+
 def check_case(case) -> float:
     """Kernel vs plain on the same inputs (and a pixel-paired kernel vs its
     standard twin); returns the max abs error against the plain version."""
@@ -645,6 +774,17 @@ def check_case(case) -> float:
         distinct = int(torch.unique(got).numel())
         if distinct < 20:
             raise AssertionError(f"{case.name}: degenerate output ({distinct} values)")
+    elif case.check == "rel":
+        # z1 and z2 are rounded to bf16 inside a block: a summation-order
+        # difference that straddles a rounding boundary moves a value by a
+        # bf16 step, so the bound is on the largest error over the largest
+        # value.
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{case.name}: non-finite output")
+        rel = err / float(want.float().abs().max())
+        if not rel <= 1e-2:
+            raise AssertionError(f"{case.name}: max error / max |plain| {rel} > 1e-2")
+        log(f"[kernels] {case.name}: max error / max |plain| = {rel}")
     elif case.check == "bf16ulp":
         # The same fp32 sums in another order, rounded to bf16: within one
         # bf16 step of the larger magnitude, or of zero where relu cuts a
@@ -674,8 +814,8 @@ def phase_kernels(cases: list) -> dict:
     for case in cases:
         errs[case.name] = check_case(case)
         twin = " and to its standard twin" if case.twin else ""
-        how = {"bf16ulp": "within 1 bf16 ulp of", "f32": "within rtol 1e-4 of"}.get(
-            case.check, "equal to")
+        how = {"bf16ulp": "within 1 bf16 ulp of", "f32": "within rtol 1e-4 of",
+               "rel": "within 1e-2 of max |plain| of"}.get(case.check, "equal to")
         log(f"[kernels] {case.name}: {how} plain{twin}, max_abs_err={errs[case.name]}")
     return errs
 
@@ -867,14 +1007,22 @@ def phase_end_to_end(name: str, rel_mae_gate: float, cases: list, batch: int, de
 
 def backend_launches(cfg, backend: str) -> dict:
     """Launches of each kernel in one forward of the int8 backend (and of
-    fused_forward_int8_static) or the pallas backend: one per convolution
-    of its kind, the stem's pool, and the fc."""
+    fused_forward_int8_static), the pallas backend or the pallas_block
+    backend: one per convolution of its kind, the stem's pool, and the fc;
+    under pallas_block one bottleneck_block_chained per identity block of a
+    bottleneck net instead of its three convolutions (a basic net takes the
+    pallas route)."""
     nb = sum(cfg.stage_blocks)
+    if cfg.block == "bottleneck" and backend == "pallas_block":
+        # The four projection blocks: conv1, conv3 and the projection each
+        # through matmul, conv2 stride 1 in stage 0 and stride 2 after.
+        return {"max_pool2d": 1, "conv_s2_fused": 3, "conv3x3_s1_fused": 1, "matmul": 13,
+                "bottleneck_block_chained": nb - 4}
     if cfg.block == "bottleneck":
         n3, n1 = nb, 2 * nb + 4  # conv2 of each block; conv1, conv3, the projections
     else:
         n3, n1 = 2 * nb, 3
-    gemm = "matmul" if backend == "pallas" else "int8_matmul"
+    gemm = "int8_matmul" if backend == "int8" else "matmul"
     return {"max_pool2d": 1, "conv_s2_fused": 3, "conv3x3_s1_fused": n3 - 3, gemm: n1 + 1}
 
 
@@ -918,16 +1066,17 @@ INT8_PLAIN_LIMIT = 5e-2
 
 
 def phase_backends(name: str, e2e: dict, batch: int, dev) -> dict:
-    """The int8 and pallas engines of one model at full width and depth,
-    each forward counted and checked; fused_forward_int8_static on the
-    bottleneck model.
+    """The int8, pallas and pallas_block engines of one model at full width
+    and depth, each forward counted and checked; fused_forward_int8_static
+    on the bottleneck model.
 
     Each runs under the served BF16 policy and under FP32.  The gates
     against the fp32 forward are the JAX package's own, which it runs under
-    FP32 (tests/test_quant.py:86-127, tests/test_pallas.py:95-106): int8
-    rel-MAE 0.15, int8_static 0.2, pallas max error 1e-3 of max |logit|.
-    Each forward stays within 1e-2 of max |logit| of the same forward on
-    the plain versions, the int8 ones within INT8_PLAIN_LIMIT."""
+    FP32 (tests/test_quant.py:86-127, tests/test_pallas.py:95-106 and
+    :194-202): int8 rel-MAE 0.15, int8_static 0.2, pallas and pallas_block
+    max error 1e-3 of max |logit|.  Each forward stays within 1e-2 of max
+    |logit| of the same forward on the plain versions, the int8 ones within
+    INT8_PLAIN_LIMIT."""
     import torch
 
     from resnetc_tpu_torch.models import resnet
@@ -943,8 +1092,11 @@ def phase_backends(name: str, e2e: dict, batch: int, dev) -> dict:
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the pallas backend's deprecation notice
         engines = {b + p: InferenceEngine(cfg, variables, backend=b, policy=pol, device=dev)
-                   for b in ("int8", "pallas") for p, pol in policies.items()}
-    forwards = {"int8": fused.fused_forward_int8, "pallas": fused.fused_forward}
+                   for b in ("int8", "pallas", "pallas_block") for p, pol in policies.items()}
+    forwards = {
+        "int8": fused.fused_forward_int8, "pallas": fused.fused_forward,
+        "pallas_block": lambda *a, **kw: fused.fused_forward(*a, block_fusion=True, **kw),
+    }
     out = {"engines": engines, "launches": {}, "gates": {}}
 
     def check_launches(label, launches, want):
@@ -966,8 +1118,11 @@ def phase_backends(name: str, e2e: dict, batch: int, dev) -> dict:
             limit=INT8_PLAIN_LIMIT if backend == "int8" else 1e-2)
         if label == "int8/fp32" and not rep["rel_mae_vs_fp32"] < 0.15:
             raise AssertionError(f"{tag} int8 logits outside the rel-MAE 0.15 gate")
-        if label == "pallas/fp32" and not rep["rel_max_vs_fp32"] < 1e-3:
-            raise AssertionError(f"{tag} FP32 pallas logits beyond 1e-3 of the fp32 forward")
+        if backend.startswith("pallas") and label.endswith("/fp32") \
+                and not rep["rel_max_vs_fp32"] < 1e-3:
+            raise AssertionError(f"{tag} FP32 {backend} logits beyond 1e-3 of the fp32 forward")
+    if cfg.block == "basic" and out["launches"]["pallas_block"] != out["launches"]["pallas"]:
+        raise AssertionError(f"{tag} pallas_block launched other kernels than pallas")
 
     if cfg.block == "bottleneck":
         # Calibrated on the served batch, as the JAX package's own gate
@@ -1066,6 +1221,56 @@ def phase_reduced_routes(dev) -> dict:
     return out
 
 
+def phase_op_library(batch: int, dev) -> dict:
+    """The op library through its entry points (``resnetc_tpu_torch.ops.cuda``)
+    as a caller composes it, at ResNet-152 shapes and batch ``batch``: the
+    residual join of a layer1 block (``add_relu``, and ``relu`` after
+    ``add``), and a layer4 identity block (``bottleneck_block_fused``) under
+    the 7x7 head pool (``avg_pool2d``).  The launch counters are set to 0
+    just before and read just after.  relu(add(a, b)) must equal
+    add_relu(a, b) bit for bit, and the pooled block must be within 1e-2 of
+    max |plain| of the same calls on the plain versions."""
+    import torch
+
+    from resnetc_tpu_torch.ops import cuda as ops
+    from resnetc_tpu_torch.ops.cuda import block, pool
+
+    tag = "[op library]"
+    gen = torch.Generator().manual_seed(97)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    a, b = randn(batch, 56, 56, 256), randn(batch, 56, 56, 256)
+    h, c, c4 = STAGES[3]
+    x = randn(batch, h, h, c4)
+    ws = _fp_block_weights(randn, c, c4, torch.bfloat16)
+
+    def drive():
+        joined = ops.add_relu(a, b)
+        twice = ops.relu(ops.add(a, b))
+        pooled = ops.avg_pool2d(ops.bottleneck_block_fused(x, *ws), kernel_size=7, stride=1)
+        return joined, twice, pooled
+
+    (joined, twice, pooled), launches = counted(drive)
+    log(f"{tag} launches: {json.dumps(launches)}")
+    want = {"add_relu": 1, "add": 1, "relu": 1, "bottleneck_block_fused": 1, "avg_pool2d": 1}
+    if launches != want:
+        raise AssertionError(f"{tag} launched {launches}, expected {want}")
+    if not torch.equal(joined, twice):
+        raise AssertionError(f"{tag} add_relu differs from relu(add)")
+    plain = pool.avg_pool2d_plain(block.bottleneck_block_fused_plain(x, *ws), kernel_size=7,
+                                  stride=1)
+    if tuple(pooled.shape) != (batch, 1, 1, c4) or not bool(torch.isfinite(pooled).all()):
+        raise AssertionError(f"{tag} pooled block of shape {tuple(pooled.shape)}")
+    rel = float((pooled.float() - plain.float()).abs().max() / plain.float().abs().max())
+    log(f"{tag} add_relu == relu(add); pooled layer4 block vs plain: "
+        f"max error / max |plain| = {rel}")
+    if rel > 1e-2:
+        raise AssertionError(f"{tag} the pooled block disagrees with the plain versions")
+    return {"launches": launches, "pooled_rel_max_err": rel}
+
+
 def phase_engine_timing(name: str, runs: list, x, batch: int) -> dict:
     """Throughput and per-batch latency of each (label, engine, flags) on
     the images ``x``."""
@@ -1112,20 +1317,32 @@ SOURCES = {
     "conv3x3_s1_fused": ("resnetc_tpu_torch/csrc/conv.cu", "resnetc_tpu/ops/pallas/conv.py:150"),
     "conv_s2_fused": ("resnetc_tpu_torch/csrc/conv.cu", "resnetc_tpu/ops/pallas/conv.py:287"),
     "max_pool2d": ("resnetc_tpu_torch/csrc/pool.cu", "resnetc_tpu/ops/pallas/pool.py:65"),
+    "avg_pool2d": ("resnetc_tpu_torch/csrc/pool.cu", "resnetc_tpu/ops/pallas/pool.py:174"),
+    "bottleneck_block_chained": ("resnetc_tpu_torch/csrc/fp_block.cu",
+                                 "resnetc_tpu/ops/pallas/block.py:278"),
+    "bottleneck_block_fused": ("resnetc_tpu_torch/csrc/fp_block.cu",
+                               "resnetc_tpu/ops/pallas/block.py:3688"),
+    "relu": ("resnetc_tpu_torch/csrc/elementwise.cu",
+             "resnetc_tpu/ops/pallas/elementwise.py:29"),
+    "add, add_relu": ("resnetc_tpu_torch/csrc/elementwise.cu",
+                      "resnetc_tpu/ops/pallas/elementwise.py:53"),
 }
+#: Wrappers that launch one TPU kernel's counterpart (one row of the table).
+MEMBERS = {"add, add_relu": ("add", "add_relu")}
 
 
 def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[list, list]:
     """Every case timed at the main paths' batch; per kernel, ms / plain ms /
     bound weighted by its launches per forward over the shapes of the routes
-    that run it (cases off every route are timed and listed, not weighed),
-    the largest error of all its cases, and its launches summed over every
-    route driven end to end."""
+    that run it (cases off every route are timed and listed, not weighed; a
+    kernel off every route weighs each of its cases once), the largest
+    error of all its cases, and its launches summed over every route
+    driven."""
     import torch
 
     counts = main_path_counts()
     per_case = []
-    makers = [make for _, _, make in MODELS] + [make_backend_cases]
+    makers = [make for _, _, make in MODELS] + [make_backend_cases, make_fp_cases]
     for case in [c for make in makers for c in make(batch, dev)]:
         ms = time_ms(case.run, iters=10)
         plain_ms = time_ms(case.run_plain, iters=2, warmup=1)
@@ -1148,8 +1365,10 @@ def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[li
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
-        checked = [r["case"] for r in per_case if r["kernel"] == name]
-        rows = [r for r in per_case if r["kernel"] == name and r["per_forward"] > 0]
+        members = MEMBERS.get(name, (name,))
+        mine = [r for r in per_case if r["kernel"] in members]
+        checked = [r["case"] for r in mine]
+        rows = [r for r in mine if r["per_forward"] > 0] or [dict(r, per_forward=1) for r in mine]
         n = sum(r["per_forward"] for r in rows)
 
         def avg(key, rows=rows, n=n):
@@ -1159,7 +1378,7 @@ def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[li
         lib = [r for r in rows if r["library_ms"] is not None]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches.get(name, 0),
+            "launches": sum(launches.get(m, 0) for m in members),
             "max_abs_err": max(errs[c] for c in checked),
             "ms": avg("ms"), "plain_ms": avg("plain_ms"), "bound_ms": avg("bound_ms"),
             "bound_by": "operations" if 2 * by_ops >= n else "bytes",
@@ -1197,7 +1416,8 @@ def main() -> int:
     log(f"[build] kernels built in {build_s:.1f} s")
 
     cases = {name: make(8, dev) for name, _, make in MODELS}
-    errs = phase_kernels([c for cs in cases.values() for c in cs] + make_backend_cases(8, dev))
+    errs = phase_kernels([c for cs in cases.values() for c in cs] + make_backend_cases(8, dev)
+                         + make_fp_cases(8, dev))
     tuned = phase_tuned()
     summaries, engine_times, launches = {}, {}, {}
 
@@ -1216,7 +1436,8 @@ def main() -> int:
             add(off["launches"])
             runs.append(("int8_chain_basic_ds_int8_off", e2e["engine"],
                          {"BASIC_DS_INT8": False, "L1_PIXEL_PAIR": False}))
-        runs += [(label, back["engines"][label], {}) for label in ("int8", "pallas")]
+        runs += [(label, back["engines"][label], {})
+                 for label in ("int8", "pallas", "pallas_block")]
         runs.append(("fp", e2e["fp"], {}))
         engine_times[name] = phase_engine_timing(name, runs, e2e["x"], args.batch)
         for route in list(e2e["launches"].values()) + list(back["launches"].values()):
@@ -1228,6 +1449,8 @@ def main() -> int:
     summaries["reduced_routes"] = phase_reduced_routes(dev)
     for route in summaries["reduced_routes"].values():
         add(route)
+    summaries["op_library"] = phase_op_library(args.batch, dev)
+    add(summaries["op_library"]["launches"])
     torch.cuda.empty_cache()
     kernels, per_case = phase_kernel_timing(args.batch, dev, errs, launches)
     total_s = time.perf_counter() - t0

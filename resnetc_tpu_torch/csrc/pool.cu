@@ -1,10 +1,19 @@
-// Max pool, NHWC: out[b, r, c, ch] = max over the k x k window at
-// (r*s - p, c*s - p) of x[b, ., ., ch]; taps outside the image never win
-// (the -inf / integer-min padding of the TPU kernel).  bf16, fp32 or int8.
+// Pools, NHWC, over the k x k window at (r*s - p, c*s - p) of x[b, ., ., ch]:
 //
-// Replaces resnetc_tpu/ops/pallas/pool.py:65 `max_pool2d` (pallas_call at
-// :126).  On the `int8` and `pallas` paths it is the pool after the stem:
-// (B, 112, 112, 64) bf16 -> (B, 56, 56, 64), k 3, s 2, p 1.
+// - max: taps outside the image never win (the -inf / integer-min padding
+//   of the TPU kernel).  bf16, fp32 or int8.  Replaces
+//   resnetc_tpu/ops/pallas/pool.py:65 `max_pool2d` (pallas_call at :126).
+//   On the `int8` and `pallas` paths it is the pool after the stem:
+//   (B, 112, 112, 64) bf16 -> (B, 56, 56, 64), k 3, s 2, p 1.
+// - average: divisor k*k whatever the padding, taps outside the image add
+//   zeros.  bf16 or fp32, output in the input's type.  Replaces
+//   resnetc_tpu/ops/pallas/pool.py:174 `avg_pool2d` (pallas_call at :220;
+//   body `_avg_tap_kernel` :146), in its order of operations: per kernel
+//   row kh an fp32 sum over kw from left to right, then acc = acc + that,
+//   then one multiply by the fp32 constant 1/k^2 (the wrapper passes it;
+//   dividing by k^2 can differ in the last bit), so the output equals the
+//   plain version bit for bit.  Op library: ResNet-152's 7x7 head pool over
+//   (B, 7, 7, 2048).
 //
 // What bounds it.  Nine compares per output against one read of the input
 // and one write of the output: bytes-bound (~64 MB at batch 32, ~19 us at
@@ -12,10 +21,10 @@
 // channels (8 bf16, 4 fp32 or 16 int8 values) when the channel row allows
 // 16-byte access, else one channel per thread; neighbouring threads take
 // neighbouring channel groups, so every load and store is coalesced, and
-// the window's overlapping reads come from L1/L2.  The TPU kernel's phase
+// the window's overlapping reads come from L1/L2.  The TPU kernels' phase
 // planes (strided access Mosaic lacks) and the padded copy are not carried
-// over.  A max is exact, so the output equals the plain version bit for
-// bit.
+// over.  A max is exact, so its output equals the plain version bit for
+// bit.  The average pool has the same layout and the same bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,6 +51,20 @@ __device__ __forceinline__ __nv_bfloat16 lowest<__nv_bfloat16>() {
 }
 template <>
 __device__ __forceinline__ int8_t lowest<int8_t>() { return INT8_MIN; }
+
+template <typename T>
+__device__ __forceinline__ T zero() { return T(0); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(static_cast<unsigned short>(0));
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Vec {
@@ -84,6 +107,51 @@ max_pool_kernel(const T* __restrict__ x, T* __restrict__ out, int B, int H, int 
       m;
 }
 
+template <typename T, int VEC>
+__global__ void __launch_bounds__(THREADS)
+avg_pool_kernel(const T* __restrict__ x, T* __restrict__ out, int B, int H, int W, int C,
+                int OH, int OW, int k, int s, int p, float inv) {
+  const int groups = C / VEC;
+  const size_t total = (size_t)B * OH * OW * groups;
+  const size_t idx = (size_t)blockIdx.x * THREADS + threadIdx.x;
+  if (idx >= total) return;
+  const int g = static_cast<int>(idx % groups);
+  size_t pix = idx / groups;
+  const int c = static_cast<int>(pix % OW);
+  pix /= OW;
+  const int r = static_cast<int>(pix % OH);
+  const int b = static_cast<int>(pix / OH);
+
+  float acc[VEC], cur[VEC];
+  const int y0 = r * s - p, x0 = c * s - p;
+  for (int u = 0; u < k; ++u) {
+    const int iy = y0 + u;
+    for (int v = 0; v < k; ++v) {
+      const int ix = x0 + v;
+      Vec<T, VEC> t;
+      if (iy >= 0 && iy < H && ix >= 0 && ix < W) {
+        t = *reinterpret_cast<const Vec<T, VEC>*>(x + (((size_t)b * H + iy) * W + ix) * C +
+                                                  (size_t)g * VEC);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) t.v[i] = zero<T>();
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float f = static_cast<float>(key(t.v[i]));
+        cur[i] = v == 0 ? f : __fadd_rn(cur[i], f);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] = u == 0 ? cur[i] : __fadd_rn(acc[i], cur[i]);
+  }
+  Vec<T, VEC> o;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) o.v[i] = from_f32<T>(__fmul_rn(acc[i], inv));
+  *reinterpret_cast<Vec<T, VEC>*>(out + (((size_t)b * OH + r) * OW + c) * C + (size_t)g * VEC) =
+      o;
+}
+
 template <typename T>
 int launch(const void* x, void* out, int vec, int B, int H, int W, int C, int OH, int OW,
            int k, int s, int p, cudaStream_t stream) {
@@ -101,6 +169,23 @@ int launch(const void* x, void* out, int vec, int B, int H, int W, int C, int OH
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_avg(const void* x, void* out, int vec, int B, int H, int W, int C, int OH, int OW,
+               int k, int s, int p, float inv, cudaStream_t stream) {
+  constexpr int V16 = 16 / sizeof(T);
+  const int v = vec ? V16 : 1;
+  const size_t total = (size_t)B * OH * OW * (C / v);
+  const unsigned blocks = static_cast<unsigned>((total + THREADS - 1) / THREADS);
+  if (blocks == 0) return 0;
+  if (vec)
+    avg_pool_kernel<T, V16><<<blocks, THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), B, H, W, C, OH, OW, k, s, p, inv);
+  else
+    avg_pool_kernel<T, 1><<<blocks, THREADS, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<T*>(out), B, H, W, C, OH, OW, k, s, p, inv);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // vec: 1 when C * sizeof(T) is a multiple of 16 and x, out are 16-byte
@@ -115,6 +200,21 @@ extern "C" int max_pool2d_nhwc(const void* x, void* out, int kind, int vec, int 
       return launch<float>(x, out, vec, B, H, W, C, OH, OW, k, s, p, stream);
     case KIND_I8:
       return launch<int8_t>(x, out, vec, B, H, W, C, OH, OW, k, s, p, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Average pool; bf16 or fp32; vec as for max_pool2d_nhwc; inv: the fp32
+// value of 1/k^2 that the output is multiplied by.
+extern "C" int avg_pool2d_nhwc(const void* x, void* out, int kind, int vec, int B, int H,
+                               int W, int C, int OH, int OW, int k, int s, int p, float inv,
+                               cudaStream_t stream) {
+  switch (kind) {
+    case KIND_BF16:
+      return launch_avg<__nv_bfloat16>(x, out, vec, B, H, W, C, OH, OW, k, s, p, inv, stream);
+    case KIND_F32:
+      return launch_avg<float>(x, out, vec, B, H, W, C, OH, OW, k, s, p, inv, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,12 +1,11 @@
-"""Int8 residual blocks over the chained padded-row layout.
+"""Residual blocks over the chained padded-row layout.
 
-Counterpart of ``resnetc_tpu/ops/pallas/block.py`` for the int8_chain
-serving path: the layout helpers (``chain_meta``, ``pad_for_chain``,
-``unpad_from_chain``), weight quantization (``quantize_chain_block``,
-``quantize_ds_block``, ``quantize_basic_block``,
-``quantize_basic_ds_block``) and ten kernels, each with its plain PyTorch
-version beside it.  The bottleneck family (CUDA in
-``resnetc_tpu_torch/csrc/chain_block.cu``):
+Counterpart of ``resnetc_tpu/ops/pallas/block.py``: the layout helpers
+(``chain_meta``, ``pad_for_chain``, ``unpad_from_chain``), weight
+quantization (``quantize_chain_block``, ``quantize_ds_block``,
+``quantize_basic_block``, ``quantize_basic_ds_block``) and twelve kernels,
+each with its plain PyTorch version beside it.  The int8_chain path's
+bottleneck family (CUDA in ``resnetc_tpu_torch/csrc/chain_block.cu``):
 
 - ``bottleneck_block_chained_int8``  (block.py:718) — one stride-1 block;
 - ``bottleneck_run_chained_int8``    (block.py:2908) — a run of N blocks;
@@ -26,8 +25,15 @@ see the section comment below): ``bottleneck_block_chained_int8_pp``
 ``basic_block_chained_int8_pp`` (:2002) and ``basic_run_chained_int8_pp``
 (:2175).
 
-All sources share the implicit GEMM of ``csrc/igemm.cuh`` (see its header
-for the design and what bounds it).  A wrapper runs the plain version when
+The int8 sources share the implicit GEMM of ``csrc/igemm.cuh`` (see its
+header for the design and what bounds it).
+
+The bf16 / fp32 stride-1 bottleneck of the ``pallas_block`` backend and the
+op library (CUDA in ``csrc/fp_block.cu``, one piece of code for both; see
+the section comment below): ``bottleneck_block_chained`` (block.py:278),
+over the chain layout, and ``bottleneck_block_fused`` (:3688), NHWC in and
+out.
+  A wrapper runs the plain version when
 its input lies on the CPU, and launches the kernel for a CUDA tensor, or
 raises; there is no fallback.  Each wrapper first folds the scalar requant
 scales into per-channel vectors exactly as the JAX wrapper does
@@ -92,6 +98,10 @@ _ARGTYPES = {
         # x; n_blocks B h w hp wp c2; w1s a1s c1s w2s a2s c2s s_res;
         # z1 act0 act1; last_bf16 out stream
         "pp_basic_run_int8": [_P] + [_I] * 7 + [_P] * 7 + [_P] * 3 + [_I, _P, _P],
+    },
+    "fp_block": {
+        # x w1 b1 w2 b2 w3 b3; z1 z2 out; kind chain B h w hp wp c c4; stream
+        "fp_block": [_P] * 7 + [_P] * 3 + [_I] * 9 + [_P],
     },
 }
 
@@ -1450,3 +1460,128 @@ def basic_run_chained_int8_pp(
     args, c = _basic_run_pp_operands(xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s,
                                      scales_s, h, w_sp, emit_i8)
     return basic_run_pp_pairs(*args, h=h, w_sp=w_sp, emit_i8=emit_i8).reshape(-1, c)
+
+
+# ---------------------------------------------------------------------------
+# Kernels 17-18: the bf16 / fp32 stride-1 bottleneck block
+#
+# One block, ``y = relu(conv1x1(relu(conv3x3(relu(conv1x1(x) + b1)) + b2))
+# + b3 + x)``, every dot in fp32 with z1 and z2 rounded to the compute type,
+# the 3x3 summed per kernel row and then as (P0 + P1) + P2, as in
+# block.py:152 ``_chained_kernel`` and :95 ``_block_kernel``.  The chained
+# form reads only the interior rows of its input (a ring row may hold
+# anything) and writes zeros to the ring rows of its output.
+# ---------------------------------------------------------------------------
+
+_FP_KIND = {torch.bfloat16: 1, torch.float32: 2}
+
+
+def _fp_block_nhwc_plain(x, w1, b1, w2, b2, w3, b3):
+    """The block on a (B, h, w, 4c) interior, every dot an fp32 matmul of
+    upcast operands (bf16 products are exact in fp32)."""
+    dt = x.dtype
+    _, h, w_sp, _ = x.shape
+    c = w1.shape[-1]
+    xf = x.float()
+    z1 = torch.relu(torch.matmul(xf, w1.float()) + b1.float()).to(dt)
+    zp = F.pad(z1.float(), (0, 0, 1, 1, 1, 1))
+    w2f = w2.float()
+    acc = None
+    for kh in range(3):
+        taps = torch.cat([zp[:, kh : kh + h, kw : kw + w_sp] for kw in range(3)], dim=-1)
+        part = torch.matmul(taps, w2f[kh].reshape(3 * c, c))
+        acc = part if acc is None else acc + part
+    z2 = torch.relu(acc + b2.float()).to(dt)
+    y = torch.matmul(z2.float(), w3.float()) + b3.float()
+    return torch.relu(y + xf).to(dt)
+
+
+def _fp_weights(x, w1, w2, w3):
+    """The 1x1 weights as matrices; checks the shapes against x's channels."""
+    w1, w3 = _as_1x1(w1), _as_1x1(w3)
+    c4, c = w1.shape
+    if tuple(w2.shape) != (3, 3, c, c) or tuple(w3.shape) != (c, c4) or x.shape[-1] != c4:
+        raise ValueError(f"weights {tuple(w1.shape)}, {tuple(w2.shape)}, {tuple(w3.shape)} "
+                         f"do not make a bottleneck over {x.shape[-1]} channels")
+    return w1, w3
+
+
+def _fp_chain_geometry(xr, h, w_sp):
+    hp, wp = chain_meta(0, h, w_sp)
+    rows = xr.shape[0]
+    b = rows // (hp * wp)
+    if xr.ndim != 2 or b * hp * wp != rows:
+        raise ValueError(f"xr {tuple(xr.shape)} is not a ({hp}x{wp}) chain")
+    return b, hp, wp
+
+
+def _fp_launch(x, w1, b1, w2, b2, w3, b3, *, chain, b, h, w_sp, hp, wp, name):
+    dt = x.dtype
+    if dt not in _FP_KIND:
+        raise ValueError(f"x: dtype {dt}, expected bf16 or fp32")
+    dev = x.device
+    c4, c = w1.shape
+    x = x.contiguous()
+    _build.require(x, "x", dt, dev)
+    w1, w2, w3 = w1.contiguous(), w2.contiguous(), w3.contiguous()
+    _build.require(w1, "w1", dt, dev, (c4, c))
+    _build.require(w2, "w2", dt, dev, (3, 3, c, c))
+    _build.require(w3, "w3", dt, dev, (c, c4))
+    b1, b2, b3 = (v.float().contiguous() for v in (b1, b2, b3))
+    _build.require(b1, "b1", torch.float32, dev, (c,))
+    _build.require(b2, "b2", torch.float32, dev, (c,))
+    _build.require(b3, "b3", torch.float32, dev, (c4,))
+    z1 = torch.empty((b * h * w_sp, c), dtype=dt, device=dev)
+    z2 = torch.empty_like(z1)
+    out = torch.empty_like(x)
+    rc = _lib("fp_block").fp_block(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        w3.data_ptr(), b3.data_ptr(), z1.data_ptr(), z2.data_ptr(), out.data_ptr(),
+        _FP_KIND[dt], int(chain), b, h, w_sp, hp, wp, c, c4, _build.stream(),
+    )
+    _build.check(rc, name)
+    _build.LAUNCHES[name] += 1
+    return out
+
+
+def bottleneck_block_chained_plain(xr, w1, b1, w2, b2, w3, b3, *, h, w_sp, bt=None,
+                                   interpret=False):
+    """Plain PyTorch version of ``bottleneck_block_chained``."""
+    w1, w3 = _fp_weights(xr, w1, w2, w3)
+    b, hp, wp = _fp_chain_geometry(xr, h, w_sp)
+    x = xr.reshape(b, hp, wp, xr.shape[-1])[:, 1 : 1 + h, 1 : 1 + w_sp]
+    return _chain_from_interior(_fp_block_nhwc_plain(x, w1, b1, w2, b2, w3, b3), hp, wp)
+
+
+def bottleneck_block_chained(xr, w1, b1, w2, b2, w3, b3, *, h, w_sp, bt=None, interpret=False):
+    """One stride-1 bottleneck block over the chained padded-row layout.
+
+    xr: (B*Hp*Wp, 4c) bf16 / fp32 from ``pad_for_chain`` or a previous
+    block; w1 (4c, c) or (1, 1, 4c, c), w2 (3, 3, c, c), w3 (c, 4c) or (1,
+    1, c, 4c) in xr's type; fp32 biases.  Returns the same layout and type,
+    with zeros on the ring rows."""
+    if not xr.is_cuda:
+        return bottleneck_block_chained_plain(xr, w1, b1, w2, b2, w3, b3, h=h, w_sp=w_sp)
+    w1, w3 = _fp_weights(xr, w1, w2, w3)
+    b, hp, wp = _fp_chain_geometry(xr, h, w_sp)
+    return _fp_launch(xr, w1, b1, w2, b2, w3, b3, chain=True, b=b, h=h, w_sp=w_sp, hp=hp,
+                      wp=wp, name="bottleneck_block_chained")
+
+
+def bottleneck_block_fused_plain(x, w1, b1, w2, b2, w3, b3, *, bt=None, interpret=False):
+    """Plain PyTorch version of ``bottleneck_block_fused``."""
+    w1, w3 = _fp_weights(x, w1, w2, w3)
+    return _fp_block_nhwc_plain(x, w1, b1, w2, b2, w3, b3)
+
+
+def bottleneck_block_fused(x, w1, b1, w2, b2, w3, b3, *, bt=None, interpret=False):
+    """One stride-1 bottleneck block, NHWC (B, H, W, 4c) bf16 / fp32 in and
+    out, the zero ring implicit; weights as for ``bottleneck_block_chained``."""
+    if not x.is_cuda:
+        return bottleneck_block_fused_plain(x, w1, b1, w2, b2, w3, b3)
+    w1, w3 = _fp_weights(x, w1, w2, w3)
+    if x.ndim != 4:
+        raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
+    b, h, w_sp, _ = x.shape
+    return _fp_launch(x, w1, b1, w2, b2, w3, b3, chain=False, b=b, h=h, w_sp=w_sp, hp=h + 2,
+                      wp=w_sp + 2, name="bottleneck_block_fused")

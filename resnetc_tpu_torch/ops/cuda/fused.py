@@ -1,4 +1,5 @@
-"""The serving forwards of the ``pallas``, ``int8`` and ``int8_chain`` backends.
+"""The serving forwards of the ``pallas``, ``pallas_block``, ``int8`` and
+``int8_chain`` backends.
 
 Counterpart of ``resnetc_tpu/ops/pallas/fused.py``: the tunable flags and
 their ``TUNED.json`` overlay (fused.py:32-211), the conv router ``_conv``
@@ -15,7 +16,11 @@ time, so the engine serves what the module holds: the code defaults with
 The ``pallas`` forward routes every folded conv through ``_conv``: 1x1 to
 ``conv1x1_fused`` (the ``matmul`` GEMM), 3x3/1 to ``conv3x3_s1_fused``,
 3x3/2 to ``conv3x3_s2_fused``, the 7x7 stem to a stock convolution; the
-stem's pool is ``max_pool2d`` and the head ``matmul``.  The ``int8`` forward
+stem's pool is ``max_pool2d`` and the head ``matmul``.  With
+``block_fusion=True`` (the ``pallas_block`` backend) every run of
+consecutive stride-1 bottleneck blocks without a projection is instead one
+``pad_for_chain``, one ``bottleneck_block_chained`` per block and one
+``unpad_from_chain`` (fused.py:288-321).  The ``int8`` forward
 is the same with every 1x1 conv and the fc dynamically quantized per tensor
 through ``int8_matmul``; ``fused_forward_int8_static`` takes calibrated
 scales instead.
@@ -45,9 +50,8 @@ projection) and requantized, and every other block is one
 outside the kernel, as in the JAX package.
 
 Every forward takes ``kernels=`` (``PLAIN`` runs the plain versions, the
-on-card reference).  Not yet ported (each raises ``NotImplementedError``):
-``HYBRID_XLA_STAGES``, ``fused_forward(block_fusion=True)`` and per-channel
-interior calibration.
+on-card reference).  Not yet ported: ``HYBRID_XLA_STAGES`` (raises
+``NotImplementedError``) and per-channel interior calibration.
 """
 
 from __future__ import annotations
@@ -188,6 +192,7 @@ class Kernels(typing.NamedTuple):
     conv3x3_s1: typing.Callable
     conv_s2: typing.Callable
     max_pool: typing.Callable
+    fp_block: typing.Callable
 
 
 KERNELS = Kernels(
@@ -206,6 +211,7 @@ KERNELS = Kernels(
     conv.conv3x3_s1_fused,
     conv.conv_s2_fused,
     pool.max_pool2d,
+    block.bottleneck_block_chained,
 )
 PLAIN = Kernels(
     block.bottleneck_block_chained_int8_plain,
@@ -223,6 +229,7 @@ PLAIN = Kernels(
     conv.conv3x3_s1_fused_plain,
     conv.conv_s2_fused_plain,
     pool.max_pool2d_plain,
+    block.bottleneck_block_chained_plain,
 )
 
 
@@ -270,17 +277,30 @@ def _conv(x, entry, *, stride, relu, residual=None, policy, kernels):
 # ---------------------------------------------------------------------------
 
 
-def _residual_blocks(cfg: ResNetConfig, y, tree: Tree, conv_fn):
+def _residual_blocks(cfg: ResNetConfig, y, tree: Tree, conv_fn, run_fn=None):
     """Every residual block of the network over ``tree``, each conv through
     ``conv_fn(x, entry, stride=, relu=, residual=, site=, key=)``, where
-    ``site`` names the block ("layerN", "b") and ``key`` the conv."""
+    ``site`` names the block ("layerN", "b") and ``key`` the conv.  With
+    ``run_fn``, each run of consecutive stride-1 bottleneck blocks without
+    a projection goes through ``run_fn(y, [block entries])`` instead."""
     for stage in range(4):
         blocks = tree[f"layer{stage + 1}"]
         stage_stride = 1 if stage == 0 else 2
-        for b in range(cfg.stage_blocks[stage]):
+        n = cfg.stage_blocks[stage]
+        b = 0
+        while b < n:
             blk = blocks[str(b)]
             s = stage_stride if b == 0 else 1
+            if (run_fn is not None and cfg.block == "bottleneck" and s == 1
+                    and "downsample" not in blk):
+                run = []
+                while b < n and "downsample" not in blocks[str(b)]:
+                    run.append(blocks[str(b)])
+                    b += 1
+                y = run_fn(y, run)
+                continue
             site = (f"layer{stage + 1}", str(b))
+            b += 1
 
             def c(x, key, stride, relu, residual=None):
                 return conv_fn(x, blk[key], stride=stride, relu=relu, residual=residual,
@@ -311,14 +331,11 @@ def fused_forward(
     """The ``pallas`` backend: every conv of a BN-folded tree through
     ``_conv``, the stem's pool through ``max_pool2d``, global mean and the fc
     through ``matmul``.  ``x`` is NHWC; returns (B, num_classes) logits in
-    ``policy.output``.  ``block_fusion=True`` (the ``pallas_block`` backend)
-    needs ``bottleneck_block_chained`` (kernel table row 17), not ported
-    yet."""
-    if block_fusion:
-        raise NotImplementedError(
-            "block_fusion=True runs bottleneck_block_chained (kernel table row 17), "
-            "not ported yet"
-        )
+    ``policy.output``.  ``block_fusion=True`` is the ``pallas_block``
+    backend: each run of stride-1 bottleneck blocks without a projection is
+    padded once into the chain layout, runs one ``bottleneck_block_chained``
+    per block (weights in ``policy.compute``, fp32 biases) and is unpadded
+    once; a basic net takes the ``pallas`` route unchanged."""
     x = x.to(policy.compute)
     y = _conv(x, folded["conv1"], stride=2, relu=True, policy=policy, kernels=kernels)
     y = kernels.max_pool(y, kernel_size=3, stride=2, padding=1)
@@ -327,7 +344,20 @@ def fused_forward(
         return _conv(xx, entry, stride=stride, relu=relu, residual=residual, policy=policy,
                      kernels=kernels)
 
-    y = _residual_blocks(cfg, y, folded, conv_fn)
+    def run_fn(yy, run):
+        bsz, h, w_sp, _ = yy.shape
+        yr = block.pad_for_chain(yy)
+        for blk in run:
+            yr = kernels.fp_block(
+                yr,
+                blk["conv1"]["weight"].to(policy.compute), blk["conv1"]["bias"],
+                blk["conv2"]["weight"].to(policy.compute), blk["conv2"]["bias"],
+                blk["conv3"]["weight"].to(policy.compute), blk["conv3"]["bias"],
+                h=h, w_sp=w_sp,
+            )
+        return block.unpad_from_chain(yr, bsz, h, w_sp)
+
+    y = _residual_blocks(cfg, y, folded, conv_fn, run_fn if block_fusion else None)
     feats = y.float().mean(dim=(1, 2)).to(policy.compute)
     return kernels.matmul(
         feats,

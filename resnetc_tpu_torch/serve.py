@@ -1,6 +1,6 @@
 """Serving path: an inference engine over BN-folded weights, and benchmarks.
 
-Counterpart of ``resnetc_tpu/serve.py:34-363``.  Four backends:
+Counterpart of ``resnetc_tpu/serve.py:34-363``.  Five backends:
 
 - ``"int8_chain"`` — calibrate static activation scales, quantize, and run
   ``fused_forward_int8_chain`` (every residual block an int8 CUDA kernel,
@@ -14,14 +14,16 @@ Counterpart of ``resnetc_tpu/serve.py:34-363``.  Four backends:
   with a per-tensor scale taken over the batch at each call, the 3x3 convs
   through ``conv3x3_s1_fused`` / ``conv3x3_s2_fused``;
 - ``"pallas"`` — ``fused_forward`` over the folded tree, every conv a
-  kernel in ``policy.compute`` (a reference path: the JAX engine warns that
-  it is slower than its ``xla`` backend, and so does this one);
+  kernel in ``policy.compute``;
+- ``"pallas_block"`` — ``fused_forward(block_fusion=True)``: as ``pallas``,
+  but every stride-1 bottleneck block without a projection is one
+  ``bottleneck_block_chained`` over the chain layout (a basic net takes the
+  ``pallas`` route);
 - ``"fp"`` — ``forward_folded`` on stock PyTorch ops (the JAX package's
   ``xla`` backend).
 
-``"pallas_block"`` (the JAX engine's ``fused_forward(block_fusion=True)``)
-needs kernel table row 17 and raises ``NotImplementedError`` until it is
-ported.
+``pallas`` and ``pallas_block`` are reference paths: the engine warns when
+one is built, as the JAX engine does.
 
 The engine runs on the card unless ``device="cpu"`` is asked for; on the
 CPU the kernels' plain versions run.  Benchmarks time on the card only,
@@ -40,7 +42,7 @@ from resnetc_tpu_torch.models import resnet
 from resnetc_tpu_torch.tensor import BF16, DtypePolicy, resolve_device, tree_map
 
 Tree = dict
-BACKENDS = ("fp", "pallas", "int8", "int8_chain")
+BACKENDS = ("fp", "pallas", "pallas_block", "int8", "int8_chain")
 
 
 class InferenceEngine:
@@ -61,11 +63,6 @@ class InferenceEngine:
         calib_method: str = "absmax",
         device: str | torch.device | None = None,
     ):
-        if backend == "pallas_block":
-            raise NotImplementedError(
-                "backend 'pallas_block' needs bottleneck_block_chained (kernel table row "
-                "17), not ported yet (slice 5 of the port)"
-            )
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         if backend != "fp" and model_cfg.groups > 1:
@@ -73,13 +70,13 @@ class InferenceEngine:
                 f"backend {backend!r} does not support grouped convolutions (ResNeXt, "
                 f"groups={model_cfg.groups}); serve grouped models with backend='fp'"
             )
-        if backend == "pallas":
-            # The JAX engine's deprecation notice (serve.py:69-82), kept word
-            # for word: the bf16 kernel path is a reference, not a server.
+        if backend in ("pallas", "pallas_block"):
+            # The JAX engine's deprecation notice (serve.py:69-82), with the
+            # port's names: the bf16 kernel paths are a reference, not a
+            # server.  PERF.md has their times on the card.
             warnings.warn(
-                f"backend {backend!r} is a bf16 Pallas reference path, "
-                "~2.6-3x slower than 'xla' (see PERF.md); use 'int8_chain' "
-                "(fastest for bottleneck models) or 'xla' for serving.",
+                f"backend {backend!r} is a bf16 kernel reference path, slower "
+                "than 'fp' (see PERF.md); use 'int8_chain' or 'fp' for serving.",
                 stacklevel=2,
             )
         self.model_cfg = model_cfg
@@ -130,9 +127,10 @@ class InferenceEngine:
                 )
             from resnetc_tpu_torch.ops.cuda import fused
 
-            if self.backend == "pallas":
+            if self.backend in ("pallas", "pallas_block"):
                 return fused.fused_forward(
-                    self.model_cfg, self.folded, images, policy=self.policy
+                    self.model_cfg, self.folded, images, policy=self.policy,
+                    block_fusion=self.backend == "pallas_block",
                 )
             if self.backend == "int8":
                 return fused.fused_forward_int8(

@@ -4,7 +4,8 @@
 ``fused_forward`` (the ``pallas`` backend) on ResNet-18 (10 classes) and a
 bottleneck net cut to (2, 1, 1, 1) blocks at stem width 16, 32x32, batch 2;
 the engines' ``int8`` and ``pallas`` ``classify`` on a basic net cut to
-(1, 1, 1, 1) blocks at stem width 16; and ``fused_forward_int8_chain`` with
+(1, 1, 1, 1) blocks at stem width 16; the ``pallas_block`` engine built and
+run; and ``fused_forward_int8_chain`` with
 ``BASIC_DS_INT8=False`` on ResNet-18 ((2, 2, 2, 2) blocks), with its stage
 taps.  One BN-folded tree (the port's seeded init, folded) goes to both
 frameworks; the JAX Pallas kernels run with ``interpret=True``, the port's
@@ -135,11 +136,19 @@ def test_engine_classify_matches_jax_engine(models, backend):
 
 
 def test_unported_block_fusion_raises(models):
+    """``pallas_block`` raised until kernel row 17 was ported: it now builds
+    and serves (``tests/test_torch_fp_block.py`` holds it against JAX).
+    What the port does not serve still raises: the JAX name ``xla`` and
+    grouped configs on a kernel backend."""
     _, tcfg, tvars, tfold, _ = models["bottleneck"]
-    with pytest.raises(NotImplementedError, match="row 17"):
-        tserve.InferenceEngine(tcfg, tvars, backend="pallas_block", device="cpu")
-    with pytest.raises(NotImplementedError, match="row 17"):
-        tfused.fused_forward(tcfg, tfold, torch.from_numpy(_x(3, 32)), block_fusion=True)
+    x = _x(3, 32)
+    with pytest.warns(UserWarning, match="reference path"):
+        eng = tserve.InferenceEngine(tcfg, tvars, backend="pallas_block", device="cpu")
+    assert eng.classify(x).shape == (2,)
+    counts: dict = {}
+    logits = tfused.fused_forward(tcfg, tfold, torch.from_numpy(x), block_fusion=True,
+                                  kernels=_counting(tfused.KERNELS, counts))
+    assert counts["fp_block"] == 1 and torch.equal(logits, eng.logits(x))
     with pytest.raises(ValueError, match="backend must be one of"):
         tserve.InferenceEngine(tcfg, tvars, backend="xla", device="cpu")
     grouped = tresnet.get_config("resnext50_32x4d")

@@ -22,6 +22,12 @@ zero to fp32 rounding).
 The pixel-paired kernels are also driven through their pair-space entries
 with dense random pair-space weights, so a kernel that skipped the zero
 blocks or ran the unpaired GEMM would disagree with its plain version.
+The bf16 / fp32 bottleneck blocks (``bottleneck_block_chained``,
+``bottleneck_block_fused``) round z1 and z2 to the compute type inside the
+block, so a summation-order difference can move a value by one bf16 step:
+max error / max |plain| within 1e-2 in bf16, 1e-4 in fp32.  The average
+pool and ``relu`` / ``add`` / ``add_relu`` are EQUAL to their plain versions
+(NaN where they have NaN).
 """
 
 from __future__ import annotations
@@ -677,5 +683,141 @@ def test_basic_ds_int8_off_route_on_the_card_matches_plain(cuda, monkeypatch):
                       "matmul": 4, "basic_block_chained_int8": 3}, counts
     want = fused.fused_forward_int8_chain(cfg, eng.folded, eng.chain_scales, x.to(cuda),
                                           kernels=fused.PLAIN)
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# The pallas_block backend and the op library: the bf16 / fp32 bottleneck
+# blocks, the average pool, relu / add / add_relu
+# ---------------------------------------------------------------------------
+
+FP_BLOCK_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+def _rel_max(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def _fp_block_args(gen, dev, b, h, c, dtype):
+    def t(shape, scale, dt=dtype):
+        return torch.from_numpy((gen.standard_normal(shape) * scale).astype(np.float32)).to(
+            dev, dt)
+
+    c4 = 4 * c
+    f32 = torch.float32
+    return t((b, h, h, c4), 1.0), (
+        t((c4, c), c4**-0.5), t((c,), 0.1, f32), t((3, 3, c, c), (9 * c) ** -0.5),
+        t((c,), 0.1, f32), t((c, c4), c**-0.5), t((c4,), 0.1, f32),
+    )
+
+
+# (h, c, dtype): wp = w + 1 at h = 7, odd sizes, widths off the 64-wide tile.
+FP_BLOCK_CASES = [(8, 16, torch.bfloat16), (7, 32, torch.bfloat16), (9, 16, torch.float32),
+                  (14, 64, torch.bfloat16), (7, 64, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c,dtype", FP_BLOCK_CASES)
+def test_bottleneck_block_chained_kernel_close_to_plain(cuda, gen, h, c, dtype):
+    """Three chained blocks whose input ring holds NaN: the interiors stay
+    finite and close to the plain versions', the output rings are zero."""
+    x, ws = _fp_block_args(gen, cuda, 2, h, c, dtype)
+    xr = block.pad_for_chain(x)
+    ring = ~block.pad_for_chain(torch.ones_like(x[..., :1])).bool()[:, 0]
+    xr[ring] = float("nan")
+    _build.reset_launches()
+    got, want = xr, xr
+    for _ in range(3):
+        got = block.bottleneck_block_chained(got, *ws, h=h, w_sp=h)
+        want = block.bottleneck_block_chained_plain(want, *ws, h=h, w_sp=h)
+    assert _build.LAUNCHES["bottleneck_block_chained"] == 3
+    assert bool(torch.isfinite(got).all()) and not got[ring].any()
+    assert _rel_max(got, want) <= FP_BLOCK_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c,dtype", FP_BLOCK_CASES)
+def test_bottleneck_block_fused_kernel_close_to_plain(cuda, gen, h, c, dtype):
+    x, ws = _fp_block_args(gen, cuda, 2, h, c, dtype)
+    _build.reset_launches()
+    got = block.bottleneck_block_fused(x, *ws)
+    assert _build.LAUNCHES["bottleneck_block_fused"] == 1
+    assert _rel_max(got, block.bottleneck_block_fused_plain(x, *ws)) <= FP_BLOCK_TOL[dtype]
+    # The same sums in the same order as the chained form between a pad and
+    # an unpad.
+    chained = block.bottleneck_block_chained(block.pad_for_chain(x), *ws, h=h, w_sp=h)
+    assert torch.equal(block.unpad_from_chain(chained, 2, h, h), got)
+
+
+# (k, s, p, h, c, dtype): ResNet-152's head pool, the JAX tests' windows, and
+# a channel count off the 16-byte groups.
+AVG_POOL_CASES = [(7, 1, 0, 7, 2048, torch.float32), (7, 1, 0, 7, 2048, torch.bfloat16),
+                  (3, 2, 1, 16, 24, torch.bfloat16), (2, 2, 0, 8, 24, torch.float32),
+                  (3, 2, 1, 11, 5, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,s,p,h,c,dtype", AVG_POOL_CASES)
+def test_avg_pool2d_kernel_equals_plain(cuda, gen, k, s, p, h, c, dtype):
+    from resnetc_tpu_torch.ops.cuda import pool
+
+    x = torch.from_numpy(gen.standard_normal((2, h, h, c)).astype(np.float32)).to(cuda, dtype)
+    _build.reset_launches()
+    got = pool.avg_pool2d(x, kernel_size=k, stride=s, padding=p)
+    assert _build.LAUNCHES["avg_pool2d"] == 1
+    want = pool.avg_pool2d_plain(x, kernel_size=k, stride=s, padding=p)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 17, 50), (2, 56, 56, 256)], ids=["odd", "r152-l1"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("op", ["relu", "add", "add_relu"])
+def test_elementwise_kernels_equal_plain(cuda, gen, op, dtype, shape):
+    from resnetc_tpu_torch.ops.cuda import elementwise
+
+    a, b = (torch.from_numpy(gen.standard_normal(shape).astype(np.float32)) for _ in range(2))
+    a.view(-1)[:3] = float("nan")
+    b.view(-1)[7] = float("nan")
+    a.view(-1)[11], b.view(-1)[11] = float("inf"), float("-inf")
+    a, b = a.to(cuda, dtype), b.to(cuda, dtype)
+    args = (a,) if op == "relu" else (a, b)
+    _build.reset_launches()
+    got = getattr(elementwise, op)(*args)
+    assert _build.LAUNCHES[op] == 1
+    want = getattr(elementwise, op + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and bool(torch.isnan(want).any())
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["bf16", "fp32"])
+def test_tiny_pallas_block_engine_on_the_card_matches_plain(cuda, policy):
+    import warnings
+
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused
+    from resnetc_tpu_torch.serve import InferenceEngine
+    from resnetc_tpu_torch.tensor import BF16, FP32
+
+    pol = {"bf16": BF16, "fp32": FP32}[policy]
+    cfg = resnet.ResNetConfig("tiny", "bottleneck", (3, 2, 2, 2), num_classes=11, stem_width=16)
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the deprecation notice
+        eng = InferenceEngine(cfg, variables, backend="pallas_block", policy=pol)
+    _build.reset_launches()
+    got = eng.logits(x)
+    counts = dict(_build.LAUNCHES)
+    assert counts == {"max_pool2d": 1, "conv3x3_s1_fused": 1, "conv_s2_fused": 3, "matmul": 13,
+                      "bottleneck_block_chained": 5}, counts
+    want = fused.fused_forward(cfg, eng.folded, x.to(cuda), policy=pol, block_fusion=True,
+                               kernels=fused.PLAIN)
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
