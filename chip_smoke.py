@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--batch 32] [--out results.json]
 
-Builds the CUDA kernels from ``resnetc_tpu_torch/csrc`` and then:
+Builds the CUDA kernels from ``resnetc_tpu_torch/csrc``, checks that the
+libraries of rows 4 and 13 hold wgmma (HGMMA) instructions, and then:
 
 1. holds every kernel of the serving paths against its plain PyTorch
    version on the card, at the shapes of ResNet-152 (the bottleneck
@@ -55,9 +56,14 @@ Builds the CUDA kernels from ``resnetc_tpu_torch/csrc`` and then:
    by the 7x7 head pool (``avg_pool2d``), each counted;
 3. times the engines (images/s, p50 / p99 ms per batch) for int8_chain on
    both routes (and ResNet-34's BASIC_DS_INT8=False route), int8, pallas,
-   pallas_block and fp, and each kernel per launch at the main paths' shapes, beside the
-   plain version, the bound (for a pixel-paired kernel, the work of its
-   standard twin) and a library call that the port never makes:
+   pallas_block and fp, and each kernel per launch at the main paths'
+   shapes: on the card (``ms``: ten launches queued behind a spin kernel,
+   so that they run back to back, the median of five runs) and as called
+   from Python (``eager_ms``: the median of five event-timed loops, host
+   cost included), beside the plain version, the bound (for a pixel-paired
+   kernel, the work of its standard twin), the TFLOP/s and share of the
+   bound of each shape (printed for the tensor-core kernels, rows 13 and
+   4), and a library call that the port never makes, timed like ``ms``:
    torch.matmul for the GEMM, torch._int_mm for int8_matmul (int32 out, no
    epilogue), F.conv2d (bf16, channels-last) for the fused convolutions,
    F.max_pool2d and F.avg_pool2d for the pools, torch.relu and torch.add
@@ -103,20 +109,70 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
+#: Repeats of each timing loop; the median is kept (one mean of one loop
+#: caught 2.7-3.8x outliers).
+REPEATS = 5
+
+
+def time_ms(fn, iters: int, warmup: int = 2, repeats: int = REPEATS) -> float:
+    """ms per call: the median over ``repeats`` of the mean of ``iters``
+    back-to-back calls between two CUDA events.  Where the host cannot keep
+    ahead of the card (a short kernel behind a ctypes wrapper) this is the
+    host's time per call."""
+    import statistics
+
     import torch
 
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def device_ms(fn, iters: int, repeats: int = REPEATS) -> float | None:
+    """ms per call on the card: ``iters`` calls enqueued while the card is
+    still busy with a spin kernel, so that they run back to back with no
+    host time between them (the start event fires after the spin); the
+    median over ``repeats``.  The spin doubles until the host is ahead; a
+    call that waits for the card itself (a copy from pageable host memory)
+    never lets it get ahead, and then this returns None.  Inputs stay in L2
+    where they fit, for a kernel and its library call alike."""
+    import statistics
+
+    import torch
+
+    for _ in range(2):
         fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    cycles = 1 << 24
+    times = []
+    while len(times) < repeats:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()  # the spin still ran when the last call was queued
+        torch.cuda.synchronize()
+        if ahead:
+            times.append(start.elapsed_time(end) / iters)
+        elif cycles >= 1 << 27:
+            return None
+        else:
+            cycles *= 2
+    return statistics.median(times)
 
 
 # ---------------------------------------------------------------------------
@@ -809,6 +865,27 @@ def check_case(case) -> float:
 # ---------------------------------------------------------------------------
 
 
+def phase_sass(build_dir) -> dict:
+    """The bf16 tile's libraries hold wgmma instructions (HGMMA in their
+    SASS, read with the toolkit's cuobjdump): rows 4 and 13 run on the
+    tensor cores."""
+    from pathlib import Path
+
+    from resnetc_tpu_torch.ops.cuda import _build
+
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    counts = {}
+    for lib in ("libconv.so", "libgemm.so"):
+        sass = subprocess.run([str(tool), "-sass", str(build_dir / lib)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        counts[lib] = sass.count("HGMMA")
+        if not counts[lib]:
+            raise AssertionError(f"{lib}: no HGMMA instruction; the bf16 tile is off the "
+                                 "tensor cores")
+    log(f"[sass] HGMMA instructions: {counts}")
+    return counts
+
+
 def phase_kernels(cases: list) -> dict:
     errs = {}
     for case in cases:
@@ -1329,6 +1406,9 @@ SOURCES = {
 }
 #: Wrappers that launch one TPU kernel's counterpart (one row of the table).
 MEMBERS = {"add, add_relu": ("add", "add_relu")}
+#: The kernels on the bf16 tensor-core tile (bf16_tile.cuh): their TFLOP/s
+#: and share of the bound are printed per shape.
+TILE_KERNELS = ("conv3x3_s1_fused", "matmul")
 
 
 def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[list, list]:
@@ -1344,24 +1424,33 @@ def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[li
     per_case = []
     makers = [make for _, _, make in MODELS] + [make_backend_cases, make_fp_cases]
     for case in [c for make in makers for c in make(batch, dev)]:
-        ms = time_ms(case.run, iters=10)
-        plain_ms = time_ms(case.run_plain, iters=2, warmup=1)
+        eager_ms = time_ms(case.run, iters=10)
+        ms = device_ms(case.run, iters=10)
+        if ms is None:  # the wrapper waits for the card: only its eager time exists
+            log(f"[timing] {case.name}: the wrapper synchronises; ms is its eager time")
+            ms = eager_ms
+        plain_ms = time_ms(case.run_plain, iters=2, warmup=1, repeats=3)
         lib_ms = None
         lib = case.library()
         if lib is not None:
             try:
-                lib_ms = time_ms(lib, iters=20)
+                lib_ms = device_ms(lib, iters=20) or time_ms(lib, iters=20)
             except RuntimeError as e:  # a library call that refuses the shape
                 log(f"[timing] {case.name}: library call refused: {e}")
         per_forward = case.per_forward if case.per_forward is not None else counts.get(case.name, 0)
         row = {
             "case": case.name, "kernel": case.kernel, "batch": batch,
-            "per_forward": per_forward, "ms": ms, "plain_ms": plain_ms,
+            "per_forward": per_forward, "ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
             "bound_ms": case.bound_ms, "bound_by": case.bound_by, "library_ms": lib_ms,
             "ops": case.ops, "bytes": case.nbytes,
+            "tflops": case.ops / ms * 1e-9, "bound_share": case.bound_ms / ms,
         }
         per_case.append(row)
         log(f"[timing] {json.dumps(row)}")
+        if case.kernel in TILE_KERNELS:
+            vs = f", {ms / lib_ms:.2f}x the library's {lib_ms:.4f} ms" if lib_ms else ""
+            log(f"[tile] {case.name}: {ms:.4f} ms, {row['tflops']:.1f} TFLOP/s, "
+                f"{100 * row['bound_share']:.1f}% of the bound{vs}")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -1380,7 +1469,8 @@ def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[li
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.get(m, 0) for m in members),
             "max_abs_err": max(errs[c] for c in checked),
-            "ms": avg("ms"), "plain_ms": avg("plain_ms"), "bound_ms": avg("bound_ms"),
+            "ms": avg("ms"), "eager_ms": avg("eager_ms"), "plain_ms": avg("plain_ms"),
+            "bound_ms": avg("bound_ms"),
             "bound_by": "operations" if 2 * by_ops >= n else "bytes",
             "library_ms": avg("library_ms", lib, sum(r["per_forward"] for r in lib))
             if lib else None,
@@ -1411,9 +1501,10 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    _build.build_all(verbose=True)
+    build_dir = _build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
     log(f"[build] kernels built in {build_s:.1f} s")
+    sass = phase_sass(build_dir)
 
     cases = {name: make(8, dev) for name, _, make in MODELS}
     errs = phase_kernels([c for cs in cases.values() for c in cs] + make_backend_cases(8, dev)
@@ -1458,7 +1549,8 @@ def main() -> int:
 
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": card, "build_s": build_s, "total_s": total_s, "tuned": tuned,
+            json.dump({"card": card, "build_s": build_s, "sass": sass, "total_s": total_s,
+                       "tuned": tuned,
                        "e2e": summaries, "engines": engine_times, "cases": per_case,
                        "kernels": kernels, "max_abs_err": errs}, f, indent=1)
     log(card)

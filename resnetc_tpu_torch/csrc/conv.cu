@@ -15,30 +15,38 @@
 //     `conv3x3_s2_fused` :402 is an alias), odd k, S = 2, no residual: the
 //     three stride-2 3x3s of each network.
 //
-// Design.  One implicit GEMM per launch: M = B*OH*OW output pixels, N =
-// Cout, K = k*k*Cin ordered (u, v, ci) as the HWIO weight rows are.  A block
-// computes a 64-pixel x 64-channel tile with 256 threads (4 x 4 outputs a
-// thread), staging K sixteen values at a time through shared memory as
-// fp32: the A tile is gathered straight from x, tap (u, v) of output pixel
-// (r, c) reading x[r*S + u - k/2, c*S + v - k/2] with a bounds check that
-// stands for the zero padding, so no padded copy of x is ever written.  The
-// TPU kernel's padded row layout, batch tiles and (for stride 2) phase
-// planes exist because Mosaic wants static contiguous slices; none of that
-// carries over.  Products and sums are fp32 FMAs on the CUDA cores (a
-// product of two bf16 values is exact in fp32), in a different order than
-// XLA's per-tap dots: outputs agree with the plain version to fp32 rounding.
-//
 // What bounds it.  A ResNet 3x3 at batch 32 does 2*9*Cin*Cout flops per
 // pixel (7.4 GFLOP for each bottleneck 3x3 of ResNet-152) against a few tens
 // of MB: far above the ridge, so the bound is the bf16 tensor-core rate
-// (~7.5 us).  This first version runs at the CUDA cores' fp32 FMA rate,
-// roughly fifteen times below that; tensor cores (mma.sync / wgmma on bf16
-// tiles), TMA and a pipelined ring of stages are later work.
+// (~7.5 us).
+//
+// Design.  One implicit GEMM per launch: M = B*OH*OW output pixels, N =
+// Cout, K = k*k*Cin ordered (u, v, ci) as the HWIO weight rows are.  Tap (u,
+// v) of output pixel (r, c) reads x[r*S + u - k/2, c*S + v - k/2]; a tap in
+// the padding reads zeros, so no padded copy of x is ever written.  The TPU
+// kernel's padded row layout, batch tiles and (for stride 2) phase planes
+// exist because Mosaic wants static contiguous slices; none of that carries
+// over.
+//   - bf16, stride 1 (`conv3x3_s1_fused`): the tensor-core tile of
+//     bf16_tile.cuh with its im2col loader (ConvALoader): each 16-byte chunk
+//     of A is 8 channels of one tap, copied by cp.async, zero-filled where
+//     the tap falls in the padding; wgmma sums in fp32 registers.  A Cin off
+//     the 8-channel grid is gathered value by value in the same kernel.  The
+//     loader takes the stride as a template parameter.
+//   - fp32, and stride 2 (`conv_s2_fused`, its odd k included): a 64-pixel
+//     x 64-channel tile on the CUDA cores (256 threads, 4 x 4 outputs a
+//     thread), K staged sixteen values at a time through shared memory as
+//     fp32 with a bounds check per value; ~12-14 TFLOP/s.  Its tensor-core
+//     form is the stride-2 instantiation of the same tile; fp32 stays on the
+//     CUDA cores, where the FP32 policy's gates (1e-3 of the fp32 logits)
+//     need digits that TF32 would spend.
+// The tile adds its per-tap sums in tap order, as the plain version and
+// XLA's per-tap dots do; the FMA tile keeps one running sum over K.  Within
+// a tap both sum in another order than a library dot (a product of two bf16
+// values is exact in fp32): outputs agree with the plain version to fp32
+// rounding before the final cast.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "bf16_tile.cuh"
 
 namespace {
 
@@ -47,7 +55,8 @@ constexpr int BN = 64;  // output channels per block
 constexpr int BK = 16;  // K values per stage
 constexpr int THREADS = 256;
 
-enum DataKind { KIND_NONE = 0, KIND_BF16 = 1, KIND_F32 = 2 };
+using bf16tile::KIND_BF16;
+using bf16tile::KIND_F32;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -172,6 +181,9 @@ int launch(const void* x, const void* w, const float* bias, const void* res, voi
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int BM, bool VEC>
+using ConvS1Loader = bf16tile::ConvALoader<BM, VEC, 1>;
+
 }  // namespace
 
 // in_kind: KIND_BF16 or KIND_F32 (x and w); stride 1 or 2.
@@ -180,12 +192,19 @@ extern "C" int conv_fused(const void* x, const void* w, const float* bias, const
                           int W, int Cin, int OH, int OW, int Cout, int k, int stride,
                           int relu, cudaStream_t stream) {
   if (stride != 1 && stride != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (in_kind == KIND_BF16 && stride == 1) {
+    const int M = B * OH * OW, K = k * k * Cin;
+    const bf16tile::Epi ep{bias, res, out, nullptr, M, Cout, res_kind, out_bf16, relu};
+    const bool vec =
+        Cin % 8 == 0 && Cout % 8 == 0 && bf16tile::aligned16(x) && bf16tile::aligned16(w);
+    return static_cast<int>(bf16tile::run<ConvS1Loader>(
+        bf16tile::ConvA{static_cast<const __nv_bfloat16*>(x), B, H, W, Cin, OH, OW, k},
+        static_cast<const __nv_bfloat16*>(w), ep, K,
+        bf16tile::make_plan(M, Cout, K, /*may_split=*/false), vec, /*tap=*/Cin, stream));
+  }
   if (in_kind == KIND_BF16)
-    return stride == 1
-               ? launch<__nv_bfloat16, 1>(x, w, bias, res, out, res_kind, out_bf16, B, H, W,
-                                          Cin, OH, OW, Cout, k, relu, stream)
-               : launch<__nv_bfloat16, 2>(x, w, bias, res, out, res_kind, out_bf16, B, H, W,
-                                          Cin, OH, OW, Cout, k, relu, stream);
+    return launch<__nv_bfloat16, 2>(x, w, bias, res, out, res_kind, out_bf16, B, H, W, Cin,
+                                    OH, OW, Cout, k, relu, stream);
   return stride == 1 ? launch<float, 1>(x, w, bias, res, out, res_kind, out_bf16, B, H, W, Cin,
                                         OH, OW, Cout, k, relu, stream)
                      : launch<float, 2>(x, w, bias, res, out, res_kind, out_bf16, B, H, W, Cin,

@@ -11,8 +11,9 @@ weights, fp32 accumulation, output in ``out_dtype`` (default x's):
   bias, no residual; ``conv3x3_s2_fused`` (:402) is its 3x3 alias.
 
 The two kernels are CUDA C++ in ``resnetc_tpu_torch/csrc/conv.cu`` (one
-implicit GEMM, stride a template parameter); the plain versions beside them
-are what a CPU tensor runs.  The TPU arguments ``tn``, ``bt`` and
+implicit GEMM, stride a template parameter; the bf16 stride-1 form on the
+tensor cores through ``csrc/bf16_tile.cuh``); the plain versions beside
+them are what a CPU tensor runs.  The TPU arguments ``tn``, ``bt`` and
 ``interpret`` are accepted and ignored.
 """
 

@@ -3,9 +3,9 @@
 The plain versions of ``conv3x3_s1_fused``, ``conv_s2_fused`` (k = 3, 5, 7)
 and ``max_pool2d`` — what the wrappers run for a CPU tensor — and
 ``conv1x1_fused`` (stride 1 and 2, through ``gemm.matmul``'s plain version)
-against the Pallas kernels run with ``interpret=True``, on the same inputs
-made from a seeded numpy generator, at the JAX tests' small shapes
-(``tests/test_pallas.py``).
+and ``gemm.matmul`` with a bf16 residual against the Pallas kernels run
+with ``interpret=True``, on the same inputs made from a seeded numpy
+generator, at the JAX tests' small shapes (``tests/test_pallas.py``).
 
 Tolerances.  The convolutions sum up to 9*Cin fp32 products in another
 order than XLA's per-tap dots: fp32 outputs are held to rtol 1e-4 (atol
@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from resnetc_tpu.ops.pallas import conv as jconv
+from resnetc_tpu.ops.pallas import gemm as jgemm
 from resnetc_tpu.ops.pallas import pool as jpool
 from resnetc_tpu_torch.ops.cuda import conv as tconv
 from resnetc_tpu_torch.ops.cuda import gemm as tgemm
@@ -135,6 +136,25 @@ def test_conv1x1_fused_matches_pallas(rng, stride, dtype):
                               matmul_fn=tgemm.matmul_plain)
     assert got.dtype == DTYPES[dtype][1]
     assert_conv_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16"])
+def test_matmul_bf16_residual_plain_matches_pallas(rng, out):
+    """A bf16 residual is read in its own dtype (widened exactly), as the
+    Pallas kernel reads it: bf16 x, w and residual, fp32 bias, fp32 or bf16
+    out."""
+    x, w = rng.standard_normal((12, 72)), rng.standard_normal((72, 40)) * 72**-0.5
+    (jx, tx), (jw, tw) = _pair(x, "bf16"), _pair(w, "bf16")
+    jr, tr = _pair(rng.standard_normal((12, 40)), "bf16")
+    bias = rng.standard_normal(40).astype(np.float32)
+    jd, td = DTYPES[out]
+    want = jgemm.matmul(jx, jw, jnp.asarray(bias), jr, relu=True, out_dtype=jd, interpret=True)
+    got = tgemm.matmul(tx, tw, torch.from_numpy(bias), tr, relu=True, out_dtype=td)
+    assert got.dtype == td and tr.dtype == torch.bfloat16
+    if out == "f32":
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-5)
+    else:
+        assert_conv_close(got, want, "bf16")
 
 
 def test_conv_wrappers_reject_a_mismatched_weight(rng):

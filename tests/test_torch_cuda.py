@@ -19,6 +19,8 @@ products in another order than their plain versions: fp32 outputs within
 rtol 1e-4 (atol 1e-4), bf16 outputs within 1 bf16 ulp of the larger
 magnitude (or 1e-5 of the largest output, where relu cuts a sum that is
 zero to fp32 rounding).
+The bf16 ``matmul`` splits K over a workspace at the fc and sums the slices
+in a fixed order: two calls give the same bits.
 The pixel-paired kernels are also driven through their pair-space entries
 with dense random pair-space weights, so a kernel that skipped the zero
 blocks or ran the unpaired GEMM would disagree with its plain version.
@@ -170,6 +172,42 @@ def test_matmul_kernel_close_to_plain(cuda, gen, dtype):
         got = gemm.matmul(x, w, bias, res, **kw)
         want = gemm.matmul_plain(x, w, bias, res, **kw)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+# (id, m, k, n, bias, residual dtype, relu, out dtype): the fc at batch 32
+# (K split over a workspace), a ResNet-152 layer1 1x1 with a bf16 residual
+# and bf16 out, an M off the tile.
+MATMUL_TILE_CASES = [
+    ("fc-splitk", 32, 2048, 1000, True, None, False, torch.float32),
+    ("1x1-res-bf16", 2 * 56 * 56, 64, 256, True, torch.bfloat16, True, torch.bfloat16),
+    ("m-off-tile", 100, 256, 192, True, torch.float32, True, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "m,k,n,bias,res,relu,out", [c[1:] for c in MATMUL_TILE_CASES],
+    ids=[c[0] for c in MATMUL_TILE_CASES],
+)
+def test_matmul_tile_shapes_close_to_plain(cuda, gen, m, k, n, bias, res, relu, out):
+    def t(shape, scale=1.0, dtype=torch.bfloat16):
+        return torch.from_numpy((gen.standard_normal(shape) * scale).astype(np.float32)).to(
+            cuda, dtype)
+
+    args = (t((m, k)), t((k, n), k**-0.5), t((n,), 0.1, torch.float32) if bias else None,
+            t((m, n), 1.0, res) if res else None)
+    _build.reset_launches()
+    got = gemm.matmul(*args, relu=relu, out_dtype=out)
+    assert _build.LAUNCHES["matmul"] == 1
+    again = gemm.matmul(*args, relu=relu, out_dtype=out)
+    want = gemm.matmul_plain(*args, relu=relu, out_dtype=out)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # split-K sums its slices in a fixed order
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if out == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    else:
+        assert _bf16_within_one_ulp(got, want)
 
 
 BASIC_SCALES = np.asarray([4.0 / 127, 3.0 / 127, 5.0 / 127], np.float32)
@@ -546,12 +584,16 @@ def test_int8_matmul_kernel_equals_plain(cuda, gen, m, k, n, bias, res, relu, ou
 
 
 # (id, b, h, w, cin, cout, residual, dtype): ResNet-152 / ResNet-34 3x3
-# stride-1 shapes at batch 2, and odd sizes off the 64-wide tile.
+# stride-1 shapes at batch 2, and odd sizes off the 64-wide tile (Cin 24:
+# K stages that straddle taps; Cin 12: 16-byte chunks that do).
 CONV_S1_CASES = [
     ("r152-l1", 2, 56, 56, 64, 64, False, torch.bfloat16),
     ("r34-l4-res", 2, 7, 7, 512, 512, True, torch.bfloat16),
     ("r152-l3-f32", 2, 14, 14, 256, 256, False, torch.float32),
     ("odd-res-f32", 3, 9, 7, 24, 40, True, torch.float32),
+    ("odd-res-bf16", 3, 9, 7, 24, 40, True, torch.bfloat16),
+    ("r152-l4", 2, 7, 7, 512, 512, False, torch.bfloat16),
+    ("cin-off-8-bf16", 2, 6, 5, 12, 24, True, torch.bfloat16),
 ]
 
 
