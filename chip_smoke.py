@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--batch 32] [--out results.json]
 
 Builds the CUDA kernels from ``resnetc_tpu_torch/csrc``, checks that the
-libraries of rows 4 and 13 hold wgmma (HGMMA) instructions, and then:
+tensor-core kernels hold wgmma instructions in their SASS (HGMMA in the
+bf16 tile's instantiations for rows 4, 13 and 14, stride 1 and stride 2
+counted apart; IGMMA in the int8 tile of row 12), and then:
 
 1. holds every kernel of the serving paths against its plain PyTorch
    version on the card, at the shapes of ResNet-152 (the bottleneck
@@ -62,8 +64,9 @@ libraries of rows 4 and 13 hold wgmma (HGMMA) instructions, and then:
    from Python (``eager_ms``: the median of five event-timed loops, host
    cost included), beside the plain version, the bound (for a pixel-paired
    kernel, the work of its standard twin), the TFLOP/s and share of the
-   bound of each shape (printed for the tensor-core kernels, rows 13 and
-   4), and a library call that the port never makes, timed like ``ms``:
+   bound of each shape (printed for the tensor-core kernels, rows 4, 12,
+   13 and 14, with the ratio to the library call; TOP/s for row 12), and a
+   library call that the port never makes, timed like ``ms``:
    torch.matmul for the GEMM, torch._int_mm for int8_matmul (int32 out, no
    epilogue), F.conv2d (bf16, channels-last) for the fused convolutions,
    F.max_pool2d and F.avg_pool2d for the pools, torch.relu and torch.add
@@ -612,7 +615,8 @@ def _one_by_one_shapes() -> list:
 def make_backend_cases(b: int, dev) -> list:
     """The kernels of the int8 and pallas backends at the main paths'
     shapes: every 1x1 conv and the fc of ResNet-152 through int8_matmul
-    (and, for the pallas backend, through matmul in bf16), every 3x3 of
+    (given the K-major weight copy, as the int8 engine's packed tree gives
+    it; and, for the pallas backend, through matmul in bf16), every 3x3 of
     ResNet-152 and ResNet-34 through the fused convolutions (bf16, plus an
     fp32 form of two shapes, off the served path), and the stem pool."""
     import torch
@@ -635,7 +639,7 @@ def make_backend_cases(b: int, dev) -> list:
         cases.append(Case(
             f"int8/{label}", "int8_matmul", quant.int8_matmul, quant.int8_matmul_plain,
             (xq, wq, torch.tensor(0.02, device=dev), sw, bias, r),
-            dict(relu=relu, out_dtype=torch.bfloat16), 2 * m * k * n,
+            dict(relu=relu, out_dtype=torch.bfloat16, w_nk=wq.t().contiguous()), 2 * m * k * n,
             m * k + k * n + 8 * n + m * n * (4 if res else 2), PEAK_INT8_OPS, "bf16",
             per_forward=count,
         ))
@@ -646,13 +650,14 @@ def make_backend_cases(b: int, dev) -> list:
             PEAK_BF16_FLOPS, "bf16ulp", per_forward=count,
         ))
     m, k, n = b, 2048, 1000
+    wq = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8).to(dev)
     cases.append(Case(
         "int8/fc", "int8_matmul", quant.int8_matmul, quant.int8_matmul_plain,
-        (torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).to(dev),
-         torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8).to(dev),
+        (torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).to(dev), wq,
          torch.tensor(0.02, device=dev), (torch.rand(n, generator=gen) * 2e-4).to(dev),
          randn(n, scale=0.1, dtype=torch.float32)),
-        dict(out_dtype=torch.float32), 2 * m * k * n, m * k + k * n + 8 * n + 4 * m * n,
+        dict(out_dtype=torch.float32, w_nk=wq.t().contiguous()), 2 * m * k * n,
+        m * k + k * n + 8 * n + 4 * m * n,
         PEAK_INT8_OPS, "f32eq", per_forward=1,
     ))
 
@@ -865,24 +870,59 @@ def check_case(case) -> float:
 # ---------------------------------------------------------------------------
 
 
-def phase_sass(build_dir) -> dict:
-    """The bf16 tile's libraries hold wgmma instructions (HGMMA in their
-    SASS, read with the toolkit's cuobjdump): rows 4 and 13 run on the
-    tensor cores."""
+#: The tensor-core kernels and the SASS opcode their wgmma compiles to:
+#: (library, a regular expression on the mangled kernel names, the opcode).
+#: Every kernel of the library that the expression matches must hold the
+#: opcode, and one kernel at least must match.
+SASS_CHECKS = (
+    # rows 13 and 14: conv3x3_s1_fused, conv_s2_fused (bf16)
+    ("libconv.so", r"tile_kernel.*ConvALoaderILi\d+ELb[01]ELi1E", "HGMMA"),
+    ("libconv.so", r"tile_kernel.*ConvALoaderILi\d+ELb[01]ELi2E", "HGMMA"),
+    # row 4: matmul (bf16)
+    ("libgemm.so", r"tile_kernel.*GemmALoader", "HGMMA"),
+    # row 12: int8_matmul
+    ("libint8_gemm.so", r"s8_tile_kernel", "IGMMA"),
+)
+
+
+def _sass_functions(path) -> dict:
+    """{mangled kernel name: its SASS} of a shared library, read with the
+    toolkit's cuobjdump."""
     from pathlib import Path
 
     from resnetc_tpu_torch.ops.cuda import _build
 
     tool = Path(_build._nvcc()).parent / "cuobjdump"
-    counts = {}
-    for lib in ("libconv.so", "libgemm.so"):
-        sass = subprocess.run([str(tool), "-sass", str(build_dir / lib)], capture_output=True,
-                              text=True, timeout=300, check=True).stdout
-        counts[lib] = sass.count("HGMMA")
-        if not counts[lib]:
-            raise AssertionError(f"{lib}: no HGMMA instruction; the bf16 tile is off the "
-                                 "tensor cores")
-    log(f"[sass] HGMMA instructions: {counts}")
+    sass = subprocess.run([str(tool), "-sass", str(path)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    funcs = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name, _, body = chunk.partition("\n")
+        funcs[name.strip()] = body
+    return funcs
+
+
+def phase_sass(build_dir) -> dict:
+    """The tensor-core kernels hold wgmma instructions in their SASS: HGMMA
+    in the bf16 tile's instantiations for rows 4, 13 and 14 (stride 1 and
+    stride 2 apart), IGMMA in the int8 tile of row 12.  Counted per kernel,
+    not per library, so another kernel's wgmma cannot stand in."""
+    import re
+
+    counts, libs = {}, {}
+    for lib, pattern, opcode in SASS_CHECKS:
+        if lib not in libs:
+            libs[lib] = _sass_functions(build_dir / lib)
+        mine = {name: len(re.findall(rf"\b{opcode}\b", body))
+                for name, body in libs[lib].items() if re.search(pattern, name)}
+        if not mine:
+            raise AssertionError(f"{lib}: no kernel matches {pattern}")
+        for name, n in mine.items():
+            if not n:
+                raise AssertionError(f"{lib}: {name} holds no {opcode}; it is off the tensor cores")
+        counts[f"{lib} {pattern}"] = {"kernels": len(mine), opcode: sum(mine.values())}
+        log(f"[sass] {lib}: {len(mine)} kernels matching {pattern}, each with {opcode}; "
+            f"{sum(mine.values())} in all")
     return counts
 
 
@@ -1406,9 +1446,10 @@ SOURCES = {
 }
 #: Wrappers that launch one TPU kernel's counterpart (one row of the table).
 MEMBERS = {"add, add_relu": ("add", "add_relu")}
-#: The kernels on the bf16 tensor-core tile (bf16_tile.cuh): their TFLOP/s
-#: and share of the bound are printed per shape.
-TILE_KERNELS = ("conv3x3_s1_fused", "matmul")
+#: The kernels on the tensor-core tiles (bf16_tile.cuh, and the int8 tile of
+#: int8_gemm.cu): their TFLOP/s (TOP/s for int8), share of the bound and
+#: ratio to the library call are printed per shape.
+TILE_KERNELS = ("conv3x3_s1_fused", "conv_s2_fused", "matmul", "int8_matmul")
 
 
 def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[list, list]:
@@ -1449,7 +1490,8 @@ def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[li
         log(f"[timing] {json.dumps(row)}")
         if case.kernel in TILE_KERNELS:
             vs = f", {ms / lib_ms:.2f}x the library's {lib_ms:.4f} ms" if lib_ms else ""
-            log(f"[tile] {case.name}: {ms:.4f} ms, {row['tflops']:.1f} TFLOP/s, "
+            rate = "TOP/s" if case.peak == PEAK_INT8_OPS else "TFLOP/s"
+            log(f"[tile] {case.name}: {ms:.4f} ms, {row['tflops']:.1f} {rate}, "
                 f"{100 * row['bound_share']:.1f}% of the bound{vs}")
 
     kernels = []

@@ -1,12 +1,16 @@
 // The bf16 tensor-core GEMM tile shared by the fused convolutions
-// (conv.cu: `conv3x3_s1_fused`) and the fused GEMM (gemm.cu: `matmul`):
+// (conv.cu: `conv3x3_s1_fused`, resnetc_tpu/ops/pallas/conv.py:150, and
+// `conv_s2_fused`, conv.py:287) and the fused GEMM (gemm.cu: `matmul`,
+// resnetc_tpu/ops/pallas/gemm.py:100):
 //
 //     C[M, N] = A[M, K] @ B[K, N]   (bf16 operands, fp32 sums in registers)
 //
 // with one of two ways to fill A (a row-major matrix, or the implicit im2col
-// of an NHWC image) and B always a row-major (K, N) weight read as it lies
-// in memory: the HWIO conv weight viewed as (k*k*Cin, Cout), or the GEMM's
-// (K, N).  Nothing repacks a weight per call.
+// of an NHWC image at stride 1 or 2) and B always a row-major (K, N) weight
+// read as it lies in memory: the HWIO conv weight viewed as (k*k*Cin,
+// Cout), or the GEMM's (K, N).  Nothing repacks a weight per call.  The
+// int8 GEMM (int8_gemm.cu) builds its own tile from the PTX, the swizzle
+// and the plan of this file.
 //
 // Design (Hopper, sm_90a).
 //   - A block computes a BM x BN output tile (BM 64 or 128, BN 64 or 128)
@@ -31,6 +35,12 @@
 //     Cin that is not, an unaligned pointer) runs the same kernel with the
 //     VEC flag off: each chunk is gathered value by value and stored to
 //     shared memory, still summed on the tensor cores.
+//   - The im2col loader keeps each row's tap-(0, 0) pixel and its (y, x)
+//     and tests every tap against the image's H and W: any odd k works
+//     (the stride-2 kernel takes k = 3, 5, 7, 9, ...; a per-row mask of
+//     k*k bits would cap k at 7).  A 16-byte chunk is 8 channels of one
+//     tap at one pixel at either stride, so neither the coalescing nor the
+//     swizzle depends on the stride.
 //   - The convolutions fold each tap's wgmma sum into an fp32 total with
 //     round-to-nearest adds (tile_kernel, kTaps): the tensor cores'
 //     accumulation truncates, and over all of K its drift moved enough bf16
@@ -265,11 +275,11 @@ struct ConvALoader {
   static constexpr bool kTaps = true;  // K runs over taps of Cin values
   const bf16* base;       // x: the source of zero-fill copies
   const bf16* corner[4];  // the row's tap (0, 0) pixel, which may lie outside the image
-  uint64_t inside[4];     // bit u*k + v: tap (u, v) of the row lies in the image (0 past M)
-  int W, Cin, k, K, c;
+  int iy0[4], ix0[4];     // its coordinates; iy0 = H past M, so that no tap is inside
+  int H, W, Cin, k, K, c;
 
   __device__ ConvALoader(const ConvA& p, int m0, int tid)
-      : base(p.x), W(p.W), Cin(p.Cin), k(p.k), K(p.k * p.k * p.Cin), c(tid & 7) {
+      : base(p.x), H(p.H), W(p.W), Cin(p.Cin), k(p.k), K(p.k * p.k * p.Cin), c(tid & 7) {
     const int M = p.B * p.OH * p.OW;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -277,24 +287,27 @@ struct ConvALoader {
       const int b = m / (p.OH * p.OW);
       const int rem = m - b * p.OH * p.OW;
       const int oy = rem / p.OW;
-      const int iy0 = oy * S - p.k / 2, ix0 = (rem - oy * p.OW) * S - p.k / 2;
-      corner[i] = p.x + (static_cast<long long>(b * p.H + iy0) * p.W + ix0) * p.Cin;
-      uint64_t bits = 0;
-      for (int u = 0; u < p.k; ++u)
-        for (int v = 0; v < p.k; ++v)
-          if (iy0 + u >= 0 && iy0 + u < p.H && ix0 + v >= 0 && ix0 + v < p.W)
-            bits |= 1ull << (u * p.k + v);
-      inside[i] = m < M ? bits : 0;
+      const int y = oy * S - p.k / 2, x = (rem - oy * p.OW) * S - p.k / 2;
+      corner[i] = p.x + (static_cast<long long>(b * p.H + y) * p.W + x) * p.Cin;
+      iy0[i] = m < M ? y : p.H;
+      ix0[i] = x;
     }
+  }
+
+  // Tap (u, v) of row i lies in the image.  Tested against the row's
+  // corner, so any odd k works (no per-row mask of k*k bits).
+  __device__ __forceinline__ bool inside(int i, int u, int v) const {
+    return static_cast<unsigned>(iy0[i] + u) < static_cast<unsigned>(H) &&
+           static_cast<unsigned>(ix0[i] + v) < static_cast<unsigned>(W);
   }
 
   // x offset of K index g from row i's corner; false where g is a tap in
   // the padding or past K.
   __device__ __forceinline__ bool locate(int i, int g, int& off) const {
     if (g >= K) return false;
-    const int tap = g / Cin, ci = g - tap * Cin, u = tap / k;
-    off = (u * W + tap - u * k) * Cin + ci;
-    return (inside[i] >> tap) & 1;
+    const int tap = g / Cin, ci = g - tap * Cin, u = tap / k, v = tap - u * k;
+    off = (u * W + v) * Cin + ci;
+    return inside(i, u, v);
   }
 
   __device__ __forceinline__ void load(uint32_t sa, int kt, int tid) const {
@@ -303,11 +316,11 @@ struct ConvALoader {
       // Cin % 8 == 0: the chunk is 8 channels of one tap, at one offset
       // from every row's corner.
       const bool in_k = g < K;
-      const int tap = in_k ? g / Cin : 0, ci = g - tap * Cin, u = tap / k;
-      const int off = (u * W + tap - u * k) * Cin + ci;
+      const int tap = in_k ? g / Cin : 0, ci = g - tap * Cin, u = tap / k, v = tap - u * k;
+      const int off = (u * W + v) * Cin + ci;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const bool ok = in_k && ((inside[i] >> tap) & 1);
+        const bool ok = in_k && inside(i, u, v);
         cp_async16(sa + a_off(tid / 8 + i * (BM / 4), c), ok ? corner[i] + off : base, ok);
       }
     } else {
@@ -605,15 +618,15 @@ struct Plan {
   int bm, bn, splits, kt_per;
 };
 
-// Tile shape by K: with 16 or more K stages a block is bound by its
-// products and 128 x 128 tiles (one block an SM) win; with fewer, by its
-// loads and stores, and 128 x 64 tiles (two an SM) win.  The first shape of
-// the list that still gives two thirds of the SMs a block; else 64 x 64,
-// and, if allowed, K split so that the blocks cover the SMs.  (Measured on
-// an H100 over ResNet's conv and 1x1 shapes at batch 32.)
-inline Plan make_plan(int M, int N, int K, bool may_split) {
+// Tile shape by the number of K stages kt (128 bytes of K each): with 16
+// or more a block is bound by its products and 128 x 128 tiles (one block
+// an SM) win; with fewer, by its loads and stores, and 128 x 64 tiles (two
+// an SM) win.  The first shape of the list that still gives two thirds of
+// the SMs a block; else 64 x 64, and, if allowed, K split so that the
+// blocks cover the SMs.  (Measured on an H100 over ResNet's conv and 1x1
+// shapes at batch 32.)  The int8 tile (int8_gemm.cu) plans with it too.
+inline Plan make_plan_stages(int M, int N, int kt, bool may_split) {
   const int sms = sm_count();
-  const int kt = (K + BK - 1) / BK;
   auto blocks = [&](int bm, int bn) { return ((M + bm - 1) / bm) * ((N + bn - 1) / bn); };
   Plan p{64, 64, 1, kt};
   if (kt >= 16 && N > 64 && 3 * blocks(128, 128) >= 2 * sms)
@@ -627,6 +640,11 @@ inline Plan make_plan(int M, int N, int K, bool may_split) {
     p.splits = (kt + p.kt_per - 1) / p.kt_per;
   }
   return p;
+}
+
+// The plan of a bf16 product with K values of contraction.
+inline Plan make_plan(int M, int N, int K, bool may_split) {
+  return make_plan_stages(M, N, (K + BK - 1) / BK, may_split);
 }
 
 template <int BM, int BN, bool VEC, class AL>

@@ -16,9 +16,9 @@
 //     three stride-2 3x3s of each network.
 //
 // What bounds it.  A ResNet 3x3 at batch 32 does 2*9*Cin*Cout flops per
-// pixel (7.4 GFLOP for each bottleneck 3x3 of ResNet-152) against a few tens
-// of MB: far above the ridge, so the bound is the bf16 tensor-core rate
-// (~7.5 us).
+// pixel (7.4 GFLOP for each bottleneck 3x3 of ResNet-152, stride 1 or 2)
+// against a few tens of MB: far above the ridge, so the bound is the bf16
+// tensor-core rate (~7.5 us; ~3.7 us for ResNet-34's stride-2 convs).
 //
 // Design.  One implicit GEMM per launch: M = B*OH*OW output pixels, N =
 // Cout, K = k*k*Cin ordered (u, v, ci) as the HWIO weight rows are.  Tap (u,
@@ -27,24 +27,25 @@
 // kernel's padded row layout, batch tiles and (for stride 2) phase planes
 // exist because Mosaic wants static contiguous slices; none of that carries
 // over.
-//   - bf16, stride 1 (`conv3x3_s1_fused`): the tensor-core tile of
-//     bf16_tile.cuh with its im2col loader (ConvALoader): each 16-byte chunk
-//     of A is 8 channels of one tap, copied by cp.async, zero-filled where
-//     the tap falls in the padding; wgmma sums in fp32 registers.  A Cin off
-//     the 8-channel grid is gathered value by value in the same kernel.  The
-//     loader takes the stride as a template parameter.
-//   - fp32, and stride 2 (`conv_s2_fused`, its odd k included): a 64-pixel
-//     x 64-channel tile on the CUDA cores (256 threads, 4 x 4 outputs a
-//     thread), K staged sixteen values at a time through shared memory as
-//     fp32 with a bounds check per value; ~12-14 TFLOP/s.  Its tensor-core
-//     form is the stride-2 instantiation of the same tile; fp32 stays on the
-//     CUDA cores, where the FP32 policy's gates (1e-3 of the fp32 logits)
-//     need digits that TF32 would spend.
+//   - bf16, both strides (`conv3x3_s1_fused`, `conv_s2_fused` at any odd
+//     k): the tensor-core tile of bf16_tile.cuh with its im2col loader
+//     (ConvALoader<BM, VEC, S>): each 16-byte chunk of A is 8 channels of
+//     one tap, copied by cp.async, zero-filled where the tap falls in the
+//     padding; wgmma sums in fp32 registers.  The loader tests each tap
+//     against the row's corner pixel and the image's H and W, so k has no
+//     limit.  A Cin off the 8-channel grid (the Cin = 3 of a stem-like
+//     7x7) is gathered value by value in the same kernel.
+//   - fp32: a 64-pixel x 64-channel tile on the CUDA cores (256 threads,
+//     4 x 4 outputs a thread), K staged sixteen values at a time through
+//     shared memory with a bounds check per value; ~12-14 TFLOP/s.  The
+//     FP32 policy's gates (1e-3 of the fp32 logits) need digits that TF32
+//     tensor cores would spend.
 // The tile adds its per-tap sums in tap order, as the plain version and
-// XLA's per-tap dots do; the FMA tile keeps one running sum over K.  Within
-// a tap both sum in another order than a library dot (a product of two bf16
-// values is exact in fp32): outputs agree with the plain version to fp32
-// rounding before the final cast.
+// XLA's per-tap dots (the TPU kernel's one jnp.dot per tap) do; the FMA
+// tile keeps one running sum over K.  Within a tap both sum in another
+// order than a library dot (a product of two bf16 values is exact in
+// fp32): outputs agree with the plain version to fp32 rounding before the
+// final cast.
 
 #include "bf16_tile.cuh"
 
@@ -58,14 +59,12 @@ constexpr int THREADS = 256;
 using bf16tile::KIND_BF16;
 using bf16tile::KIND_F32;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T, int S>
+template <int S>
 __global__ void __launch_bounds__(THREADS)
-conv_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
-            const void* __restrict__ res, void* __restrict__ out, int res_kind, int out_bf16,
-            int B, int H, int W, int Cin, int OH, int OW, int Cout, int k, int relu) {
+conv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ bias, const void* __restrict__ res,
+                void* __restrict__ out, int res_kind, int out_bf16, int B, int H, int W, int Cin,
+                int OH, int OW, int Cout, int k, int relu) {
   __shared__ float As[BK][BM + 4];  // As[kk][m]
   __shared__ float Bs[BK][BN + 4];  // Bs[kk][n]
   __shared__ int rowB[BM], rowY[BM], rowX[BM];  // image and top-left input pixel
@@ -115,7 +114,7 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __res
         const int iy = rowY[m] + u;
         const int ix = rowX[m] + tap - u * k;
         if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-          v = to_f32(x[(((size_t)b * H + iy) * W + ix) * Cin + ci]);
+          v = x[(((size_t)b * H + iy) * W + ix) * Cin + ci];
       }
       As[kk][m] = v;
     }
@@ -125,7 +124,7 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __res
       const int e = tid + t * THREADS;
       const int kk = e / BN, n = e % BN;
       const int gk = k0 + kk, gn = n0 + n;
-      Bs[kk][n] = (gk < K && gn < Cout) ? to_f32(w[(size_t)gk * Cout + gn]) : 0.f;
+      Bs[kk][n] = (gk < K && gn < Cout) ? w[(size_t)gk * Cout + gn] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -169,20 +168,22 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __res
   }
 }
 
-template <typename T, int S>
-int launch(const void* x, const void* w, const float* bias, const void* res, void* out,
-           int res_kind, int out_bf16, int B, int H, int W, int Cin, int OH, int OW,
-           int Cout, int k, int relu, cudaStream_t stream) {
+template <int S>
+int launch_f32(const void* x, const void* w, const float* bias, const void* res, void* out,
+               int res_kind, int out_bf16, int B, int H, int W, int Cin, int OH, int OW,
+               int Cout, int k, int relu, cudaStream_t stream) {
   const int M = B * OH * OW;
   const dim3 grid((Cout + BN - 1) / BN, (M + BM - 1) / BM);
-  conv_kernel<T, S><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), bias, res, out, res_kind, out_bf16,
-      B, H, W, Cin, OH, OW, Cout, k, relu);
+  conv_f32_kernel<S><<<grid, THREADS, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), bias, res, out, res_kind,
+      out_bf16, B, H, W, Cin, OH, OW, Cout, k, relu);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BM, bool VEC>
 using ConvS1Loader = bf16tile::ConvALoader<BM, VEC, 1>;
+template <int BM, bool VEC>
+using ConvS2Loader = bf16tile::ConvALoader<BM, VEC, 2>;
 
 }  // namespace
 
@@ -192,21 +193,20 @@ extern "C" int conv_fused(const void* x, const void* w, const float* bias, const
                           int W, int Cin, int OH, int OW, int Cout, int k, int stride,
                           int relu, cudaStream_t stream) {
   if (stride != 1 && stride != 2) return static_cast<int>(cudaErrorInvalidValue);
-  if (in_kind == KIND_BF16 && stride == 1) {
+  if (in_kind == KIND_BF16) {
     const int M = B * OH * OW, K = k * k * Cin;
     const bf16tile::Epi ep{bias, res, out, nullptr, M, Cout, res_kind, out_bf16, relu};
     const bool vec =
         Cin % 8 == 0 && Cout % 8 == 0 && bf16tile::aligned16(x) && bf16tile::aligned16(w);
-    return static_cast<int>(bf16tile::run<ConvS1Loader>(
-        bf16tile::ConvA{static_cast<const __nv_bfloat16*>(x), B, H, W, Cin, OH, OW, k},
-        static_cast<const __nv_bfloat16*>(w), ep, K,
-        bf16tile::make_plan(M, Cout, K, /*may_split=*/false), vec, /*tap=*/Cin, stream));
+    const bf16tile::ConvA a{static_cast<const __nv_bfloat16*>(x), B, H, W, Cin, OH, OW, k};
+    const auto* wb = static_cast<const __nv_bfloat16*>(w);
+    const bf16tile::Plan p = bf16tile::make_plan(M, Cout, K, /*may_split=*/false);
+    return static_cast<int>(
+        stride == 1 ? bf16tile::run<ConvS1Loader>(a, wb, ep, K, p, vec, /*tap=*/Cin, stream)
+                    : bf16tile::run<ConvS2Loader>(a, wb, ep, K, p, vec, /*tap=*/Cin, stream));
   }
-  if (in_kind == KIND_BF16)
-    return launch<__nv_bfloat16, 2>(x, w, bias, res, out, res_kind, out_bf16, B, H, W, Cin,
-                                    OH, OW, Cout, k, relu, stream);
-  return stride == 1 ? launch<float, 1>(x, w, bias, res, out, res_kind, out_bf16, B, H, W, Cin,
-                                        OH, OW, Cout, k, relu, stream)
-                     : launch<float, 2>(x, w, bias, res, out, res_kind, out_bf16, B, H, W, Cin,
-                                        OH, OW, Cout, k, relu, stream);
+  return stride == 1 ? launch_f32<1>(x, w, bias, res, out, res_kind, out_bf16, B, H, W, Cin, OH,
+                                     OW, Cout, k, relu, stream)
+                     : launch_f32<2>(x, w, bias, res, out, res_kind, out_bf16, B, H, W, Cin, OH,
+                                     OW, Cout, k, relu, stream);
 }

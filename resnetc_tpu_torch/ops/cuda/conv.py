@@ -10,11 +10,15 @@ weights, fp32 accumulation, output in ``out_dtype`` (default x's):
 - ``conv_s2_fused`` (conv.py:287) — odd k, stride 2, pad k//2, optional
   bias, no residual; ``conv3x3_s2_fused`` (:402) is its 3x3 alias.
 
-The two kernels are CUDA C++ in ``resnetc_tpu_torch/csrc/conv.cu`` (one
-implicit GEMM, stride a template parameter; the bf16 stride-1 form on the
-tensor cores through ``csrc/bf16_tile.cuh``); the plain versions beside
-them are what a CPU tensor runs.  The TPU arguments ``tn``, ``bt`` and
-``interpret`` are accepted and ignored.
+The two kernels are CUDA C++ in ``resnetc_tpu_torch/csrc/conv.cu``: one
+implicit GEMM, the stride a template parameter.  In bf16 both run on the
+tensor cores through the wgmma tile of ``csrc/bf16_tile.cuh``, whose
+im2col loader tests each tap against the image, so ``conv_s2_fused``
+takes any odd k (9 and up included) and any Cin (off the 8-channel grid,
+as the Cin = 3 of a stem-like 7x7, value by value); in fp32 both keep the
+CUDA-core FMA tile.  The plain versions beside them are what a CPU tensor
+runs.  The TPU arguments ``tn``, ``bt`` and ``interpret`` are accepted and
+ignored.
 """
 
 from __future__ import annotations

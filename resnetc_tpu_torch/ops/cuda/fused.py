@@ -373,7 +373,8 @@ def _conv_q(x, entry, *, stride, relu, residual=None, policy, kernels):
     if "w_q" in entry:
         return quant.conv1x1_int8(
             x, entry["w_q"], entry["scale_w"], entry["bias"], residual,
-            stride=stride, relu=relu, out_dtype=policy.compute, matmul_fn=kernels.int8_matmul,
+            stride=stride, relu=relu, out_dtype=policy.compute, w_nk=entry.get("w_nk"),
+            matmul_fn=kernels.int8_matmul,
         )
     return _conv(x, entry, stride=stride, relu=relu, residual=residual, policy=policy,
                  kernels=kernels)
@@ -391,7 +392,9 @@ def fused_forward_int8(
     """The ``int8`` backend over a ``quantize_folded`` tree: every 1x1 conv
     and the fc through ``int8_matmul`` with a per-tensor scale taken over
     the whole batch at each call, the 3x3 / 7x7 convs in ``policy.compute``
-    as in ``fused_forward``."""
+    as in ``fused_forward``.  The K-major weight copies of a
+    ``quant.pack_kmajor`` tree (the engine's) go to the kernel; the logits
+    do not depend on them."""
     x = x.to(policy.compute)
     y = _conv(x, qfolded["conv1"], stride=2, relu=True, policy=policy, kernels=kernels)
     y = kernels.max_pool(y, kernel_size=3, stride=2, padding=1)
@@ -405,7 +408,7 @@ def fused_forward_int8(
     fc = qfolded["fc"]
     fq, fscale = quant.quantize_per_tensor(feats)
     return kernels.int8_matmul(fq, fc["w_q"], fscale, fc["scale_w"], fc["bias"],
-                               out_dtype=policy.output)
+                               out_dtype=policy.output, w_nk=fc.get("w_nk"))
 
 
 def calibrate_activation_scales(
@@ -475,7 +478,7 @@ def _conv_q_static(x, entry, scale_x, *, stride, relu, residual=None, policy, ke
     res2d = residual.reshape(b * h * w_sp, cout) if residual is not None else None
     out = kernels.int8_matmul(
         x_q.reshape(b * h * w_sp, cin), entry["w_q"], scale_x, entry["scale_w"],
-        entry["bias"], res2d, relu=relu, out_dtype=policy.compute,
+        entry["bias"], res2d, relu=relu, out_dtype=policy.compute, w_nk=entry.get("w_nk"),
     )
     return out.reshape(b, h, w_sp, cout)
 
@@ -508,7 +511,7 @@ def fused_forward_int8_static(
     fc = qfolded["fc"]
     fq = quantize_with_scale(feats, act_scales["fc"])
     return kernels.int8_matmul(fq, fc["w_q"], act_scales["fc"], fc["scale_w"], fc["bias"],
-                               out_dtype=policy.output)
+                               out_dtype=policy.output, w_nk=fc.get("w_nk"))
 
 
 # ---------------------------------------------------------------------------

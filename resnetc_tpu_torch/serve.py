@@ -9,7 +9,8 @@ Counterpart of ``resnetc_tpu/serve.py:34-363``.  Five backends:
   the JAX engine: the code defaults with the repository's ``TUNED.json``
   laid over them at import (stage 0 through the pixel-paired kernels),
   unless ``RESNETC_NO_TUNED=1``;
-- ``"int8"`` — ``quantize_folded`` at construction, then
+- ``"int8"`` — ``quantize_folded`` at construction (and
+  ``pack_kmajor``: the (N, K) weight copies the int8 kernel reads), then
   ``fused_forward_int8``: every 1x1 conv and the fc through ``int8_matmul``
   with a per-tensor scale taken over the batch at each call, the 3x3 convs
   through ``conv3x3_s1_fused`` / ``conv3x3_s2_fused``;
@@ -106,9 +107,9 @@ class InferenceEngine:
             )
             folded = quantize_chain(model_cfg, folded)
         elif backend == "int8":
-            from resnetc_tpu_torch.ops.cuda.quant import quantize_folded
+            from resnetc_tpu_torch.ops.cuda.quant import pack_kmajor, quantize_folded
 
-            folded = quantize_folded(folded)
+            folded = pack_kmajor(quantize_folded(folded))
         self.folded = folded
 
     def logits(self, images) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The port's fused convolutions and max pool vs the JAX package's kernels.
 
-The plain versions of ``conv3x3_s1_fused``, ``conv_s2_fused`` (k = 3, 5, 7)
+The plain versions of ``conv3x3_s1_fused``, ``conv_s2_fused`` (k = 3, 5, 7, 9)
 and ``max_pool2d`` — what the wrappers run for a CPU tensor — and
 ``conv1x1_fused`` (stride 1 and 2, through ``gemm.matmul``'s plain version)
 and ``gemm.matmul`` with a bf16 residual against the Pallas kernels run
@@ -106,9 +106,11 @@ def test_conv3x3_s1_no_bias_no_relu(rng, dtype):
 
 
 # (b, h, cin, cout, k, dtype): tests/test_pallas.py:214-238, odd and even
-# sizes, Cout off the tile, k = 5 and 7.
+# sizes, Cout off the tile, k = 5 and 7; k = 9 (81 taps: more than a
+# 64-bit tap mask holds) and a stem-like 7x7 on Cin = 3.
 S2_CASES = [(2, 8, 16, 32, 3, "f32"), (2, 8, 16, 32, 3, "bf16"), (2, 9, 16, 72, 3, "f32"),
-            (2, 7, 8, 8, 3, "bf16"), (2, 13, 8, 16, 5, "f32"), (2, 13, 8, 16, 7, "bf16")]
+            (2, 7, 8, 8, 3, "bf16"), (2, 13, 8, 16, 5, "f32"), (2, 13, 8, 16, 7, "bf16"),
+            (2, 19, 8, 16, 9, "bf16"), (2, 15, 3, 16, 7, "bf16")]
 
 
 @pytest.mark.parametrize("b,h,cin,cout,k,dtype", S2_CASES)

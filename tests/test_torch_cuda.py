@@ -20,7 +20,10 @@ rtol 1e-4 (atol 1e-4), bf16 outputs within 1 bf16 ulp of the larger
 magnitude (or 1e-5 of the largest output, where relu cuts a sum that is
 zero to fp32 rounding).
 The bf16 ``matmul`` splits K over a workspace at the fc and sums the slices
-in a fixed order: two calls give the same bits.
+in a fixed order: two calls give the same bits.  ``int8_matmul`` (the int8
+wgmma tile) splits K over an int32 workspace, exactly: it equals its plain
+version at every shape, the fc included, and two calls, or the engine's
+(N, K) weight copy and a per-call transpose, give the same bits.
 The pixel-paired kernels are also driven through their pair-space entries
 with dense random pair-space weights, so a kernel that skipped the zero
 blocks or ran the unpaired GEMM would disagree with its plain version.
@@ -548,7 +551,9 @@ def _assert_conv_close(got, want):
 
 
 # (id, m, k, n, bias, residual dtype, relu, out dtype): ResNet-152 1x1
-# shapes at batch 2, the fc, and a K off the 4-byte word.
+# shapes at batch 2, the fc, K off the 16-byte chunk (the byte-by-byte
+# path), M and N off the tile (N off 8: the ragged epilogue), and the fc at
+# batch 32 (K split over the int32 workspace).
 INT8_GEMM_CASES = [
     ("l1-conv1", 2 * 56 * 56, 256, 64, True, None, True, torch.bfloat16),
     ("l1-conv3-res", 2 * 56 * 56, 64, 256, True, torch.bfloat16, True, torch.bfloat16),
@@ -556,6 +561,9 @@ INT8_GEMM_CASES = [
     ("fc", 2, 2048, 1000, True, None, False, torch.float32),
     ("no-bias-res", 300, 132, 72, False, torch.float32, False, torch.float32),
     ("odd-k", 100, 130, 40, True, None, False, torch.float32),
+    ("mn-off-tile", 200, 256, 130, True, torch.bfloat16, True, torch.bfloat16),
+    ("l3-conv1", 2 * 196, 1024, 256, True, None, True, torch.bfloat16),
+    ("fc-b32-splitk", 32, 2048, 1000, True, None, False, torch.float32),
 ]
 
 
@@ -581,6 +589,13 @@ def test_int8_matmul_kernel_equals_plain(cuda, gen, m, k, n, bias, res, relu, ou
     assert _build.LAUNCHES["int8_matmul"] == 1
     want = quant.int8_matmul_plain(x, w, sx, sw, b, r, relu=relu, out_dtype=out)
     _assert_equal(got, want)
+    # The (N, K) copy that the int8 engine packs gives the same bits as the
+    # per-call transpose, and so does a second call (split-K sums exactly).
+    w_nk = quant.pack_kmajor({"w_q": w})["w_nk"]
+    for _ in range(2):
+        again = quant.int8_matmul(x, w, sx, sw, b, r, relu=relu, out_dtype=out, w_nk=w_nk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
 
 
 # (id, b, h, w, cin, cout, residual, dtype): ResNet-152 / ResNet-34 3x3
@@ -619,8 +634,11 @@ def test_conv3x3_s1_kernel_close_to_plain(cuda, gen, b, h, w, cin, cout, res, dt
     _assert_conv_close(conv.conv3x3_s1_fused(*args[:2]), conv.conv3x3_s1_fused_plain(*args[:2]))
 
 
-# (id, b, h, cin, cout, k, dtype): the stride-2 3x3s of ResNet-152 (layer2
-# conv2) and ResNet-34 (layer2 conv1) at batch 2, odd sizes, k = 5 and 7.
+# (id, b, h, cin, cout, k, dtype): the stride-2 3x3s of ResNet-152 (conv2
+# of layers 2-4) and ResNet-34 (layer2 conv1) at batch 2, odd sizes, k =
+# 5, 7 and 9 (beyond the 49 taps a per-row mask of 64 bits would hold), a
+# stem-like 7x7 on Cin = 3 (the value-by-value path), a Cout off the
+# 64-wide tile and one off the 8-channel grid.
 CONV_S2_CASES = [
     ("r152-l2", 2, 56, 128, 128, 3, torch.bfloat16),
     ("r34-l2", 2, 56, 64, 128, 3, torch.bfloat16),
@@ -628,6 +646,13 @@ CONV_S2_CASES = [
     ("odd-f32", 2, 9, 16, 72, 3, torch.float32),
     ("k5", 2, 13, 8, 16, 5, torch.float32),
     ("k7", 2, 13, 8, 16, 7, torch.bfloat16),
+    ("r152-l3", 2, 28, 256, 256, 3, torch.bfloat16),
+    ("r152-l4", 2, 14, 512, 512, 3, torch.bfloat16),
+    ("k9", 2, 19, 8, 16, 9, torch.bfloat16),
+    ("k9-wide", 2, 21, 64, 64, 9, torch.bfloat16),
+    ("stem-k7-cin3", 2, 64, 3, 64, 7, torch.bfloat16),
+    ("cout-off-tile-bf16", 2, 9, 16, 72, 3, torch.bfloat16),
+    ("cout-off-8-bf16", 2, 11, 16, 20, 5, torch.bfloat16),
 ]
 
 

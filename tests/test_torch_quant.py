@@ -8,6 +8,11 @@ sx * sw`` on its own, ``acc * scale + bias`` one fused multiply-add).  The
 helpers ``quantize_per_tensor`` and ``quantize_folded`` must give JAX's
 values bit for bit.
 
+The (N, K) weight copies that ``pack_kmajor`` adds for the int8 kernel
+change no value: the plain version given them equals the Pallas kernel, and
+both int8 forwards on a packed tree equal the same forwards on
+``quantize_folded``'s tree bit for bit.
+
 End to end: ``fused_forward_int8``, ``calibrate_activation_scales`` and
 ``fused_forward_int8_static`` on ResNet-18 (10 classes) and a bottleneck
 net cut to (2, 1, 1, 1) blocks at stem width 16, 32x32, batch 2, the same
@@ -130,6 +135,38 @@ def test_int8_matmul_plain_equals_pallas(rng, m, k, n, bias, res, relu, out):
     assert len(np.unique(_np(got))) > 20  # not a degenerate case
 
 
+@pytest.mark.parametrize(
+    "m,k,n,bias,res,relu,out", [c[1:] for c in GEMM_CASES], ids=[c[0] for c in GEMM_CASES]
+)
+def test_int8_matmul_plain_on_kmajor_weight_equals_pallas(rng, m, k, n, bias, res, relu, out):
+    """The plain version reading the (N, K) copy of the weight, which the
+    card's kernel reads, equals the Pallas kernel on the (K, N) weight."""
+    x, w, sx, sw, b, r = _gemm_inputs(rng, m, k, n)
+    jr = tr = None
+    if res is not None:
+        jr = jnp.asarray(r).astype(OUT[res][0])
+        tr = torch.from_numpy(_np(jr).copy()).to(OUT[res][1])
+    want = jquant.int8_matmul(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(sx), jnp.asarray(sw),
+        jnp.asarray(b) if bias else None, jr, relu=relu, out_dtype=OUT[out][0], interpret=True,
+    )
+    tw = torch.from_numpy(w)
+    w_nk = tquant.pack_kmajor({"w_q": tw})["w_nk"]
+    assert tuple(w_nk.shape) == (n, k) and w_nk.is_contiguous()
+    got = tquant.int8_matmul_plain(
+        torch.from_numpy(x), tw, torch.tensor(sx), torch.from_numpy(sw),
+        torch.from_numpy(b) if bias else None, tr, relu=relu, out_dtype=OUT[out][1], w_nk=w_nk,
+    )
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+def test_int8_matmul_rejects_a_weight_copy_of_another_shape(rng):
+    x, w, sx, sw, *_ = _gemm_inputs(rng, 8, 64, 24)
+    args = (torch.from_numpy(x), torch.from_numpy(w), torch.tensor(sx), torch.from_numpy(sw))
+    with pytest.raises(ValueError, match="w_nk"):
+        tquant.int8_matmul(*args, w_nk=torch.from_numpy(w))  # (K, N), not (N, K)
+
+
 @pytest.mark.parametrize("bias", [True, False], ids=["bias", "residual-only"])
 def test_int8_epilogue_is_one_fma(rng, bias):
     """The Pallas epilogue as XLA evaluates it rounds ``acc * scale +
@@ -204,6 +241,20 @@ def test_quantize_folded_equals_jax(models):
     assert "conv1.weight" in tflat
 
 
+def test_pack_kmajor_adds_the_transposed_copies_only(models):
+    *_, tq = models["bottleneck"]
+    packed = tquant.pack_kmajor(tq)
+    flat, pflat = _flat(tq), _flat(packed)
+    copies = {k for k in pflat if k.endswith(".w_nk")}
+    assert copies == {k[: -len("w_q")] + "w_nk" for k in flat if k.endswith(".w_q")}
+    assert "fc.w_nk" in copies and "layer1.0.downsample.w_nk" in copies
+    assert set(pflat) - copies == set(flat)
+    for k, v in flat.items():
+        assert pflat[k] is v, k  # shared, not copied
+    for k in copies:
+        w_q = pflat[k[: -len("w_nk")] + "w_q"]
+        assert pflat[k].is_contiguous() and torch.equal(pflat[k], w_q.t()), k
+    assert "w_nk" not in _flat(tquant.quantize_folded(models["bottleneck"][3]))
 
 
 def _check_logits(got, want, policy, n_classes):
@@ -214,18 +265,60 @@ def _check_logits(got, want, policy, n_classes):
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
 
 
+#: JAX's logits per (config, policy, forward), computed once per module:
+#: the forwards on the packed trees are held to the same reference.
+_JAX_LOGITS: dict = {}
+
+
+def _jax_logits(models, name, policy, forward):
+    key = (name, policy, forward)
+    if key not in _JAX_LOGITS:
+        jcfg, _, jfold, _, x, jq, _ = models[name]
+        jpol = POLICIES[policy][0]
+        if forward == "dynamic":
+            out = jfused.fused_forward_int8(jcfg, jq, jnp.asarray(x), policy=jpol, interpret=True)
+        else:
+            jscales = jfused.calibrate_activation_scales(jcfg, jfold, jnp.asarray(x), policy=jpol)
+            out = jfused.fused_forward_int8_static(jcfg, jq, jscales, jnp.asarray(x),
+                                                   policy=jpol, interpret=True)
+        _JAX_LOGITS[key] = np.asarray(out, np.float32)
+    return _JAX_LOGITS[key]
+
+
+def _port_int8_forward(models, name, policy, forward, tree):
+    jcfg, tcfg, jfold, _, x, _, _ = models[name]
+    jpol, tpol = POLICIES[policy]
+    if forward == "dynamic":
+        return tfused.fused_forward_int8(tcfg, tree, torch.from_numpy(x), policy=tpol)
+    jscales = jfused.calibrate_activation_scales(jcfg, jfold, jnp.asarray(x), policy=jpol)
+    tscales = variables_from_jax_numpy(jax.tree.map(np.asarray, jscales))
+    return tfused.fused_forward_int8_static(tcfg, tree, tscales, torch.from_numpy(x),
+                                            policy=tpol)
+
+
 @pytest.mark.parametrize("policy", list(POLICIES))
 @pytest.mark.parametrize("name", CONFIGS)
 def test_fused_forward_int8_matches_jax(models, name, policy):
     jcfg, tcfg, _, _, x, jq, tq = models[name]
     jpol, tpol = POLICIES[policy]
-    want = np.asarray(
-        jfused.fused_forward_int8(jcfg, jq, jnp.asarray(x), policy=jpol, interpret=True),
-        np.float32,
-    )
+    want = _jax_logits(models, name, policy, "dynamic")
     got = tfused.fused_forward_int8(tcfg, tq, torch.from_numpy(x), policy=tpol)
     assert got.dtype == tpol.output
     _check_logits(got, want, policy, jcfg.num_classes)
+
+
+@pytest.mark.parametrize("forward", ["dynamic", "static"])
+@pytest.mark.parametrize("policy", list(POLICIES))
+@pytest.mark.parametrize("name", CONFIGS)
+def test_int8_forwards_on_packed_tree_equal_unpacked(models, name, policy, forward):
+    """The engine's tree (``pack_kmajor`` over ``quantize_folded``) gives the
+    logits of the unpacked tree bit for bit, within the JAX bounds."""
+    tq = models[name][-1]
+    got = _port_int8_forward(models, name, policy, forward, tquant.pack_kmajor(tq))
+    want = _port_int8_forward(models, name, policy, forward, tq)
+    assert torch.equal(got, want)
+    _check_logits(got, _jax_logits(models, name, policy, forward), policy,
+                  models[name][0].num_classes)
 
 
 def test_calibrate_activation_scales_matches_jax(models):
@@ -251,11 +344,7 @@ def test_fused_forward_int8_static_matches_jax(models, name, policy):
     jcfg, tcfg, jfold, _, x, jq, tq = models[name]
     jpol, tpol = POLICIES[policy]
     jscales = jfused.calibrate_activation_scales(jcfg, jfold, jnp.asarray(x), policy=jpol)
-    want = np.asarray(
-        jfused.fused_forward_int8_static(jcfg, jq, jscales, jnp.asarray(x), policy=jpol,
-                                         interpret=True),
-        np.float32,
-    )
+    want = _jax_logits(models, name, policy, "static")
     tscales = variables_from_jax_numpy(jax.tree.map(np.asarray, jscales))
     got = tfused.fused_forward_int8_static(tcfg, tq, tscales, torch.from_numpy(x), policy=tpol)
     _check_logits(got, want, policy, jcfg.num_classes)
