@@ -6,7 +6,8 @@
 Builds the CUDA kernels from ``resnetc_tpu_torch/csrc``, checks that the
 tensor-core kernels hold wgmma instructions in their SASS (HGMMA in the
 bf16 tile's instantiations for rows 4, 13 and 14, stride 1 and stride 2
-counted apart; IGMMA in the int8 tile of row 12), and then:
+counted apart, and for row 17's bf16 block; IGMMA in the int8 tile of row
+12 and in row 1's block kernel), and then:
 
 1. holds every kernel of the serving paths against its plain PyTorch
    version on the card, at the shapes of ResNet-152 (the bottleneck
@@ -64,8 +65,9 @@ counted apart; IGMMA in the int8 tile of row 12), and then:
    from Python (``eager_ms``: the median of five event-timed loops, host
    cost included), beside the plain version, the bound (for a pixel-paired
    kernel, the work of its standard twin), the TFLOP/s and share of the
-   bound of each shape (printed for the tensor-core kernels, rows 4, 12,
-   13 and 14, with the ratio to the library call; TOP/s for row 12), and a
+   bound of each shape (printed for the tensor-core kernels, rows 1, 4,
+   12, 13, 14 and 17, with the ratio to the library call; TOP/s for rows 1
+   and 12), and a
    library call that the port never makes, timed like ``ms``:
    torch.matmul for the GEMM, torch._int_mm for int8_matmul (int32 out, no
    epilogue), F.conv2d (bf16, channels-last) for the fused convolutions,
@@ -323,6 +325,7 @@ def make_cases(b: int, dev) -> list:
 
     from resnetc_tpu_torch.ops.cuda import block, gemm
     from resnetc_tpu_torch.ops.cuda.block import chain_meta
+    from resnetc_tpu_torch.ops.cuda.fused import kmajor_copies, kmajor_run_kwargs
 
     gen = torch.Generator().manual_seed(1234)
     scales = torch.full((4,), 0.05, dtype=torch.float32, device=dev)
@@ -337,6 +340,8 @@ def make_cases(b: int, dev) -> list:
             kw["emit_mean"] = True
         if proj:
             kw.update(wdq=q["wdq"], swd=q["swd"], bd=q["bd"])
+        if not pp:  # the engine's K-major copies (pack_chain_kmajor)
+            kw.update(kmajor_copies(q))
         hp, wp = chain_meta(b, h, h)
         px = b * h * h
         ops = 2 * px * (cin * c + 9 * c * c + c * c4 + (cin * c4 if proj else 0))
@@ -376,6 +381,8 @@ def make_cases(b: int, dev) -> list:
             cin = c0
             qs[0] = _block_weights(gen, c0, c0, c40, dev, proj=True)
             kw.update(w1q0=qs[0]["w1q"], wdq=qs[0]["wdq"], swd=qs[0]["swd"], bd=qs[0]["bd"])
+        if not pp:
+            kw.update(kmajor_run_kwargs([{**q, **kmajor_copies(q)} for q in qs], proj=proj))
         hp, wp = chain_meta(b, h0, h0)
         px = b * h0 * h0
         w_elems = n * (c40 * c0 + 9 * c0 * c0 + c0 * c40) + (
@@ -882,6 +889,13 @@ SASS_CHECKS = (
     ("libgemm.so", r"tile_kernel.*GemmALoader", "HGMMA"),
     # row 12: int8_matmul
     ("libint8_gemm.so", r"s8_tile_kernel", "IGMMA"),
+    # rows 17 and 18: bottleneck_block_chained / _fused in bf16 (conv1 and
+    # conv3 through the GEMM loader, conv2 through the im2col one)
+    ("libfp_block.so", r"tile_kernel.*GemmALoader", "HGMMA"),
+    ("libfp_block.so", r"tile_kernel.*ConvALoader", "HGMMA"),
+    # rows 1 and 2: bottleneck_block_chained_int8 and the run (row 3 keeps
+    # igemm.cuh's dp4a kernel in the same library)
+    ("libchain_block.so", r"chain_tile_kernel", "IGMMA"),
 )
 
 
@@ -1446,10 +1460,11 @@ SOURCES = {
 }
 #: Wrappers that launch one TPU kernel's counterpart (one row of the table).
 MEMBERS = {"add, add_relu": ("add", "add_relu")}
-#: The kernels on the tensor-core tiles (bf16_tile.cuh, and the int8 tile of
-#: int8_gemm.cu): their TFLOP/s (TOP/s for int8), share of the bound and
-#: ratio to the library call are printed per shape.
-TILE_KERNELS = ("conv3x3_s1_fused", "conv_s2_fused", "matmul", "int8_matmul")
+#: The kernels on the tensor-core tiles (bf16_tile.cuh and s8_tile.cuh):
+#: their TFLOP/s (TOP/s for int8), share of the bound and ratio to the
+#: library call are printed per shape.
+TILE_KERNELS = ("conv3x3_s1_fused", "conv_s2_fused", "matmul", "int8_matmul",
+                "bottleneck_block_chained", "bottleneck_block_chained_int8")
 
 
 def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[list, list]:

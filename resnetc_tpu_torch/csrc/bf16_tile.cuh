@@ -1,12 +1,15 @@
 // The bf16 tensor-core GEMM tile shared by the fused convolutions
 // (conv.cu: `conv3x3_s1_fused`, resnetc_tpu/ops/pallas/conv.py:150, and
-// `conv_s2_fused`, conv.py:287) and the fused GEMM (gemm.cu: `matmul`,
-// resnetc_tpu/ops/pallas/gemm.py:100):
+// `conv_s2_fused`, conv.py:287), the fused GEMM (gemm.cu: `matmul`,
+// resnetc_tpu/ops/pallas/gemm.py:100) and the bf16 bottleneck block
+// (fp_block.cu: `bottleneck_block_chained`, resnetc_tpu/ops/pallas/
+// block.py:278, and `bottleneck_block_fused`, block.py:3688):
 //
 //     C[M, N] = A[M, K] @ B[K, N]   (bf16 operands, fp32 sums in registers)
 //
-// with one of two ways to fill A (a row-major matrix, or the implicit im2col
-// of an NHWC image at stride 1 or 2) and B always a row-major (K, N) weight
+// with one of two ways to fill A (a row-major matrix, its rows optionally
+// picked through the chain layout's pixel <-> row map, or the implicit
+// im2col of an NHWC image at stride 1 or 2) and B always a row-major (K, N) weight
 // read as it lies in memory: the HWIO conv weight viewed as (k*k*Cin,
 // Cout), or the GEMM's (K, N).  Nothing repacks a weight per call.  The
 // int8 GEMM (int8_gemm.cu) builds its own tile from the PTX, the swizzle
@@ -65,8 +68,10 @@
 // 256-wide N tiles.
 //
 // Epilogue, in the Pallas kernels' order: + bias (fp32), + residual (bf16
-// or fp32, read in its own type), relu, cast to bf16 or fp32.  __fadd_rn
-// keeps nvcc from contracting the adds.
+// or fp32, read in its own type), relu (keeping NaN, relu.cuh), cast to bf16
+// or fp32.  __fadd_rn keeps nvcc from contracting the adds.  Over a chain
+// (Epi::ring) a ring row is written as zeros by a select: its residual is
+// never read, so a NaN there reaches nothing.
 
 #pragma once
 
@@ -74,6 +79,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "relu.cuh"
 
 namespace bf16tile {
 
@@ -215,10 +222,41 @@ __device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-// A = x (M, K) row-major.
+// The chained padded-row layout (fp_block.cu): pixel (b, y, x) of a (B, h,
+// w) interior lies at row (b*hp + y + 1)*wp + x + 1; the other rows are its
+// ring.
+struct Chain {
+  int h, w, hp, wp;
+};
+
+// Pixel p of the interior -> its chain row.
+__device__ __forceinline__ int chain_row(const Chain& g, int p) {
+  const int hw = g.h * g.w;
+  const int b = p / hw, rem = p - b * hw, y = rem / g.w;
+  return (b * g.hp + y + 1) * g.wp + (rem - y * g.w) + 1;
+}
+
+// Chain row t -> its interior pixel, or -1 on the ring.
+__device__ __forceinline__ int pixel_of(const Chain& g, int t) {
+  const int per = g.hp * g.wp;
+  const int b = t / per, rem = t - b * per, r = rem / g.wp, col = rem - r * g.wp;
+  if (r < 1 || r > g.h || col < 1 || col > g.w) return -1;
+  return (b * g.h + r - 1) * g.w + col - 1;
+}
+
+// Which row of x a row of A reads.
+enum RowMap {
+  MAP_NONE = 0,            // row m
+  MAP_PIXEL_TO_CHAIN = 1,  // m is a pixel, x a chain: its chain row
+  MAP_CHAIN_TO_PIXEL = 2,  // m is a chain row, x pixel rows: its pixel, zeros on the ring
+};
+
+// A = rows of x (row stride K) through `map` (geometry g).
 struct GemmA {
   const bf16* x;
   int M, K;
+  int map;
+  Chain g;
 };
 
 template <int BM, bool VEC>
@@ -226,14 +264,17 @@ struct GemmALoader {
   using Params = GemmA;
   static constexpr bool kTaps = false;  // one sum over K
   const bf16* base;
-  const bf16* row[4];  // nullptr past M
+  const bf16* row[4];  // nullptr past M and where the map finds no row
   int K, c;
 
   __device__ GemmALoader(const GemmA& p, int m0, int tid) : base(p.x), K(p.K), c(tid & 7) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = m0 + tid / 8 + i * (BM / 4);
-      row[i] = m < p.M ? p.x + static_cast<size_t>(m) * p.K : nullptr;
+      int src = m < p.M ? m : -1;
+      if (src >= 0 && p.map == MAP_PIXEL_TO_CHAIN) src = chain_row(p.g, src);
+      if (src >= 0 && p.map == MAP_CHAIN_TO_PIXEL) src = pixel_of(p.g, src);
+      row[i] = src >= 0 ? p.x + static_cast<size_t>(src) * p.K : nullptr;
     }
   }
 
@@ -384,6 +425,8 @@ struct Epi {
   float* ws;          // split-K partial sums (splits, M, N), or nullptr
   int M, N, res_kind, out_bf16, relu;
   int vec;            // N % 8 == 0 and every operand 16-byte aligned (set by run)
+  Chain ring;         // ring.wp > 0: rows are chain rows, and a ring row is
+                      // written as zeros (its residual never read)
 };
 
 __device__ __forceinline__ float finish(const Epi& ep, float v, int n, size_t o) {
@@ -392,7 +435,7 @@ __device__ __forceinline__ float finish(const Epi& ep, float v, int n, size_t o)
     v = __fadd_rn(v, __bfloat162float(static_cast<const bf16*>(ep.res)[o]));
   else if (ep.res_kind == KIND_F32)
     v = __fadd_rn(v, static_cast<const float*>(ep.res)[o]);
-  return ep.relu ? fmaxf(v, 0.f) : v;
+  return ep.relu ? relu_keep_nan(v) : v;
 }
 
 __device__ __forceinline__ void put(const Epi& ep, size_t o, float v) {
@@ -451,7 +494,7 @@ __device__ __forceinline__ void store8(const Epi& ep, int m, int n, float (&v)[8
   }
   if (ep.relu) {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = fmaxf(v[e], 0.f);
+    for (int e = 0; e < 8; ++e) v[e] = relu_keep_nan(v[e]);
   }
   if (!ep.out_bf16) {
     store_f32x8(static_cast<float*>(ep.out) + o, v);
@@ -462,6 +505,19 @@ __device__ __forceinline__ void store8(const Epi& ep, int m, int n, float (&v)[8
 #pragma unroll
   for (int e = 0; e < 4; ++e) p2[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
   *reinterpret_cast<uint4*>(static_cast<bf16*>(ep.out) + o) = pk;
+}
+
+// Eight zeros at (m, n..n+7): a ring row of a chain output.
+__device__ __forceinline__ void zero8(const Epi& ep, int m, int n) {
+  const size_t o = static_cast<size_t>(m) * ep.N + n;
+  if (!ep.vec || n + 8 > ep.N) {
+    for (int e = 0; e < 8 && n + e < ep.N; ++e) put(ep, o + e, 0.f);
+  } else if (ep.out_bf16) {
+    *reinterpret_cast<uint4*>(static_cast<bf16*>(ep.out) + o) = make_uint4(0, 0, 0, 0);
+  } else {
+    const float z[8] = {};
+    store_f32x8(static_cast<float*>(ep.out) + o, z);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -582,6 +638,10 @@ tile_kernel(typename AL::Params ap, const bf16* __restrict__ w, Epi ep, int K, i
     const int r = e / (BN / 8), c = 8 * (e % (BN / 8));
     const int m = m0 + r, n = n0 + c;
     if (m >= ep.M || n >= ep.N) continue;
+    if (ep.ring.wp && pixel_of(ep.ring, m) < 0) {
+      zero8(ep, m, n);
+      continue;
+    }
     const float4 lo = *reinterpret_cast<const float4*>(tile + r * LD + c);
     const float4 hi = *reinterpret_cast<const float4*>(tile + r * LD + c + 4);
     float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
@@ -647,9 +707,14 @@ inline Plan make_plan(int M, int N, int K, bool may_split) {
   return make_plan_stages(M, N, (K + BK - 1) / BK, may_split);
 }
 
+// static: each library that includes the tile keeps its own `sized` flag.
+// As the static of an inline function template it would be one object
+// across every loaded library (a GNU unique symbol), and the kernel of the
+// second library to launch a shape would run without its shared-memory
+// attribute set.
 template <int BM, int BN, bool VEC, class AL>
-cudaError_t launch_tile(const typename AL::Params& ap, const bf16* w, const Epi& ep, int K,
-                        const Plan& p, int tap, cudaStream_t stream) {
+static cudaError_t launch_tile(const typename AL::Params& ap, const bf16* w, const Epi& ep,
+                               int K, const Plan& p, int tap, cudaStream_t stream) {
   auto kern = tile_kernel<BM, BN, VEC, AL>;
   static bool sized = false;
   if (!sized) {

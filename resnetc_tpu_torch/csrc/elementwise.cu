@@ -4,9 +4,8 @@
 //     add(a, b)      a + b
 //     add_relu(a, b) max(a + b, 0)
 //
-// max keeps a NaN (as jnp.maximum and torch.maximum do; fmaxf and
-// `v > 0 ? v : 0` would turn it into 0) and gives +0 for a zero of either
-// sign.  A bf16 sum is taken in fp32 and rounded once to bf16, which is one
+// max keeps a NaN (as jnp.maximum and torch.maximum do; relu.cuh) and
+// gives +0 for a zero of either sign.  A bf16 sum is taken in fp32 and rounded once to bf16, which is one
 // rounding of the exact sum, as the plain version and XLA compute it.
 //
 // Replaces resnetc_tpu/ops/pallas/elementwise.py:29 `_unary_call`
@@ -26,6 +25,8 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "relu.cuh"
 
 namespace {
 
@@ -47,11 +48,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// max(v, 0): v itself where v > 0 or v is NaN, else +0.
+// max(v, 0) (relu.cuh) in T: v itself (a NaN's bits kept) or +0.
 template <typename T>
 __device__ __forceinline__ T relu(T v) {
-  const float f = to_f32(v);
-  return (f > 0.f || f != f) ? v : from_f32<T>(0.f);
+  return relu_keeps(to_f32(v)) ? v : from_f32<T>(0.f);
 }
 
 template <typename T, int OP>

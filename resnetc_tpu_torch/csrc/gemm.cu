@@ -99,7 +99,7 @@ gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
         v = __fadd_rn(v, __bfloat162float(static_cast<const __nv_bfloat16*>(res)[o]));
       else if (res_kind == KIND_F32)
         v = __fadd_rn(v, static_cast<const float*>(res)[o]);
-      if (relu) v = fmaxf(v, 0.f);
+      if (relu) v = relu_keep_nan(v);
       if (out_bf16)
         static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
       else

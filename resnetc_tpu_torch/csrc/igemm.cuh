@@ -1,6 +1,9 @@
-// The int8 implicit GEMM shared by the chain-layout block kernels
-// (chain_block.cu: bottleneck family; basic_block.cu: basic family;
-// pp_block.cu: both families' pixel-paired stage-0 kernels).
+// The int8 implicit GEMM of the chain-layout block kernels still on the CUDA
+// cores: the stride-2 transition of the bottleneck family (chain_block.cu,
+// row 3 of PERF.md's table), the basic family (basic_block.cu, rows 7, 8
+// and 11) and both families' pixel-paired stage-0 kernels (pp_block.cu,
+// rows 5, 6, 9 and 10).  The stride-1 bottleneck block (rows 1 and 2) runs
+// on the int8 tensor-core tile instead (s8_tile.cuh, chain_block.cu).
 //
 // Layout.  An activation is a "chain": flat rows (B*hp*wp, C) int8 of the
 // zero-ring padded image, pixel (r, q) at row (b*hp + r+1)*wp + q+1, with
@@ -22,8 +25,8 @@
 // What bounds it.  A 3x3 convolution does 18*c*c int8 operations per pixel
 // against a few bytes moved, far above the card's int8 ridge, so the bound
 // is the int8 tensor-core rate.  This kernel runs on the CUDA cores' dp4a
-// instead (first, simple version); the tensor-core (mma/wgmma) version is
-// later work.
+// instead (first, simple version), 25-60x above that bound; moving its
+// users onto the int8 tile, as rows 1 and 2 were, is the next step.
 //
 // Exactness.  Every epilogue is fp32 in the Pallas kernel's order of
 // operations, rounds half to even (rintf) and clips to +-127.  Where the

@@ -1,7 +1,7 @@
 // Pools, NHWC, over the k x k window at (r*s - p, c*s - p) of x[b, ., ., ch]:
 //
 // - max: taps outside the image never win (the -inf / integer-min padding
-//   of the TPU kernel).  bf16, fp32 or int8.  Replaces
+//   of the TPU kernel); a NaN tap does, as jnp.maximum keeps a NaN.  bf16, fp32 or int8.  Replaces
 //   resnetc_tpu/ops/pallas/pool.py:65 `max_pool2d` (pallas_call at :126).
 //   On the `int8` and `pallas` paths it is the pool after the stem:
 //   (B, 112, 112, 64) bf16 -> (B, 56, 56, 64), k 3, s 2, p 1.
@@ -24,12 +24,14 @@
 // the window's overlapping reads come from L1/L2.  The TPU kernels' phase
 // planes (strided access Mosaic lacks) and the padded copy are not carried
 // over.  A max is exact, so its output equals the plain version bit for
-// bit.  The average pool has the same layout and the same bound.
+// bit (a NaN is the hardware's canonical one).  The average pool has the
+// same layout and the same bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -71,6 +73,32 @@ struct alignas(sizeof(T) * VEC) Vec {
   T v[VEC];
 };
 
+// max(m, t) as torch.maximum and jnp.maximum compute it: a NaN where
+// either is one (a NaN, once in, stays), else the larger.  The hardware's
+// NaN-propagating max: one instruction a value, or a pair of bf16 values.
+__device__ __forceinline__ float take_max(float m, float t) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(t), "f"(m));
+  return d;
+}
+__device__ __forceinline__ __nv_bfloat16 take_max(__nv_bfloat16 m, __nv_bfloat16 t) {
+  return __hmax_nan(t, m);
+}
+__device__ __forceinline__ int8_t take_max(int8_t m, int8_t t) { return t > m ? t : m; }
+
+template <typename T, int VEC>
+__device__ __forceinline__ void take_max(Vec<T, VEC>& m, const Vec<T, VEC>& t) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && VEC % 2 == 0) {
+    auto* m2 = reinterpret_cast<__nv_bfloat162*>(m.v);
+    const auto* t2 = reinterpret_cast<const __nv_bfloat162*>(t.v);
+#pragma unroll
+    for (int i = 0; i < VEC / 2; ++i) m2[i] = __hmax2_nan(t2[i], m2[i]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) m.v[i] = take_max(m.v[i], t.v[i]);
+  }
+}
+
 template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
 max_pool_kernel(const T* __restrict__ x, T* __restrict__ out, int B, int H, int W, int C,
@@ -98,9 +126,7 @@ max_pool_kernel(const T* __restrict__ x, T* __restrict__ out, int B, int H, int 
       if (ix < 0 || ix >= W) continue;
       const Vec<T, VEC> t = *reinterpret_cast<const Vec<T, VEC>*>(
           x + (((size_t)b * H + iy) * W + ix) * C + (size_t)g * VEC);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        if (key(t.v[i]) > key(m.v[i])) m.v[i] = t.v[i];
+      take_max(m, t);
     }
   }
   *reinterpret_cast<Vec<T, VEC>*>(out + (((size_t)b * OH + r) * OW + c) * C + (size_t)g * VEC) =

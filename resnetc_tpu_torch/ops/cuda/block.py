@@ -64,11 +64,12 @@ _F = ctypes.c_float
 # ctypes signatures of each library's C functions, in its source's order.
 _ARGTYPES = {
     "chain_block": {
-        # x; B h w hp wp cin c c4; w1 a1 c1 w2p a2 c2 w3 a3 c3; s_res wd ad cd;
-        # z1 z2 y; out_kind out inv_hw stream
-        "chain_block_int8": [_P] + [_I] * 8 + [_P] * 9 + [_P] * 4 + [_P] * 3 + [_I, _P, _F, _P],
-        # x; n_blocks B h w hp wp cin c c4; w1s w10; a1s c1s w2ps a2s c2s w3s
-        # a3s c3s s_res; wd ad cd; z1 z2 act0 act1; last_bf16 out stream
+        # x; B h w hp wp cin c c4; w1_nk sw1 b1 w2p_nk sw2p b2 w3_nk sw3 b3;
+        # scales unit_y wd_nk swd bd; z1 z2 y; out_kind out inv_hw stream
+        "chain_block_int8": [_P] + [_I] * 8 + [_P] * 9 + [_P, _I, _P, _P, _P] + [_P] * 3
+        + [_I, _P, _F, _P],
+        # x; n_blocks B h w hp wp cin c c4; w1s w10; sw1s b1s w2ps sw2ps b2s w3s
+        # sw3s b3s scales_s; wd swd bd; z1 z2 act0 act1; last_bf16 out stream
         "chain_run_int8": [_P] + [_I] * 9 + [_P] * 2 + [_P] * 9 + [_P] * 3 + [_P] * 4
         + [_I, _P, _P],
         # x; B h w hp wp cin c c4 oh ow hp2 wp2; w1 a1 c1 w2 a2 c2 w3 a3 c3;
@@ -276,6 +277,22 @@ def _check_i8(dev, **tensors):
             raise ValueError(f"{name}: must be 4-byte aligned")
 
 
+def _f32_vectors(dev, **vectors) -> dict:
+    """fp32 contiguous copies (no copy where they already are) of the
+    per-channel vectors a kernel folds itself, each checked against its
+    length; an absent one stays None."""
+    out = {}
+    for name, item in vectors.items():
+        if item is None:
+            out[name] = None
+            continue
+        t, n = item
+        t = t.float().contiguous()
+        _build.require(t, name, torch.float32, dev, (n,))
+        out[name] = t
+    return out
+
+
 def _one(ref: torch.Tensor) -> torch.Tensor:
     return torch.ones((), dtype=torch.float32, device=ref.device)
 
@@ -344,13 +361,43 @@ def _block_plain_folded(xq, b, h, w_sp, hp, wp, w1q, w2pq, w3q, wdq, f, *,
     return _chain_from_interior(_requant(y) if emit_i8 else y.to(torch.bfloat16), hp, wp)
 
 
+def _from_kmajor(w, w_nk):
+    """The (..., K, N) weight, read from its K-major (..., N, K) copy where
+    one is given (checked against the original's shape)."""
+    if w_nk is None:
+        return w
+    if w is not None and tuple(w_nk.shape) != tuple(w.transpose(-1, -2).shape):
+        raise ValueError(f"K-major copy of shape {tuple(w_nk.shape)} for a "
+                         f"{tuple(w.shape)} weight")
+    return w_nk.transpose(-1, -2)
+
+
+def _kmajor(w, w_nk, name, dev):
+    """The K-major (N, K) copy the int8 tile reads: ``w_nk`` as given (the
+    engine's, ``pack_chain_kmajor``), else ``w`` transposed for this call.
+    Stacked weights (..., K, N) transpose their last two dimensions."""
+    if w is None:
+        return None
+    if w_nk is None:
+        w_nk = w.transpose(-1, -2).contiguous()
+    if tuple(w_nk.shape) != tuple(w.shape[:-2]) + (w.shape[-1], w.shape[-2]):
+        raise ValueError(f"{name}: shape {tuple(w_nk.shape)} is not the K-major copy of "
+                         f"{tuple(w.shape)}")
+    _check_i8(dev, **{name: w_nk})
+    return w_nk
+
+
 def bottleneck_block_chained_int8_plain(
     xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales, *,
     h, w_sp, emit_i8=True, bt=None, interpret=False, manual_dma=False,
     emit_mean=False, conv2_chunked=False, pipe_dma=False,
     wdq=None, swd=None, bd=None,
+    w1q_nk=None, w2pq_nk=None, w3q_nk=None, wdq_nk=None,
 ):
-    """Plain PyTorch version of ``bottleneck_block_chained_int8``."""
+    """Plain PyTorch version of ``bottleneck_block_chained_int8`` (the
+    weights read from their K-major copies where given)."""
+    w1q, w2pq = _from_kmajor(w1q, w1q_nk), _from_kmajor(w2pq, w2pq_nk)
+    w3q, wdq = _from_kmajor(w3q, w3q_nk), _from_kmajor(wdq, wdq_nk)
     b, hp, wp, _, _, _ = _block_geometry(xq, w1q, w3q, wdq, h, w_sp, emit_i8, emit_mean)
     f = _fold_block(scales, sw1, b1, sw2p, b2, sw3, b3, swd, bd, emit_i8)
     return _block_plain_folded(xq, b, h, w_sp, hp, wp, w1q, w2pq, w3q, wdq, f,
@@ -362,6 +409,7 @@ def bottleneck_block_chained_int8(
     h, w_sp, emit_i8=True, bt=None, interpret=False, manual_dma=False,
     emit_mean=False, conv2_chunked=False, pipe_dma=False,
     wdq=None, swd=None, bd=None,
+    w1q_nk=None, w2pq_nk=None, w3q_nk=None, wdq_nk=None,
 ):
     """Int8 stride-1 bottleneck block over the chained padded-row layout.
 
@@ -371,19 +419,31 @@ def bottleneck_block_chained_int8(
     shortcut is the 1x1 projection instead of identity.  Returns the same
     chain layout, int8 at s_y (emit_i8) or unscaled bf16; or with emit_mean
     the (B, 4c) f32 per-image interior means (the head fold).
+
+    ``w1q_nk`` ... ``wdq_nk``: the K-major (N, K) copies of the weights that
+    the int8 tensor-core tile reads (8-bit wgmma takes both operands
+    K-major), made once per engine by ``fused.pack_chain_kmajor``; without
+    them the wrapper transposes once per call.
     """
     if not xq.is_cuda:
         return bottleneck_block_chained_int8_plain(
             xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales,
             h=h, w_sp=w_sp, emit_i8=emit_i8, emit_mean=emit_mean,
             wdq=wdq, swd=swd, bd=bd,
+            w1q_nk=w1q_nk, w2pq_nk=w2pq_nk, w3q_nk=w3q_nk, wdq_nk=wdq_nk,
         )
     b, hp, wp, cin, c, c4 = _block_geometry(xq, w1q, w3q, wdq, h, w_sp, emit_i8, emit_mean)
-    f = _fold_block(scales, sw1, b1, sw2p, b2, sw3, b3, swd, bd, emit_i8)
     dev = xq.device
     _check_i8(dev, xq=xq, w1q=w1q, w2pq=w2pq, w3q=w3q, wdq=wdq)
     if cin % 4 or c % 4:
         raise ValueError(f"channel counts must be multiples of 4, got cin={cin}, c={c}")
+    # The kernel folds the scales itself (as _fold_block does, op for op).
+    v = _f32_vectors(dev, sw1=(sw1, c), b1=(b1, c), sw2p=(sw2p, 3 * c), b2=(b2, c),
+                     sw3=(sw3, c4), b3=(b3, c4), scales=(scales, 4),
+                     swd=(swd, c4) if wdq is not None else None,
+                     bd=(bd, c4) if wdq is not None else None)
+    w1q_nk, w2pq_nk = _kmajor(w1q, w1q_nk, "w1q_nk", dev), _kmajor(w2pq, w2pq_nk, "w2pq_nk", dev)
+    w3q_nk, wdq_nk = _kmajor(w3q, w3q_nk, "w3q_nk", dev), _kmajor(wdq, wdq_nk, "wdq_nk", dev)
     rows = b * hp * wp
     z1 = torch.empty((rows, c), dtype=torch.int8, device=dev)
     z2 = torch.empty((rows, c), dtype=torch.int8, device=dev)
@@ -395,14 +455,13 @@ def bottleneck_block_chained_int8(
     else:
         out = torch.empty((rows, c4), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
         kind = 0 if emit_i8 else 1
-    fc = {k: (None if v is None else v.contiguous()) for k, v in f.items()}
     rc = _lib("chain_block").chain_block_int8(
         xq.data_ptr(), b, h, w_sp, hp, wp, cin, c, c4,
-        w1q.data_ptr(), fc["a1"].data_ptr(), fc["c1"].data_ptr(),
-        w2pq.data_ptr(), fc["a2"].data_ptr(), fc["c2"].data_ptr(),
-        w3q.data_ptr(), fc["a3"].data_ptr(), fc["c3"].data_ptr(),
-        fc["s_res"].data_ptr(), _build.ptr(wdq), _build.ptr(fc["ad"]), _build.ptr(fc["cd"]),
-        z1.data_ptr(), z2.data_ptr(), _build.ptr(yscr), kind, out.data_ptr(),
+        w1q_nk.data_ptr(), v["sw1"].data_ptr(), v["b1"].data_ptr(),
+        w2pq_nk.data_ptr(), v["sw2p"].data_ptr(), v["b2"].data_ptr(),
+        w3q_nk.data_ptr(), v["sw3"].data_ptr(), v["b3"].data_ptr(),
+        v["scales"].data_ptr(), int(not emit_i8), _build.ptr(wdq_nk), _build.ptr(v["swd"]),
+        _build.ptr(v["bd"]), z1.data_ptr(), z2.data_ptr(), _build.ptr(yscr), kind, out.data_ptr(),
         _inv_hw(h, w_sp), _build.stream(),
     )
     _build.check(rc, "bottleneck_block_chained_int8")
@@ -467,8 +526,13 @@ def bottleneck_run_chained_int8_plain(
     xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s, *,
     h, w_sp, emit_i8=True, bt=None, interpret=False, pipe_dma=False,
     w1q0=None, wdq=None, swd=None, bd=None,
+    w1q_nk_s=None, w2pq_nk_s=None, w3q_nk_s=None, w1q0_nk=None, wdq_nk=None,
 ):
-    """Plain PyTorch version of ``bottleneck_run_chained_int8``."""
+    """Plain PyTorch version of ``bottleneck_run_chained_int8`` (the
+    weights read from their K-major copies where given)."""
+    w1q_s, w2pq_s = _from_kmajor(w1q_s, w1q_nk_s), _from_kmajor(w2pq_s, w2pq_nk_s)
+    w3q_s = _from_kmajor(w3q_s, w3q_nk_s)
+    w1q0, wdq = _from_kmajor(w1q0, w1q0_nk), _from_kmajor(wdq, wdq_nk)
     n_blocks, b, hp, wp, _, _, _ = _run_geometry(xq, w1q_s, w3q_s, w1q0, wdq, h, w_sp)
     f = _fold_run(scales_s, sw1_s, b1_s, sw2p_s, b2_s, sw3_s, b3_s, swd, bd, emit_i8)
     has_proj = w1q0 is not None
@@ -495,36 +559,51 @@ def bottleneck_run_chained_int8(
     xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s, *,
     h, w_sp, emit_i8=True, bt=None, interpret=False, pipe_dma=False,
     w1q0=None, wdq=None, swd=None, bd=None,
+    w1q_nk_s=None, w2pq_nk_s=None, w3q_nk_s=None, w1q0_nk=None, wdq_nk=None,
 ):
     """A run of N stride-1 bottleneck blocks as one call (see the JAX
     wrapper's contract): stacked w1q_s (N, c4, c), sw1_s/b1_s (N, c), w2pq_s
     (N, 3c, 3c), sw2p_s (N, 3c), b2_s (N, c), w3q_s (N, c, c4), sw3_s/b3_s
     (N, c4); scales_s (N, 4) rows [s_x, s_z1, s_z2, s_y].  With w1q0/wdq/
     swd/bd block 0 is the projection block over xq (rows, cin) and w1q_s
-    stacks blocks 1..N-1 only."""
+    stacks blocks 1..N-1 only.  ``*_nk``: the weights' K-major copies (see
+    ``bottleneck_block_chained_int8``), stacked alike."""
     if not xq.is_cuda:
         return bottleneck_run_chained_int8_plain(
             xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s,
             h=h, w_sp=w_sp, emit_i8=emit_i8, w1q0=w1q0, wdq=wdq, swd=swd, bd=bd,
+            w1q_nk_s=w1q_nk_s, w2pq_nk_s=w2pq_nk_s, w3q_nk_s=w3q_nk_s, w1q0_nk=w1q0_nk,
+            wdq_nk=wdq_nk,
         )
     n_blocks, b, hp, wp, cin, c, c4 = _run_geometry(xq, w1q_s, w3q_s, w1q0, wdq, h, w_sp)
-    f = _fold_run(scales_s, sw1_s, b1_s, sw2p_s, b2_s, sw3_s, b3_s, swd, bd, emit_i8)
     dev = xq.device
     _check_i8(dev, xq=xq, w1q_s=w1q_s, w1q0=w1q0, w2pq_s=w2pq_s, w3q_s=w3q_s, wdq=wdq)
     if cin % 4 or c % 4:
         raise ValueError(f"channel counts must be multiples of 4, got cin={cin}, c={c}")
+    # The kernel folds each block's scales itself (as _fold_run does).
+    n = n_blocks
+    v = _f32_vectors(dev, sw1_s=(sw1_s.reshape(-1), n * c), b1_s=(b1_s.reshape(-1), n * c),
+                     sw2p_s=(sw2p_s.reshape(-1), n * 3 * c), b2_s=(b2_s.reshape(-1), n * c),
+                     sw3_s=(sw3_s.reshape(-1), n * c4), b3_s=(b3_s.reshape(-1), n * c4),
+                     scales_s=(scales_s.reshape(-1), n * 4),
+                     swd=(swd, c4) if wdq is not None else None,
+                     bd=(bd, c4) if wdq is not None else None)
+    w1q_nk_s = _kmajor(w1q_s, w1q_nk_s, "w1q_nk_s", dev)
+    w2pq_nk_s = _kmajor(w2pq_s, w2pq_nk_s, "w2pq_nk_s", dev)
+    w3q_nk_s = _kmajor(w3q_s, w3q_nk_s, "w3q_nk_s", dev)
+    w1q0_nk, wdq_nk = _kmajor(w1q0, w1q0_nk, "w1q0_nk", dev), _kmajor(wdq, wdq_nk, "wdq_nk", dev)
     rows = b * hp * wp
     z1 = torch.empty((rows, c), dtype=torch.int8, device=dev)
     z2 = torch.empty((rows, c), dtype=torch.int8, device=dev)
     act = torch.empty((2, rows, c4), dtype=torch.int8, device=dev)
     out = torch.empty((rows, c4), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
-    fc = {k: (None if v is None else v.contiguous()) for k, v in f.items()}
     rc = _lib("chain_block").chain_run_int8(
         xq.data_ptr(), n_blocks, b, h, w_sp, hp, wp, cin, c, c4,
-        w1q_s.data_ptr(), _build.ptr(w1q0),
-        fc["a1"].data_ptr(), fc["c1"].data_ptr(), w2pq_s.data_ptr(), fc["a2"].data_ptr(),
-        fc["c2"].data_ptr(), w3q_s.data_ptr(), fc["a3"].data_ptr(), fc["c3"].data_ptr(),
-        fc["s_res"].data_ptr(), _build.ptr(wdq), _build.ptr(fc["ad"]), _build.ptr(fc["cd"]),
+        w1q_nk_s.data_ptr(), _build.ptr(w1q0_nk),
+        v["sw1_s"].data_ptr(), v["b1_s"].data_ptr(), w2pq_nk_s.data_ptr(),
+        v["sw2p_s"].data_ptr(), v["b2_s"].data_ptr(), w3q_nk_s.data_ptr(),
+        v["sw3_s"].data_ptr(), v["b3_s"].data_ptr(), v["scales_s"].data_ptr(),
+        _build.ptr(wdq_nk), _build.ptr(v["swd"]), _build.ptr(v["bd"]),
         z1.data_ptr(), z2.data_ptr(), act[0].data_ptr(), act[1].data_ptr(),
         0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
     )

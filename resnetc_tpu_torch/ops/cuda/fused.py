@@ -647,6 +647,56 @@ def quantize_chain(cfg: ResNetConfig, folded: Tree) -> Tree:
     return out
 
 
+#: The weights of a stride-1 bottleneck block that the int8 tile reads, and
+#: the keys of their K-major copies.
+KMAJOR_KEYS = {"w1q": "w1q_nk", "w2pq": "w2pq_nk", "w3q": "w3q_nk", "wdq": "wdq_nk"}
+
+
+def pack_chain_kmajor(cfg: ResNetConfig, qtree: Tree) -> Tree:
+    """A copy of a ``quantize_chain`` tree with the contiguous K-major (N,
+    K) copy of each weight that ``bottleneck_block_chained_int8`` and
+    ``bottleneck_run_chained_int8`` read on the int8 tensor cores (8-bit
+    wgmma takes both operands K-major) beside it: ``w1q_nk``, ``w2pq_nk``
+    (row kh*c + j: output j of kernel row kh), ``w3q_nk`` and, on a
+    projection block, ``wdq_nk``.  Made once per engine instead of once per
+    call; every stride-1 bottleneck block gets them (the pixel-paired
+    kernels ignore them).  Other entries are shared, not copied; a basic
+    tree comes back as it is."""
+    if cfg.block != "bottleneck":
+        return qtree
+    out = dict(qtree)
+    for stage in range(4):
+        layer = {}
+        for b_str, blk in qtree[f"layer{stage + 1}"].items():
+            if "w2pq" in blk:  # stride 1 (a transition has w2q)
+                blk = {**blk, **kmajor_copies(blk)}
+            layer[b_str] = blk
+        out[f"layer{stage + 1}"] = layer
+    return out
+
+
+def kmajor_copies(blk: dict) -> dict:
+    """The K-major copies of one stride-1 block's weights, by their keys."""
+    return {nk: blk[k].t().contiguous() for k, nk in KMAJOR_KEYS.items() if k in blk}
+
+
+def kmajor_kwargs(blk: dict) -> dict:
+    """The K-major copies a block carries, as keyword arguments."""
+    return {nk: blk[nk] for nk in KMAJOR_KEYS.values() if nk in blk}
+
+
+def kmajor_run_kwargs(run: list, proj: bool) -> dict:
+    """The stacked K-major copies of a run's blocks (block 0's w1q and wdq
+    apart when it is the projection block), where every block has them."""
+    if not all("w1q_nk" in blk for blk in run):
+        return {}
+    kw = {"w1q_nk_s": _stack(run[1:] if proj else run, "w1q_nk"),
+          "w2pq_nk_s": _stack(run, "w2pq_nk"), "w3q_nk_s": _stack(run, "w3q_nk")}
+    if proj:
+        kw.update(w1q0_nk=run[0]["w1q_nk"], wdq_nk=run[0]["wdq_nk"])
+    return kw
+
+
 def _chain_scale_lookups(cfg: ResNetConfig, chain_scales: Tree):
     """(scale_row, s_after): block k's output scale is block k+1's "in",
     across stage boundaries too; s_after is None at the network tail.
@@ -768,6 +818,7 @@ def fused_forward_int8_chain(
                     torch.stack([scale_row(stage, i) for i in range(nb)]),
                     h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None,
                     w1q0=blk0["w1q"], wdq=blk0["wdq"], swd=blk0["swd"], bd=blk0["bd"],
+                    **({} if use_pp else kmajor_run_kwargs(run, proj=True)),
                 )
                 stage_fused = True
 
@@ -795,6 +846,7 @@ def fused_forward_int8_chain(
                     scale_row(stage, 0),
                     h=h, w_sp=w_sp, emit_i8=not last0,
                     wdq=blk.get("wdq"), swd=blk.get("swd"), bd=blk.get("bd"),
+                    **({} if pp0 else kmajor_kwargs(blk)),
                 )
 
             # Blocks 1..nb-1: one run kernel, or per block.  Under
@@ -817,6 +869,7 @@ def fused_forward_int8_chain(
                     *(_stack(run, k) for k in keys),
                     torch.stack([scale_row(stage, i) for i in range(1, nb)]),
                     h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None,
+                    **({} if pp_stage else kmajor_run_kwargs(run, proj=False)),
                 )
             else:
                 for i in range(1, nb):
@@ -830,7 +883,7 @@ def fused_forward_int8_chain(
                         yr = kernels.block_pp(*args, h=h, w_sp=w_sp, emit_i8=not last_i)
                     else:
                         yr = kernels.block(*args, h=h, w_sp=w_sp, emit_i8=not last_i,
-                                           emit_mean=fold_head)
+                                           emit_mean=fold_head, **kmajor_kwargs(blk))
                         head_folded = head_folded or fold_head
 
         _tap(stage_taps, yr, bsz, h, w_sp, s_after(stage, nb - 1))

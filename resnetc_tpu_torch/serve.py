@@ -2,7 +2,9 @@
 
 Counterpart of ``resnetc_tpu/serve.py:34-363``.  Five backends:
 
-- ``"int8_chain"`` — calibrate static activation scales, quantize, and run
+- ``"int8_chain"`` — calibrate static activation scales, quantize (and
+  ``pack_chain_kmajor``: the (N, K) weight copies the stride-1 bottleneck
+  kernels read on the int8 tensor cores), and run
   ``fused_forward_int8_chain`` (every residual block an int8 CUDA kernel,
   for the bottleneck family and the basic family, ResNet-18/34, alike).
   The route follows the flags of ``ops.cuda.fused`` at forward time, as in
@@ -89,7 +91,7 @@ class InferenceEngine:
         self.chain_scales = None
         if backend == "int8_chain":
             from resnetc_tpu_torch.ops.cuda.fused import (
-                calibrate_chain_scales, quantize_chain,
+                calibrate_chain_scales, pack_chain_kmajor, quantize_chain,
             )
 
             if calib_batch is None:
@@ -105,7 +107,7 @@ class InferenceEngine:
             self.chain_scales = calibrate_chain_scales(
                 model_cfg, folded, calib, policy=policy, method=calib_method
             )
-            folded = quantize_chain(model_cfg, folded)
+            folded = pack_chain_kmajor(model_cfg, quantize_chain(model_cfg, folded))
         elif backend == "int8":
             from resnetc_tpu_torch.ops.cuda.quant import pack_kmajor, quantize_folded
 

@@ -8,7 +8,10 @@ interiors are compared for EQUALITY (the integer dots are exact and every
 fp32 epilogue keeps the Pallas kernel's order of operations); the f32 head
 fold (``emit_mean``) and the fp32-accumulating GEMM sum in another order,
 so they are held to rtol 1e-5.  Chain ring rows carry no meaning and are
-not compared.
+not compared.  The plain versions given the K-major (N, K) weight copies
+that the int8 tensor-core kernels read (the engine's, from
+``fused.pack_chain_kmajor``) compute the same values: EQUAL to the Pallas
+kernel, and the run to itself without them.
 
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_cuda.py``.
@@ -167,6 +170,60 @@ def test_block_plain_equals_jax(rng, h, cin, c, c4, proj, emit_i8, emit_mean):
     np.testing.assert_array_equal(gi, wi)
     # Not a degenerate case: the outputs span the int8 range.
     assert len(np.unique(gi)) > 20
+
+
+def _kmajor(tq: dict) -> dict:
+    return {k + "_nk": tq[k].t().contiguous() for k in ("w1q", "w2pq", "w3q", "wdq") if k in tq}
+
+
+@pytest.mark.parametrize("proj", [False, True], ids=["identity", "proj"])
+@pytest.mark.parametrize("h", [7, 8])
+def test_block_plain_on_kmajor_weights_equals_jax(rng, h, proj):
+    b, c = 2, 16
+    cin, c4 = (c, 4 * c) if proj else (4 * c, 4 * c)
+    jq, tq = _quantized_pair(_chain_block(rng, cin, c, c4, proj=proj))
+    x = _chain_input(rng, b, h, cin)
+    keys = ("w1q", "sw1", "b1", "w2pq", "sw2p", "b2", "w3q", "sw3", "b3")
+    extra = ("wdq", "swd", "bd") if proj else ()
+    want = jblock.bottleneck_block_chained_int8(
+        jnp.asarray(x), *(jq[k] for k in keys), jnp.asarray(SCALES), h=h, w_sp=h,
+        interpret=True, **{k: jq[k] for k in extra},
+    )
+    got = tblock.bottleneck_block_chained_int8_plain(
+        torch.from_numpy(x), *(tq[k] for k in keys), torch.from_numpy(SCALES), h=h, w_sp=h,
+        **{k: tq[k] for k in extra}, **_kmajor(tq),
+    )
+    gi, wi = _interior(got, b, h, h), _interior(want, b, h, h)
+    np.testing.assert_array_equal(gi, wi)
+    assert len(np.unique(gi)) > 20
+    with pytest.raises(ValueError):  # a copy of another weight's shape
+        tblock.bottleneck_block_chained_int8_plain(
+            torch.from_numpy(x), *(tq[k] for k in keys), torch.from_numpy(SCALES), h=h,
+            w_sp=h, **{k: tq[k] for k in extra}, w1q_nk=tq["w2pq"],
+        )
+
+
+@pytest.mark.parametrize("proj", [False, True], ids=["identity", "proj"])
+def test_run_plain_on_kmajor_weights_equals_unpacked(rng, proj):
+    b, h, c, c4, n = 2, 7, 16, 64, 3
+    qs = [_quantized_pair(_chain_block(rng, c if proj and i == 0 else c4, c, c4,
+                                       proj=proj and i == 0))[1] for i in range(n)]
+    x = torch.from_numpy(_chain_input(rng, b, h, c if proj else c4))
+    keys = ("sw1", "b1", "w2pq", "sw2p", "b2", "w3q", "sw3", "b3")
+    w1 = [q["w1q"] for q in qs[1 if proj else 0:]]
+    args = (x, torch.stack(w1), *(torch.stack([q[k] for q in qs]) for k in keys),
+            torch.from_numpy(np.stack([SCALES] * n)))
+    kw = dict(h=h, w_sp=h)
+    nk = dict(w1q_nk_s=torch.stack([w.t().contiguous() for w in w1]),
+              w2pq_nk_s=torch.stack([q["w2pq"].t().contiguous() for q in qs]),
+              w3q_nk_s=torch.stack([q["w3q"].t().contiguous() for q in qs]))
+    if proj:
+        kw.update(w1q0=qs[0]["w1q"], wdq=qs[0]["wdq"], swd=qs[0]["swd"], bd=qs[0]["bd"])
+        nk.update(w1q0_nk=qs[0]["w1q"].t().contiguous(), wdq_nk=qs[0]["wdq"].t().contiguous())
+    for emit_i8 in (True, False):
+        want = tblock.bottleneck_run_chained_int8_plain(*args, emit_i8=emit_i8, **kw)
+        got = tblock.bottleneck_run_chained_int8(*args, emit_i8=emit_i8, **kw, **nk)
+        assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("n_blocks", [2, 3])

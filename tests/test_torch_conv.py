@@ -15,6 +15,11 @@ boundary may land one bf16 step apart: each element within 1 bf16 ulp (of
 the larger magnitude), or within 1e-5 of the largest output where relu
 cuts a sum that is zero to fp32 rounding.  The max pool compares values,
 so its outputs are EQUAL, in bf16 and int8 alike.
+
+NaN.  With a NaN in one input pixel and a -Inf in another, the plain
+versions give NaN (and +-Inf) exactly where the Pallas kernels do: their
+relu is ``jnp.maximum(v, 0)`` and the pool's max ``jnp.maximum``, both of
+which keep a NaN.  The other values keep the tolerances above.
 """
 
 from __future__ import annotations
@@ -194,3 +199,61 @@ def test_max_pool2d_window_all_negative_keeps_its_max(rng):
     want = jpool.max_pool2d(jnp.asarray(x), kernel_size=3, stride=2, padding=1, interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert np.isfinite(got.numpy()).all()
+
+
+# ---------------------------------------------------------------------------
+# NaN and Inf: a NaN pixel and a -Inf pixel in the input
+# ---------------------------------------------------------------------------
+
+
+def _poisoned(rng, shape, dtype):
+    """Random values with a NaN in every channel of one pixel (row, for a
+    matrix) and -Inf in every channel of another, in both frameworks."""
+    a = rng.standard_normal(shape).astype(np.float32)
+    a.reshape(-1, shape[-1])[1] = np.nan
+    a.reshape(-1, shape[-1])[-3] = -np.inf
+    return _pair(a, dtype)
+
+
+def assert_same_nan_and_close(got, want, dtype):
+    """NaN and +-Inf at the same places; the finite values as
+    ``assert_conv_close`` holds them."""
+    g, w = _np(got), _np(want)
+    assert g.shape == w.shape and np.isnan(w).any()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_array_equal(np.isinf(g), np.isinf(w))
+    np.testing.assert_array_equal(g[np.isinf(w)], w[np.isinf(w)])
+    fin = np.isfinite(w)
+    assert_conv_close(g[fin], w[fin], dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("op", ["conv3x3_s1", "conv_s2", "matmul"])
+def test_relu_keeps_nan_as_pallas_does(rng, op, dtype):
+    if op == "matmul":
+        jx, tx = _poisoned(rng, (12, 40), dtype)
+        jw, tw = _pair(rng.standard_normal((40, 24)) * 40**-0.5, dtype)
+        bias = rng.standard_normal(24).astype(np.float32)
+        jd, td = DTYPES[dtype]
+        want = jgemm.matmul(jx, jw, jnp.asarray(bias), relu=True, out_dtype=jd, interpret=True)
+        got = tgemm.matmul(tx, tw, torch.from_numpy(bias), relu=True, out_dtype=td)
+    else:
+        jx, tx = _poisoned(rng, (2, 8, 8, 16), dtype)
+        jw, tw = _pair(rng.standard_normal((3, 3, 16, 24)) * 0.1, dtype)
+        bias = rng.standard_normal(24).astype(np.float32)
+        jb, tb = jnp.asarray(bias), torch.from_numpy(bias)
+        jfn, tfn = getattr(jconv, op + "_fused"), getattr(tconv, op + "_fused")
+        want = jfn(jx, jw, jb, relu=True, interpret=True)
+        got = tfn(tx, tw, tb, relu=True)
+    assert_same_nan_and_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_max_pool2d_keeps_nan_as_pallas_does(rng, dtype):
+    jx, tx = _poisoned(rng, (2, 9, 9, 8), dtype)
+    want = jpool.max_pool2d(jx, kernel_size=3, stride=2, padding=1, interpret=True)
+    got = tpool.max_pool2d(tx, kernel_size=3, stride=2, padding=1)
+    g, w = _np(got), _np(want)
+    assert np.isnan(w).any() and np.isinf(w).sum() == 0
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+    np.testing.assert_array_equal(g[~np.isnan(w)], w[~np.isnan(w)])

@@ -27,12 +27,19 @@ version at every shape, the fc included, and two calls, or the engine's
 The pixel-paired kernels are also driven through their pair-space entries
 with dense random pair-space weights, so a kernel that skipped the zero
 blocks or ran the unpaired GEMM would disagree with its plain version.
+The int8 bottleneck block and run (the int8 wgmma tile) equal their plain
+versions at ResNet-152's stage shapes and off the tile, every exit, and
+give the same bits on a second call and from the engine's K-major weight
+copies as from a per-call transpose.
 The bf16 / fp32 bottleneck blocks (``bottleneck_block_chained``,
 ``bottleneck_block_fused``) round z1 and z2 to the compute type inside the
 block, so a summation-order difference can move a value by one bf16 step:
 max error / max |plain| within 1e-2 in bf16, 1e-4 in fp32.  The average
 pool and ``relu`` / ``add`` / ``add_relu`` are EQUAL to their plain versions
-(NaN where they have NaN).
+(NaN where they have NaN).  With a NaN pixel and a -Inf pixel in the
+input, the fused convolutions, the GEMM, the int8 GEMM (NaN in its
+residual) and the float max pool give NaN and +-Inf exactly where their
+plain versions do, the other values within the tolerances above.
 """
 
 from __future__ import annotations
@@ -100,6 +107,16 @@ BLOCK_CASES = [
     ("emit-mean-h8", 8, 64, 16, 64, False, False, True),
     ("emit-mean-h7", 7, 64, 16, 64, False, False, True),
     ("identity-c64-h14", 14, 256, 64, 256, False, True, False),
+    # ResNet-152's stage-2 (14x14, c 256) and stage-3 (7x7, c 512) shapes
+    ("identity-c256-h14", 14, 1024, 256, 1024, False, True, False),
+    ("proj-c256-h14", 14, 256, 256, 1024, True, True, False),
+    ("identity-c512-h7", 7, 2048, 512, 2048, False, True, False),
+    ("proj-c512-h7", 7, 512, 512, 2048, True, True, False),
+    ("bf16-exit-c512-h7", 7, 2048, 512, 2048, False, False, False),
+    ("emit-mean-c512-h7", 7, 2048, 512, 2048, False, False, True),
+    # c off the 64-wide tile; off the 16-byte chunk (the byte-by-byte path)
+    ("identity-c48-h8", 8, 192, 48, 192, False, True, False),
+    ("proj-c20-h7", 7, 20, 20, 80, True, False, False),
 ]
 
 
@@ -126,6 +143,13 @@ def test_block_kernel_equals_plain(cuda, gen, h, cin, c, c4, proj, emit_i8, emit
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         assert got.dtype == want.dtype and torch.equal(got, want)
+    # The engine's K-major weight copies give the same bits as the per-call
+    # transpose, and so does a second call.
+    nk = {k + "_nk": q[k].t().contiguous() for k in ("w1q", "w2pq", "w3q", "wdq") if k in q}
+    for _ in range(2):
+        again = block.bottleneck_block_chained_int8(*args, **kw, **nk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
@@ -143,11 +167,19 @@ def test_run_kernel_equals_plain(cuda, gen, n_blocks, proj):
         x = _chain(gen, b, h, c, cuda)
     scales = torch.from_numpy(np.stack([SCALES] * n_blocks)).to(cuda)
     args = (x, w1q_s, *(torch.stack([q[k] for q in qs]) for k in KEYS[1:]), scales)
+    nk = {"w1q_nk_s": args[1].transpose(1, 2).contiguous(),
+          "w2pq_nk_s": args[4].transpose(1, 2).contiguous(),
+          "w3q_nk_s": args[7].transpose(1, 2).contiguous()}
+    if proj:
+        nk.update(w1q0_nk=kw["w1q0"].t().contiguous(), wdq_nk=kw["wdq"].t().contiguous())
     for emit_i8 in (True, False):
         got = block.bottleneck_run_chained_int8(*args, emit_i8=emit_i8, **kw)
         want = block.bottleneck_run_chained_int8_plain(*args, emit_i8=emit_i8, **kw)
         torch.cuda.synchronize()
         assert got.dtype == want.dtype and torch.equal(got, want)
+        packed = block.bottleneck_run_chained_int8(*args, emit_i8=emit_i8, **kw, **nk)
+        torch.cuda.synchronize()
+        assert torch.equal(got, packed)
 
 
 @pytest.mark.cuda
@@ -701,6 +733,68 @@ def test_max_pool2d_kernel_equals_plain(cuda, gen, k, s, p, h, c, dtype):
     assert got.dtype == want.dtype and torch.equal(got, want)
 
 
+# A NaN in every channel of one input pixel (row) and -Inf in another: the
+# kernels' relu and the float max pool keep NaN where the plain versions do
+# (as jnp.maximum does); the other values keep their tolerances.
+NAN_CASES = [("conv3x3_s1", torch.bfloat16), ("conv3x3_s1", torch.float32),
+             ("conv_s2", torch.bfloat16), ("conv_s2", torch.float32),
+             ("matmul", torch.bfloat16), ("matmul", torch.float32),
+             ("max_pool2d", torch.bfloat16), ("max_pool2d", torch.float32),
+             ("int8_matmul", torch.bfloat16), ("int8_matmul", torch.float32)]
+
+
+def _poisoned(a: np.ndarray) -> np.ndarray:
+    a = a.astype(np.float32)
+    a.reshape(-1, a.shape[-1])[1] = np.nan
+    a.reshape(-1, a.shape[-1])[-3] = -np.inf
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dtype", NAN_CASES, ids=[f"{o}-{str(d)[6:]}" for o, d in NAN_CASES])
+def test_kernels_keep_nan_as_plain(cuda, gen, op, dtype):
+    from resnetc_tpu_torch.ops.cuda import conv, pool, quant
+
+    def t(shape, scale=1.0, dt=dtype):
+        return torch.from_numpy((gen.standard_normal(shape) * scale).astype(np.float32)).to(
+            cuda, dt)
+
+    close = _assert_conv_close
+    if op in ("conv3x3_s1", "conv_s2"):
+        x = torch.from_numpy(_poisoned(gen.standard_normal((2, 14, 14, 64)))).to(cuda, dtype)
+        args, kw = (x, t((3, 3, 64, 64), 24**-1), t((64,), 0.1, torch.float32)), {"relu": True}
+        fn = getattr(conv, op + "_fused")
+        plain = getattr(conv, op + "_fused_plain")
+    elif op == "matmul":
+        x = torch.from_numpy(_poisoned(gen.standard_normal((200, 256)))).to(cuda, dtype)
+        args = (x, t((256, 128), 1 / 16), t((128,), 0.1, torch.float32))
+        kw = {"relu": True, "out_dtype": dtype}
+        fn, plain = gemm.matmul, gemm.matmul_plain
+    elif op == "max_pool2d":
+        x = torch.from_numpy(_poisoned(gen.standard_normal((2, 15, 15, 64)))).to(cuda, dtype)
+        args, kw = (x,), {"kernel_size": 3, "stride": 2, "padding": 1}
+        fn, plain = pool.max_pool2d, pool.max_pool2d_plain
+        close = _assert_equal
+    else:  # int8_matmul, a NaN in the residual
+        x = torch.from_numpy(gen.integers(-127, 128, size=(200, 256), dtype=np.int8)).to(cuda)
+        w = torch.from_numpy(gen.integers(-127, 128, size=(256, 128), dtype=np.int8)).to(cuda)
+        r = torch.from_numpy(_poisoned(gen.standard_normal((200, 128)) * 4)).to(cuda, dtype)
+        args = (x, w, torch.tensor(0.0371, device=cuda),
+                t((128,), 1e-3, torch.float32).abs(), t((128,), 4.0, torch.float32), r)
+        kw = {"relu": True, "out_dtype": dtype}
+        fn, plain = quant.int8_matmul, quant.int8_matmul_plain
+        close = _assert_equal
+    _build.reset_launches()
+    got = fn(*args, **kw)
+    assert _build.LAUNCHES[op + ("_fused" if op.startswith("conv") else "")] == 1
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    nan, inf = torch.isnan(want), torch.isinf(want)
+    assert bool(nan.any()) and torch.equal(torch.isnan(got), nan)
+    assert torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], want[inf])
+    close(got[~(nan | inf)], want[~(nan | inf)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("backend", ["int8", "pallas"])
 @pytest.mark.parametrize("block_kind", ["bottleneck", "basic"])
@@ -783,7 +877,8 @@ def _fp_block_args(gen, dev, b, h, c, dtype):
 
 # (h, c, dtype): wp = w + 1 at h = 7, odd sizes, widths off the 64-wide tile.
 FP_BLOCK_CASES = [(8, 16, torch.bfloat16), (7, 32, torch.bfloat16), (9, 16, torch.float32),
-                  (14, 64, torch.bfloat16), (7, 64, torch.float32)]
+                  (14, 64, torch.bfloat16), (7, 64, torch.float32),
+                  (14, 256, torch.bfloat16), (7, 512, torch.bfloat16), (28, 128, torch.bfloat16)]
 
 
 @pytest.mark.cuda

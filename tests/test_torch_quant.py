@@ -8,6 +8,9 @@ sx * sw`` on its own, ``acc * scale + bias`` one fused multiply-add).  The
 helpers ``quantize_per_tensor`` and ``quantize_folded`` must give JAX's
 values bit for bit.
 
+A NaN in the residual (and a -Inf) comes out as JAX's kernel gives it:
+NaN where it does (its relu is ``jnp.maximum(v, 0)``), the rest equal.
+
 The (N, K) weight copies that ``pack_kmajor`` adds for the int8 kernel
 change no value: the plain version given them equals the Pallas kernel, and
 both int8 forwards on a packed tree equal the same forwards on
@@ -158,6 +161,30 @@ def test_int8_matmul_plain_on_kmajor_weight_equals_pallas(rng, m, k, n, bias, re
         torch.from_numpy(b) if bias else None, tr, relu=relu, out_dtype=OUT[out][1], w_nk=w_nk,
     )
     np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("res", ["f32", "bf16"])
+def test_int8_matmul_nan_residual_as_pallas(rng, res):
+    m, k, n = 24, 64, 40
+    x = rng.integers(-127, 128, size=(m, k), dtype=np.int8)
+    w = rng.integers(-127, 128, size=(k, n), dtype=np.int8)
+    sw = (rng.random(n) * 2e-3 + 1e-4).astype(np.float32)
+    b = (rng.standard_normal(n) * 4).astype(np.float32)
+    r = (rng.standard_normal((m, n)) * 4).astype(np.float32)
+    r[2], r[5, ::3] = np.nan, -np.inf
+    jr = jnp.asarray(r).astype(OUT[res][0])
+    tr = torch.from_numpy(np.array(_np(jr))).to(OUT[res][1])
+    sx = np.float32(0.0371)
+    want = jquant.int8_matmul(jnp.asarray(x), jnp.asarray(w), jnp.float32(sx), jnp.asarray(sw),
+                              jnp.asarray(b), jr, relu=True, out_dtype=jnp.float32,
+                              interpret=True)
+    got = tquant.int8_matmul(torch.from_numpy(x), torch.from_numpy(w), torch.tensor(sx),
+                             torch.from_numpy(sw), torch.from_numpy(b), tr, relu=True,
+                             out_dtype=torch.float32)
+    g, wt = _np(got), _np(want)
+    assert np.isnan(wt[2]).all() and not np.isnan(wt[5]).any()
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(wt))
+    np.testing.assert_array_equal(g[~np.isnan(wt)], wt[~np.isnan(wt)])
 
 
 def test_int8_matmul_rejects_a_weight_copy_of_another_shape(rng):

@@ -16,6 +16,11 @@ their mean magnitude.  Under BF16, XLA keeps excess precision across the
 stem's bf16 roundings where PyTorch rounds each op, so quantized values
 drift apart stage by stage (measured: taps 0.03% .. 1.4%, logits 0.9%);
 the bound there is 5e-2 for both, with equal argmax in every case.
+
+The engine's K-major weight copies (``pack_chain_kmajor``, what the int8
+tensor-core block kernels read) are added beside ``quantize_chain``'s tree,
+which stays equal to JAX's; the forward on the packed tree equals the
+forward on the unpacked one bit for bit.
 """
 
 from __future__ import annotations
@@ -102,6 +107,69 @@ def test_int8_chain_forward_matches_jax(setup, policy):
         gt, wt = gt.numpy(), np.asarray(wt)
         assert gt.shape == wt.shape, stage
         assert np.mean(np.abs(gt - wt)) <= tap_tol * np.mean(np.abs(wt)), stage
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def test_engine_packs_kmajor_copies_beside_the_jax_tree(setup):
+    jcfg, tcfg, jvars, tvars, x = setup
+    jfold = jresnet.fold_inference_params(jcfg, jvars)
+    tfold = variables_from_jax_numpy(jax.tree.map(np.asarray, jfold))
+    jflat = _flat(jfused.quantize_chain(jcfg, jfold))
+    tq = tfused.quantize_chain(tcfg, tfold)
+    tflat = _flat(tq)
+    # JAX keeps the folded fp entries beside the quantized ones; the port
+    # has no use for them.  Every quantized leaf is JAX's.
+    assert set(tflat) <= set(jflat)
+    assert all(k.split("/")[2].startswith(("conv", "downsample")) for k in set(jflat) - set(tflat))
+    for k in tflat:
+        np.testing.assert_array_equal(tflat[k].float().numpy(),
+                                      np.asarray(jflat[k], np.float32), err_msg=k)
+    packed = _flat(tfused.pack_chain_kmajor(tcfg, tq))
+    added = set(packed) - set(tflat)
+    assert set(tflat) <= set(packed)
+    for k in tflat:
+        assert packed[k] is tflat[k], k  # shared, not copied
+    stride1 = {k.rsplit("/", 1)[0] for k in tflat if k.endswith("/w2pq")}
+    assert len(stride1) == sum(tcfg.stage_blocks) - 3
+    assert added == {f"{blk}/{k}_nk" for blk in stride1 for k in ("w1q", "w2pq", "w3q")
+                     } | {"layer1/0/wdq_nk"}
+    for k in added:
+        orig = tflat[k[: -len("_nk")]]
+        assert packed[k].is_contiguous() and torch.equal(packed[k], orig.t()), k
+    # The engine's tree is the packed one.
+    teng = tserve.InferenceEngine(tcfg, tvars, backend="int8_chain", calib_batch=x,
+                                  device="cpu")
+    assert set(_flat(teng.folded)) == set(packed)
+
+
+@pytest.mark.parametrize("policy", ["fp32", "bf16"])
+def test_int8_chain_forward_on_packed_tree_equals_unpacked(setup, policy):
+    jcfg, tcfg, jvars, tvars, x = setup
+    jpol, tpol = (JFP32, FP32) if policy == "fp32" else (JBF16, BF16)
+    jfold = jresnet.fold_inference_params(jcfg, jvars)
+    jscales = jfused.calibrate_chain_scales(jcfg, jfold, jnp.asarray(x), policy=jpol)
+    jq = jfused.quantize_chain(jcfg, jfold)
+    want = np.asarray(jfused.fused_forward_int8_chain(
+        jcfg, jq, jscales, jnp.asarray(x), policy=jpol, interpret=True), np.float32)
+    tq = variables_from_jax_numpy(jax.tree.map(np.asarray, jq))
+    tscales = variables_from_jax_numpy(jax.tree.map(np.asarray, jscales))
+    packed = tfused.pack_chain_kmajor(tcfg, tq)
+    got = tfused.fused_forward_int8_chain(tcfg, packed, tscales, torch.from_numpy(x),
+                                          policy=tpol)
+    unpacked = tfused.fused_forward_int8_chain(tcfg, tq, tscales, torch.from_numpy(x),
+                                               policy=tpol)
+    assert torch.equal(got, unpacked)
+    tol = 1e-4 if policy == "fp32" else 5e-2
+    assert _rel_max(got.numpy(), want) < tol
+    np.testing.assert_array_equal(got.numpy().argmax(-1), want.argmax(-1))
 
 
 def test_calibrate_chain_scales_matches_jax_fp32(setup):
