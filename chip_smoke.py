@@ -7,7 +7,8 @@ Builds the CUDA kernels from ``resnetc_tpu_torch/csrc``, checks that the
 tensor-core kernels hold wgmma instructions in their SASS (HGMMA in the
 bf16 tile's instantiations for rows 4, 13 and 14, stride 1 and stride 2
 counted apart, and for row 17's bf16 block; IGMMA in the int8 tile of row
-12 and in row 1's block kernel), and then:
+12 and in the block tile of rows 1-2, 7-8 and 9-10, each library's
+instantiations apart), and then:
 
 1. holds every kernel of the serving paths against its plain PyTorch
    version on the card, at the shapes of ResNet-152 (the bottleneck
@@ -66,8 +67,8 @@ counted apart, and for row 17's bf16 block; IGMMA in the int8 tile of row
    cost included), beside the plain version, the bound (for a pixel-paired
    kernel, the work of its standard twin), the TFLOP/s and share of the
    bound of each shape (printed for the tensor-core kernels, rows 1, 4,
-   12, 13, 14 and 17, with the ratio to the library call; TOP/s for rows 1
-   and 12), and a
+   7-10, 12, 13, 14 and 17, with the ratio to the library call; TOP/s for
+   the int8 ones), and a
    library call that the port never makes, timed like ``ms``:
    torch.matmul for the GEMM, torch._int_mm for int8_matmul (int32 out, no
    epilogue), F.conv2d (bf16, channels-last) for the fused convolutions,
@@ -190,11 +191,14 @@ class Case:
     the least work it must do (ops at the peak rate, bytes at HBM rate)."""
 
     def __init__(self, name, kernel, fn, plain, args, kwargs, ops, nbytes, peak, check,
-                 twin=None, per_forward=None):
+                 twin=None, per_forward=None, twin_kwargs=None):
         self.name, self.kernel = name, kernel
         self.fn, self.plain, self.args, self.kwargs = fn, plain, args, kwargs
         self.ops, self.nbytes, self.peak, self.check = ops, nbytes, peak, check
         self.twin = twin  # the standard kernel a pixel-paired one must equal
+        # The twin's keyword arguments (the pixel-paired kernels' pair-packed
+        # weight copies are theirs alone).
+        self.twin_kwargs = kwargs if twin_kwargs is None else twin_kwargs
         # Launches per forward on the route that runs it, where
         # main_path_counts has no entry for the case.
         self.per_forward = per_forward
@@ -497,12 +501,19 @@ def make_basic_cases(b: int, dev) -> list:
     also on dense pair-space weights."""
     import torch
 
-    from resnetc_tpu_torch.ops.cuda import block
+    from resnetc_tpu_torch.models import get_config
+    from resnetc_tpu_torch.ops.cuda import block, fused
     from resnetc_tpu_torch.ops.cuda.block import chain_meta
 
     gen = torch.Generator().manual_seed(4321)
     scales = torch.full((3,), 0.05, dtype=torch.float32, device=dev)
     cases = []
+
+    def packed(qs):
+        """The engine's copies of stacked blocks (fused.pack_chain_kmajor):
+        the K-major kh-batched 3x3s and, at c = 64, the pair-packed ones."""
+        tree = {f"layer{s + 1}": {str(i): q for i, q in enumerate(qs)} for s in range(4)}
+        return fused.pack_chain_kmajor(get_config("resnet34"), tree)["runs"]["layer1"]
 
     def block_case(label, h, c, *, emit_i8=True, pp=False):
         q = _basic_weights(gen, c, c, dev)
@@ -510,12 +521,16 @@ def make_basic_cases(b: int, dev) -> list:
         ops = 2 * b * h * h * 18 * c * c
         nbytes = b * hp * wp * c * (2 if emit_i8 else 3) + 18 * c * c
         kernel = "basic_block_chained_int8" + ("_pp" if pp else "")
+        kw = dict(h=h, w_sp=h, emit_i8=emit_i8)
+        run = packed([q])
+        nk = {"w1pq_nk": run["w1pq_nk_s"][0], "w2pq_nk": run["w2pq_nk_s"][0]}
+        pp_nk = {"w1pp_nk": run["w1pp_nk_s"][0], "w2pp_nk": run["w2pp_nk_s"][0]} if pp else {}
         cases.append(Case(
             label, kernel, getattr(block, kernel), getattr(block, kernel + "_plain"),
             (_chain(gen, b, h, c, dev), *(q[k] for k in BASIC_KEYS), scales),
-            dict(h=h, w_sp=h, emit_i8=emit_i8), ops, nbytes, PEAK_INT8_OPS,
+            dict(kw, **(pp_nk if pp else nk)), ops, nbytes, PEAK_INT8_OPS,
             "int8" if emit_i8 else "bf16",
-            twin=block.basic_block_chained_int8 if pp else None,
+            twin=block.basic_block_chained_int8 if pp else None, twin_kwargs=dict(kw, **nk),
         ))
 
     for s in (1, 2, 3):
@@ -530,15 +545,19 @@ def make_basic_cases(b: int, dev) -> list:
         qs = [_basic_weights(gen, c0, c0, dev) for _ in range(n)]
         hp, wp = chain_meta(b, h0, h0)
         kernel = "basic_run_chained_int8" + ("_pp" if pp else "")
+        kw = dict(h=h0, w_sp=h0, emit_i8=emit_i8)
+        run = packed(qs)
+        nk = {k: run[k] for k in ("w1pq_nk_s", "w2pq_nk_s")}
+        pp_nk = {k: run[k] for k in ("w1pp_nk_s", "w2pp_nk_s")}
         cases.append(Case(
             label, kernel, getattr(block, kernel), getattr(block, kernel + "_plain"),
             (_chain(gen, b, h0, c0, dev), *(torch.stack([q[k] for q in qs]) for k in BASIC_KEYS),
              torch.full((n, 3), 0.05, dtype=torch.float32, device=dev)),
-            dict(h=h0, w_sp=h0, emit_i8=emit_i8),
+            dict(kw, **(pp_nk if pp else nk)),
             n * 2 * b * h0 * h0 * 18 * c0 * c0,
             b * hp * wp * c0 * (2 if emit_i8 else 3) + n * 18 * c0 * c0,
             PEAK_INT8_OPS, "int8" if emit_i8 else "bf16",
-            twin=block.basic_run_chained_int8 if pp else None,
+            twin=block.basic_run_chained_int8 if pp else None, twin_kwargs=dict(kw, **nk),
         ))
 
     run_case("basic/run/n3/s0", 3)
@@ -830,7 +849,7 @@ def check_case(case) -> float:
 
     got = case.run()
     want = case.run_plain()
-    twin = case.twin(*case.args, **case.kwargs) if case.twin else None
+    twin = case.twin(*case.args, **case.twin_kwargs) if case.twin else None
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     if got.dtype != want.dtype or got.shape != want.shape:
@@ -896,6 +915,12 @@ SASS_CHECKS = (
     # rows 1 and 2: bottleneck_block_chained_int8 and the run (row 3 keeps
     # igemm.cuh's dp4a kernel in the same library)
     ("libchain_block.so", r"chain_tile_kernel", "IGMMA"),
+    # rows 7 and 8: basic_block_chained_int8 and the run (row 11 keeps the
+    # dp4a kernel)
+    ("libbasic_block.so", r"chain_tile_kernel", "IGMMA"),
+    # rows 9 and 10: the pixel-paired basic block and run (rows 5 and 6, the
+    # pixel-paired bottleneck kernels, keep the dp4a igemm_kernel)
+    ("libpp_block.so", r"chain_tile_kernel", "IGMMA"),
 )
 
 
@@ -917,10 +942,10 @@ def _sass_functions(path) -> dict:
 
 
 def phase_sass(build_dir) -> dict:
-    """The tensor-core kernels hold wgmma instructions in their SASS: HGMMA
-    in the bf16 tile's instantiations for rows 4, 13 and 14 (stride 1 and
-    stride 2 apart), IGMMA in the int8 tile of row 12.  Counted per kernel,
-    not per library, so another kernel's wgmma cannot stand in."""
+    """The tensor-core kernels hold wgmma instructions in their SASS
+    (``SASS_CHECKS``): HGMMA in the bf16 tile's instantiations, IGMMA in
+    the int8 tiles.  Counted per kernel, not per library, so another
+    kernel's wgmma cannot stand in."""
     import re
 
     counts, libs = {}, {}
@@ -1464,7 +1489,9 @@ MEMBERS = {"add, add_relu": ("add", "add_relu")}
 #: their TFLOP/s (TOP/s for int8), share of the bound and ratio to the
 #: library call are printed per shape.
 TILE_KERNELS = ("conv3x3_s1_fused", "conv_s2_fused", "matmul", "int8_matmul",
-                "bottleneck_block_chained", "bottleneck_block_chained_int8")
+                "bottleneck_block_chained", "bottleneck_block_chained_int8",
+                "basic_block_chained_int8", "basic_run_chained_int8",
+                "basic_block_chained_int8_pp", "basic_run_chained_int8_pp")
 
 
 def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[list, list]:

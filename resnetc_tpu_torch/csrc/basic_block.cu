@@ -9,77 +9,132 @@
 //   - basic_ds_block_s2_int8 (block.py:2542, body :2336): the stride-2 stage
 //     transition (3x3/2, 3x3, 1x1/2 projection), chain layout in and out.
 //
-// Each convolution is one launch of the int8 implicit GEMM of igemm.cuh (its
-// header gives the layout, the design and the exactness argument), so a
-// block costs two launches with its int8 intermediate z1 in device scratch
-// that the wrapper allocates.  The second launch of a block takes conv2's
-// three kernel rows as three operands (one int32 sum each, dequantized with
-// its own per-(kh, j) scale) and, in the transition, the 1x1/2 projection as
-// a fourth; its epilogue adds the shortcut, applies relu and requantizes.
+// The stride-1 block (and so the run, which loops over it) is two launches
+// of the int8 tensor-core kernel of chain_tile.cuh (wgmma s32.s8.s8, the
+// tile of the bottleneck block, chain_block.cu), each over the interior
+// pixels (row m of the GEMM is pixel m, at its chain row) and each followed
+// by a small kernel that zeroes the ring rows of what it wrote, with the
+// int8 intermediate z1 in device scratch that the wrapper allocates:
+//   conv1: kernel row kh reads the three consecutive chain rows
+//          t + (kh-1)*wp - 1 .. + 1 of x (3c contiguous int8 values, the
+//          (kw, k) order of w1pq's rows), a chunk whose source pixel lies
+//          off the image zero-filled (the kernel's MASK: a ring row of x may
+//          hold anything, and the JAX kernel masks x before its first 3x3);
+//          three int32 sums P_kh folded as
+//          relu(fma(P2, a2, fma(P0, a0, P1*a1)) + c1) -> int8; z1's ring
+//          rows zeroed, so that they are conv2's padding;
+//   conv2: the same three sums over z1 with no test, then the identity
+//          residual fma(x, s_res, y) read from x at the row, relu, int8 or
+//          bf16 out; the output's ring rows zeroed.
+// conv1 over the interior pixels and a ring pass against conv1 over every
+// chain row (ring rows written as zeros by the epilogue's select), measured
+// on an H100 at batch 32 (NVIDIA H100 80GB HBM3, 700 W; PERF.md, section 6):
+// 0.0939 against 0.1024 ms a block at 28x28, 0.0645 / 0.0624 at 14x14,
+// 0.0624 / 0.0892 at 7x7, the stage-0 run of three 0.4637 / 0.5103.
+// The weights are the K-major (N, K) copies w1pq_nk = w1pq.t(), whose row
+// kh*c + j is output j of kernel row kh (the int8_chain engine makes them
+// once, fused.pack_chain_kmajor; a call without them transposes once), and
+// the requant scales are folded in the kernel from the raw sw1p, b1, sw2p,
+// b2 and the device [s_x, s_z1, s_y] (s_y taken as 1 with unit_y: the bf16
+// exit, the run's last block), op for op as _fold_basic.
 //
 // What bounds it.  Each 3x3 does 18*c*c int8 operations per output pixel
 // against 2*c bytes moved, far above the card's int8 ridge: the bound is the
-// int8 tensor-core rate, and these dp4a kernels run far below it.
+// int8 tensor-core rate (~7.5 us a block at batch 32 at every ResNet-34
+// stage).  What holds this design below it is row 1's (chain_block.cu): z1
+// through device memory, the wgmma pipeline drained at each sum boundary,
+// two stages of copies in flight, one block an SM (registers).
 //
-// The TPU layouts the weights keep: the stride-1 3x3s are packed kh-batched,
-// (kw, k) rows x (kh, j) columns, and read one kernel row (a column block of
-// c) per operand.  The transition's conv1 is packed (3, 4*cin, c): for each
-// kernel row u, rows [0, 3*cin) are its (kw, k) taps and [3*cin, 4*cin) zero
-// (the TPU pair-slot layout), so the 9-tap operand reads it with wpad = cin
-// and needs no repack.  conv1's nine taps share one int32 sum and one joint
-// per-channel scale, as on the TPU.
+// The transition still runs the int8 implicit GEMM of igemm.cuh on the CUDA
+// cores' dp4a: each convolution is one launch, conv2 takes its three kernel
+// rows as three operands (one int32 sum each, dequantized with its own
+// per-(kh, j) scale) and the 1x1/2 projection as a fourth; its epilogue adds
+// the shortcut, applies relu and requantizes.  Its weights keep the TPU
+// layouts: conv2 kh-batched, (kw, k) rows x (kh, j) columns, read one kernel
+// row (a column block of c) per operand; conv1 packed (3, 4*cin, c): for
+// each kernel row u, rows [0, 3*cin) are its (kw, k) taps and [3*cin,
+// 4*cin) zero (the TPU pair-slot layout), so the 9-tap operand reads it with
+// wpad = cin and needs no repack.  conv1's nine taps share one int32 sum and
+// one joint per-channel scale, as on the TPU.
+//
+// The outputs equal the plain PyTorch versions in
+// resnetc_tpu_torch/ops/cuda/block.py bit for bit.
 
-#include "igemm.cuh"
+#include "chain_tile.cuh"
 
-// One stride-1 BasicBlock, chain in and out: x (B*hp*wp, c) int8; w1p, w2p
-// (3c, 3c) kh-batched; a1, a2 (3, c) per-(kh, j) multipliers; c1, c2 (c,);
-// s_res the identity-residual scale (device scalar).  z1 (B*hp*wp, c) int8
-// scratch.  out_kind 0: int8 chain, 1: bf16 chain.  Returns the first
-// launch's cudaError_t, or 0.
+// One stride-1 BasicBlock, chain in and out: x (B*hp*wp, c) int8; w1_nk,
+// w2_nk (3c, 3c) the K-major copies of the kh-batched 3x3s; sw1p, sw2p
+// (3c: (kh, j)), b1, b2 (c) fp32; scales the device [s_x, s_z1, s_y], s_y
+// taken as 1 when unit_y.  z1 (B*hp*wp, c) int8 scratch.  out_kind 0: int8
+// chain, 1: bf16 chain.  Returns the first failed launch's cudaError_t, or
+// 0.
 extern "C" int basic_block_int8(
     const int8_t* x, int B, int h, int w, int hp, int wp, int c,
-    const int8_t* w1p, const float* a1, const float* c1,
-    const int8_t* w2p, const float* a2, const float* c2, const float* s_res,
-    int8_t* z1, int out_kind, void* out, cudaStream_t stream) {
-  const Geo g{h, w, hp, wp};
-  const int M = B * hp * wp;
+    const int8_t* w1_nk, const float* sw1p, const float* b1,
+    const int8_t* w2_nk, const float* sw2p, const float* b2,
+    const float* scales, int unit_y, int8_t* z1, int out_kind, void* out,
+    cudaStream_t stream) {
+  enum { S_X = 0, S_Z1 = 1, S_Y = 2 };
+  const Chain ch{h, w, hp, wp};
+  const int rows = B * hp * wp;
+  const long long limit = static_cast<long long>(rows) * c;
   int err;
 
-  // conv1 (3x3/1): relu(kh3 + c1) -> int8, ring zeroed.
-  Operand o1[3];
-  for (int kh = 0; kh < 3; ++kh) o1[kh] = operand(x, c, g, 1, 3, kh, w1p, 3 * c, kh * c);
-  EpiArgs e1{};
-  e1.a[0] = a1;
-  e1.a[1] = a1 + c;
-  e1.a[2] = a1 + 2 * c;
-  e1.c = c1;
-  e1.out_kind = OUT_I8;
-  e1.out = z1;
-  if ((err = launch<3, EPI_KH3_Q>(o1, g, M, c, e1, stream))) return err;
+  // conv1 (3x3/1) over the interior pixels: kernel row kh reads x at row
+  // offset (kh-1)*wp - 1, off-image pixels zero; relu(kh3 + c1) -> int8;
+  // then z1's ring rows are zeroed.
+  TileArgs t1{};
+  for (int kh = 0; kh < 3; ++kh) {
+    t1.sum[kh] = S8Sum{x, w1_nk + static_cast<size_t>(kh) * c * 3 * c, limit, c,
+                       (kh - 1) * wp - 1, 3 * c};
+    t1.sw[kh] = sw1p + kh * c, t1.num[kh] = S_X, t1.den[kh] = S_Z1;
+  }
+  t1.b = b1;
+  t1.scales = scales;
+  t1.iy = S_Y;
+  t1.out = z1;
+  t1.out_kind = OUT_I8;
+  t1.M = B * h * w;
+  t1.N = c;
+  t1.pixels = 1;
+  t1.g = ch;
+  if ((err = run_tile<3, TE_KH3_Q, true>(t1, stream))) return err;
+  zero_ring_kernel<<<264, 256, 0, stream>>>(reinterpret_cast<uint8_t*>(z1), ch, B, c);
 
-  // conv2 (3x3/1) + identity residual x*s_res + relu.
-  Operand o2[3];
-  for (int kh = 0; kh < 3; ++kh) o2[kh] = operand(z1, c, g, 1, 3, kh, w2p, 3 * c, kh * c);
-  EpiArgs e2{};
-  e2.a[0] = a2;
-  e2.a[1] = a2 + c;
-  e2.a[2] = a2 + 2 * c;
-  e2.c = c2;
-  e2.res = x;
-  e2.s_res = s_res;
-  e2.out_kind = out_kind;
-  e2.out = out;
-  return launch<3, EPI_BASIC_OUT>(o2, g, M, c, e2, stream);
+  // conv2 (3x3/1) over the interior pixels, + identity residual + relu;
+  // then the output's ring rows are zeroed.
+  TileArgs t2{};
+  for (int kh = 0; kh < 3; ++kh) {
+    t2.sum[kh] = S8Sum{z1, w2_nk + static_cast<size_t>(kh) * c * 3 * c, limit, c,
+                       (kh - 1) * wp - 1, 3 * c};
+    t2.sw[kh] = sw2p + kh * c, t2.num[kh] = S_Z1, t2.den[kh] = S_Y;
+  }
+  t2.b = b2;
+  t2.scales = scales;
+  t2.iy = S_Y;
+  t2.unit_y = unit_y;
+  t2.res = x;
+  t2.out = out;
+  t2.out_kind = out_kind;
+  t2.M = B * h * w;
+  t2.N = c;
+  t2.pixels = 1;
+  t2.g = ch;
+  if ((err = run_tile<3, TE_KH3_OUT>(t2, stream))) return err;
+  zero_ring_kernel<<<264, 256, 0, stream>>>(static_cast<uint8_t*>(out), ch, B,
+                                            c * (out_kind == OUT_BF16 ? 2 : 1));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // A run of n_blocks stride-1 BasicBlocks.  Per-block parameters are
-// stacked: w1ps, w2ps (N, 3c, 3c), a1s, a2s (N, 3, c), c1s, c2s (N, c),
-// s_res (N,).  Activations between blocks go through act0/act1 (int8
+// stacked: w1s_nk, w2s_nk (N, 3c, 3c) K-major; sw1ps, sw2ps (N, 3c); b1s,
+// b2s (N, c); scales_s (N, 3), the last block's s_y taken as 1 when it
+// exits bf16.  Activations between blocks go through act0/act1 (int8
 // chains, (B*hp*wp, c)); the last block writes `out` (int8 or bf16).
 extern "C" int basic_run_int8(
     const int8_t* x, int n_blocks, int B, int h, int w, int hp, int wp, int c,
-    const int8_t* w1ps, const float* a1s, const float* c1s,
-    const int8_t* w2ps, const float* a2s, const float* c2s, const float* s_res,
+    const int8_t* w1s_nk, const float* sw1ps, const float* b1s,
+    const int8_t* w2s_nk, const float* sw2ps, const float* b2s, const float* scales_s,
     int8_t* z1, int8_t* act0, int8_t* act1, int last_bf16, void* out,
     cudaStream_t stream) {
   int8_t* act[2] = {act0, act1};
@@ -88,8 +143,9 @@ extern "C" int basic_run_int8(
     const size_t wo = (size_t)n * 9 * c * c, vo = (size_t)n * 3 * c, bo = (size_t)n * c;
     const int err = basic_block_int8(
         n == 0 ? x : act[(n - 1) % 2], B, h, w, hp, wp, c,
-        w1ps + wo, a1s + vo, c1s + bo, w2ps + wo, a2s + vo, c2s + bo, s_res + n,
-        z1, last ? (last_bf16 ? OUT_BF16 : OUT_I8) : OUT_I8,
+        w1s_nk + wo, sw1ps + vo, b1s + bo, w2s_nk + wo, sw2ps + vo, b2s + bo,
+        scales_s + 3 * n, last && last_bf16, z1,
+        last ? (last_bf16 ? OUT_BF16 : OUT_I8) : OUT_I8,
         last ? out : static_cast<void*>(act[n % 2]), stream);
     if (err) return err;
   }

@@ -1,9 +1,9 @@
 // The int8 implicit GEMM of the chain-layout block kernels still on the CUDA
-// cores: the stride-2 transition of the bottleneck family (chain_block.cu,
-// row 3 of PERF.md's table), the basic family (basic_block.cu, rows 7, 8
-// and 11) and both families' pixel-paired stage-0 kernels (pp_block.cu,
-// rows 5, 6, 9 and 10).  The stride-1 bottleneck block (rows 1 and 2) runs
-// on the int8 tensor-core tile instead (s8_tile.cuh, chain_block.cu).
+// cores: the stride-2 transitions (chain_block.cu, row 3 of PERF.md's
+// table; basic_block.cu, row 11) and the pixel-paired bottleneck block and
+// run (pp_block.cu, rows 5 and 6).  The stride-1 blocks of both families
+// and their runs (rows 1, 2, 7-10) run on the int8 tensor-core tile instead
+// (chain_tile.cuh).
 //
 // Layout.  An activation is a "chain": flat rows (B*hp*wp, C) int8 of the
 // zero-ring padded image, pixel (r, q) at row (b*hp + r+1)*wp + q+1, with
@@ -26,7 +26,7 @@
 // against a few bytes moved, far above the card's int8 ridge, so the bound
 // is the int8 tensor-core rate.  This kernel runs on the CUDA cores' dp4a
 // instead (first, simple version), 25-60x above that bound; moving its
-// users onto the int8 tile, as rows 1 and 2 were, is the next step.
+// users onto the int8 tile, as rows 1, 2 and 7-10 were, is the next step.
 //
 // Exactness.  Every epilogue is fp32 in the Pallas kernel's order of
 // operations, rounds half to even (rintf) and clips to +-127.  Where the
@@ -69,7 +69,7 @@ struct Geo {
 // taps (the basic-ds conv1 packing).  WPAD is a template flag so that the
 // other launches carry no division in their weight loads.
 //
-// Pair geometry (the kernel's PAIR flag, pp_block.cu).  The chain is viewed
+// Pair geometry (the kernel's PAIR flag, pp_block.cu's bottleneck kernels).  The chain is viewed
 // as M = B*hp*wp/2 pair rows of two W-adjacent pixels, each row `cin` int8
 // wide (two halves of cin/2 channels: the even pixel, then the odd one), and
 // every row of the GEMM is one pair row.  A 1x1 operand reads pair row m, a
@@ -107,9 +107,9 @@ enum Epilogue {
   // y = fma(acc, a, c), then the residual: fma(x, s_res, y) (NG == 1) or
   // y + fma(acc1, ad, cd) (NG == 2); relu; int8 / bf16 / fp32 out (conv3)
   EPI_BLOCK_OUT = 2,
-  // y = kh3 + c, then the residual: fma(x, s_res, y) (NG == 3) or
-  // fma(acc3, ad, y) + cd (NG == 4, operand 3 the projection); relu; int8 /
-  // bf16 out (basic conv2)
+  // y = kh3 + c, then the projection shortcut fma(acc3, ad, y) + cd (NG ==
+  // 4, operand 3 the projection); relu; int8 / bf16 out (basic transition
+  // conv2)
   EPI_BASIC_OUT = 3,
 };
 
@@ -159,6 +159,7 @@ __device__ __forceinline__ int pair_bit(int dy, int dx, int pi) {
 template <int NG, int EPI, bool WPAD, bool PAIR>
 __global__ void __launch_bounds__(THREADS)
 igemm_kernel(Operands ops, Geo og, int M, int N, EpiArgs ep) {
+  static_assert(EPI != EPI_BASIC_OUT || NG == 4, "EPI_BASIC_OUT takes the projection operand");
   __shared__ int As[BM][PITCH];
   __shared__ int Bs[BN][PITCH];
   // Per tile row: image (or -1) and interior pixel; with PAIR, rowImg holds
@@ -331,10 +332,7 @@ igemm_kernel(Operands ops, Geo og, int M, int N, EpiArgs ep) {
         store(ep, o, inside ? fmaxf(y, 0.f) : 0.f);
       } else {
         float y = __fadd_rn(kh3(acc[0][i][j], acc[G1][i][j], acc[G2][i][j], ep.a, n), ep.c[n]);
-        if (NG == 4)
-          y = __fadd_rn(__fmaf_rn(static_cast<float>(acc[G3][i][j]), ep.ad[n], y), ep.cd[n]);
-        else
-          y = __fmaf_rn(static_cast<float>(ep.res[o]), *ep.s_res, y);
+        y = __fadd_rn(__fmaf_rn(static_cast<float>(acc[G3][i][j]), ep.ad[n], y), ep.cd[n]);
         store(ep, o, inside ? fmaxf(y, 0.f) : 0.f);
       }
     }

@@ -1,7 +1,7 @@
 // The int8 tensor-core tile shared by the int8 GEMM (int8_gemm.cu,
-// `int8_matmul`, resnetc_tpu/ops/pallas/quant.py:78) and the stride-1 int8
-// bottleneck block (chain_block.cu, `bottleneck_block_chained_int8`,
-// resnetc_tpu/ops/pallas/block.py:718): the PTX of
+// `int8_matmul`, resnetc_tpu/ops/pallas/quant.py:78) and the chain-layout
+// block tile (chain_tile.cuh: the stride-1 int8 bottleneck and basic blocks,
+// resnetc_tpu/ops/pallas/block.py:718, :1646, :2002): the PTX of
 //
 //     wgmma.mma_async.m64nNk32.s32.s8.s8   (N = 64 or 128)
 //

@@ -25,8 +25,11 @@ see the section comment below): ``bottleneck_block_chained_int8_pp``
 ``basic_block_chained_int8_pp`` (:2002) and ``basic_run_chained_int8_pp``
 (:2175).
 
-The int8 sources share the implicit GEMM of ``csrc/igemm.cuh`` (see its
-header for the design and what bounds it).
+The stride-1 int8 blocks of both families and their runs (the bottleneck
+block and run, the basic block and run, the pixel-paired basic block and
+run) share the int8 tensor-core tile of ``csrc/chain_tile.cuh``; the
+transitions and the pixel-paired bottleneck kernels the dp4a implicit GEMM
+of ``csrc/igemm.cuh`` (each header gives the design and what bounds it).
 
 The bf16 / fp32 stride-1 bottleneck of the ``pallas_block`` backend and the
 op library (CUDA in ``csrc/fp_block.cu``, one piece of code for both; see
@@ -35,10 +38,12 @@ over the chain layout, and ``bottleneck_block_fused`` (:3688), NHWC in and
 out.
   A wrapper runs the plain version when
 its input lies on the CPU, and launches the kernel for a CUDA tensor, or
-raises; there is no fallback.  Each wrapper first folds the scalar requant
-scales into per-channel vectors exactly as the JAX wrapper does
-(block.py:789-797, 822-823, 2966-2980, 3545-3554, 1684-1690, 1866-1879,
-2631-2641), so the kernel and the plain version see identical constants.
+raises; there is no fallback.  The scalar requant scales are folded into
+per-channel vectors exactly as the JAX wrapper does (block.py:789-797,
+822-823, 2966-2980, 3545-3554, 1684-1690, 1866-1879, 2631-2641): by the
+wrapper, or, for the stride-1 bottleneck and basic kernels, by the kernel
+itself op for op, so the kernel and the plain version see identical
+constants.
 
 Chain ring rows carry no meaning (the JAX kernels leave garbage there); the
 port writes zeros, and the tests compare interiors only.  The TPU
@@ -77,9 +82,10 @@ _ARGTYPES = {
         "ds_block_s2_int8": [_P] + [_I] * 12 + [_P] * 9 + [_P] * 3 + [_P] * 2 + [_I, _P, _P],
     },
     "basic_block": {
-        # x; B h w hp wp c; w1p a1 c1 w2p a2 c2 s_res; z1; out_kind out stream
-        "basic_block_int8": [_P] + [_I] * 6 + [_P] * 7 + [_P] + [_I, _P, _P],
-        # x; n_blocks B h w hp wp c; w1ps a1s c1s w2ps a2s c2s s_res;
+        # x; B h w hp wp c; w1_nk sw1p b1 w2_nk sw2p b2 scales; unit_y z1;
+        # out_kind out stream
+        "basic_block_int8": [_P] + [_I] * 6 + [_P] * 7 + [_I, _P] + [_I, _P, _P],
+        # x; n_blocks B h w hp wp c; w1s_nk sw1ps b1s w2s_nk sw2ps b2s scales_s;
         # z1 act0 act1; last_bf16 out stream
         "basic_run_int8": [_P] + [_I] * 7 + [_P] * 7 + [_P] * 3 + [_I, _P, _P],
         # x; B h w hp wp cin c oh ow hp2 wp2; w1p a1 c1 w2p a2 c2 wd ad cd;
@@ -94,9 +100,10 @@ _ARGTYPES = {
         # a3s c3s s_res; wd ad cd; z1 z2 act0 act1; last_bf16 out stream
         "pp_run_int8": [_P] + [_I] * 9 + [_P] * 2 + [_P] * 9 + [_P] * 3 + [_P] * 4
         + [_I, _P, _P],
-        # x; B h w hp wp c2; w1 a1 c1 w2 a2 c2 s_res; z1; out_kind out stream
+        # x; B h w hp wp c2; w1_nk a1 c1 w2_nk a2 c2 s_res; z1; out_kind out
+        # stream
         "pp_basic_block_int8": [_P] + [_I] * 6 + [_P] * 7 + [_P] + [_I, _P, _P],
-        # x; n_blocks B h w hp wp c2; w1s a1s c1s w2s a2s c2s s_res;
+        # x; n_blocks B h w hp wp c2; w1s_nk a1s c1s w2s_nk a2s c2s s_res;
         # z1 act0 act1; last_bf16 out stream
         "pp_basic_run_int8": [_P] + [_I] * 7 + [_P] * 7 + [_P] * 3 + [_I, _P, _P],
     },
@@ -744,14 +751,14 @@ def _fold_basic(scales, sw1p, b1, sw2p, b2, emit_i8):
 
 def _fold_basic_run(scales_s, sw1p_s, b1_s, sw2p_s, b2_s, emit_i8):
     """Per-block host folding of block.py:1866-1879, op for op (s_y of the
-    last block is 1 on a bf16 exit)."""
+    last block is 1 on a bf16 exit: a device op, no host scalar written
+    into a device tensor, which would wait for the card)."""
     n_blocks, c = b1_s.shape
     s_x = scales_s[:, 0]
     s_z1 = scales_s[:, 1]
     s_y = scales_s[:, 2]
     if not emit_i8:
-        s_y = s_y.clone()
-        s_y[n_blocks - 1] = 1.0
+        s_y = torch.cat([s_y[:-1], torch.ones_like(s_y[-1:])])
     return {
         "a1": (sw1p_s.float() * (s_x / s_z1)[:, None]).reshape(n_blocks * 3, c),
         "c1": b1_s.float() * (1.0 / s_z1)[:, None],
@@ -779,11 +786,24 @@ def _basic_plain_folded(xq, b, h, w_sp, hp, wp, w1pq, w2pq, f, *, emit_i8):
     return _chain_from_interior(_requant(y) if emit_i8 else y.to(torch.bfloat16), hp, wp)
 
 
+def _basic_weights(dev, c, lead, **weights) -> dict:
+    """The K-major copies of a basic kernel's kh-batched 3x3s (``_kmajor``),
+    each (K, N) weight checked for its shape (..., 3c, 3c) first."""
+    out = {}
+    for name, (w, w_nk) in weights.items():
+        if tuple(w.shape) != (*lead, 3 * c, 3 * c):
+            raise ValueError(f"{name}: shape {tuple(w.shape)}, expected {(*lead, 3 * c, 3 * c)}")
+        out[name] = _kmajor(w, w_nk, name + "_nk", dev)
+    return out
+
+
 def basic_block_chained_int8_plain(
     xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, *,
-    h, w_sp, emit_i8=True, bt=None, interpret=False,
+    h, w_sp, emit_i8=True, bt=None, interpret=False, w1pq_nk=None, w2pq_nk=None,
 ):
-    """Plain PyTorch version of ``basic_block_chained_int8``."""
+    """Plain PyTorch version of ``basic_block_chained_int8`` (the weights
+    read from their K-major copies where given)."""
+    w1pq, w2pq = _from_kmajor(w1pq, w1pq_nk), _from_kmajor(w2pq, w2pq_nk)
     b, hp, wp = _basic_geometry(xq, sw1p.shape[-1] // 3, h, w_sp)
     f = _fold_basic(scales, sw1p, b1, sw2p, b2, emit_i8)
     return _basic_plain_folded(xq, b, h, w_sp, hp, wp, w1pq, w2pq, f, emit_i8=emit_i8)
@@ -791,7 +811,7 @@ def basic_block_chained_int8_plain(
 
 def basic_block_chained_int8(
     xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, *,
-    h, w_sp, emit_i8=True, bt=None, interpret=False,
+    h, w_sp, emit_i8=True, bt=None, interpret=False, w1pq_nk=None, w2pq_nk=None,
 ):
     """Int8 stride-1 BasicBlock over the chained padded-row layout.
 
@@ -799,30 +819,36 @@ def basic_block_chained_int8(
     kh-batched 3x3s (``quantize_basic_block``) with per-(kh, j) scales
     sw1p/sw2p (3c,); biases (c,) f32; scales (3,) = [s_x, s_z1, s_y].
     Returns the same chain layout, int8 at s_y (emit_i8) or unscaled bf16.
+
+    ``w1pq_nk`` / ``w2pq_nk``: the K-major (N, K) copies that the int8
+    tensor-core tile reads, made once per engine by
+    ``fused.pack_chain_kmajor``; without them the wrapper transposes once
+    per call.  The kernel folds the requant scales itself, as
+    ``_fold_basic`` does, op for op.
     """
     if not xq.is_cuda:
         return basic_block_chained_int8_plain(
             xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, h=h, w_sp=w_sp, emit_i8=emit_i8,
+            w1pq_nk=w1pq_nk, w2pq_nk=w2pq_nk,
         )
     c = sw1p.shape[-1] // 3
     b, hp, wp = _basic_geometry(xq, c, h, w_sp)
-    f = _fold_basic(scales, sw1p, b1, sw2p, b2, emit_i8)
     dev = xq.device
-    _check_i8(dev, xq=xq, w1pq=w1pq, w2pq=w2pq)
-    for name, wq in (("w1pq", w1pq), ("w2pq", w2pq)):
-        _build.require(wq, name, torch.int8, dev, (3 * c, 3 * c))
+    _check_i8(dev, xq=xq)
     if c % 4:
         raise ValueError(f"the channel count must be a multiple of 4, got c={c}")
-    fc = {k: v.contiguous() for k, v in f.items()}
-    _check_f32(dev, **fc)
+    nk = _basic_weights(dev, c, (), w1pq=(w1pq, w1pq_nk), w2pq=(w2pq, w2pq_nk))
+    v = _f32_vectors(dev, sw1p=(sw1p, 3 * c), b1=(b1, c), sw2p=(sw2p, 3 * c), b2=(b2, c),
+                     scales=(scales, 3))
     rows = b * hp * wp
     z1 = torch.empty((rows, c), dtype=torch.int8, device=dev)
     out = torch.empty((rows, c), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
     rc = _lib("basic_block").basic_block_int8(
         xq.data_ptr(), b, h, w_sp, hp, wp, c,
-        w1pq.data_ptr(), fc["a1"].data_ptr(), fc["c1"].data_ptr(),
-        w2pq.data_ptr(), fc["a2"].data_ptr(), fc["c2"].data_ptr(), fc["s_res"].data_ptr(),
-        z1.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+        nk["w1pq"].data_ptr(), v["sw1p"].data_ptr(), v["b1"].data_ptr(),
+        nk["w2pq"].data_ptr(), v["sw2p"].data_ptr(), v["b2"].data_ptr(),
+        v["scales"].data_ptr(), int(not emit_i8), z1.data_ptr(),
+        0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
     )
     _build.check(rc, "basic_block_chained_int8")
     _build.LAUNCHES["basic_block_chained_int8"] += 1
@@ -831,9 +857,11 @@ def basic_block_chained_int8(
 
 def basic_run_chained_int8_plain(
     xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s, *,
-    h, w_sp, emit_i8=True, bt=None, interpret=False,
+    h, w_sp, emit_i8=True, bt=None, interpret=False, w1pq_nk_s=None, w2pq_nk_s=None,
 ):
-    """Plain PyTorch version of ``basic_run_chained_int8``."""
+    """Plain PyTorch version of ``basic_run_chained_int8`` (the weights
+    read from their K-major copies where given)."""
+    w1pq_s, w2pq_s = _from_kmajor(w1pq_s, w1pq_nk_s), _from_kmajor(w2pq_s, w2pq_nk_s)
     n_blocks, c = b1_s.shape
     b, hp, wp = _basic_geometry(xq, c, h, w_sp)
     f = _fold_basic_run(scales_s, sw1p_s, b1_s, sw2p_s, b2_s, emit_i8)
@@ -853,38 +881,40 @@ def basic_run_chained_int8_plain(
 
 def basic_run_chained_int8(
     xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s, *,
-    h, w_sp, emit_i8=True, bt=None, interpret=False,
+    h, w_sp, emit_i8=True, bt=None, interpret=False, w1pq_nk_s=None, w2pq_nk_s=None,
 ):
     """A run of N stride-1 BasicBlocks as one call: stacked w1pq_s/w2pq_s
     (N, 3c, 3c), sw1p_s/sw2p_s (N, 3c), b1_s/b2_s (N, c); scales_s (N, 3)
     rows [s_x, s_z1, s_y], row i's s_y equal to row i+1's s_x.  Blocks
     before the last always hand on int8; ``emit_i8`` picks the last one's
-    exit."""
+    exit.  ``w1pq_nk_s`` / ``w2pq_nk_s``: the stacked K-major copies (see
+    ``basic_block_chained_int8``)."""
     if not xq.is_cuda:
         return basic_run_chained_int8_plain(
             xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s,
-            h=h, w_sp=w_sp, emit_i8=emit_i8,
+            h=h, w_sp=w_sp, emit_i8=emit_i8, w1pq_nk_s=w1pq_nk_s, w2pq_nk_s=w2pq_nk_s,
         )
     n_blocks, c = b1_s.shape
     b, hp, wp = _basic_geometry(xq, c, h, w_sp)
-    f = _fold_basic_run(scales_s, sw1p_s, b1_s, sw2p_s, b2_s, emit_i8)
     dev = xq.device
-    _check_i8(dev, xq=xq, w1pq_s=w1pq_s, w2pq_s=w2pq_s)
-    for name, wq in (("w1pq_s", w1pq_s), ("w2pq_s", w2pq_s)):
-        _build.require(wq, name, torch.int8, dev, (n_blocks, 3 * c, 3 * c))
+    _check_i8(dev, xq=xq)
     if c % 4:
         raise ValueError(f"the channel count must be a multiple of 4, got c={c}")
-    fc = {k: v.contiguous() for k, v in f.items()}
-    _check_f32(dev, **fc)
+    nk = _basic_weights(dev, c, (n_blocks,), w1pq_s=(w1pq_s, w1pq_nk_s),
+                        w2pq_s=(w2pq_s, w2pq_nk_s))
+    n = n_blocks
+    v = _f32_vectors(dev, sw1p_s=(sw1p_s.reshape(-1), n * 3 * c), b1_s=(b1_s.reshape(-1), n * c),
+                     sw2p_s=(sw2p_s.reshape(-1), n * 3 * c), b2_s=(b2_s.reshape(-1), n * c),
+                     scales_s=(scales_s.reshape(-1), n * 3))
     rows = b * hp * wp
     z1 = torch.empty((rows, c), dtype=torch.int8, device=dev)
     act = torch.empty((2, rows, c), dtype=torch.int8, device=dev)
     out = torch.empty((rows, c), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
     rc = _lib("basic_block").basic_run_int8(
         xq.data_ptr(), n_blocks, b, h, w_sp, hp, wp, c,
-        w1pq_s.data_ptr(), fc["a1"].data_ptr(), fc["c1"].data_ptr(),
-        w2pq_s.data_ptr(), fc["a2"].data_ptr(), fc["c2"].data_ptr(), fc["s_res"].data_ptr(),
-        z1.data_ptr(), act[0].data_ptr(), act[1].data_ptr(),
+        nk["w1pq_s"].data_ptr(), v["sw1p_s"].data_ptr(), v["b1_s"].data_ptr(),
+        nk["w2pq_s"].data_ptr(), v["sw2p_s"].data_ptr(), v["b2_s"].data_ptr(),
+        v["scales_s"].data_ptr(), z1.data_ptr(), act[0].data_ptr(), act[1].data_ptr(),
         0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
     )
     _build.check(rc, "basic_run_chained_int8")
@@ -988,7 +1018,9 @@ def basic_ds_block_s2_int8(
 # Two W-adjacent pixels per row: the chain (B*hp*wp, C) viewed as pair rows
 # (B*hp*wp/2, 2C), a free view since wp is even.  The pairing lives in the
 # weights, built from the standard quantized tensors on every call as in
-# the JAX wrappers: block-diagonal 1x1s and the pair-packed 3x3.  Each
+# the JAX wrappers (block-diagonal 1x1s and the pair-packed 3x3), except
+# the basic kernels' pair-packed 3x3s, whose K-major copies the engine makes
+# once (``fused.pack_chain_kmajor``).  Each
 # public wrapper keeps its JAX contract (chain rows in and out) and hands
 # the pair-space operands to a pair-space entry (``*_pp_pairs``), which
 # launches the kernel for a CUDA tensor or runs its own plain version on the
@@ -1372,52 +1404,60 @@ def _pp_basic_folded(xpp, halves, wpp, w1pp, w2pp, f, *, emit_i8):
 
 def basic_block_pp_pairs_plain(
     xpp, w1pp, a1, c1, w2pp, a2, c2, s_res, *, h, w_sp, emit_i8=True,
+    w1pp_nk=None, w2pp_nk=None,
 ):
-    """Plain PyTorch version of ``basic_block_pp_pairs``."""
+    """Plain PyTorch version of ``basic_block_pp_pairs`` (the weights read
+    from their K-major copies where given)."""
+    w1pp, w2pp = _from_kmajor(w1pp, w1pp_nk), _from_kmajor(w2pp, w2pp_nk)
     b, hp, wp = _pp_geometry(xpp, h, w_sp)
     halves = _pp_halves(b, hp, wp, h, w_sp, xpp.device)
     f = {"a1": a1, "c1": c1, "a2": a2, "c2": c2, "s_res": s_res}
     return _pp_basic_folded(xpp, halves, wp // 2, w1pp, w2pp, f, emit_i8=emit_i8)
 
 
-def _check_basic_pp(xpp, w1, w2, vecs, n_blocks):
+def _check_basic_pp(xpp, vecs, n_blocks, **weights) -> dict:
+    """Validate a pair-space basic call; returns the K-major copies of its
+    two pair-packed 3x3s (``_kmajor``)."""
     dev = xpp.device
     c2 = xpp.shape[1]
     lead = () if n_blocks is None else (n_blocks,)
     n = 1 if n_blocks is None else n_blocks
     _check_i8(dev, xpp=xpp)
-    _build.require(w1, "w1pp", torch.int8, dev, (*lead, 3 * c2, 3 * c2))
-    _build.require(w2, "w2pp", torch.int8, dev, (*lead, 3 * c2, 3 * c2))
     shapes = {"a1": (3 * n, c2), "c1": (*lead, c2), "a2": (3 * n, c2), "c2": (*lead, c2),
               "s_res": (n,)}
     for name, v in vecs.items():
         _build.require(v, name, torch.float32, dev, shapes[name])
     if c2 % 8:
         raise ValueError(f"the pair width must be a multiple of 8, got c2={c2}")
+    return _basic_weights(dev, c2, lead, **weights)
 
 
 def basic_block_pp_pairs(
     xpp, w1pp, a1, c1, w2pp, a2, c2, s_res, *, h, w_sp, emit_i8=True,
+    w1pp_nk=None, w2pp_nk=None,
 ):
     """The pair-space entry of ``basic_block_chained_int8_pp``: xpp
-    (B*hp*wp/2, c2) int8 pair rows; w1pp, w2pp (3c2, 3c2) int8; a1, a2
-    (3, c2), c1, c2 (c2,), s_res (1,) fp32.  Dense pair-space GEMMs.
-    Returns (B*hp*wp/2, c2) pair rows, int8 or bf16, zero on ring halves."""
+    (B*hp*wp/2, c2) int8 pair rows; w1pp, w2pp (3c2, 3c2) int8 (their K-major
+    copies ``w1pp_nk``, ``w2pp_nk``, else transposed per call); a1, a2 (3,
+    c2), c1, c2 (c2,), s_res (1,) fp32, folded and lane-tiled.  Dense
+    pair-space GEMMs on the int8 tile.  Returns (B*hp*wp/2, c2) pair rows,
+    int8 or bf16, zero on ring halves."""
     if not xpp.is_cuda:
         return basic_block_pp_pairs_plain(
             xpp, w1pp, a1, c1, w2pp, a2, c2, s_res, h=h, w_sp=w_sp, emit_i8=emit_i8,
+            w1pp_nk=w1pp_nk, w2pp_nk=w2pp_nk,
         )
     b, hp, wp = _pp_geometry(xpp, h, w_sp)
-    _check_basic_pp(xpp, w1pp, w2pp, {"a1": a1, "c1": c1, "a2": a2, "c2": c2,
-                                      "s_res": s_res}, None)
+    nk = _check_basic_pp(xpp, {"a1": a1, "c1": c1, "a2": a2, "c2": c2, "s_res": s_res}, None,
+                         w1pp=(w1pp, w1pp_nk), w2pp=(w2pp, w2pp_nk))
     rows2, cp = xpp.shape
     dev = xpp.device
     z1 = torch.empty((rows2, cp), dtype=torch.int8, device=dev)
     out = torch.empty((rows2, cp), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
     rc = _lib("pp_block").pp_basic_block_int8(
         xpp.data_ptr(), b, h, w_sp, hp, wp, cp,
-        w1pp.data_ptr(), a1.data_ptr(), c1.data_ptr(),
-        w2pp.data_ptr(), a2.data_ptr(), c2.data_ptr(), s_res.data_ptr(),
+        nk["w1pp"].data_ptr(), a1.data_ptr(), c1.data_ptr(),
+        nk["w2pp"].data_ptr(), a2.data_ptr(), c2.data_ptr(), s_res.data_ptr(),
         z1.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
     )
     _build.check(rc, "basic_block_chained_int8_pp")
@@ -1425,7 +1465,15 @@ def basic_block_pp_pairs(
     return out
 
 
-def _basic_pp_operands(xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, h, w_sp, emit_i8):
+def _pp_packed(wpq, c, wpp_nk):
+    """A pair-packed 3x3 (..., 6c, 6c): the transposed view of the engine's
+    K-major copy where given, else packed here from the kh-batched wpq (the
+    pair entry then transposes it once)."""
+    return _pp_pack_conv2(wpq, c) if wpp_nk is None else wpp_nk.transpose(-1, -2)
+
+
+def _basic_pp_operands(xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, h, w_sp, emit_i8,
+                       w1pp_nk, w2pp_nk):
     """The pair-space operands of kernel 9, folded and lane-tiled as
     block.py:2033-2041 do."""
     c = sw1p.shape[-1] // 3
@@ -1433,34 +1481,44 @@ def _basic_pp_operands(xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, h, w_sp, emit
     _pp_require(c, wp)
     f = _pp_tile(_fold_basic(scales, sw1p, b1, sw2p, b2, emit_i8))
     return (
-        xq.reshape(-1, 2 * c), _pp_pack_conv2(w1pq, c), f["a1"], f["c1"],
-        _pp_pack_conv2(w2pq, c), f["a2"], f["c2"], f["s_res"],
+        xq.reshape(-1, 2 * c), _pp_packed(w1pq, c, w1pp_nk), f["a1"], f["c1"],
+        _pp_packed(w2pq, c, w2pp_nk), f["a2"], f["c2"], f["s_res"],
     ), c
 
 
 def basic_block_chained_int8_pp_plain(
     xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, *,
-    h, w_sp, emit_i8=True, bt=None, interpret=False,
+    h, w_sp, emit_i8=True, bt=None, interpret=False, w1pp_nk=None, w2pp_nk=None,
 ):
     """Plain PyTorch version of ``basic_block_chained_int8_pp``."""
-    args, c = _basic_pp_operands(xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, h, w_sp, emit_i8)
-    return basic_block_pp_pairs_plain(*args, h=h, w_sp=w_sp, emit_i8=emit_i8).reshape(-1, c)
+    args, c = _basic_pp_operands(xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, h, w_sp,
+                                 emit_i8, w1pp_nk, w2pp_nk)
+    return basic_block_pp_pairs_plain(*args, h=h, w_sp=w_sp, emit_i8=emit_i8, w1pp_nk=w1pp_nk,
+                                      w2pp_nk=w2pp_nk).reshape(-1, c)
 
 
 def basic_block_chained_int8_pp(
     xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, *,
-    h, w_sp, emit_i8=True, bt=None, interpret=False,
+    h, w_sp, emit_i8=True, bt=None, interpret=False, w1pp_nk=None, w2pp_nk=None,
 ):
     """Pixel-paired stride-1 BasicBlock for the c=64 stage: the contract of
-    ``basic_block_chained_int8``, computed in pair space."""
-    args, c = _basic_pp_operands(xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, h, w_sp, emit_i8)
-    return basic_block_pp_pairs(*args, h=h, w_sp=w_sp, emit_i8=emit_i8).reshape(-1, c)
+    ``basic_block_chained_int8``, computed in pair space.  ``w1pp_nk`` /
+    ``w2pp_nk``: the K-major copies of the pair-packed (6c, 6c) 3x3s, made
+    once per engine by ``fused.pack_chain_kmajor``; without them the
+    wrapper packs and transposes once per call."""
+    args, c = _basic_pp_operands(xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, h, w_sp,
+                                 emit_i8, w1pp_nk, w2pp_nk)
+    return basic_block_pp_pairs(*args, h=h, w_sp=w_sp, emit_i8=emit_i8, w1pp_nk=w1pp_nk,
+                                w2pp_nk=w2pp_nk).reshape(-1, c)
 
 
 def basic_run_pp_pairs_plain(
     xpp, w1pp_s, a1s, c1s, w2pp_s, a2s, c2s, s_res, *, h, w_sp, emit_i8=True,
+    w1pp_nk_s=None, w2pp_nk_s=None,
 ):
-    """Plain PyTorch version of ``basic_run_pp_pairs``."""
+    """Plain PyTorch version of ``basic_run_pp_pairs`` (the weights read
+    from their K-major copies where given)."""
+    w1pp_s, w2pp_s = _from_kmajor(w1pp_s, w1pp_nk_s), _from_kmajor(w2pp_s, w2pp_nk_s)
     b, hp, wp = _pp_geometry(xpp, h, w_sp)
     halves = _pp_halves(b, hp, wp, h, w_sp, xpp.device)
     n_blocks = w1pp_s.shape[0]
@@ -1477,18 +1535,21 @@ def basic_run_pp_pairs_plain(
 
 def basic_run_pp_pairs(
     xpp, w1pp_s, a1s, c1s, w2pp_s, a2s, c2s, s_res, *, h, w_sp, emit_i8=True,
+    w1pp_nk_s=None, w2pp_nk_s=None,
 ):
     """The pair-space entry of ``basic_run_chained_int8_pp``: stacked w1pp_s,
-    w2pp_s (N, 3c2, 3c2) int8; a1s, a2s (3N, c2), c1s, c2s (N, c2), s_res
-    (N,) fp32.  Dense pair-space GEMMs, as kernel 9."""
+    w2pp_s (N, 3c2, 3c2) int8 (their K-major copies ``w1pp_nk_s``,
+    ``w2pp_nk_s``, else transposed per call); a1s, a2s (3N, c2), c1s, c2s
+    (N, c2), s_res (N,) fp32.  Dense pair-space GEMMs, as kernel 9."""
     if not xpp.is_cuda:
         return basic_run_pp_pairs_plain(
             xpp, w1pp_s, a1s, c1s, w2pp_s, a2s, c2s, s_res, h=h, w_sp=w_sp, emit_i8=emit_i8,
+            w1pp_nk_s=w1pp_nk_s, w2pp_nk_s=w2pp_nk_s,
         )
     b, hp, wp = _pp_geometry(xpp, h, w_sp)
     n_blocks = w1pp_s.shape[0]
-    _check_basic_pp(xpp, w1pp_s, w2pp_s, {"a1": a1s, "c1": c1s, "a2": a2s, "c2": c2s,
-                                          "s_res": s_res}, n_blocks)
+    nk = _check_basic_pp(xpp, {"a1": a1s, "c1": c1s, "a2": a2s, "c2": c2s, "s_res": s_res},
+                         n_blocks, w1pp_s=(w1pp_s, w1pp_nk_s), w2pp_s=(w2pp_s, w2pp_nk_s))
     rows2, cp = xpp.shape
     dev = xpp.device
     z1 = torch.empty((rows2, cp), dtype=torch.int8, device=dev)
@@ -1496,8 +1557,8 @@ def basic_run_pp_pairs(
     out = torch.empty((rows2, cp), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
     rc = _lib("pp_block").pp_basic_run_int8(
         xpp.data_ptr(), n_blocks, b, h, w_sp, hp, wp, cp,
-        w1pp_s.data_ptr(), a1s.data_ptr(), c1s.data_ptr(),
-        w2pp_s.data_ptr(), a2s.data_ptr(), c2s.data_ptr(), s_res.data_ptr(),
+        nk["w1pp_s"].data_ptr(), a1s.data_ptr(), c1s.data_ptr(),
+        nk["w2pp_s"].data_ptr(), a2s.data_ptr(), c2s.data_ptr(), s_res.data_ptr(),
         z1.data_ptr(), act[0].data_ptr(), act[1].data_ptr(),
         0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
     )
@@ -1507,7 +1568,7 @@ def basic_run_pp_pairs(
 
 
 def _basic_run_pp_operands(xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s,
-                           h, w_sp, emit_i8):
+                           h, w_sp, emit_i8, w1pp_nk_s, w2pp_nk_s):
     """The pair-space operands of kernel 10, folded and lane-tiled as
     block.py:2211-2230 do."""
     c = b1_s.shape[-1]
@@ -1515,30 +1576,34 @@ def _basic_run_pp_operands(xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scale
     _pp_require(c, wp)
     f = _pp_tile(_fold_basic_run(scales_s, sw1p_s, b1_s, sw2p_s, b2_s, emit_i8))
     return (
-        xq.reshape(-1, 2 * c), _pp_pack_conv2(w1pq_s, c), f["a1"], f["c1"],
-        _pp_pack_conv2(w2pq_s, c), f["a2"], f["c2"], f["s_res"],
+        xq.reshape(-1, 2 * c), _pp_packed(w1pq_s, c, w1pp_nk_s), f["a1"], f["c1"],
+        _pp_packed(w2pq_s, c, w2pp_nk_s), f["a2"], f["c2"], f["s_res"],
     ), c
 
 
 def basic_run_chained_int8_pp_plain(
     xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s, *,
-    h, w_sp, emit_i8=True, bt=None, interpret=False,
+    h, w_sp, emit_i8=True, bt=None, interpret=False, w1pp_nk_s=None, w2pp_nk_s=None,
 ):
     """Plain PyTorch version of ``basic_run_chained_int8_pp``."""
     args, c = _basic_run_pp_operands(xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s,
-                                     scales_s, h, w_sp, emit_i8)
-    return basic_run_pp_pairs_plain(*args, h=h, w_sp=w_sp, emit_i8=emit_i8).reshape(-1, c)
+                                     scales_s, h, w_sp, emit_i8, w1pp_nk_s, w2pp_nk_s)
+    return basic_run_pp_pairs_plain(*args, h=h, w_sp=w_sp, emit_i8=emit_i8,
+                                    w1pp_nk_s=w1pp_nk_s, w2pp_nk_s=w2pp_nk_s).reshape(-1, c)
 
 
 def basic_run_chained_int8_pp(
     xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s, *,
-    h, w_sp, emit_i8=True, bt=None, interpret=False,
+    h, w_sp, emit_i8=True, bt=None, interpret=False, w1pp_nk_s=None, w2pp_nk_s=None,
 ):
     """Pixel-paired run of N stride-1 BasicBlocks for the c=64 stage: the
-    contract of ``basic_run_chained_int8``, computed in pair space."""
+    contract of ``basic_run_chained_int8``, computed in pair space.
+    ``w1pp_nk_s`` / ``w2pp_nk_s``: the stacked K-major copies of the
+    pair-packed 3x3s (see ``basic_block_chained_int8_pp``)."""
     args, c = _basic_run_pp_operands(xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s,
-                                     scales_s, h, w_sp, emit_i8)
-    return basic_run_pp_pairs(*args, h=h, w_sp=w_sp, emit_i8=emit_i8).reshape(-1, c)
+                                     scales_s, h, w_sp, emit_i8, w1pp_nk_s, w2pp_nk_s)
+    return basic_run_pp_pairs(*args, h=h, w_sp=w_sp, emit_i8=emit_i8, w1pp_nk_s=w1pp_nk_s,
+                              w2pp_nk_s=w2pp_nk_s).reshape(-1, c)
 
 
 # ---------------------------------------------------------------------------

@@ -47,7 +47,10 @@ transition is one ``basic_ds_block_s2_int8`` under ``BASIC_DS_INT8``, or
 else is dequantized and run through ``_conv`` (two 3x3 kernels and the 1x1
 projection) and requantized, and every other block is one
 ``basic_block_chained_int8``; the last block exits bf16 and the head pools
-outside the kernel, as in the JAX package.
+outside the kernel, as in the JAX package.  Its stride-1 kernels read the
+K-major weight copies and each stage's stacked run from the engine's tree
+(``pack_chain_kmajor``) where it has them, and make them per call where it
+does not.
 
 Every forward takes ``kernels=`` (``PLAIN`` runs the plain versions, the
 on-card reference).  Not yet ported: ``HYBRID_XLA_STAGES`` (raises
@@ -654,16 +657,15 @@ KMAJOR_KEYS = {"w1q": "w1q_nk", "w2pq": "w2pq_nk", "w3q": "w3q_nk", "wdq": "wdq_
 
 def pack_chain_kmajor(cfg: ResNetConfig, qtree: Tree) -> Tree:
     """A copy of a ``quantize_chain`` tree with the contiguous K-major (N,
-    K) copy of each weight that ``bottleneck_block_chained_int8`` and
-    ``bottleneck_run_chained_int8`` read on the int8 tensor cores (8-bit
-    wgmma takes both operands K-major) beside it: ``w1q_nk``, ``w2pq_nk``
-    (row kh*c + j: output j of kernel row kh), ``w3q_nk`` and, on a
-    projection block, ``wdq_nk``.  Made once per engine instead of once per
-    call; every stride-1 bottleneck block gets them (the pixel-paired
-    kernels ignore them).  Other entries are shared, not copied; a basic
-    tree comes back as it is."""
+    K) copy of each weight that the stride-1 block kernels read on the int8
+    tensor cores (8-bit wgmma takes both operands K-major) beside it, made
+    once per engine instead of once per call.  Bottleneck: ``w1q_nk``,
+    ``w2pq_nk`` (row kh*c + j: output j of kernel row kh), ``w3q_nk`` and,
+    on a projection block, ``wdq_nk``, on every stride-1 block (the
+    pixel-paired kernels ignore them).  Basic: see ``_pack_basic``.  Other
+    entries are shared, not copied."""
     if cfg.block != "bottleneck":
-        return qtree
+        return _pack_basic(qtree)
     out = dict(qtree)
     for stage in range(4):
         layer = {}
@@ -673,6 +675,64 @@ def pack_chain_kmajor(cfg: ResNetConfig, qtree: Tree) -> Tree:
             layer[b_str] = blk
         out[f"layer{stage + 1}"] = layer
     return out
+
+
+#: The per-block keys of a basic run's operands, in the kernels' order.
+BASIC_KEYS = ("w1pq", "sw1p", "b1", "w2pq", "sw2p", "b2")
+
+
+def _pack_basic(qtree: Tree) -> Tree:
+    """``pack_chain_kmajor`` for the basic family.  Each stage's stride-1
+    blocks (all of stage 0, blocks 1.. of the others: the blocks of the
+    stage's run) are stacked once, under ``"runs"`` / ``"layer<s>"``: the
+    K-major copies ``w1pq_nk_s`` / ``w2pq_nk_s`` of the kh-batched 3x3s,
+    their vectors ``sw1p_s``, ``b1_s``, ``sw2p_s``, ``b2_s``, and for stage 0
+    at c = 64 (the pixel-paired width) ``w1pp_nk_s`` / ``w2pp_nk_s``, the
+    K-major copies of the pair-packed (6c, 6c) 3x3s.  Each block gets its
+    slice of the K-major stacks beside its weights (``w1pq_nk``,
+    ``w2pq_nk``, ``w1pp_nk``, ``w2pp_nk``: views, not copies)."""
+    out, runs = dict(qtree), {}
+    for stage in range(4):
+        name = f"layer{stage + 1}"
+        layer = dict(qtree[name])
+        ids = sorted((b for b, blk in layer.items() if "sw1p" in blk), key=int)  # stride 1
+        if not ids:
+            continue
+        blocks = [layer[b] for b in ids]
+        run = {k + "_s": _stack(blocks, k) for k in BASIC_KEYS if not k.startswith("w")}
+        c = run["b1_s"].shape[-1]
+        for k in ("w1pq", "w2pq"):
+            wq_s = _stack(blocks, k)
+            run[k + "_nk_s"] = wq_s.transpose(-1, -2).contiguous()
+            if stage == 0 and c == 64:
+                pp = "w1pp" if k == "w1pq" else "w2pp"
+                run[pp + "_nk_s"] = block._pp_pack_conv2(wq_s, c).transpose(-1, -2).contiguous()
+        nk = {k[: -len("_s")]: v for k, v in run.items() if k.endswith("_nk_s")}
+        for i, b in enumerate(ids):
+            layer[b] = {**layer[b], **{k: v[i] for k, v in nk.items()}}
+        out[name], runs[name] = layer, run
+    out["runs"] = runs
+    return out
+
+
+def _basic_run_operands(run: list, packed: dict | None, pp: bool) -> tuple[list, dict]:
+    """The stacked operands of a basic run (``BASIC_KEYS``) and the K-major
+    copies as keyword arguments: the engine's (``_pack_basic``) where the
+    tree has them, the (K, N) weights then their transposed views; else
+    stacked here (the wrapper then transposes, or packs, once)."""
+    if packed is None:
+        return [_stack(run, k) for k in BASIC_KEYS], {}
+    args = [packed[k + "_nk_s"].transpose(-1, -2) if k.startswith("w") else packed[k + "_s"]
+            for k in BASIC_KEYS]
+    keys = ("w1pp_nk_s", "w2pp_nk_s") if pp else ("w1pq_nk_s", "w2pq_nk_s")
+    return args, {k: packed[k] for k in keys if k in packed}
+
+
+def _basic_kmajor_kwargs(blk: dict, pp: bool) -> dict:
+    """The K-major copies a basic block carries for its kernel (the pair
+    ones for the pixel-paired kernel), as keyword arguments."""
+    keys = ("w1pp_nk", "w2pp_nk") if pp else ("w1pq_nk", "w2pq_nk")
+    return {k: blk[k] for k in keys if k in blk}
 
 
 def kmajor_copies(blk: dict) -> dict:
@@ -961,22 +1021,21 @@ def _basic_int8_chain_forward(
             and block.chain_meta(0, h, w_sp)[1] % 2 == 0
         )
         if nb - start > 1 and stage in BASIC_RUN_FUSE_STAGES:
-            run = [blocks[str(i)] for i in range(start, nb)]
+            args, kw = _basic_run_operands(
+                [blocks[str(i)] for i in range(start, nb)],
+                qtree.get("runs", {}).get(f"layer{stage + 1}"), pp_stage,
+            )
             yr = (kernels.basic_run_pp if pp_stage else kernels.basic_run)(
-                yr,
-                *(_stack(run, k) for k in ("w1pq", "sw1p", "b1", "w2pq", "sw2p", "b2")),
-                torch.stack([scale_row(stage, i) for i in range(start, nb)]),
-                h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None,
+                yr, *args, torch.stack([scale_row(stage, i) for i in range(start, nb)]),
+                h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None, **kw,
             )
         else:
             for i in range(start, nb):
                 blk = blocks[str(i)]
                 yr = (kernels.basic_block_pp if pp_stage else kernels.basic_block)(
-                    yr,
-                    blk["w1pq"], blk["sw1p"], blk["b1"],
-                    blk["w2pq"], blk["sw2p"], blk["b2"],
-                    scale_row(stage, i),
+                    yr, *(blk[k] for k in BASIC_KEYS), scale_row(stage, i),
                     h=h, w_sp=w_sp, emit_i8=s_after(stage, i) is not None,
+                    **_basic_kmajor_kwargs(blk, pp_stage),
                 )
 
         _tap(stage_taps, yr, bsz, h, w_sp, s_after(stage, nb - 1))

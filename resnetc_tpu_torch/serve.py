@@ -3,8 +3,9 @@
 Counterpart of ``resnetc_tpu/serve.py:34-363``.  Five backends:
 
 - ``"int8_chain"`` — calibrate static activation scales, quantize (and
-  ``pack_chain_kmajor``: the (N, K) weight copies the stride-1 bottleneck
-  kernels read on the int8 tensor cores), and run
+  ``pack_chain_kmajor``: the (N, K) weight copies the stride-1 block
+  kernels read on the int8 tensor cores, and each basic stage's run
+  stacked once), and run
   ``fused_forward_int8_chain`` (every residual block an int8 CUDA kernel,
   for the bottleneck family and the basic family, ResNet-18/34, alike).
   The route follows the flags of ``ops.cuda.fused`` at forward time, as in
@@ -78,8 +79,8 @@ class InferenceEngine:
             # port's names: the bf16 kernel paths are a reference, not a
             # server.  PERF.md has their times on the card.
             warnings.warn(
-                f"backend {backend!r} is a bf16 kernel reference path, slower "
-                "than 'fp' (see PERF.md); use 'int8_chain' or 'fp' for serving.",
+                f"backend {backend!r} is a bf16 kernel reference path (see PERF.md "
+                "for its times); use 'int8_chain' or 'fp' for serving.",
                 stacklevel=2,
             )
         self.model_cfg = model_cfg

@@ -200,6 +200,47 @@ def test_basic_run_equals_blocks_one_by_one(rng, emit_i8):
     assert got.dtype == y.dtype and torch.equal(got, y)
 
 
+def _kmajor(tq: dict) -> dict:
+    return {k + "_nk": tq[k].t().contiguous() for k in ("w1pq", "w2pq")}
+
+
+@pytest.mark.parametrize("h,c,emit_i8", [(8, 16, True), (7, 32, False)],
+                         ids=["c16-h8", "c32-h7-bf16"])
+def test_basic_block_plain_on_kmajor_weights_equals_jax(rng, h, c, emit_i8):
+    """The plain version reading the engine's K-major copies (what the int8
+    tile reads) equals the Pallas kernel."""
+    b = 2
+    jq, tq = _quantized_pair(_basic_block(rng, c))
+    x = _chain_input(rng, b, h, h, c)
+    want = jblock.basic_block_chained_int8(
+        jnp.asarray(x), *(jq[k] for k in KEYS), jnp.asarray(SCALES),
+        h=h, w_sp=h, emit_i8=emit_i8, interpret=True,
+    )
+    args = (torch.from_numpy(x), *(tq[k] for k in KEYS), torch.from_numpy(SCALES))
+    got = tblock.basic_block_chained_int8_plain(*args, h=h, w_sp=h, emit_i8=emit_i8,
+                                                **_kmajor(tq))
+    _assert_interiors_equal(got, want, b, h, h, emit_i8)
+    with pytest.raises(ValueError):  # a copy of another shape
+        tblock.basic_block_chained_int8_plain(*args, h=h, w_sp=h, w1pq_nk=tq["w1pq"][:, :c])
+
+
+def test_basic_run_plain_on_kmajor_weights_equals_jax(rng):
+    b, h, c, n_blocks = 2, 8, 16, 2
+    pairs, scales, x = _run_inputs(rng, n_blocks, b, h, c)
+    nk = {k + "_nk_s": torch.stack([p[1][k].t().contiguous() for p in pairs])
+          for k in ("w1pq", "w2pq")}
+    for emit_i8 in (True, False):
+        want = jblock.basic_run_chained_int8(
+            jnp.asarray(x), *(jnp.stack([p[0][k] for p in pairs]) for k in KEYS),
+            jnp.asarray(scales), h=h, w_sp=h, emit_i8=emit_i8, interpret=True,
+        )
+        got = tblock.basic_run_chained_int8(
+            torch.from_numpy(x), *(torch.stack([p[1][k] for p in pairs]) for k in KEYS),
+            torch.from_numpy(scales), h=h, w_sp=h, emit_i8=emit_i8, **nk,
+        )
+        _assert_interiors_equal(got, want, b, h, h, emit_i8)
+
+
 @pytest.mark.parametrize(
     "h,w", [(10, 10), (7, 7), (10, 14)], ids=["direct-10x10", "generic-7x7", "nonsquare-10x14"]
 )
@@ -359,6 +400,35 @@ def test_basic_calibration_and_quantize_chain_match_jax(setup):
     assert set(jflat) == set(tflat)
     for k in jflat:
         np.testing.assert_array_equal(_np(tflat[k]), np.asarray(jflat[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("run_stages", [(0,), (0, 1, 2, 3), ()], ids=["run0", "runs", "per-block"])
+def test_basic_packed_tree_forward_equals_unpacked(setup, monkeypatch, run_stages):
+    """The engine's tree (``pack_chain_kmajor``: per-block K-major copies,
+    each stage's run stacked once) gives the logits of the tree without
+    them, bit for bit, on every run route; every entry of the unpacked tree
+    is shared, not copied."""
+    _, tcfg, _, tvars, x = setup
+    tfold = tresnet.fold_inference_params(tcfg, tvars)
+    scales = tfused.calibrate_chain_scales(tcfg, tfold, torch.from_numpy(x))
+    tq = tfused.quantize_chain(tcfg, tfold)
+    packed = tfused.pack_chain_kmajor(tcfg, tq)
+    flat, pflat = _flat(tq), _flat(packed)
+    assert all(pflat[k] is flat[k] for k in flat)
+    for stage, nb in enumerate(tcfg.stage_blocks):
+        run = packed["runs"][f"layer{stage + 1}"]
+        ids = range(0 if stage == 0 else 1, nb)
+        assert run["w2pq_nk_s"].is_contiguous() and len(run["w2pq_nk_s"]) == len(ids)
+        for j, i in enumerate(ids):
+            blk = packed[f"layer{stage + 1}"][str(i)]
+            assert torch.equal(blk["w1pq_nk"], blk["w1pq"].t()), (stage, i)
+            assert blk["w2pq_nk"].data_ptr() == run["w2pq_nk_s"][j].data_ptr()  # a view
+            assert torch.equal(run["sw2p_s"][j], blk["sw2p"])
+    monkeypatch.setattr(tfused, "BASIC_DS_INT8", True)
+    monkeypatch.setattr(tfused, "BASIC_RUN_FUSE_STAGES", run_stages)
+    got = tfused.fused_forward_int8_chain(tcfg, packed, scales, torch.from_numpy(x))
+    want = tfused.fused_forward_int8_chain(tcfg, tq, scales, torch.from_numpy(x))
+    assert torch.equal(got, want)
 
 
 def test_basic_ds_int8_off_runs_and_equals_plain(setup, monkeypatch):

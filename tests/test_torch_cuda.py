@@ -267,13 +267,23 @@ def _basic_quantized(gen, cin, c, dev, *, ds=False):
     return {k: v.to(dev) for k, v in q.items()}
 
 
+# (h, c): the first three small; ResNet-34's stage-1..3 shapes (28x28 c 128,
+# 14x14 c 256, 7x7 c 512, where wp = w + 1); c off the 16-byte chunk (the
+# byte-by-byte path of the tile).
+BASIC_BLOCK_SHAPES = [(8, 16), (7, 32), (14, 64), (28, 128), (14, 256), (7, 512), (8, 20)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,c", [(8, 16), (7, 32), (14, 64)])
+@pytest.mark.parametrize("h,c", BASIC_BLOCK_SHAPES)
 def test_basic_block_kernel_equals_plain(cuda, gen, h, c):
+    """Row 7 on the int8 tile, x's ring random bytes, both exits; the
+    engine's K-major copies give the same bits as a per-call transpose, and
+    so does a second call."""
     b = 2
     q = _basic_quantized(gen, c, c, cuda)
     args = (_chain(gen, b, h, c, cuda), *(q[k] for k in BASIC_KEYS),
             torch.from_numpy(BASIC_SCALES).to(cuda))
+    nk = {"w1pq_nk": q["w1pq"].t().contiguous(), "w2pq_nk": q["w2pq"].t().contiguous()}
     for emit_i8 in (True, False):
         _build.reset_launches()
         got = block.basic_block_chained_int8(*args, h=h, w_sp=h, emit_i8=emit_i8)
@@ -281,21 +291,42 @@ def test_basic_block_kernel_equals_plain(cuda, gen, h, c):
         want = block.basic_block_chained_int8_plain(*args, h=h, w_sp=h, emit_i8=emit_i8)
         torch.cuda.synchronize()
         assert got.dtype == want.dtype and torch.equal(got, want)
+        for _ in range(2):
+            again = block.basic_block_chained_int8(*args, h=h, w_sp=h, emit_i8=emit_i8, **nk)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+
+
+def _basic_run_args(gen, dev, n_blocks, b, h, c):
+    qs = [_basic_quantized(gen, c, c, dev) for _ in range(n_blocks)]
+    scales = np.stack([BASIC_SCALES * np.float32(1.0 + 0.1 * i) for i in range(n_blocks)])
+    scales[1:, 0] = scales[:-1, 2]  # block i's s_y is block i+1's s_x
+    return (_chain(gen, b, h, c, dev), *(torch.stack([q[k] for q in qs]) for k in BASIC_KEYS),
+            torch.from_numpy(scales.astype(np.float32)).to(dev))
+
+
+# (n_blocks, h, c): small; ResNet-34's stage widths (stage 0 at 14x14 to
+# stay small); c off the 16-byte chunk.
+BASIC_RUN_SHAPES = [(2, 8, 16), (3, 8, 16), (3, 14, 64), (2, 14, 256), (2, 7, 512), (3, 7, 20)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_blocks", [2, 3])
-def test_basic_run_kernel_equals_plain(cuda, gen, n_blocks):
-    b, h, c = 2, 8, 16
-    qs = [_basic_quantized(gen, c, c, cuda) for _ in range(n_blocks)]
-    scales = torch.from_numpy(np.stack([BASIC_SCALES] * n_blocks)).to(cuda)
-    args = (_chain(gen, b, h, c, cuda), *(torch.stack([q[k] for q in qs]) for k in BASIC_KEYS),
-            scales)
+@pytest.mark.parametrize("n_blocks,h,c", BASIC_RUN_SHAPES)
+def test_basic_run_kernel_equals_plain(cuda, gen, n_blocks, h, c):
+    """Row 8 on the int8 tile, both exits; the stacked K-major copies give
+    the same bits as a per-call transpose."""
+    args = _basic_run_args(gen, cuda, n_blocks, 2, h, c)
+    nk = {"w1pq_nk_s": args[1].transpose(1, 2).contiguous(),
+          "w2pq_nk_s": args[4].transpose(1, 2).contiguous()}
     for emit_i8 in (True, False):
+        _build.reset_launches()
         got = block.basic_run_chained_int8(*args, h=h, w_sp=h, emit_i8=emit_i8)
-        want = block.basic_run_chained_int8_plain(*args, h=h, w_sp=h, emit_i8=emit_i8)
+        assert dict(_build.LAUNCHES) == {"basic_run_chained_int8": 1}
+        _assert_equal(got, block.basic_run_chained_int8_plain(*args, h=h, w_sp=h,
+                                                              emit_i8=emit_i8))
+        packed = block.basic_run_chained_int8(*args, h=h, w_sp=h, emit_i8=emit_i8, **nk)
         torch.cuda.synchronize()
-        assert got.dtype == want.dtype and torch.equal(got, want)
+        assert torch.equal(got, packed)
 
 
 @pytest.mark.cuda
@@ -352,6 +383,14 @@ def test_tiny_engine_on_the_card_matches_plain(cuda, monkeypatch):
     assert torch.equal(got.argmax(-1), want.argmax(-1))
 
 
+def _unpacked(tree: dict) -> dict:
+    """An int8_chain engine's tree without what ``pack_chain_kmajor`` added
+    (the K-major copies, the stacked runs)."""
+    return {k: ({b: {n: t for n, t in blk.items() if not n.endswith("_nk")}
+                 for b, blk in v.items()} if k.startswith("layer") else v)
+            for k, v in tree.items() if k != "runs"}
+
+
 @pytest.mark.cuda
 def test_tiny_basic_engine_on_the_card_matches_plain(cuda, monkeypatch):
     from resnetc_tpu_torch.models import resnet
@@ -373,6 +412,11 @@ def test_tiny_basic_engine_on_the_card_matches_plain(cuda, monkeypatch):
     want = fused_forward_int8_chain(cfg, eng.folded, eng.chain_scales, x.to(cuda), kernels=PLAIN)
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+    # The engine's packed tree (K-major copies, stacked run) and the tree
+    # without them give the same bits.
+    again = fused_forward_int8_chain(cfg, _unpacked(eng.folded), eng.chain_scales, x.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
 
 
 # ---------------------------------------------------------------------------
@@ -427,6 +471,35 @@ def test_pp_run_kernel_equals_plain(cuda, gen, n_blocks, proj):
         assert dict(_build.LAUNCHES) == {"bottleneck_run_chained_int8_pp": 1}
         _assert_equal(got, block.bottleneck_run_chained_int8_pp_plain(*args, emit_i8=emit_i8, **kw))
         _assert_equal(got, block.bottleneck_run_chained_int8(*args, emit_i8=emit_i8, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [8, 14])
+def test_pp_basic_kernels_on_the_engines_pair_weights(cuda, gen, h):
+    """Rows 9 and 10 through the engine's pre-packed pair operands
+    (``pack_chain_kmajor``'s K-major copies of the pair-packed 3x3s, and the
+    per-block views of them) give the same bits as packing per call."""
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused
+
+    b, c, n_blocks = 2, 64, 3
+    qs = [_basic_quantized(gen, c, c, cuda) for _ in range(n_blocks)]
+    tree = {f"layer{s + 1}": {str(i): q for i, q in enumerate(qs)} for s in range(4)}
+    cfg = resnet.get_config("resnet34")
+    run = fused.pack_chain_kmajor(cfg, tree)["runs"]["layer1"]
+    x = _chain(gen, b, h, c, cuda)
+    stacked = (*(torch.stack([q[k] for q in qs]) for k in BASIC_KEYS),
+               torch.from_numpy(np.stack([BASIC_SCALES] * n_blocks)).to(cuda))
+    for emit_i8 in (True, False):
+        kw = dict(h=h, w_sp=h, emit_i8=emit_i8)
+        want = block.basic_run_chained_int8_pp(x, *stacked, **kw)
+        got = block.basic_run_chained_int8_pp(
+            x, *stacked, **kw, w1pp_nk_s=run["w1pp_nk_s"], w2pp_nk_s=run["w2pp_nk_s"])
+        _assert_equal(got, want)
+        args = (x, *(qs[1][k] for k in BASIC_KEYS), stacked[-1][1])
+        one = block.basic_block_chained_int8_pp(
+            *args, **kw, w1pp_nk=run["w1pp_nk_s"][1], w2pp_nk=run["w2pp_nk_s"][1])
+        _assert_equal(one, block.basic_block_chained_int8_pp(*args, **kw))
 
 
 @pytest.mark.cuda

@@ -301,6 +301,37 @@ def test_pp_basic_run_equals_pp_blocks_one_by_one(rng, emit_i8):
     assert got.dtype == y.dtype and torch.equal(got, y)
 
 
+def test_pp_basic_plain_on_packed_pair_weights_equals_jax(rng):
+    """The plain versions reading the engine's pre-packed pair operands (the
+    K-major copies of the pair-packed 3x3s that ``pack_chain_kmajor`` makes,
+    and each block's view of them) equal the Pallas kernels."""
+    b, n_blocks = 2, 2
+    jstk, tstk, scales, x = _basic_run_inputs(rng, n_blocks, b)
+    tree = {f"layer{s + 1}": {str(i): {k: tstk[k][i] for k in BASIC_KEYS}
+                              for i in range(n_blocks)} for s in range(4)}
+    packed = tfused.pack_chain_kmajor(tresnet.get_config("resnet18"), tree)
+    nk = {k: packed["runs"]["layer1"][k] for k in ("w1pp_nk_s", "w2pp_nk_s")}
+    blk = packed["layer1"]["1"]
+    for emit_i8 in (True, False):
+        kw = dict(h=H, w_sp=H, emit_i8=emit_i8)
+        want = jblock.basic_run_chained_int8_pp(
+            jnp.asarray(x), *(jstk[k] for k in BASIC_KEYS), jnp.asarray(scales),
+            interpret=True, **kw,
+        )
+        targs = (torch.from_numpy(x), *(tstk[k] for k in BASIC_KEYS), torch.from_numpy(scales))
+        got = tblock.basic_run_chained_int8_pp_plain(*targs, **kw, **nk)
+        _check(got, want, tblock.basic_run_chained_int8_plain(*targs, **kw), b, emit_i8)
+        want = jblock.basic_block_chained_int8_pp(
+            jnp.asarray(x), *(jstk[k][1] for k in BASIC_KEYS), jnp.asarray(scales[1]),
+            interpret=True, **kw,
+        )
+        bargs = (torch.from_numpy(x), *(blk[k] for k in BASIC_KEYS),
+                 torch.from_numpy(scales[1]))
+        got = tblock.basic_block_chained_int8_pp(*bargs, **kw, w1pp_nk=blk["w1pp_nk"],
+                                                 w2pp_nk=blk["w2pp_nk"])
+        _check(got, want, tblock.basic_block_chained_int8_plain(*bargs, **kw), b, emit_i8)
+
+
 # ---------------------------------------------------------------------------
 # The pp bodies' epilogues, as XLA evaluates them
 # ---------------------------------------------------------------------------
@@ -482,6 +513,23 @@ def test_pp_routes_equal_the_standard_route(fp32_trees, family, flags, want, mon
     pp, counts = _forward(tcfg, tq, tscales, x)
     assert counts == want, counts
     assert torch.equal(pp, std) and torch.equal(pp, base)
+
+
+@pytest.mark.parametrize("run_stages", [(0,), ()], ids=["run", "per-block"])
+def test_pp_basic_packed_tree_equals_unpacked(fp32_trees, run_stages, monkeypatch):
+    """ResNet-18's engine tree (``pack_chain_kmajor``: the pre-packed pair
+    operands of stage 0, the stacked runs) gives the logits of the tree
+    without them, bit for bit, on the pixel-paired route."""
+    tcfg, tq, tscales, x = fp32_trees["basic"]
+    packed = tfused.pack_chain_kmajor(tcfg, tq)
+    monkeypatch.setattr(tfused, "BASIC_DS_INT8", True)
+    monkeypatch.setattr(tfused, "L1_PIXEL_PAIR", True)
+    monkeypatch.setattr(tfused, "BASIC_RUN_FUSE_STAGES", run_stages)
+    got, counts = _forward(tcfg, packed, tscales, x)
+    want, _ = _forward(tcfg, tq, tscales, x)
+    assert counts == ({"basic_run_pp": 1} if run_stages else {"basic_block_pp": 2}) | {
+        "basic_ds": 3, "basic_block": 3, "matmul": 1}, counts
+    assert torch.equal(got, want)
 
 
 def test_pp_is_inert_on_a_wide_stage_0(monkeypatch):
