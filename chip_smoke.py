@@ -7,8 +7,10 @@ Builds the CUDA kernels from ``resnetc_tpu_torch/csrc``, checks that the
 tensor-core kernels hold wgmma instructions in their SASS (HGMMA in the
 bf16 tile's instantiations for rows 4, 13 and 14, stride 1 and stride 2
 counted apart, and for row 17's bf16 block; IGMMA in the int8 tile of row
-12 and in the block tile of rows 1-2, 7-8 and 9-10, each library's
-instantiations apart), and then:
+12 and in the block tile of rows 1-3, 5-6, 7-8 and 9-10, each library's
+instantiations apart; no dp4a ``igemm_kernel`` left in the libraries of
+rows 1-3 and 5-6, and no serialized wgmma, C7515, in ptxas's report), and
+then:
 
 1. holds every kernel of the serving paths against its plain PyTorch
    version on the card, at the shapes of ResNet-152 (the bottleneck
@@ -66,8 +68,8 @@ instantiations apart), and then:
    from Python (``eager_ms``: the median of five event-timed loops, host
    cost included), beside the plain version, the bound (for a pixel-paired
    kernel, the work of its standard twin), the TFLOP/s and share of the
-   bound of each shape (printed for the tensor-core kernels, rows 1, 4,
-   7-10, 12, 13, 14 and 17, with the ratio to the library call; TOP/s for
+   bound of each shape (printed for the tensor-core kernels, rows 1-10,
+   12, 13, 14 and 17, with the ratio to the library call; TOP/s for
    the int8 ones), and a
    library call that the port never makes, timed like ``ms``:
    torch.matmul for the GEMM, torch._int_mm for int8_matmul (int32 out, no
@@ -327,11 +329,20 @@ def make_cases(b: int, dev) -> list:
     pair-space weights."""
     import torch
 
+    from resnetc_tpu_torch.models import get_config
     from resnetc_tpu_torch.ops.cuda import block, gemm
     from resnetc_tpu_torch.ops.cuda.block import chain_meta
-    from resnetc_tpu_torch.ops.cuda.fused import kmajor_copies, kmajor_run_kwargs
+    from resnetc_tpu_torch.ops.cuda.fused import (kmajor_copies, kmajor_kwargs,
+                                                  kmajor_run_kwargs, pack_chain_kmajor,
+                                                  pp_run_operands)
 
     gen = torch.Generator().manual_seed(1234)
+
+    def pp_packed(blocks):
+        """The engine's tree (pack_chain_kmajor) of stage-0 blocks."""
+        layer = {str(i): q for i, q in enumerate(blocks)}
+        return pack_chain_kmajor(get_config("resnet152"), {f"layer{s + 1}": layer for s in range(4)})
+
     scales = torch.full((4,), 0.05, dtype=torch.float32, device=dev)
     cases = []
 
@@ -344,8 +355,10 @@ def make_cases(b: int, dev) -> list:
             kw["emit_mean"] = True
         if proj:
             kw.update(wdq=q["wdq"], swd=q["swd"], bd=q["bd"])
-        if not pp:  # the engine's K-major copies (pack_chain_kmajor)
-            kw.update(kmajor_copies(q))
+        # The engine's K-major copies (pack_chain_kmajor): the pair-space
+        # ones for the pixel-paired kernel, the standard ones for its twin.
+        twin_kw = dict(kw, **kmajor_copies(q))
+        kw = dict(kw, **kmajor_kwargs(pp_packed([q])["layer1"]["0"], pp=True)) if pp else twin_kw
         hp, wp = chain_meta(b, h, h)
         px = b * h * h
         ops = 2 * px * (cin * c + 9 * c * c + c * c4 + (cin * c4 if proj else 0))
@@ -364,6 +377,7 @@ def make_cases(b: int, dev) -> list:
         cases.append(Case(
             label, kernel, fn, plain, (x, *(q[k] for k in KEYS), scales), kw, ops, nbytes,
             PEAK_INT8_OPS, check, twin=block.bottleneck_block_chained_int8 if pp else None,
+            twin_kwargs=twin_kw,
         ))
 
     h0, c0, c40 = STAGES[0]
@@ -385,8 +399,15 @@ def make_cases(b: int, dev) -> list:
             cin = c0
             qs[0] = _block_weights(gen, c0, c0, c40, dev, proj=True)
             kw.update(w1q0=qs[0]["w1q"], wdq=qs[0]["wdq"], swd=qs[0]["swd"], bd=qs[0]["bd"])
-        if not pp:
-            kw.update(kmajor_run_kwargs([{**q, **kmajor_copies(q)} for q in qs], proj=proj))
+        twin_kw = dict(kw, **kmajor_run_kwargs([{**q, **kmajor_copies(q)} for q in qs],
+                                               proj=proj))
+        if pp:  # the engine's pair copies: qs[0] stands in as block 0 ahead of a run
+            blocks = qs if proj else [qs[0], *qs]
+            packed = pp_packed(blocks)
+            layer = [packed["layer1"][str(i)] for i in range(len(blocks))]
+            kw.update(pp_run_operands(layer, packed["runs"]["layer1"], 0 if proj else 1)[1])
+        else:
+            kw = twin_kw
         hp, wp = chain_meta(b, h0, h0)
         px = b * h0 * h0
         w_elems = n * (c40 * c0 + 9 * c0 * c0 + c0 * c40) + (
@@ -402,7 +423,7 @@ def make_cases(b: int, dev) -> list:
             kw, 2 * px * w_elems,
             b * hp * wp * (cin + c40 * (1 if emit_i8 else 2)) + w_elems,
             PEAK_INT8_OPS, "int8" if emit_i8 else "bf16",
-            twin=block.bottleneck_run_chained_int8 if pp else None,
+            twin=block.bottleneck_run_chained_int8 if pp else None, twin_kwargs=twin_kw,
         ))
 
     run_case("run/n2/s0", 2)
@@ -422,7 +443,8 @@ def make_cases(b: int, dev) -> list:
         cases.append(Case(
             f"ds/s{s}", "downsample_block_s2_int8", block.downsample_block_s2_int8,
             block.downsample_block_s2_int8_plain,
-            (x, *(q[k] for k in dkeys), scales), dict(h=h_in, w_sp=h_in),
+            (x, *(q[k] for k in dkeys), scales),
+            dict(h=h_in, w_sp=h_in, **kmajor_copies(q)),  # the engine's K-major copies
             ops, nbytes, PEAK_INT8_OPS, "int8",
         ))
 
@@ -912,16 +934,18 @@ SASS_CHECKS = (
     # conv3 through the GEMM loader, conv2 through the im2col one)
     ("libfp_block.so", r"tile_kernel.*GemmALoader", "HGMMA"),
     ("libfp_block.so", r"tile_kernel.*ConvALoader", "HGMMA"),
-    # rows 1 and 2: bottleneck_block_chained_int8 and the run (row 3 keeps
-    # igemm.cuh's dp4a kernel in the same library)
+    # rows 1-3: bottleneck_block_chained_int8, the run and the stride-2
+    # transition downsample_block_s2_int8
     ("libchain_block.so", r"chain_tile_kernel", "IGMMA"),
     # rows 7 and 8: basic_block_chained_int8 and the run (row 11 keeps the
     # dp4a kernel)
     ("libbasic_block.so", r"chain_tile_kernel", "IGMMA"),
-    # rows 9 and 10: the pixel-paired basic block and run (rows 5 and 6, the
-    # pixel-paired bottleneck kernels, keep the dp4a igemm_kernel)
+    # rows 5, 6, 9 and 10: the pixel-paired bottleneck and basic blocks and
+    # runs
     ("libpp_block.so", r"chain_tile_kernel", "IGMMA"),
 )
+#: Libraries that must hold no dp4a implicit GEMM (igemm.cuh) any more.
+NO_IGEMM = ("libchain_block.so", "libpp_block.so")
 
 
 def _sass_functions(path) -> dict:
@@ -945,8 +969,12 @@ def phase_sass(build_dir) -> dict:
     """The tensor-core kernels hold wgmma instructions in their SASS
     (``SASS_CHECKS``): HGMMA in the bf16 tile's instantiations, IGMMA in
     the int8 tiles.  Counted per kernel, not per library, so another
-    kernel's wgmma cannot stand in."""
+    kernel's wgmma cannot stand in.  ``NO_IGEMM``'s libraries hold no dp4a
+    kernel, and ptxas reported no serialized wgmma (C7515) for a source
+    built in this run."""
     import re
+
+    from resnetc_tpu_torch.ops.cuda import _build
 
     counts, libs = {}, {}
     for lib, pattern, opcode in SASS_CHECKS:
@@ -962,6 +990,18 @@ def phase_sass(build_dir) -> dict:
         counts[f"{lib} {pattern}"] = {"kernels": len(mine), opcode: sum(mine.values())}
         log(f"[sass] {lib}: {len(mine)} kernels matching {pattern}, each with {opcode}; "
             f"{sum(mine.values())} in all")
+    for lib in NO_IGEMM:
+        left = [name for name in libs[lib] if "igemm_kernel" in name]
+        if left:
+            raise AssertionError(f"{lib}: still holds the dp4a kernel {left[0]}")
+        log(f"[sass] {lib}: no igemm_kernel")
+    # ptxas's C7515 ("wgmma ... serialized") in any source built this run.
+    built = sorted(_build.BUILD_LOG)
+    serialized = [name for name in built if "C7515" in _build.BUILD_LOG[name]]
+    if serialized:
+        raise AssertionError(f"ptxas serialized wgmma (C7515) in {serialized}")
+    log(f"[sass] no C7515 in the ptxas output of {len(built)} sources built in this run"
+        + ("" if built else " (every library was already built)"))
     return counts
 
 
@@ -1490,6 +1530,8 @@ MEMBERS = {"add, add_relu": ("add", "add_relu")}
 #: library call are printed per shape.
 TILE_KERNELS = ("conv3x3_s1_fused", "conv_s2_fused", "matmul", "int8_matmul",
                 "bottleneck_block_chained", "bottleneck_block_chained_int8",
+                "bottleneck_run_chained_int8", "downsample_block_s2_int8",
+                "bottleneck_block_chained_int8_pp", "bottleneck_run_chained_int8_pp",
                 "basic_block_chained_int8", "basic_run_chained_int8",
                 "basic_block_chained_int8_pp", "basic_run_chained_int8_pp")
 

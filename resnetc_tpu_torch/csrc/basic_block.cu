@@ -98,7 +98,7 @@ extern "C" int basic_block_int8(
   t1.N = c;
   t1.pixels = 1;
   t1.g = ch;
-  if ((err = run_tile<3, TE_KH3_Q, true>(t1, stream))) return err;
+  if ((err = run_tile<3, TE_KH3_Q, 7>(t1, stream))) return err;
   zero_ring_kernel<<<264, 256, 0, stream>>>(reinterpret_cast<uint8_t*>(z1), ch, B, c);
 
   // conv2 (3x3/1) over the interior pixels, + identity residual + relu;

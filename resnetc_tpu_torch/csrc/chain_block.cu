@@ -50,8 +50,24 @@
 // stages of copies in flight; one launch with z1/z2 on chip, TMA and a
 // deeper ring are later work.
 //
-// The stride-2 transition still goes through the int8 implicit GEMM of
-// igemm.cuh on the CUDA cores' dp4a (its header says how it works).
+// The stride-2 transition is three launches of the same tile and a ring
+// pass, z1 (input geometry) and z2 (output geometry) through device scratch:
+//   conv1: as the stride-1 block's, over every chain row of x, ring rows
+//          zero (a select);
+//   conv2: over the output's interior pixels, ONE int32 sum of K = 9c:
+//          output pixel (i, j) reads, for kernel row u, the three
+//          consecutive chain rows of z1 from input pixel (2i+u-1, 2j-1)
+//          (3c contiguous int8 values in the (kw, k) order of w2q's rows),
+//          the loader stepping wp rows every 3c columns (chain_tile.cuh's
+//          stride-2 source row); one sum because the per-channel scale is
+//          joint over the nine taps (three folded sums would round
+//          otherwise); relu(fma(P, a2, c2)) -> int8;
+//   conv3: z2 at the output pixel's chain row plus the 1x1/2 projection, a
+//          second sum reading x at input pixel (2i, 2j); relu; int8 or bf16;
+//          then the output's ring rows are zeroed.
+// z1's zero ring is conv2's padding: where the input size is odd, the taps
+// of the last output row or column that fall past the image are ring rows.  At ResNet-152's three transitions
+// (batch 32) each is ~23.9 G int8 operations: a bound of ~12 us.
 //
 // The outputs equal the plain PyTorch versions in
 // resnetc_tpu_torch/ops/cuda/block.py bit for bit (the mean exit up to fp32
@@ -214,47 +230,80 @@ extern "C" int chain_run_int8(
 
 // The stride-2 transition block: x is the (h, w) input stage's int8 chain,
 // out the (oh, ow) = ((h+1)/2, (w+1)/2) stage's chain (int8, or bf16 when
-// out_kind == 1).  conv1 1x1 over the input chain, conv2 3x3/2 with one
-// int32 sum over all nine taps (w2 (9c, c), rows (kh, kw, k)), conv3 1x1
-// plus the 1x1/2 projection of x[2r, 2q].  z1 (B*hp*wp, c) and
-// z2 (B*hp2*wp2, c) are int8 scratch.
+// out_kind == 1).  The weights are the K-major copies w1_nk (c, cin), w2_nk
+// (c, 9c) whose columns are (kh, kw, k), w3_nk (c4, c), wd_nk (c4, cin); the
+// vectors raw: sw1, b1, sw2, b2 (c), sw3, b3, swd, bd (c4); scales the device
+// [s_x, s_z1, s_z2, s_y], s_y taken as 1 when unit_y.  z1 (B*hp*wp, c) and
+// z2 (B*hp2*wp2, c) are int8 scratch.  Returns the first failed launch's
+// cudaError_t, or 0.
 extern "C" int ds_block_s2_int8(
     const int8_t* x, int B, int h, int w, int hp, int wp, int cin, int c, int c4,
     int oh, int ow, int hp2, int wp2,
-    const int8_t* w1, const float* a1, const float* c1,
-    const int8_t* w2, const float* a2, const float* c2,
-    const int8_t* w3, const float* a3, const float* c3,
-    const int8_t* wd, const float* ad, const float* cd,
-    int8_t* z1, int8_t* z2, int out_kind, void* out, cudaStream_t stream) {
-  const Geo gi{h, w, hp, wp};
-  const Geo go{oh, ow, hp2, wp2};
+    const int8_t* w1_nk, const float* sw1, const float* b1,
+    const int8_t* w2_nk, const float* sw2, const float* b2,
+    const int8_t* w3_nk, const float* sw3, const float* b3,
+    const int8_t* wd_nk, const float* swd, const float* bd,
+    const float* scales, int unit_y, int8_t* z1, int8_t* z2, int out_kind, void* out,
+    cudaStream_t stream) {
+  enum { S_X = 0, S_Z1 = 1, S_Z2 = 2, S_Y = 3 };
+  const Chain gi{h, w, hp, wp}, go{oh, ow, hp2, wp2};
+  const int rows = B * hp * wp, pixels = B * oh * ow;
   int err;
 
-  Operand o1 = operand(x, cin, gi, 1, 1, 0, w1, c, 0);
-  EpiArgs e1{};
-  e1.a[0] = a1;
-  e1.c = c1;
-  e1.out_kind = OUT_I8;
-  e1.out = z1;
-  if ((err = launch<1, EPI_RELU_Q>(&o1, gi, B * hp * wp, c, e1, stream))) return err;
+  // conv1 (1x1, cin -> c) over every chain row of x: relu(fma(P, a1, c1))
+  // -> int8, ring rows zero (conv2's padding).
+  TileArgs t1{};
+  t1.sum[0] = S8Sum{x, w1_nk, static_cast<long long>(rows) * cin, cin, 0, cin};
+  t1.sw[0] = sw1, t1.num[0] = S_X, t1.den[0] = S_Z1;
+  t1.b = b1;
+  t1.scales = scales;
+  t1.iy = S_Y;
+  t1.out = z1;
+  t1.out_kind = OUT_I8;
+  t1.M = rows;
+  t1.N = c;
+  t1.g = gi;
+  if ((err = run_tile<1, TE_RELU_Q>(t1, stream))) return err;
 
-  Operand o2 = operand(z1, c, gi, 2, 9, 0, w2, c, 0);
-  EpiArgs e2{};
-  e2.a[0] = a2;
-  e2.c = c2;
-  e2.out_kind = OUT_I8;
-  e2.out = z2;
-  if ((err = launch<1, EPI_RELU_Q>(&o2, go, B * hp2 * wp2, c, e2, stream))) return err;
+  // conv2 (3x3/2) over the output's interior pixels: one sum over the nine
+  // taps, segment u (3c columns) reading z1 from the chain row of input
+  // pixel (2i+u-1, 2j-1).
+  TileArgs t2{};
+  t2.sum[0] = S8Sum{z1, w2_nk, static_cast<long long>(rows) * c, c, -wp - 1, 9 * c, 3 * c, wp};
+  t2.sw[0] = sw2, t2.num[0] = S_Z1, t2.den[0] = S_Z2;
+  t2.b = b2;
+  t2.scales = scales;
+  t2.iy = S_Y;
+  t2.out = z2;
+  t2.out_kind = OUT_I8;
+  t2.M = pixels;
+  t2.N = c;
+  t2.pixels = 1;
+  t2.g = go;
+  t2.src = gi;
+  if ((err = run_tile<1, TE_RELU_Q, 0, false, 1>(t2, stream))) return err;
 
-  Operand o3[2];
-  o3[0] = operand(z2, c, go, 1, 1, 0, w3, c4, 0);
-  o3[1] = operand(x, cin, gi, 2, 1, 0, wd, c4, 0);
-  EpiArgs e3{};
-  e3.a[0] = a3;
-  e3.c = c3;
-  e3.ad = ad;
-  e3.cd = cd;
-  e3.out_kind = out_kind;
-  e3.out = out;
-  return launch<2, EPI_BLOCK_OUT>(o3, go, B * hp2 * wp2, c4, e3, stream);
+  // conv3 (1x1, c -> c4) + the 1x1/2 projection of x at input pixel (2i,
+  // 2j) + relu over the output's interior pixels; then its ring rows zero.
+  TileArgs t3{};
+  t3.sum[0] = S8Sum{z2, w3_nk, static_cast<long long>(B) * hp2 * wp2 * c, c, 0, c};
+  t3.sw[0] = sw3, t3.num[0] = S_Z2, t3.den[0] = S_Y;
+  t3.sum[1] = S8Sum{x, wd_nk, static_cast<long long>(rows) * cin, cin, 0, cin, cin, 0};
+  t3.sw[1] = swd, t3.num[1] = S_X, t3.den[1] = S_Y;
+  t3.b = b3;
+  t3.bd = bd;
+  t3.scales = scales;
+  t3.iy = S_Y;
+  t3.unit_y = unit_y;
+  t3.out = out;
+  t3.out_kind = out_kind;
+  t3.M = pixels;
+  t3.N = c4;
+  t3.pixels = 1;
+  t3.g = go;
+  t3.src = gi;
+  if ((err = run_tile<2, TE_OUT, 0, false, 2>(t3, stream))) return err;
+  zero_ring_kernel<<<264, 256, 0, stream>>>(static_cast<uint8_t*>(out), go, B,
+                                            c4 * (out_kind == OUT_BF16 ? 2 : 1));
+  return static_cast<int>(cudaGetLastError());
 }

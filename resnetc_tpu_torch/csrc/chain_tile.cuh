@@ -5,13 +5,17 @@
 //   - chain_block.cu: the stride-1 bottleneck block and its run
 //     (bottleneck_block_chained_int8, resnetc_tpu/ops/pallas/block.py:718;
 //     bottleneck_run_chained_int8, :2908): conv1 1x1, conv2 3x3, conv3 1x1
-//     with its shortcut;
+//     with its shortcut; and the stride-2 transition
+//     (downsample_block_s2_int8, :3460): conv1 1x1, conv2 3x3/2 as one
+//     nine-tap sum, conv3 1x1 with the 1x1/2 projection;
 //   - basic_block.cu: the stride-1 BasicBlock and its run
 //     (basic_block_chained_int8, :1646; basic_run_chained_int8, :1830): two
 //     3x3s and the identity shortcut;
-//   - pp_block.cu: the pixel-paired BasicBlock and its run
-//     (basic_block_chained_int8_pp, :2002; basic_run_chained_int8_pp,
-//     :2175), the same two 3x3s in pair geometry.
+//   - pp_block.cu: the pixel-paired bottleneck block and run
+//     (bottleneck_block_chained_int8_pp, :1113; bottleneck_run_chained_int8_pp,
+//     :1387) and BasicBlock and run (basic_block_chained_int8_pp, :2002;
+//     basic_run_chained_int8_pp, :2175), the same convolutions in pair
+//     geometry.
 //
 // A sum's A operand is a row view of a chain buffer (S8Sum): GEMM row m
 // reads the K int8 values at a + (row(m) + off) * lda.  A 1x1 reads its own
@@ -24,29 +28,53 @@
 // + 1, K = 3 * 2c in the pair-packed weight's (kwp, half, k) order.  B is
 // the (N, K) K-major weight (8-bit wgmma has no transpose bit).
 //
-// Where a 3x3 reads a buffer whose ring may hold anything (the BasicBlock's
-// conv1 reads x itself: "chain ring garbage must not enter a 3x3",
-// block.py:1595), the kernel's MASK flag zero-fills every 16-byte chunk
-// whose source pixel is not an interior pixel: each thread decodes, once,
-// which of its rows' 3 x 3 taps (x 2 halves in pair geometry) are interior,
-// and a chunk at K index k lies in tap k / lda (and half (k % lda) / (lda/2))
-// because lda, and lda / 2 in pair geometry, are multiples of 16 on the
-// vector path; the byte path tests each byte.  MASK is a template flag so
-// that the other launches load without a test.  A 3x3 over z1 needs no
-// mask: z1's ring is zero (a pass after the standard conv1; a select in the
-// pair conv1's epilogue, per half of a pair row).
+// The stride-2 source row (the kernel's S2 mask over the sums).  A stride-2
+// sum's GEMM row m is an interior pixel (i, j) of the output geometry g,
+// and its A row is read from the input chain (geometry src) at the chain
+// row of input pixel (2i, 2j) instead of row(m), in K segments of `seg`
+// values, segment q starting `seg_rows` rows further on: the transition's
+// conv2 reads z1 with off = -wp - 1, seg = 3c, seg_rows = wp, so segment u
+// is the three consecutive chain rows of input pixels (2i+u-1, 2j-1 .. +1),
+// the (kh, kw, k) order of its (9c, c) weight, all nine taps in ONE int32
+// sum (its per-channel scale is joint over the taps); the projection reads
+// x at (2i, 2j) with seg = K.  z1's zero ring is the padding: where the
+// input size is odd, the taps of the last output row or column that fall
+// past the image are ring rows (with wp = w + 1 the right pad column is the
+// next row's left one).
+//
+// Where a 3x3 or a pair-space 1x1 reads a buffer whose ring may hold
+// anything (the BasicBlock's conv1 reads x itself: "chain ring garbage must
+// not enter a 3x3", block.py:1595; in pair space a dense weight mixes the
+// two halves), the kernel's MASK (a mask over the sums) zero-fills every
+// 16-byte chunk whose source pixel is not an interior pixel: each thread
+// decodes, once, which of its rows' taps (x 2 halves in pair geometry) are
+// interior, and a chunk at K index k lies in tap k / lda (and half
+// (k % lda) / (lda/2)) because lda, and lda / 2 in pair geometry, are
+// multiples of 16 on the vector path; the byte path tests each byte.  A
+// masked sum g of a three-sum launch is kernel row g of a 3x3, one of a
+// one- or two-sum launch a 1x1 at the row's own pixels.  MASK is a template
+// mask so that the other
+// sums and launches load without a test.  A 3x3 over z1 needs no mask: z1's
+// ring is zero (a pass after the standard conv1; a select in the conv1
+// epilogues over every row, per half of a pair row).
 //
 // The requant scales are folded into the epilogue, op for op as the
 // wrapper of the TPU kernel folds them on the host (block.py:789-797,
-// 822-823, 1684-1690; ops/cuda/block.py _fold_block, _fold_basic): sum g's
-// multiplier is sw[g][n] * (s[num[g]] / s[den[g]]), the bias b[n] *
-// (1 / s[den[0]]), the projection bias bd[n] * (1 / s_y), the residual
-// scale s_x / s_y, where s is the device vector [s_x, s_z1, s_z2, s_y] of a
-// bottleneck block or [s_x, s_z1, s_y] of a BasicBlock (s_y = 1 for a bf16
-// or fp32 exit).  No small kernel runs per call to fold them.  The pair
-// kernels take the vectors already folded and lane-tiled to pair width (the
-// JAX wrappers' jnp.tile, computed once per run on the host): with `folded`
-// every ratio is 1 and the residual scale is scales[0], so the epilogue's
+// 822-823, 1684-1690, 3545-3554; ops/cuda/block.py _fold_block,
+// _fold_basic, _fold_ds): sum g's multiplier is sw[g][n] * (s[num[g]] /
+// s[den[g]]), the bias b[n] * (1 / s[den[0]]), the projection bias bd[n] *
+// (1 / s_y), the residual scale s_x / s_y, where s is the device vector
+// [s_x, s_z1, s_z2, s_y] of a bottleneck block or [s_x, s_z1, s_y] of a
+// BasicBlock (s_y = 1 for a bf16 or fp32 exit).  No small kernel runs per
+// call to fold them.  In pair geometry with `tiled` the raw vectors are the
+// standard block's (width N / 2) and channel n of a pair row reads entry n
+// mod N / 2, which is the JAX wrappers' lane tiling (jnp.tile) of the folded
+// vectors, since the fold is elementwise; the launch keeps each column tile
+// within one half, so the mod is one offset a tile (a test per column
+// raised the pair kernels' spills from 0-16 to 128-240 bytes and cost the
+// pixel-paired BasicBlock 10%).  The pair-space entries take the
+// vectors already folded and lane-tiled to pair width: with `folded` every
+// ratio is 1 and the residual scale is scales[0], so the epilogue's
 // products reproduce the folded values exactly.
 //
 // The declarations are in an unnamed namespace: each library that includes
@@ -57,7 +85,7 @@
 
 #pragma once
 
-#include "igemm.cuh"  // requant and the output kinds
+#include "igemm.cuh"  // requant and the output kinds (no kernel of it is instantiated here)
 #include "s8_tile.cuh"
 
 namespace {
@@ -67,18 +95,22 @@ using s8tile::Chain;
 // One int32 sum of a launch: row m of A is the K int8 values at
 // a + (row(m) + off) * lda, zero where that lies outside [0, limit) (a
 // chain's first or last rows) or past K; B is the (N, K) K-major weight w.
+// A stride-2 sum (the kernel's S2) reads K index k at a + (src(m) + off +
+// (k / seg) * seg_rows) * lda + k % seg.
 struct S8Sum {
   const int8_t* a;
   const int8_t* w;
   long long limit;
   int lda, off, K;
+  int seg, seg_rows;
 };
 
-// TE_RELU_Q (1x1): relu(fma(P, a0, c)) -> int8.  TE_KH3_Q (3x3): relu(fma(P2,
-// a2, fma(P0, a0, P1*a1)) + c) -> int8.  TE_OUT (bottleneck conv3): y =
-// fma(P, a0, c), then the shortcut: fma(x, s_res, y), or y + fma(Pd, a1, cd);
-// relu; int8, bf16 or fp32.  TE_KH3_OUT (BasicBlock conv2): y = fma(P2, a2,
-// fma(P0, a0, P1*a1)) + c, then fma(x, s_res, y); relu; int8 or bf16.
+// TE_RELU_Q (1x1, or a 3x3 as one sum): relu(fma(P, a0, c)) -> int8.
+// TE_KH3_Q (3x3): relu(fma(P2, a2, fma(P0, a0, P1*a1)) + c) -> int8.  TE_OUT
+// (bottleneck conv3): y = fma(P, a0, c), then the shortcut: fma(x, s_res,
+// y), or y + fma(Pd, a1, cd); relu; int8, bf16 or fp32.  TE_KH3_OUT
+// (BasicBlock conv2): y = fma(P2, a2, fma(P0, a0, P1*a1)) + c, then fma(x,
+// s_res, y); relu; int8 or bf16.
 enum TileEpi { TE_RELU_Q = 0, TE_KH3_Q = 1, TE_OUT = 2, TE_KH3_OUT = 3 };
 
 __host__ __device__ constexpr bool is_kh3(int epi) { return epi == TE_KH3_Q || epi == TE_KH3_OUT; }
@@ -93,16 +125,26 @@ struct TileArgs {
   int iy;               // 3: [s_x, s_z1, s_z2, s_y]; 2: [s_x, s_z1, s_y]
   int unit_y;           // s_y taken as 1
   int folded;           // sw and b are the folded multipliers and biases
+  int tiled;            // PAIR: the vectors have N / 2 entries, read at n mod N / 2
   const int8_t* res;    // identity residual (GEMM rows, ld N), or nullptr
   void* out;            // GEMM rows, ld N
   int out_kind;         // OUT_I8, OUT_BF16, OUT_F32
   int M, N;
   int pixels;           // 1: row m is interior pixel m, at its chain row; 0: GEMM row m
   Chain g;              // the pixel geometry
+  Chain src;            // the input geometry of the stride-2 sums
 };
 
 __device__ __forceinline__ int out_row(const TileArgs& p, int m) {
   return p.pixels ? s8tile::chain_row(p.g, m) : m;
+}
+
+// Interior pixel m = (b, i, j) of the output geometry -> the chain row of
+// input pixel (2i, 2j) in the source geometry.
+__device__ __forceinline__ int s2_row(const TileArgs& p, int m) {
+  const int hw = p.g.h * p.g.w;
+  const int b = m / hw, rem = m - b * hw, i = rem / p.g.w, j = rem - i * p.g.w;
+  return (b * p.src.hp + 2 * i + 1) * p.src.wp + 2 * j + 1;
 }
 
 // The per-launch scalars of the epilogue, from the device scales.
@@ -135,30 +177,35 @@ __device__ __forceinline__ Ratios ratios(const TileArgs& p, int ng) {
 }
 
 // Folds the finished sum G (acc) into the running fp32 values h, in the
-// Pallas kernel's order of operations as XLA evaluates it (igemm.cuh's
-// epilogues); the last sum leaves the output before the shortcut and relu.
+// Pallas kernel's order of operations as XLA evaluates it (every a*b + c one
+// fma); the last sum leaves the output before the shortcut and relu.
+// Column n reads entry n - hoff of the vectors (hoff: see chain_tile), the
+// offset taken off the vectors' base pointers once, a uniform value.
 template <int BN, int EPI, int G>
 __device__ __forceinline__ void fold(const TileArgs& p, const Ratios& r, const int (&acc)[BN / 2],
-                                     float (&h)[BN / 2], int n0, int lane) {
+                                     float (&h)[BN / 2], int n0, int hoff, int lane) {
+  const float* const sw = p.sw[G] - hoff;
+  const float* const sw0 = p.sw[0] - hoff;
+  const float* const b = p.b - hoff;
 #pragma unroll
   for (int j = 0; j < BN / 2; ++j) {
     const int n = n0 + 8 * (j / 4) + 2 * (lane % 4) + (j % 2);
     const bool in = n < p.N;
     const float f = __int2float_rn(acc[j]);
-    const float a = in ? __fmul_rn(p.sw[G][n], r.sum[G]) : 0.f;
+    const float a = in ? __fmul_rn(sw[n], r.sum[G]) : 0.f;
     if (is_kh3(EPI)) {
       if (G == 0) {
         h[j] = f;
       } else if (G == 1) {
-        const float a0 = in ? __fmul_rn(p.sw[0][n], r.sum[0]) : 0.f;
+        const float a0 = in ? __fmul_rn(sw0[n], r.sum[0]) : 0.f;
         h[j] = __fmaf_rn(h[j], a0, __fmul_rn(f, a));
       } else {
-        h[j] = __fadd_rn(__fmaf_rn(f, a, h[j]), in ? __fmul_rn(p.b[n], r.bias) : 0.f);
+        h[j] = __fadd_rn(__fmaf_rn(f, a, h[j]), in ? __fmul_rn(b[n], r.bias) : 0.f);
       }
     } else if (G == 0) {
-      h[j] = __fmaf_rn(f, a, in ? __fmul_rn(p.b[n], r.bias) : 0.f);
+      h[j] = __fmaf_rn(f, a, in ? __fmul_rn(b[n], r.bias) : 0.f);
     } else {
-      h[j] = __fadd_rn(h[j], __fmaf_rn(f, a, in ? __fmul_rn(p.bd[n], r.proj) : 0.f));
+      h[j] = __fadd_rn(h[j], __fmaf_rn(f, a, in ? __fmul_rn(p.bd[n - hoff], r.proj) : 0.f));
     }
   }
 }
@@ -238,13 +285,15 @@ __device__ __forceinline__ uint32_t interior(const Chain& g, long long t) {
 // warpgroup has waited for its products); where a sum ends, its int32
 // tile is folded into the fp32 values h (fold) and the next sum starts from
 // zero, so one int32 tile and one fp32 tile are live (the 3x3's
-// fma(P0, a0, P1*a1) is formed as soon as P1 is done).  With MASK the A
-// loads skip source pixels off the image, and with PAIR the GEMM rows are
-// pair rows (see the header).  MASK and PAIR are template flags so that a
-// kernel without them carries no test of theirs.
-template <int BM, int BN, bool VEC, int NG, int EPI, bool MASK, bool PAIR>
+// fma(P0, a0, P1*a1) is formed as soon as P1 is done).  The A loads of the
+// sums in MASK skip source pixels off the image, those in S2 read at the
+// stride-2 source row, and with PAIR the GEMM rows are pair rows (see the
+// header).  MASK, S2 and PAIR are template parameters so that a kernel
+// without them carries no test of theirs.
+template <int BM, int BN, bool VEC, int NG, int EPI, int MASK, bool PAIR, int S2>
 __device__ __forceinline__ void chain_tile(const TileArgs& p) {
   using namespace s8tile;
+  static_assert(!(MASK & S2), "a stride-2 sum reads interior pixels only");
   extern __shared__ uint8_t smem_raw[];
   __shared__ int row_t[BM];       // the tile row's GEMM row in the output
   __shared__ int row_in[BM];      // ... and which of its pixels are interior (finish8)
@@ -270,40 +319,48 @@ __device__ __forceinline__ void chain_tile(const TileArgs& p) {
     row_in[tid] = in;
   }
 
-  // This thread's four A rows (t / 8 + i * BM / 4): their GEMM rows, and
-  // with MASK which source pixels of each are interior: bit (3g + tap) * 2
-  // + half.  A MASK sum g is kernel row kh = g of a 3x3, so the source
-  // pixel of (g, tap, half) lies g - 1 padded rows and span * (tap - 1) +
-  // half columns from the row's first pixel (py, px), the column wrapping
-  // into the neighbouring padded row as the flat index does.  Where a row's
-  // pixels are all ring its output is zero whatever it reads, and for every
-  // other row the source row stays within one padded row of the image, so
-  // the test against (h, w) is the flat decode's.
+  // This thread's four A rows (t / 8 + i * BM / 4): their GEMM rows (and
+  // with S2 their stride-2 source rows), and with MASK which source pixels
+  // of each are interior: bit (3g + tap) * 2 + half.  A masked sum g of a
+  // three-sum launch is kernel row kh = g of a 3x3, so the source pixel of
+  // (g, tap, half) lies g - 1 padded rows and span * (tap - 1) + half
+  // columns from the row's first pixel (py, px); a masked sum of a one- or
+  // two-sum launch is a 1x1, one tap at the row's own pixels.  The column
+  // wraps into the neighbouring padded row as the flat index does.
+  // Where a row's pixels are all ring its output is zero whatever it reads,
+  // and for every other row the source row stays within one padded row of
+  // the image, so the test against (h, w) is the flat decode's.
   const int c = tid & 7;
   long long arow[4];
+  int srow[4];
   uint32_t amask[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + tid / 8 + i * (BM / 4);
     arow[i] = m < p.M ? out_row(p, m) : -(1ll << 40);
+    srow[i] = S2 && m < p.M ? s2_row(p, m) : -(1 << 30);
     amask[i] = 0;
     if (MASK && m < p.M) {
       const int rem = static_cast<int>(arow[i] * span % (p.g.hp * p.g.wp));
       const int py = rem / p.g.wp, px = rem - py * p.g.wp;
 #pragma unroll
-      for (int g = 0; g < NG; ++g)
+      for (int g = 0; g < NG; ++g) {
+        if (!((MASK >> g) & 1)) continue;
+        constexpr int taps = NG == 3 ? 3 : 1;
+        const int dy = taps == 3 ? g - 1 : 0;
 #pragma unroll
         for (int tap = 0; tap < 3; ++tap)
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
-            int row = py + g - 1, col = px + span * (tap - 1) + half;
+            int row = py + dy, col = px + span * (tap - taps / 2) + half;
             if (col < 0)
               col += p.g.wp, --row;
             else if (col >= p.g.wp)
               col -= p.g.wp, ++row;
             const bool in = row >= 1 && row <= p.g.h && col >= 1 && col <= p.g.w;
-            if (half < span && in) amask[i] |= 1u << ((3 * g + tap) * 2 + half);
+            if (tap < taps && half < span && in) amask[i] |= 1u << ((3 * g + tap) * 2 + half);
           }
+      }
     }
   }
   int nk[NG], total = 0;
@@ -317,16 +374,27 @@ __device__ __forceinline__ void chain_tile(const TileArgs& p) {
     const int half = PAIR && 2 * (k - tap * s.lda) >= s.lda;
     return (3 * g + tap) * 2 + half;
   };
+  // The flat index into sum g's buffer of K index k of this thread's row i.
+  auto src_index = [&](int g, int i, int k) -> long long {
+    const S8Sum& s = p.sum[g];
+    if ((S2 >> g) & 1) {
+      const int q = k / s.seg;
+      return (static_cast<long long>(srow[i]) + s.off + static_cast<long long>(q) * s.seg_rows) *
+                 s.lda + (k - q * s.seg);
+    }
+    return (arow[i] + s.off) * s.lda + k;
+  };
   auto load_a = [&](int g, uint32_t st, int kt) {
     const S8Sum& s = p.sum[g];
+    const bool masked = (MASK >> g) & 1;
     const int k = kt * BK8 + 16 * c;
-    const int bit = MASK && VEC && k < s.K ? bit_of(g, k) : 0;
+    const int bit = masked && VEC && k < s.K ? bit_of(g, k) : 0;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const uint32_t dst = st + a_off(tid / 8 + i * (BM / 4), c);
-      const long long f = (arow[i] + s.off) * s.lda + k;
       if (VEC) {
-        const bool ok = k < s.K && f >= 0 && f < s.limit && (!MASK || (amask[i] >> bit) & 1);
+        const long long f = src_index(g, i, k);
+        const bool ok = k < s.K && f >= 0 && f < s.limit && (!masked || (amask[i] >> bit) & 1);
         cp_async16(dst, ok ? s.a + f : s.a, ok);
       } else {
         uint32_t v[4];
@@ -335,10 +403,11 @@ __device__ __forceinline__ void chain_tile(const TileArgs& p) {
           uint32_t word = 0;
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int kk = 4 * j + e;
-            if (k + kk < s.K && f + kk >= 0 && f + kk < s.limit &&
-                (!MASK || (amask[i] >> bit_of(g, k + kk)) & 1))
-              word |= static_cast<uint32_t>(static_cast<uint8_t>(s.a[f + kk])) << (8 * e);
+            const int kk = k + 4 * j + e;
+            if (kk >= s.K) continue;
+            const long long f = src_index(g, i, kk);
+            if (f >= 0 && f < s.limit && (!masked || (amask[i] >> bit_of(g, kk)) & 1))
+              word |= static_cast<uint32_t>(static_cast<uint8_t>(s.a[f])) << (8 * e);
           }
           v[j] = word;
         }
@@ -399,15 +468,18 @@ __device__ __forceinline__ void chain_tile(const TileArgs& p) {
     fence_iregs(acc);
   };
   const Ratios r = ratios(p, NG);
+  // With `tiled` the column tile lies within one half of the pair row
+  // (run_tile sees to it), so column n reads entry n - N/2 in the odd half.
+  const int hoff = PAIR && p.tiled && 2 * n0 >= p.N ? p.N / 2 : 0;
   run_sum(0);
-  fold<BN, EPI, 0>(p, r, acc, h, n0, lane);
+  fold<BN, EPI, 0>(p, r, acc, h, n0, hoff, lane);
   if constexpr (NG > 1) {
     run_sum(1);
-    fold<BN, EPI, 1>(p, r, acc, h, n0, lane);
+    fold<BN, EPI, 1>(p, r, acc, h, n0, hoff, lane);
   }
   if constexpr (NG > 2) {
     run_sum(2);
-    fold<BN, EPI, 2>(p, r, acc, h, n0, lane);
+    fold<BN, EPI, 2>(p, r, acc, h, n0, hoff, lane);
   }
 
   // Stage the fp32 tile in shared memory (the ring is free now), then
@@ -441,9 +513,9 @@ __device__ __forceinline__ void chain_tile(const TileArgs& p) {
   }
 }
 
-template <int BM, int BN, bool VEC, int NG, int EPI, bool MASK, bool PAIR>
+template <int BM, int BN, bool VEC, int NG, int EPI, int MASK, bool PAIR, int S2>
 __global__ void __launch_bounds__(2 * BM) chain_tile_kernel(TileArgs p) {
-  chain_tile<BM, BN, VEC, NG, EPI, MASK, PAIR>(p);
+  chain_tile<BM, BN, VEC, NG, EPI, MASK, PAIR, S2>(p);
 }
 
 // The same, two blocks an SM: the 128 x 64 tiles of two or three sums (the
@@ -455,9 +527,9 @@ __global__ void __launch_bounds__(2 * BM) chain_tile_kernel(TileArgs p) {
 // projection block 0.2050 against 0.2628 ms.  The one-sum launches keep
 // their 74-80 registers unbounded (any minimum raised them to 128, and row
 // 1 at 14x14 lost 5%).
-template <int BM, int BN, bool VEC, int NG, int EPI, bool MASK, bool PAIR>
+template <int BM, int BN, bool VEC, int NG, int EPI, int MASK, bool PAIR, int S2>
 __global__ void __launch_bounds__(2 * BM, 2) chain_tile_kernel_2sm(TileArgs p) {
-  chain_tile<BM, BN, VEC, NG, EPI, MASK, PAIR>(p);
+  chain_tile<BM, BN, VEC, NG, EPI, MASK, PAIR, S2>(p);
 }
 
 // Zeros on the ring rows of a chain of B images (rows of row_bytes bytes),
@@ -493,16 +565,16 @@ __global__ void zero_ring_kernel(uint8_t* out, Chain g, int B, int row_bytes) {
   }
 }
 
-template <int BM, int BN, int NG, int EPI, bool MASK, bool PAIR>
+template <int BM, int BN, int NG, int EPI, int MASK, bool PAIR, int S2>
 cudaError_t launch_chain_tile(const TileArgs& p, int stages, bool vec, cudaStream_t stream) {
   using namespace s8tile;
   void (*kern)(TileArgs);
   if constexpr (NG > 1 && BM == 128 && BN == 64)
-    kern = vec ? chain_tile_kernel_2sm<BM, BN, true, NG, EPI, MASK, PAIR>
-               : chain_tile_kernel_2sm<BM, BN, false, NG, EPI, MASK, PAIR>;
+    kern = vec ? chain_tile_kernel_2sm<BM, BN, true, NG, EPI, MASK, PAIR, S2>
+               : chain_tile_kernel_2sm<BM, BN, false, NG, EPI, MASK, PAIR, S2>;
   else
-    kern = vec ? chain_tile_kernel<BM, BN, true, NG, EPI, MASK, PAIR>
-               : chain_tile_kernel<BM, BN, false, NG, EPI, MASK, PAIR>;
+    kern = vec ? chain_tile_kernel<BM, BN, true, NG, EPI, MASK, PAIR, S2>
+               : chain_tile_kernel<BM, BN, false, NG, EPI, MASK, PAIR, S2>;
   static bool sized[2] = {false, false};
   if (!sized[vec]) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -517,10 +589,12 @@ cudaError_t launch_chain_tile(const TileArgs& p, int stages, bool vec, cudaStrea
 }
 
 // One launch of NG sums (make_plan_stages picks the tile from the total
-// number of K stages).  The vector path needs every 16-byte chunk of A and
-// w aligned and inside one row, and with MASK inside one tap (lda % 16) and
-// one half of a pair row ((lda / 2) % 16).
-template <int NG, int EPI, bool MASK = false, bool PAIR = false>
+// number of K stages; with `tiled` no wider than half the pair row).  MASK
+// and S2 are masks over the sums (bit g: sum g).
+// The vector path needs every 16-byte chunk of A and w aligned and inside
+// one row, with MASK inside one tap (lda % 16) and one half of a pair row
+// ((lda / 2) % 16), with S2 inside one segment (seg % 16).
+template <int NG, int EPI, int MASK = 0, bool PAIR = false, int S2 = 0>
 int run_tile(TileArgs p, cudaStream_t stream) {
   using namespace s8tile;
   int stages = 0;
@@ -529,16 +603,21 @@ int run_tile(TileArgs p, cudaStream_t stream) {
     const S8Sum& s = p.sum[g];
     stages += (s.K + BK8 - 1) / BK8;
     vec = vec && s.K % 16 == 0 && s.lda % 16 == 0 && aligned16(s.a) && aligned16(s.w) &&
-          (!MASK || !PAIR || (s.lda / 2) % 16 == 0);
+          (!((MASK >> g) & 1) || !PAIR || (s.lda / 2) % 16 == 0) &&
+          (!((S2 >> g) & 1) || s.seg % 16 == 0);
   }
-  const Plan pl = make_plan_stages(p.M, p.N, stages, /*may_split=*/false);
+  Plan pl = make_plan_stages(p.M, p.N, stages, /*may_split=*/false);
+  if (PAIR && p.tiled) {  // each column tile within one half of the pair row
+    if ((p.N / 2) % 64) return static_cast<int>(cudaErrorInvalidValue);
+    if ((p.N / 2) % pl.bn) pl.bn = 64;
+  }
   cudaError_t e = cudaErrorInvalidValue;
   if (pl.bm == 128 && pl.bn == 128)
-    e = launch_chain_tile<128, 128, NG, EPI, MASK, PAIR>(p, stages, vec, stream);
+    e = launch_chain_tile<128, 128, NG, EPI, MASK, PAIR, S2>(p, stages, vec, stream);
   else if (pl.bm == 128 && pl.bn == 64)
-    e = launch_chain_tile<128, 64, NG, EPI, MASK, PAIR>(p, stages, vec, stream);
+    e = launch_chain_tile<128, 64, NG, EPI, MASK, PAIR, S2>(p, stages, vec, stream);
   else
-    e = launch_chain_tile<64, 64, NG, EPI, MASK, PAIR>(p, stages, vec, stream);
+    e = launch_chain_tile<64, 64, NG, EPI, MASK, PAIR, S2>(p, stages, vec, stream);
   return static_cast<int>(e);
 }
 

@@ -1,9 +1,10 @@
-// The int8 implicit GEMM of the chain-layout block kernels still on the CUDA
-// cores: the stride-2 transitions (chain_block.cu, row 3 of PERF.md's
-// table; basic_block.cu, row 11) and the pixel-paired bottleneck block and
-// run (pp_block.cu, rows 5 and 6).  The stride-1 blocks of both families
-// and their runs (rows 1, 2, 7-10) run on the int8 tensor-core tile instead
-// (chain_tile.cuh).
+// The int8 implicit GEMM of the one chain-layout block kernel still on the
+// CUDA cores: the BasicBlock's stride-2 transition (basic_block.cu, row 11
+// of PERF.md's table).  Every other int8 block kernel (the stride-1 blocks
+// of both families and their runs, the bottleneck transition, the
+// pixel-paired kernels: rows 1-3, 5-10) runs on the int8 tensor-core tile
+// instead (chain_tile.cuh), which takes its epilogue helpers (requant, the
+// output kinds) from here.
 //
 // Layout.  An activation is a "chain": flat rows (B*hp*wp, C) int8 of the
 // zero-ring padded image, pixel (r, q) at row (b*hp + r+1)*wp + q+1, with
@@ -25,8 +26,8 @@
 // What bounds it.  A 3x3 convolution does 18*c*c int8 operations per pixel
 // against a few bytes moved, far above the card's int8 ridge, so the bound
 // is the int8 tensor-core rate.  This kernel runs on the CUDA cores' dp4a
-// instead (first, simple version), 25-60x above that bound; moving its
-// users onto the int8 tile, as rows 1, 2 and 7-10 were, is the next step.
+// instead (first, simple version), 25-60x above that bound; moving row 11
+// onto the int8 tile, as rows 1-3 and 5-10 were, is the next step.
 //
 // Exactness.  Every epilogue is fp32 in the Pallas kernel's order of
 // operations, rounds half to even (rintf) and clips to +-127.  Where the
@@ -68,18 +69,7 @@ struct Geo {
 // kk + (kk / (3*cin)) * wpad: wpad zero rows follow each kernel row's 3*cin
 // taps (the basic-ds conv1 packing).  WPAD is a template flag so that the
 // other launches carry no division in their weight loads.
-//
-// Pair geometry (the kernel's PAIR flag, pp_block.cu's bottleneck kernels).  The chain is viewed
-// as M = B*hp*wp/2 pair rows of two W-adjacent pixels, each row `cin` int8
-// wide (two halves of cin/2 channels: the even pixel, then the odd one), and
-// every row of the GEMM is one pair row.  A 1x1 operand reads pair row m, a
-// 3x3 kernel row kh reads pair rows m + (kh-1)*wp/2 + (kwp-1) for kwp in
-// 0..2 (K = (kwp, half, k) = 3*cin), the flat pair index read as is (the
-// pair-packed weights place each pixel tap).  Interior-ness is per half: the
-// gather reads a half only if its pixel is inside the image and zeroes it
-// otherwise, and the epilogue writes zeros to the ring half of a boundary
-// pair.  Stride 1 only.  PAIR is a template flag so that the per-half test
-// stays out of the other kernels' hot loops.
+
 struct Operand {
   const int8_t* a;
   int cin;
@@ -99,18 +89,11 @@ struct Operands {
 };
 
 enum Epilogue {
-  // v = relu(fma(acc, a, c)); int8 out, zero on ring rows (1x1 conv1,
-  // 9-tap ds convs)
+  // v = relu(fma(acc, a, c)); int8 out, zero on ring rows (the 9-tap conv1)
   EPI_RELU_Q = 0,
-  // v = relu(kh3 + c); int8 out (stride-1 3x3), kh3 as below
-  EPI_KH3_Q = 1,
-  // y = fma(acc, a, c), then the residual: fma(x, s_res, y) (NG == 1) or
-  // y + fma(acc1, ad, cd) (NG == 2); relu; int8 / bf16 / fp32 out (conv3)
-  EPI_BLOCK_OUT = 2,
   // y = kh3 + c, then the projection shortcut fma(acc3, ad, y) + cd (NG ==
-  // 4, operand 3 the projection); relu; int8 / bf16 out (basic transition
-  // conv2)
-  EPI_BASIC_OUT = 3,
+  // 4, operand 3 the projection); relu; int8 / bf16 out (conv2)
+  EPI_BASIC_OUT = 1,
 };
 
 enum OutKind { OUT_I8 = 0, OUT_BF16 = 1, OUT_F32 = 2 };
@@ -120,8 +103,6 @@ struct EpiArgs {
   const float* c;         // per-channel bias
   const float* ad;        // projection shortcut multiplier (last operand)
   const float* cd;        // projection shortcut bias
-  const int8_t* res;      // identity residual: chain rows, same geometry, ld N
-  const float* s_res;     // identity residual scale (device scalar)
   int out_kind;
   void* out;              // (M, N) chain rows
 };
@@ -150,46 +131,21 @@ __device__ __forceinline__ void store(const EpiArgs& ep, size_t o, float y) {
     static_cast<float*>(ep.out)[o] = y;
 }
 
-// Bit of a pair-geometry row tag: half pi of pair row m + dy*wp/2 + dx is
-// an interior pixel.  Bit 8 (dy = dx = 0) is the row's own half.
-__device__ __forceinline__ int pair_bit(int dy, int dx, int pi) {
-  return ((dy + 1) * 3 + dx + 1) * 2 + pi;
-}
-
-template <int NG, int EPI, bool WPAD, bool PAIR>
+template <int NG, int EPI, bool WPAD>
 __global__ void __launch_bounds__(THREADS)
 igemm_kernel(Operands ops, Geo og, int M, int N, EpiArgs ep) {
   static_assert(EPI != EPI_BASIC_OUT || NG == 4, "EPI_BASIC_OUT takes the projection operand");
   __shared__ int As[BM][PITCH];
   __shared__ int Bs[BN][PITCH];
-  // Per tile row: image (or -1) and interior pixel; with PAIR, rowImg holds
-  // the row's interior bits (pair_bit) instead.
+  // Per tile row: image (or -1) and interior pixel.
   __shared__ int rowImg[BM], rowR[BM], rowQ[BM];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wpp = og.wp / 2;
 
   // Decode the tile's output rows once: image and interior pixel, or -1.
-  if (PAIR && tid < BM) {
-    const int m = m0 + tid;
-    int bits = 0;
-    if (m < M) {
-      const int per = og.hp * og.wp;
-      for (int dy = -1; dy <= 1; ++dy)
-        for (int dx = -1; dx <= 1; ++dx) {
-          const int f = m + dy * wpp + dx;
-          if (f < 0 || f >= M) continue;
-          for (int pi = 0; pi < 2; ++pi) {
-            const int rem = (2 * f + pi) % per;
-            const int py = rem / og.wp, px = rem - py * og.wp;
-            if (py >= 1 && py <= og.h && px >= 1 && px <= og.w) bits |= 1 << pair_bit(dy, dx, pi);
-          }
-        }
-    }
-    rowImg[tid] = bits;
-  } else if (tid < BM) {
+  if (tid < BM) {
     const int m = m0 + tid;
     int img = -1, r = 0, q = 0;
     if (m < M) {
@@ -229,18 +185,7 @@ igemm_kernel(Operands ops, Geo og, int M, int N, EpiArgs ep) {
         const int kk = k0 + 4 * wk;
         const int img = rowImg[row];
         int v = 0;
-        if (PAIR) {
-          if (kk < op.K) {
-            const int tap = kk / op.cin;
-            const int within = kk - tap * op.cin;
-            const int dy = op.taps == 1 ? 0 : op.kh - 1;
-            const int dx = op.taps == 1 ? 0 : tap - 1;
-            if ((img >> pair_bit(dy, dx, 2 * within >= op.cin)) & 1) {
-              const size_t f = (size_t)(m0 + row + dy * wpp + dx);
-              v = *reinterpret_cast<const int*>(op.a + f * op.cin + within);
-            }
-          }
-        } else if (img >= 0 && kk < op.K) {
+        if (img >= 0 && kk < op.K) {
           const int tap = kk / op.cin;
           const int ch = kk - tap * op.cin;
           int dy, dx;
@@ -306,30 +251,16 @@ igemm_kernel(Operands ops, Geo og, int M, int N, EpiArgs ep) {
     const int lr = ty + 16 * i;
     const int m = m0 + lr;
     if (m >= M) continue;
-    const int tag = rowImg[lr];
+    const bool inside = rowImg[lr] >= 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tx + 16 * j;
       if (n >= N) continue;
-      // With PAIR the output's halves are the two pixels: columns [0, N/2)
-      // the even one, [N/2, N) the odd one.
-      const bool inside = PAIR ? ((tag >> pair_bit(0, 0, 2 * n >= N)) & 1) : tag >= 0;
       const size_t o = (size_t)m * N + n;
       if (EPI == EPI_RELU_Q) {
         float v = __fmaf_rn(static_cast<float>(acc[0][i][j]), ep.a[0][n], ep.c[n]);
         v = fmaxf(v, 0.f);
         static_cast<int8_t*>(ep.out)[o] = inside ? requant(v) : int8_t(0);
-      } else if (EPI == EPI_KH3_Q) {
-        float v = kh3(acc[0][i][j], acc[G1][i][j], acc[G2][i][j], ep.a, n);
-        v = fmaxf(__fadd_rn(v, ep.c[n]), 0.f);
-        static_cast<int8_t*>(ep.out)[o] = inside ? requant(v) : int8_t(0);
-      } else if (EPI == EPI_BLOCK_OUT) {
-        float y = __fmaf_rn(static_cast<float>(acc[0][i][j]), ep.a[0][n], ep.c[n]);
-        if (NG == 2)
-          y = __fadd_rn(y, __fmaf_rn(static_cast<float>(acc[G1][i][j]), ep.ad[n], ep.cd[n]));
-        else
-          y = __fmaf_rn(static_cast<float>(ep.res[o]), *ep.s_res, y);
-        store(ep, o, inside ? fmaxf(y, 0.f) : 0.f);
       } else {
         float y = __fadd_rn(kh3(acc[0][i][j], acc[G1][i][j], acc[G2][i][j], ep.a, n), ep.c[n]);
         y = __fadd_rn(__fmaf_rn(static_cast<float>(acc[G3][i][j]), ep.ad[n], y), ep.cd[n]);
@@ -339,14 +270,14 @@ igemm_kernel(Operands ops, Geo og, int M, int N, EpiArgs ep) {
   }
 }
 
-// M is the number of output rows: chain rows, or pair rows with PAIR.
-template <int NG, int EPI, bool WPAD = false, bool PAIR = false>
+// M is the number of output rows (chain rows).
+template <int NG, int EPI, bool WPAD = false>
 int launch(const Operand* o, Geo og, int M, int N, const EpiArgs& ep,
            cudaStream_t stream) {
   Operands ops{};
   for (int g = 0; g < NG; ++g) ops.o[g] = o[g];
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  igemm_kernel<NG, EPI, WPAD, PAIR><<<grid, THREADS, 0, stream>>>(ops, og, M, N, ep);
+  igemm_kernel<NG, EPI, WPAD><<<grid, THREADS, 0, stream>>>(ops, og, M, N, ep);
   return static_cast<int>(cudaGetLastError());
 }
 

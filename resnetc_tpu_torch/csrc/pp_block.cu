@@ -23,128 +23,154 @@
 // lies outside the image reads as zero, and the epilogues write zeros to
 // the ring half of a boundary pair.
 //
-// The BasicBlock and its run (rows 9 and 10) run on the int8 tensor-core
-// tile of chain_tile.cuh in pair geometry: two launches a block, M =
-// B*hp*wp/2 pair rows, N = 2c = 128, kernel row kh reading pair rows m +
-// (kh-1)*wp/2 - 1 .. + 1 as one row of K = 3*2c = 384 contiguous int8 values
-// (lda = 2c), B the K-major copy of the pair-packed 3x3.  conv1 zero-fills
-// each 16-byte chunk whose half's source pixel is off the image (at c = 64 a
-// (kwp, half) block is four whole chunks, so no chunk straddles two halves)
-// and writes z1's ring halves as zeros; conv2 reads z1 with no test, adds
-// the residual x * s_res and writes the output's ring halves as zeros.  Both
-// run over every pair row.  The kernels take the vectors folded and
-// lane-tiled on the host, once per call (the JAX wrappers' jnp.tile; the
-// tile's `folded` mode); the engine makes the pair-packed weights' K-major
-// copies once (fused.pack_chain_kmajor), a call without them packs and
-// transposes once.
-//
-// The bottleneck block and run (rows 5 and 6) are each convolution one
-// launch of the dp4a implicit GEMM of igemm.cuh in pair geometry (M =
-// B*hp*wp/2 rows, N = 2*cout, the 3x3's kw taps shifting whole pair rows),
-// three launches a block, with int8 intermediates in device scratch that the
-// wrapper allocates; a run loops over its blocks, handing the int8
-// activation on through two ping-pong buffers.  Epilogues as in the
-// standard kernels, in the Pallas order with XLA's fused multiply-adds.
+// All four run on the int8 tensor-core tile of chain_tile.cuh in pair
+// geometry, over every pair row: M = B*hp*wp/2 pair rows, N = 2 * cout, a
+// kernel row kh of a pair-packed 3x3 reading pair rows m + (kh-1)*wp/2 - 1
+// .. + 1 as one row of K = 3*2c = 384 contiguous int8 values (lda = 2c), a
+// 1x1 its own pair row, B the K-major copy of each pair-space weight.  A
+// conv that reads x itself (the BasicBlock's conv1, the bottleneck's conv1
+// and projection) zero-fills each 16-byte chunk whose half's source pixel is
+// off the image (the tile's MASK; at c = 64 a (kwp, half) block is four
+// whole chunks and a 1x1's half of a pair row four or sixteen, so no chunk
+// straddles two halves); the conv1 epilogues write z1's ring halves as zeros
+// (a select), so the 3x3 over z1 reads it with no test, and every epilogue
+// writes the output's ring halves as zeros.
+//   - The bottleneck block (rows 5 and 6): conv1 the block-diagonal 1x1
+//     (cin2 -> c2 = 128, TE_RELU_Q); conv2 the pair-packed 3x3 as three
+//     sums (TE_KH3_Q, a2 per (kh, half, j)); conv3 the block-diagonal 1x1
+//     plus the identity residual x * s_res, or the projection as a second
+//     sum (TE_OUT): three launches a block.  The run loops over the block,
+//     handing the int8 activation on through two ping-pong buffers.
+//   - The BasicBlock (rows 9 and 10): two pair-packed 3x3s, the identity
+//     residual in conv2's epilogue: two launches a block.
+// The chain-level entries give the kernels the standard block's raw
+// vectors and the device scales: the tile folds them in its epilogue and
+// reads channel n of a pair row at n mod cout (`tiled`), which is the JAX
+// wrappers' fold-then-jnp.tile, bit for bit.  The pair-space entries (and
+// the basic kernels) give them folded and lane-tiled (the tile's `folded`
+// mode).  The engine makes the K-major copies of the pair-space weights once
+// (fused.pack_chain_kmajor: the block-diagonal 1x1s, the pair-packed 3x3s,
+// stage 0's run stacked); a call without them packs and transposes once.
 //
 // What bounds it.  The work (the standard block's: interior pixels times
 // its convolutions' operations) is far above the card's int8 ridge, so the
 // bound is the int8 tensor-core rate.  In pair space every kernel does
 // twice the standard kernels' multiply-adds: the 1x1s multiply a zero
 // block, and 6 of the pack's 12 (2c, 2c) blocks are zero.  On the TPU
-// pairing bought N = 128 matrix-unit tiles; here the basic kernels get
-// N = 128 wgmma tiles and pay the zero blocks.  Skipping them, and moving
-// rows 5 and 6 off dp4a, is later work.
+// pairing bought N = 128 matrix-unit tiles; here the kernels get N = 128
+// wgmma tiles and pay the zero blocks.  Skipping them is later work.
 
 #include "chain_tile.cuh"
 
 // One pixel-paired stride-1 bottleneck block, pair rows in and out: x
-// (B*hp*wp/2, cin2) int8; w1 (cin2, c2) block-diagonal, a1, c1 (c2,); w2
-// (3*c2, 3*c2) pair-packed, a2 (3, c2) per-(kh, half, j) multipliers, c2v
-// (c2,); w3 (c2, c4p), a3, c3 (c4p,); wd == NULL: identity shortcut (cin2 ==
-// c4p), residual x * s_res; else the 1x1 projection wd (cin2, c4p), ad, cd
-// (c4p,).  z1, z2 (B*hp*wp/2, c2) int8 scratch.  out_kind 0: int8, 1: bf16.
-// (h, w, hp, wp) is the pixel geometry.  Returns the first launch's
+// (B*hp*wp/2, cin2) int8; the K-major pair-space weights w1_nk (c2, cin2)
+// block-diagonal, w2_nk (3*c2, 3*c2) pair-packed (row kh*c2 + j: output j
+// of kernel row kh), w3_nk (c4p, c2); wd_nk == NULL: identity shortcut
+// (cin2 == c4p), residual x * s_res; else the 1x1 projection wd_nk (c4p,
+// cin2).  With `folded` the vectors are the pair-space entry's: sw1, b1
+// (c2), sw2 (3, c2), b2 (c2), sw3, b3, swd, bd (c4p) the folded multipliers
+// and biases, scales the device residual scale s_res.  Without it they are
+// the standard block's raw vectors, half as wide (sw2 (3c2/2) per (kh, j)),
+// and scales the device [s_x, s_z1, s_z2, s_y], s_y taken as 1 when
+// unit_y.  z1, z2 (B*hp*wp/2, c2) int8 scratch.  out_kind 0: int8, 1: bf16.
+// (h, w, hp, wp) is the pixel geometry.  Returns the first failed launch's
 // cudaError_t, or 0.
 extern "C" int pp_block_int8(
     const int8_t* x, int B, int h, int w, int hp, int wp, int cin2, int c2, int c4p,
-    const int8_t* w1, const float* a1, const float* c1,
-    const int8_t* w2, const float* a2, const float* c2v,
-    const int8_t* w3, const float* a3, const float* c3,
-    const float* s_res, const int8_t* wd, const float* ad, const float* cd,
+    const int8_t* w1_nk, const float* sw1, const float* b1,
+    const int8_t* w2_nk, const float* sw2, const float* b2,
+    const int8_t* w3_nk, const float* sw3, const float* b3,
+    const float* scales, int folded, int unit_y,
+    const int8_t* wd_nk, const float* swd, const float* bd,
     int8_t* z1, int8_t* z2, int out_kind, void* out, cudaStream_t stream) {
-  const Geo g{h, w, hp, wp};
+  enum { S_X = 0, S_Z1 = 1, S_Z2 = 2, S_Y = 3 };
   const int M = B * hp * wp / 2;
+  TileArgs t[3] = {};
+  for (TileArgs& p : t) {
+    p.scales = scales;
+    p.iy = S_Y;
+    p.folded = folded;
+    p.tiled = !folded;
+    p.M = M;
+    p.g = Chain{h, w, hp, wp};
+  }
   int err;
 
-  // conv1 (1x1, block-diagonal): relu(fma(acc, a1, c1)) -> int8, ring
-  // halves zeroed.
-  Operand o1 = operand(x, cin2, g, 1, 1, 0, w1, c2, 0);
-  EpiArgs e1{};
-  e1.a[0] = a1;
-  e1.c = c1;
-  e1.out_kind = OUT_I8;
-  e1.out = z1;
-  if ((err = launch<1, EPI_RELU_Q, false, true>(&o1, g, M, c2, e1, stream))) return err;
+  // conv1 (1x1, block-diagonal) over x masked per half: relu(fma(P, a1,
+  // c1)) -> int8, ring halves zeroed.
+  t[0].sum[0] = S8Sum{x, w1_nk, static_cast<long long>(M) * cin2, cin2, 0, cin2};
+  t[0].sw[0] = sw1, t[0].num[0] = S_X, t[0].den[0] = S_Z1;
+  t[0].b = b1;
+  t[0].out = z1;
+  t[0].out_kind = OUT_I8;
+  t[0].N = c2;
+  if ((err = run_tile<1, TE_RELU_Q, 1, true>(t[0], stream))) return err;
 
-  // conv2 (pair-packed 3x3): three int32 sums P_kh, one per kernel row.
-  Operand o2[3];
-  for (int kh = 0; kh < 3; ++kh) o2[kh] = operand(z1, c2, g, 1, 3, kh, w2, 3 * c2, kh * c2);
-  EpiArgs e2{};
-  e2.a[0] = a2;
-  e2.a[1] = a2 + c2;
-  e2.a[2] = a2 + 2 * c2;
-  e2.c = c2v;
-  e2.out_kind = OUT_I8;
-  e2.out = z2;
-  if ((err = launch<3, EPI_KH3_Q, false, true>(o2, g, M, c2, e2, stream))) return err;
-
-  // conv3 (1x1, block-diagonal) + shortcut + relu.
-  Operand o3[2];
-  o3[0] = operand(z2, c2, g, 1, 1, 0, w3, c4p, 0);
-  EpiArgs e3{};
-  e3.a[0] = a3;
-  e3.c = c3;
-  e3.out_kind = out_kind;
-  e3.out = out;
-  if (wd) {
-    o3[1] = operand(x, cin2, g, 1, 1, 0, wd, c4p, 0);
-    e3.ad = ad;
-    e3.cd = cd;
-    return launch<2, EPI_BLOCK_OUT, false, true>(o3, g, M, c4p, e3, stream);
+  // conv2 (pair-packed 3x3): three int32 sums P_kh, one per kernel row;
+  // relu(kh3 + c2) -> int8, ring halves zeroed.
+  const int step = folded ? c2 : c2 / 2;  // multipliers per kernel row
+  for (int kh = 0; kh < 3; ++kh) {
+    t[1].sum[kh] = S8Sum{z1, w2_nk + static_cast<size_t>(kh) * c2 * 3 * c2,
+                         static_cast<long long>(M) * c2, c2, (kh - 1) * (wp / 2) - 1, 3 * c2};
+    t[1].sw[kh] = sw2 + kh * step, t[1].num[kh] = S_Z1, t[1].den[kh] = S_Z2;
   }
-  e3.res = x;
-  e3.s_res = s_res;
-  return launch<1, EPI_BLOCK_OUT, false, true>(o3, g, M, c4p, e3, stream);
+  t[1].b = b2;
+  t[1].out = z2;
+  t[1].out_kind = OUT_I8;
+  t[1].N = c2;
+  if ((err = run_tile<3, TE_KH3_Q, 0, true>(t[1], stream))) return err;
+
+  // conv3 (1x1, block-diagonal) + shortcut + relu, ring halves zeroed.
+  t[2].sum[0] = S8Sum{z2, w3_nk, static_cast<long long>(M) * c2, c2, 0, c2};
+  t[2].sw[0] = sw3, t[2].num[0] = S_Z2, t[2].den[0] = S_Y;
+  t[2].b = b3;
+  t[2].unit_y = unit_y;
+  t[2].out = out;
+  t[2].out_kind = out_kind;
+  t[2].N = c4p;
+  if (wd_nk) {  // the projection over x masked per half
+    t[2].sum[1] = S8Sum{x, wd_nk, static_cast<long long>(M) * cin2, cin2, 0, cin2};
+    t[2].sw[1] = swd, t[2].num[1] = S_X, t[2].den[1] = S_Y;
+    t[2].bd = bd;
+    return run_tile<2, TE_OUT, 2, true>(t[2], stream);
+  }
+  t[2].res = x;
+  return run_tile<1, TE_OUT, 0, true>(t[2], stream);
 }
 
-// A run of n_blocks pixel-paired bottleneck blocks.  Per-block pair-space
-// parameters are stacked: w1s (n_w1, c4p, c2) with n_w1 = n_blocks -
-// (w10 != NULL), w2s (N, 3*c2, 3*c2), w3s (N, c2, c4p), a1s/c1s/c2s (N, c2),
-// a2s (N, 3, c2), a3s/c3s (N, c4p), s_res (N,).  With w10 (cin2, c2) and
-// wd/ad/cd block 0 is the projection block over x (rows, cin2).
-// Activations between blocks go through act0/act1 (int8 pair rows,
-// (B*hp*wp/2, c4p)); the last block writes `out` (int8 or bf16).
+// A run of n_blocks pixel-paired bottleneck blocks.  Per-block parameters
+// are stacked: w1s_nk (n_w1, c2, c4p) with n_w1 = n_blocks - (w10_nk !=
+// NULL), w2s_nk (N, 3*c2, 3*c2), w3s_nk (N, c4p, c2); the vectors as
+// pp_block_int8 takes them, stacked: folded, sw1s/b1s/b2s (N, c2), sw2s (N,
+// 3, c2), sw3s/b3s (N, c4p), scales_s (N,) the residual scales; raw, each
+// half as wide and scales_s (N, 4), the last block's s_y taken as 1 when it
+// exits bf16.  With w10_nk (c2, cin2) and wd_nk/swd/bd block 0 is the
+// projection block over x (rows, cin2).  Activations between blocks go
+// through act0/act1 (int8 pair rows, (B*hp*wp/2, c4p)); the last block
+// writes `out` (int8 or bf16).
 extern "C" int pp_run_int8(
     const int8_t* x, int n_blocks, int B, int h, int w, int hp, int wp, int cin2,
-    int c2, int c4p, const int8_t* w1s, const int8_t* w10,
-    const float* a1s, const float* c1s, const int8_t* w2s, const float* a2s,
-    const float* c2s, const int8_t* w3s, const float* a3s, const float* c3s,
-    const float* s_res, const int8_t* wd, const float* ad, const float* cd,
+    int c2, int c4p, const int8_t* w1s_nk, const int8_t* w10_nk,
+    const float* sw1s, const float* b1s, const int8_t* w2s_nk, const float* sw2s,
+    const float* b2s, const int8_t* w3s_nk, const float* sw3s, const float* b3s,
+    const float* scales_s, int folded, const int8_t* wd_nk, const float* swd, const float* bd,
     int8_t* z1, int8_t* z2, int8_t* act0, int8_t* act1, int last_bf16,
     void* out, cudaStream_t stream) {
-  const bool proj = w10 != nullptr;
+  const bool proj = w10_nk != nullptr;
+  const size_t v2 = folded ? c2 : c2 / 2, v4 = folded ? c4p : c4p / 2;  // vector widths
   int8_t* act[2] = {act0, act1};
   for (int n = 0; n < n_blocks; ++n) {
     const bool last = n == n_blocks - 1;
     const bool pn = proj && n == 0;
-    const int8_t* w1 = proj ? (n == 0 ? w10 : w1s + (size_t)(n - 1) * c4p * c2)
-                            : w1s + (size_t)n * c4p * c2;
+    const int8_t* w1 = proj ? (n == 0 ? w10_nk : w1s_nk + (size_t)(n - 1) * c4p * c2)
+                            : w1s_nk + (size_t)n * c4p * c2;
     const int err = pp_block_int8(
         n == 0 ? x : act[(n - 1) % 2], B, h, w, hp, wp, pn ? cin2 : c4p, c2, c4p,
-        w1, a1s + (size_t)n * c2, c1s + (size_t)n * c2,
-        w2s + (size_t)n * 9 * c2 * c2, a2s + (size_t)n * 3 * c2, c2s + (size_t)n * c2,
-        w3s + (size_t)n * c2 * c4p, a3s + (size_t)n * c4p, c3s + (size_t)n * c4p,
-        s_res + n, pn ? wd : nullptr, ad, cd, z1, z2,
+        w1, sw1s + n * v2, b1s + n * v2,
+        w2s_nk + (size_t)n * 9 * c2 * c2, sw2s + n * 3 * v2, b2s + n * v2,
+        w3s_nk + (size_t)n * c2 * c4p, sw3s + n * v4, b3s + n * v4,
+        scales_s + (folded ? n : 4 * n), folded, !folded && last && last_bf16,
+        pn ? wd_nk : nullptr, swd, bd, z1, z2,
         last ? (last_bf16 ? OUT_BF16 : OUT_I8) : OUT_I8,
         last ? out : static_cast<void*>(act[n % 2]), stream);
     if (err) return err;
@@ -186,14 +212,14 @@ extern "C" int pp_basic_block_int8(
   t[0].b = c1;
   t[0].out = z1;
   t[0].out_kind = OUT_I8;
-  int err = run_tile<3, TE_KH3_Q, true, true>(t[0], stream);
+  int err = run_tile<3, TE_KH3_Q, 7, true>(t[0], stream);
   if (err) return err;
   // conv2 (pair-packed 3x3) + identity residual x*s_res + relu.
   t[1].b = c2v;
   t[1].res = x;
   t[1].out = out;
   t[1].out_kind = out_kind;
-  return run_tile<3, TE_KH3_OUT, false, true>(t[1], stream);
+  return run_tile<3, TE_KH3_OUT, 0, true>(t[1], stream);
 }
 
 // A run of n_blocks pixel-paired BasicBlocks: w1s_nk, w2s_nk (N, 3*c2, 3*c2)

@@ -36,6 +36,10 @@ NVCC_FLAGS = (
 #: Launches per wrapper name since the last reset.
 LAUNCHES: collections.Counter = collections.Counter()
 
+#: The compiler's output per source compiled by this process (ptxas's
+#: report with ``build_all(verbose=True)``).
+BUILD_LOG: dict[str, str] = {}
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
@@ -86,6 +90,7 @@ def build_all(verbose: bool = False) -> Path:
             tmp.unlink(missing_ok=True)
             errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}")
             continue
+        BUILD_LOG[name] = out
         if verbose and out:
             print(f"[nvcc {name}.cu]\n{out}", flush=True)
         os.replace(tmp, lib)  # atomic: a concurrent build sees old or new

@@ -25,11 +25,11 @@ see the section comment below): ``bottleneck_block_chained_int8_pp``
 ``basic_block_chained_int8_pp`` (:2002) and ``basic_run_chained_int8_pp``
 (:2175).
 
-The stride-1 int8 blocks of both families and their runs (the bottleneck
-block and run, the basic block and run, the pixel-paired basic block and
-run) share the int8 tensor-core tile of ``csrc/chain_tile.cuh``; the
-transitions and the pixel-paired bottleneck kernels the dp4a implicit GEMM
-of ``csrc/igemm.cuh`` (each header gives the design and what bounds it).
+Every int8 block kernel but the basic transition (the stride-1 blocks of
+both families and their runs, the bottleneck transition, the four
+pixel-paired kernels) runs on the int8 tensor-core tile of
+``csrc/chain_tile.cuh``; the basic transition on the dp4a implicit GEMM of
+``csrc/igemm.cuh`` (each header gives the design and what bounds it).
 
 The bf16 / fp32 stride-1 bottleneck of the ``pallas_block`` backend and the
 op library (CUDA in ``csrc/fp_block.cu``, one piece of code for both; see
@@ -41,8 +41,8 @@ its input lies on the CPU, and launches the kernel for a CUDA tensor, or
 raises; there is no fallback.  The scalar requant scales are folded into
 per-channel vectors exactly as the JAX wrapper does (block.py:789-797,
 822-823, 2966-2980, 3545-3554, 1684-1690, 1866-1879, 2631-2641): by the
-wrapper, or, for the stride-1 bottleneck and basic kernels, by the kernel
-itself op for op, so the kernel and the plain version see identical
+wrapper (the basic transition and pixel-paired basic kernels), or by the
+kernel itself op for op, so the kernel and the plain version see identical
 constants.
 
 Chain ring rows carry no meaning (the JAX kernels leave garbage there); the
@@ -77,9 +77,9 @@ _ARGTYPES = {
         # sw3s b3s scales_s; wd swd bd; z1 z2 act0 act1; last_bf16 out stream
         "chain_run_int8": [_P] + [_I] * 9 + [_P] * 2 + [_P] * 9 + [_P] * 3 + [_P] * 4
         + [_I, _P, _P],
-        # x; B h w hp wp cin c c4 oh ow hp2 wp2; w1 a1 c1 w2 a2 c2 w3 a3 c3;
-        # wd ad cd; z1 z2; out_kind out stream
-        "ds_block_s2_int8": [_P] + [_I] * 12 + [_P] * 9 + [_P] * 3 + [_P] * 2 + [_I, _P, _P],
+        # x; B h w hp wp cin c c4 oh ow hp2 wp2; w1_nk sw1 b1 w2_nk sw2 b2 w3_nk
+        # sw3 b3 wd_nk swd bd; scales unit_y; z1 z2; out_kind out stream
+        "ds_block_s2_int8": [_P] + [_I] * 12 + [_P] * 12 + [_P, _I] + [_P] * 2 + [_I, _P, _P],
     },
     "basic_block": {
         # x; B h w hp wp c; w1_nk sw1p b1 w2_nk sw2p b2 scales; unit_y z1;
@@ -93,12 +93,14 @@ _ARGTYPES = {
         "basic_ds_block_s2_int8": [_P] + [_I] * 11 + [_P] * 9 + [_P] + [_I, _P, _P],
     },
     "pp_block": {
-        # x; B h w hp wp cin2 c2 c4p; w1 a1 c1 w2 a2 c2 w3 a3 c3; s_res wd ad cd;
-        # z1 z2; out_kind out stream
-        "pp_block_int8": [_P] + [_I] * 8 + [_P] * 9 + [_P] * 4 + [_P] * 2 + [_I, _P, _P],
-        # x; n_blocks B h w hp wp cin2 c2 c4p; w1s w10; a1s c1s w2s a2s c2s w3s
-        # a3s c3s s_res; wd ad cd; z1 z2 act0 act1; last_bf16 out stream
-        "pp_run_int8": [_P] + [_I] * 9 + [_P] * 2 + [_P] * 9 + [_P] * 3 + [_P] * 4
+        # x; B h w hp wp cin2 c2 c4p; w1_nk sw1 b1 w2_nk sw2 b2 w3_nk sw3 b3;
+        # scales folded unit_y; wd_nk swd bd; z1 z2; out_kind out stream
+        "pp_block_int8": [_P] + [_I] * 8 + [_P] * 9 + [_P, _I, _I] + [_P] * 3 + [_P] * 2
+        + [_I, _P, _P],
+        # x; n_blocks B h w hp wp cin2 c2 c4p; w1s_nk w10_nk; sw1s b1s w2s_nk sw2s
+        # b2s w3s_nk sw3s b3s scales_s; folded; wd_nk swd bd; z1 z2 act0 act1;
+        # last_bf16 out stream
+        "pp_run_int8": [_P] + [_I] * 9 + [_P] * 2 + [_P] * 9 + [_I] + [_P] * 3 + [_P] * 4
         + [_I, _P, _P],
         # x; B h w hp wp c2; w1_nk a1 c1 w2_nk a2 c2 s_res; z1; out_kind out
         # stream
@@ -488,9 +490,8 @@ def _fold_run(scales_s, sw1_s, b1_s, sw2p_s, b2_s, sw3_s, b3_s, swd, bd, emit_i8
     s_z1 = scales_s[:, 1]
     s_z2 = scales_s[:, 2]
     s_y = scales_s[:, 3]
-    if not emit_i8:
-        s_y = s_y.clone()
-        s_y[n_blocks - 1] = 1.0
+    if not emit_i8:  # a device op: a host scalar written in would wait for the card
+        s_y = torch.cat([s_y[:-1], torch.ones_like(s_y[-1:])])
     f = {
         "a1": sw1_s.float() * (s_x / s_z1)[:, None],
         "c1": b1_s.float() * (1.0 / s_z1)[:, None],
@@ -625,7 +626,8 @@ def bottleneck_run_chained_int8(
 
 
 def _fold_ds(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8):
-    """Host-side scale folding of block.py:3545-3554, op for op."""
+    """Host-side scale folding of block.py:3545-3554, op for op (the plain
+    version's; the kernel folds in its epilogue)."""
     s_x, s_z1, s_z2 = scales[0], scales[1], scales[2]
     s_y = scales[3] if emit_i8 else _one(scales)
     return {
@@ -651,15 +653,23 @@ def _ds_geometry(xr, h, w_sp):
     return b, hp, wp, cin, oh, ow, hp2, wp2
 
 
+def _ds_flat(w2q):
+    """The transition's 3x3 as its (9c, c) matrix, rows (kh, kw, k)."""
+    return w2q.reshape(-1, w2q.shape[-1])
+
+
 def downsample_block_s2_int8_plain(
     xr, w1q, sw1, b1, w2q, sw2, b2, w3q, sw3, b3, wdq, swd, bd, scales, *,
     h, w_sp, emit_i8=True, bt=None, pair_dma=False, onedot=False,
     pipe_out=False, interpret=False,
+    w1q_nk=None, w2q_nk=None, w3q_nk=None, wdq_nk=None,
 ):
-    """Plain PyTorch version of ``downsample_block_s2_int8``."""
+    """Plain PyTorch version of ``downsample_block_s2_int8`` (the weights
+    read from their K-major copies where given)."""
+    w1q, w3q, wdq = _from_kmajor(w1q, w1q_nk), _from_kmajor(w3q, w3q_nk), _from_kmajor(wdq, wdq_nk)
+    w2 = _from_kmajor(_ds_flat(w2q), w2q_nk)
     b, hp, wp, cin, oh, ow, hp2, wp2 = _ds_geometry(xr, h, w_sp)
     f = _fold_ds(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8)
-    c = w1q.shape[-1]
     x = xr.reshape(b, hp, wp, cin)[:, 1 : 1 + h, 1 : 1 + w_sp]
     z1 = _requant(torch.relu(_fma(_idot(x, w1q).float(), f["a1"], f["c1"])))
     z1p = F.pad(z1, (0, 0, 1, 1, 1, 1))
@@ -671,7 +681,7 @@ def downsample_block_s2_int8_plain(
         ],
         dim=-1,
     )
-    acc2 = _idot(taps, w2q.reshape(9 * c, c))
+    acc2 = _idot(taps, w2)
     z2 = _requant(torch.relu(_fma(acc2.float(), f["a2"], f["c2"])))
     y = _fma(_idot(z2, w3q).float(), f["a3"], f["c3"])
     y = y + _fma(_idot(x[:, ::2, ::2], wdq).float(), f["ad"], f["cd"])
@@ -683,6 +693,7 @@ def downsample_block_s2_int8(
     xr, w1q, sw1, b1, w2q, sw2, b2, w3q, sw3, b3, wdq, swd, bd, scales, *,
     h, w_sp, emit_i8=True, bt=None, pair_dma=False, onedot=False,
     pipe_out=False, interpret=False,
+    w1q_nk=None, w2q_nk=None, w3q_nk=None, wdq_nk=None,
 ):
     """Whole stride-2 bottleneck downsample block, chain to chain.
 
@@ -691,34 +702,47 @@ def downsample_block_s2_int8(
     s_y].  Output: the (ceil(h/2), ceil(w_sp/2)) stage's chain, (.., 4c).
     Output pixel (i, j) taps z1 at (2i+u-1, 2j+v-1), zero outside the
     image; the shortcut reads x[2i, 2j].
+
+    ``w1q_nk`` (c, cin), ``w2q_nk`` (c, 9c), ``w3q_nk`` (c4, c), ``wdq_nk``
+    (c4, cin): the K-major copies that the int8 tensor-core tile reads,
+    made once per engine by ``fused.pack_chain_kmajor``; without them the
+    wrapper transposes once per call.  The kernel folds the requant scales
+    itself, as ``_fold_ds`` does, op for op.
     """
+    kmajor = dict(w1q_nk=w1q_nk, w2q_nk=w2q_nk, w3q_nk=w3q_nk, wdq_nk=wdq_nk)
     if not xr.is_cuda:
         return downsample_block_s2_int8_plain(
             xr, w1q, sw1, b1, w2q, sw2, b2, w3q, sw3, b3, wdq, swd, bd, scales,
-            h=h, w_sp=w_sp, emit_i8=emit_i8,
+            h=h, w_sp=w_sp, emit_i8=emit_i8, **kmajor,
         )
     b, hp, wp, cin, oh, ow, hp2, wp2 = _ds_geometry(xr, h, w_sp)
-    f = _fold_ds(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8)
     c = w1q.shape[-1]
     c4 = w3q.shape[-1]
     dev = xr.device
-    _check_i8(dev, xr=xr, w1q=w1q, w2q=w2q, w3q=w3q, wdq=wdq)
+    _check_i8(dev, xr=xr)
     if cin % 4 or c % 4:
         raise ValueError(f"channel counts must be multiples of 4, got cin={cin}, c={c}")
+    if tuple(w1q.shape) != (cin, c) or tuple(w2q.shape) != (3, 3, c, c) \
+            or tuple(w3q.shape) != (c, c4) or tuple(wdq.shape) != (cin, c4):
+        raise ValueError("weights do not match a (cin, c, 4c) transition: "
+                         f"{[tuple(w.shape) for w in (w1q, w2q, w3q, wdq)]}")
+    nk = {"w1": _kmajor(w1q, w1q_nk, "w1q_nk", dev), "w2": _kmajor(_ds_flat(w2q), w2q_nk, "w2q_nk", dev),
+          "w3": _kmajor(w3q, w3q_nk, "w3q_nk", dev), "wd": _kmajor(wdq, wdq_nk, "wdq_nk", dev)}
+    v = _f32_vectors(dev, sw1=(sw1, c), b1=(b1, c), sw2=(sw2, c), b2=(b2, c), sw3=(sw3, c4),
+                     b3=(b3, c4), swd=(swd, c4), bd=(bd, c4), scales=(scales, 4))
     z1 = torch.empty((b * hp * wp, c), dtype=torch.int8, device=dev)
     z2 = torch.empty((b * hp2 * wp2, c), dtype=torch.int8, device=dev)
     out = torch.empty(
         (b * hp2 * wp2, c4), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev
     )
-    fc = {k: v.contiguous() for k, v in f.items()}
     rc = _lib("chain_block").ds_block_s2_int8(
         xr.data_ptr(), b, h, w_sp, hp, wp, cin, c, c4, oh, ow, hp2, wp2,
-        w1q.data_ptr(), fc["a1"].data_ptr(), fc["c1"].data_ptr(),
-        w2q.data_ptr(), fc["a2"].data_ptr(), fc["c2"].data_ptr(),
-        w3q.data_ptr(), fc["a3"].data_ptr(), fc["c3"].data_ptr(),
-        wdq.data_ptr(), fc["ad"].data_ptr(), fc["cd"].data_ptr(),
-        z1.data_ptr(), z2.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(),
-        _build.stream(),
+        nk["w1"].data_ptr(), v["sw1"].data_ptr(), v["b1"].data_ptr(),
+        nk["w2"].data_ptr(), v["sw2"].data_ptr(), v["b2"].data_ptr(),
+        nk["w3"].data_ptr(), v["sw3"].data_ptr(), v["b3"].data_ptr(),
+        nk["wd"].data_ptr(), v["swd"].data_ptr(), v["bd"].data_ptr(),
+        v["scales"].data_ptr(), int(not emit_i8),
+        z1.data_ptr(), z2.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
     )
     _build.check(rc, "downsample_block_s2_int8")
     _build.LAUNCHES["downsample_block_s2_int8"] += 1
@@ -1017,16 +1041,19 @@ def basic_ds_block_s2_int8(
 #
 # Two W-adjacent pixels per row: the chain (B*hp*wp, C) viewed as pair rows
 # (B*hp*wp/2, 2C), a free view since wp is even.  The pairing lives in the
-# weights, built from the standard quantized tensors on every call as in
-# the JAX wrappers (block-diagonal 1x1s and the pair-packed 3x3), except
-# the basic kernels' pair-packed 3x3s, whose K-major copies the engine makes
-# once (``fused.pack_chain_kmajor``).  Each
-# public wrapper keeps its JAX contract (chain rows in and out) and hands
-# the pair-space operands to a pair-space entry (``*_pp_pairs``), which
-# launches the kernel for a CUDA tensor or runs its own plain version on the
-# CPU.  Interior-ness is per half of a pair row (the pad parity differs
-# inside boundary pairs): every source half whose pixel lies outside the
-# image reads as zero, and ring halves are written as zeros.
+# weights: block-diagonal 1x1s and the pair-packed 3x3, whose K-major copies
+# the engine makes once (``fused.pack_chain_kmajor``); a call without them
+# builds them from the standard quantized tensors, as the JAX wrappers do.
+# Each public wrapper keeps its JAX contract (chain rows in and out).  On a
+# CUDA tensor the bottleneck wrappers launch the kernel with the standard
+# block's raw vectors and device scales (the kernel folds and lane-tiles
+# them in its epilogue); the basic ones fold and lane-tile on the host and
+# hand the pair-space operands to a pair-space entry (``*_pp_pairs``), which
+# every kernel also has: it takes the folded, lane-tiled vectors, launches
+# the kernel for a CUDA tensor or runs its own plain version on the CPU.
+# Interior-ness is per half of a pair row (the pad parity differs inside
+# boundary pairs): every source half whose pixel lies outside the image
+# reads as zero, and ring halves are written as zeros.
 # ---------------------------------------------------------------------------
 
 
@@ -1155,11 +1182,89 @@ def _pp_block_folded(xpp, halves, wpp, w1, w2pp, w3, wd, f, *, emit_i8):
     return _pp_out(torch.relu(y), emit_i8, halves)
 
 
+def _pp_pair(w, w_nk, conv2=False):
+    """A pair-space (K, N) weight from the standard (..., k, n) weight ``w``
+    of a bottleneck block or run: the transposed view of the engine's
+    K-major copy ``w_nk`` where given (checked against ``w``), else built
+    here: the block-diagonal 1x1, or with ``conv2`` the pair-packed 3x3."""
+    if w is None:
+        return None
+    if w_nk is None:
+        return _pp_pack_conv2(w, w.shape[-1] // 3) if conv2 else _pp_block_diag(w)
+    *lead, k, n = w.shape
+    if tuple(w_nk.shape) != (*lead, 2 * n, 2 * k):
+        raise ValueError(f"pair-space K-major copy of shape {tuple(w_nk.shape)} for a "
+                         f"{tuple(w.shape)} weight")
+    return w_nk.transpose(-1, -2)
+
+
+def _pp_kmajor(w, w_nk, name, dev, conv2=False):
+    """The K-major copy of a pair-space weight that the kernel reads:
+    ``w_nk`` as given (checked against the standard weight ``w``), else
+    built from ``w`` (``_pp_pair``) and transposed here, once per call."""
+    return _kmajor(_pp_pair(w, w_nk, conv2), w_nk, name, dev)
+
+
+def _pp_nk(dev, **weights) -> dict:
+    """The K-major copies (``_kmajor``) of a pair-space entry's (K, N)
+    weights, given as name=(w, w_nk, shape), each w checked for its shape
+    first; an absent weight stays None."""
+    out = {}
+    for name, (w, w_nk, shape) in weights.items():
+        if w is not None and tuple(w.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(w.shape)}, expected {shape}")
+        out[name] = _kmajor(w, w_nk, name + "_nk", dev)
+    return out
+
+
+def _pp_call(kernel, xpp, geo, weights, vecs, scales, *, folded, emit_i8, n_blocks=None):
+    """Launch ``pp_block_int8`` (``n_blocks`` None) or ``pp_run_int8`` on pair
+    rows xpp: ``geo`` (b, h, w_sp, hp, wp), the K-major pair-space
+    ``weights`` (w1 [w10] w2 w3 wd) and fp32 ``vecs`` (sw1 b1 sw2 b2 sw3 b3
+    swd bd) in the C order, ``scales`` the device residual scales (folded)
+    or [s_x, s_z1, s_z2, s_y] rows (raw)."""
+    b, h, w_sp, hp, wp = geo
+    rows2, cin2 = xpp.shape
+    cw, c4p = weights["w3"].shape[-1], weights["w3"].shape[-2]
+    dev = xpp.device
+    if cin2 % 8 or cw % 8:
+        raise ValueError(f"pair widths must be multiples of 8, got cin2={cin2}, c2={cw}")
+    z1 = torch.empty((rows2, cw), dtype=torch.int8, device=dev)
+    z2 = torch.empty((rows2, cw), dtype=torch.int8, device=dev)
+    out = torch.empty((rows2, c4p), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
+    v = [vecs[k].data_ptr() for k in ("sw1", "b1")] + [weights["w2"].data_ptr()] + [
+        vecs[k].data_ptr() for k in ("sw2", "b2")] + [weights["w3"].data_ptr()] + [
+        vecs[k].data_ptr() for k in ("sw3", "b3")]
+    proj = [_build.ptr(weights["wd"]), _build.ptr(vecs["swd"]), _build.ptr(vecs["bd"])]
+    lib = _lib("pp_block")
+    if n_blocks is None:
+        rc = lib.pp_block_int8(
+            xpp.data_ptr(), b, h, w_sp, hp, wp, cin2, cw, c4p, weights["w1"].data_ptr(), *v,
+            scales.data_ptr(), int(folded), int(not folded and not emit_i8), *proj,
+            z1.data_ptr(), z2.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+        )
+    else:
+        act = torch.empty((2, rows2, c4p), dtype=torch.int8, device=dev)
+        rc = lib.pp_run_int8(
+            xpp.data_ptr(), n_blocks, b, h, w_sp, hp, wp, cin2, cw, c4p,
+            weights["w1"].data_ptr(), _build.ptr(weights["w10"]), *v, scales.data_ptr(),
+            int(folded), *proj, z1.data_ptr(), z2.data_ptr(), act[0].data_ptr(),
+            act[1].data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+        )
+    _build.check(rc, kernel)
+    _build.LAUNCHES[kernel] += 1
+    return out
+
+
 def bottleneck_block_pp_pairs_plain(
     xpp, w1bd, a1, c1, w2pp, a2, c2, w3bd, a3, c3, s_res, *,
     h, w_sp, emit_i8=True, wdbd=None, ad=None, cd=None,
+    w1bd_nk=None, w2pp_nk=None, w3bd_nk=None, wdbd_nk=None,
 ):
-    """Plain PyTorch version of ``bottleneck_block_pp_pairs``."""
+    """Plain PyTorch version of ``bottleneck_block_pp_pairs`` (the weights
+    read from their K-major copies where given)."""
+    w1bd, w2pp = _from_kmajor(w1bd, w1bd_nk), _from_kmajor(w2pp, w2pp_nk)
+    w3bd, wdbd = _from_kmajor(w3bd, w3bd_nk), _from_kmajor(wdbd, wdbd_nk)
     b, hp, wp = _pp_geometry(xpp, h, w_sp)
     halves = _pp_halves(b, hp, wp, h, w_sp, xpp.device)
     f = {"a1": a1, "c1": c1, "a2": a2, "c2": c2, "a3": a3, "c3": c3, "s_res": s_res,
@@ -1170,95 +1275,101 @@ def bottleneck_block_pp_pairs_plain(
 def bottleneck_block_pp_pairs(
     xpp, w1bd, a1, c1, w2pp, a2, c2, w3bd, a3, c3, s_res, *,
     h, w_sp, emit_i8=True, wdbd=None, ad=None, cd=None,
+    w1bd_nk=None, w2pp_nk=None, w3bd_nk=None, wdbd_nk=None,
 ):
     """The pair-space entry of ``bottleneck_block_chained_int8_pp``: xpp
     (B*hp*wp/2, cin2) int8 pair rows; w1bd (cin2, c2), w2pp (3c2, 3c2), w3bd
-    (c2, c4p) int8; a1, c1, c2 (c2,), a2 (3, c2), a3, c3 (c4p,) fp32; s_res
-    (1,); optional projection wdbd (cin2, c4p), ad, cd (c4p,).  Any int8
-    values: the kernel is a dense pair-space GEMM.  Returns (B*hp*wp/2, c4p)
-    pair rows, int8 or bf16, zero on ring halves."""
+    (c2, c4p) int8 (their K-major copies ``*_nk``, else transposed per
+    call); a1, c1, c2 (c2,), a2 (3, c2), a3, c3 (c4p,) fp32, folded and
+    lane-tiled; s_res (1,); optional projection wdbd (cin2, c4p), ad, cd
+    (c4p,).  Any int8 values: the kernel is a dense pair-space GEMM.
+    Returns (B*hp*wp/2, c4p) pair rows, int8 or bf16, zero on ring halves."""
+    kmajor = dict(w1bd_nk=w1bd_nk, w2pp_nk=w2pp_nk, w3bd_nk=w3bd_nk, wdbd_nk=wdbd_nk)
     if not xpp.is_cuda:
         return bottleneck_block_pp_pairs_plain(
             xpp, w1bd, a1, c1, w2pp, a2, c2, w3bd, a3, c3, s_res,
-            h=h, w_sp=w_sp, emit_i8=emit_i8, wdbd=wdbd, ad=ad, cd=cd,
+            h=h, w_sp=w_sp, emit_i8=emit_i8, wdbd=wdbd, ad=ad, cd=cd, **kmajor,
         )
     b, hp, wp = _pp_geometry(xpp, h, w_sp)
-    rows2, cin2 = xpp.shape
-    cw = w1bd.shape[1]
-    c4p = w3bd.shape[1]
+    cin2 = xpp.shape[1]
+    cw, c4p = w1bd.shape[1], w3bd.shape[1]
     dev = xpp.device
     _check_i8(dev, xpp=xpp)
-    _build.require(w1bd, "w1bd", torch.int8, dev, (cin2, cw))
-    _build.require(w2pp, "w2pp", torch.int8, dev, (3 * cw, 3 * cw))
-    _build.require(w3bd, "w3bd", torch.int8, dev, (cw, c4p))
-    vecs = {"a1": a1, "c1": c1, "a2": a2, "c2": c2, "a3": a3, "c3": c3, "s_res": s_res}
-    shapes = {"a1": (cw,), "c1": (cw,), "a2": (3, cw), "c2": (cw,), "a3": (c4p,), "c3": (c4p,),
-              "s_res": (1,)}
+    weights = _pp_nk(dev, w1=(w1bd, w1bd_nk, (cin2, cw)), w2=(w2pp, w2pp_nk, (3 * cw, 3 * cw)),
+                     w3=(w3bd, w3bd_nk, (cw, c4p)), wd=(wdbd, wdbd_nk, (cin2, c4p)))
+    vecs = {"sw1": a1, "b1": c1, "sw2": a2, "b2": c2, "sw3": a3, "b3": c3, "swd": None,
+            "bd": None}
+    shapes = {"sw1": (cw,), "b1": (cw,), "sw2": (3, cw), "b2": (cw,), "sw3": (c4p,),
+              "b3": (c4p,), "swd": (c4p,), "bd": (c4p,)}
     if wdbd is None:
         if cin2 != c4p:
             raise ValueError(f"identity shortcut needs cin2 == c4p, got {cin2} vs {c4p}")
     else:
-        _build.require(wdbd, "wdbd", torch.int8, dev, (cin2, c4p))
-        vecs.update(ad=ad, cd=cd)
-        shapes.update(ad=(c4p,), cd=(c4p,))
+        vecs.update(swd=ad, bd=cd)
     for name, v in vecs.items():
-        _build.require(v, name, torch.float32, dev, shapes[name])
-    if cin2 % 8 or cw % 8:
-        raise ValueError(f"pair widths must be multiples of 8, got cin2={cin2}, c2={cw}")
-    z1 = torch.empty((rows2, cw), dtype=torch.int8, device=dev)
-    z2 = torch.empty((rows2, cw), dtype=torch.int8, device=dev)
-    out = torch.empty((rows2, c4p), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
-    rc = _lib("pp_block").pp_block_int8(
-        xpp.data_ptr(), b, h, w_sp, hp, wp, cin2, cw, c4p,
-        w1bd.data_ptr(), a1.data_ptr(), c1.data_ptr(),
-        w2pp.data_ptr(), a2.data_ptr(), c2.data_ptr(),
-        w3bd.data_ptr(), a3.data_ptr(), c3.data_ptr(),
-        s_res.data_ptr(), _build.ptr(wdbd), _build.ptr(ad), _build.ptr(cd),
-        z1.data_ptr(), z2.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
-    )
-    _build.check(rc, "bottleneck_block_chained_int8_pp")
-    _build.LAUNCHES["bottleneck_block_chained_int8_pp"] += 1
-    return out
-
-
-def _block_pp_operands(xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales,
-                       h, w_sp, emit_i8, wdq, swd, bd):
-    """The pair-space operands of kernel 5, folded and lane-tiled as
-    block.py:1166-1175 and :1203-1204 do."""
-    _, _, wp, cin, c, c4 = _block_geometry(xq, w1q, w3q, wdq, h, w_sp, emit_i8, False)
-    _pp_require(c, wp)
-    f = _pp_tile(_fold_block(scales, sw1, b1, sw2p, b2, sw3, b3, swd, bd, emit_i8))
-    args = (
-        xq.reshape(-1, 2 * cin), _pp_block_diag(w1q), f["a1"], f["c1"],
-        _pp_pack_conv2(w2pq, c), f["a2"], f["c2"], _pp_block_diag(w3q), f["a3"], f["c3"],
-        f["s_res"],
-    )
-    kw = dict(h=h, w_sp=w_sp, emit_i8=emit_i8, ad=f["ad"], cd=f["cd"],
-              wdbd=None if wdq is None else _pp_block_diag(wdq))
-    return args, kw, c4
+        if v is not None:
+            _build.require(v, name, torch.float32, dev, shapes[name])
+    _build.require(s_res, "s_res", torch.float32, dev, (1,))
+    return _pp_call("bottleneck_block_chained_int8_pp", xpp, (b, h, w_sp, hp, wp), weights,
+                    vecs, s_res, folded=True, emit_i8=emit_i8)
 
 
 def bottleneck_block_chained_int8_pp_plain(
     xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales, *,
     h, w_sp, emit_i8=True, bt=None, interpret=False, wdq=None, swd=None, bd=None,
+    w1bd_nk=None, w2pp_nk=None, w3bd_nk=None, wdbd_nk=None,
 ):
-    """Plain PyTorch version of ``bottleneck_block_chained_int8_pp``."""
-    args, kw, c4 = _block_pp_operands(xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3,
-                                      scales, h, w_sp, emit_i8, wdq, swd, bd)
-    return bottleneck_block_pp_pairs_plain(*args, **kw).reshape(-1, c4)
+    """Plain PyTorch version of ``bottleneck_block_chained_int8_pp``: the
+    pair-space operands folded and lane-tiled as block.py:1166-1175 and
+    :1203-1204 do, through the pair-space entry's plain version."""
+    _, _, wp, cin, c, c4 = _block_geometry(xq, w1q, w3q, wdq, h, w_sp, emit_i8, False)
+    _pp_require(c, wp)
+    f = _pp_tile(_fold_block(scales, sw1, b1, sw2p, b2, sw3, b3, swd, bd, emit_i8))
+    return bottleneck_block_pp_pairs_plain(
+        xq.reshape(-1, 2 * cin), _pp_pair(w1q, w1bd_nk), f["a1"], f["c1"],
+        _pp_pair(w2pq, w2pp_nk, conv2=True), f["a2"], f["c2"], _pp_pair(w3q, w3bd_nk),
+        f["a3"], f["c3"], f["s_res"], h=h, w_sp=w_sp, emit_i8=emit_i8,
+        wdbd=_pp_pair(wdq, wdbd_nk), ad=f["ad"], cd=f["cd"],
+    ).reshape(-1, c4)
 
 
 def bottleneck_block_chained_int8_pp(
     xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales, *,
     h, w_sp, emit_i8=True, bt=None, interpret=False, wdq=None, swd=None, bd=None,
+    w1bd_nk=None, w2pp_nk=None, w3bd_nk=None, wdbd_nk=None,
 ):
     """Pixel-paired stride-1 bottleneck block for the c=64 stage: the same
     contract as ``bottleneck_block_chained_int8`` (chain rows (B*Hp*Wp, cin)
     in, (B*Hp*Wp, 4c) out, identity or projection shortcut, int8 or bf16
-    exit), computed in pair space.  Needs c == 64 and an even wp."""
-    args, kw, c4 = _block_pp_operands(xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3,
-                                      scales, h, w_sp, emit_i8, wdq, swd, bd)
-    return bottleneck_block_pp_pairs(*args, **kw).reshape(-1, c4)
+    exit), computed in pair space.  Needs c == 64 and an even wp.
+
+    ``w1bd_nk``, ``w2pp_nk``, ``w3bd_nk``, ``wdbd_nk``: the K-major copies of
+    the pair-space weights (block-diagonal 1x1s, the pair-packed 3x3), made
+    once per engine by ``fused.pack_chain_kmajor``; without them the wrapper
+    packs and transposes once per call.  The kernel folds the requant scales
+    from the raw vectors and the device scales, as ``_fold_block`` then
+    ``_pp_tile`` do, op for op."""
+    if not xq.is_cuda:
+        return bottleneck_block_chained_int8_pp_plain(
+            xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales, h=h, w_sp=w_sp,
+            emit_i8=emit_i8, wdq=wdq, swd=swd, bd=bd,
+            w1bd_nk=w1bd_nk, w2pp_nk=w2pp_nk, w3bd_nk=w3bd_nk, wdbd_nk=wdbd_nk,
+        )
+    b, hp, wp, cin, c, c4 = _block_geometry(xq, w1q, w3q, wdq, h, w_sp, emit_i8, False)
+    _pp_require(c, wp)
+    dev = xq.device
+    _check_i8(dev, xq=xq)
+    weights = {"w1": _pp_kmajor(w1q, w1bd_nk, "w1bd_nk", dev),
+               "w2": _pp_kmajor(w2pq, w2pp_nk, "w2pp_nk", dev, conv2=True),
+               "w3": _pp_kmajor(w3q, w3bd_nk, "w3bd_nk", dev),
+               "wd": _pp_kmajor(wdq, wdbd_nk, "wdbd_nk", dev)}
+    vecs = _f32_vectors(dev, sw1=(sw1, c), b1=(b1, c), sw2=(sw2p, 3 * c), b2=(b2, c),
+                        sw3=(sw3, c4), b3=(b3, c4), scales=(scales, 4),
+                        swd=(swd, c4) if wdq is not None else None,
+                        bd=(bd, c4) if wdq is not None else None)
+    return _pp_call("bottleneck_block_chained_int8_pp", xq.reshape(-1, 2 * cin),
+                    (b, h, w_sp, hp, wp), weights, vecs, vecs["scales"], folded=False,
+                    emit_i8=emit_i8).reshape(-1, c4)
 
 
 # --- Kernel 6: a pixel-paired run of bottleneck blocks ----------------------
@@ -1267,8 +1378,13 @@ def bottleneck_block_chained_int8_pp(
 def bottleneck_run_pp_pairs_plain(
     xpp, w1bd_s, a1s, c1s, w2pp_s, a2s, c2s, w3bd_s, a3s, c3s, s_res, *,
     h, w_sp, emit_i8=True, w10bd=None, wdbd=None, ad=None, cd=None,
+    w1bd_nk_s=None, w2pp_nk_s=None, w3bd_nk_s=None, w10bd_nk=None, wdbd_nk=None,
 ):
-    """Plain PyTorch version of ``bottleneck_run_pp_pairs``."""
+    """Plain PyTorch version of ``bottleneck_run_pp_pairs`` (the weights
+    read from their K-major copies where given)."""
+    w1bd_s, w2pp_s = _from_kmajor(w1bd_s, w1bd_nk_s), _from_kmajor(w2pp_s, w2pp_nk_s)
+    w3bd_s = _from_kmajor(w3bd_s, w3bd_nk_s)
+    w10bd, wdbd = _from_kmajor(w10bd, w10bd_nk), _from_kmajor(wdbd, wdbd_nk)
     b, hp, wp = _pp_geometry(xpp, h, w_sp)
     halves = _pp_halves(b, hp, wp, h, w_sp, xpp.device)
     n_blocks = w2pp_s.shape[0]
@@ -1291,102 +1407,109 @@ def bottleneck_run_pp_pairs_plain(
 def bottleneck_run_pp_pairs(
     xpp, w1bd_s, a1s, c1s, w2pp_s, a2s, c2s, w3bd_s, a3s, c3s, s_res, *,
     h, w_sp, emit_i8=True, w10bd=None, wdbd=None, ad=None, cd=None,
+    w1bd_nk_s=None, w2pp_nk_s=None, w3bd_nk_s=None, w10bd_nk=None, wdbd_nk=None,
 ):
     """The pair-space entry of ``bottleneck_run_chained_int8_pp``: stacked
     w1bd_s (N, c4p, c2) (N-1 with the projection form), w2pp_s (N, 3c2, 3c2),
-    w3bd_s (N, c2, c4p) int8; a1s, c1s, c2s (N, c2), a2s (3N, c2), a3s, c3s
-    (N, c4p), s_res (N,) fp32; the projection form adds w10bd (cin2, c2),
-    wdbd (cin2, c4p), ad, cd (c4p,).  Dense pair-space GEMMs, as kernel 5."""
+    w3bd_s (N, c2, c4p) int8 (their stacked K-major copies ``*_nk_s``, else
+    transposed per call); a1s, c1s, c2s (N, c2), a2s (3N, c2), a3s, c3s (N,
+    c4p), s_res (N,) fp32; the projection form adds w10bd (cin2, c2), wdbd
+    (cin2, c4p) (``w10bd_nk``, ``wdbd_nk``), ad, cd (c4p,).  Dense pair-space
+    GEMMs, as kernel 5."""
+    kmajor = dict(w1bd_nk_s=w1bd_nk_s, w2pp_nk_s=w2pp_nk_s, w3bd_nk_s=w3bd_nk_s,
+                  w10bd_nk=w10bd_nk, wdbd_nk=wdbd_nk)
     if not xpp.is_cuda:
         return bottleneck_run_pp_pairs_plain(
             xpp, w1bd_s, a1s, c1s, w2pp_s, a2s, c2s, w3bd_s, a3s, c3s, s_res,
-            h=h, w_sp=w_sp, emit_i8=emit_i8, w10bd=w10bd, wdbd=wdbd, ad=ad, cd=cd,
+            h=h, w_sp=w_sp, emit_i8=emit_i8, w10bd=w10bd, wdbd=wdbd, ad=ad, cd=cd, **kmajor,
         )
     b, hp, wp = _pp_geometry(xpp, h, w_sp)
-    rows2, cin2 = xpp.shape
+    cin2 = xpp.shape[1]
     n_blocks, cw, c4p = w3bd_s.shape
     has_proj = w10bd is not None
     dev = xpp.device
     _check_i8(dev, xpp=xpp)
-    _build.require(w1bd_s, "w1bd_s", torch.int8, dev, (n_blocks - has_proj, c4p, cw))
-    _build.require(w2pp_s, "w2pp_s", torch.int8, dev, (n_blocks, 3 * cw, 3 * cw))
-    _build.require(w3bd_s, "w3bd_s", torch.int8, dev, (n_blocks, cw, c4p))
-    vecs = {"a1s": a1s, "c1s": c1s, "a2s": a2s, "c2s": c2s, "a3s": a3s, "c3s": c3s,
-            "s_res": s_res}
-    shapes = {"a1s": (n_blocks, cw), "c1s": (n_blocks, cw), "a2s": (3 * n_blocks, cw),
-              "c2s": (n_blocks, cw), "a3s": (n_blocks, c4p), "c3s": (n_blocks, c4p),
-              "s_res": (n_blocks,)}
+    weights = _pp_nk(dev, w1=(w1bd_s, w1bd_nk_s, (n_blocks - has_proj, c4p, cw)),
+                     w10=(w10bd, w10bd_nk, (cin2, cw)),
+                     w2=(w2pp_s, w2pp_nk_s, (n_blocks, 3 * cw, 3 * cw)),
+                     w3=(w3bd_s, w3bd_nk_s, (n_blocks, cw, c4p)), wd=(wdbd, wdbd_nk, (cin2, c4p)))
+    vecs = {"sw1": a1s, "b1": c1s, "sw2": a2s, "b2": c2s, "sw3": a3s, "b3": c3s,
+            "swd": None, "bd": None}
+    shapes = {"sw1": (n_blocks, cw), "b1": (n_blocks, cw), "sw2": (3 * n_blocks, cw),
+              "b2": (n_blocks, cw), "sw3": (n_blocks, c4p), "b3": (n_blocks, c4p),
+              "swd": (c4p,), "bd": (c4p,)}
     if has_proj:
         if n_blocks < 2:
             raise ValueError("a lone projection block is bottleneck_block_pp_pairs' job")
-        _build.require(w10bd, "w10bd", torch.int8, dev, (cin2, cw))
-        _build.require(wdbd, "wdbd", torch.int8, dev, (cin2, c4p))
-        vecs.update(ad=ad, cd=cd)
-        shapes.update(ad=(c4p,), cd=(c4p,))
+        vecs.update(swd=ad, bd=cd)
     elif cin2 != c4p:
         raise ValueError(f"identity runs need cin2 == c4p, got {cin2} vs {c4p}")
     for name, v in vecs.items():
-        _build.require(v, name, torch.float32, dev, shapes[name])
-    if cin2 % 8 or cw % 8:
-        raise ValueError(f"pair widths must be multiples of 8, got cin2={cin2}, cw={cw}")
-    z1 = torch.empty((rows2, cw), dtype=torch.int8, device=dev)
-    z2 = torch.empty((rows2, cw), dtype=torch.int8, device=dev)
-    act = torch.empty((2, rows2, c4p), dtype=torch.int8, device=dev)
-    out = torch.empty((rows2, c4p), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
-    rc = _lib("pp_block").pp_run_int8(
-        xpp.data_ptr(), n_blocks, b, h, w_sp, hp, wp, cin2, cw, c4p,
-        w1bd_s.data_ptr(), _build.ptr(w10bd),
-        a1s.data_ptr(), c1s.data_ptr(), w2pp_s.data_ptr(), a2s.data_ptr(), c2s.data_ptr(),
-        w3bd_s.data_ptr(), a3s.data_ptr(), c3s.data_ptr(), s_res.data_ptr(),
-        _build.ptr(wdbd), _build.ptr(ad), _build.ptr(cd),
-        z1.data_ptr(), z2.data_ptr(), act[0].data_ptr(), act[1].data_ptr(),
-        0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
-    )
-    _build.check(rc, "bottleneck_run_chained_int8_pp")
-    _build.LAUNCHES["bottleneck_run_chained_int8_pp"] += 1
-    return out
-
-
-def _run_pp_operands(xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s,
-                     scales_s, h, w_sp, emit_i8, w1q0, wdq, swd, bd):
-    """The pair-space operands of kernel 6, folded and lane-tiled as
-    block.py:1444-1461 and :1490-1491 do."""
-    _, _, _, wp, cin, c, c4 = _run_geometry(xq, w1q_s, w3q_s, w1q0, wdq, h, w_sp)
-    _pp_require(c, wp)
-    f = _pp_tile(_fold_run(scales_s, sw1_s, b1_s, sw2p_s, b2_s, sw3_s, b3_s, swd, bd, emit_i8))
-    args = (
-        xq.reshape(-1, 2 * cin), _pp_block_diag(w1q_s), f["a1"], f["c1"],
-        _pp_pack_conv2(w2pq_s, c), f["a2"], f["c2"], _pp_block_diag(w3q_s), f["a3"], f["c3"],
-        f["s_res"],
-    )
-    kw = dict(h=h, w_sp=w_sp, emit_i8=emit_i8)
-    if w1q0 is not None:
-        kw.update(w10bd=_pp_block_diag(w1q0), wdbd=_pp_block_diag(wdq), ad=f["ad"], cd=f["cd"])
-    return args, kw, c4
+        if v is not None:
+            _build.require(v, name, torch.float32, dev, shapes[name])
+    _build.require(s_res, "s_res", torch.float32, dev, (n_blocks,))
+    return _pp_call("bottleneck_run_chained_int8_pp", xpp, (b, h, w_sp, hp, wp), weights, vecs,
+                    s_res, folded=True, emit_i8=emit_i8, n_blocks=n_blocks)
 
 
 def bottleneck_run_chained_int8_pp_plain(
     xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s, *,
     h, w_sp, emit_i8=True, bt=None, interpret=False,
     w1q0=None, wdq=None, swd=None, bd=None,
+    w1bd_nk_s=None, w2pp_nk_s=None, w3bd_nk_s=None, w10bd_nk=None, wdbd_nk=None,
 ):
-    """Plain PyTorch version of ``bottleneck_run_chained_int8_pp``."""
-    args, kw, c4 = _run_pp_operands(xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s,
-                                    sw3_s, b3_s, scales_s, h, w_sp, emit_i8, w1q0, wdq, swd, bd)
-    return bottleneck_run_pp_pairs_plain(*args, **kw).reshape(-1, c4)
+    """Plain PyTorch version of ``bottleneck_run_chained_int8_pp``: the
+    pair-space operands folded and lane-tiled as block.py:1444-1461 and
+    :1490-1491 do, through the pair-space entry's plain version."""
+    _, _, _, wp, cin, c, c4 = _run_geometry(xq, w1q_s, w3q_s, w1q0, wdq, h, w_sp)
+    _pp_require(c, wp)
+    f = _pp_tile(_fold_run(scales_s, sw1_s, b1_s, sw2p_s, b2_s, sw3_s, b3_s, swd, bd, emit_i8))
+    return bottleneck_run_pp_pairs_plain(
+        xq.reshape(-1, 2 * cin), _pp_pair(w1q_s, w1bd_nk_s), f["a1"], f["c1"],
+        _pp_pair(w2pq_s, w2pp_nk_s, conv2=True), f["a2"], f["c2"], _pp_pair(w3q_s, w3bd_nk_s),
+        f["a3"], f["c3"], f["s_res"], h=h, w_sp=w_sp, emit_i8=emit_i8,
+        w10bd=_pp_pair(w1q0, w10bd_nk), wdbd=_pp_pair(wdq, wdbd_nk), ad=f["ad"], cd=f["cd"],
+    ).reshape(-1, c4)
 
 
 def bottleneck_run_chained_int8_pp(
     xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s, *,
     h, w_sp, emit_i8=True, bt=None, interpret=False,
     w1q0=None, wdq=None, swd=None, bd=None,
+    w1bd_nk_s=None, w2pp_nk_s=None, w3bd_nk_s=None, w10bd_nk=None, wdbd_nk=None,
 ):
     """Pixel-paired run of N stride-1 bottleneck blocks for the c=64 stage:
     the contract of ``bottleneck_run_chained_int8`` (stacked weights, the
-    projection form with w1q0/wdq/swd/bd), computed in pair space."""
-    args, kw, c4 = _run_pp_operands(xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s,
-                                    sw3_s, b3_s, scales_s, h, w_sp, emit_i8, w1q0, wdq, swd, bd)
-    return bottleneck_run_pp_pairs(*args, **kw).reshape(-1, c4)
+    projection form with w1q0/wdq/swd/bd), computed in pair space.
+    ``w1bd_nk_s``, ``w2pp_nk_s``, ``w3bd_nk_s`` (and ``w10bd_nk``,
+    ``wdbd_nk``): the stacked K-major copies of the pair-space weights (see
+    ``bottleneck_block_chained_int8_pp``).  The kernel folds each block's
+    scales itself (as ``_fold_run`` then ``_pp_tile`` do)."""
+    if not xq.is_cuda:
+        return bottleneck_run_chained_int8_pp_plain(
+            xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s,
+            h=h, w_sp=w_sp, emit_i8=emit_i8, w1q0=w1q0, wdq=wdq, swd=swd, bd=bd,
+            w1bd_nk_s=w1bd_nk_s, w2pp_nk_s=w2pp_nk_s, w3bd_nk_s=w3bd_nk_s, w10bd_nk=w10bd_nk,
+            wdbd_nk=wdbd_nk,
+        )
+    n_blocks, b, hp, wp, cin, c, c4 = _run_geometry(xq, w1q_s, w3q_s, w1q0, wdq, h, w_sp)
+    _pp_require(c, wp)
+    dev = xq.device
+    _check_i8(dev, xq=xq)
+    weights = {"w1": _pp_kmajor(w1q_s, w1bd_nk_s, "w1bd_nk_s", dev),
+               "w10": _pp_kmajor(w1q0, w10bd_nk, "w10bd_nk", dev),
+               "w2": _pp_kmajor(w2pq_s, w2pp_nk_s, "w2pp_nk_s", dev, conv2=True),
+               "w3": _pp_kmajor(w3q_s, w3bd_nk_s, "w3bd_nk_s", dev),
+               "wd": _pp_kmajor(wdq, wdbd_nk, "wdbd_nk", dev)}
+    n, has_proj = n_blocks, w1q0 is not None
+    vecs = _f32_vectors(dev, sw1=(sw1_s.reshape(-1), n * c), b1=(b1_s.reshape(-1), n * c),
+                        sw2=(sw2p_s.reshape(-1), n * 3 * c), b2=(b2_s.reshape(-1), n * c),
+                        sw3=(sw3_s.reshape(-1), n * c4), b3=(b3_s.reshape(-1), n * c4),
+                        scales=(scales_s.reshape(-1), n * 4),
+                        swd=(swd, c4) if has_proj else None, bd=(bd, c4) if has_proj else None)
+    return _pp_call("bottleneck_run_chained_int8_pp", xq.reshape(-1, 2 * cin),
+                    (b, h, w_sp, hp, wp), weights, vecs, vecs["scales"], folded=False,
+                    emit_i8=emit_i8, n_blocks=n_blocks).reshape(-1, c4)
 
 
 # --- Kernels 9 and 10: the pixel-paired basic block and run -----------------

@@ -38,7 +38,10 @@ block and every identity block of stages 2-4 through
 0 (c = 64) takes the pixel-paired twins instead
 (``bottleneck_block_chained_int8_pp``, ``bottleneck_run_chained_int8_pp``);
 under ``STAGE_FUSE_PROJ`` the whole of layer1 is one run kernel, projection
-block included, standard or paired.
+block included, standard or paired.  The kernels read the K-major weight
+copies (and at c = 64 stage 0's pair-space copies and stacked run) from
+the engine's tree (``pack_chain_kmajor``) where it has them, and make them
+per call where it does not.
 
 The int8_chain basic forward (ResNet-18/34) shares the stem and the chain:
 the stage-0 blocks run as one ``basic_run_chained_int8``
@@ -650,31 +653,80 @@ def quantize_chain(cfg: ResNetConfig, folded: Tree) -> Tree:
     return out
 
 
-#: The weights of a stride-1 bottleneck block that the int8 tile reads, and
-#: the keys of their K-major copies.
-KMAJOR_KEYS = {"w1q": "w1q_nk", "w2pq": "w2pq_nk", "w3q": "w3q_nk", "wdq": "wdq_nk"}
+#: The weights of a bottleneck block that the int8 tile reads, and the keys
+#: of their K-major copies (a transition's 3x3 ``w2q`` as its (9c, c) matrix).
+KMAJOR_KEYS = {"w1q": "w1q_nk", "w2pq": "w2pq_nk", "w2q": "w2q_nk", "w3q": "w3q_nk",
+               "wdq": "wdq_nk"}
+#: The keys of the K-major copies of a pixel-paired block's pair-space weights.
+PP_KMAJOR_KEYS = ("w1bd_nk", "w2pp_nk", "w3bd_nk", "wdbd_nk")
+#: The per-block keys of a bottleneck block's operands, in the kernels' order.
+KEYS = ("w1q", "sw1", "b1", "w2pq", "sw2p", "b2", "w3q", "sw3", "b3")
 
 
 def pack_chain_kmajor(cfg: ResNetConfig, qtree: Tree) -> Tree:
-    """A copy of a ``quantize_chain`` tree with the contiguous K-major (N,
-    K) copy of each weight that the stride-1 block kernels read on the int8
-    tensor cores (8-bit wgmma takes both operands K-major) beside it, made
-    once per engine instead of once per call.  Bottleneck: ``w1q_nk``,
-    ``w2pq_nk`` (row kh*c + j: output j of kernel row kh), ``w3q_nk`` and,
-    on a projection block, ``wdq_nk``, on every stride-1 block (the
-    pixel-paired kernels ignore them).  Basic: see ``_pack_basic``.  Other
+    """A copy of a ``quantize_chain`` tree with what the int8 tile reads
+    made once per engine instead of once per call.  Bottleneck: beside each
+    block's weights their contiguous K-major (N, K) copies (8-bit wgmma
+    takes both operands K-major), ``w1q_nk``, ``w2pq_nk`` (row kh*c + j:
+    output j of kernel row kh) or a transition's ``w2q_nk`` (c, 9c),
+    ``w3q_nk`` and ``wdq_nk``; and at c = 64 stage 0's pixel-paired
+    operands (``_pack_pp_stage0``).  Basic: see ``_pack_basic``.  Other
     entries are shared, not copied."""
     if cfg.block != "bottleneck":
         return _pack_basic(qtree)
     out = dict(qtree)
     for stage in range(4):
-        layer = {}
-        for b_str, blk in qtree[f"layer{stage + 1}"].items():
-            if "w2pq" in blk:  # stride 1 (a transition has w2q)
-                blk = {**blk, **kmajor_copies(blk)}
-            layer[b_str] = blk
-        out[f"layer{stage + 1}"] = layer
+        name = f"layer{stage + 1}"
+        out[name] = {b: {**blk, **kmajor_copies(blk)} for b, blk in qtree[name].items()}
+    if out["layer1"]["0"]["w1q"].shape[-1] == 64:
+        out["layer1"], out["runs"] = _pack_pp_stage0(out["layer1"])
     return out
+
+
+def _pack_pp_stage0(layer: dict) -> tuple[dict, dict]:
+    """Stage 0's pixel-paired operands (c = 64) for ``pack_chain_kmajor``:
+    the K-major copies of each block's pair-space weights (``w1bd_nk``,
+    ``w2pp_nk``, ``w3bd_nk``, and ``wdbd_nk`` on a projection block: the
+    block-diagonal 1x1s, the pair-packed 3x3), and the stage's run stacked
+    once, under ``"runs"`` / ``"layer1"``: every block's vectors, ``w2pq``,
+    ``w3q`` and their pair copies (``sw1_s`` ... ``b3_s``, ``w2pp_nk_s``,
+    ``w3bd_nk_s``), and the conv1 of blocks 1.. (``w1q_s``, ``w1bd_nk_s``).
+    A run over blocks i.. reads the slices [i:]; each block's copies are
+    views of the stacks, block 0's conv1 and projection copies its own."""
+    ids = sorted(layer, key=int)
+    blocks = [layer[b] for b in ids]
+    run = {k + "_s": _stack(blocks, k) for k in KEYS[1:]}
+    run["w2pp_nk_s"] = block._pp_pack_conv2(run["w2pq_s"], 64).transpose(-1, -2).contiguous()
+    run["w3bd_nk_s"] = block._pp_block_diag(run["w3q_s"].transpose(-1, -2)).contiguous()
+    if len(blocks) > 1:
+        run["w1q_s"] = _stack(blocks[1:], "w1q")
+        run["w1bd_nk_s"] = block._pp_block_diag(run["w1q_s"].transpose(-1, -2)).contiguous()
+    out = {}
+    for i, (b, blk) in enumerate(zip(ids, blocks)):
+        pair = {"w2pp_nk": run["w2pp_nk_s"][i], "w3bd_nk": run["w3bd_nk_s"][i],
+                "w1bd_nk": run["w1bd_nk_s"][i - 1] if i
+                else block._pp_block_diag(blk["w1q"].t()).contiguous()}
+        if "wdq" in blk:
+            pair["wdbd_nk"] = block._pp_block_diag(blk["wdq"].t()).contiguous()
+        out[b] = {**blk, **pair}
+    return out, {"layer1": run}
+
+
+def pp_run_operands(blocks: list, packed: dict | None, first: int) -> tuple[list, dict]:
+    """The stacked operands (``KEYS``; conv1 of blocks 1.. only, block 0's
+    coming in as ``w1q0``) of a pixel-paired run over stage 0's blocks
+    ``first``.. (``blocks``: all of the stage), and the K-major copies of
+    its pair-space weights as keyword arguments: slices of the engine's
+    stacks (``_pack_pp_stage0``) where the tree has them, else stacked here
+    (the wrapper then packs once)."""
+    if packed is None:
+        return [_stack(blocks[1:], "w1q"), *(_stack(blocks[first:], k) for k in KEYS[1:])], {}
+    args = [packed["w1q_s"], *(packed[k + "_s"][first:] for k in KEYS[1:])]
+    kw = {"w1bd_nk_s": packed["w1bd_nk_s"], "w2pp_nk_s": packed["w2pp_nk_s"][first:],
+          "w3bd_nk_s": packed["w3bd_nk_s"][first:]}
+    if first == 0:
+        kw.update(w10bd_nk=blocks[0]["w1bd_nk"], wdbd_nk=blocks[0]["wdbd_nk"])
+    return args, kw
 
 
 #: The per-block keys of a basic run's operands, in the kernels' order.
@@ -736,13 +788,15 @@ def _basic_kmajor_kwargs(blk: dict, pp: bool) -> dict:
 
 
 def kmajor_copies(blk: dict) -> dict:
-    """The K-major copies of one stride-1 block's weights, by their keys."""
-    return {nk: blk[k].t().contiguous() for k, nk in KMAJOR_KEYS.items() if k in blk}
+    """The K-major copies of one block's weights, by their keys."""
+    return {nk: blk[k].reshape(-1, blk[k].shape[-1]).t().contiguous()
+            for k, nk in KMAJOR_KEYS.items() if k in blk}
 
 
-def kmajor_kwargs(blk: dict) -> dict:
-    """The K-major copies a block carries, as keyword arguments."""
-    return {nk: blk[nk] for nk in KMAJOR_KEYS.values() if nk in blk}
+def kmajor_kwargs(blk: dict, pp: bool = False) -> dict:
+    """The K-major copies a block carries for its kernel (the pair-space
+    ones for the pixel-paired kernel), as keyword arguments."""
+    return {nk: blk[nk] for nk in (PP_KMAJOR_KEYS if pp else KMAJOR_KEYS.values()) if nk in blk}
 
 
 def kmajor_run_kwargs(run: list, proj: bool) -> dict:
@@ -854,7 +908,7 @@ def fused_forward_int8_chain(
 
     scale_row, s_after = _chain_scale_lookups(cfg, chain_scales)
     yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy)
-    keys = ("w1q", "sw1", "b1", "w2pq", "sw2p", "b2", "w3q", "sw3", "b3")
+    packed_pp = qtree.get("runs", {}).get("layer1")  # stage 0's pair operands, if packed
 
     head_folded = False
     for stage in range(4):
@@ -872,13 +926,16 @@ def fused_forward_int8_chain(
                 c = blocks["1"]["w1q"].shape[-1]
                 use_pp = L1_PIXEL_PAIR and c == 64 and wp % 2 == 0
                 run = [blocks[str(i)] for i in range(nb)]
+                if use_pp:
+                    args, nk = pp_run_operands(run, packed_pp, 0)
+                else:
+                    args = [_stack(run[1:], "w1q"), *(_stack(run, k) for k in KEYS[1:])]
+                    nk = kmajor_run_kwargs(run, proj=True)
                 yr = (kernels.run_pp if use_pp else kernels.run)(
-                    yr,
-                    _stack(run[1:], "w1q"), *(_stack(run, k) for k in keys[1:]),
+                    yr, *args,
                     torch.stack([scale_row(stage, i) for i in range(nb)]),
                     h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None,
-                    w1q0=blk0["w1q"], wdq=blk0["wdq"], swd=blk0["swd"], bd=blk0["bd"],
-                    **({} if use_pp else kmajor_run_kwargs(run, proj=True)),
+                    w1q0=blk0["w1q"], wdq=blk0["wdq"], swd=blk0["swd"], bd=blk0["bd"], **nk,
                 )
                 stage_fused = True
 
@@ -893,7 +950,7 @@ def fused_forward_int8_chain(
                     blk["w3q"], blk["sw3"], blk["b3"],
                     blk["wdq"], blk["swd"], blk["bd"],
                     scale_row(stage, 0),
-                    h=h, w_sp=w_sp, emit_i8=not last0,
+                    h=h, w_sp=w_sp, emit_i8=not last0, **kmajor_kwargs(blk),
                 )
                 h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
             else:
@@ -902,11 +959,11 @@ def fused_forward_int8_chain(
                 pp0 = L1_PIXEL_PAIR and blk["w1q"].shape[-1] == 64
                 yr = (kernels.block_pp if pp0 else kernels.block)(
                     yr,
-                    *(blk[k] for k in keys),
+                    *(blk[k] for k in KEYS),
                     scale_row(stage, 0),
                     h=h, w_sp=w_sp, emit_i8=not last0,
                     wdq=blk.get("wdq"), swd=blk.get("swd"), bd=blk.get("bd"),
-                    **({} if pp0 else kmajor_kwargs(blk)),
+                    **kmajor_kwargs(blk, pp=pp0),
                 )
 
             # Blocks 1..nb-1: one run kernel, or per block.  Under
@@ -924,12 +981,14 @@ def fused_forward_int8_chain(
                     use_run = True
             if use_run:
                 run = [blocks[str(i)] for i in range(1, nb)]
+                if pp_stage:
+                    args, nk = pp_run_operands([blocks["0"], *run], packed_pp, 1)
+                else:
+                    args, nk = [_stack(run, k) for k in KEYS], kmajor_run_kwargs(run, proj=False)
                 yr = (kernels.run_pp if pp_stage else kernels.run)(
-                    yr,
-                    *(_stack(run, k) for k in keys),
+                    yr, *args,
                     torch.stack([scale_row(stage, i) for i in range(1, nb)]),
-                    h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None,
-                    **({} if pp_stage else kmajor_run_kwargs(run, proj=False)),
+                    h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None, **nk,
                 )
             else:
                 for i in range(1, nb):
@@ -938,9 +997,10 @@ def fused_forward_int8_chain(
                     # Head fold on the tail block (not when taps are asked
                     # for): the kernel emits (B, 4c) pooled features.
                     fold_head = last_i and stage_taps is None
-                    args = (yr, *(blk[k] for k in keys), scale_row(stage, i))
+                    args = (yr, *(blk[k] for k in KEYS), scale_row(stage, i))
                     if pp_stage and not fold_head and blk["w1q"].shape[-1] == 64:
-                        yr = kernels.block_pp(*args, h=h, w_sp=w_sp, emit_i8=not last_i)
+                        yr = kernels.block_pp(*args, h=h, w_sp=w_sp, emit_i8=not last_i,
+                                              **kmajor_kwargs(blk, pp=True))
                     else:
                         yr = kernels.block(*args, h=h, w_sp=w_sp, emit_i8=not last_i,
                                            emit_mean=fold_head, **kmajor_kwargs(blk))

@@ -11,7 +11,7 @@ so they are held to rtol 1e-5.  Chain ring rows carry no meaning and are
 not compared.  The plain versions given the K-major (N, K) weight copies
 that the int8 tensor-core kernels read (the engine's, from
 ``fused.pack_chain_kmajor``) compute the same values: EQUAL to the Pallas
-kernel, and the run to itself without them.
+kernel, and the run and the transition to themselves without them.
 
 The CUDA kernels are held against these plain versions on the card by
 ``tests/test_torch_cuda.py``.
@@ -266,6 +266,36 @@ def test_ds_plain_equals_jax(rng, h):
     gi, wi = _interior(got, b, oh, oh), _interior(want, b, oh, oh)
     np.testing.assert_array_equal(gi, wi)
     assert len(np.unique(gi)) > 20
+
+
+@pytest.mark.parametrize("emit_i8", [True, False], ids=["int8-exit", "bf16-exit"])
+@pytest.mark.parametrize("h", [7, 8], ids=["odd-h7", "even-h8"])
+def test_ds_plain_on_kmajor_weights_equals_jax(rng, h, emit_i8):
+    """The transition's plain version reading the engine's K-major copies
+    (``fused.kmajor_copies``: ``w2q_nk`` the (c, 9c) transpose of the
+    nine-tap matrix) equals the Pallas kernel, and itself without them."""
+    from resnetc_tpu_torch.ops.cuda.fused import kmajor_copies
+
+    b, cin, c, c4 = 2, 64, 16, 64
+    jq, tq = _quantized_pair(_chain_block(rng, cin, c, c4, ds=True), ds=True)
+    x = _chain_input(rng, b, h, cin)
+    keys = ("w1q", "sw1", "b1", "w2q", "sw2", "b2", "w3q", "sw3", "b3", "wdq", "swd", "bd")
+    want = jblock.downsample_block_s2_int8(
+        jnp.asarray(x), *(jq[k] for k in keys), jnp.asarray(SCALES),
+        h=h, w_sp=h, emit_i8=emit_i8, interpret=True,
+    )
+    targs = (torch.from_numpy(x), *(tq[k] for k in keys), torch.from_numpy(SCALES))
+    nk = kmajor_copies(tq)
+    assert sorted(nk) == ["w1q_nk", "w2q_nk", "w3q_nk", "wdq_nk"]
+    got = tblock.downsample_block_s2_int8_plain(*targs, h=h, w_sp=h, emit_i8=emit_i8, **nk)
+    oh = (h + 1) // 2
+    gi, wi = _interior(got, b, oh, oh), _interior(want, b, oh, oh)
+    np.testing.assert_array_equal(gi, wi)
+    assert len(np.unique(gi)) > 20
+    unpacked = tblock.downsample_block_s2_int8(*targs, h=h, w_sp=h, emit_i8=emit_i8)
+    assert got.dtype == unpacked.dtype and torch.equal(got, unpacked)
+    with pytest.raises(ValueError):  # a copy of another weight's shape
+        tblock.downsample_block_s2_int8_plain(*targs, h=h, w_sp=h, w2q_nk=nk["w1q_nk"])
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "fp32"])

@@ -30,7 +30,10 @@ blocks or ran the unpaired GEMM would disagree with its plain version.
 The int8 bottleneck block and run (the int8 wgmma tile) equal their plain
 versions at ResNet-152's stage shapes and off the tile, every exit, and
 give the same bits on a second call and from the engine's K-major weight
-copies as from a per-call transpose.
+copies as from a per-call transpose; so do the stride-2 transition (at
+odd and even sizes, wp = w + 1 and round_up(w + 2, 8)) and the pixel-paired
+bottleneck block and run (from the engine's pair copies as from per-call
+packing).
 The bf16 / fp32 bottleneck blocks (``bottleneck_block_chained``,
 ``bottleneck_block_fused``) round z1 and z2 to the compute type inside the
 block, so a summation-order difference can move a value by one bf16 step:
@@ -194,6 +197,45 @@ def test_ds_kernel_equals_plain(cuda, gen, h):
         want = block.downsample_block_s2_int8_plain(*args, h=h, w_sp=h, emit_i8=emit_i8)
         torch.cuda.synchronize()
         assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+# (id, h, cin, c, c4): ResNet-152's 14x14 transition widths cut to 14x14
+# (cin 256 -> c 128 -> 4c 512), and narrow ones at odd and even sizes: wp =
+# w + 1 at h = 7 and 15, round_up(w + 2, 8) at 8 and 16; c = 20 is off the
+# 16-byte chunk (the byte-by-byte loader).
+DS_TILE_CASES = [
+    ("c128-h14", 14, 256, 128, 512),
+    ("c16-h7", 7, 64, 16, 64),
+    ("c16-h8", 8, 64, 16, 64),
+    ("c32-h15", 15, 64, 32, 128),
+    ("c32-h16", 16, 64, 32, 128),
+    ("c20-h9", 9, 40, 20, 80),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,cin,c,c4", [case[1:] for case in DS_TILE_CASES],
+                         ids=[case[0] for case in DS_TILE_CASES])
+def test_ds_tile_kernel_equals_plain(cuda, gen, h, cin, c, c4):
+    """Row 3 on the int8 tile: one launch a call, int8 and bf16 exits equal
+    to the plain version with random bytes in x's ring rows, and the
+    engine's K-major copies give the bits of a per-call transpose."""
+    from resnetc_tpu_torch.ops.cuda.fused import kmajor_copies
+
+    b = 2
+    q = _quantized(gen, cin, c, c4, cuda, ds=True)
+    args = (_chain(gen, b, h, cin, cuda), *(q[k] for k in DS_KEYS),
+            torch.from_numpy(SCALES).to(cuda))
+    nk = kmajor_copies(q)
+    assert tuple(nk["w2q_nk"].shape) == (c, 9 * c)
+    for emit_i8 in (True, False):
+        _build.reset_launches()
+        got = block.downsample_block_s2_int8(*args, h=h, w_sp=h, emit_i8=emit_i8)
+        assert dict(_build.LAUNCHES) == {"downsample_block_s2_int8": 1}
+        _assert_equal(got, block.downsample_block_s2_int8_plain(*args, h=h, w_sp=h,
+                                                                emit_i8=emit_i8))
+        packed = block.downsample_block_s2_int8(*args, h=h, w_sp=h, emit_i8=emit_i8, **nk)
+        _assert_equal(packed, got)
 
 
 @pytest.mark.cuda
@@ -473,6 +515,58 @@ def test_pp_run_kernel_equals_plain(cuda, gen, n_blocks, proj):
         _assert_equal(got, block.bottleneck_run_chained_int8(*args, emit_i8=emit_i8, **kw))
 
 
+def _pp_engine_tree(qs):
+    """The engine's tree (``pack_chain_kmajor``) with ``qs`` as stage 0's
+    blocks (every stage the same): the pair copies of rows 5 and 6."""
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused
+
+    layer = {str(i): q for i, q in enumerate(qs)}
+    return fused.pack_chain_kmajor(resnet.get_config("resnet50"),
+                                   {f"layer{s + 1}": layer for s in range(4)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [8, 7, 14])
+def test_pp_bottleneck_kernels_on_the_engines_pair_weights(cuda, gen, h):
+    """Rows 5 and 6 through the engine's pre-packed pair operands (the
+    K-major block-diagonal 1x1s and pair-packed 3x3s, the stacked run and
+    each block's views of it) give the bits of packing per call, one launch
+    a call."""
+    from resnetc_tpu_torch.ops.cuda import fused
+
+    b, c, c4, n_blocks = 2, 64, 256, 3
+    qs = [_quantized(gen, c, c, c4, cuda, proj=True)]
+    qs += [_quantized(gen, c4, c, c4, cuda) for _ in range(n_blocks - 1)]
+    tree = _pp_engine_tree(qs)
+    layer = [tree["layer1"][str(i)] for i in range(n_blocks)]
+    run = tree["runs"]["layer1"]
+    scales = torch.from_numpy(np.stack([SCALES] * n_blocks)).to(cuda)
+    x0, x1 = _chain(gen, b, h, c, cuda), _chain(gen, b, h, c4, cuda)
+    for emit_i8 in (True, False):
+        kw = dict(h=h, w_sp=h, emit_i8=emit_i8)
+        for i, x in ((0, x0), (1, x1)):  # the projection block and an identity one
+            blk = layer[i]
+            bkw = dict(kw, **{k: blk.get(k) for k in ("wdq", "swd", "bd")})
+            args = (x, *(blk[k] for k in KEYS), scales[i])
+            _build.reset_launches()
+            got = block.bottleneck_block_chained_int8_pp(*args, **bkw,
+                                                         **fused.kmajor_kwargs(blk, pp=True))
+            assert dict(_build.LAUNCHES) == {"bottleneck_block_chained_int8_pp": 1}
+            _assert_equal(got, block.bottleneck_block_chained_int8_pp(*args, **bkw))
+        for first, x in ((0, x0), (1, x1)):  # all of layer1, and its blocks 1..
+            stacked, nk = fused.pp_run_operands(layer, run, first)
+            unpacked, _ = fused.pp_run_operands(layer, None, first)
+            rkw = dict(kw)
+            if first == 0:
+                rkw.update(w1q0=layer[0]["w1q"], **{k: layer[0][k] for k in ("wdq", "swd", "bd")})
+            _build.reset_launches()
+            got = block.bottleneck_run_chained_int8_pp(x, *stacked, scales[first:], **rkw, **nk)
+            assert dict(_build.LAUNCHES) == {"bottleneck_run_chained_int8_pp": 1}
+            _assert_equal(got, block.bottleneck_run_chained_int8_pp(x, *unpacked, scales[first:],
+                                                                    **rkw))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("h", [8, 14])
 def test_pp_basic_kernels_on_the_engines_pair_weights(cuda, gen, h):
@@ -621,6 +715,33 @@ def test_pp_route_logits_equal_standard_route(cuda, monkeypatch):
                             "bottleneck_block_chained_int8": 3,
                             "downsample_block_s2_int8": 3, "matmul": 1}, out[True][1]
     assert torch.equal(out[True][0], out[False][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage_fuse_proj", [False, True], ids=["run", "stage-fuse-proj"])
+def test_pp_packed_tree_equals_unpacked_on_the_card(cuda, monkeypatch, stage_fuse_proj):
+    """A cut ResNet-50's int8_chain forward on the engine's tree (the
+    transitions' K-major copies, stage 0's pair copies and stacked run)
+    equals the forward on the tree without them, bit for bit, paired and
+    standard."""
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused
+    from resnetc_tpu_torch.serve import InferenceEngine
+
+    cfg = resnet.get_config("resnet50", num_classes=11)
+    cfg = cfg.__class__(**{**cfg.__dict__, "stage_blocks": (3, 2, 2, 2)})
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(1))
+    eng = InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=x)
+    assert "runs" in eng.folded and "w2q_nk" in eng.folded["layer2"]["0"]
+    monkeypatch.setattr(fused, "STAGE_FUSE_PROJ", stage_fuse_proj)
+    for pp in (True, False):
+        monkeypatch.setattr(fused, "L1_PIXEL_PAIR", pp)
+        got = eng.logits(x)
+        again = fused.fused_forward_int8_chain(cfg, _unpacked(eng.folded), eng.chain_scales,
+                                               x.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
 
 
 @pytest.mark.cuda

@@ -20,7 +20,10 @@ stems are float convolutions summed in another order, so under FP32 logits
 are held to a relative max error of 1e-4 and under BF16 (XLA keeps excess
 precision across the stem's bf16 roundings) to 5e-2, with equal argmax.
 Between the port's own routes (pp or standard, per block or fused) the
-logits are EQUAL.
+logits are EQUAL, and so are those of the engine's packed tree
+(``pack_chain_kmajor``: K-major and pair-space weight copies, stacked
+runs) and of the tree without them; the plain versions reading those
+copies equal the Pallas kernels.
 
 The overlay: the port's own copy of ``_apply_tuned_defaults`` must return
 what the JAX one returns for the same file.
@@ -332,6 +335,59 @@ def test_pp_basic_plain_on_packed_pair_weights_equals_jax(rng):
         _check(got, want, tblock.basic_block_chained_int8_plain(*bargs, **kw), b, emit_i8)
 
 
+def test_pp_bottleneck_plain_on_packed_pair_weights_equals_jax(rng):
+    """The bottleneck plain versions reading the engine's pre-packed pair
+    operands (``pack_chain_kmajor``: the K-major block-diagonal 1x1s and
+    pair-packed 3x3s of stage 0, stacked once, each block's views of them)
+    equal the Pallas kernels: the projection block, an identity block, the
+    run of blocks 1.. and all of layer1 as one run."""
+    b, n_blocks = 2, 3
+    pairs = [_bottleneck(rng, 64, proj=True)] + [_bottleneck(rng, 4 * C)
+                                                 for _ in range(n_blocks - 1)]
+    scales = np.stack(
+        [SCALES * np.float32(1.0 + 0.1 * i) for i in range(n_blocks)]
+    ).astype(np.float32)
+    scales[1:, 0] = scales[:-1, 3]
+    tree = {f"layer{s + 1}": {str(i): p[1] for i, p in enumerate(pairs)} for s in range(4)}
+    packed = tfused.pack_chain_kmajor(tresnet.get_config("resnet50"), tree)
+    layer = [packed["layer1"][str(i)] for i in range(n_blocks)]
+    proj_keys = ("wdq", "swd", "bd")
+    xs = {0: _chain_input(rng, b, 64), 1: _chain_input(rng, b, 4 * C)}
+    for emit_i8 in (True, False):
+        kw = dict(h=H, w_sp=H, emit_i8=emit_i8)
+        for i in (0, 1):
+            jq, blk = pairs[i][0], layer[i]
+            extra = proj_keys if i == 0 else ()
+            want = jblock.bottleneck_block_chained_int8_pp(
+                jnp.asarray(xs[i]), *(jq[k] for k in KEYS), jnp.asarray(scales[i]),
+                interpret=True, **kw, **{k: jq[k] for k in extra})
+            targs = (torch.from_numpy(xs[i]), *(blk[k] for k in KEYS),
+                     torch.from_numpy(scales[i]))
+            tkw = dict(kw, **{k: blk[k] for k in extra})
+            nk = tfused.kmajor_kwargs(blk, pp=True)
+            assert sorted(nk) == sorted(["w1bd_nk", "w2pp_nk", "w3bd_nk"]
+                                        + (["wdbd_nk"] if i == 0 else []))
+            got = tblock.bottleneck_block_chained_int8_pp_plain(*targs, **tkw, **nk)
+            _check(got, want, tblock.bottleneck_block_chained_int8_plain(*targs, **tkw), b,
+                   emit_i8)
+        for first in (0, 1):
+            jblocks = [p[0] for p in pairs]
+            jargs = [jnp.stack([q["w1q"] for q in jblocks[1:]]),
+                     *(jnp.stack([q[k] for q in jblocks[first:]]) for k in KEYS[1:])]
+            jkw = dict(w1q0=jblocks[0]["w1q"], **{k: jblocks[0][k] for k in proj_keys}) \
+                if first == 0 else {}
+            want = jblock.bottleneck_run_chained_int8_pp(
+                jnp.asarray(xs[first]), *jargs, jnp.asarray(scales[first:]), interpret=True,
+                **kw, **jkw)
+            args, nk = tfused.pp_run_operands(layer, packed["runs"]["layer1"], first)
+            tkw = dict(kw, w1q0=layer[0]["w1q"], **{k: layer[0][k] for k in proj_keys}) \
+                if first == 0 else dict(kw)
+            targs = (torch.from_numpy(xs[first]), *args, torch.from_numpy(scales[first:]))
+            got = tblock.bottleneck_run_chained_int8_pp_plain(*targs, **tkw, **nk)
+            _check(got, want, tblock.bottleneck_run_chained_int8_plain(*targs, **tkw), b,
+                   emit_i8)
+
+
 # ---------------------------------------------------------------------------
 # The pp bodies' epilogues, as XLA evaluates them
 # ---------------------------------------------------------------------------
@@ -529,6 +585,29 @@ def test_pp_basic_packed_tree_equals_unpacked(fp32_trees, run_stages, monkeypatc
     want, _ = _forward(tcfg, tq, tscales, x)
     assert counts == ({"basic_run_pp": 1} if run_stages else {"basic_block_pp": 2}) | {
         "basic_ds": 3, "basic_block": 3, "matmul": 1}, counts
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("stage_fuse_proj", [False, True], ids=["run", "stage-fuse-proj"])
+@pytest.mark.parametrize("pp", [True, False], ids=["pp", "standard"])
+def test_bottleneck_packed_tree_equals_unpacked(fp32_trees, pp, stage_fuse_proj, monkeypatch):
+    """A cut ResNet-50's engine tree (``pack_chain_kmajor``: the K-major
+    copies of every block and transition, stage 0's pair copies and its
+    stacked run) gives the logits of the tree without them, bit for bit,
+    with L1_PIXEL_PAIR on and off."""
+    tcfg, tq, tscales, x = fp32_trees["bottleneck"]
+    packed = tfused.pack_chain_kmajor(tcfg, tq)
+    assert "w2q_nk" in packed["layer2"]["0"] and "w2pp_nk_s" in packed["runs"]["layer1"]
+    monkeypatch.setattr(tfused, "L1_PIXEL_PAIR", pp)
+    monkeypatch.setattr(tfused, "STAGE_FUSE_PROJ", stage_fuse_proj)
+    got, counts = _forward(tcfg, packed, tscales, x)
+    want, _ = _forward(tcfg, tq, tscales, x)
+    suffix = "_pp" if pp else ""
+    stage0 = {"run" + suffix: 1} if stage_fuse_proj else {"block" + suffix: 1, "run" + suffix: 1}
+    want_counts = {"ds": 3, "block": 3, "matmul": 1}
+    for k, v in stage0.items():
+        want_counts[k] = want_counts.get(k, 0) + v
+    assert counts == want_counts, counts
     assert torch.equal(got, want)
 
 

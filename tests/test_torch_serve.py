@@ -138,12 +138,15 @@ def test_engine_packs_kmajor_copies_beside_the_jax_tree(setup):
     for k in tflat:
         assert packed[k] is tflat[k], k  # shared, not copied
     stride1 = {k.rsplit("/", 1)[0] for k in tflat if k.endswith("/w2pq")}
-    assert len(stride1) == sum(tcfg.stage_blocks) - 3
+    transitions = {k.rsplit("/", 1)[0] for k in tflat if k.endswith("/w2q")}
+    assert len(stride1) == sum(tcfg.stage_blocks) - 3 and len(transitions) == 3
     assert added == {f"{blk}/{k}_nk" for blk in stride1 for k in ("w1q", "w2pq", "w3q")
-                     } | {"layer1/0/wdq_nk"}
-    for k in added:
+                     } | {f"{blk}/{k}_nk" for blk in transitions
+                          for k in ("w1q", "w2q", "w3q", "wdq")} | {"layer1/0/wdq_nk"}
+    for k in added:  # a transition's 3x3 as its (9c, c) matrix, rows (kh, kw, k)
         orig = tflat[k[: -len("_nk")]]
-        assert packed[k].is_contiguous() and torch.equal(packed[k], orig.t()), k
+        assert packed[k].is_contiguous(), k
+        assert torch.equal(packed[k], orig.reshape(-1, orig.shape[-1]).t()), k
     # The engine's tree is the packed one.
     teng = tserve.InferenceEngine(tcfg, tvars, backend="int8_chain", calib_batch=x,
                                   device="cpu")
