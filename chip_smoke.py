@@ -7,9 +7,9 @@ Builds the CUDA kernels from ``resnetc_tpu_torch/csrc``, checks that the
 tensor-core kernels hold wgmma instructions in their SASS (HGMMA in the
 bf16 tile's instantiations for rows 4, 13 and 14, stride 1 and stride 2
 counted apart, and for row 17's bf16 block; IGMMA in the int8 tile of row
-12 and in the block tile of rows 1-3, 5-6, 7-8 and 9-10, each library's
+12 and in the block tile of rows 1-3 and 5-11, each library's
 instantiations apart; no dp4a ``igemm_kernel`` left in the libraries of
-rows 1-3 and 5-6, and no serialized wgmma, C7515, in ptxas's report), and
+the int8 blocks, and no serialized wgmma, C7515, in ptxas's report), and
 then:
 
 1. holds every kernel of the serving paths against its plain PyTorch
@@ -22,7 +22,9 @@ then:
    rtol 1e-4, fp32 per-image means and the fp32 GEMM within rtol 1e-4.  The
    pixel-paired stage-0 kernels are also held against their standard twins
    (equal) and, through their pair-space entries, checked on dense random
-   pair-space weights.  The kernels of the ``pallas_block`` backend and the
+   pair-space weights, and the basic transition (row 11, x's ring random
+   bytes) from the engine's K-major copies also against a per-call
+   transpose (equal).  The kernels of the ``pallas_block`` backend and the
    op library at batch 8: ``bottleneck_block_chained`` at ResNet-152's four
    stage shapes in bf16, one in fp32, and as a 3-block chain at 7x7 (wp = w
    + 1) whose input ring holds NaN; ``bottleneck_block_fused`` at the four
@@ -68,9 +70,9 @@ then:
    from Python (``eager_ms``: the median of five event-timed loops, host
    cost included), beside the plain version, the bound (for a pixel-paired
    kernel, the work of its standard twin), the TFLOP/s and share of the
-   bound of each shape (printed for the tensor-core kernels, rows 1-10,
-   12, 13, 14 and 17, with the ratio to the library call; TOP/s for
-   the int8 ones), and a
+   bound of each shape (printed for the tensor-core kernels, rows 1-14
+   and 17, with the ratio to the library call; TOP/s for the int8 ones;
+   and for the average pool's shapes, with its ratio to F.avg_pool2d), and a
    library call that the port never makes, timed like ``ms``:
    torch.matmul for the GEMM, torch._int_mm for int8_matmul (int32 out, no
    epilogue), F.conv2d (bf16, channels-last) for the fused convolutions,
@@ -197,7 +199,9 @@ class Case:
         self.name, self.kernel = name, kernel
         self.fn, self.plain, self.args, self.kwargs = fn, plain, args, kwargs
         self.ops, self.nbytes, self.peak, self.check = ops, nbytes, peak, check
-        self.twin = twin  # the standard kernel a pixel-paired one must equal
+        # The call this one must equal: a pixel-paired kernel's standard twin,
+        # or the basic transition without the engine's K-major copies.
+        self.twin = twin
         # The twin's keyword arguments (the pixel-paired kernels' pair-packed
         # weight copies are theirs alone).
         self.twin_kwargs = kwargs if twin_kwargs is None else twin_kwargs
@@ -592,12 +596,14 @@ def make_basic_cases(b: int, dev) -> list:
         hp, wp = chain_meta(b, h_in, h_in)
         hp2, wp2 = chain_meta(b, h, h)
         ops = 2 * b * h * h * (9 * cin * c + 9 * c * c + cin * c)
-        nbytes = b * hp * wp * cin + 12 * cin * c + 9 * c * c + cin * c + b * hp2 * wp2 * c
+        nbytes = b * hp * wp * cin + 9 * cin * c + 9 * c * c + cin * c + b * hp2 * wp2 * c
+        kw = dict(h=h_in, w_sp=h_in)
         cases.append(Case(
             f"basic/ds/s{s}", "basic_ds_block_s2_int8", block.basic_ds_block_s2_int8,
             block.basic_ds_block_s2_int8_plain,
             (_chain(gen, b, h_in, cin, dev), *(q[k] for k in dkeys), scales),
-            dict(h=h_in, w_sp=h_in), ops, nbytes, PEAK_INT8_OPS, "int8",
+            dict(kw, **fused.basic_ds_kmajor_copies(q)), ops, nbytes, PEAK_INT8_OPS, "int8",
+            twin=block.basic_ds_block_s2_int8, twin_kwargs=kw,
         ))
 
     # The fc head of ResNet-34 (512 -> 1000).
@@ -865,8 +871,9 @@ def make_fp_cases(b: int, dev) -> list:
 
 
 def check_case(case) -> float:
-    """Kernel vs plain on the same inputs (and a pixel-paired kernel vs its
-    standard twin); returns the max abs error against the plain version."""
+    """Kernel vs plain on the same inputs (and vs its twin: a pixel-paired
+    kernel's standard one, the basic transition without the engine's
+    copies); returns the max abs error against the plain version."""
     import torch
 
     got = case.run()
@@ -937,15 +944,16 @@ SASS_CHECKS = (
     # rows 1-3: bottleneck_block_chained_int8, the run and the stride-2
     # transition downsample_block_s2_int8
     ("libchain_block.so", r"chain_tile_kernel", "IGMMA"),
-    # rows 7 and 8: basic_block_chained_int8 and the run (row 11 keeps the
-    # dp4a kernel)
+    # rows 7, 8 and 11: basic_block_chained_int8, the run and the stride-2
+    # transition basic_ds_block_s2_int8
     ("libbasic_block.so", r"chain_tile_kernel", "IGMMA"),
     # rows 5, 6, 9 and 10: the pixel-paired bottleneck and basic blocks and
     # runs
     ("libpp_block.so", r"chain_tile_kernel", "IGMMA"),
 )
-#: Libraries that must hold no dp4a implicit GEMM (igemm.cuh) any more.
-NO_IGEMM = ("libchain_block.so", "libpp_block.so")
+#: Libraries that must hold no dp4a implicit GEMM (``igemm_kernel``, the
+#: CUDA-core kernel the int8 blocks ran before the int8 tile) any more.
+NO_IGEMM = ("libchain_block.so", "libbasic_block.so", "libpp_block.so")
 
 
 def _sass_functions(path) -> dict:
@@ -1009,7 +1017,7 @@ def phase_kernels(cases: list) -> dict:
     errs = {}
     for case in cases:
         errs[case.name] = check_case(case)
-        twin = " and to its standard twin" if case.twin else ""
+        twin = " and to its twin" if case.twin else ""
         how = {"bf16ulp": "within 1 bf16 ulp of", "f32": "within rtol 1e-4 of",
                "rel": "within 1e-2 of max |plain| of"}.get(case.check, "equal to")
         log(f"[kernels] {case.name}: {how} plain{twin}, max_abs_err={errs[case.name]}")
@@ -1533,7 +1541,8 @@ TILE_KERNELS = ("conv3x3_s1_fused", "conv_s2_fused", "matmul", "int8_matmul",
                 "bottleneck_run_chained_int8", "downsample_block_s2_int8",
                 "bottleneck_block_chained_int8_pp", "bottleneck_run_chained_int8_pp",
                 "basic_block_chained_int8", "basic_run_chained_int8",
-                "basic_block_chained_int8_pp", "basic_run_chained_int8_pp")
+                "basic_block_chained_int8_pp", "basic_run_chained_int8_pp",
+                "basic_ds_block_s2_int8")
 
 
 def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[list, list]:
@@ -1577,6 +1586,10 @@ def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[li
             rate = "TOP/s" if case.peak == PEAK_INT8_OPS else "TFLOP/s"
             log(f"[tile] {case.name}: {ms:.4f} ms, {row['tflops']:.1f} {rate}, "
                 f"{100 * row['bound_share']:.1f}% of the bound{vs}")
+        elif case.kernel == "avg_pool2d":
+            vs = f", {ms / lib_ms:.2f}x F.avg_pool2d's {lib_ms:.4f} ms" if lib_ms else ""
+            log(f"[pool] {case.name}: {ms:.4f} ms, {100 * row['bound_share']:.1f}% of the "
+                f"bound{vs}")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():

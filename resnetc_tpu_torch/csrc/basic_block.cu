@@ -45,17 +45,29 @@
 // through device memory, the wgmma pipeline drained at each sum boundary,
 // two stages of copies in flight, one block an SM (registers).
 //
-// The transition still runs the int8 implicit GEMM of igemm.cuh on the CUDA
-// cores' dp4a: each convolution is one launch, conv2 takes its three kernel
-// rows as three operands (one int32 sum each, dequantized with its own
-// per-(kh, j) scale) and the 1x1/2 projection as a fourth; its epilogue adds
-// the shortcut, applies relu and requantizes.  Its weights keep the TPU
-// layouts: conv2 kh-batched, (kw, k) rows x (kh, j) columns, read one kernel
-// row (a column block of c) per operand; conv1 packed (3, 4*cin, c): for
-// each kernel row u, rows [0, 3*cin) are its (kw, k) taps and [3*cin,
-// 4*cin) zero (the TPU pair-slot layout), so the 9-tap operand reads it with
-// wpad = cin and needs no repack.  conv1's nine taps share one int32 sum and
-// one joint per-channel scale, as on the TPU.
+// The transition is two launches of the same tile and two ring passes,
+// over the output's interior pixels (row m of the GEMM is output pixel
+// (i, j)), with z1 in the output geometry:
+//   conv1: 3x3/2 over x as ONE int32 sum over the nine taps (its
+//          per-channel scale is joint over them, as on the TPU): the
+//          stride-2 source row (S2) reads x from the chain row of input
+//          pixel (2i, 2j), segment u (3cin values) the three chain rows of
+//          pixels (2i+u-1, 2j-1 .. +1), and the mask (MASK) zero-fills the
+//          taps off the image, since x's ring may hold anything;
+//          relu(fma(P, a1, c1)) -> int8 z1, whose ring rows are then
+//          zeroed (conv2's padding);
+//   conv2: the three kernel-row sums over z1 (no test) and the 1x1/2
+//          projection of x at (2i, 2j) as a fourth sum (S2, interior
+//          pixels only), folded as relu(fma(Pd, ad, kh3 + c2) + cd) ->
+//          int8 or bf16; the output's ring rows zeroed.
+// Its weights are the K-major copies w1_nk (c, 9cin), columns (kh, kw, k):
+// the (3, 4cin, c) pair-slot packing of the TPU kernel without the zero
+// rows [3cin, 4cin) of each kernel row; w2_nk (3c, 3c); wd_nk (c, cin);
+// the requant scales folded in the kernel from the raw vectors and the
+// device [s_x, s_z1, s_y], op for op as _fold_basic_ds.
+// Every transition of ResNet-34 does 2*oh*ow*(9*cin*c + 9*c*c + cin*c)
+// int8 operations an image against ~(oh*ow*(4*cin + c)) bytes: bound by the
+// int8 tensor-core rate (~5.8 us at batch 32).
 //
 // The outputs equal the plain PyTorch versions in
 // resnetc_tpu_torch/ops/cuda/block.py bit for bit.
@@ -154,46 +166,71 @@ extern "C" int basic_run_int8(
 
 // The stride-2 BasicBlock transition: x is the (h, w) input stage's int8
 // chain (cin channels), out the (oh, ow) = ((h+1)/2, (w+1)/2) stage's chain
-// (c channels; int8, or bf16 when out_kind == 1).  conv1 3x3/2 over x with
-// one int32 sum over all nine taps (w1p (3, 4*cin, c), see the header),
-// a1 (c,) joint scales; conv2 3x3/1 kh-batched (w2p (3c, 3c), a2 (3, c));
-// the shortcut is the 1x1/2 projection of x[2r, 2q] (wd (cin, c), ad, cd).
-// z1 (B*hp2*wp2, c) is int8 scratch in the output geometry.
+// (c channels; int8, or bf16 when out_kind == 1).  The weights are the
+// K-major copies w1_nk (c, 9cin), w2_nk (3c, 3c), wd_nk (c, cin) (see the
+// header); the vectors raw: sw1, b1, b2, swd, bd (c), sw2p (3c: (kh, j));
+// scales the device [s_x, s_z1, s_y], s_y taken as 1 when unit_y.  z1
+// (B*hp2*wp2, c) is int8 scratch in the output geometry.  Returns the first
+// failed launch's cudaError_t, or 0.
 extern "C" int basic_ds_block_s2_int8(
     const int8_t* x, int B, int h, int w, int hp, int wp, int cin, int c,
     int oh, int ow, int hp2, int wp2,
-    const int8_t* w1p, const float* a1, const float* c1,
-    const int8_t* w2p, const float* a2, const float* c2,
-    const int8_t* wd, const float* ad, const float* cd,
-    int8_t* z1, int out_kind, void* out, cudaStream_t stream) {
-  const Geo gi{h, w, hp, wp};
-  const Geo go{oh, ow, hp2, wp2};
-  const int M = B * hp2 * wp2;
+    const int8_t* w1_nk, const float* sw1, const float* b1,
+    const int8_t* w2_nk, const float* sw2p, const float* b2,
+    const int8_t* wd_nk, const float* swd, const float* bd,
+    const float* scales, int unit_y, int8_t* z1, int out_kind, void* out,
+    cudaStream_t stream) {
+  enum { S_X = 0, S_Z1 = 1, S_Y = 2 };
+  const Chain gi{h, w, hp, wp}, go{oh, ow, hp2, wp2};
+  const long long limit_x = static_cast<long long>(B) * hp * wp * cin;
+  const long long limit_z1 = static_cast<long long>(B) * hp2 * wp2 * c;
   int err;
 
-  // conv1 (3x3/2, cin -> c): relu(fma(acc, a1, c1)) -> int8 in the output
-  // chain.
-  Operand o1 = operand(x, cin, gi, 2, 9, 0, w1p, c, 0, cin);
-  EpiArgs e1{};
-  e1.a[0] = a1;
-  e1.c = c1;
-  e1.out_kind = OUT_I8;
-  e1.out = z1;
-  if ((err = launch<1, EPI_RELU_Q, true>(&o1, go, M, c, e1, stream))) return err;
+  // conv1 (3x3/2, cin -> c) over the output's interior pixels: one sum,
+  // segment u reading x from the chain row of input pixel (2i+u-1, 2j-1),
+  // off-image taps zero; relu(fma(P, a1, c1)) -> int8; then z1's ring rows
+  // are zeroed.
+  TileArgs t1{};
+  t1.sum[0] = S8Sum{x, w1_nk, limit_x, cin, -wp - 1, 9 * cin, 3 * cin, wp};
+  t1.sw[0] = sw1, t1.num[0] = S_X, t1.den[0] = S_Z1;
+  t1.b = b1;
+  t1.scales = scales;
+  t1.iy = S_Y;
+  t1.out = z1;
+  t1.out_kind = OUT_I8;
+  t1.M = B * oh * ow;
+  t1.N = c;
+  t1.pixels = 1;
+  t1.g = go;
+  t1.src = gi;
+  if ((err = run_tile<1, TE_RELU_Q, 1, false, 1>(t1, stream))) return err;
+  zero_ring_kernel<<<264, 256, 0, stream>>>(reinterpret_cast<uint8_t*>(z1), go, B, c);
 
-  // conv2 (3x3/1) + projection shortcut + relu:
-  // relu(fma(sc, ad, kh3 + c2) + cd).
-  Operand o2[4];
-  for (int kh = 0; kh < 3; ++kh) o2[kh] = operand(z1, c, go, 1, 3, kh, w2p, 3 * c, kh * c);
-  o2[3] = operand(x, cin, gi, 2, 1, 0, wd, c, 0);
-  EpiArgs e2{};
-  e2.a[0] = a2;
-  e2.a[1] = a2 + c;
-  e2.a[2] = a2 + 2 * c;
-  e2.c = c2;
-  e2.ad = ad;
-  e2.cd = cd;
-  e2.out_kind = out_kind;
-  e2.out = out;
-  return launch<4, EPI_BASIC_OUT>(o2, go, M, c, e2, stream);
+  // conv2 (3x3/1) over z1 and the 1x1/2 projection of x at input pixel
+  // (2i, 2j), then relu(fma(Pd, ad, kh3 + c2) + cd); then the output's ring
+  // rows are zeroed.
+  TileArgs t2{};
+  for (int kh = 0; kh < 3; ++kh) {
+    t2.sum[kh] = S8Sum{z1, w2_nk + static_cast<size_t>(kh) * c * 3 * c, limit_z1, c,
+                       (kh - 1) * wp2 - 1, 3 * c};
+    t2.sw[kh] = sw2p + kh * c, t2.num[kh] = S_Z1, t2.den[kh] = S_Y;
+  }
+  t2.sum[3] = S8Sum{x, wd_nk, limit_x, cin, 0, cin, cin, 0};
+  t2.sw[3] = swd, t2.num[3] = S_X, t2.den[3] = S_Y;
+  t2.b = b2;
+  t2.bd = bd;
+  t2.scales = scales;
+  t2.iy = S_Y;
+  t2.unit_y = unit_y;
+  t2.out = out;
+  t2.out_kind = out_kind;
+  t2.M = B * oh * ow;
+  t2.N = c;
+  t2.pixels = 1;
+  t2.g = go;
+  t2.src = gi;
+  if ((err = run_tile<4, TE_KH3_PROJ, 0, false, 8>(t2, stream))) return err;
+  zero_ring_kernel<<<264, 256, 0, stream>>>(static_cast<uint8_t*>(out), go, B,
+                                            c * (out_kind == OUT_BF16 ? 2 : 1));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -81,7 +81,7 @@ namespace {
 
 // Per-image mean of the interior rows of an fp32 chain: out[b, n] =
 // sum over pixels in row-major order of y * inv_hw (the head fold).
-__global__ void mean_kernel(const float* __restrict__ y, Geo g, int N,
+__global__ void mean_kernel(const float* __restrict__ y, Chain g, int N,
                             float inv_hw, float* __restrict__ out) {
   const int b = blockIdx.y;
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
@@ -181,9 +181,8 @@ extern "C" int chain_block_int8(
     if ((err = run_tile<1, TE_OUT>(t3, stream))) return err;
   }
   if (out_kind == 2) {
-    const Geo g{h, w, hp, wp};
     const dim3 grid((c4 + 127) / 128, B);
-    mean_kernel<<<grid, 128, 0, stream>>>(y, g, c4, inv_hw, static_cast<float*>(out));
+    mean_kernel<<<grid, 128, 0, stream>>>(y, ch, c4, inv_hw, static_cast<float*>(out));
     return static_cast<int>(cudaGetLastError());
   }
   zero_ring_kernel<<<264, 256, 0, stream>>>(static_cast<uint8_t*>(out), ch, B,

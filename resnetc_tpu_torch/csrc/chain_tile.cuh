@@ -1,5 +1,5 @@
 // The int8 tensor-core convolution tile of the chain-layout block kernels:
-// one launch computes up to three int32 sums of int8 products on wgmma
+// one launch computes up to four int32 sums of int8 products on wgmma
 // (s8_tile.cuh: m64nNk32 s32.s8.s8, both operands K-major from a swizzled
 // cp.async ring) and folds them into one fp32 epilogue.  Shared by
 //   - chain_block.cu: the stride-1 bottleneck block and its run
@@ -10,7 +10,9 @@
 //     nine-tap sum, conv3 1x1 with the 1x1/2 projection;
 //   - basic_block.cu: the stride-1 BasicBlock and its run
 //     (basic_block_chained_int8, :1646; basic_run_chained_int8, :1830): two
-//     3x3s and the identity shortcut;
+//     3x3s and the identity shortcut; and the stride-2 transition
+//     (basic_ds_block_s2_int8, :2542): conv1 3x3/2 as one nine-tap sum,
+//     conv2 3x3 with the 1x1/2 projection as a fourth sum;
 //   - pp_block.cu: the pixel-paired bottleneck block and run
 //     (bottleneck_block_chained_int8_pp, :1113; bottleneck_run_chained_int8_pp,
 //     :1387) and BasicBlock and run (basic_block_chained_int8_pp, :2002;
@@ -40,7 +42,9 @@
 // x at (2i, 2j) with seg = K.  z1's zero ring is the padding: where the
 // input size is odd, the taps of the last output row or column that fall
 // past the image are ring rows (with wp = w + 1 the right pad column is the
-// next row's left one).
+// next row's left one).  The BasicBlock transition's conv1 reads x itself
+// the same way (off = -wp - 1, seg = 3cin, seg_rows = wp), under the mask
+// below.
 //
 // Where a 3x3 or a pair-space 1x1 reads a buffer whose ring may hold
 // anything (the BasicBlock's conv1 reads x itself: "chain ring garbage must
@@ -52,30 +56,33 @@
 // (k % lda) / (lda/2)) because lda, and lda / 2 in pair geometry, are
 // multiples of 16 on the vector path; the byte path tests each byte.  A
 // masked sum g of a three-sum launch is kernel row g of a 3x3, one of a
-// one- or two-sum launch a 1x1 at the row's own pixels.  MASK is a template
-// mask so that the other
+// one- or two-sum launch a 1x1 at the row's own pixels, and a masked
+// stride-2 sum (the only sum of its launch) the nine taps (u, v) of a 3x3/2,
+// tap (u, v) reading input pixel (2i+u-1, 2j+v-1): a chunk at K index k
+// lies in tap (k / seg, (k % seg) / lda) because seg and lda are multiples
+// of 16 on the vector path.  MASK is a template mask so that the other
 // sums and launches load without a test.  A 3x3 over z1 needs no mask: z1's
 // ring is zero (a pass after the standard conv1; a select in the conv1
 // epilogues over every row, per half of a pair row).
 //
-// The requant scales are folded into the epilogue, op for op as the
-// wrapper of the TPU kernel folds them on the host (block.py:789-797,
-// 822-823, 1684-1690, 3545-3554; ops/cuda/block.py _fold_block,
-// _fold_basic, _fold_ds): sum g's multiplier is sw[g][n] * (s[num[g]] /
-// s[den[g]]), the bias b[n] * (1 / s[den[0]]), the projection bias bd[n] *
-// (1 / s_y), the residual scale s_x / s_y, where s is the device vector
-// [s_x, s_z1, s_z2, s_y] of a bottleneck block or [s_x, s_z1, s_y] of a
-// BasicBlock (s_y = 1 for a bf16 or fp32 exit).  No small kernel runs per
-// call to fold them.  In pair geometry with `tiled` the raw vectors are the
-// standard block's (width N / 2) and channel n of a pair row reads entry n
-// mod N / 2, which is the JAX wrappers' lane tiling (jnp.tile) of the folded
-// vectors, since the fold is elementwise; the launch keeps each column tile
-// within one half, so the mod is one offset a tile (a test per column
-// raised the pair kernels' spills from 0-16 to 128-240 bytes and cost the
-// pixel-paired BasicBlock 10%).  The pair-space entries take the
-// vectors already folded and lane-tiled to pair width: with `folded` every
-// ratio is 1 and the residual scale is scales[0], so the epilogue's
-// products reproduce the folded values exactly.
+// The requant scales are folded into the epilogue, op for op as the wrapper
+// of the TPU kernel folds them on the host (block.py:789-797, 822-823,
+// 1684-1690, 2631-2641, 3545-3554; ops/cuda/block.py _fold_block,
+// _fold_basic, _fold_basic_ds, _fold_ds): sum g's multiplier is sw[g][n] *
+// (s[num[g]] / s[den[g]]), the bias b[n] * (1 / s[den[0]]), the projection
+// bias bd[n] * (1 / s_y), the residual scale s_x / s_y, where s is the
+// device vector [s_x, s_z1, s_z2, s_y] of a bottleneck block or [s_x, s_z1,
+// s_y] of a BasicBlock (s_y = 1 for a bf16 or fp32 exit).  No small kernel
+// runs per call to fold them.  In pair geometry with `tiled` the raw vectors
+// are the standard block's (width N / 2) and channel n of a pair row reads
+// entry n mod N / 2, which is the JAX wrappers' lane tiling (jnp.tile) of
+// the folded vectors, since the fold is elementwise; the launch keeps each
+// column tile within one half, so the mod is one offset a tile (a test per
+// column raised the pair kernels' spills from 0-16 to 128-240 bytes and cost
+// the pixel-paired BasicBlock 10%).  The pair-space entries take the vectors
+// already folded and lane-tiled to pair width: with `folded` every ratio is
+// 1 and the residual scale is scales[0], so the epilogue's products
+// reproduce the folded values exactly.
 //
 // The declarations are in an unnamed namespace: each library that includes
 // this header has its own kernels and its own launch_chain_tile statics (a
@@ -85,12 +92,20 @@
 
 #pragma once
 
-#include "igemm.cuh"  // requant and the output kinds (no kernel of it is instantiated here)
 #include "s8_tile.cuh"
 
 namespace {
 
 using s8tile::Chain;
+
+enum OutKind { OUT_I8 = 0, OUT_BF16 = 1, OUT_F32 = 2 };
+
+// The int8 exit of every epilogue: round half to even, clip to +-127.
+__device__ __forceinline__ int8_t requant(float v) {
+  v = rintf(v);
+  v = fminf(fmaxf(v, -127.f), 127.f);
+  return static_cast<int8_t>(v);
+}
 
 // One int32 sum of a launch: row m of A is the K int8 values at
 // a + (row(m) + off) * lda, zero where that lies outside [0, limit) (a
@@ -110,17 +125,21 @@ struct S8Sum {
 // (bottleneck conv3): y = fma(P, a0, c), then the shortcut: fma(x, s_res,
 // y), or y + fma(Pd, a1, cd); relu; int8, bf16 or fp32.  TE_KH3_OUT
 // (BasicBlock conv2): y = fma(P2, a2, fma(P0, a0, P1*a1)) + c, then fma(x,
-// s_res, y); relu; int8 or bf16.
-enum TileEpi { TE_RELU_Q = 0, TE_KH3_Q = 1, TE_OUT = 2, TE_KH3_OUT = 3 };
+// s_res, y); relu; int8 or bf16.  TE_KH3_PROJ (the BasicBlock transition's
+// conv2, four sums): y = fma(P2, a2, fma(P0, a0, P1*a1)) + c, then the
+// projection fma(Pd, a3, y) + cd; relu; int8 or bf16.
+enum TileEpi { TE_RELU_Q = 0, TE_KH3_Q = 1, TE_OUT = 2, TE_KH3_OUT = 3, TE_KH3_PROJ = 4 };
 
-__host__ __device__ constexpr bool is_kh3(int epi) { return epi == TE_KH3_Q || epi == TE_KH3_OUT; }
+__host__ __device__ constexpr bool is_kh3(int epi) {
+  return epi == TE_KH3_Q || epi == TE_KH3_OUT || epi == TE_KH3_PROJ;
+}
 
 struct TileArgs {
-  S8Sum sum[3];
-  const float* sw[3];   // per-channel weight scales of the sums (folded: multipliers)
-  int num[3], den[3];   // indices into the scales of each sum's ratio
+  S8Sum sum[4];
+  const float* sw[4];   // per-channel weight scales of the sums (folded: multipliers)
+  int num[4], den[4];   // indices into the scales of each sum's ratio
   const float* b;       // per-channel bias (of the first sum)
-  const float* bd;      // projection bias (TE_OUT with two sums)
+  const float* bd;      // projection bias (TE_OUT with two sums, TE_KH3_PROJ)
   const float* scales;  // the device scales, s_y at index iy (folded: the residual scale)
   int iy;               // 3: [s_x, s_z1, s_z2, s_y]; 2: [s_x, s_z1, s_y]
   int unit_y;           // s_y taken as 1
@@ -149,7 +168,7 @@ __device__ __forceinline__ int s2_row(const TileArgs& p, int m) {
 
 // The per-launch scalars of the epilogue, from the device scales.
 struct Ratios {
-  float sum[3];  // sum g's multiplier is sw[g][n] * sum[g]
+  float sum[4];  // sum g's multiplier is sw[g][n] * sum[g]
   float bias;    // 1 / s[den[0]]
   float proj;    // 1 / s_y (the projection bias)
   float res;     // s_x / s_y (the identity residual)
@@ -159,7 +178,7 @@ __device__ __forceinline__ Ratios ratios(const TileArgs& p, int ng) {
   Ratios r;
   if (p.folded) {
 #pragma unroll
-    for (int g = 0; g < 3; ++g) r.sum[g] = 1.f;
+    for (int g = 0; g < 4; ++g) r.sum[g] = 1.f;
     r.bias = r.proj = 1.f;
     r.res = p.scales[0];
     return r;
@@ -169,7 +188,7 @@ __device__ __forceinline__ Ratios ratios(const TileArgs& p, int ng) {
   for (int i = 0; i < 4; ++i) s[i] = i <= p.iy ? p.scales[i] : 1.f;
   if (p.unit_y) s[p.iy] = 1.f;
 #pragma unroll
-  for (int g = 0; g < 3; ++g) r.sum[g] = g < ng ? __fdiv_rn(s[p.num[g]], s[p.den[g]]) : 0.f;
+  for (int g = 0; g < 4; ++g) r.sum[g] = g < ng ? __fdiv_rn(s[p.num[g]], s[p.den[g]]) : 0.f;
   r.bias = __fdiv_rn(1.f, s[p.den[0]]);
   r.proj = __fdiv_rn(1.f, s[p.iy]);
   r.res = __fdiv_rn(s[0], s[p.iy]);
@@ -193,7 +212,9 @@ __device__ __forceinline__ void fold(const TileArgs& p, const Ratios& r, const i
     const bool in = n < p.N;
     const float f = __int2float_rn(acc[j]);
     const float a = in ? __fmul_rn(sw[n], r.sum[G]) : 0.f;
-    if (is_kh3(EPI)) {
+    if (EPI == TE_KH3_PROJ && G == 3) {
+      h[j] = __fadd_rn(__fmaf_rn(f, a, h[j]), in ? __fmul_rn(p.bd[n - hoff], r.proj) : 0.f);
+    } else if (is_kh3(EPI)) {
       if (G == 0) {
         h[j] = f;
       } else if (G == 1) {
@@ -293,7 +314,9 @@ __device__ __forceinline__ uint32_t interior(const Chain& g, long long t) {
 template <int BM, int BN, bool VEC, int NG, int EPI, int MASK, bool PAIR, int S2>
 __device__ __forceinline__ void chain_tile(const TileArgs& p) {
   using namespace s8tile;
-  static_assert(!(MASK & S2), "a stride-2 sum reads interior pixels only");
+  static_assert(!(MASK & S2) || NG == 1, "a masked stride-2 sum is its launch's only sum");
+  static_assert(EPI != TE_KH3_PROJ || NG == 4,
+                "TE_KH3_PROJ folds three kernel rows and a projection");
   extern __shared__ uint8_t smem_raw[];
   __shared__ int row_t[BM];       // the tile row's GEMM row in the output
   __shared__ int row_in[BM];      // ... and which of its pixels are interior (finish8)
@@ -326,7 +349,11 @@ __device__ __forceinline__ void chain_tile(const TileArgs& p) {
   // (g, tap, half) lies g - 1 padded rows and span * (tap - 1) + half
   // columns from the row's first pixel (py, px); a masked sum of a one- or
   // two-sum launch is a 1x1, one tap at the row's own pixels.  The column
-  // wraps into the neighbouring padded row as the flat index does.
+  // wraps into the neighbouring padded row as the flat index does.  A
+  // masked stride-2 sum has nine taps (u, v), bits (3u + v) * 2: input
+  // pixel (2i+u-1, 2j+v-1) lies u - 1 rows and v - 1 columns from the
+  // source row's padded (py, px) = (2i+1, 2j+1), inside the image's padded
+  // rows and columns, so no wrap.
   // Where a row's pixels are all ring its output is zero whatever it reads,
   // and for every other row the source row stays within one padded row of
   // the image, so the test against (h, w) is the flat decode's.
@@ -340,7 +367,20 @@ __device__ __forceinline__ void chain_tile(const TileArgs& p) {
     arow[i] = m < p.M ? out_row(p, m) : -(1ll << 40);
     srow[i] = S2 && m < p.M ? s2_row(p, m) : -(1 << 30);
     amask[i] = 0;
-    if (MASK && m < p.M) {
+    if constexpr ((MASK & S2) != 0) {
+      if (m < p.M) {
+        const int rem = srow[i] % (p.src.hp * p.src.wp);
+        const int py = rem / p.src.wp, px = rem - py * p.src.wp;
+#pragma unroll
+        for (int u = 0; u < 3; ++u)
+#pragma unroll
+          for (int v = 0; v < 3; ++v) {
+            const int row = py + u - 1, col = px + v - 1;
+            if (row >= 1 && row <= p.src.h && col >= 1 && col <= p.src.w)
+              amask[i] |= 1u << ((3 * u + v) * 2);
+          }
+      }
+    } else if (MASK && m < p.M) {
       const int rem = static_cast<int>(arow[i] * span % (p.g.hp * p.g.wp));
       const int py = rem / p.g.wp, px = rem - py * p.g.wp;
 #pragma unroll
@@ -370,6 +410,10 @@ __device__ __forceinline__ void chain_tile(const TileArgs& p) {
   // The mask bit of K index k of sum g.
   auto bit_of = [&](int g, int k) {
     const S8Sum& s = p.sum[g];
+    if ((S2 >> g) & 1) {  // the masked stride-2 sum: tap (u, v)
+      const int u = k / s.seg;
+      return (3 * u + (k - u * s.seg) / s.lda) * 2;
+    }
     const int tap = k / s.lda;
     const int half = PAIR && 2 * (k - tap * s.lda) >= s.lda;
     return (3 * g + tap) * 2 + half;
@@ -481,6 +525,10 @@ __device__ __forceinline__ void chain_tile(const TileArgs& p) {
     run_sum(2);
     fold<BN, EPI, 2>(p, r, acc, h, n0, hoff, lane);
   }
+  if constexpr (NG > 3) {
+    run_sum(3);
+    fold<BN, EPI, 3>(p, r, acc, h, n0, hoff, lane);
+  }
 
   // Stage the fp32 tile in shared memory (the ring is free now), then
   // finish it row by row, eight columns a thread.  Accumulator layout of
@@ -518,15 +566,15 @@ __global__ void __launch_bounds__(2 * BM) chain_tile_kernel(TileArgs p) {
   chain_tile<BM, BN, VEC, NG, EPI, MASK, PAIR, S2>(p);
 }
 
-// The same, two blocks an SM: the 128 x 64 tiles of two or three sums (the
-// 3x3s, the projection conv3) need 130-140 registers a thread unbounded,
-// which leaves one 256-thread block an SM and nothing to overlap its copies
-// and epilogue with; capped at 128 (a few bytes spilled) two blocks share
-// the SM.  Measured on an H100 at batch 32 (NVIDIA H100 80GB HBM3, 700 W;
-// PERF.md, section 6): rows 7-10 15-25% faster, row 1's stage-0
-// projection block 0.2050 against 0.2628 ms.  The one-sum launches keep
-// their 74-80 registers unbounded (any minimum raised them to 128, and row
-// 1 at 14x14 lost 5%).
+// The same, two blocks an SM: the 128 x 64 tiles of two to four sums (the
+// 3x3s, the projection conv3, the BasicBlock transition's conv2) need
+// 130-140 registers a thread unbounded, which leaves one 256-thread block an
+// SM and nothing to overlap its copies and epilogue with; capped at 128 (a
+// few bytes spilled) two blocks share the SM.  Measured on an H100 at batch
+// 32 (NVIDIA H100 80GB HBM3, 700 W; PERF.md, section 6): rows 7-10 15-25%
+// faster, row 1's stage-0 projection block 0.2050 against 0.2628 ms.  The
+// one-sum launches keep their 74-80 registers unbounded (any minimum raised
+// them to 128, and row 1 at 14x14 lost 5%).
 template <int BM, int BN, bool VEC, int NG, int EPI, int MASK, bool PAIR, int S2>
 __global__ void __launch_bounds__(2 * BM, 2) chain_tile_kernel_2sm(TileArgs p) {
   chain_tile<BM, BN, VEC, NG, EPI, MASK, PAIR, S2>(p);

@@ -24,8 +24,20 @@
 // the window's overlapping reads come from L1/L2.  The TPU kernels' phase
 // planes (strided access Mosaic lacks) and the padded copy are not carried
 // over.  A max is exact, so its output equals the plain version bit for
-// bit (a NaN is the hardware's canonical one).  The average pool has the
-// same layout and the same bound.
+// bit (a NaN is the hardware's canonical one).  The average pool keeps that
+// layout for small windows (the 3x3/2/p1 shape).
+//
+// A large window with few outputs (the head pool: 7x7 over (B, 7, 7, C), one
+// output pixel an image) gives that layout few threads, each walking k*k
+// taps: bound by latency, not bytes (on an H100 at batch 32, 0.0144 ms in
+// bf16 against F.avg_pool2d's 0.0095; PERF.md, section 6).  For k >= 4 (up
+// to 16) the window's kernel rows are spread over threads instead: a block
+// of 32 x k threads takes 32 (output pixel, channel group) items, thread (x,
+// kh) forms row kh's sum over kw left to right, and thread (x, 0) adds the k
+// row sums in kh order from shared memory; the same roundings as above, so
+// the output is the same to the bit.  Channel groups are 16 bytes, or 8
+// where 16-byte groups would leave fewer than AVG_FILL threads (the head
+// pool in bf16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -178,6 +190,63 @@ avg_pool_kernel(const T* __restrict__ x, T* __restrict__ out, int B, int H, int 
       o;
 }
 
+// The average pool with the window's kernel rows over threadIdx.y (see the
+// header): blockDim (32, k), smem k * 32 * VEC floats.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(512)
+avg_pool_rows_kernel(const T* __restrict__ x, T* __restrict__ out, int B, int H, int W, int C,
+                     int OH, int OW, int k, int s, int p, float inv) {
+  extern __shared__ float part[];  // [kh][item][VEC]: row kh's sum of each item
+  const int groups = C / VEC;
+  const size_t total = (size_t)B * OH * OW * groups;
+  const size_t idx = (size_t)blockIdx.x * 32 + threadIdx.x;
+  const int u = threadIdx.y;
+  float* const mine = part + ((size_t)u * 32 + threadIdx.x) * VEC;
+  if (idx < total) {
+    const int g = static_cast<int>(idx % groups);
+    size_t pix = idx / groups;
+    const int c = static_cast<int>(pix % OW);
+    pix /= OW;
+    const int r = static_cast<int>(pix % OH);
+    const int b = static_cast<int>(pix / OH);
+    const int iy = r * s - p + u, x0 = c * s - p;
+    const bool row_in = iy >= 0 && iy < H;
+    float cur[VEC];
+    for (int v = 0; v < k; ++v) {
+      const int ix = x0 + v;
+      Vec<T, VEC> t;
+      if (row_in && ix >= 0 && ix < W) {
+        t = *reinterpret_cast<const Vec<T, VEC>*>(x + (((size_t)b * H + iy) * W + ix) * C +
+                                                  (size_t)g * VEC);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) t.v[i] = zero<T>();
+      }
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float f = static_cast<float>(key(t.v[i]));
+        cur[i] = v == 0 ? f : __fadd_rn(cur[i], f);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) mine[i] = cur[i];
+  }
+  __syncthreads();
+  if (u != 0 || idx >= total) return;
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = mine[i];
+  for (int kh = 1; kh < k; ++kh) {
+    const float* row = part + ((size_t)kh * 32 + threadIdx.x) * VEC;
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] = __fadd_rn(acc[i], row[i]);
+  }
+  Vec<T, VEC> o;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) o.v[i] = from_f32<T>(__fmul_rn(acc[i], inv));
+  *reinterpret_cast<Vec<T, VEC>*>(out + idx * VEC) = o;
+}
+
 template <typename T>
 int launch(const void* x, void* out, int vec, int B, int H, int W, int C, int OH, int OW,
            int k, int s, int p, cudaStream_t stream) {
@@ -195,10 +264,33 @@ int launch(const void* x, void* out, int vec, int B, int H, int W, int C, int OH
   return static_cast<int>(cudaGetLastError());
 }
 
+// The fewest threads a rows-kernel launch should have before it narrows its
+// channel groups from 16 to 8 bytes (about 500 an SM).
+constexpr size_t AVG_FILL = 65536;
+
+template <typename T, int VEC>
+int launch_avg_rows(const void* x, void* out, int B, int H, int W, int C, int OH, int OW, int k,
+                    int s, int p, float inv, cudaStream_t stream) {
+  const size_t total = (size_t)B * OH * OW * (C / VEC);
+  const unsigned blocks = static_cast<unsigned>((total + 31) / 32);
+  if (blocks == 0) return 0;
+  const size_t smem = (size_t)k * 32 * VEC * sizeof(float);
+  avg_pool_rows_kernel<T, VEC><<<blocks, dim3(32, k), smem, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), B, H, W, C, OH, OW, k, s, p, inv);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_avg(const void* x, void* out, int vec, int B, int H, int W, int C, int OH, int OW,
                int k, int s, int p, float inv, cudaStream_t stream) {
   constexpr int V16 = 16 / sizeof(T);
+  if (k >= 4 && k <= 16) {  // a large window: its kernel rows over threads
+    if (!vec)
+      return launch_avg_rows<T, 1>(x, out, B, H, W, C, OH, OW, k, s, p, inv, stream);
+    if ((size_t)B * OH * OW * (C / V16) * k >= AVG_FILL)
+      return launch_avg_rows<T, V16>(x, out, B, H, W, C, OH, OW, k, s, p, inv, stream);
+    return launch_avg_rows<T, V16 / 2>(x, out, B, H, W, C, OH, OW, k, s, p, inv, stream);
+  }
   const int v = vec ? V16 : 1;
   const size_t total = (size_t)B * OH * OW * (C / v);
   const unsigned blocks = static_cast<unsigned>((total + THREADS - 1) / THREADS);

@@ -6,8 +6,8 @@
 // v where v > 0 or v is NaN, else +0 (for a zero of either sign too).
 // fmaxf(v, 0.f) and `v > 0 ? v : 0` turn a NaN into 0, so one NaN in an
 // image would give finite logits where JAX and the plain versions give NaN.
-// The int8 block epilogues (igemm.cuh) keep fmaxf: their inputs are int32
-// sums times finite scales, never NaN.
+// The int8 block epilogues (chain_tile.cuh) keep fmaxf: their inputs are
+// int32 sums times finite scales, never NaN.
 
 #pragma once
 

@@ -25,11 +25,10 @@ see the section comment below): ``bottleneck_block_chained_int8_pp``
 ``basic_block_chained_int8_pp`` (:2002) and ``basic_run_chained_int8_pp``
 (:2175).
 
-Every int8 block kernel but the basic transition (the stride-1 blocks of
-both families and their runs, the bottleneck transition, the four
-pixel-paired kernels) runs on the int8 tensor-core tile of
-``csrc/chain_tile.cuh``; the basic transition on the dp4a implicit GEMM of
-``csrc/igemm.cuh`` (each header gives the design and what bounds it).
+Every int8 block kernel (the stride-1 blocks of both families and their
+runs, the two transitions, the four pixel-paired kernels) runs on the int8
+tensor-core tile of ``csrc/chain_tile.cuh`` (its header gives the design
+and what bounds it).
 
 The bf16 / fp32 stride-1 bottleneck of the ``pallas_block`` backend and the
 op library (CUDA in ``csrc/fp_block.cu``, one piece of code for both; see
@@ -41,9 +40,8 @@ its input lies on the CPU, and launches the kernel for a CUDA tensor, or
 raises; there is no fallback.  The scalar requant scales are folded into
 per-channel vectors exactly as the JAX wrapper does (block.py:789-797,
 822-823, 2966-2980, 3545-3554, 1684-1690, 1866-1879, 2631-2641): by the
-wrapper (the basic transition and pixel-paired basic kernels), or by the
-kernel itself op for op, so the kernel and the plain version see identical
-constants.
+wrapper (the pixel-paired basic kernels), or by the kernel itself op for
+op, so the kernel and the plain version see identical constants.
 
 Chain ring rows carry no meaning (the JAX kernels leave garbage there); the
 port writes zeros, and the tests compare interiors only.  The TPU
@@ -88,9 +86,9 @@ _ARGTYPES = {
         # x; n_blocks B h w hp wp c; w1s_nk sw1ps b1s w2s_nk sw2ps b2s scales_s;
         # z1 act0 act1; last_bf16 out stream
         "basic_run_int8": [_P] + [_I] * 7 + [_P] * 7 + [_P] * 3 + [_I, _P, _P],
-        # x; B h w hp wp cin c oh ow hp2 wp2; w1p a1 c1 w2p a2 c2 wd ad cd;
-        # z1; out_kind out stream
-        "basic_ds_block_s2_int8": [_P] + [_I] * 11 + [_P] * 9 + [_P] + [_I, _P, _P],
+        # x; B h w hp wp cin c oh ow hp2 wp2; w1_nk sw1 b1 w2_nk sw2p b2 wd_nk
+        # swd bd; scales unit_y z1; out_kind out stream
+        "basic_ds_block_s2_int8": [_P] + [_I] * 11 + [_P] * 9 + [_P, _I, _P] + [_I, _P, _P],
     },
     "pp_block": {
         # x; B h w hp wp cin2 c2 c4p; w1_nk sw1 b1 w2_nk sw2 b2 w3_nk sw3 b3;
@@ -754,11 +752,6 @@ def downsample_block_s2_int8(
 # ---------------------------------------------------------------------------
 
 
-def _check_f32(dev, **tensors):
-    for name, t in tensors.items():
-        _build.require(t, name, torch.float32, dev)
-
-
 def _fold_basic(scales, sw1p, b1, sw2p, b2, emit_i8):
     """Host-side scale folding of block.py:1684-1690, op for op."""
     s_x, s_z1 = scales[0], scales[1]
@@ -947,7 +940,8 @@ def basic_run_chained_int8(
 
 
 def _fold_basic_ds(scales, sw1, b1, sw2p, b2, swd, bd, emit_i8):
-    """Host-side scale folding of block.py:2631-2641, op for op."""
+    """Host-side scale folding of block.py:2631-2641, op for op (the plain
+    version's; the kernel folds in its epilogue)."""
     s_x, s_z1 = scales[0], scales[1]
     s_y = scales[2] if emit_i8 else _one(scales)
     c = sw1.shape[-1]
@@ -961,14 +955,25 @@ def _fold_basic_ds(scales, sw1, b1, sw2p, b2, swd, bd, emit_i8):
     }
 
 
+def basic_ds_w1(w1pq: torch.Tensor) -> torch.Tensor:
+    """The transition's conv1 as its (9cin, c) matrix, rows (kh, kw, k): the
+    (3, 4cin, c) packing without the zero rows [3cin, 4cin) of each kernel
+    row."""
+    cin = w1pq.shape[1] // 4
+    return w1pq[:, : 3 * cin].reshape(9 * cin, w1pq.shape[-1])
+
+
 def basic_ds_block_s2_int8_plain(
     xr, w1pq, sw1, b1, w2pq, sw2p, b2, wdq, swd, bd, scales, *,
     h, w_sp, emit_i8=True, bt=None, onedot=False, interpret=False,
+    w1pq_nk=None, w2pq_nk=None, wdq_nk=None,
 ):
-    """Plain PyTorch version of ``basic_ds_block_s2_int8``."""
+    """Plain PyTorch version of ``basic_ds_block_s2_int8`` (the weights
+    read from their K-major copies where given)."""
+    w1 = _from_kmajor(basic_ds_w1(w1pq), w1pq_nk)
+    w2pq, wdq = _from_kmajor(w2pq, w2pq_nk), _from_kmajor(wdq, wdq_nk)
     b, hp, wp, cin, oh, ow, hp2, wp2 = _ds_geometry(xr, h, w_sp)
     f = _fold_basic_ds(scales, sw1, b1, sw2p, b2, swd, bd, emit_i8)
-    c = sw1.shape[-1]
     x = xr.reshape(b, hp, wp, cin)[:, 1 : 1 + h, 1 : 1 + w_sp]
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     taps = torch.cat(
@@ -979,8 +984,7 @@ def basic_ds_block_s2_int8_plain(
         ],
         dim=-1,
     )
-    acc1 = _idot(taps, w1pq[:, : 3 * cin].reshape(9 * cin, c))
-    z1 = _requant(torch.relu(_fma(acc1.float(), f["a1"], f["c1"])))
+    z1 = _requant(torch.relu(_fma(_idot(taps, w1).float(), f["a1"], f["c1"])))
     y = _kh3(z1, w2pq, f["a2"], oh, ow) + f["c2"]
     sc = _idot(x[:, ::2, ::2], wdq)
     y = torch.relu(_fma(sc.float(), f["ad"], y) + f["cd"])
@@ -990,6 +994,7 @@ def basic_ds_block_s2_int8_plain(
 def basic_ds_block_s2_int8(
     xr, w1pq, sw1, b1, w2pq, sw2p, b2, wdq, swd, bd, scales, *,
     h, w_sp, emit_i8=True, bt=None, onedot=False, interpret=False,
+    w1pq_nk=None, w2pq_nk=None, wdq_nk=None,
 ):
     """Whole stride-2 BasicBlock (a ResNet-18/34 stage transition), chain
     to chain.
@@ -1002,34 +1007,47 @@ def basic_ds_block_s2_int8(
     channels, int8 at s_y (emit_i8) or unscaled bf16.  Output pixel (i, j)
     of conv1 taps x at (2i+u-1, 2j+v-1), zero outside the image; the
     shortcut reads x[2i, 2j].
+
+    ``w1pq_nk`` (c, 9cin: ``basic_ds_w1(w1pq)`` transposed), ``w2pq_nk``
+    (3c, 3c), ``wdq_nk`` (c, cin): the K-major copies that the int8
+    tensor-core tile reads, made once per engine by
+    ``fused.pack_chain_kmajor``; without them the wrapper transposes once
+    per call.  The kernel folds the requant scales itself, as
+    ``_fold_basic_ds`` does, op for op.
     """
+    kmajor = dict(w1pq_nk=w1pq_nk, w2pq_nk=w2pq_nk, wdq_nk=wdq_nk)
     if not xr.is_cuda:
         return basic_ds_block_s2_int8_plain(
             xr, w1pq, sw1, b1, w2pq, sw2p, b2, wdq, swd, bd, scales,
-            h=h, w_sp=w_sp, emit_i8=emit_i8,
+            h=h, w_sp=w_sp, emit_i8=emit_i8, **kmajor,
         )
     b, hp, wp, cin, oh, ow, hp2, wp2 = _ds_geometry(xr, h, w_sp)
-    f = _fold_basic_ds(scales, sw1, b1, sw2p, b2, swd, bd, emit_i8)
     c = sw1.shape[-1]
     dev = xr.device
     _check_i8(dev, xr=xr)
-    _build.require(w1pq, "w1pq", torch.int8, dev, (3, 4 * cin, c))
-    _build.require(w2pq, "w2pq", torch.int8, dev, (3 * c, 3 * c))
-    _build.require(wdq, "wdq", torch.int8, dev, (cin, c))
     if cin % 4 or c % 4:
         raise ValueError(f"channel counts must be multiples of 4, got cin={cin}, c={c}")
-    fc = {k: v.contiguous() for k, v in f.items()}
-    _check_f32(dev, **fc)
+    if tuple(w1pq.shape) != (3, 4 * cin, c) or tuple(w2pq.shape) != (3 * c, 3 * c) \
+            or tuple(wdq.shape) != (cin, c):
+        raise ValueError("weights do not match a (cin, c) basic transition: "
+                         f"{[tuple(w.shape) for w in (w1pq, w2pq, wdq)]}")
+    w1_nk = basic_ds_w1(w1pq).t().contiguous() if w1pq_nk is None else w1pq_nk
+    _build.require(w1_nk, "w1pq_nk", torch.int8, dev, (c, 9 * cin))
+    nk = {"w1": w1_nk, "w2": _kmajor(w2pq, w2pq_nk, "w2pq_nk", dev),
+          "wd": _kmajor(wdq, wdq_nk, "wdq_nk", dev)}
+    v = _f32_vectors(dev, sw1=(sw1, c), b1=(b1, c), sw2p=(sw2p, 3 * c), b2=(b2, c),
+                     swd=(swd, c), bd=(bd, c), scales=(scales, 3))
     z1 = torch.empty((b * hp2 * wp2, c), dtype=torch.int8, device=dev)
     out = torch.empty(
         (b * hp2 * wp2, c), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev
     )
     rc = _lib("basic_block").basic_ds_block_s2_int8(
         xr.data_ptr(), b, h, w_sp, hp, wp, cin, c, oh, ow, hp2, wp2,
-        w1pq.data_ptr(), fc["a1"].data_ptr(), fc["c1"].data_ptr(),
-        w2pq.data_ptr(), fc["a2"].data_ptr(), fc["c2"].data_ptr(),
-        wdq.data_ptr(), fc["ad"].data_ptr(), fc["cd"].data_ptr(),
-        z1.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+        nk["w1"].data_ptr(), v["sw1"].data_ptr(), v["b1"].data_ptr(),
+        nk["w2"].data_ptr(), v["sw2p"].data_ptr(), v["b2"].data_ptr(),
+        nk["wd"].data_ptr(), v["swd"].data_ptr(), v["bd"].data_ptr(),
+        v["scales"].data_ptr(), int(not emit_i8), z1.data_ptr(),
+        0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
     )
     _build.check(rc, "basic_ds_block_s2_int8")
     _build.LAUNCHES["basic_ds_block_s2_int8"] += 1

@@ -733,20 +733,35 @@ def pp_run_operands(blocks: list, packed: dict | None, first: int) -> tuple[list
 BASIC_KEYS = ("w1pq", "sw1p", "b1", "w2pq", "sw2p", "b2")
 
 
+def basic_ds_kmajor_copies(blk: dict) -> dict:
+    """The K-major copies of a basic transition's weights, by their keys:
+    ``w1pq_nk`` (c, 9cin), conv1 without the zero rows of its (3, 4cin, c)
+    packing (``block.basic_ds_w1``), ``w2pq_nk`` (3c, 3c), ``wdq_nk`` (c,
+    cin)."""
+    return {"w1pq_nk": block.basic_ds_w1(blk["w1pq"]).t().contiguous(),
+            "w2pq_nk": blk["w2pq"].t().contiguous(), "wdq_nk": blk["wdq"].t().contiguous()}
+
+
 def _pack_basic(qtree: Tree) -> Tree:
-    """``pack_chain_kmajor`` for the basic family.  Each stage's stride-1
-    blocks (all of stage 0, blocks 1.. of the others: the blocks of the
-    stage's run) are stacked once, under ``"runs"`` / ``"layer<s>"``: the
-    K-major copies ``w1pq_nk_s`` / ``w2pq_nk_s`` of the kh-batched 3x3s,
-    their vectors ``sw1p_s``, ``b1_s``, ``sw2p_s``, ``b2_s``, and for stage 0
-    at c = 64 (the pixel-paired width) ``w1pp_nk_s`` / ``w2pp_nk_s``, the
-    K-major copies of the pair-packed (6c, 6c) 3x3s.  Each block gets its
-    slice of the K-major stacks beside its weights (``w1pq_nk``,
-    ``w2pq_nk``, ``w1pp_nk``, ``w2pp_nk``: views, not copies)."""
+    """``pack_chain_kmajor`` for the basic family.  Each stage transition
+    gets its K-major copies beside its weights (``basic_ds_kmajor_copies``).
+    Each stage's stride-1 blocks (all of stage 0, blocks 1.. of the others:
+    the blocks of the stage's run) are stacked once, under ``"runs"`` /
+    ``"layer<s>"``: the K-major copies ``w1pq_nk_s`` / ``w2pq_nk_s`` of the
+    kh-batched 3x3s, their vectors ``sw1p_s``, ``b1_s``, ``sw2p_s``,
+    ``b2_s``, and for stage 0 at c = 64 (the pixel-paired width)
+    ``w1pp_nk_s`` / ``w2pp_nk_s``, the K-major copies of the pair-packed
+    (6c, 6c) 3x3s.  Each block gets its slice of the K-major stacks beside
+    its weights (``w1pq_nk``, ``w2pq_nk``, ``w1pp_nk``, ``w2pp_nk``: views,
+    not copies)."""
     out, runs = dict(qtree), {}
     for stage in range(4):
         name = f"layer{stage + 1}"
         layer = dict(qtree[name])
+        for b, blk in layer.items():
+            if "wdq" in blk:  # the stage transition
+                layer[b] = {**blk, **basic_ds_kmajor_copies(blk)}
+        out[name] = layer
         ids = sorted((b for b, blk in layer.items() if "sw1p" in blk), key=int)  # stride 1
         if not ids:
             continue
@@ -762,7 +777,7 @@ def _pack_basic(qtree: Tree) -> Tree:
         nk = {k[: -len("_s")]: v for k, v in run.items() if k.endswith("_nk_s")}
         for i, b in enumerate(ids):
             layer[b] = {**layer[b], **{k: v[i] for k, v in nk.items()}}
-        out[name], runs[name] = layer, run
+        runs[name] = run
     out["runs"] = runs
     return out
 
@@ -1055,6 +1070,7 @@ def _basic_int8_chain_forward(
                 blk["wdq"], blk["swd"], blk["bd"],
                 scale_row(stage, 0),
                 h=h, w_sp=w_sp, emit_i8=s_after(stage, 0) is not None,
+                **{k: blk[k] for k in ("w1pq_nk", "w2pq_nk", "wdq_nk") if k in blk},
             )
             h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
             start = 1

@@ -261,6 +261,32 @@ def test_basic_ds_plain_equals_jax(rng, h, w):
         _assert_interiors_equal(got, want, b, oh, ow, emit_i8)
 
 
+@pytest.mark.parametrize(
+    "h,w", [(10, 10), (7, 7), (10, 14)], ids=["direct-10x10", "generic-7x7", "nonsquare-10x14"]
+)
+def test_basic_ds_on_kmajor_copies_equals_jax(rng, h, w):
+    """The transition reading the engine's K-major copies (what the int8 tile
+    reads: conv1's nine taps without the packing's zero rows, conv2, the
+    projection) equals the Pallas kernel, x's ring random bytes."""
+    b, cin, c = 2, 16, 32
+    oh, ow = (h + 1) // 2, (w + 1) // 2
+    jq, tq = _quantized_pair(_basic_ds_block(rng, cin, c), ds=True)
+    nk = tfused.basic_ds_kmajor_copies(tq)
+    assert tuple(nk["w1pq_nk"].shape) == (c, 9 * cin)
+    x = _chain_input(rng, b, h, w, cin)
+    args = (torch.from_numpy(x), *(tq[k] for k in DS_KEYS), torch.from_numpy(SCALES))
+    for emit_i8 in (True, False):
+        want = jblock.basic_ds_block_s2_int8(
+            jnp.asarray(x), *(jq[k] for k in DS_KEYS), jnp.asarray(SCALES),
+            h=h, w_sp=w, emit_i8=emit_i8, interpret=True,
+        )
+        got = tblock.basic_ds_block_s2_int8(*args, h=h, w_sp=w, emit_i8=emit_i8, **nk)
+        _assert_interiors_equal(got, want, b, oh, ow, emit_i8)
+    with pytest.raises(ValueError):  # the copy of the packing with its zero rows
+        tblock.basic_ds_block_s2_int8(*args, h=h, w_sp=w,
+                                      w1pq_nk=tq["w1pq"].reshape(12 * cin, c).t())
+
+
 # The epilogue forms of the Pallas kernels, as XLA evaluates them (jitted on
 # the CPU, where the tests run the Pallas kernels) and as the port rounds
 # them: each ``a*b + c`` one fused multiply-add (``block._fma``).
@@ -429,6 +455,33 @@ def test_basic_packed_tree_forward_equals_unpacked(setup, monkeypatch, run_stage
     got = tfused.fused_forward_int8_chain(tcfg, packed, scales, torch.from_numpy(x))
     want = tfused.fused_forward_int8_chain(tcfg, tq, scales, torch.from_numpy(x))
     assert torch.equal(got, want)
+
+
+def test_pack_chain_kmajor_gives_each_basic_transition_its_copies(setup):
+    """Each stage transition of the engine's tree carries the three K-major
+    copies of its weights: conv1 (c, 9cin) without the zero rows [3cin,
+    4cin) of each kernel row of the (3, 4cin, c) packing, conv2 (3c, 3c),
+    the projection (c, cin); the stride-1 blocks carry none of them."""
+    _, tcfg, _, tvars, _ = setup
+    tq = tfused.quantize_chain(tcfg, tresnet.fold_inference_params(tcfg, tvars))
+    packed = tfused.pack_chain_kmajor(tcfg, tq)
+    for stage, nb in enumerate(tcfg.stage_blocks):
+        for i in range(nb):
+            blk = packed[f"layer{stage + 1}"][str(i)]
+            if stage == 0 or i > 0:
+                assert "wdq_nk" not in blk and "sw1" not in blk, (stage, i)
+                continue
+            _, four_cin, c = blk["w1pq"].shape
+            cin = four_cin // 4
+            assert not blk["w1pq"][:, 3 * cin :].any()  # the dropped rows are the zero ones
+            taps = blk["w1pq"][:, : 3 * cin].reshape(9 * cin, c)
+            want = {"w1pq_nk": taps.t(), "w2pq_nk": blk["w2pq"].t(), "wdq_nk": blk["wdq"].t()}
+            for k, v in want.items():
+                assert blk[k].is_contiguous() and blk[k].dtype == torch.int8, (stage, k)
+                assert tuple(blk[k].shape) == tuple(v.shape), (stage, k)
+                assert torch.equal(blk[k], v), (stage, k)
+            assert tuple(blk["w1pq_nk"].shape) == (c, 9 * cin)
+            assert "w1pq_nk" not in tq[f"layer{stage + 1}"]["0"]  # the input tree unchanged
 
 
 def test_basic_ds_int8_off_runs_and_equals_plain(setup, monkeypatch):

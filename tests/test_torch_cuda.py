@@ -31,9 +31,10 @@ The int8 bottleneck block and run (the int8 wgmma tile) equal their plain
 versions at ResNet-152's stage shapes and off the tile, every exit, and
 give the same bits on a second call and from the engine's K-major weight
 copies as from a per-call transpose; so do the stride-2 transition (at
-odd and even sizes, wp = w + 1 and round_up(w + 2, 8)) and the pixel-paired
-bottleneck block and run (from the engine's pair copies as from per-call
-packing).
+odd and even sizes, wp = w + 1 and round_up(w + 2, 8)), the basic
+transition (whose output ignores x's ring: random bytes, or -128, give the
+bits of a zero ring) and the pixel-paired bottleneck block and run (from the
+engine's pair copies as from per-call packing).
 The bf16 / fp32 bottleneck blocks (``bottleneck_block_chained``,
 ``bottleneck_block_fused``) round z1 and z2 to the compute type inside the
 block, so a summation-order difference can move a value by one bf16 step:
@@ -371,21 +372,69 @@ def test_basic_run_kernel_equals_plain(cuda, gen, n_blocks, h, c):
         assert torch.equal(got, packed)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("h,w", [(10, 10), (7, 7), (10, 14), (14, 14)])
-def test_basic_ds_kernel_equals_plain(cuda, gen, h, w):
-    b, cin, c = 2, 16, 32
-    q = _basic_quantized(gen, cin, c, cuda, ds=True)
+# (id, h, w, cin, c): small at even, odd (the last output row and column
+# read ring taps of x) and non-square sizes; ResNet-34's three transition
+# widths at cut sizes (64 -> 128 at 15x15, where wp = w + 1; 128 -> 256 at
+# 14x14; 256 -> 512 at 7x7); cin off the 16-byte chunk (the byte-by-byte
+# loader and mask).
+BASIC_DS_CASES = [
+    ("c32-10x10", 10, 10, 16, 32),
+    ("c32-7x7", 7, 7, 16, 32),
+    ("c32-10x14", 10, 14, 16, 32),
+    ("c32-14x14", 14, 14, 16, 32),
+    ("c32-9x13", 9, 13, 32, 32),
+    ("c128-15x15", 15, 15, 64, 128),
+    ("c256-14x14", 14, 14, 128, 256),
+    ("c512-7x7", 7, 7, 256, 512),
+    ("cin20-c24-9x9", 9, 9, 20, 24),
+]
+
+
+def _basic_ds_args(gen, dev, h, w, cin, c, b=2):
+    q = _basic_quantized(gen, cin, c, dev, ds=True)
     hp, wp = block.chain_meta(b, h, w)
-    x = torch.from_numpy(
-        gen.integers(-127, 128, size=(b * hp * wp, cin), dtype=np.int8)
-    ).to(cuda)
-    args = (x, *(q[k] for k in BASIC_DS_KEYS), torch.from_numpy(BASIC_SCALES).to(cuda))
+    x = torch.from_numpy(gen.integers(-127, 128, size=(b * hp * wp, cin), dtype=np.int8)).to(dev)
+    return q, (x, *(q[k] for k in BASIC_DS_KEYS), torch.from_numpy(BASIC_SCALES).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,cin,c", [case[1:] for case in BASIC_DS_CASES],
+                         ids=[case[0] for case in BASIC_DS_CASES])
+def test_basic_ds_kernel_equals_plain(cuda, gen, h, w, cin, c):
+    """Row 11 on the int8 tile: one launch a call, both exits equal to the
+    plain version with random bytes in x's ring rows, and the engine's
+    K-major copies give the bits of a per-call transpose."""
+    from resnetc_tpu_torch.ops.cuda.fused import basic_ds_kmajor_copies
+
+    q, args = _basic_ds_args(gen, cuda, h, w, cin, c)
+    nk = basic_ds_kmajor_copies(q)
     for emit_i8 in (True, False):
+        _build.reset_launches()
         got = block.basic_ds_block_s2_int8(*args, h=h, w_sp=w, emit_i8=emit_i8)
-        want = block.basic_ds_block_s2_int8_plain(*args, h=h, w_sp=w, emit_i8=emit_i8)
-        torch.cuda.synchronize()
-        assert got.dtype == want.dtype and torch.equal(got, want)
+        assert dict(_build.LAUNCHES) == {"basic_ds_block_s2_int8": 1}
+        _assert_equal(got, block.basic_ds_block_s2_int8_plain(*args, h=h, w_sp=w,
+                                                              emit_i8=emit_i8))
+        packed = block.basic_ds_block_s2_int8(*args, h=h, w_sp=w, emit_i8=emit_i8, **nk)
+        _assert_equal(packed, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,cin,c", [(7, 7, 16, 32), (10, 14, 64, 128), (9, 9, 20, 24)],
+                         ids=["c32-7x7", "c128-10x14", "cin20-c24-9x9"])
+def test_basic_ds_ring_garbage_never_reaches_the_interior(cuda, gen, h, w, cin, c):
+    """x's ring rows may hold anything: with -128 there (the one int8 value
+    no requantized activation takes; an int8 chain cannot hold a NaN) the
+    output equals, bit for bit and ring rows included, the output with a
+    zero ring, for both exits."""
+    _, args = _basic_ds_args(gen, cuda, h, w, cin, c)
+    x = args[0]
+    ring = ~block.pad_for_chain(torch.ones((2, h, w, 1), device=cuda)).bool()[:, 0]
+    clean, dirty = x.clone(), x.clone()
+    clean[ring], dirty[ring] = 0, -128
+    for emit_i8 in (True, False):
+        got = block.basic_ds_block_s2_int8(dirty, *args[1:], h=h, w_sp=w, emit_i8=emit_i8)
+        want = block.basic_ds_block_s2_int8(clean, *args[1:], h=h, w_sp=w, emit_i8=emit_i8)
+        _assert_equal(got, want)
 
 
 @pytest.mark.cuda
@@ -1108,19 +1157,23 @@ def test_bottleneck_block_fused_kernel_close_to_plain(cuda, gen, h, c, dtype):
     assert torch.equal(block.unpad_from_chain(chained, 2, h, h), got)
 
 
-# (k, s, p, h, c, dtype): ResNet-152's head pool, the JAX tests' windows, and
-# a channel count off the 16-byte groups.
-AVG_POOL_CASES = [(7, 1, 0, 7, 2048, torch.float32), (7, 1, 0, 7, 2048, torch.bfloat16),
-                  (3, 2, 1, 16, 24, torch.bfloat16), (2, 2, 0, 8, 24, torch.float32),
-                  (3, 2, 1, 11, 5, torch.float32)]
+# (b, k, s, p, h, c, dtype): ResNet-152's head pool at batch 2 and at the
+# serving batch 32 (16-byte channel groups in fp32, 8-byte ones in bf16),
+# the JAX tests' windows, padded windows of the row-split path (k >= 4), and
+# channel counts off the 16-byte groups.
+AVG_POOL_CASES = [(2, 7, 1, 0, 7, 2048, torch.float32), (2, 7, 1, 0, 7, 2048, torch.bfloat16),
+                  (32, 7, 1, 0, 7, 2048, torch.float32), (32, 7, 1, 0, 7, 2048, torch.bfloat16),
+                  (2, 3, 2, 1, 16, 24, torch.bfloat16), (2, 2, 2, 0, 8, 24, torch.float32),
+                  (2, 3, 2, 1, 11, 5, torch.float32), (2, 5, 1, 2, 9, 24, torch.bfloat16),
+                  (2, 4, 2, 1, 11, 5, torch.float32), (3, 7, 1, 0, 7, 13, torch.bfloat16)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,s,p,h,c,dtype", AVG_POOL_CASES)
-def test_avg_pool2d_kernel_equals_plain(cuda, gen, k, s, p, h, c, dtype):
+@pytest.mark.parametrize("b,k,s,p,h,c,dtype", AVG_POOL_CASES)
+def test_avg_pool2d_kernel_equals_plain(cuda, gen, b, k, s, p, h, c, dtype):
     from resnetc_tpu_torch.ops.cuda import pool
 
-    x = torch.from_numpy(gen.standard_normal((2, h, h, c)).astype(np.float32)).to(cuda, dtype)
+    x = torch.from_numpy(gen.standard_normal((b, h, h, c)).astype(np.float32)).to(cuda, dtype)
     _build.reset_launches()
     got = pool.avg_pool2d(x, kernel_size=k, stride=s, padding=p)
     assert _build.LAUNCHES["avg_pool2d"] == 1

@@ -5,9 +5,9 @@ row 16) and ``relu`` / ``add`` / ``add_relu`` (rows 19-20), and the names
 The plain versions — what the wrappers run for a CPU tensor — against the
 Pallas kernels run with ``interpret=True``, on the same inputs made from a
 seeded numpy generator, at the JAX tests' shapes (``tests/test_pallas.py``):
-the average pool at (k, s, p) = (7, 1, 0) over 7x7 (the head pool), (3, 2,
-1) over 16x16 and (2, 2, 0) over 8x8, the elementwise ops at (3, 17, 50)
-with NaN and infinities among the inputs.  bf16 and fp32.  Every output is
+the average pool at (k, s, p) = (7, 1, 0) over 7x7 (the head pool, also at
+320 channels), (3, 2, 1) over 16x16 and (2, 2, 0) over 8x8, the elementwise
+ops at (3, 17, 50) with NaN and infinities among the inputs.  bf16 and fp32.  Every output is
 EQUAL to the Pallas kernel's, NaN where it has NaN: the pool sums in the
 TPU kernel's order and multiplies by the same fp32 constant, and a
 maximum, a sum rounded once and a selection are exact.
@@ -54,6 +54,19 @@ def test_avg_pool2d_equals_pallas(k, s, p, hw, dtype):
     want = jpool.avg_pool2d(jx, kernel_size=k, stride=s, padding=p, interpret=True)
     got = tpool.avg_pool2d(tx, kernel_size=k, stride=s, padding=p)
     assert got.dtype == tx.dtype and tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_avg_pool2d_head_shape_equals_pallas(dtype):
+    """The head pool's shape class (7x7 over a 7x7 map, one output pixel an
+    image) at a few hundred channels, where the kernel spreads the window's
+    rows over threads: equal to the Pallas pool."""
+    rng = np.random.default_rng(7)
+    jx, tx = _pair(rng.standard_normal((2, 7, 7, 320)).astype(np.float32), dtype)
+    want = jpool.avg_pool2d(jx, kernel_size=7, stride=1, padding=0, interpret=True)
+    got = tpool.avg_pool2d(tx, kernel_size=7, stride=1, padding=0)
+    assert got.dtype == tx.dtype and tuple(got.shape) == tuple(want.shape) == (2, 1, 1, 320)
     np.testing.assert_array_equal(_np(got), _np(want))
 
 
