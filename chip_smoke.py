@@ -29,10 +29,12 @@ then:
    stage shapes in bf16, one in fp32, and as a 3-block chain at 7x7 (wp = w
    + 1) whose input ring holds NaN; ``bottleneck_block_fused`` at the four
    stage shapes; ``avg_pool2d`` (the 7x7 head pool in fp32 and bf16, and
-   3x3/2/p1); ``relu``, ``add`` and ``add_relu`` at (8, 56, 56, 256) and
-   (3, 17, 50) in bf16 and fp32.  The blocks within max error / max |plain|
-   1e-2 in bf16 (z1 and z2 are rounded to bf16 inside the block) and rtol
-   1e-4 in fp32, the pool and the elementwise ops equal;
+   3x3/2/p1); ``relu``, ``add`` and ``add_relu`` at (32, 56, 56, 256),
+   (3, 17, 50), a ragged (7, 37, 41, 67) and the same as views one element
+   into their buffers, the last two holding NaN, +-Inf and -0, in bf16 and
+   fp32.  The blocks within max error / max |plain| 1e-2 in bf16 (z1 and z2
+   are rounded to bf16 inside the block) and rtol 1e-4 in fp32, the pool
+   and the elementwise ops equal (bit for bit where they hold NaN or -0);
 2. prints the TUNED.json flags the port laid over its code defaults (they
    must turn on L1_PIXEL_PAIR and BASIC_DS_INT8), then serves ResNet-152
    and ResNet-34 at full width and depth (random weights from seed 0) at
@@ -57,14 +59,26 @@ then:
    forward run through the plain versions, the int8 ones within 5e-2 (see
    INT8_PLAIN_LIMIT).  A ResNet-152 cut to (3, 2, 2, 2)
    blocks then runs with STAGE_FUSE_PROJ (all of layer1 one run kernel),
-   paired and standard, equal bit for bit to the served route.  The op
-   library is driven once through ``resnetc_tpu_torch.ops.cuda`` at batch
-   32: a residual join (``add``, ``relu``, ``add_relu``) at ResNet-152's
-   layer1 shape, and a layer4 block (``bottleneck_block_fused``) followed
-   by the 7x7 head pool (``avg_pool2d``), each counted;
+   paired and standard, equal bit for bit to the served route.  On
+   ResNet-152 the reference's own job runs from files: the model written
+   as the reference's weight directory and as a ``.pth``, both read back
+   equal, an engine built from the directory, and ``classify_files`` over
+   two ``.bin`` inputs, a PNG and a JPEG, equal to ``classify`` of the
+   port's own preprocessed arrays and launching one served forward's
+   kernels; then the engine's two off-by-default options:
+   ``calib_per_channel=True`` (the interior scales baked), and
+   HYBRID_XLA_STAGES (0,) and (0, 1), and (0,) on the baked engine, each
+   counted (no stage-0 kernel under the prefix, one block kernel a block
+   after it) and held to the JAX package's gate (rel-MAE 0.05, argmax
+   0.9) and to its plain-version forward.  The op library is driven once
+   through ``resnetc_tpu_torch.ops.cuda`` at batch 32: a residual join
+   (``add``, ``relu``, ``add_relu``) at ResNet-152's layer1 shape, and a
+   layer4 block (``bottleneck_block_fused``) followed by the 7x7 head pool
+   (``avg_pool2d``), each counted;
 3. times the engines (images/s, p50 / p99 ms per batch) for int8_chain on
-   both routes (and ResNet-34's BASIC_DS_INT8=False route), int8, pallas,
-   pallas_block and fp, and each kernel per launch at the main paths'
+   both routes (and ResNet-34's BASIC_DS_INT8=False route, ResNet-152's
+   per-channel and hybrid routes), int8, pallas, pallas_block and fp, and
+   each kernel per launch at the main paths'
    shapes: on the card (``ms``: ten launches queued behind a spin kernel,
    so that they run back to back, the median of five runs) and as called
    from Python (``eager_ms``: the median of five event-timed loops, host
@@ -77,7 +91,9 @@ then:
    torch.matmul for the GEMM, torch._int_mm for int8_matmul (int32 out, no
    epilogue), F.conv2d (bf16, channels-last) for the fused convolutions,
    F.max_pool2d and F.avg_pool2d for the pools, torch.relu and torch.add
-   for relu and add (none computes add_relu or a whole block).
+   for relu and add (none computes add_relu or a whole block).  Rows 19-20
+   are then printed case by case, beside torch.relu / torch.add, the
+   bytes bound and an empty launch.
 
 Prints the card (``nvidia-smi`` name and power limit), one JSON line of
 per-kernel results, and as its last line ``{"ok": true, "device": ...}``.
@@ -788,11 +804,11 @@ def make_fp_cases(b: int, dev) -> list:
     ResNet-152's four stage shapes in bf16, one stage in fp32, and a chain of
     three at 7x7, where wp = w + 1, whose input ring holds NaN) and of the
     op library: bottleneck_block_fused at the four stage shapes, the 7x7
-    head pool (fp32 and bf16) and the 3x3/2/p1 pool, relu / add / add_relu
-    at ResNet-152's layer1 shape and at an odd size, bf16 and fp32."""
+    head pool (fp32 and bf16) and the 3x3/2/p1 pool, and relu / add /
+    add_relu (``make_ew_cases``)."""
     import torch
 
-    from resnetc_tpu_torch.ops.cuda import block, elementwise, pool
+    from resnetc_tpu_torch.ops.cuda import block, pool
     from resnetc_tpu_torch.ops.cuda.block import chain_meta
 
     gen = torch.Generator().manual_seed(8765)
@@ -851,8 +867,19 @@ def make_fp_cases(b: int, dev) -> list:
             "bf16" if dtype == torch.bfloat16 else "f32eq",
         ))
 
+    return cases + make_ew_cases(dev)
+
+
+def make_ew_cases(dev) -> list:
+    """relu, add and add_relu (rows 19-20) at ``EW_SHAPES``, bf16 and fp32."""
+    import torch
+
+    from resnetc_tpu_torch.ops.cuda import elementwise
+
+    gen = torch.Generator().manual_seed(8766)
+    cases = []
     for op in ("relu", "add", "add_relu"):
-        for where, shape in (("l1", (b, 56, 56, 256)), ("odd", (3, 17, 50))):
+        for where, (shape, off, specials) in EW_SHAPES.items():
             for dtype in (torch.bfloat16, torch.float32):
                 n_in = 1 if op == "relu" else 2
                 numel = 1
@@ -860,14 +887,45 @@ def make_fp_cases(b: int, dev) -> list:
                     numel *= d
                 size = 2 if dtype == torch.bfloat16 else 4
                 tag = where + ("" if dtype == torch.bfloat16 else "/fp32")
+                args = tuple(_ew_operand(gen, shape, off, specials, dtype, dev)
+                             for _ in range(n_in))
                 cases.append(Case(
                     f"{op}/{tag}", op, getattr(elementwise, op),
-                    getattr(elementwise, op + "_plain"),
-                    tuple(randn(*shape, dtype=dtype) for _ in range(n_in)), {}, 0,
+                    getattr(elementwise, op + "_plain"), args, {}, 0,
                     size * numel * (n_in + 1), PEAK_F32_FLOPS,
-                    "bf16" if dtype == torch.bfloat16 else "f32eq",
+                    "bits" if specials else "bf16" if dtype == torch.bfloat16 else "f32eq",
                 ))
     return cases
+
+
+#: The elementwise cases (rows 19-20): shape, the operands' offset in
+#: elements from the start of their buffers, and whether they hold NaN,
+#: +-Inf and -0.  ResNet-152's layer1 join at the serving batch; a small
+#: size (one block); a ragged size off the 16-byte grid, large enough for
+#: the vector body; the same as views one element into their buffers.
+EW_SHAPES = {
+    "l1": ((32, 56, 56, 256), 0, False),
+    "odd": ((3, 17, 50), 0, False),
+    "ragged": ((7, 37, 41, 67), 0, True),
+    "offset": ((7, 37, 41, 67), 1, True),
+}
+
+
+def _ew_operand(gen, shape, off, specials, dtype, dev):
+    """A normal operand of ``shape`` (a view ``off`` elements into its
+    buffer); with ``specials``, one value in 64 each of NaN, +Inf, -Inf, -0
+    and +0 at random places."""
+    import torch
+
+    n = 1
+    for d in shape:
+        n *= d
+    x = torch.randn(n + off, generator=gen)
+    if specials:
+        where = torch.randint(0, 64, (n + off,), generator=gen)
+        for code, v in enumerate((float("nan"), float("inf"), float("-inf"), -0.0, 0.0)):
+            x[where == code] = v
+    return x.to(dev, dtype)[off:].view(shape)
 
 
 def check_case(case) -> float:
@@ -884,7 +942,15 @@ def check_case(case) -> float:
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"{case.name}: {got.dtype} {tuple(got.shape)} vs plain "
                              f"{want.dtype} {tuple(want.shape)}")
-    if case.check in ("int8", "bf16", "f32eq"):
+    if case.check == "bits":
+        # Bit for bit, NaN and the sign of a zero included.
+        ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[got.dtype]
+        bad = int((got.view(ints) != want.view(ints)).sum())
+        if bad:
+            raise AssertionError(f"{case.name}: {bad} values differ from plain in their bits")
+        if not (bool(torch.isnan(want).any()) and bool(torch.isinf(want).any())):
+            raise AssertionError(f"{case.name}: no NaN or Inf in the output to check")
+    elif case.check in ("int8", "bf16", "f32eq"):
         if not torch.equal(got, want):
             raise AssertionError(f"{case.name}: {case.check} output differs from plain (max {err})")
         distinct = int(torch.unique(got).numel())
@@ -1019,7 +1085,8 @@ def phase_kernels(cases: list) -> dict:
         errs[case.name] = check_case(case)
         twin = " and to its twin" if case.twin else ""
         how = {"bf16ulp": "within 1 bf16 ulp of", "f32": "within rtol 1e-4 of",
-               "rel": "within 1e-2 of max |plain| of"}.get(case.check, "equal to")
+               "rel": "within 1e-2 of max |plain| of",
+               "bits": "equal bit for bit to"}.get(case.check, "equal to")
         log(f"[kernels] {case.name}: {how} plain{twin}, max_abs_err={errs[case.name]}")
     return errs
 
@@ -1475,6 +1542,151 @@ def phase_op_library(batch: int, dev) -> dict:
     return {"launches": launches, "pooled_rel_max_err": rel}
 
 
+def _trees_equal(got: dict, want: dict) -> bool:
+    import torch
+
+    from resnetc_tpu_torch.tensor import flatten_tree
+
+    got, want = flatten_tree(got), flatten_tree(want)
+    return set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+
+
+def phase_files(e2e: dict, cases: list, dev) -> dict:
+    """The reference's own job on ResNet-152 at full width and depth:
+    ResNet-152 (seed 0) written as the reference's weight directory
+    (``save_reference_format``) and read back (``load_reference_format``),
+    also as a torch file (``torch_state_dict_from_variables``,
+    ``torch.save``, ``variables_from_torch_file``): the three trees equal.
+    An int8_chain engine built from the directory's tree gives the served
+    engine's logits bit for bit; then ``classify_files`` over two ``.bin``
+    inputs and a PNG and a JPEG of odd sizes gives ``classify`` of the
+    port's own preprocessed arrays, and launches what one forward of the
+    served route launches.  Its wall time (host preprocessing included) is
+    printed."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from resnetc_tpu_torch import checkpoint
+    from resnetc_tpu_torch.data import preprocess
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.serve import InferenceEngine, classify_files
+
+    tag = "[files resnet152]"
+    cfg = resnet.get_config("resnet152")
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        n = checkpoint.save_reference_format(variables, tmp / "weights")
+        loaded = checkpoint.load_reference_format(cfg, tmp / "weights")
+        torch.save(checkpoint.torch_state_dict_from_variables(loaded), tmp / "resnet152.pth")
+        from_pth = checkpoint.variables_from_torch_file(tmp / "resnet152.pth")
+        io_s = time.perf_counter() - t0
+        if not (_trees_equal(loaded, variables) and _trees_equal(from_pth, variables)):
+            raise AssertionError(f"{tag} the weight files do not give back the tree written")
+        log(f"{tag} {n} weight files and a .pth written and read back in {io_s:.1f} s: "
+            "the three trees equal")
+
+        rng = np.random.default_rng(0)
+        paths = []
+        for i in range(2):
+            path = tmp / f"input{i}.bin"
+            preprocess.save_input_bin(rng.standard_normal((1, 3, 224, 224)).astype(np.float32),
+                                      path)
+            paths.append(str(path))
+        for name, shape in (("a.png", (301, 257, 3)), ("b.jpeg", (263, 389, 3))):
+            Image.fromarray(rng.integers(0, 256, shape, dtype=np.uint8)).save(tmp / name)
+            paths.append(str(tmp / name))
+
+        calib = torch.randn((8, 224, 224, 3), generator=torch.Generator().manual_seed(1))
+        eng = InferenceEngine(cfg, loaded, backend="int8_chain", calib_batch=calib, device=dev)
+        with torch.inference_mode():
+            same = torch.equal(eng.logits(e2e["x"]), e2e["engine"].logits(e2e["x"]))
+        if not same:
+            raise AssertionError(f"{tag} the engine from the weight files differs from the "
+                                 "served one")
+        t0 = time.perf_counter()
+        got, launches = counted(lambda: classify_files(eng, paths))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        arrays = np.concatenate([preprocess.load_input_bin(p) if p.endswith(".bin")
+                                 else preprocess.preprocess_file(p) for p in paths])
+        want = [int(i) for i in eng.classify(arrays)]
+    log(f"{tag} classify_files({[Path(p).name for p in paths]}) = {got} in {wall_ms:.1f} ms "
+        f"wall (host preprocessing included); launches {json.dumps(launches)}")
+    if got != want:
+        raise AssertionError(f"{tag} classify_files gave {got}, classify of the arrays {want}")
+    expected = expected_launches(cases, pp=True)
+    if launches != expected:
+        raise AssertionError(f"{tag} classify_files launched {launches}, expected {expected}")
+    return {"classes": got, "launches": launches, "classify_files_wall_ms": wall_ms,
+            "weights_io_s": io_s}
+
+
+def hybrid_launches(cfg, stages: tuple) -> dict:
+    """Launches of one int8_chain forward of a bottleneck net under
+    HYBRID_XLA_STAGES ``stages``: the transition kernel at each later
+    stage, the block kernel at every other block of those stages, the fc."""
+    rest = range(len(stages), 4)
+    return {"downsample_block_s2_int8": len(rest),
+            "bottleneck_block_chained_int8": sum(cfg.stage_blocks[s] - 1 for s in rest),
+            "matmul": 1}
+
+
+def phase_options(e2e: dict, cases: list, dev) -> dict:
+    """The int8_chain engine's two off-by-default options on ResNet-152 at
+    full width and depth, batch 32: the engine with
+    ``calib_per_channel=True`` (the bake), and HYBRID_XLA_STAGES (0,) and
+    (0, 1) on the served engine and (0,) on the baked one.  Each forward is
+    counted (the served route's launches for the baked engine; under the
+    hybrid prefix, ``hybrid_launches``), held to the JAX package's gate
+    against the fp32 forward (rel-MAE 0.05, argmax agreement 0.9,
+    tests/test_pallas.py:1806-1875) and within 1e-2 of max |logit| of the
+    same forward on the plain versions.  Returns the routes for timing."""
+    import torch
+
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused
+    from resnetc_tpu_torch.serve import InferenceEngine
+
+    tag = "[options resnet152]"
+    cfg = resnet.get_config("resnet152")
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    calib = torch.randn((8, 224, 224, 3), generator=torch.Generator().manual_seed(1))
+    baked = InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=calib,
+                            calib_per_channel=True, device=dev)
+    if any(float(v) != 1.0 for blocks in baked.chain_scales.values()
+           for sites in blocks.values() for k, v in sites.items() if k != "in"):
+        raise AssertionError(f"{tag} the baked engine kept interior runtime scales")
+    x, eng = e2e["x"], e2e["engine"]
+    routes = [
+        ("int8_chain_per_channel", baked, {}, expected_launches(cases, pp=True)),
+        ("int8_chain_hybrid_0", eng, {"HYBRID_XLA_STAGES": (0,)}, hybrid_launches(cfg, (0,))),
+        ("int8_chain_hybrid_0_1", eng, {"HYBRID_XLA_STAGES": (0, 1)},
+         hybrid_launches(cfg, (0, 1))),
+        ("int8_chain_hybrid_0_per_channel", baked, {"HYBRID_XLA_STAGES": (0,)},
+         hybrid_launches(cfg, (0,))),
+    ]
+    out = {"routes": [(label, e, flags) for label, e, flags, _ in routes], "gates": {},
+           "launches": {}}
+    for label, e, flags, want in routes:
+        logits, launches = forward_counted(e, x, **flags)
+        log(f"{tag} launches in one {label} forward {json.dumps(flags)}: {json.dumps(launches)}")
+        if launches != want:
+            raise AssertionError(f"{tag} {label} launched {launches}, expected {want}")
+        with module_flags(**flags), torch.inference_mode():
+            plain = fused.fused_forward_int8_chain(cfg, e.folded, e.chain_scales, x,
+                                                   kernels=fused.PLAIN)
+        rep = _against(tag, label, logits, e2e["ref32"], plain)
+        if not (rep["rel_mae_vs_fp32"] < 0.05 and rep["argmax_vs_fp32"] >= 0.9):
+            raise AssertionError(f"{tag} {label} logits outside the fp gate")
+        out["gates"][label], out["launches"][label] = rep, launches
+    return out
+
+
 def phase_engine_timing(name: str, runs: list, x, batch: int) -> dict:
     """Throughput and per-batch latency of each (label, engine, flags) on
     the images ``x``."""
@@ -1617,6 +1829,28 @@ def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[li
     return kernels, per_case
 
 
+def phase_ew_timing(dev) -> dict:
+    """Rows 19-20 case by case: the kernel's device ms, torch.relu /
+    torch.add on the same inputs, the bytes bound, and the device time of an
+    empty launch (``torch.cuda._sleep(0)``), all timed as ``device_ms``."""
+    import torch
+
+    empty_ms = device_ms(lambda: torch.cuda._sleep(0), iters=10)
+    log(f"[ew] empty launch (torch.cuda._sleep(0)): {empty_ms:.4f} ms on the card")
+    out = {"empty_launch_ms": empty_ms, "cases": {}}
+    for case in make_ew_cases(dev):
+        ms = device_ms(case.run, iters=10)
+        lib = case.library()
+        row = {"ms": ms, "library_ms": device_ms(lib, iters=10) if lib else None,
+               "bound_ms": case.bound_ms, "bound_share": case.bound_ms / ms}
+        vs = f", {ms / row['library_ms']:.3f}x torch's {row['library_ms']:.4f}" \
+            if row["library_ms"] else ""
+        log(f"[ew] {case.name}: {ms:.4f} ms; bound {case.bound_ms:.4f} ms ({case.nbytes} bytes), "
+            f"{100 * row['bound_share']:.1f}% of it{vs}")
+        out["cases"][case.name] = row
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=32, help="end-to-end batch size")
@@ -1661,6 +1895,14 @@ def main() -> int:
         runs = [("int8_chain", e2e["engine"], {"L1_PIXEL_PAIR": True}),
                 ("int8_chain_standard", e2e["engine"], {"L1_PIXEL_PAIR": False})]
         summary = {k: v for k, v in e2e.items() if k not in ("engine", "fp", "x", "ref32")}
+        if name == "resnet152":
+            summary["files"] = files = phase_files(e2e, cases[name], dev)
+            add(files["launches"])
+            options = phase_options(e2e, cases[name], dev)
+            for route in options["launches"].values():
+                add(route)
+            runs += options.pop("routes")
+            summary["options"] = options
         if name == "resnet34":
             summary["basic_ds_int8_off"] = off = phase_basic_ds_off(e2e, dev)
             add(off["launches"])
@@ -1683,6 +1925,7 @@ def main() -> int:
     add(summaries["op_library"]["launches"])
     torch.cuda.empty_cache()
     kernels, per_case = phase_kernel_timing(args.batch, dev, errs, launches)
+    ew = phase_ew_timing(dev)
     total_s = time.perf_counter() - t0
     log(f"[done] build and all phases in {total_s:.1f} s")
 
@@ -1691,7 +1934,7 @@ def main() -> int:
             json.dump({"card": card, "build_s": build_s, "sass": sass, "total_s": total_s,
                        "tuned": tuned,
                        "e2e": summaries, "engines": engine_times, "cases": per_case,
-                       "kernels": kernels, "max_abs_err": errs}, f, indent=1)
+                       "kernels": kernels, "max_abs_err": errs, "elementwise": ew}, f, indent=1)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,10 @@ The reference's weights are one headerless little-endian float32 file per
 parameter, named by its PyTorch ``state_dict()`` key (save_weights.py:8-12).
 On disk conv weights are OIHW; in the port's tree they are HWIO, as in the
 JAX package, so the files this module writes are byte-identical to the JAX
-package's writer.  Counterpart of ``resnetc_tpu/checkpoint.py:85-190``.
+package's writer.  Also the torch ``state_dict`` side: import from a
+dict or a ``.pth`` file (a raw ``state_dict``, or one wrapped under
+``"state_dict"`` / ``"model"``, torchvision's layout included) and export.
+Counterpart of ``resnetc_tpu/checkpoint.py:85-190`` and ``:214``.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ import numpy as np
 import torch
 
 from resnetc_tpu_torch.models.resnet import ResNetConfig, param_shapes
-from resnetc_tpu_torch.tensor import flatten_tree, oihw_to_hwio, tree_map, unflatten_tree
+from resnetc_tpu_torch.tensor import (
+    flatten_tree, hwio_to_oihw, oihw_to_hwio, tree_map, unflatten_tree,
+)
 
 Tree = dict[str, Any]
 
@@ -81,6 +86,42 @@ def variables_from_torch_state_dict(state_dict: Mapping[str, Any]) -> Tree:
             arr = oihw_to_hwio(arr)
         flat[key] = arr.contiguous()
     return unflatten_tree(flat)
+
+
+def torch_state_dict_from_variables(variables: Tree) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`variables_from_torch_state_dict`: a flat
+    ``state_dict`` of contiguous fp32 CPU tensors (conv weights HWIO ->
+    OIHW), e.g. for ``torch.save``."""
+    out: dict[str, torch.Tensor] = {}
+    for key, leaf in flatten_tree(variables).items():
+        arr = torch.as_tensor(leaf).detach().cpu().float()
+        if _is_conv_weight(key, tuple(arr.shape)):
+            arr = hwio_to_oihw(arr)
+        out[key] = arr.contiguous().clone()
+    return out
+
+
+def variables_from_torch_file(path: str | os.PathLike) -> Tree:
+    """Load a PyTorch checkpoint file (.pth / .pt) into a variables tree.
+
+    Takes a raw ``state_dict`` or a dict holding one under "state_dict" or
+    "model" (the torchvision and training-loop layouts), so a torchvision
+    ``resnet152-*.pth`` loads as it is.  Read with ``weights_only=True``:
+    tensors and plain containers only.  Anything else raises
+    ``ValueError``."""
+    obj = torch.load(str(path), map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and not any(hasattr(v, "detach") for v in obj.values()):
+        for key in ("state_dict", "model"):
+            if key in obj:
+                obj = obj[key]
+                break
+    if not isinstance(obj, dict) or not all(hasattr(v, "detach") for v in obj.values()):
+        raise ValueError(
+            f"{path}: no tensor state_dict found (top-level keys: "
+            f"{sorted(obj)[:8] if isinstance(obj, dict) else type(obj).__name__}); "
+            "expected a state_dict or a dict with a 'state_dict'/'model' entry"
+        )
+    return variables_from_torch_state_dict(obj)
 
 
 def variables_from_jax_numpy(tree: Tree) -> Tree:

@@ -4,111 +4,218 @@
 //     add(a, b)      a + b
 //     add_relu(a, b) max(a + b, 0)
 //
-// max keeps a NaN (as jnp.maximum and torch.maximum do; relu.cuh) and
-// gives +0 for a zero of either sign.  A bf16 sum is taken in fp32 and rounded once to bf16, which is one
-// rounding of the exact sum, as the plain version and XLA compute it.
+// max keeps a NaN (as jnp.maximum and torch.maximum do; relu.cuh), its bits
+// as they are, and gives +0 for a zero of either sign.  A bf16 sum is taken
+// in fp32 and rounded once to bf16, which is one rounding of the exact sum,
+// as the plain version and XLA compute it.
 //
 // Replaces resnetc_tpu/ops/pallas/elementwise.py:29 `_unary_call`
 // (pallas_call :42; `relu` :82) and :53 `_binary_call` (pallas_call :67;
 // `add` :92, `add_relu` :102).  The TPU wrappers fold the tensor into
-// (rows, 512) tiles with a padded tail; here one grid-stride loop walks the
-// flat tensor.
+// (rows, 512) tiles with a padded tail; here the flat tensor is cut into a
+// scalar head (up to the first 16-byte boundary), a body of 16-byte vectors
+// and a scalar tail.
 //
 // What bounds it.  No arithmetic to speak of: the bytes (one or two reads
-// and one write of the tensor) over the HBM rate.  Design: 16-byte vector
-// loads and stores (8 bf16 or 4 fp32 values a thread) when every pointer is
-// 16-byte aligned and the size a multiple of the vector, else one value a
-// thread; neighbouring threads on neighbouring vectors, so every access is
-// coalesced.
+// and one write of the tensor) over the HBM rate, and below a few MB the
+// launch.  Design, for the bytes:
+// - every pointer that shares the first operand's offset mod 16 (any
+//   element-aligned view, with the output allocated to match) takes the
+//   vector body; the few head and tail values go value by value through
+//   the first block's first two warps, beside their vectors.  Pointers at
+//   different offsets take the scalar kernel;
+// - one 16-byte vector of each operand a thread, neighbouring threads on
+//   neighbouring vectors, so every access is coalesced and a tensor of a
+//   few MB still spreads over every SM (four vectors a thread, or two of
+//   each operand, left a ragged 1.4 MB tensor on 87 blocks and lost to
+//   torch.relu there; PERF.md);
+// - loads through the read-only path (ld.global.nc), stores streaming
+//   (st.global.cs): every byte is written once, and evict-first loads lost
+//   the L2 hits of an input that fits there;
+// - a flat grid of one vector a thread (a grid of one resident wave
+//   striding over the body was 2.4-7.2% slower at (32, 56, 56, 256) and
+//   level elsewhere; PERF.md).  A tensor of a few thousand values takes a
+//   block or two.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
-
-#include "relu.cuh"
+#include <cstdint>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr unsigned MAX_BLOCKS = 132 * 16;  // enough to fill the card
 
 enum Kind { KIND_BF16 = 1, KIND_F32 = 2 };
 enum Op { OP_RELU = 0, OP_ADD = 1, OP_ADD_RELU = 2 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
+// A value as its bits (U) and as fp32: bf16 is the top half of an fp32.
 template <typename T>
-__device__ __forceinline__ T from_f32(float v);
+struct Elem;
 template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+struct Elem<float> {
+  using U = unsigned;
+  static __device__ __forceinline__ float f32(U u) { return __uint_as_float(u); }
+  static __device__ __forceinline__ U of(float v) { return __float_as_uint(v); }
+  // relu keeps the value: v > 0 (sign clear, not +0) or NaN, as
+  // relu.cuh's relu_keeps.
+  static __device__ __forceinline__ bool keeps(U u) {
+    return static_cast<int>(u) > 0 || (u & 0x7fffffffu) > 0x7f800000u;
+  }
+};
 template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+struct Elem<__nv_bfloat16> {
+  using U = unsigned short;
+  static __device__ __forceinline__ float f32(U u) {
+    return __uint_as_float(static_cast<unsigned>(u) << 16);
+  }
+  static __device__ __forceinline__ U of(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+  static __device__ __forceinline__ bool keeps(U u) {
+    return static_cast<short>(u) > 0 || (u & 0x7fffu) > 0x7f80u;
+  }
+};
 
-// max(v, 0) (relu.cuh) in T: v itself (a NaN's bits kept) or +0.
+// max(v, 0) on v's bits: v itself (a NaN's payload and sign kept) or +0.
+// The test is on the integer bits: with a float select `v > 0 || v != v ?
+// v : 0` the card gave the canonical NaN (as max.NaN does), not v's.
 template <typename T>
-__device__ __forceinline__ T relu(T v) {
-  return relu_keeps(to_f32(v)) ? v : from_f32<T>(0.f);
+__device__ __forceinline__ typename Elem<T>::U relu(typename Elem<T>::U u) {
+  return Elem<T>::keeps(u) ? u : 0;
 }
 
 template <typename T, int OP>
-__device__ __forceinline__ T apply(T a, T b) {
-  if (OP == OP_RELU) return relu(a);
-  const T s = from_f32<T>(__fadd_rn(to_f32(a), to_f32(b)));
-  return OP == OP_ADD ? s : relu(s);
+__device__ __forceinline__ typename Elem<T>::U apply(typename Elem<T>::U a,
+                                                     typename Elem<T>::U b) {
+  using E = Elem<T>;
+  if (OP == OP_RELU) return relu<T>(a);
+  const typename E::U s = E::of(__fadd_rn(E::f32(a), E::f32(b)));
+  return OP == OP_ADD ? s : relu<T>(s);
 }
 
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Vec {
-  T v[VEC];
-};
-
-// n: the number of VEC-groups.
-template <typename T, int OP, int VEC>
-__global__ void __launch_bounds__(THREADS)
-ew_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ out, size_t n) {
-  const size_t stride = (size_t)gridDim.x * THREADS;
-  for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < n; i += stride) {
-    const Vec<T, VEC> va = reinterpret_cast<const Vec<T, VEC>*>(a)[i];
-    Vec<T, VEC> vb = va;
-    if (OP != OP_RELU) vb = reinterpret_cast<const Vec<T, VEC>*>(b)[i];
-    Vec<T, VEC> vo;
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) vo.v[k] = apply<T, OP>(va.v[k], vb.v[k]);
-    reinterpret_cast<Vec<T, VEC>*>(out)[i] = vo;
+// The op on one 32-bit word of each operand: one fp32 value or two bf16.
+template <typename T, int OP>
+__device__ __forceinline__ unsigned apply_word(unsigned x, unsigned y) {
+  if constexpr (sizeof(T) == 4) {
+    return apply<T, OP>(x, y);
+  } else {
+    using U = typename Elem<T>::U;
+    const unsigned lo = apply<T, OP>(static_cast<U>(x), static_cast<U>(y));
+    const unsigned hi = apply<T, OP>(static_cast<U>(x >> 16), static_cast<U>(y >> 16));
+    return lo | (hi << 16);
   }
 }
 
 template <typename T, int OP>
-int launch(const void* a, const void* b, void* out, size_t n, int vec, cudaStream_t stream) {
-  constexpr int V16 = 16 / sizeof(T);
-  const size_t groups = vec ? n / V16 : n;
-  if (groups == 0) return 0;
-  size_t blocks = (groups + THREADS - 1) / THREADS;
-  if (blocks > MAX_BLOCKS) blocks = MAX_BLOCKS;
-  const T* pa = static_cast<const T*>(a);
-  const T* pb = static_cast<const T*>(b);
-  T* po = static_cast<T*>(out);
-  if (vec)
-    ew_kernel<T, OP, V16><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(pa, pb, po, groups);
-  else
-    ew_kernel<T, OP, 1><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(pa, pb, po, groups);
+__device__ __forceinline__ uint4 apply16(uint4 x, uint4 y) {
+  return make_uint4(apply_word<T, OP>(x.x, y.x), apply_word<T, OP>(x.y, y.y),
+                    apply_word<T, OP>(x.z, y.z), apply_word<T, OP>(x.w, y.w));
+}
+
+// The vector body: nvec 16-byte vectors from a + head (16-byte aligned, as
+// b + head and out + head are), one a thread and step.  The first two warps
+// of block 0 also take the head values [0, head) and the tail values after
+// the body, value by value, loading theirs before their vector and storing
+// it after, so that both loads are in flight at once.  b is unused (may
+// equal a) for relu.
+template <typename T, int OP, typename Bits = typename Elem<T>::U>
+__global__ void __launch_bounds__(THREADS)
+ew_vec_kernel(const Bits* __restrict__ a, const Bits* __restrict__ b, Bits* __restrict__ out,
+              int head, size_t nvec, int tail) {
+  constexpr int V = 16 / sizeof(T);
+  const int t = threadIdx.x;
+  size_t j = 0;  // this thread's head or tail value, if it has one
+  bool scalar = false;
+  if (blockIdx.x == 0) {
+    if (t < head) {
+      j = t;
+      scalar = true;
+    } else if (t >= 32 && t - 32 < tail) {
+      j = head + nvec * V + (t - 32);
+      scalar = true;
+    }
+  }
+  Bits sa = 0, sb = 0;
+  if (scalar) {
+    sa = a[j];
+    sb = b[j];
+  }
+  const uint4* va = reinterpret_cast<const uint4*>(a + head);
+  const uint4* vb = reinterpret_cast<const uint4*>(b + head);
+  uint4* vo = reinterpret_cast<uint4*>(out + head);
+  for (size_t i = blockIdx.x * static_cast<size_t>(THREADS) + t; i < nvec;
+       i += static_cast<size_t>(gridDim.x) * THREADS) {
+    const uint4 x = __ldg(va + i);
+    const uint4 y = OP == OP_RELU ? x : __ldg(vb + i);
+    __stcs(vo + i, apply16<T, OP>(x, y));
+  }
+  if (scalar) out[j] = apply<T, OP>(sa, sb);
+}
+
+// Pointers at different offsets mod 16: one value a thread, grid-stride.
+template <typename T, int OP, typename Bits = typename Elem<T>::U>
+__global__ void __launch_bounds__(THREADS)
+ew_scalar_kernel(const Bits* __restrict__ a, const Bits* __restrict__ b, Bits* __restrict__ out,
+                 size_t n) {
+  for (size_t i = blockIdx.x * static_cast<size_t>(THREADS) + threadIdx.x; i < n;
+       i += static_cast<size_t>(gridDim.x) * THREADS)
+    out[i] = apply<T, OP>(a[i], b[i]);
+}
+
+// Blocks of THREADS that the card holds at once running the scalar kernel:
+// one wave.
+template <typename T, int OP>
+int resident_blocks() {
+  static const int blocks = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ew_scalar_kernel<T, OP>, THREADS, 0);
+    return std::max(1, sms * per_sm);
+  }();
+  return blocks;
+}
+
+template <typename T, int OP, typename Bits = typename Elem<T>::U>
+int launch(const Bits* a, const Bits* b, Bits* out, size_t n, cudaStream_t stream) {
+  if (n == 0) return 0;
+  if (OP == OP_RELU) b = a;
+  const uintptr_t off = reinterpret_cast<uintptr_t>(a) % 16;
+  const bool vec = off % sizeof(T) == 0 && reinterpret_cast<uintptr_t>(out) % 16 == off &&
+                   reinterpret_cast<uintptr_t>(b) % 16 == off;
+  if (!vec) {
+    const size_t blocks =
+        std::min<size_t>((n + THREADS - 1) / THREADS, resident_blocks<T, OP>());
+    ew_scalar_kernel<T, OP><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(a, b, out, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  constexpr int V = 16 / sizeof(T);
+  const int head = static_cast<int>(std::min<size_t>(n, (16 - off) % 16 / sizeof(T)));
+  const size_t nvec = (n - head) / V;
+  const int tail = static_cast<int>((n - head) % V);
+  const size_t blocks = std::max<size_t>(1, (nvec + THREADS - 1) / THREADS);
+  ew_vec_kernel<T, OP><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(a, b, out, head,
+                                                                                nvec, tail);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(int op, const void* a, const void* b, void* out, size_t n, int vec,
+int dispatch(int op, const void* a, const void* b, void* out, size_t n,
              cudaStream_t stream) {
+  using U = typename Elem<T>::U;
+  const U* pa = static_cast<const U*>(a);
+  const U* pb = static_cast<const U*>(b);
+  U* po = static_cast<U*>(out);
   switch (op) {
     case OP_RELU:
-      return launch<T, OP_RELU>(a, b, out, n, vec, stream);
+      return launch<T, OP_RELU>(pa, pb, po, n, stream);
     case OP_ADD:
-      return launch<T, OP_ADD>(a, b, out, n, vec, stream);
+      return launch<T, OP_ADD>(pa, pb, po, n, stream);
     case OP_ADD_RELU:
-      return launch<T, OP_ADD_RELU>(a, b, out, n, vec, stream);
+      return launch<T, OP_ADD_RELU>(pa, pb, po, n, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -116,13 +223,14 @@ int dispatch(int op, const void* a, const void* b, void* out, size_t n, int vec,
 
 }  // namespace
 
-// op: OP_RELU (b unused, may be NULL), OP_ADD or OP_ADD_RELU; n elements;
-// vec: 1 when a, b and out are 16-byte aligned and n a multiple of 16 bytes'
-// worth of values, else 0.
+// op: OP_RELU (b unused, may be NULL), OP_ADD or OP_ADD_RELU; n elements of
+// kind at a, b and out (each element-aligned).  The vector body runs when b
+// and out share a's offset mod 16, else the scalar kernel.
 extern "C" int elementwise(int op, int kind, const void* a, const void* b, void* out,
-                           long long n, int vec, cudaStream_t stream) {
+                           long long n, cudaStream_t stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (kind == KIND_BF16)
-    return dispatch<__nv_bfloat16>(op, a, b, out, static_cast<size_t>(n), vec, stream);
-  if (kind == KIND_F32) return dispatch<float>(op, a, b, out, static_cast<size_t>(n), vec, stream);
+    return dispatch<__nv_bfloat16>(op, a, b, out, static_cast<size_t>(n), stream);
+  if (kind == KIND_F32) return dispatch<float>(op, a, b, out, static_cast<size_t>(n), stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,8 @@
 // relu as jnp.maximum(v, 0) and torch.relu compute it, for every fp32
 // epilogue of the port's float kernels (the tensor-core tile bf16_tile.cuh,
 // the fp32 FMA tiles of conv.cu, gemm.cu and fp_block.cu, the int8 GEMM's
-// dequant epilogue, and the elementwise ops).
+// dequant epilogue; elementwise.cu tests the same condition on a value's
+// bits, to keep a NaN's bits too).
 //
 // v where v > 0 or v is NaN, else +0 (for a zero of either sign too).
 // fmaxf(v, 0.f) and `v > 0 ? v : 0` turn a NaN into 0, so one NaN in an

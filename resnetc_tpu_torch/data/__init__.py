@@ -1,0 +1,2 @@
+"""Host-side input handling: the reference's image preprocessing and its
+``.bin`` input format (``preprocess``)."""

@@ -8,8 +8,12 @@ a zero of either sign; a bf16 sum is one rounding of the exact sum.  On the
 serving paths these ops live inside the GEMM and block epilogues; the
 standalone kernels are for callers that compose the ops themselves.
 
-The kernel is CUDA C++ in ``resnetc_tpu_torch/csrc/elementwise.cu`` (one
-grid-stride template, three ops); the plain versions beside it are what a
+The kernel is CUDA C++ in ``resnetc_tpu_torch/csrc/elementwise.cu``: a
+body of 16-byte vectors (read-only loads, streaming stores) between a
+scalar head and tail, for any size and any element-aligned view (the
+output is allocated at the first operand's offset mod 16, so a view off
+the 16-byte grid takes the vector body too); operands at different
+offsets take a scalar kernel.  The plain versions beside it are what a
 CPU tensor runs.  The TPU argument ``interpret`` is accepted and ignored.
 """
 
@@ -30,8 +34,8 @@ _OPS = {"relu": 0, "add": 1, "add_relu": 2}
 def _lib() -> ctypes.CDLL:
     lib = _build.library("elementwise")
     if lib.elementwise.argtypes is None:
-        # op kind; a b out; n vec; stream
-        lib.elementwise.argtypes = [_I, _I, _P, _P, _P, ctypes.c_longlong, _I, _P]
+        # op kind; a b out; n; stream
+        lib.elementwise.argtypes = [_I, _I, _P, _P, _P, ctypes.c_longlong, _P]
         lib.elementwise.restype = ctypes.c_int
     return lib
 
@@ -59,21 +63,28 @@ def _check_pair(a: torch.Tensor, b: torch.Tensor) -> None:
                          f"{tuple(b.shape)}")
 
 
+def _out_like(a: torch.Tensor) -> torch.Tensor:
+    """An output for ``a`` whose address has ``a``'s offset mod 16 (the
+    allocator's blocks are 16-byte aligned), so that the kernel takes its
+    vector body for a view that starts off the 16-byte grid too."""
+    off = a.data_ptr() % 16 // a.element_size()
+    if off == 0:
+        return torch.empty_like(a)
+    return torch.empty(a.numel() + off, dtype=a.dtype, device=a.device)[off:].view(a.shape)
+
+
 def _launch(op: str, a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     if a.dtype not in _KIND:
         raise ValueError(f"dtype {a.dtype}, expected bf16 or fp32")
     a = a.contiguous()
-    operands = [a]
     if b is not None:
         b = b.contiguous()
         _build.require(b, "b", a.dtype, a.device)
-        operands.append(b)
-    out = torch.empty_like(a)
-    n = a.numel()
-    vec = int(n * a.element_size() % 16 == 0
-              and all(t.data_ptr() % 16 == 0 for t in operands + [out]))
+    out = _out_like(a)
+    if a.numel() == 0:
+        return out
     rc = _lib().elementwise(_OPS[op], _KIND[a.dtype], a.data_ptr(), _build.ptr(b), out.data_ptr(),
-                            n, vec, _build.stream())
+                            a.numel(), _build.stream())
     _build.check(rc, op)
     _build.LAUNCHES[op] += 1
     return out

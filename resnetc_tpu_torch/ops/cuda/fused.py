@@ -5,8 +5,9 @@ Counterpart of ``resnetc_tpu/ops/pallas/fused.py``: the tunable flags and
 their ``TUNED.json`` overlay (fused.py:32-211), the conv router ``_conv``
 (:221), ``fused_forward`` (:260), ``fused_forward_int8`` (:372),
 ``calibrate_activation_scales`` (:425), ``calibrate_chain_scales`` (:497),
-``quantize_chain`` (:637), ``_chain_scale_lookups`` (:802),
-``_basic_int8_chain_forward`` (:821), ``fused_forward_int8_chain`` (:1025)
+``quantize_chain`` (:637), ``bake_interior_scales`` (:705),
+``_chain_scale_lookups`` (:802), ``_basic_int8_chain_forward`` (:821),
+``_xla_bottleneck_stage`` (:1005), ``fused_forward_int8_chain`` (:1025)
 and ``fused_forward_int8_static`` (:1397).  The flags are read at forward
 time, so the engine serves what the module holds: the code defaults with
 ``TUNED.json`` laid over them at import (``L1_PIXEL_PAIR`` and
@@ -55,9 +56,18 @@ K-major weight copies and each stage's stacked run from the engine's tree
 (``pack_chain_kmajor``) where it has them, and make them per call where it
 does not.
 
+Under ``HYBRID_XLA_STAGES`` (a prefix of the stages, off by default and
+not in TUNED.json) the bottleneck forward serves those stages as stock
+convolutions over the bf16 copies of the folded fp entries that
+``quantize_chain`` keeps on stages 0-1 (the JAX package leaves them to
+XLA), the stem's pool in the compute type, and enters the int8 chain at
+the next stage's input scale.  ``calibrate_chain_scales(
+per_channel_interior=True)`` gives the blocks' interior sites per-channel
+scale vectors, and ``bake_interior_scales`` folds them into the quantized
+weights and the producers' epilogue vectors, so the kernels are the same.
+
 Every forward takes ``kernels=`` (``PLAIN`` runs the plain versions, the
-on-card reference).  Not yet ported: ``HYBRID_XLA_STAGES`` (raises
-``NotImplementedError``) and per-channel interior calibration.
+on-card reference).
 """
 
 from __future__ import annotations
@@ -104,7 +114,10 @@ L1_PIXEL_PAIR: bool = False
 #: L1_PIXEL_PAIR).  Bit-identical to the per-block route.
 STAGE_FUSE_PROJ: bool = False
 
-#: Not ported yet (the XLA bf16 prefix): a non-empty value raises.
+#: Stages (0-based, a prefix) of a bottleneck net served as stock
+#: convolutions in ``policy.compute`` (the JAX package's XLA bf16 prefix)
+#: ahead of the int8 chain.  Stages 0-1 at most: ``quantize_chain`` keeps
+#: the fp entries there.
 HYBRID_XLA_STAGES: tuple = ()
 
 #: The JAX package's other tunable flags, accepted with its code defaults
@@ -525,31 +538,33 @@ def fused_forward_int8_static(
 # ---------------------------------------------------------------------------
 
 
-def _percentile(a: torch.Tensor, pct: float) -> torch.Tensor:
-    """numpy's default ("linear") percentile of a flat tensor, through two
-    order statistics (torch.quantile caps its input size)."""
-    flat = a.reshape(-1)
-    n = flat.numel()
+def _percentile(a2: torch.Tensor, pct: float) -> torch.Tensor:
+    """numpy's default ("linear") percentile of each column of a (rows, C)
+    tensor, through two order statistics (torch.quantile caps its input
+    size): (C,)."""
+    n = a2.shape[0]
     pos = (n - 1) * (pct / 100.0)
     lo = int(pos)
     hi = min(lo + 1, n - 1)
-    v_lo = torch.kthvalue(flat, lo + 1).values
-    v_hi = torch.kthvalue(flat, hi + 1).values if hi != lo else v_lo
+    v_lo = torch.kthvalue(a2, lo + 1, dim=0).values
+    v_hi = torch.kthvalue(a2, hi + 1, dim=0).values if hi != lo else v_lo
     return v_lo + (v_hi - v_lo) * (pos - lo)
 
 
-def _mse_clip(a: torch.Tensor) -> torch.Tensor:
-    """argmin over 24 clip candidates in [0.25, 1] x max of the int8
-    quantization MSE, on a strided subsample (fused.py:539-555)."""
-    flat = a.reshape(-1)
-    step = max(1, flat.numel() // (1 << 18))
-    sample = flat[::step]
-    hi = sample.max()
-    cands = hi * torch.linspace(0.25, 1.0, 24, device=a.device)[:, None]
-    s = torch.clamp(cands / 127.0, min=1e-8)
-    q = torch.clamp(torch.round(sample[None, :] / s), -127.0, 127.0) * s
-    err = ((q - sample[None, :]) ** 2).mean(dim=1)
-    return cands[torch.argmin(err), 0]
+def _mse_clip(a2: torch.Tensor) -> torch.Tensor:
+    """For each column of a (rows, C) tensor, the argmin over 24 clip
+    candidates in [0.25, 1] x its max of the int8 quantization MSE, on a
+    strided subsample of about 2^18 values in all (fused.py:539-555, and
+    per channel :583-595): (C,)."""
+    c = a2.shape[1]
+    step = max(1, a2.shape[0] // max(1, (1 << 18) // c))
+    sample = a2[::step]  # (S, C)
+    hi = sample.amax(dim=0)
+    cands = hi[None, :] * torch.linspace(0.25, 1.0, 24, device=a2.device)[:, None]  # (24, C)
+    s = torch.clamp(cands / 127.0, min=1e-8)[:, None, :]  # (24, 1, C)
+    q = torch.clamp(torch.round(sample[None] / s), -127.0, 127.0) * s
+    err = ((q - sample[None]) ** 2).mean(dim=1)  # (24, C)
+    return torch.gather(cands, 0, torch.argmin(err, dim=0)[None, :])[0]
 
 
 def calibrate_chain_scales(
@@ -570,24 +585,31 @@ def calibrate_chain_scales(
     Block k's output scale is block k+1's "in".  ``method``: "absmax",
     "percentile" (at ``pct``) or "mse".  Returns {layerN: {b: {"in", "z1"
     [, "z2"]}}} of 0-d fp32 tensors.
+
+    ``per_channel_interior``: z1 and z2 (each read by one conv only) get
+    (C,) vectors, one statistic per channel by the same method, for
+    ``bake_interior_scales``; "in" stays a scalar.
     """
     if method not in ("absmax", "percentile", "mse"):
         raise ValueError(f"unknown calibration method {method!r}")
-    if per_channel_interior:
-        raise NotImplementedError(
-            "per-channel interior scales (bake_interior_scales) are not ported yet"
-        )
     _require_ungrouped(cfg)
 
-    def s_of(act):
-        a = act.float().abs()
+    def stat(act, channels: int):
+        """The statistic /127 of |act| over (rows, channels) columns."""
+        a2 = act.float().abs().reshape(-1, channels)
         if method == "absmax":
-            stat = a.max()
+            v = a2.amax(dim=0)
         elif method == "percentile":
-            stat = _percentile(a, pct)
+            v = _percentile(a2, pct)
         else:
-            stat = _mse_clip(a)
-        return torch.clamp(stat / 127.0, min=1e-8)
+            v = _mse_clip(a2)
+        return torch.clamp(v / 127.0, min=1e-8)
+
+    def s_of(act):
+        return stat(act, 1)[0]
+
+    def s_interior(act):
+        return stat(act, act.shape[-1]) if per_channel_interior else s_of(act)
 
     with torch.no_grad():
         x = x.to(policy.compute)
@@ -609,24 +631,34 @@ def calibrate_chain_scales(
                 if cfg.block == "bottleneck":
                     z1 = _xla_conv(y, blk["conv1"], stride=1, relu=True, policy=policy)
                     z2 = _xla_conv(z1, blk["conv2"], stride=s, relu=True, policy=policy)
-                    layer_scales[str(b)] = {"in": s_of(y), "z1": s_of(z1), "z2": s_of(z2)}
+                    layer_scales[str(b)] = {"in": s_of(y), "z1": s_interior(z1),
+                                            "z2": s_interior(z2)}
                     z = _xla_conv(z2, blk["conv3"], stride=1, relu=False, policy=policy)
                 else:
                     z1 = _xla_conv(y, blk["conv1"], stride=s, relu=True, policy=policy)
-                    layer_scales[str(b)] = {"in": s_of(y), "z1": s_of(z1)}
+                    layer_scales[str(b)] = {"in": s_of(y), "z1": s_interior(z1)}
                     z = _xla_conv(z1, blk["conv2"], stride=1, relu=False, policy=policy)
                 y = torch_ops.relu(z + short)
             scales[f"layer{stage + 1}"] = layer_scales
     return scales
 
 
+#: The bottleneck stages whose blocks keep bf16 copies of their folded fp
+#: entries beside the quantized ones, for the HYBRID_XLA_STAGES prefix.
+HYBRID_KEPT_STAGES = (0, 1)
+#: The folded fp entries of a block, by key.
+FP_ENTRIES = ("conv1", "conv2", "conv3", "downsample")
+
+
 def quantize_chain(cfg: ResNetConfig, folded: Tree) -> Tree:
     """Quantize every residual block for the int8 kernels.  Bottleneck:
     stride-1 blocks (layer1's projection block included, with its
     wdq/swd/bd) for the chain kernel, stride-2 blocks for the transition
-    kernel.  Basic: stride-1 blocks for the basic block kernel, stride-2
-    blocks for the basic transition kernel (with their folded fp entries
-    kept, as in JAX).  Other entries (stem, fc) pass through."""
+    kernel, and on stages 0-1 bf16 copies of the block's folded fp entries
+    beside them (``HYBRID_XLA_STAGES`` serves those, fused.py:688-700).
+    Basic: stride-1 blocks for the basic block kernel, stride-2 blocks for
+    the basic transition kernel (with their folded fp entries kept, as in
+    JAX).  Other entries (stem, fc) pass through."""
     _require_ungrouped(cfg)
     out = {k: v for k, v in folded.items() if not k.startswith("layer")}
     for stage in range(4):
@@ -649,8 +681,82 @@ def quantize_chain(cfg: ResNetConfig, folded: Tree) -> Tree:
                 q["wdq"], q["swd"] = quantize_per_channel(wd[0, 0] if wd.ndim == 4 else wd)
                 q["bd"] = blk["downsample"]["bias"]
             qblocks[b_str] = q
+        if cfg.block == "bottleneck" and stage in HYBRID_KEPT_STAGES:
+            for b_str, blk in blocks.items():
+                qblocks[b_str].update(_bf16_entries(blk))
         out[f"layer{stage + 1}"] = qblocks
     return out
+
+
+def _bf16_entries(blk: dict) -> dict:
+    """bf16 copies of a block's folded fp entries (fp32 biases)."""
+    return {k: {"weight": blk[k]["weight"].to(torch.bfloat16), "bias": blk[k]["bias"]}
+            for k in FP_ENTRIES if k in blk}
+
+
+def bake_interior_scales(cfg: ResNetConfig, folded: Tree, scales_pc: Tree) -> tuple[Tree, Tree]:
+    """Fold per-channel interior scales into host constants (fused.py:705).
+
+    ``scales_pc`` is ``calibrate_chain_scales(per_channel_interior=True)``'s:
+    z1 / z2 vectors, "in" scalars.  Each interior site has one producer and
+    one consumer, so its vector folds away: the consumer's weights are
+    scaled along their input channels before quantization (the scale rides
+    in the int8 values and their per-output-channel scales), the
+    producer's epilogue vectors are divided by it per output channel, and
+    the runtime scale there is 1.  The fp entries kept beside the quantized
+    ones (the hybrid prefix's, the basic transitions') are restored
+    un-scaled.  Returns (quantized tree, runtime scales); the kernels are
+    the same."""
+    one = torch.ones((), dtype=torch.float32, device=scales_pc["layer1"]["0"]["in"].device)
+
+    def prescale(entry, vec):
+        # The input-channel axis is -2 of a (cin, cout) and an HWIO weight.
+        return {"weight": entry["weight"] * vec[:, None], "bias": entry["bias"]}
+
+    folded2 = {k: v for k, v in folded.items() if not k.startswith("layer")}
+    runtime: Tree = {}
+    bottleneck = cfg.block == "bottleneck"
+    for stage in range(4):
+        name = f"layer{stage + 1}"
+        f2b, rb = {}, {}
+        for b_str, blk in folded[name].items():
+            st = scales_pc[name][b_str]
+            blk2 = dict(blk)
+            blk2["conv2"] = prescale(blk["conv2"], st["z1"])
+            rb[b_str] = {"in": st["in"], "z1": one}
+            if bottleneck:
+                blk2["conv3"] = prescale(blk["conv3"], st["z2"])
+                rb[b_str]["z2"] = one
+            f2b[b_str] = blk2
+        folded2[name] = f2b
+        runtime[name] = rb
+
+    qtree = quantize_chain(cfg, folded2)
+
+    # The producers' epilogue vectors, and the fp entries restored.
+    for stage in range(4):
+        name = f"layer{stage + 1}"
+        for b_str, q in qtree[name].items():
+            st = scales_pc[name][b_str]
+            orig = folded[name][b_str]
+            if bottleneck:
+                q["sw1"] = q["sw1"] / st["z1"]
+                q["b1"] = q["b1"] / st["z1"]
+                if "sw2p" in q:  # stride-1 block: conv2's scales per (kh, j)
+                    q["sw2p"] = q["sw2p"] / st["z2"].repeat(3)
+                else:  # transition: joint per-j scales over the nine taps
+                    q["sw2"] = q["sw2"] / st["z2"]
+                q["b2"] = q["b2"] / st["z2"]
+                if stage in HYBRID_KEPT_STAGES:
+                    q.update(_bf16_entries(orig))
+            elif "wdq" in q:  # basic transition: conv1's joint per-j scales
+                q["sw1"] = q["sw1"] / st["z1"]
+                q["b1"] = q["b1"] / st["z1"]
+                q.update({k: orig[k] for k in FP_ENTRIES if k in orig})
+            else:  # basic stride-1 block: conv1's scales per (kh, j)
+                q["sw1p"] = q["sw1p"] / st["z1"].repeat(3)
+                q["b1"] = q["b1"] / st["z1"]
+    return qtree, runtime
 
 
 #: The weights of a bottleneck block that the int8 tile reads, and the keys
@@ -894,6 +1000,53 @@ def _stack(blocks: list, key: str) -> torch.Tensor:
     return torch.stack([blk[key] for blk in blocks])
 
 
+def _hybrid_stages(qtree: Tree) -> tuple:
+    """HYBRID_XLA_STAGES, checked (fused.py:1074-1087): a contiguous prefix
+    of the stages, each holding the fp entries ``quantize_chain`` keeps."""
+    stages = tuple(HYBRID_XLA_STAGES)
+    if stages != tuple(range(len(stages))):
+        raise ValueError(f"HYBRID_XLA_STAGES must be a contiguous prefix, got {stages}")
+    if any("conv1" not in qtree[f"layer{s + 1}"]["0"] for s in stages):
+        raise ValueError(
+            "HYBRID_XLA_STAGES needs the folded fp entries quantize_chain "
+            f"keeps on stages 0-1; got stages {stages}"
+        )
+    return stages
+
+
+def _xla_bottleneck_stage(y, blocks: dict, nb: int, *, stride: int, policy: DtypePolicy):
+    """One bottleneck stage as stock convolutions over the fp entries kept
+    on stages 0-1 (fused.py:1005; ``resnet.forward_folded``'s math)."""
+    for b in range(nb):
+        blk = blocks[str(b)]
+        s = stride if b == 0 else 1
+        z = _xla_conv(y, blk["conv1"], stride=1, relu=True, policy=policy)
+        z = _xla_conv(z, blk["conv2"], stride=s, relu=True, policy=policy)
+        z = _xla_conv(z, blk["conv3"], stride=1, relu=False, policy=policy)
+        short = (_xla_conv(y, blk["downsample"], stride=s, relu=False, policy=policy)
+                 if "downsample" in blk else y)
+        y = torch_ops.relu(torch_ops.add(z, short))
+    return y
+
+
+def _hybrid_chain(cfg: ResNetConfig, qtree: Tree, chain_scales: Tree, x: torch.Tensor,
+                  stages: tuple, policy: DtypePolicy, stage_taps: list | None):
+    """The HYBRID_XLA_STAGES prefix (fused.py:1092-1104): stem, the pool in
+    the compute type, the listed stages as stock convolutions (a tap after
+    each), then quantize at the next stage's input scale and pad into the
+    chain.  Returns (chain rows, B, h, w)."""
+    y = _xla_conv(x.to(policy.compute), qtree["conv1"], stride=2, relu=True, policy=policy)
+    y = torch_ops.max_pool2d(y, kernel_size=3, stride=2, padding=1)
+    for stage in stages:
+        y = _xla_bottleneck_stage(y, qtree[f"layer{stage + 1}"], cfg.stage_blocks[stage],
+                                  stride=1 if stage == 0 else 2, policy=policy)
+        if stage_taps is not None:
+            stage_taps.append(y.float())
+    yq = quantize_with_scale(y, chain_scales[f"layer{len(stages) + 1}"]["0"]["in"])
+    bsz, h, w_sp, _ = yq.shape
+    return block.pad_for_chain(yq), bsz, h, w_sp
+
+
 def fused_forward_int8_chain(
     cfg: ResNetConfig,
     qtree: Tree,
@@ -906,7 +1059,10 @@ def fused_forward_int8_chain(
 ) -> torch.Tensor:
     """Serving forward with every residual block as an int8 kernel call.
     ``x`` is NHWC; returns (B, num_classes) logits in ``policy.output``.
-    Basic configs (ResNet-18/34) go through ``_basic_int8_chain_forward``.
+    Basic configs (ResNet-18/34) go through ``_basic_int8_chain_forward``
+    (which ignores HYBRID_XLA_STAGES, as in the JAX package).  Under
+    HYBRID_XLA_STAGES the listed stages run ahead of the chain
+    (``_hybrid_chain``) and the chain starts at the next one.
 
     ``stage_taps``: pass a list to receive the dequantized fp32 NHWC
     activation after each stage (then the tail block exits bf16 and the
@@ -918,15 +1074,17 @@ def fused_forward_int8_chain(
         return _basic_int8_chain_forward(
             cfg, qtree, chain_scales, x, policy=policy, stage_taps=stage_taps, kernels=kernels,
         )
-    if HYBRID_XLA_STAGES:
-        raise NotImplementedError("HYBRID_XLA_STAGES is not ported yet")
-
     scale_row, s_after = _chain_scale_lookups(cfg, chain_scales)
-    yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy)
+    xla_stages = _hybrid_stages(qtree)
+    if xla_stages:
+        yr, bsz, h, w_sp = _hybrid_chain(cfg, qtree, chain_scales, x, xla_stages, policy,
+                                         stage_taps)
+    else:
+        yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy)
     packed_pp = qtree.get("runs", {}).get("layer1")  # stage 0's pair operands, if packed
 
     head_folded = False
-    for stage in range(4):
+    for stage in range(len(xla_stages), 4):
         blocks = qtree[f"layer{stage + 1}"]
         nb = cfg.stage_blocks[stage]
 

@@ -1,6 +1,7 @@
-"""Serving path: an inference engine over BN-folded weights, and benchmarks.
+"""Serving path: an inference engine over BN-folded weights, the file-in,
+index-out job, and benchmarks.
 
-Counterpart of ``resnetc_tpu/serve.py:34-363``.  Five backends:
+Counterpart of ``resnetc_tpu/serve.py:34-388``.  Five backends:
 
 - ``"int8_chain"`` — calibrate static activation scales, quantize (and
   ``pack_chain_kmajor``: the (N, K) weight copies the stride-1 block
@@ -11,7 +12,10 @@ Counterpart of ``resnetc_tpu/serve.py:34-363``.  Five backends:
   The route follows the flags of ``ops.cuda.fused`` at forward time, as in
   the JAX engine: the code defaults with the repository's ``TUNED.json``
   laid over them at import (stage 0 through the pixel-paired kernels),
-  unless ``RESNETC_NO_TUNED=1``;
+  unless ``RESNETC_NO_TUNED=1``.  ``calib_per_channel=True`` calibrates
+  the blocks' interior sites per channel and bakes the vectors into the
+  weights and epilogue vectors (``bake_interior_scales``), as the JAX
+  engine does; the kernels are the same;
 - ``"int8"`` — ``quantize_folded`` at construction (and
   ``pack_kmajor``: the (N, K) weight copies the int8 kernel reads), then
   ``fused_forward_int8``: every 1x1 conv and the fc through ``int8_matmul``
@@ -28,6 +32,9 @@ Counterpart of ``resnetc_tpu/serve.py:34-363``.  Five backends:
 
 ``pallas`` and ``pallas_block`` are reference paths: the engine warns when
 one is built, as the JAX engine does.
+
+``classify_files`` is the reference's whole job (convert_imgs_to_bin.py,
+then main.cu): image files or ``.bin`` inputs in, class indices out.
 
 The engine runs on the card unless ``device="cpu"`` is asked for; on the
 CPU the kernels' plain versions run.  Benchmarks time on the card only,
@@ -65,6 +72,7 @@ class InferenceEngine:
         backend: str = "fp",
         calib_batch=None,
         calib_method: str = "absmax",
+        calib_per_channel: bool = False,
         device: str | torch.device | None = None,
     ):
         if backend not in BACKENDS:
@@ -92,7 +100,7 @@ class InferenceEngine:
         self.chain_scales = None
         if backend == "int8_chain":
             from resnetc_tpu_torch.ops.cuda.fused import (
-                calibrate_chain_scales, pack_chain_kmajor, quantize_chain,
+                bake_interior_scales, calibrate_chain_scales, pack_chain_kmajor, quantize_chain,
             )
 
             if calib_batch is None:
@@ -105,10 +113,19 @@ class InferenceEngine:
                 gen = torch.Generator().manual_seed(0)
                 calib_batch = torch.randn((8, 224, 224, 3), generator=gen)
             calib = torch.as_tensor(calib_batch, dtype=torch.float32).to(self.device)
-            self.chain_scales = calibrate_chain_scales(
-                model_cfg, folded, calib, policy=policy, method=calib_method
+            scales = calibrate_chain_scales(
+                model_cfg, folded, calib, policy=policy, method=calib_method,
+                per_channel_interior=calib_per_channel,
             )
-            folded = pack_chain_kmajor(model_cfg, quantize_chain(model_cfg, folded))
+            # Per-channel interior scales fold into the quantized weights and
+            # the producers' epilogue vectors (serve.py:128-133); the runtime
+            # scales are then 1 at those sites.  Off by default, as in JAX.
+            if calib_per_channel:
+                folded, scales = bake_interior_scales(model_cfg, folded, scales)
+            else:
+                folded = quantize_chain(model_cfg, folded)
+            self.chain_scales = scales
+            folded = pack_chain_kmajor(model_cfg, folded)
         elif backend == "int8":
             from resnetc_tpu_torch.ops.cuda.quant import pack_kmajor, quantize_folded
 
@@ -148,6 +165,25 @@ class InferenceEngine:
     def classify(self, images) -> np.ndarray:
         """Argmax class indices — the reference's readout."""
         return self.logits(images).argmax(dim=-1).cpu().numpy()
+
+
+def classify_files(
+    engine: InferenceEngine, paths, *, image_size: int = 224
+) -> list[int]:
+    """Files in, class indices out, one batch through ``engine.classify``
+    (``resnetc_tpu/serve.py:364``).  A ``.bin`` is read as the reference's
+    preprocessed input (flat NCHW f32, ``image_size`` square, main.cu:236-237);
+    any other file is decoded and preprocessed on the host
+    (``data.preprocess``)."""
+    from resnetc_tpu_torch.data.preprocess import load_input_bin, preprocess_file
+
+    arrays = []
+    for p in paths:
+        if str(p).endswith(".bin"):
+            arrays.append(load_input_bin(p, height=image_size, width=image_size))
+        else:
+            arrays.append(preprocess_file(p, crop=image_size))
+    return [int(i) for i in engine.classify(np.concatenate(arrays))]
 
 
 # ---------------------------------------------------------------------------

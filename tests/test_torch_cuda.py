@@ -40,7 +40,8 @@ The bf16 / fp32 bottleneck blocks (``bottleneck_block_chained``,
 block, so a summation-order difference can move a value by one bf16 step:
 max error / max |plain| within 1e-2 in bf16, 1e-4 in fp32.  The average
 pool and ``relu`` / ``add`` / ``add_relu`` are EQUAL to their plain versions
-(NaN where they have NaN).  With a NaN pixel and a -Inf pixel in the
+(NaN where they have NaN; the elementwise ops bit for bit at ragged sizes,
+views off the 16-byte grid and operands holding NaN, +-Inf and -0).  With a NaN pixel and a -Inf pixel in the
 input, the fused convolutions, the GEMM, the int8 GEMM (NaN in its
 residual) and the float max pool give NaN and +-Inf exactly where their
 plain versions do, the other values within the tolerances above.
@@ -1202,6 +1203,59 @@ def test_elementwise_kernels_equal_plain(cuda, gen, op, dtype, shape):
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and bool(torch.isnan(want).any())
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def _ew_operand(gen, shape, off, dev, dtype):
+    """A view ``off`` elements into its buffer, holding one value in 32 each
+    of NaN, +Inf, -Inf, -0 and +0."""
+    n = int(np.prod(shape))
+    x = gen.standard_normal(n + off).astype(np.float32)
+    where = gen.integers(0, 32, n + off)
+    for code, v in enumerate((np.nan, np.inf, -np.inf, -0.0, 0.0)):
+        x[where == code] = v
+    return torch.from_numpy(x).to(dev, dtype)[off:].view(shape)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+# (shape, offset of a in elements, offset of b): ragged sizes off the
+# 16-byte grid (the vector body between a scalar head and tail), views one
+# and three elements into their buffers, fewer values than one vector, a
+# pair at different offsets (the scalar kernel), ResNet-152's layer1 join at
+# the serving batch.
+EW_CASES = {"ragged": ((7, 37, 41, 67), 0, 0), "ragged-1": ((1001,), 0, 0),
+            "offset-1": ((5, 33, 129), 1, 1), "offset-3": ((3, 1, 4097), 3, 3),
+            "tiny": ((5,), 1, 1), "mixed-offsets": ((2, 999), 1, 2),
+            "r152-l1-b32": ((32, 56, 56, 256), 0, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(EW_CASES))
+def test_elementwise_kernels_bit_equal_plain(cuda, gen, case, dtype):
+    """relu / add / add_relu equal their plain versions bit for bit (NaN and
+    the sign of a zero included) at any size and offset, one launch each;
+    add_relu is relu(add)."""
+    from resnetc_tpu_torch.ops.cuda import elementwise
+
+    shape, off_a, off_b = EW_CASES[case]
+    a = _ew_operand(gen, shape, off_a, cuda, dtype)
+    b = _ew_operand(gen, shape, off_b, cuda, dtype)
+    for op, args in (("relu", (a,)), ("add", (a, b)), ("add_relu", (a, b))):
+        _build.reset_launches()
+        got = getattr(elementwise, op)(*args)
+        assert dict(_build.LAUNCHES) == {op: 1}, op
+        want = getattr(elementwise, op + "_plain")(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape == a.shape, op
+        assert torch.equal(_bits(got), _bits(want)), op
+    joined = elementwise.add_relu(a, b)
+    assert torch.equal(_bits(joined), _bits(elementwise.relu(elementwise.add(a, b))))
+    assert bool(torch.isnan(joined).any()) or a.numel() < 64
+    relu = elementwise.relu(a)
+    assert not bool(torch.signbit(relu[relu == 0]).any())  # +0 for a zero of either sign
 
 
 @pytest.mark.cuda

@@ -626,10 +626,19 @@ def test_pp_is_inert_on_a_wide_stage_0(monkeypatch):
 
 
 def test_unported_hybrid_prefix_still_raises(fp32_trees, monkeypatch):
+    """The hybrid prefix under L1_PIXEL_PAIR.  The name dates from before
+    the prefix was ported and is kept so the test's history stays one;
+    what it checks now: the prefix takes stage 0 itself, so no pixel-paired
+    kernel runs, and a stage set that is not a prefix still raises.  Its
+    JAX parity is in tests/test_torch_calib.py."""
     tcfg, tq, tscales, x = fp32_trees["bottleneck"]
-    monkeypatch.setattr(tfused, "HYBRID_XLA_STAGES", (0,))
     monkeypatch.setattr(tfused, "L1_PIXEL_PAIR", True)
-    with pytest.raises(NotImplementedError, match="HYBRID_XLA_STAGES"):
+    monkeypatch.setattr(tfused, "HYBRID_XLA_STAGES", (0,))
+    _, counts = _forward(tcfg, tq, tscales, x)
+    rest = sum(tcfg.stage_blocks[1:]) - 3
+    assert counts == {"ds": 3, "block": rest, "matmul": 1}, counts
+    monkeypatch.setattr(tfused, "HYBRID_XLA_STAGES", (0, 2))
+    with pytest.raises(ValueError, match="HYBRID_XLA_STAGES"):
         _forward(tcfg, tq, tscales, x)
 
 

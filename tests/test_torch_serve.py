@@ -125,8 +125,9 @@ def test_engine_packs_kmajor_copies_beside_the_jax_tree(setup):
     jflat = _flat(jfused.quantize_chain(jcfg, jfold))
     tq = tfused.quantize_chain(tcfg, tfold)
     tflat = _flat(tq)
-    # JAX keeps the folded fp entries beside the quantized ones; the port
-    # has no use for them.  Every quantized leaf is JAX's.
+    # Every leaf of the port's tree is JAX's: the quantized ones, and on
+    # stages 0-1 the bf16 copies of the folded fp entries (the hybrid
+    # prefix's).
     assert set(tflat) <= set(jflat)
     assert all(k.split("/")[2].startswith(("conv", "downsample")) for k in set(jflat) - set(tflat))
     for k in tflat:
@@ -231,11 +232,11 @@ def test_unported_flags_raise(setup, monkeypatch):
     scales = tfused.calibrate_chain_scales(
         tcfg, tresnet.fold_inference_params(tcfg, tvars), torch.from_numpy(x)
     )
-    # The XLA bf16 prefix is not ported (L1_PIXEL_PAIR and STAGE_FUSE_PROJ
-    # are, see tests/test_torch_pp.py).
+    # The XLA bf16 prefix is ported (its JAX parity is in
+    # tests/test_torch_calib.py); a stage set that is not a prefix raises.
     with monkeypatch.context() as m:
-        m.setattr(tfused, "HYBRID_XLA_STAGES", (0,))
-        with pytest.raises(NotImplementedError):
+        m.setattr(tfused, "HYBRID_XLA_STAGES", (1,))
+        with pytest.raises(ValueError, match="contiguous prefix"):
             tfused.fused_forward_int8_chain(tcfg, tq, scales, torch.from_numpy(x))
     # The basic family's transitions without BASIC_DS_INT8 are ported: the
     # route runs (its JAX parity is in tests/test_torch_backends.py).
