@@ -74,7 +74,24 @@ then:
    through ``resnetc_tpu_torch.ops.cuda`` at batch 32: a residual join
    (``add``, ``relu``, ``add_relu``) at ResNet-152's layer1 shape, and a
    layer4 block (``bottleneck_block_fused``) followed by the 7x7 head pool
-   (``avg_pool2d``), each counted;
+   (``avg_pool2d``), each counted.  Then training and verification, on
+   stock PyTorch ops (no kernel of the table lies on this path):
+   ``[fp32]``, in a child process with torch's default TF32 settings,
+   ``torch_ops.conv2d`` / ``linear`` at fp32 within 1e-5 of float64 while
+   the same calls outside the port read worse; ``[train resnet50]``,
+   ResNet-50 trained at full width and depth, 224 px, BF16, batch 128, 13
+   steps on one synthetic batch (loss falls, every running stat moves;
+   img/s, ms per step, share of the bf16 peak, peak memory);
+   ``[train split]``, the step's device time by op family under
+   ``torch.profiler`` and the idle share; ``[train parity]``, an FP32
+   ResNet-18 step on the card with TF32 on against the CPU's and the
+   float64 twin's, and ``remat`` against none; ``[train resnet152
+   remat]``, ms per step and peak memory with and without ``remat``;
+   ``[trained -> served]``, the trained ResNet-50's unfolded eval forward
+   against the folded one and an ``int8_chain`` engine on it, gated and
+   counted; ``[cli]``, ``python -m resnetc_tpu_torch train`` in process
+   with a checkpoint, an export and a resume; ``[verify resnet152]``, the
+   parity reports against the twin at 224 px under FP32;
 3. times the engines (images/s, p50 / p99 ms per batch) for int8_chain on
    both routes (and ResNet-34's BASIC_DS_INT8=False route, ResNet-152's
    per-channel and hybrid routes), int8, pallas, pallas_block and fp, and
@@ -1091,13 +1108,13 @@ def phase_kernels(cases: list) -> dict:
     return errs
 
 
-def main_path_counts() -> dict:
+def main_path_counts(blocks: tuple | None = None) -> dict:
     """Launches of each kernel case per forward of its model (ResNet-152
-    for the bottleneck cases, ResNet-34 for the basic ones) on the route
-    that runs it, by case name."""
+    for the bottleneck cases, or another bottleneck net's ``blocks``, and
+    ResNet-34 for the basic ones) on the route that runs it, by case name."""
     from resnetc_tpu_torch.models import get_config
 
-    blocks = get_config("resnet152").stage_blocks
+    blocks = blocks or get_config("resnet152").stage_blocks
     basic = get_config("resnet34").stage_blocks
     return {
         "block/proj/s0": 1,
@@ -1132,10 +1149,11 @@ ROUTE_ONLY = {
 REDUCED_ONLY = {"pp/basic/block/s0"}
 
 
-def expected_launches(cases: list, pp: bool) -> dict:
-    """Launches of each kernel in one forward of the cases' model, on the
-    pixel-paired route or the standard one."""
-    counts = main_path_counts()
+def expected_launches(cases: list, pp: bool, blocks: tuple | None = None) -> dict:
+    """Launches of each kernel in one forward of the cases' model (or of the
+    bottleneck net with ``blocks``), on the pixel-paired route or the
+    standard one."""
+    counts = main_path_counts(blocks)
     want: dict = {}
     for case in cases:
         if counts.get(case.name, 0) and case.name not in ROUTE_ONLY[not pp] | REDUCED_ONLY:
@@ -1687,6 +1705,515 @@ def phase_options(e2e: dict, cases: list, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training and verification (no kernel of the table lies on this path)
+# ---------------------------------------------------------------------------
+
+#: Run in a child process with torch's default TF32 settings: the port's
+#: fp32 conv2d / linear against float64 on the CPU, beside the same calls
+#: made outside the port with TF32 on.
+FP32_CHILD = r"""
+import json
+import torch
+import torch.nn.functional as F
+from resnetc_tpu_torch.ops import torch_ops
+
+conv, mm = torch.backends.cudnn.conv, torch.backends.cuda.matmul
+defaults = {"cudnn.conv": conv.fp32_precision, "cuda.matmul": mm.fp32_precision}
+g = torch.Generator().manual_seed(0)
+x = torch.randn(8, 56, 56, 64, generator=g)
+w = torch.randn(3, 3, 64, 64, generator=g) / 24
+a = torch.randn(8, 2048, generator=g)
+wl = torch.randn(1000, 2048, generator=g) / 45
+bl = torch.randn(1000, generator=g)
+conv64 = F.conv2d(x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
+                  padding=1).permute(0, 2, 3, 1)
+lin64 = a.double() @ wl.double().t() + bl.double()
+
+
+def rel(got, want):
+    return float((got.double().cpu() - want).abs().max() / want.abs().max())
+
+
+xc, wc, ac, wlc, blc = (t.cuda() for t in (x, w, a, wl, bl))
+out = {"defaults": defaults}
+out["conv2d"] = rel(torch_ops.conv2d(xc, wc, padding=1), conv64)
+out["conv2d_tf32"] = rel(F.conv2d(xc.permute(0, 3, 1, 2), wc.permute(3, 2, 0, 1),
+                                  padding=1).permute(0, 2, 3, 1), conv64)
+out["linear"] = rel(torch_ops.linear(ac, wlc, blc), lin64)
+mm.fp32_precision = "tf32"
+out["linear_tf32"] = rel(ac @ wlc.t() + blc, lin64)
+out["linear_under_tf32"] = rel(torch_ops.linear(ac, wlc, blc), lin64)
+out["after"] = {"cudnn.conv": conv.fp32_precision, "cuda.matmul": mm.fp32_precision}
+print(json.dumps(out))
+"""
+
+
+def phase_fp32() -> dict:
+    """The FP32 policy computes in IEEE fp32 on the card: in a fresh process
+    with torch's default TF32 settings, ``torch_ops.conv2d`` (ResNet-50's
+    3x3 at 56x56x64, batch 8) and ``linear`` (the fc, batch 8) within 1e-5
+    of max |float64| of the same math on the CPU; the same convolution and
+    matmul made outside the port with TF32 on must read worse, and the
+    port's guard must hand the settings back."""
+    import os
+
+    tag = "[fp32]"
+    out = subprocess.run([sys.executable, "-c", FP32_CHILD], capture_output=True, text=True,
+                         timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0:
+        raise AssertionError(f"{tag} child process failed:\n{out.stderr[-3000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    log(f"{tag} torch defaults {json.dumps(res['defaults'])}; max error / max |fp64|: "
+        f"conv2d {res['conv2d']} (TF32 outside the port: {res['conv2d_tf32']}), "
+        f"linear {res['linear']} (TF32: {res['linear_tf32']}; the port's under "
+        f"TF32: {res['linear_under_tf32']}); settings after {json.dumps(res['after'])}")
+    for key in ("conv2d", "linear", "linear_under_tf32"):
+        if res[key] > 1e-5:
+            raise AssertionError(f"{tag} {key} is not IEEE fp32: {res[key]}")
+    if not (res["conv2d_tf32"] > res["conv2d"] and res["linear_tf32"] > res["linear"]):
+        raise AssertionError(f"{tag} the TF32 calls did not read worse: {res}")
+    if res["after"]["cudnn.conv"] != res["defaults"]["cudnn.conv"] or \
+            res["after"]["cuda.matmul"] != "tf32":
+        raise AssertionError(f"{tag} the guard did not give the settings back: {res}")
+    return res
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 for cuDNN convolutions and cuBLAS matmuls for the duration."""
+    import torch
+
+    conv, mm = torch.backends.cudnn.conv, torch.backends.cuda.matmul
+    saved = conv.fp32_precision, mm.fp32_precision
+    conv.fp32_precision = mm.fp32_precision = "tf32"
+    try:
+        yield
+    finally:
+        conv.fp32_precision, mm.fp32_precision = saved
+
+
+#: ResNet-50 training on the card: batch, warm-up and timed steps, and the
+#: peak learning rate.  At the JAX CLI's 0.1 the JAX package itself
+#: diverges on one fixed batch over 13 steps (on the CPU at ResNet-50,
+#: 112 px, batch 32: 6.94 -> 39.7 at step 8 -> 7.50 at step 13), so this
+#: trains at 0.02, where JAX and the port both fall (6.94 -> 3.16, 6.96 ->
+#: 3.44); ``python tests/test_torch_train.py trajectory`` measures both.
+TRAIN_BATCH, TRAIN_WARMUP, TRAIN_TIMED, TRAIN_LR = 128, 3, 10, 0.02
+
+
+def phase_train_resnet50(dev) -> dict:
+    """ResNet-50 at full width and depth, 224 px, BF16, batch 128, the JAX
+    CLI's defaults but the peak rate (lr 0.02, see TRAIN_LR; momentum 0.9,
+    weight decay 1e-4, cosine with 5 warm-up steps over the 13 steps) on
+    ``synthetic_batches`` (one fixed batch): 3 warm-up steps, then 10 timed between CUDA events.  The loss
+    must be finite and lower at step 13 than at step 1, and every BN
+    running stat must have moved.  Prints img/s, ms per step, the step's
+    share of the bf16 peak (3 x model_flops x batch per step over 989
+    TFLOP/s) and the peak memory allocated."""
+    import torch
+
+    from resnetc_tpu_torch import train
+    from resnetc_tpu_torch.data.loader import synthetic_batches
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.tensor import flatten_tree
+    from resnetc_tpu_torch.utils.flops import model_flops
+
+    tag = "[train resnet50]"
+    cfg = resnet.get_config("resnet50")
+    tcfg = train.TrainConfig(lr=TRAIN_LR)
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    sched = train.cosine_schedule(tcfg.lr, steps, warmup_steps=5)
+    t0 = time.perf_counter()
+    ts = train.init_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
+    stats0 = {k: v.clone() for k, v in flatten_tree(ts.bn_state).items()}
+    x, y = next(iter(synthetic_batches(batch_size=TRAIN_BATCH, steps=1, seed=0, device=dev)))
+    torch.cuda.synchronize()
+    log(f"{tag} state and batch on the card in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        ts, m = train.train_step(cfg, tcfg, ts, x, y, sched(ts.step))
+        losses.append(m["loss"])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(TRAIN_TIMED):
+        ts, m = train.train_step(cfg, tcfg, ts, x, y, sched(ts.step))
+        losses.append(m["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    flops = 3 * model_flops(cfg, 224) * TRAIN_BATCH
+    share = flops / (ms / 1e3) / PEAK_BF16_FLOPS
+    res = {"batch": TRAIN_BATCH, "ms_per_step": ms, "images_per_s": TRAIN_BATCH / (ms / 1e3),
+           "bf16_peak_share": share, "max_memory_allocated_gib": peak / 2**30,
+           "losses": losses, "accuracy_last": float(m["accuracy"]),
+           "grad_norm_last": float(m["grad_norm"]), "step": int(ts.step)}
+    log(f"{tag} batch {TRAIN_BATCH}: {res['images_per_s']:.1f} img/s, {ms:.3f} ms per step "
+        f"(mean of {TRAIN_TIMED} after {TRAIN_WARMUP} warm-up), {share:.4f} of the bf16 peak "
+        f"(3 x {model_flops(cfg, 224) / 1e9:.3f} GFLOP per image), "
+        f"max_memory_allocated {res['max_memory_allocated_gib']:.2f} GiB")
+    log(f"{tag} loss by step: {[round(v, 4) for v in losses]}")
+    if not all(v == v and abs(v) != float("inf") for v in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"{tag} the loss is not finite or did not fall: {losses}")
+    stats = flatten_tree(ts.bn_state)
+    unmoved = [k for k, v in stats0.items() if torch.equal(stats[k], v)]
+    if unmoved:
+        raise AssertionError(f"{tag} running stats that did not move: {unmoved[:4]}")
+    log(f"{tag} all {len(stats)} BN running stats moved; the loss fell "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    return {"ts": ts, "x": x, "y": y, "tcfg": tcfg, **res}
+
+
+#: Op families of the training step's device time (``[train split]``).
+CONV_FWD_OPS = ("aten::cudnn_convolution", "aten::_convolution", "aten::convolution")
+ELEMENTWISE_OPS = ("aten::mul", "aten::add", "aten::sub", "aten::div", "aten::mean",
+                   "aten::sum", "aten::square", "aten::pow", "aten::rsqrt", "aten::neg",
+                   "aten::_to_copy", "aten::copy_", "aten::mul_", "aten::add_", "aten::fill_",
+                   "aten::zero_", "aten::expand", "aten::where")
+
+
+def _op_family(op: str) -> str:
+    if op.startswith("aten::_foreach") or op == "aten::linalg_vector_norm":
+        return "optimizer update"
+    if op in CONV_FWD_OPS:
+        return "convolution forward"
+    if "convolution_backward" in op:
+        return "convolution backward"
+    if op in ELEMENTWISE_OPS:
+        return "BN formula, residual add and casts (elementwise, reductions)"
+    return "other"
+
+
+def phase_train_split(tr: dict) -> dict:
+    """One ``torch.profiler`` run over 3 of the ResNet-50 steps: device time
+    summed by op family (each kernel under the op that launched it; what
+    no op holds counts as other) and the device's idle share of the
+    window, with the top ops and kernels (``--out`` keeps them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from resnetc_tpu_torch import train
+    from resnetc_tpu_torch.models import resnet
+
+    tag = "[train split]"
+    cfg = resnet.get_config("resnet50")
+    ts, x, y, tcfg = tr["ts"], tr["x"], tr["y"], tr["tcfg"]
+    n = 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            ts, _ = train.train_step(cfg, tcfg, ts, x, y, 1e-4)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    tr["ts"] = ts
+
+    ops, kernels = {}, {}
+    for evt in prof.key_averages():
+        us = float(evt.self_device_time_total)
+        if not us:
+            continue
+        if str(evt.device_type).endswith("CPU"):
+            ops[evt.key] = ops.get(evt.key, 0.0) + us
+        else:
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us
+    busy_us = sum(kernels.values())
+    if busy_us <= 0:
+        raise AssertionError(f"{tag} the profiler saw no device time")
+    families: dict = {}
+    for name, us in ops.items():
+        fam = _op_family(name)
+        families[fam] = families.get(fam, 0.0) + us / 1e3 / n
+    unattributed = busy_us / 1e3 / n - sum(families.values())
+    if abs(unattributed) > 1e-3:
+        families["other"] = families.get("other", 0.0) + unattributed
+    step_ms = busy_us / 1e3 / n
+    idle = 1 - busy_us / 1e3 / wall_ms
+    log(f"{tag} ResNet-50 b{tr['batch']} BF16, {n} profiled steps: device {step_ms:.3f} ms "
+        f"per step, wall {wall_ms / n:.3f} ms per step, device idle share {idle:.4f}")
+    for fam, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+        log(f"{tag}   {fam}: {ms:.3f} ms per step ({ms / step_ms:.3f})")
+    top_ops = sorted(ops.items(), key=lambda kv: -kv[1])[:25]
+    top_kernels = sorted(kernels.items(), key=lambda kv: -kv[1])[:25]
+    for name, us in top_ops[:12]:
+        log(f"{tag}   op {name}: {us / 1e3 / n:.3f} ms per step")
+    return {"families_ms_per_step": families, "device_ms_per_step": step_ms,
+            "wall_ms_per_step": wall_ms / n, "idle_share": idle,
+            "top_ops_us": top_ops, "top_kernels_us": top_kernels}
+
+
+def phase_train_parity(dev) -> dict:
+    """ResNet-18 at 64 px, batch 8, FP32 (lr 0.1, momentum 0.9, weight decay
+    1e-4): one ``train_step`` on the card, with TF32 turned on in the
+    process, and one on the CPU from the same state and batch, beside the
+    exact step (the twin in float64, ``torch.optim.SGD``).  The losses
+    within 5e-4; every parameter and running stat of the card's step
+    within rtol 1e-3, atol 1e-5 of the exact step, a band widened by twice
+    the CPU step's own distance from it where that is larger: the stem's
+    weight gradient, a sum over 8,192 pixels through train-mode BN, is
+    poorly resolved in fp32 for some draws (on the CPU, 3 of 6 init seeds
+    put conv1.weight 16-63 band-widths from the exact step, this one 16,
+    with five of layer1's leaves 2-8: ``python tests/test_torch_train.py
+    step_seeds``).
+    Then ``remat=True`` against ``remat=False`` on the card at batch 16:
+    gradients' difference norm within 1e-4 of their norm, running stats
+    within 1e-5."""
+    import torch
+    import torch.nn.functional as F
+
+    from resnetc_tpu_torch import checkpoint, train
+    from resnetc_tpu_torch.data.loader import synthetic_batches
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.torch_ops import exact_fp32
+    from resnetc_tpu_torch.tensor import FP32, flatten_tree, tree_map
+    from resnetc_tpu_torch.verify.twin import build_twin
+
+    tag = "[train parity]"
+    cfg = resnet.get_config("resnet18")
+    tcfg = train.TrainConfig(policy_name="fp32")
+    cpu = train.init_train_state(cfg, torch.Generator().manual_seed(4), device="cpu")
+    card = train.TrainState(step=cpu.step.to(dev, copy=True),
+                            **{k: tree_map(lambda t: t.to(dev, copy=True), getattr(cpu, k))
+                               for k in ("params", "bn_state", "momentum")})
+    twin = build_twin(cfg).double().train()
+    sd = checkpoint.torch_state_dict_from_variables(
+        resnet.merge_params_state(cpu.params, cpu.bn_state))
+    twin.load_state_dict({k: v.double() for k, v in sd.items()}, strict=False)
+    x, y = next(iter(synthetic_batches(batch_size=8, image_size=64, steps=1, seed=5,
+                                       device="cpu")))
+    with tf32_on():
+        card, mg = train.train_step(cfg, tcfg, card, x.to(dev), y.to(dev), tcfg.lr)
+        torch.cuda.synchronize()
+    cpu, mc = train.train_step(cfg, tcfg, cpu, x, y, tcfg.lr)
+    opt = torch.optim.SGD(twin.parameters(), lr=tcfg.lr, momentum=tcfg.momentum,
+                          weight_decay=tcfg.weight_decay)
+    exact_loss = F.cross_entropy(twin(x.double().permute(0, 3, 1, 2)), y.long())
+    exact_loss.backward()
+    opt.step()
+    exact = flatten_tree(checkpoint.variables_from_torch_state_dict(twin.state_dict()))
+    dloss = abs(float(mg["loss"]) - float(mc["loss"]))
+    worst, worst_key, plain_worst, cpu_worst = 0.0, None, 0.0, 0.0
+    for name in ("params", "bn_state"):
+        got = flatten_tree(getattr(card, name))
+        want = flatten_tree(getattr(cpu, name))
+        for k, w in want.items():
+            e = exact[k].double()
+            band = 1e-5 + 1e-3 * e.abs()
+            cpu_err = (w.double() - e).abs()
+            ratio = float(((got[k].cpu().double() - e).abs()
+                           / torch.maximum(band, 2 * cpu_err)).max())
+            if ratio > worst:
+                worst, worst_key = ratio, k
+            plain_worst = max(plain_worst, float(((got[k].cpu() - w).abs()
+                                                  / (1e-5 + 1e-3 * w.abs())).max()))
+            cpu_worst = max(cpu_worst, float((cpu_err / band).max()))
+    log(f"{tag} ResNet-18 64 px b8 FP32, TF32 on in the process: loss card {float(mg['loss'])} "
+        f"cpu {float(mc['loss'])} float64 {float(exact_loss)}; parameters and running stats "
+        f"in band-widths (rtol 1e-3, atol 1e-5): card vs CPU {plain_worst}, CPU vs float64 "
+        f"{cpu_worst}, card vs float64 in the widened band {worst} ({worst_key})")
+    if dloss > 5e-4 or worst > 1.0:
+        raise AssertionError(f"{tag} the card's FP32 step disagrees with the CPU's")
+
+    variables = resnet.init(cfg, torch.Generator().manual_seed(8))
+    params, bn_state = resnet.split_params_state(tree_map(lambda t: t.to(dev), variables))
+    x16, y16 = next(iter(synthetic_batches(batch_size=16, image_size=64, steps=1, seed=9,
+                                           device=dev)))
+
+    def grads(remat):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+        with exact_fp32():
+            loss, (state, _) = train.loss_fn(cfg, p, bn_state, x16, y16, policy=FP32,
+                                             remat=remat)
+            flat = flatten_tree(p)
+            return torch.autograd.grad(loss, list(flat.values())), flatten_tree(state)
+
+    (g0, s0), (g1, s1) = grads(False), grads(True)
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(g0, g1))
+    den = sum(float((a**2).sum()) for a in g0)
+    rel = (num / den) ** 0.5
+    stat_err = max(float(((s0[k] - s1[k]).abs() / (1e-6 + s0[k].abs())).max()) for k in s0)
+    log(f"{tag} remat vs no remat on the card, b16: gradient difference norm / norm = {rel}; "
+        f"running stats max relative difference {stat_err}")
+    if rel > 1e-4 or stat_err > 1e-5:
+        raise AssertionError(f"{tag} remat changes the gradients or the running stats")
+    return {"loss_diff": dloss, "worst_ratio": worst, "card_vs_cpu_ratio": plain_worst,
+            "cpu_vs_float64_ratio": cpu_worst, "remat_grad_rel": rel,
+            "remat_stat_rel": stat_err}
+
+
+def phase_train_remat_resnet152(dev) -> dict:
+    """The reference's model, ResNet-152 at 224 px, batch 32, BF16: 3 steps
+    with ``remat=True`` and 3 without, from one state; ms per step (the
+    mean of the last two, between CUDA events) and the peak memory of
+    each."""
+    import dataclasses
+
+    import torch
+
+    from resnetc_tpu_torch import train
+    from resnetc_tpu_torch.data.loader import synthetic_batches
+    from resnetc_tpu_torch.models import resnet
+
+    tag = "[train resnet152 remat]"
+    cfg = resnet.get_config("resnet152")
+    ts = train.init_train_state(cfg, torch.Generator().manual_seed(0), device=dev)
+    x, y = next(iter(synthetic_batches(batch_size=32, steps=1, seed=1, device=dev)))
+    out = {}
+    for remat in (True, False):
+        tcfg = dataclasses.replace(train.TrainConfig(), remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ts, m = train.train_step(cfg, tcfg, ts, x, y, 0.01)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(2):
+            ts, m = train.train_step(cfg, tcfg, ts, x, y, 0.01)
+        end.record()
+        torch.cuda.synchronize()
+        label = "remat" if remat else "no_remat"
+        out[label] = {"ms_per_step": start.elapsed_time(end) / 2,
+                      "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "loss": float(m["loss"])}
+        if not out[label]["loss"] == out[label]["loss"]:
+            raise AssertionError(f"{tag} {label}: the loss is NaN")
+    log(f"{tag} b32 BF16: remat {out['remat']['ms_per_step']:.3f} ms per step, peak "
+        f"{out['remat']['max_memory_allocated_gib']:.2f} GiB; without remat "
+        f"{out['no_remat']['ms_per_step']:.3f} ms, {out['no_remat']['max_memory_allocated_gib']:.2f} GiB")
+    if out["remat"]["max_memory_allocated_gib"] >= out["no_remat"]["max_memory_allocated_gib"]:
+        raise AssertionError(f"{tag} remat did not lower the peak memory")
+    return out
+
+
+def phase_trained_served(tr: dict, cases: list, batch: int, dev) -> dict:
+    """The ResNet-50 state after its steps, merged: its running stats are no
+    longer the identity.  ``forward(train=False)`` equals
+    ``forward_folded`` under FP32 within 1e-3 of max |logit|; an int8_chain
+    engine on the tree passes the JAX gate against the fp32 folded forward
+    (rel-MAE < 0.05, argmax agreement >= 0.9), and its forward, counted,
+    launches the served route's kernels at ResNet-50's block counts."""
+    import torch
+
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.serve import InferenceEngine
+    from resnetc_tpu_torch.tensor import FP32, flatten_tree
+    from resnetc_tpu_torch.verify import compare_logits
+
+    tag = "[trained -> served]"
+    cfg = resnet.get_config("resnet50")
+    ts = tr["ts"]
+    variables = resnet.merge_params_state(ts.params, ts.bn_state)
+    flat = flatten_tree(variables)
+    identity = [k for k, v in flat.items()
+                if (k.endswith("running_mean") and not bool(v.any()))
+                or (k.endswith("running_var") and bool((v == 1).all()))]
+    if identity:
+        raise AssertionError(f"{tag} running stats still the identity: {identity[:4]}")
+    x = torch.randn((batch, 224, 224, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        unfolded, _ = resnet.forward(cfg, variables, x, train=False, policy=FP32)
+        ref32 = resnet.forward_folded(cfg, resnet.fold_inference_params(cfg, variables), x,
+                                      policy=FP32)
+    fold_rel = float((unfolded - ref32).abs().max() / ref32.abs().max())
+    calib = torch.randn((8, 224, 224, 3), generator=torch.Generator().manual_seed(1))
+    eng = InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=calib, device=dev)
+    logits, launches = forward_counted(eng, x, L1_PIXEL_PAIR=True)
+    rel_mae = float((logits - ref32).abs().mean() / ref32.abs().mean())
+    rep = compare_logits(logits, ref32)
+    want = expected_launches(cases, pp=True, blocks=cfg.stage_blocks)
+    log(f"{tag} ResNet-50 after {int(ts.step)} steps: forward(train=False) vs forward_folded "
+        f"(FP32) max error / max |logit| = {fold_rel}; int8_chain vs fp32 folded: rel_mae="
+        f"{rel_mae} argmax_agreement={rep.argmax_match_rate}; launches {json.dumps(launches)}")
+    if fold_rel > 1e-3:
+        raise AssertionError(f"{tag} the unfolded eval forward disagrees with the folded one")
+    if not (rel_mae < 0.05 and rep.argmax_match_rate >= 0.9):
+        raise AssertionError(f"{tag} int8_chain on the trained tree is outside the JAX gate")
+    if launches != want:
+        raise AssertionError(f"{tag} launched {launches}, expected {want}")
+    return {"fold_rel": fold_rel, "rel_mae_vs_fp32": rel_mae,
+            "argmax_vs_fp32": rep.argmax_match_rate, "launches": launches}
+
+
+def phase_cli() -> dict:
+    """The ``train`` command in process: ResNet-18, batch 32, 3 steps, a
+    checkpoint and the reference-format export; then ``--resume`` for 2
+    more steps, which must log steps 4 and 5; the exported weights read
+    back with ``load_reference_format`` equal the checkpoint's tree bit for
+    bit."""
+    import io
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from resnetc_tpu_torch import checkpoint, train
+    from resnetc_tpu_torch.__main__ import main as cli_main
+    from resnetc_tpu_torch.models import resnet
+
+    tag = "[cli]"
+    base = ["train", "--model", "resnet18", "--batch-size", "32", "--log-every", "1"]
+    with tempfile.TemporaryDirectory() as tmp:
+        d1, d2 = str(Path(tmp) / "ckpt"), str(Path(tmp) / "weights")
+        outs = []
+        for argv in (base + ["--steps", "3", "--checkpoint-dir", d1, "--export-weights-dir", d2],
+                     base + ["--steps", "2", "--resume", d1]):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(argv)
+            outs.append(buf.getvalue())
+            for line in buf.getvalue().splitlines():
+                log(f"{tag} {line}")
+            log(f"{tag} rc {rc} in {time.perf_counter() - t0:.1f} s")
+            if rc != 0:
+                raise AssertionError(f"{tag} {argv} returned {rc}")
+        steps = [json.loads(ln)["step"] for ln in outs[1].splitlines() if ln.startswith("{")]
+        if steps != [4, 5]:
+            raise AssertionError(f"{tag} the resumed run logged steps {steps}, expected [4, 5]")
+        cfg = resnet.get_config("resnet18")
+        like = train.init_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+        saved = checkpoint.load_train_state(d1, like)
+        exported = checkpoint.load_reference_format(cfg, d2)
+        if not _trees_equal(exported, resnet.merge_params_state(saved.params, saved.bn_state)):
+            raise AssertionError(f"{tag} the exported weights differ from the checkpoint's")
+    log(f"{tag} resumed run logged steps {steps}; the export equals the checkpoint bit for bit")
+    return {"resumed_steps": steps}
+
+
+def phase_verify_resnet152() -> dict:
+    """``logit_report`` and ``stage_parity_report`` of ResNet-152 against its
+    twin at 224 px, batch 2, FP32, on the card; the JAX CLI's pass rule
+    (argmax match, logit MAE <= 1e-3)."""
+    import numpy as np
+
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.tensor import FP32
+    from resnetc_tpu_torch.verify.harness import (
+        LOGIT_MAE_GATE, logit_report, stage_parity_report,
+    )
+    from resnetc_tpu_torch.verify.twin import build_twin
+
+    tag = "[verify resnet152]"
+    cfg = resnet.get_config("resnet152")
+    t0 = time.perf_counter()
+    twin = build_twin(cfg, seed=0)
+    x = np.random.default_rng(0).standard_normal((2, 3, 224, 224)).astype(np.float32)
+    rep = logit_report(cfg, twin, x, policy=FP32)
+    stages = stage_parity_report(cfg, twin, x, policy=FP32)
+    ok = rep.argmax_match and rep.mae <= LOGIT_MAE_GATE
+    log(f"{tag} logit_mae={rep.mae} max_abs_err={rep.max_abs_err} "
+        f"argmax_match_rate={rep.argmax_match_rate} pass={ok} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"{tag} stage max error: " + ", ".join(f"{k} {v['max']:.3g}" for k, v in stages.items()))
+    if not ok:
+        raise AssertionError(f"{tag} the port's forward fails the parity gate")
+    return {"logit_mae": rep.mae, "max_abs_err": rep.max_abs_err,
+            "argmax_match_rate": rep.argmax_match_rate, "stages": stages}
+
+
 def phase_engine_timing(name: str, runs: list, x, batch: int) -> dict:
     """Throughput and per-batch latency of each (label, engine, flags) on
     the images ``x``."""
@@ -1864,9 +2391,8 @@ def main() -> int:
         return 1
     from resnetc_tpu_torch.ops.cuda import _build
 
-    # The fp32 oracle must not run in TF32.
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # No TF32 setting here: the port's fp32 ops compute in IEEE fp32
+    # whatever the process's settings (torch_ops.exact_fp32).
     dev = torch.device("cuda")
     card = gpu_line()
     log(f"[card] {card}")
@@ -1923,6 +2449,22 @@ def main() -> int:
         add(route)
     summaries["op_library"] = phase_op_library(args.batch, dev)
     add(summaries["op_library"]["launches"])
+    torch.cuda.empty_cache()
+    summaries["fp32"] = phase_fp32()
+    tr = phase_train_resnet50(dev)
+    summaries["train_split"] = phase_train_split(tr)
+    summaries["train_parity"] = phase_train_parity(dev)
+    torch.cuda.empty_cache()
+    summaries["train_resnet152_remat"] = phase_train_remat_resnet152(dev)
+    torch.cuda.empty_cache()
+    served = phase_trained_served(tr, cases["resnet152"], args.batch, dev)
+    add(served["launches"])
+    summaries["trained_served"] = served
+    summaries["train_resnet50"] = {k: v for k, v in tr.items() if k not in ("ts", "x", "y", "tcfg")}
+    del tr
+    torch.cuda.empty_cache()
+    summaries["cli"] = phase_cli()
+    summaries["verify_resnet152"] = phase_verify_resnet152()
     torch.cuda.empty_cache()
     kernels, per_case = phase_kernel_timing(args.batch, dev, errs, launches)
     ew = phase_ew_timing(dev)

@@ -7,7 +7,9 @@ JAX package, so the files this module writes are byte-identical to the JAX
 package's writer.  Also the torch ``state_dict`` side: import from a
 dict or a ``.pth`` file (a raw ``state_dict``, or one wrapped under
 ``"state_dict"`` / ``"model"``, torchvision's layout included) and export.
-Counterpart of ``resnetc_tpu/checkpoint.py:85-190`` and ``:214``.
+And the train state (step, params, BN stats, momentum): saved and restored
+with ``torch.save`` / ``torch.load(weights_only=True)`` where the JAX
+package uses Orbax.  Counterpart of ``resnetc_tpu/checkpoint.py:85-214``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from resnetc_tpu_torch.models.resnet import ResNetConfig, param_shapes
+from resnetc_tpu_torch.train import TrainState
 from resnetc_tpu_torch.tensor import (
     flatten_tree, hwio_to_oihw, oihw_to_hwio, tree_map, unflatten_tree,
 )
@@ -140,3 +143,59 @@ def variables_from_jax_numpy(tree: Tree) -> Tree:
         return torch.from_numpy(np.array(arr, copy=True))
 
     return tree_map(leaf, tree)
+
+
+def train_state_from_jax_numpy(ts) -> TrainState:
+    """Carry a JAX-package ``TrainState`` whose leaves were converted to
+    numpy (``jax.tree.map(np.asarray, ts)``) into the port: step, params,
+    bn_state and momentum as torch tensors on the CPU."""
+    return TrainState(
+        step=torch.tensor(int(np.asarray(ts.step)), dtype=torch.int32),
+        params=variables_from_jax_numpy(ts.params),
+        bn_state=variables_from_jax_numpy(ts.bn_state),
+        momentum=variables_from_jax_numpy(ts.momentum),
+    )
+
+
+_TRAIN_STATE_FILE = "train_state.pt"
+_TRAIN_STATE_TREES = ("params", "bn_state", "momentum")
+
+
+def save_train_state(directory: str | os.PathLike, ts: TrainState) -> None:
+    """Durable training checkpoint (step, params, BN stats, momentum) in
+    ``directory``: flat torchvision-keyed CPU tensors, one ``torch.save``
+    file; conv weights stay HWIO."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    payload = {"step": ts.step.detach().cpu().clone()}
+    for name in _TRAIN_STATE_TREES:
+        payload[name] = {
+            k: v.detach().cpu().clone() for k, v in flatten_tree(getattr(ts, name)).items()
+        }
+    tmp = directory / (_TRAIN_STATE_FILE + ".tmp")
+    torch.save(payload, tmp)
+    os.replace(tmp, directory / _TRAIN_STATE_FILE)
+
+
+def load_train_state(directory: str | os.PathLike, like: TrainState) -> TrainState:
+    """Restore a checkpoint written by :func:`save_train_state` with the
+    structure of ``like``; each leaf goes to the device and dtype of its
+    counterpart in ``like``.  A key or shape mismatch raises."""
+    obj = torch.load(Path(directory) / _TRAIN_STATE_FILE, map_location="cpu",
+                     weights_only=True)
+    trees = {}
+    for name in _TRAIN_STATE_TREES:
+        want = flatten_tree(getattr(like, name))
+        got = obj[name]
+        if set(got) != set(want):
+            diff = sorted(set(got) ^ set(want))[:4]
+            raise ValueError(f"{directory}: {name} keys differ from the model's: {diff}")
+        flat = {}
+        for k, ref in want.items():
+            if tuple(got[k].shape) != tuple(ref.shape):
+                raise ValueError(f"{directory}: {name}.{k} has shape "
+                                 f"{tuple(got[k].shape)}, expected {tuple(ref.shape)}")
+            flat[k] = got[k].to(ref.device, ref.dtype)
+        trees[name] = unflatten_tree(flat)
+    step = obj["step"].to(like.step.device, like.step.dtype)
+    return TrainState(step=step, **trees)

@@ -1,5 +1,6 @@
-"""Declarative ResNet family: config table, torchvision init, BN fold and the
-folded fp forward.
+"""Declarative ResNet family: config table, torchvision init, the params /
+state split, the unfolded forward (BN in train and eval mode), BN fold and
+the folded fp forward.
 
 Counterpart of ``resnetc_tpu/models/resnet.py``.  The architecture is
 torchvision's ResNet v1.5 (stride on the 3x3 of each bottleneck), which is
@@ -8,6 +9,8 @@ parameter tree is a nested dict whose joined keys are exactly torchvision
 ``state_dict()`` keys (``layer1.0.conv1.weight``...); conv weights are HWIO
 and activations NHWC, as in the JAX package.
 
+``forward`` is the training path's network: every op differentiable with
+autograd, BN on batch statistics under ``train=True``.
 ``forward_folded`` is the fp serving path: the oracle that int8 calibration
 runs, and the counterpart of the JAX ``xla`` backend.
 """
@@ -19,6 +22,7 @@ import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from resnetc_tpu_torch.ops import torch_ops
 from resnetc_tpu_torch.tensor import BF16, DtypePolicy, unflatten_tree
@@ -163,6 +167,179 @@ def init(
         else:
             flat[key] = torch.zeros(shape, dtype=dtype)
     return unflatten_tree(flat)
+
+
+# ---------------------------------------------------------------------------
+# params/state split: BN running stats are state (updated by forward passes in
+# train mode), everything else is trainable.
+# ---------------------------------------------------------------------------
+
+_STATE_LEAVES = ("running_mean", "running_var")
+
+
+def split_params_state(variables: Tree) -> tuple[Tree, Tree]:
+    """Split one variables tree into (trainable params, BN running stats).
+
+    Both keep the full nesting (empty branches dropped), so
+    ``merge_params_state`` puts them back together."""
+
+    def walk(node):
+        params, state = {}, {}
+        for k, v in node.items():
+            if isinstance(v, dict):
+                p, s = walk(v)
+                if p:
+                    params[k] = p
+                if s:
+                    state[k] = s
+            elif k in _STATE_LEAVES:
+                state[k] = v
+            else:
+                params[k] = v
+        return params, state
+
+    return walk(variables)
+
+
+def merge_params_state(params: Tree, state: Tree) -> Tree:
+    def walk(p, s):
+        out = {}
+        for k in set(p) | set(s):
+            if k in p and k in s:
+                out[k] = walk(p[k], s[k])
+            elif k in p:
+                out[k] = p[k] if not isinstance(p[k], dict) else walk(p[k], {})
+            else:
+                out[k] = s[k] if not isinstance(s[k], dict) else walk({}, s[k])
+        return out
+
+    return walk(params, state)
+
+
+# ---------------------------------------------------------------------------
+# Forward pass (BN unfolded, train or eval mode).
+# ---------------------------------------------------------------------------
+
+
+def _bn(x, bn_vars, *, train: bool):
+    if not train:
+        out = torch_ops.batch_norm_inference(
+            x, bn_vars["weight"], bn_vars["bias"],
+            bn_vars["running_mean"], bn_vars["running_var"],
+        )
+        return out, None
+    out, new_mean, new_var = torch_ops.batch_norm_train(
+        x, bn_vars["weight"], bn_vars["bias"],
+        bn_vars["running_mean"], bn_vars["running_var"],
+    )
+    return out, {"running_mean": new_mean, "running_var": new_var}
+
+
+def _conv_bn_act(x, conv_vars, bn_vars, *, stride, padding, act, train, policy, groups=1):
+    w = conv_vars["weight"].to(policy.compute)
+    y = torch_ops.conv2d(x, w, stride=stride, padding=padding, groups=groups)
+    y, new_stats = _bn(y, bn_vars, train=train)
+    if act:
+        y = torch_ops.relu(y)
+    return y, new_stats
+
+
+def _block_forward(x, blk, cfg: ResNetConfig, stride: int, *, train: bool, policy):
+    """One residual block.  Bottleneck: 1x1 -> bn -> relu, 3x3 stride s
+    pad 1 -> bn -> relu, 1x1 -> bn, + shortcut, relu.  Basic: 3x3 stride s
+    pad 1 -> bn -> relu, 3x3 pad 1 -> bn, + shortcut, relu.  Returns
+    ``(y, new BN stats of the block)``."""
+    new_state: Tree = {}
+
+    def bn_step(name, y, conv_name, s, p, act, groups=1):
+        y, stats = _conv_bn_act(
+            y, blk[conv_name], blk[name], stride=s, padding=p, act=act,
+            train=train, policy=policy, groups=groups,
+        )
+        if stats is not None:
+            new_state[name] = stats
+        return y
+
+    if cfg.block == "bottleneck":
+        y = bn_step("bn1", x, "conv1", 1, 0, True)
+        y = bn_step("bn2", y, "conv2", stride, 1, True, groups=cfg.groups)
+        y = bn_step("bn3", y, "conv3", 1, 0, False)
+    else:
+        y = bn_step("bn1", x, "conv1", stride, 1, True)
+        y = bn_step("bn2", y, "conv2", 1, 1, False)
+
+    if "downsample" in blk:
+        w = blk["downsample"]["0"]["weight"].to(policy.compute)
+        short = torch_ops.conv2d(x, w, stride=stride, padding=0)
+        short, stats = _bn(short, blk["downsample"]["1"], train=train)
+        if stats is not None:
+            new_state["downsample"] = {"1": stats}
+    else:
+        short = x
+
+    y = torch_ops.relu(torch_ops.add(y, short))
+    return y, new_state
+
+
+def forward(
+    cfg: ResNetConfig,
+    variables: Tree,
+    x: torch.Tensor,
+    *,
+    train: bool = False,
+    policy: DtypePolicy = BF16,
+    remat: bool = False,
+) -> tuple[torch.Tensor, Tree]:
+    """Run the network on NHWC ``x``; counterpart of the JAX ``forward``
+    (``models/resnet.py:320``).
+
+    Returns ``(logits [B, num_classes] in policy.output, new_state)``:
+    ``new_state`` holds the updated BN running stats under ``train=True``,
+    with exactly the structure of the tree's BN state, and is empty
+    otherwise.  Differentiable through autograd.
+
+    ``remat=True`` checkpoints each residual block
+    (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
+    the block's activations instead of keeping them.  The running stats are
+    those of the first forward; the recomputation's are discarded."""
+    x = x.to(policy.compute)
+    new_state: Tree = {}
+
+    y, stats = _conv_bn_act(
+        x, variables["conv1"], variables["bn1"], stride=2, padding=3, act=True,
+        train=train, policy=policy,
+    )
+    if stats is not None:
+        new_state["bn1"] = stats
+    y = torch_ops.max_pool2d(y, kernel_size=3, stride=2, padding=1)
+
+    for stage in range(4):
+        layer_name = f"layer{stage + 1}"
+        stage_stride = 1 if stage == 0 else 2
+        layer_state: Tree = {}
+        for b in range(cfg.stage_blocks[stage]):
+            blk_stride = stage_stride if b == 0 else 1
+            blk = variables[layer_name][str(b)]
+            if remat:
+                y, blk_state = torch.utils.checkpoint.checkpoint(
+                    _block_forward, y, blk, cfg, blk_stride, train=train, policy=policy,
+                    use_reentrant=False, preserve_rng_state=False,
+                )
+            else:
+                y, blk_state = _block_forward(y, blk, cfg, blk_stride, train=train,
+                                              policy=policy)
+            if blk_state:
+                layer_state[str(b)] = blk_state
+        if layer_state:
+            new_state[layer_name] = layer_state
+
+    feats = torch_ops.global_avg_pool(y)
+    logits = torch_ops.linear(
+        feats.to(policy.compute),
+        variables["fc"]["weight"].to(policy.compute),
+        variables["fc"]["bias"],
+    )
+    return logits.to(policy.output), new_state
 
 
 # ---------------------------------------------------------------------------

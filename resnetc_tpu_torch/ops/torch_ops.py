@@ -7,16 +7,55 @@ OIHW only around the library call:
 - conv2d: square kernel, symmetric stride/padding, zero padding, no bias;
   fp32 accumulation, then a cast back to the compute dtype;
 - max_pool2d: padding contributes -inf (int-min for integer inputs);
+- avg_pool2d: divisor k*k whatever the padding;
 - batch_norm inference with eps 1e-5, and its fold into the preceding conv;
+- batch_norm_train: batch statistics, running statistics with momentum 0.1;
 - relu / add / global average pool / linear.
+
+fp32 operands on the card compute in IEEE fp32 (``exact_fp32``), as the
+JAX ops pin ``Precision.HIGHEST``: the FP32 policy is the parity mode.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 
 EPS = 1e-5  # BatchNorm epsilon, the reference's value (cuda/ops.cu:150).
+
+#: Running-stat momentum in training mode, PyTorch BatchNorm2d's default.
+BN_MOMENTUM = 0.1
+
+
+@contextlib.contextmanager
+def exact_fp32():
+    """IEEE fp32 for cuDNN convolutions and cuBLAS matmuls inside the block,
+    whatever the process's TF32 settings; they are given back on exit.
+
+    PyTorch lets cuDNN compute fp32 convolutions in TF32 by default (a
+    10-bit mantissa in the products), and ``set_float32_matmul_precision``
+    does the same to matmuls.  This sets the per-op ``fp32_precision``
+    attributes, which take precedence over the backend-wide and legacy
+    ``allow_tf32`` flags.  Autograd runs a backward after the forward has
+    returned, so a caller that differentiates fp32 work holds the guard
+    around the backward too (``train.train_step`` does).  Process-wide
+    state: not for concurrent use from several threads."""
+    conv = torch.backends.cudnn.conv
+    mm = torch.backends.cuda.matmul
+    saved = conv.fp32_precision, mm.fp32_precision
+    conv.fp32_precision = mm.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision, mm.fp32_precision = saved
+
+
+def _exact_if_fp32_cuda(t: torch.Tensor):
+    if t.is_cuda and t.dtype == torch.float32:
+        return exact_fp32()
+    return contextlib.nullcontext()
 
 
 def conv2d(
@@ -33,12 +72,20 @@ def conv2d(
     Accumulates in ``accum_dtype`` regardless of the compute dtype, then
     casts back.  On the card cuDNN's bf16 convolution already accumulates in
     fp32; on the CPU the operands are widened first, which is exact (a
-    product of two bf16 values is exact in fp32).
+    product of two bf16 values is exact in fp32).  fp32 on the card is
+    IEEE fp32 (``exact_fp32``).
+
+    Backward (autograd through ``F.conv2d``): on the card a bf16 convolution
+    backpropagates as bf16 cuDNN convolutions that accumulate in fp32, the
+    contract of the JAX package's ``_mixed_dtype_conv``.  On the CPU the
+    widened path gives fp32 gradients rounded to bf16 at the cast, which
+    differ from JAX's in the last bits.
     """
     xn = x.permute(0, 3, 1, 2)
     wn = w.permute(3, 2, 0, 1)
     if x.dtype == accum_dtype or x.is_cuda:
-        y = F.conv2d(xn, wn.to(x.dtype), stride=stride, padding=padding, groups=groups)
+        with _exact_if_fp32_cuda(x):
+            y = F.conv2d(xn, wn.to(x.dtype), stride=stride, padding=padding, groups=groups)
     else:
         y = F.conv2d(
             xn.to(accum_dtype), wn.to(accum_dtype),
@@ -65,6 +112,18 @@ def max_pool2d(
     return y.permute(0, 2, 3, 1)
 
 
+def avg_pool2d(
+    x: torch.Tensor, *, kernel_size: int, stride: int, padding: int = 0
+) -> torch.Tensor:
+    """Average pool, NHWC: an fp32 window sum over the zero-padded input
+    divided by ``kernel_size**2`` whatever the padding, cast back."""
+    summed = F.avg_pool2d(
+        x.permute(0, 3, 1, 2).float(), kernel_size, stride, padding,
+        count_include_pad=True, divisor_override=1,
+    )
+    return (summed / (kernel_size * kernel_size)).to(x.dtype).permute(0, 2, 3, 1)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Global spatial mean in fp32, NHWC -> NC, cast back to x's dtype."""
     return x.float().mean(dim=(1, 2)).to(x.dtype)
@@ -78,8 +137,11 @@ def linear(
     accum_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """``x [B, in] @ W.T + b`` with W in PyTorch's [out, in] layout; fp32
-    accumulation (operands widened: exact for bf16 products)."""
-    out = x.to(accum_dtype) @ w.to(accum_dtype).t()
+    accumulation (operands widened: exact for bf16 products), IEEE fp32 on
+    the card (``exact_fp32``)."""
+    xa = x.to(accum_dtype)
+    with _exact_if_fp32_cuda(xa):
+        out = xa @ w.to(accum_dtype).t()
     if b is not None:
         out = out + b.to(accum_dtype)
     return out.to(x.dtype)
@@ -108,6 +170,40 @@ def batch_norm_inference(
     a = (scale.float() * inv).to(x.dtype)
     c = (bias.float() - mean.float() * scale.float() * inv).to(x.dtype)
     return x * a + c
+
+
+def batch_norm_train(
+    x: torch.Tensor,
+    scale: torch.Tensor,
+    bias: torch.Tensor,
+    running_mean: torch.Tensor,
+    running_var: torch.Tensor,
+    *,
+    eps: float = EPS,
+    momentum: float = BN_MOMENTUM,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training-mode batch norm, NHWC: normalise with the batch statistics
+    and return ``(out, new_running_mean, new_running_var)``.
+
+    The JAX package's formula (``lax_ops.py:245``), not ``F.batch_norm``:
+    fp32 raw moments ``m = E[x]``, ``E[x^2]``; the biased ``var = E[x^2] -
+    m^2`` normalises, through a per-channel ``a``, ``c`` cast to x's dtype
+    and ``x * a + c``.  The running variance takes the unbiased one,
+    ``var * n / max(n - 1, 1)`` with ``n = N*H*W``, and both running stats
+    move by ``momentum``.  They carry no autograd graph."""
+    xf = x.float()
+    n = x.shape[0] * x.shape[1] * x.shape[2]
+    mean = xf.mean(dim=(0, 1, 2))
+    var = xf.square().mean(dim=(0, 1, 2)) - mean.square()
+    inv = torch.rsqrt(var + eps)
+    a = (scale.float() * inv).to(x.dtype)
+    c = (bias.float() - mean * scale.float() * inv).to(x.dtype)
+    out = x * a + c
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        new_mean = (1 - momentum) * running_mean.float() + momentum * mean
+        new_var = (1 - momentum) * running_var.float() + momentum * unbiased
+    return out, new_mean.to(running_mean.dtype), new_var.to(running_var.dtype)
 
 
 def fold_bn_into_conv(

@@ -40,6 +40,14 @@ FP32 = DtypePolicy(param=torch.float32, compute=torch.float32, output=torch.floa
 BF16 = DtypePolicy(param=torch.float32, compute=torch.bfloat16, output=torch.float32)
 
 
+def policy(name: str) -> DtypePolicy:
+    """Look up a policy by name ('fp32' | 'bf16')."""
+    try:
+        return {"fp32": FP32, "bf16": BF16}[name]
+    except KeyError:
+        raise ValueError(f"unknown dtype policy {name!r}; expected 'fp32' or 'bf16'")
+
+
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: ``None`` means the card.
 

@@ -19,6 +19,8 @@ products in another order than their plain versions: fp32 outputs within
 rtol 1e-4 (atol 1e-4), bf16 outputs within 1 bf16 ulp of the larger
 magnitude (or 1e-5 of the largest output, where relu cuts a sum that is
 zero to fp32 rounding).
+The port's fp32 ``conv2d`` / ``linear`` (``ops.torch_ops``) are IEEE
+fp32 with TF32 turned on in the process: within 1e-5 of float64.
 The bf16 ``matmul`` splits K over a workspace at the fc and sums the slices
 in a fixed order: two calls give the same bits.  ``int8_matmul`` (the int8
 wgmma tile) splits K over an int32 workspace, exactly: it equals its plain
@@ -53,6 +55,7 @@ import numpy as np
 import pytest
 import torch
 
+from resnetc_tpu_torch.ops import torch_ops
 from resnetc_tpu_torch.ops.cuda import _build
 from resnetc_tpu_torch.ops.cuda import block, gemm
 from resnetc_tpu_torch.ops.cuda.quant import quantize_per_channel
@@ -66,13 +69,44 @@ DS_KEYS = ("w1q", "sw1", "b1", "w2q", "sw2", "b2", "w3q", "sw3", "b3", "wdq", "s
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
 @pytest.fixture()
 def gen() -> np.random.Generator:
     return np.random.default_rng(4321)
+
+
+@pytest.mark.cuda
+def test_fp32_conv2d_and_linear_are_ieee_under_tf32(cuda, gen):
+    """The port's fp32 conv2d and linear compute in IEEE fp32 with TF32
+    turned on in the process (ResNet-50's 3x3 at 56x56x64 and the fc, batch
+    8): within 1e-5 of max |float64|; the settings are given back."""
+    conv, mm = torch.backends.cudnn.conv, torch.backends.cuda.matmul
+    saved = conv.fp32_precision, mm.fp32_precision
+    conv.fp32_precision = mm.fp32_precision = "tf32"
+    try:
+        x = gen.standard_normal((8, 56, 56, 64)).astype(np.float32)
+        w = (gen.standard_normal((3, 3, 64, 64)) / 24).astype(np.float32)
+        a = gen.standard_normal((8, 2048)).astype(np.float32)
+        wl = (gen.standard_normal((1000, 2048)) / 45).astype(np.float32)
+        bl = gen.standard_normal(1000).astype(np.float32)
+        want_conv = torch.nn.functional.conv2d(
+            torch.from_numpy(x).double().permute(0, 3, 1, 2),
+            torch.from_numpy(w).double().permute(3, 2, 0, 1), padding=1,
+        ).permute(0, 2, 3, 1)
+        want_lin = torch.from_numpy(a).double() @ torch.from_numpy(wl).double().t() + \
+            torch.from_numpy(bl).double()
+        got_conv = torch_ops.conv2d(torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda),
+                                    padding=1)
+        got_lin = torch_ops.linear(*(torch.from_numpy(t).to(cuda) for t in (a, wl, bl)))
+        assert (conv.fp32_precision, mm.fp32_precision) == ("tf32", "tf32")
+        for got, want in ((got_conv, want_conv), (got_lin, want_lin)):
+            assert got.dtype == torch.float32
+            rel = float((got.double().cpu() - want).abs().max() / want.abs().max())
+            assert rel <= 1e-5, rel
+    finally:
+        conv.fp32_precision, mm.fp32_precision = saved
 
 
 def _quantized(gen, cin, c, c4, dev, *, proj=False, ds=False):
