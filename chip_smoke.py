@@ -91,7 +91,21 @@ then:
    against the folded one and an ``int8_chain`` engine on it, gated and
    counted; ``[cli]``, ``python -m resnetc_tpu_torch train`` in process
    with a checkpoint, an export and a resume; ``[verify resnet152]``, the
-   parity reports against the twin at 224 px under FP32;
+   parity reports against the twin at 224 px under FP32.  Then data
+   parallelism (``resnetc_tpu_torch.parallel``): ``[dp nccl1]``, an NCCL
+   group of world size 1 in this process (after ResNet-152's serving
+   phases), the sharded ``int8_chain`` forward equal to the engine's and
+   counted, and ResNet-50's FP32 DP step within ``[train parity]``'s band
+   of ``train_step``; ``[dp serve resnet152]`` and ``[dp train
+   resnet50]``, two ranks spawned onto the one card over gloo (NCCL
+   refuses two ranks on one device; the kernels are built before): the
+   served engine with ``mesh=`` on a global batch of 32 held to the
+   one-process engine by JAX's DP serving contract, each rank's launches
+   counted, and ResNet-50's DP step at the global batch 128, FP32 against
+   ``train_step`` at ``tests/test_parallel.py``'s tolerances, then three
+   BF16 steps (ms, img/s, the gloo all-reduce's ms, peak memory); ``[cli
+   dp]``, ``train --data-dim 2`` and the two-process ``--multihost`` form
+   of the command, the same losses on both ranks of each;
 3. times the engines (images/s, p50 / p99 ms per batch) for int8_chain on
    both routes (and ResNet-34's BASIC_DS_INT8=False route, ResNet-152's
    per-channel and hybrid routes), int8, pallas, pallas_block and fp, and
@@ -2214,6 +2228,428 @@ def phase_verify_resnet152() -> dict:
             "argmax_match_rate": rep.argmax_match_rate, "stages": stages}
 
 
+#: Data parallelism (``[dp ...]``): the served model's global batch (16 a
+#: rank on two ranks), ResNet-50's global training batch, the FP32 step's
+#: rate (``tests/test_parallel.py``'s DP test), and the FP32 step's bands.
+DP_SERVE_BATCH, DP_TRAIN_BATCH, DP_LR = 32, 128, 0.1
+#: ``tests/test_parallel.py:151-172``'s tolerances: loss, grad_norm, leaves.
+DP_LOSS_RTOL, DP_NORM_RTOL, DP_RTOL, DP_ATOL = 1e-5, 1e-4, 1e-4, 5e-6
+#: The FP32 DP steps: (model, classes, image size, global batch).  The
+#: first is ``tests/test_parallel.py``'s DP test, held to the one-process
+#: step at its tolerances.  At the second, ResNet-50 b128 224 px, the
+#: one-process FP32 step itself stands hundreds of band-widths of those
+#: tolerances from the float64 step (on an H100 about 220 at the farthest
+#: leaf, against that leaf's largest value; the phase prints it), and the
+#: DP step as far: BN's raw fp32 moments over up to 1.6 M values a
+#: channel, and the stem's scale-invariant gradient, a difference of large
+#: sums.  So it is held to the float64 twin's step: every leaf no further
+#: from it than twice the one-process step's distance (or one band-width),
+#: the gradient norm likewise.
+DP_FP32 = (("resnet18", 10, 32, 16), ("resnet50", 1000, 224, DP_TRAIN_BATCH))
+
+
+def _served_resnet152(dev, mesh=None):
+    """``phase_end_to_end``'s ResNet-152 ``int8_chain`` engine and batch,
+    from the same seeds (weights 0, calibration 1, images 2)."""
+    import torch
+
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.serve import InferenceEngine
+
+    cfg = resnet.get_config("resnet152")
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    calib = torch.randn((8, 224, 224, 3), generator=torch.Generator().manual_seed(1))
+    eng = InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=calib, device=dev,
+                          mesh=mesh)
+    x = torch.randn((DP_SERVE_BATCH, 224, 224, 3), generator=torch.Generator().manual_seed(2))
+    return eng, x.to(dev)
+
+
+def _flat_state(ts) -> dict:
+    """A train state's parameters and running stats by torchvision key."""
+    from resnetc_tpu_torch.tensor import flatten_tree
+
+    return {k: v for name in ("params", "bn_state")
+            for k, v in flatten_tree(getattr(ts, name)).items()}
+
+
+def _leaf_ratio(got: dict, want: dict, rtol: float, atol: float) -> tuple[float, str]:
+    """The largest |got - want| / (atol + rtol |want|) over every leaf, and
+    its leaf."""
+    worst, key = 0.0, ""
+    for k, w in want.items():
+        w = w.double().cpu()
+        r = float(((got[k].double().cpu() - w).abs() / (atol + rtol * w.abs())).max())
+        if r > worst:
+            worst, key = r, k
+    return worst, key
+
+
+def _init_resnet50(dev, seed: int = 0):
+    import torch
+
+    from resnetc_tpu_torch import train
+    from resnetc_tpu_torch.models import resnet
+
+    return train.init_train_state(resnet.get_config("resnet50"),
+                                  torch.Generator().manual_seed(seed), device=dev)
+
+
+def _fp32_case(case, dev, seed: int = 0):
+    """(config, train config, state from ``seed``, global batch) of a
+    ``DP_FP32`` case."""
+    import torch
+
+    from resnetc_tpu_torch import train
+    from resnetc_tpu_torch.data.loader import synthetic_batches
+    from resnetc_tpu_torch.models import resnet
+
+    model, classes, size, batch = case
+    cfg = resnet.get_config(model, num_classes=classes)
+    ts = train.init_train_state(cfg, torch.Generator().manual_seed(seed), device=dev)
+    x, y = next(iter(synthetic_batches(batch_size=batch, image_size=size, steps=1,
+                                       num_classes=classes, seed=0, device=dev)))
+    return cfg, train.TrainConfig(policy_name="fp32", lr=DP_LR), ts, x, y
+
+
+def _exact_step(cfg, ts, x, y) -> tuple[dict, float, float]:
+    """The float64 twin's SGD step (``torch.optim.SGD``, the port's rate,
+    momentum and weight decay) from ``ts`` on (x, y): its leaves, loss and
+    gradient norm."""
+    import torch
+    import torch.nn.functional as F
+
+    from resnetc_tpu_torch import checkpoint
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.tensor import flatten_tree
+    from resnetc_tpu_torch.verify.twin import build_twin
+
+    twin = build_twin(cfg).double().train().to(x.device)
+    sd = checkpoint.torch_state_dict_from_variables(resnet.merge_params_state(ts.params,
+                                                                             ts.bn_state))
+    twin.load_state_dict({k: v.double() for k, v in sd.items()}, strict=False)
+    opt = torch.optim.SGD(twin.parameters(), lr=DP_LR, momentum=0.9, weight_decay=1e-4)
+    loss = F.cross_entropy(twin(x.double().permute(0, 3, 1, 2)), y.long())
+    loss.backward()
+    norm = float(torch.linalg.vector_norm(torch.stack([p.grad.norm() for p in twin.parameters()])))
+    opt.step()
+    flat = flatten_tree(checkpoint.variables_from_torch_state_dict(twin.state_dict()))
+    return {k: v.detach().double().cpu() for k, v in flat.items()}, float(loss.detach()), norm
+
+
+def phase_dp_nccl1(e2e: dict, cases: list, dev) -> dict:
+    """An NCCL process group of world size 1 in this process: the DP step
+    (``sharded_train_step``) on ResNet-50, FP32, 224 px, batch 32, against
+    ``train_step`` on copies of the same state and batch (the ``[train
+    parity]`` band: loss 5e-4, leaves rtol 1e-3, atol 1e-5; bit equality
+    reported), and ``fused_forward_int8_chain_sharded`` on ResNet-152's
+    served route against the engine's forward on the same batch (equal,
+    counted).  The group is torn down after."""
+    import torch
+
+    from resnetc_tpu_torch import train
+    from resnetc_tpu_torch.data.loader import synthetic_batches
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused
+    from resnetc_tpu_torch.parallel import create_mesh, distributed
+
+    tag = "[dp nccl1]"
+    t0 = time.perf_counter()
+    distributed.initialize(f"127.0.0.1:{distributed.free_port()}", 1, 0)
+    try:
+        backend = torch.distributed.get_backend()
+        mesh = create_mesh()
+        log(f"{tag} process group: backend {backend}, world 1, mesh {mesh} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if backend != "nccl":
+            raise AssertionError(f"{tag} one rank on one card chose {backend}, not nccl")
+        eng, x = e2e["engine"], e2e["x"]
+        engine_logits = eng.logits(x)
+        got, launches = counted(lambda: fused.fused_forward_int8_chain_sharded(
+            eng.model_cfg, eng.folded, eng.chain_scales, x, mesh, policy=eng.policy))
+        expect = expected_launches(cases, pp=fused.L1_PIXEL_PAIR)
+        equal = torch.equal(got, engine_logits)
+        log(f"{tag} ResNet-152 int8_chain b{x.shape[0]} through the sharded forward: logits "
+            f"equal to the engine's {equal}; launches {json.dumps(launches)}")
+        if not equal or launches != expect:
+            raise AssertionError(f"{tag} the sharded forward differs from the engine's "
+                                 f"or launched {launches}, expected {expect}")
+
+        cfg = resnet.get_config("resnet50")
+        tcfg = train.TrainConfig(policy_name="fp32", lr=DP_LR)
+        xb, yb = next(iter(synthetic_batches(batch_size=32, steps=1, seed=0, device=dev)))
+        step, shard_state, _ = train.sharded_train_step(cfg, tcfg, mesh)
+        dp, mdp = step(shard_state(_init_resnet50(dev)), xb, yb, DP_LR)
+        one, mone = train.train_step(cfg, tcfg, _init_resnet50(dev), xb, yb, DP_LR)
+        got, want = _flat_state(dp), _flat_state(one)
+        bits = all(torch.equal(got[k], want[k]) for k in want) and all(
+            torch.equal(mdp[k], mone[k]) for k in mone)
+        worst, key = _leaf_ratio(got, want, 1e-3, 1e-5)
+        dloss = abs(float(mdp["loss"]) - float(mone["loss"]))
+        log(f"{tag} ResNet-50 FP32 b32 DP step vs train_step: loss {float(mdp['loss'])} / "
+            f"{float(mone['loss'])}, grad_norm {float(mdp['grad_norm'])} / "
+            f"{float(mone['grad_norm'])}; worst leaf {worst} band-widths ({key}); "
+            f"bit for bit: {bits}")
+        if dloss > 5e-4 or worst > 1.0:
+            raise AssertionError(f"{tag} the world-1 DP step differs from train_step")
+    finally:
+        distributed.shutdown()
+    torch.cuda.empty_cache()
+    return {"backend": backend, "launches": launches, "step_bit_equal": bits,
+            "step_worst_band": worst, "seconds": time.perf_counter() - t0,
+            "engine_logits": engine_logits.float().cpu().numpy()}
+
+
+def dp_rank(dev) -> dict:
+    """One of the two ranks of ``[dp serve resnet152]`` and ``[dp train
+    resnet50]``, sharing the card over gloo (run by
+    ``parallel.distributed.spawn``): the served ResNet-152 engine with the
+    mesh on the global batch (counted, timed), then one FP32 DP step of
+    each ``DP_FP32`` case from rank 0's state (shared by ``shard_state``
+    though this rank starts from its own seed), then three BF16 steps of
+    ResNet-50 at the global batch 128, timed, then the gradient all-reduce
+    alone.  Returns small numbers, and rank 0 also the FP32 steps' leaves."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from resnetc_tpu_torch import train
+    from resnetc_tpu_torch.data.loader import synthetic_batches
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.parallel import create_mesh
+    from resnetc_tpu_torch.tensor import flatten_tree
+
+    rank = dist.get_rank()
+    mesh = create_mesh()
+    out: dict = {"rank": rank, "device": str(dev), "backend": dist.get_backend()}
+
+    eng, x = _served_resnet152(dev, mesh)
+    logits, launches = counted(lambda: eng.logits(x))
+    ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.logits(x)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["serve"] = {"logits": logits.float().cpu().numpy(), "launches": launches,
+                    "ms_per_global_batch": sorted(ms)[2]}
+    del eng, x, logits
+    torch.cuda.empty_cache()
+
+    out["fp32"] = []
+    for case in DP_FP32:
+        cfg, tcfg, ts, xb, yb = _fp32_case(case, dev, seed=rank)
+        step, shard_state, _ = train.sharded_train_step(cfg, tcfg, mesh)
+        ts, m = step(shard_state(ts), xb, yb, DP_LR)
+        flat = {k: v.cpu().numpy() for k, v in _flat_state(ts).items()}
+        digest = hashlib.sha256(b"".join(flat[k].tobytes() for k in sorted(flat))).hexdigest()
+        out["fp32"].append({"metrics": {k: float(v) for k, v in m.items()}, "digest": digest,
+                            "leaves": flat if rank == 0 else None})
+        del ts, m, flat
+        torch.cuda.empty_cache()
+
+    cfg = resnet.get_config("resnet50")
+    tcfg = train.TrainConfig(lr=TRAIN_LR)
+    sched = train.cosine_schedule(tcfg.lr, 3, warmup_steps=1)
+    xb, yb = next(iter(synthetic_batches(batch_size=DP_TRAIN_BATCH, steps=1, seed=0,
+                                         device=dev)))
+    step, shard_state, _ = train.sharded_train_step(cfg, tcfg, mesh)
+    ts = shard_state(_init_resnet50(dev))
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, m = step(ts, xb, yb, sched(ts.step))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    n = sum(v.numel() for v in flatten_tree(ts.params).values())
+    buf = torch.zeros(n + 2, device=dev)
+    dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    out["bf16"] = {"ms_per_step": ms, "losses": losses, "peak_gib": peak / 2**30,
+                   "all_reduce_ms": (time.perf_counter() - t0) / 3 * 1e3,
+                   "all_reduce_mb": buf.numel() * 4 / 1e6,
+                   "finite": bool(np.isfinite(losses).all())}
+    return out
+
+
+def phase_dp_two_ranks(engine_logits, want_launches: dict, dev) -> dict:
+    """``[dp serve resnet152]`` and ``[dp train resnet50]``: two ranks on the
+    one card over gloo (``dp_rank``; NCCL refuses two ranks on one device).
+    Serving: the gathered logits of the global batch of 32 against the
+    one-process engine's (``[dp nccl1]``) by JAX's DP serving contract
+    (``tests/test_parallel.py:57-65``: rel-MAE < 0.02, argmax agreement >=
+    0.85; the stem is a stock convolution at another batch, so exactness is
+    not the contract: the bit-equal share is reported), equal on both
+    ranks, and each rank's launches those of one served forward.  Training:
+    one FP32 DP step of each ``DP_FP32`` case against ``train_step`` on the
+    same global batch in this process, the ranks' leaves equal:
+    ``tests/test_parallel.py``'s configuration at its tolerances
+    (:132-172), ResNet-50 b128 224 px against the float64 twin's step as
+    well; then the BF16 steps' times, the all-reduce's time (gloo stages
+    CUDA tensors through the host: not an NCCL number) and each rank's
+    peak memory."""
+    import numpy as np
+    import torch
+
+    from resnetc_tpu_torch import train
+    from resnetc_tpu_torch.parallel import distributed
+
+    refs = []
+    for case in DP_FP32:
+        cfg, tcfg, ts, xb, yb = _fp32_case(case, dev)
+        exact = _exact_step(cfg, ts, xb, yb) if case[0] == "resnet50" else None
+        one, mone = train.train_step(cfg, tcfg, ts, xb, yb, DP_LR)
+        refs.append(({k: v.cpu() for k, v in _flat_state(one).items()},
+                     {k: float(v) for k, v in mone.items()}, exact))
+        del ts, one, mone, xb, yb
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = distributed.spawn(dp_rank, 2, timeout=900)
+    secs = time.perf_counter() - t0
+
+    tag = "[dp serve resnet152]"
+    logits = res[0]["serve"]["logits"]
+    want = np.asarray(engine_logits, np.float32)
+    rel_mae = float(np.mean(np.abs(logits - want)) / np.mean(np.abs(want)))
+    agreement = float((logits.argmax(-1) == want.argmax(-1)).mean())
+    bit_share = float((logits == want).mean())
+    log(f"{tag} two ranks over {res[0]['backend']} on {res[0]['device']} / {res[1]['device']} "
+        f"({secs:.1f} s with the training below): global b{DP_SERVE_BATCH}, 16 a rank; "
+        f"vs the one-process engine rel_mae={rel_mae} argmax_agreement={agreement} "
+        f"bit-equal share {bit_share}; ms per DP forward (p50 of 5, host clock) "
+        f"{[r['serve']['ms_per_global_batch'] for r in res]}")
+    for r in res:
+        log(f"{tag} rank {r['rank']} launches {json.dumps(r['serve']['launches'])}")
+        if r["serve"]["launches"] != want_launches:
+            raise AssertionError(f"{tag} rank {r['rank']} launched {r['serve']['launches']}, "
+                                 f"expected {want_launches}")
+    if not np.array_equal(res[1]["serve"]["logits"], logits):
+        raise AssertionError(f"{tag} the ranks gathered different logits")
+    if not (rel_mae < 0.02 and agreement >= 0.85) or logits.shape != (DP_SERVE_BATCH, 1000):
+        raise AssertionError(f"{tag} DP serving outside JAX's contract")
+
+    tag = "[dp train resnet50]"
+    fp32 = []
+    for i, (case, (ref, mref, exact)) in enumerate(zip(DP_FP32, refs)):
+        fp = [r["fp32"][i] for r in res]
+        got = {k: torch.from_numpy(v) for k, v in fp[0]["leaves"].items()}
+        m = fp[0]["metrics"]
+        loss_rel = abs(m["loss"] / mref["loss"] - 1)
+        norm_rel = abs(m["grad_norm"] / mref["grad_norm"] - 1)
+        worst, key = _leaf_ratio(got, ref, DP_RTOL, DP_ATOL)
+        name = f"{case[0]} FP32 b{case[3]} ({case[3] // 2} a rank) at {case[2]} px, lr {DP_LR}"
+        log(f"{tag} {name}: loss {m['loss']} vs one process {mref['loss']} (rel {loss_rel}), "
+            f"grad_norm {m['grad_norm']} vs {mref['grad_norm']} (rel {norm_rel}), worst leaf "
+            f"{worst} band-widths of rtol {DP_RTOL}, atol {DP_ATOL} ({key}); ranks' leaves "
+            f"equal: {fp[0]['digest'] == fp[1]['digest']}")
+        if fp[0]["digest"] != fp[1]["digest"] or fp[0]["metrics"] != fp[1]["metrics"]:
+            raise AssertionError(f"{tag} {name}: the ranks' states differ after the step")
+        row = {"case": list(case), "loss_rel": loss_rel, "grad_norm_rel": norm_rel,
+               "worst_band_vs_one_process": worst, "worst_leaf": key}
+        if exact is None:
+            ok = loss_rel <= DP_LOSS_RTOL and norm_rel <= DP_NORM_RTOL and worst <= 1.0
+        else:
+            leaves, exact_loss, exact_norm = exact
+            dp_far, one_far, ratio, rkey = 0.0, 0.0, 0.0, ""
+            for k in ref:
+                e = leaves[k]
+                band = float((DP_ATOL + DP_RTOL * e.abs()).max())
+                d = float((got[k].double() - e).abs().max())
+                o = float((ref[k].double() - e).abs().max())
+                dp_far, one_far = max(dp_far, d / band), max(one_far, o / band)
+                if d / max(band, 2 * o) > ratio:
+                    ratio, rkey = d / max(band, 2 * o), k
+            norm_ok = abs(m["grad_norm"] - exact_norm) <= max(
+                DP_NORM_RTOL * exact_norm, 2 * abs(mref["grad_norm"] - exact_norm))
+            log(f"{tag} {name} against the float64 twin's step: loss {exact_loss}, grad_norm "
+                f"{exact_norm} (DP {m['grad_norm']}, one process {mref['grad_norm']}); "
+                f"farthest leaf, in band-widths: DP {dp_far}, one process {one_far}; DP's "
+                f"distance over twice the one process's, worst leaf {ratio} ({rkey})")
+            ok = loss_rel <= DP_LOSS_RTOL and norm_ok and ratio <= 1.0
+            row.update(exact_loss=exact_loss, exact_grad_norm=exact_norm, dp_vs_exact=dp_far,
+                       one_vs_exact=one_far, dp_over_twice_one=ratio)
+        if not ok:
+            raise AssertionError(f"{tag} {name}: the DP step differs from the one-process step")
+        fp32.append(row)
+    bf = [r["bf16"] for r in res]
+    for r, b in zip(res, bf):
+        steady = sum(b["ms_per_step"][1:]) / 2
+        log(f"{tag} rank {r['rank']} BF16 ms per step {[round(v, 3) for v in b['ms_per_step']]} "
+            f"(steps 2-3: {steady:.3f} ms, {DP_TRAIN_BATCH / (steady / 1e3):.1f} img/s global); "
+            f"losses {b['losses']}; peak memory {b['peak_gib']:.2f} GiB; gradient all-reduce "
+            f"alone {b['all_reduce_ms']:.2f} ms for {b['all_reduce_mb']:.1f} MB (gloo, staged "
+            "through the host: not an NCCL number)")
+        if not b["finite"] or b["losses"] != bf[0]["losses"]:
+            raise AssertionError(f"{tag} BF16 losses not finite or not equal on the ranks")
+    return {"seconds": secs, "launches": [r["serve"]["launches"] for r in res],
+            "serve": {"rel_mae": rel_mae, "argmax_agreement": agreement, "bit_share": bit_share,
+                      "ms_per_global_batch": [r["serve"]["ms_per_global_batch"] for r in res]},
+            "fp32": fp32, "bf16": bf}
+
+
+def phase_cli_dp() -> dict:
+    """``[cli dp]``: ``python -m resnetc_tpu_torch train --model resnet18
+    --steps 3 --log-every 1`` with ``--data-dim 2`` (two ranks spawned by
+    the command) and as two ``--multihost`` processes meeting at a free
+    localhost port, both runs at once, each rc 0; both ranks of each run
+    log the same losses (rank 0 to stdout, rank 1 to stderr)."""
+    import os
+
+    from resnetc_tpu_torch.parallel.distributed import free_port
+
+    tag = "[cli dp]"
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = [sys.executable, "-m", "resnetc_tpu_torch", "train", "--model", "resnet18",
+            "--steps", "3", "--log-every", "1"]
+    port = free_port()
+    cmds = {"data-dim": [base + ["--data-dim", "2"]],
+            "multihost": [base + ["--multihost", "--coordinator", f"127.0.0.1:{port}",
+                                  "--num-processes", "2", "--process-id", str(i)]
+                          for i in range(2)]}
+    t0 = time.perf_counter()
+    procs = {name: [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True, cwd=root) for c in cs]
+             for name, cs in cmds.items()}
+    try:
+        outs = {name: [p.communicate(timeout=600) for p in ps] for name, ps in procs.items()}
+    finally:
+        for p in (p for ps in procs.values() for p in ps):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    res = {}
+    for name, ps in procs.items():
+        for p, (so, se) in zip(ps, outs[name]):
+            if p.returncode != 0:
+                raise AssertionError(f"{tag} {name} exited {p.returncode}:\n{se[-3000:]}")
+        rank0, rank1 = outs[name][0][0], outs[name][-1][1]
+        recs = [[json.loads(ln) for ln in text.splitlines() if ln.startswith('{"tag": "train"')]
+                for text in (rank0, rank1)]
+        losses = [[r["loss"] for r in rr] for rr in recs]
+        backends = sorted({ln.split(", ")[1].split(" ")[0] for so, se in outs[name]
+                           for ln in se.splitlines() if ln.startswith("[parallel]")})
+        log(f"{tag} {name}: rc 0, backend {backends}, losses rank 0 {losses[0]}, rank 1 "
+            f"{losses[1]}; images/s {[round(r['images_per_sec'], 1) for r in recs[0]]}")
+        if len(losses[0]) != 3 or losses[0] != losses[1]:
+            raise AssertionError(f"{tag} {name}: the ranks logged different losses")
+        res[name] = {"losses": losses[0], "backends": backends}
+    log(f"{tag} both runs in {secs:.1f} s")
+    return {**res, "seconds": secs}
+
+
 def phase_engine_timing(name: str, runs: list, x, batch: int) -> dict:
     """Throughput and per-batch latency of each (label, engine, flags) on
     the images ``x``."""
@@ -2429,6 +2865,9 @@ def main() -> int:
                 add(route)
             runs += options.pop("routes")
             summary["options"] = options
+            summary["dp_nccl1"] = nccl1 = phase_dp_nccl1(e2e, cases[name], dev)
+            add(nccl1["launches"])
+            dp_engine_logits = nccl1.pop("engine_logits")
         if name == "resnet34":
             summary["basic_ds_int8_off"] = off = phase_basic_ds_off(e2e, dev)
             add(off["launches"])
@@ -2466,6 +2905,11 @@ def main() -> int:
     summaries["cli"] = phase_cli()
     summaries["verify_resnet152"] = phase_verify_resnet152()
     torch.cuda.empty_cache()
+    summaries["dp"] = dp = phase_dp_two_ranks(
+        dp_engine_logits, expected_launches(cases["resnet152"], pp=True), dev)
+    for route in dp["launches"]:
+        add(route)
+    summaries["cli_dp"] = phase_cli_dp()
     kernels, per_case = phase_kernel_timing(args.batch, dev, errs, launches)
     ew = phase_ew_timing(dev)
     total_s = time.perf_counter() - t0

@@ -5,7 +5,10 @@
 
 Counterpart of ``resnetc_tpu/__main__.py`` (``train`` :130-283, ``verify``
 :337-369, the parser :372-450), with the same flags.  Both run on the card
-and raise where there is none.  The serving commands (classify, bench,
+and raise where there is none.  ``train`` trains data-parallel with
+``--data-dim N`` (N ranks on this host) or ``--multihost --coordinator
+host:port --num-processes N --process-id i`` (one rank a process); a
+``--model-dim`` above 1 is refused.  The serving commands (classify, bench,
 eval, export-weights, convert-images) are not ported yet.
 """
 
@@ -18,10 +21,10 @@ import time
 
 
 def _refuse_unported(run, args) -> None:
-    if run.multihost or run.data_dim * run.model_dim > 1:
+    if run.model_dim > 1:
         raise SystemExit(
-            "--multihost, --data-dim > 1 and --model-dim > 1 are not ported yet "
-            "(ROADMAP Queue 1 item 3: parallel/); train on one card"
+            "--model-dim > 1 (channel tensor parallelism) is not ported yet "
+            "(ROADMAP Queue 1 item 3b); train data-parallel with --data-dim"
         )
     if getattr(args, "data_dir", None):
         raise SystemExit(
@@ -31,20 +34,59 @@ def _refuse_unported(run, args) -> None:
 
 
 def run_train(args: argparse.Namespace, *, device=None):
-    """The ``train`` command's body: returns the final ``TrainState``.
-    ``device=None`` is the card, as for every entry point."""
-    import torch
+    """The ``train`` command's body.  ``device=None`` is the card, as for
+    every entry point; ``device="cpu"`` runs every rank on the CPU.
 
-    from resnetc_tpu_torch import train
+    One process: returns the final ``TrainState``.  ``--multihost``: this
+    process is rank ``--process-id`` of ``--num-processes``, meeting at
+    ``--coordinator``; it draws its own slice of the global batch from
+    ``seed + rank`` (JAX ``__main__.py:194-217``) and returns its final
+    state.  ``--data-dim N`` on one host: N ranks spawned here
+    (``parallel.distributed.spawn``), each taking its slice of the one
+    global batch drawn from ``seed``, so the run logs what the one-rank
+    run logs; returns None.  Rank 0 writes the metrics log to stdout, the
+    checkpoint and the export; the other ranks write their records to
+    stderr."""
     from resnetc_tpu_torch.config import run_config_from_args
-    from resnetc_tpu_torch.data.loader import synthetic_batches
-    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.parallel import distributed
     from resnetc_tpu_torch.tensor import resolve_device
-    from resnetc_tpu_torch.utils.metrics import MetricsLogger
 
     run = run_config_from_args(args)
     _refuse_unported(run, args)
-    dev = resolve_device(device)
+    if run.multihost:
+        dev = distributed.initialize(run.coordinator, run.num_processes, run.process_id,
+                                     device=device)
+        try:
+            return _train(run, args, dev, parallel=True, local_batch=True)
+        finally:
+            distributed.shutdown()
+    if run.data_dim > 1:
+        # A rank unpickles its target by module name, and under ``python -m``
+        # this module is ``__main__``, which a spawned process does not
+        # import: pass the function (and no ``args.fn``) under the package
+        # name.
+        from resnetc_tpu_torch import __main__ as cli
+
+        rank_args = argparse.Namespace(**{k: v for k, v in vars(args).items() if k != "fn"})
+        distributed.spawn(cli._train_rank, run.data_dim, run, rank_args, device=device)
+        return None
+    return _train(run, args, resolve_device(device), parallel=False, local_batch=False)
+
+
+def _train_rank(dev, run, args) -> None:
+    """One rank of a single-host ``--data-dim N`` run (``spawn``)."""
+    _train(run, args, dev, parallel=True, local_batch=False)
+
+
+def _train(run, args, dev, *, parallel: bool, local_batch: bool):
+    import torch
+
+    from resnetc_tpu_torch import train
+    from resnetc_tpu_torch.data.loader import synthetic_batches
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.parallel import distributed
+    from resnetc_tpu_torch.utils.metrics import MetricsLogger
+
     cfg = resnet.get_config(run.model, num_classes=run.num_classes)
     tcfg = train.TrainConfig(
         lr=args.lr, momentum=args.momentum, weight_decay=args.weight_decay,
@@ -52,22 +94,40 @@ def run_train(args: argparse.Namespace, *, device=None):
         remat=args.remat,
     )
     sched = train.cosine_schedule(args.lr, args.steps, warmup_steps=args.warmup_steps)
-    log = MetricsLogger(prefix="train")
+    rank = torch.distributed.get_rank() if parallel else 0
+    log = MetricsLogger(sys.stdout if rank == 0 else sys.stderr, prefix="train")
 
     ts = train.init_train_state(cfg, torch.Generator().manual_seed(run.seed), device=dev)
-    if args.resume:
+    if args.resume and rank == 0:
         from resnetc_tpu_torch.checkpoint import load_train_state
 
         ts = load_train_state(args.resume, ts)
         print(f"resumed from {args.resume} at step {int(ts.step)}")
+    if parallel:
+        from resnetc_tpu_torch.parallel import create_mesh
 
+        # --data-dim sizes the data axis; a --multihost run left at 1 takes
+        # every rank.
+        mesh = create_mesh(run.data_dim if run.data_dim > 1 else None, run.model_dim,
+                           device_type=dev.type)
+        step_fn, shard_state, _ = train.sharded_train_step(cfg, tcfg, mesh,
+                                                           local_batch=local_batch)
+        ts = shard_state(ts)
+    else:
+        def step_fn(ts, x, y, lr):
+            return train.train_step(cfg, tcfg, ts, x, y, lr)
+
+    batch_size, seed = run.batch_size, run.seed
+    if local_batch:
+        _, batch_size = distributed.global_batch_slice(run.batch_size)
+        seed += rank
     batches = synthetic_batches(
-        batch_size=run.batch_size, image_size=run.image_size, steps=args.steps,
-        num_classes=run.num_classes, seed=run.seed, device=dev,
+        batch_size=batch_size, image_size=run.image_size, steps=args.steps,
+        num_classes=run.num_classes, seed=seed, device=dev,
     )
     t_last = time.perf_counter()
     for i, (x, y) in enumerate(batches):
-        ts, m = train.train_step(cfg, tcfg, ts, x, y, sched(ts.step))
+        ts, m = step_fn(ts, x, y, sched(ts.step))
         if (i + 1) % args.log_every == 0:
             record = {
                 "step": int(ts.step),
@@ -81,9 +141,10 @@ def run_train(args: argparse.Namespace, *, device=None):
     if args.checkpoint_dir:
         from resnetc_tpu_torch.checkpoint import save_train_state
 
-        save_train_state(args.checkpoint_dir, ts)
-        print(f"saved checkpoint to {args.checkpoint_dir}")
-    if args.export_weights_dir:
+        save_train_state(args.checkpoint_dir, ts)  # rank 0 writes; all ranks wait
+        if rank == 0:
+            print(f"saved checkpoint to {args.checkpoint_dir}")
+    if args.export_weights_dir and rank == 0:
         # The serving engines load this format (load_reference_format).
         from resnetc_tpu_torch.checkpoint import save_reference_format
 
@@ -114,6 +175,12 @@ def run_verify(args: argparse.Namespace, *, device=None) -> dict:
 
     run = run_config_from_args(args)
     _refuse_unported(run, args)
+    if run.multihost or run.data_dim > 1:
+        raise SystemExit(
+            "verify runs in one process, as the JAX CLI's does (it takes no "
+            "mesh); --data-dim and --multihost are for train (ROADMAP Queue 1 "
+            "item 3)"
+        )
     cfg = resnet.get_config(run.model, num_classes=run.num_classes)
     twin = build_twin(cfg, seed=run.seed)
     twin.eval()

@@ -164,17 +164,28 @@ _TRAIN_STATE_TREES = ("params", "bn_state", "momentum")
 def save_train_state(directory: str | os.PathLike, ts: TrainState) -> None:
     """Durable training checkpoint (step, params, BN stats, momentum) in
     ``directory``: flat torchvision-keyed CPU tensors, one ``torch.save``
-    file; conv weights stay HWIO."""
-    directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
-    payload = {"step": ts.step.detach().cpu().clone()}
-    for name in _TRAIN_STATE_TREES:
-        payload[name] = {
-            k: v.detach().cpu().clone() for k, v in flatten_tree(getattr(ts, name)).items()
-        }
-    tmp = directory / (_TRAIN_STATE_FILE + ".tmp")
-    torch.save(payload, tmp)
-    os.replace(tmp, directory / _TRAIN_STATE_FILE)
+    file; conv weights stay HWIO.
+
+    In a process group every rank calls it: rank 0 writes (data-parallel
+    ranks hold equal replicas) and all wait at a barrier until the file is
+    in place, the counterpart of JAX's save in which all processes take
+    part."""
+    import torch.distributed as dist
+
+    in_group = dist.is_initialized()
+    if not in_group or dist.get_rank() == 0:
+        directory = Path(directory)
+        directory.mkdir(parents=True, exist_ok=True)
+        payload = {"step": ts.step.detach().cpu().clone()}
+        for name in _TRAIN_STATE_TREES:
+            payload[name] = {
+                k: v.detach().cpu().clone() for k, v in flatten_tree(getattr(ts, name)).items()
+            }
+        tmp = directory / (_TRAIN_STATE_FILE + ".tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, directory / _TRAIN_STATE_FILE)
+    if in_group:
+        dist.barrier()
 
 
 def load_train_state(directory: str | os.PathLike, like: TrainState) -> TrainState:

@@ -37,8 +37,7 @@ class RunConfig:
     calib_method: str = "absmax"  # int8 calibration: absmax | percentile | mse
     calib_per_channel: bool = False  # per-channel interior activation scales
     seed: int = 0
-    # Multi-host (one process per host): not ported yet; the commands
-    # refuse these flags.
+    # Multi-process training (one rank per process; ``train`` only).
     multihost: bool = False
     coordinator: str | None = None  # "host:port"
     num_processes: int | None = None
@@ -73,13 +72,19 @@ def add_run_args(p: argparse.ArgumentParser) -> None:
         "the weights and epilogue vectors; the kernels are the same). Off "
         "by default, as in the JAX package",
     )
-    p.add_argument("--data-dim", type=int, default=1, help="mesh data-parallel axis size")
-    p.add_argument("--model-dim", type=int, default=1, help="mesh channel-TP axis size")
+    p.add_argument(
+        "--data-dim", type=int, default=1,
+        help="mesh data-parallel axis size (train: ranks, spawned on this host "
+        "unless --multihost)",
+    )
+    p.add_argument(
+        "--model-dim", type=int, default=1,
+        help="mesh channel-TP axis size (not ported yet: only 1 is taken)",
+    )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument(
         "--multihost", action="store_true",
-        help="multi-process training (not ported yet: the commands refuse "
-        "it)",
+        help="multi-process training: this process is one rank (train only)",
     )
     p.add_argument("--coordinator", default=None, help='multi-host coordinator "host:port"')
     p.add_argument("--num-processes", type=int, default=None, help="multi-host total process count")

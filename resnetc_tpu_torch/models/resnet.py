@@ -221,7 +221,7 @@ def merge_params_state(params: Tree, state: Tree) -> Tree:
 # ---------------------------------------------------------------------------
 
 
-def _bn(x, bn_vars, *, train: bool):
+def _bn(x, bn_vars, *, train: bool, group=None):
     if not train:
         out = torch_ops.batch_norm_inference(
             x, bn_vars["weight"], bn_vars["bias"],
@@ -230,31 +230,33 @@ def _bn(x, bn_vars, *, train: bool):
         return out, None
     out, new_mean, new_var = torch_ops.batch_norm_train(
         x, bn_vars["weight"], bn_vars["bias"],
-        bn_vars["running_mean"], bn_vars["running_var"],
+        bn_vars["running_mean"], bn_vars["running_var"], group=group,
     )
     return out, {"running_mean": new_mean, "running_var": new_var}
 
 
-def _conv_bn_act(x, conv_vars, bn_vars, *, stride, padding, act, train, policy, groups=1):
+def _conv_bn_act(x, conv_vars, bn_vars, *, stride, padding, act, train, policy, groups=1,
+                 bn_group=None):
     w = conv_vars["weight"].to(policy.compute)
     y = torch_ops.conv2d(x, w, stride=stride, padding=padding, groups=groups)
-    y, new_stats = _bn(y, bn_vars, train=train)
+    y, new_stats = _bn(y, bn_vars, train=train, group=bn_group)
     if act:
         y = torch_ops.relu(y)
     return y, new_stats
 
 
-def _block_forward(x, blk, cfg: ResNetConfig, stride: int, *, train: bool, policy):
+def _block_forward(x, blk, cfg: ResNetConfig, stride: int, *, train: bool, policy,
+                   bn_group=None):
     """One residual block.  Bottleneck: 1x1 -> bn -> relu, 3x3 stride s
     pad 1 -> bn -> relu, 1x1 -> bn, + shortcut, relu.  Basic: 3x3 stride s
     pad 1 -> bn -> relu, 3x3 pad 1 -> bn, + shortcut, relu.  Returns
-    ``(y, new BN stats of the block)``."""
+    ``(y, new BN stats of the block)``; ``bn_group`` syncs every BN."""
     new_state: Tree = {}
 
     def bn_step(name, y, conv_name, s, p, act, groups=1):
         y, stats = _conv_bn_act(
             y, blk[conv_name], blk[name], stride=s, padding=p, act=act,
-            train=train, policy=policy, groups=groups,
+            train=train, policy=policy, groups=groups, bn_group=bn_group,
         )
         if stats is not None:
             new_state[name] = stats
@@ -271,7 +273,7 @@ def _block_forward(x, blk, cfg: ResNetConfig, stride: int, *, train: bool, polic
     if "downsample" in blk:
         w = blk["downsample"]["0"]["weight"].to(policy.compute)
         short = torch_ops.conv2d(x, w, stride=stride, padding=0)
-        short, stats = _bn(short, blk["downsample"]["1"], train=train)
+        short, stats = _bn(short, blk["downsample"]["1"], train=train, group=bn_group)
         if stats is not None:
             new_state["downsample"] = {"1": stats}
     else:
@@ -289,6 +291,7 @@ def forward(
     train: bool = False,
     policy: DtypePolicy = BF16,
     remat: bool = False,
+    bn_group=None,
 ) -> tuple[torch.Tensor, Tree]:
     """Run the network on NHWC ``x``; counterpart of the JAX ``forward``
     (``models/resnet.py:320``).
@@ -301,13 +304,19 @@ def forward(
     ``remat=True`` checkpoints each residual block
     (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
     the block's activations instead of keeping them.  The running stats are
-    those of the first forward; the recomputation's are discarded."""
+    those of the first forward; the recomputation's are discarded.
+
+    ``bn_group`` (a process group; JAX's ``axis_name``) computes every
+    train-mode BN over the group's global batch (sync-BN).  Under
+    ``remat`` the backward's recomputation all-reduces again; every rank
+    recomputes the same blocks in the same order, so the collectives
+    match."""
     x = x.to(policy.compute)
     new_state: Tree = {}
 
     y, stats = _conv_bn_act(
         x, variables["conv1"], variables["bn1"], stride=2, padding=3, act=True,
-        train=train, policy=policy,
+        train=train, policy=policy, bn_group=bn_group,
     )
     if stats is not None:
         new_state["bn1"] = stats
@@ -323,11 +332,11 @@ def forward(
             if remat:
                 y, blk_state = torch.utils.checkpoint.checkpoint(
                     _block_forward, y, blk, cfg, blk_stride, train=train, policy=policy,
-                    use_reentrant=False, preserve_rng_state=False,
+                    bn_group=bn_group, use_reentrant=False, preserve_rng_state=False,
                 )
             else:
                 y, blk_state = _block_forward(y, blk, cfg, blk_stride, train=train,
-                                              policy=policy)
+                                              policy=policy, bn_group=bn_group)
             if blk_state:
                 layer_state[str(b)] = blk_state
         if layer_state:

@@ -7,7 +7,8 @@ their ``TUNED.json`` overlay (fused.py:32-211), the conv router ``_conv``
 ``calibrate_activation_scales`` (:425), ``calibrate_chain_scales`` (:497),
 ``quantize_chain`` (:637), ``bake_interior_scales`` (:705),
 ``_chain_scale_lookups`` (:802), ``_basic_int8_chain_forward`` (:821),
-``_xla_bottleneck_stage`` (:1005), ``fused_forward_int8_chain`` (:1025)
+``_xla_bottleneck_stage`` (:1005), ``fused_forward_int8_chain`` (:1025),
+``fused_forward_int8_chain_sharded`` (:1336, per-rank data parallelism)
 and ``fused_forward_int8_static`` (:1397).  The flags are read at forward
 time, so the engine serves what the module holds: the code defaults with
 ``TUNED.json`` laid over them at import (``L1_PIXEL_PAIR`` and
@@ -1186,6 +1187,34 @@ def fused_forward_int8_chain(
     else:
         feats = _mean_feats(yr, bsz, h, w_sp, policy)
     return _head(qtree, feats, policy, kernels)
+
+
+def fused_forward_int8_chain_sharded(
+    cfg: ResNetConfig,
+    qtree: Tree,
+    chain_scales: Tree,
+    x: torch.Tensor,
+    mesh,
+    *,
+    policy: DtypePolicy = BF16,
+    kernels: Kernels = KERNELS,
+) -> torch.Tensor:
+    """Data-parallel ``int8_chain`` serving over ``mesh``'s data axis;
+    counterpart of the JAX ``fused_forward_int8_chain_sharded``
+    (fused.py:1336).  Every rank holds the quantized tree and the scales
+    (replicated), takes the global batch ``x``, runs
+    ``fused_forward_int8_chain`` on its slice, and the logits are gathered
+    in rank order: every rank returns the global (B, num_classes) logits,
+    JAX's ``out_specs=P(axis)`` read as one array.  No collective but the
+    gather.  Requires B % data == 0."""
+    from resnetc_tpu_torch.parallel import distributed
+    from resnetc_tpu_torch.parallel import mesh as pmesh
+
+    group = pmesh.data_group(mesh)
+    local = pmesh.batch_sharding(mesh)(x)
+    logits = fused_forward_int8_chain(cfg, qtree, chain_scales, local, policy=policy,
+                                      kernels=kernels)
+    return distributed.host_local_to_global(logits, group)
 
 
 def _basic_int8_chain_forward(

@@ -181,6 +181,7 @@ def batch_norm_train(
     *,
     eps: float = EPS,
     momentum: float = BN_MOMENTUM,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training-mode batch norm, NHWC: normalise with the batch statistics
     and return ``(out, new_running_mean, new_running_var)``.
@@ -190,11 +191,28 @@ def batch_norm_train(
     m^2`` normalises, through a per-channel ``a``, ``c`` cast to x's dtype
     and ``x * a + c``.  The running variance takes the unbiased one,
     ``var * n / max(n - 1, 1)`` with ``n = N*H*W``, and both running stats
-    move by ``momentum``.  They carry no autograd graph."""
+    move by ``momentum``.  They carry no autograd graph.
+
+    ``group`` (a process group; JAX's ``axis_name``) makes this sync-BN:
+    the two raw moments are averaged over the group's ranks, which hold
+    equal slices of the batch, and ``n`` becomes the global count.
+    Averaging raw moments, not per-rank variances, keeps the variance
+    between the ranks' means.  The all-reduce carries autograd
+    (``torch.distributed.nn.functional``), so the moments' gradient sums
+    over the ranks in the backward."""
     xf = x.float()
     n = x.shape[0] * x.shape[1] * x.shape[2]
     mean = xf.mean(dim=(0, 1, 2))
-    var = xf.square().mean(dim=(0, 1, 2)) - mean.square()
+    mean_sq = xf.square().mean(dim=(0, 1, 2))
+    if group is not None:
+        import torch.distributed as dist
+        import torch.distributed.nn.functional as dist_nn
+
+        world = dist.get_world_size(group)
+        moments = dist_nn.all_reduce(torch.stack([mean, mean_sq]), group=group) / world
+        mean, mean_sq = moments[0], moments[1]
+        n *= world
+    var = mean_sq - mean.square()
     inv = torch.rsqrt(var + eps)
     a = (scale.float() * inv).to(x.dtype)
     c = (bias.float() - mean * scale.float() * inv).to(x.dtype)

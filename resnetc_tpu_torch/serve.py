@@ -37,7 +37,11 @@ one is built, as the JAX engine does.
 then main.cu): image files or ``.bin`` inputs in, class indices out.
 
 The engine runs on the card unless ``device="cpu"`` is asked for; on the
-CPU the kernels' plain versions run.  Benchmarks time on the card only,
+CPU the kernels' plain versions run.  ``mesh=`` (a ``parallel.create_mesh``
+mesh) serves ``int8_chain`` data-parallel: every rank builds the engine,
+holds its own copy of the weights and calls ``logits`` with the same global
+batch, computes its slice and gets the gathered logits
+(``fused_forward_int8_chain_sharded``).  Benchmarks time on the card only,
 with CUDA events.
 """
 
@@ -74,9 +78,19 @@ class InferenceEngine:
         calib_method: str = "absmax",
         calib_per_channel: bool = False,
         device: str | torch.device | None = None,
+        mesh=None,
     ):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        if mesh is not None and backend != "int8_chain":
+            # The JAX engine serves the other backends over a mesh through
+            # ``sharding=`` and XLA's partitioner; here that is channel
+            # tensor parallelism, not ported yet.
+            raise ValueError(
+                f"backend {backend!r} does not take a mesh: only int8_chain serves "
+                "data-parallel; the other backends' sharded serving is ROADMAP Queue 1 "
+                "item 3b"
+            )
         if backend != "fp" and model_cfg.groups > 1:
             raise ValueError(
                 f"backend {backend!r} does not support grouped convolutions (ResNeXt, "
@@ -94,6 +108,7 @@ class InferenceEngine:
         self.model_cfg = model_cfg
         self.policy = policy
         self.backend = backend
+        self.mesh = mesh
         self.device = resolve_device(device)
         variables = tree_map(lambda a: torch.as_tensor(a).to(self.device), variables)
         folded = resnet.fold_inference_params(model_cfg, variables)
@@ -156,6 +171,11 @@ class InferenceEngine:
             if self.backend == "int8":
                 return fused.fused_forward_int8(
                     self.model_cfg, self.folded, images, policy=self.policy
+                )
+            if self.mesh is not None:
+                return fused.fused_forward_int8_chain_sharded(
+                    self.model_cfg, self.folded, self.chain_scales, images, self.mesh,
+                    policy=self.policy,
                 )
             return fused.fused_forward_int8_chain(
                 self.model_cfg, self.folded, self.chain_scales, images,

@@ -10,7 +10,9 @@ matches ``torch.optim.SGD`` (weight decay folded into the gradient, fp32
 momentum buffers, optional Nesterov).  No Pallas kernel lies on the JAX
 package's training path, so none is ported here.
 
-The data-parallel ``sharded_train_step`` is not ported yet.
+``sharded_train_step`` is the data-parallel step: one process a rank, each
+on its slice of the global batch, with sync-BN over the ranks and the
+gradients averaged by one all-reduce (``resnetc_tpu_torch.parallel``).
 """
 
 from __future__ import annotations
@@ -185,11 +187,14 @@ def loss_fn(
     label_smoothing: float = 0.0,
     policy: DtypePolicy = BF16,
     remat: bool = False,
+    bn_group=None,
 ) -> tuple[torch.Tensor, tuple[Tree, torch.Tensor]]:
-    """Differentiable loss; aux = (updated BN stats, logits)."""
+    """Differentiable loss; aux = (updated BN stats, logits).  ``bn_group``
+    syncs every BN over a process group (``resnet.forward``)."""
     variables = resnet.merge_params_state(params, bn_state)
     logits, new_stats = resnet.forward(
-        model_cfg, variables, images, train=True, policy=policy, remat=remat
+        model_cfg, variables, images, train=True, policy=policy, remat=remat,
+        bn_group=bn_group,
     )
     # In train mode every BN layer reports its updated running stats, with
     # exactly bn_state's structure, so they replace the old state wholesale.
@@ -215,34 +220,108 @@ def train_step(
     momentum tensors in place: ``ts`` must not be reused after the call.
     Forward and backward run under ``exact_fp32``, so that the FP32 policy
     is IEEE fp32 on the card in the backward convolutions too."""
+    loss, new_bn_state, logits, keys, grads = _loss_and_grads(
+        model_cfg, train_cfg, ts, images, labels)
+    with torch.no_grad():
+        metrics = {
+            "loss": loss.detach(),
+            "accuracy": (logits.argmax(-1) == labels.long()).float().mean(),
+            "grad_norm": _global_norm(grads),
+        }
+    return _apply_update(train_cfg, ts, keys, grads, new_bn_state, lr, images.device), metrics
+
+
+def _loss_and_grads(model_cfg, train_cfg, ts, images, labels, bn_group=None):
+    """Forward and backward under ``exact_fp32``: (loss, new BN state,
+    logits, parameter keys, gradients in the keys' order)."""
     flat = flatten_tree(ts.params)
     leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
     with exact_fp32():
         loss, (new_bn_state, logits) = loss_fn(
             model_cfg, unflatten_tree(leaves), ts.bn_state, images, labels,
             label_smoothing=train_cfg.label_smoothing, policy=train_cfg.policy,
-            remat=train_cfg.remat,
+            remat=train_cfg.remat, bn_group=bn_group,
         )
         grads = torch.autograd.grad(loss, list(leaves.values()))
-    with torch.no_grad():
-        metrics = {
-            "loss": loss.detach(),
-            "accuracy": (logits.argmax(-1) == labels.long()).float().mean(),
-            "grad_norm": torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm([g.float() for g in grads]))
-            ),
-        }
-    grad_tree = unflatten_tree(dict(zip(leaves, grads)))
+    return loss, new_bn_state, logits, list(leaves), grads
+
+
+def _global_norm(grads) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm([g.float() for g in grads])))
+
+
+def _apply_update(train_cfg, ts, keys, grads, new_bn_state, lr, device) -> TrainState:
+    """The SGD step in place (``sgd_update``) and the next state."""
+    grad_tree = unflatten_tree(dict(zip(keys, grads)))
     if isinstance(lr, torch.Tensor):
-        lr = lr.to(images.device, torch.float32)
+        lr = lr.to(device, torch.float32)
     else:
-        lr = torch.full((), lr, dtype=torch.float32, device=images.device)
+        lr = torch.full((), lr, dtype=torch.float32, device=device)
     new_params, new_momentum = sgd_update(
         ts.params, grad_tree, ts.momentum,
         lr=lr, momentum=train_cfg.momentum,
         weight_decay=train_cfg.weight_decay, nesterov=train_cfg.nesterov,
     )
-    new_ts = TrainState(
+    return TrainState(
         step=ts.step + 1, params=new_params, bn_state=new_bn_state, momentum=new_momentum
     )
-    return new_ts, metrics
+
+
+def sharded_train_step(
+    model_cfg: resnet.ResNetConfig,
+    train_cfg: TrainConfig,
+    mesh,
+    *,
+    local_batch: bool = False,
+):
+    """The data-parallel train step over ``mesh``'s data axis; counterpart of
+    the JAX ``sharded_train_step`` (``train.py:239``).  Returns ``(step,
+    shard_state, batch_slicers)``, as JAX does:
+
+    - ``shard_state(ts)`` makes every rank's state rank 0's (params, BN
+      state, momentum and step, broadcast in place) and returns it;
+    - ``step(ts, images, labels, lr)`` takes the global batch and computes
+      on this rank's slice of it (with ``local_batch=True``, the rank's own
+      slice, as multi-host loading draws it): ``loss_fn`` with sync-BN over
+      the data group, then one all-reduce over a flat buffer of the
+      gradients, the loss and the accuracy, averaged over the ranks, so
+      that ``grad_norm`` is the averaged gradient's; then ``train_step``'s
+      in-place SGD update.  It equals ``train_step`` on the global batch
+      up to summation order (the ranks' slices are equal, so the average
+      of their means is the global mean);
+    - ``batch_slicers``: (images, labels) -> this rank's slice.
+
+    Every rank must call the step with the same arguments in the same
+    order.  A model axis > 1 is refused (``parallel.mesh``)."""
+    import torch.distributed as dist
+
+    from resnetc_tpu_torch.parallel import mesh as pmesh
+
+    group = pmesh.data_group(mesh)
+    world = dist.get_world_size(group)
+    share = pmesh.replicated(mesh)
+    slicers = (pmesh.batch_sharding(mesh), pmesh.label_sharding(mesh))
+
+    def shard_state(ts: TrainState) -> TrainState:
+        share([ts.step] + [t for name in ("params", "bn_state", "momentum")
+                           for t in flatten_tree(getattr(ts, name)).values()])
+        return ts
+
+    def step(ts, images, labels, lr):
+        if not local_batch:
+            images, labels = slicers[0](images), slicers[1](labels)
+        loss, new_bn_state, logits, keys, grads = _loss_and_grads(
+            model_cfg, train_cfg, ts, images, labels, bn_group=group)
+        with torch.no_grad():
+            accuracy = (logits.argmax(-1) == labels.long()).float().mean()
+            buf = torch.cat([g.float().reshape(-1) for g in grads]
+                            + [loss.detach().float().reshape(1), accuracy.reshape(1)])
+            dist.all_reduce(buf, group=group)
+            buf /= world
+            parts = buf.split([g.numel() for g in grads] + [1, 1])
+            grads = [p.view_as(g) for p, g in zip(parts, grads)]
+            metrics = {"loss": parts[-2][0], "accuracy": parts[-1][0],
+                       "grad_norm": _global_norm(grads)}
+        return _apply_update(train_cfg, ts, keys, grads, new_bn_state, lr, images.device), metrics
+
+    return step, shard_state, slicers
