@@ -105,7 +105,31 @@ then:
    ``train_step`` at ``tests/test_parallel.py``'s tolerances, then three
    BF16 steps (ms, img/s, the gloo all-reduce's ms, peak memory); ``[cli
    dp]``, ``train --data-dim 2`` and the two-process ``--multihost`` form
-   of the command, the same losses on both ranks of each;
+   of the command, the same losses on both ranks of each.  Then the
+   serving CLI and the data pipeline, each phase's seconds printed:
+   ``[native]``, whether the native host library built (it must where
+   the libjpeg headers are), its ingest against PIL on 32 seeded JPEGs
+   (within one uint8 level, > 90% exact), decode img/s at 1 and 4 threads
+   against PIL, and ``read_f32_many`` against ``np.fromfile`` on
+   ResNet-152's weight files (bit for bit, wall ms); ``[cli serve
+   resnet152]``, the five commands as subprocesses on ResNet-152
+   ``int8_chain`` from files: ``export-weights`` (byte for byte the files
+   ``save_reference_format`` wrote), ``convert-images`` (byte for byte the
+   port's preprocessing), ``classify`` on a ``.bin``, a JPEG and a PNG
+   (in-process ``classify``'s indices), ``eval`` on a seeded 2 x 32-JPEG
+   tree at batch 32 (count 64, the in-process ``evaluate``'s top-1 and
+   top-5, counted: two forwards of the served route) and ``bench
+   --batch-size 32 --steps 10 --latency-samples 10`` (JSON, platform
+   "gpu"); ``[loader]``, ``BatchLoader`` / ``ImageFolderLoader`` device
+   batches equal to their host arrays, and one ``evaluate`` epoch's wall
+   ms with prefetch 2 and 0; ``[local latency]``, ``bench_local_latency``
+   against ``bench_latency`` and ``fetch_seconds`` at batch 1 and 32, and
+   the card's busy share under ``profile_trace``; ``[debug]``, a ResNet-34
+   forward inside ``plain_kernels()`` launching nothing and equal to the
+   plain-version forward, the served launches outside it, ``nan_debug``
+   passing a finite forward and raising on a NaN input to ``relu``;
+   ``[train data-dir]``, ``train --data-dir`` on the tree (ResNet-18,
+   batch 32, 3 steps, finite losses);
 3. times the engines (images/s, p50 / p99 ms per batch) for int8_chain on
    both routes (and ResNet-34's BASIC_DS_INT8=False route, ResNet-152's
    per-channel and hybrid routes), int8, pallas, pallas_block and fp, and
@@ -136,6 +160,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2650,6 +2675,464 @@ def phase_cli_dp() -> dict:
     return {**res, "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# The serving CLI and the data pipeline: [native], [cli serve
+# resnet152], [loader], [local latency], [debug], [train data-dir]
+# ---------------------------------------------------------------------------
+
+#: The data phases' inputs: JPEGs of ImageNet-like sizes (300-500 px a
+#: side), smooth enough to hold structure, from numpy seeds.
+DATA_JPEGS, TREE_PER_CLASS, CLI_BATCH = 32, 32, 32
+
+
+def _write_jpegs(directory, n: int, seed: int, prefix: str = "img") -> list:
+    """``n`` seeded JPEGs of 300-500 px a side in ``directory``."""
+    import numpy as np
+    from PIL import Image
+
+    directory.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        h, w = (int(v) for v in rng.integers(300, 501, 2))
+        small = rng.integers(0, 256, (h // 8, w // 8, 3), dtype=np.uint8)
+        img = Image.fromarray(small).resize((w, h), Image.BICUBIC)
+        noise = rng.integers(-12, 13, (h, w, 3))
+        arr = np.clip(np.asarray(img, np.int16) + noise, 0, 255).astype(np.uint8)
+        path = directory / f"{prefix}{i:03d}.jpeg"
+        Image.fromarray(arr).save(path, quality=90)
+        paths.append(str(path))
+    return paths
+
+
+def _wall(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_native(work) -> dict:
+    """``[native]``: whether the native host libraries built (and why not):
+    the reader wherever ``g++`` is, the ingest where the libjpeg headers
+    are too.  Then the ingest against PIL on 32 seeded JPEGs (within one
+    uint8 level, exact on > 90% of values), decode img/s at 1 and 4 threads
+    against PIL's, and ``read_f32_many`` against ``np.fromfile`` on
+    ResNet-152's weight files (bit for bit; wall ms of each, the better of
+    two turns, and of ``load_reference_format``)."""
+    import numpy as np
+    import torch
+
+    from resnetc_tpu_torch import checkpoint, native
+    from resnetc_tpu_torch.data import preprocess
+    from resnetc_tpu_torch.models import resnet
+
+    tag = "[native]"
+    headers = native.jpeg_headers()
+    built = {name: native.available(name) for name in native.LIBS}
+    out = {"headers": headers, "built": built, "why_not": native.why_unavailable()}
+    for name, ok in built.items():
+        log(f"{tag} lib{name}.so built: {ok}"
+            + (f" ({native.build(name)})" if ok else f"; why not: {native.why_unavailable(name)}"))
+    log(f"{tag} jpeglib.h found by the compiler: {headers}")
+    if native._cxx() and not built["binio"] or headers and not built["ingest"]:
+        raise AssertionError(f"{tag} a library whose compiler and headers are present failed "
+                             f"to build: {out['why_not']}")
+    built = built["ingest"]
+
+    paths = _write_jpegs(work / "jpegs", DATA_JPEGS, seed=3)
+    pil, pil_ms = _wall(lambda: np.concatenate([preprocess.preprocess_file(p) for p in paths]))
+    out["pil_img_per_s"] = len(paths) / pil_ms * 1e3
+    if built:
+        kw = dict(resize=preprocess.DEFAULT_RESIZE, crop=preprocess.DEFAULT_CROP,
+                  mean=preprocess.IMAGENET_MEAN, std=preprocess.IMAGENET_STD)
+        nat = {}
+        for threads in (1, 4):
+            native.preprocess_files(paths[:2], num_threads=threads, **kw)  # warm the page cache
+            nat[threads], ms = _wall(lambda t=threads: native.preprocess_files(
+                paths, num_threads=t, **kw))
+            out[f"native_img_per_s_{threads}t"] = len(paths) / ms * 1e3
+        if not np.array_equal(nat[1], nat[4]):
+            raise AssertionError(f"{tag} 1 and 4 threads decode differently")
+        one_level = 1.0 / 255.0 / preprocess.IMAGENET_STD
+        diff = np.abs(pil - nat[4])
+        exact = float((diff < 1e-6).mean())
+        if not ((diff <= one_level[None, None, None, :] + 1e-5).all() and exact > 0.9):
+            raise AssertionError(f"{tag} native vs PIL: max {diff.max()}, exact {exact}")
+        out["exact_share_vs_pil"] = exact
+        log(f"{tag} native vs PIL on {len(paths)} JPEGs: within one uint8 level, exact on "
+            f"{100 * exact:.2f}% of values")
+        log(f"{tag} decode + preprocess: native {out['native_img_per_s_1t']:.1f} img/s on 1 "
+            f"thread, {out['native_img_per_s_4t']:.1f} on 4; PIL {out['pil_img_per_s']:.1f}")
+    else:
+        log(f"{tag} decode + preprocess: PIL {out['pil_img_per_s']:.1f} img/s (no library)")
+
+    cfg = resnet.get_config("resnet152")
+    weights = work / "weights"
+    n = checkpoint.save_reference_format(resnet.init(cfg, torch.Generator().manual_seed(0)),
+                                         weights)
+    keys = list(resnet.param_shapes(cfg))
+    files = [str(weights / k) for k in keys]
+    counts = [int(np.prod(s)) for s in resnet.param_shapes(cfg).values()]
+    mb = sum(counts) * 4 / 1e6
+    readers = {"fromfile": lambda: [np.fromfile(f, dtype="<f4") for f in files]}
+    if native.available("binio"):
+        readers["read_f32_many"] = lambda: native.read_f32_many(files, counts)
+    got = {}
+    for _ in range(2):  # in turns; the better of two
+        for name, read in readers.items():
+            got[name], ms = _wall(read)
+            out[f"{name}_ms"] = min(ms, out.get(f"{name}_ms", ms))
+    _, out["load_reference_format_ms"] = _wall(lambda: checkpoint.load_reference_format(
+        cfg, weights))
+    if "read_f32_many" in got and not all(
+            np.array_equal(a, b) for a, b in zip(got["read_f32_many"], got["fromfile"])):
+        raise AssertionError(f"{tag} read_f32_many differs from np.fromfile")
+    log(f"{tag} {n} weight files, {mb:.1f} MB (page cache warm): "
+        + ", ".join(f"{name} {out[f'{name}_ms']:.1f} ms" for name in readers)
+        + (", bit for bit" if len(readers) > 1 else "")
+        + f"; load_reference_format {out['load_reference_format_ms']:.1f} ms")
+    out["weight_files"], out["weight_mb"] = n, mb
+    return out
+
+
+def _cli(*argv, cwd):
+    """``python -m resnetc_tpu_torch *argv`` started in ``cwd``."""
+    return subprocess.Popen([sys.executable, "-m", "resnetc_tpu_torch", *argv], cwd=cwd,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish(tag: str, procs: dict, t0: float) -> dict:
+    """Wait for the named commands, started at ``t0``: each one's (stdout,
+    wall ms to its own exit), or raise with its stderr."""
+    ends: dict = {}
+    try:
+        while len(ends) < len(procs):  # the outputs are short: no pipe fills
+            for name, p in procs.items():
+                if name not in ends and p.poll() is not None:
+                    ends[name] = (time.perf_counter() - t0) * 1e3
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError(f"{tag} {sorted(set(procs) - set(ends))} outlasted 600 s")
+            time.sleep(0.05)
+        outs = {}
+        for name, p in procs.items():
+            so, se = p.communicate()
+            if p.returncode != 0:
+                raise AssertionError(f"{tag} {name} exited {p.returncode}:\n{se[-3000:]}")
+            outs[name] = (so, ends[name])
+            log(f"{tag} {name}: rc 0, {ends[name]:.0f} ms wall")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def _tree(work):
+    """The seeded 2-class ImageFolder tree of 2 x 32 JPEGs."""
+    root = work / "tree"
+    if not root.exists():
+        for c, cls in enumerate(("n01440764", "n01443537")):
+            _write_jpegs(root / cls, TREE_PER_CLASS, seed=100 + c)
+    return root
+
+
+def phase_cli_serve(work, cases: list, dev) -> dict:
+    """``[cli serve resnet152]``: the five commands as subprocesses
+    (``python -m resnetc_tpu_torch``), ResNet-152 ``int8_chain`` from files:
+    ``export-weights`` (the files ``save_reference_format`` wrote for the
+    same seed, byte for byte) and ``convert-images`` (the ``.bin``s of the
+    port's own preprocessing, byte for byte) together; then ``classify``
+    (a ``.bin``, a JPEG and a PNG: the indices of in-process ``classify``
+    of the same arrays) and ``eval`` (the 2 x 32-JPEG tree at batch 32:
+    count 64, top-1 / top-5 those of the engine's logits over the same
+    batches, run in process with the launch counters set to 0 just before
+    and read just after: two forwards of the served route) together; then
+    ``bench --batch-size 32 --steps 10 --latency-samples 10`` alone
+    (parseable JSON, platform "gpu").  Returns the in-process engine for
+    the phases after it."""
+    import filecmp
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from resnetc_tpu_torch import checkpoint
+    from resnetc_tpu_torch.data import evaluate, preprocess
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.serve import InferenceEngine, classify_files
+
+    tag = "[cli serve resnet152]"
+    root = os.path.dirname(os.path.abspath(__file__))
+    imgs, bins, exported = work / "imgs", work / "bins", work / "exported"
+    jpegs = _write_jpegs(imgs, 2, seed=7)
+    rng = np.random.default_rng(8)
+    Image.fromarray(rng.integers(0, 256, (333, 271, 3), dtype=np.uint8)).save(imgs / "c.png")
+    tree = _tree(work)
+    model = ["--model", "resnet152", "--backend", "int8_chain"]
+
+    t0 = time.perf_counter()
+    outs = _finish(tag, {
+        "export-weights": _cli("export-weights", "--model", "resnet152", str(exported), cwd=root),
+        "convert-images": _cli("convert-images", str(imgs), str(bins), cwd=root),
+    }, t0)
+    names = sorted(os.listdir(work / "weights"))
+    same, diff, err = filecmp.cmpfiles(work / "weights", exported, names, shallow=False)
+    if diff or err or len(os.listdir(exported)) != len(names):
+        raise AssertionError(f"{tag} export-weights wrote other files: {diff + err}")
+    for p in jpegs + [str(imgs / "c.png")]:
+        want = preprocess.preprocess_file(p).transpose(0, 3, 1, 2).astype("<f4").tobytes()
+        if (bins / (os.path.basename(p).rsplit(".", 1)[0] + ".bin")).read_bytes() != want:
+            raise AssertionError(f"{tag} convert-images wrote another .bin for {p}")
+    log(f"{tag} export-weights: {len(same)} files equal to save_reference_format's; "
+        f"convert-images: 3 .bins equal to the port's preprocessing")
+
+    inputs = [str(bins / "img000.bin"), jpegs[1], str(imgs / "c.png")]
+    t0 = time.perf_counter()
+    procs = {
+        "classify": _cli("classify", *model, "--weights-dir", str(work / "weights"), *inputs,
+                         cwd=root),
+        "eval": _cli("eval", *model, "--weights-dir", str(work / "weights"),
+                     "--batch-size", str(CLI_BATCH), str(tree), cwd=root),
+    }
+    # The same engine in this process, while the commands run.
+    cfg = resnet.get_config("resnet152")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # calibration on noise, as the CLI's
+        eng = InferenceEngine(cfg, checkpoint.load_reference_format(cfg, work / "weights"),
+                              backend="int8_chain", device=dev)
+    outs.update(_finish(tag, procs, t0))
+    got = [int(ln.rsplit(" ", 1)[1]) for ln in outs["classify"][0].splitlines()]
+    arrays = np.concatenate([preprocess.load_input_bin(p) if p.endswith(".bin")
+                             else preprocess.preprocess_file(p) for p in inputs])
+    want = [int(i) for i in eng.classify(arrays)]
+    in_proc, files_ms = _wall(lambda: classify_files(eng, inputs))
+    log(f"{tag} classify {[os.path.basename(p) for p in inputs]}: {got}; in-process classify "
+        f"{want}, classify_files {in_proc} in {files_ms:.1f} ms wall")
+    if not got == want == in_proc:
+        raise AssertionError(f"{tag} classify printed {got}, the engine gives {want}")
+
+    cli_eval = json.loads(outs["eval"][0].splitlines()[-1])
+    (res, launches), eval_ms = _wall(lambda: counted(
+        lambda: evaluate(eng, tree, batch_size=CLI_BATCH)))
+    per_forward = expected_launches(cases, pp=True)
+    want_launches = {k: 2 * v for k, v in per_forward.items()}
+    log(f"{tag} eval: {json.dumps(cli_eval)}; in process {json.dumps(res)} in "
+        f"{eval_ms:.1f} ms wall, launches {json.dumps(launches)}")
+    if cli_eval["count"] != 2 * TREE_PER_CLASS or {**res, "model": "resnet152"} != cli_eval:
+        raise AssertionError(f"{tag} eval gave {cli_eval}, the engine {res}")
+    if launches != want_launches:
+        raise AssertionError(f"{tag} evaluate launched {launches}, expected {want_launches}")
+
+    t0 = time.perf_counter()
+    outs.update(_finish(tag, {"bench": _cli(
+        "bench", *model, "--batch-size", str(CLI_BATCH), "--steps", "10",
+        "--latency-samples", "10", cwd=root)}, t0))
+    bench = json.loads(outs["bench"][0].splitlines()[-1])
+    log(f"{tag} bench: {json.dumps(bench)}")
+    if bench.get("platform") != "gpu" or not bench.get("images_per_sec", 0) > 0:
+        raise AssertionError(f"{tag} bench printed {bench}")
+    return {"engine": eng, "launches": launches, "classes": got, "eval": cli_eval,
+            "bench": bench, "classify_files_ms": files_ms, "evaluate_ms": eval_ms,
+            "wall_ms": {k: ms for k, (_, ms) in outs.items()}}
+
+
+def phase_loader(work, eng, dev) -> dict:
+    """``[loader]``: ``BatchLoader`` over the 32 JPEGs and
+    ``ImageFolderLoader`` over the tree (eval, and train-mode crops) give,
+    on the card, the host arrays bit for bit; the wall time of one
+    ``evaluate`` epoch over the tree at batch 32 with prefetch 2 and with
+    prefetch 0 (each run twice, the second kept)."""
+    import numpy as np
+    import torch
+
+    from resnetc_tpu_torch.data import BatchLoader, ImageFolderLoader, evaluate
+    from resnetc_tpu_torch.data.preprocess import preprocess_files_batch
+
+    tag = "[loader]"
+    paths = sorted(str(p) for p in (work / "jpegs").iterdir())
+    got = [b.cpu().numpy() for b in BatchLoader(paths, batch_size=8, device=dev)]
+    want = [preprocess_files_batch(paths[i:i + 8], num_threads=2) for i in range(0, 32, 8)]
+    if len(got) != 4 or not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{tag} BatchLoader's device batches differ from the host arrays")
+    tree = _tree(work)
+    for train in (False, True):
+        kw = dict(batch_size=16, train=train, seed=5)
+        host = list(ImageFolderLoader(tree, to_device=False, **kw))
+        on_card = list(ImageFolderLoader(tree, device=dev, **kw))
+        if not all(x.device.type == dev.type and np.array_equal(x.cpu().numpy(), hx) and
+                   np.array_equal(y.cpu().numpy(), hy)
+                   for (x, y), (hx, hy) in zip(on_card, host)) or len(host) != 4:
+            raise AssertionError(f"{tag} ImageFolderLoader (train={train}) differs on the card")
+    log(f"{tag} BatchLoader (4 x 8) and ImageFolderLoader (eval and train, 4 x 16) device "
+        "batches equal the host arrays bit for bit")
+    out = {}
+    for prefetch in (2, 0, 2, 0):
+        torch.cuda.synchronize()
+        res, ms = _wall(lambda p=prefetch: evaluate(eng, tree, batch_size=CLI_BATCH, prefetch=p))
+        out[f"evaluate_ms_prefetch{prefetch}"] = ms
+    log(f"{tag} one evaluate epoch (2 x 32 JPEGs, ResNet-152 int8_chain): "
+        f"{out['evaluate_ms_prefetch2']:.1f} ms wall with prefetch 2, "
+        f"{out['evaluate_ms_prefetch0']:.1f} ms with prefetch 0")
+    return out
+
+
+def phase_local_latency(work, eng, dev) -> dict:
+    """``[local latency]``: ``bench_local_latency`` (the marginal time of
+    one of 16 chained forwards, host included, five samples) against
+    ``bench_latency`` (CUDA events around each forward, 10 samples) and
+    ``utils.timing.fetch_seconds`` (host clock to a fetched scalar, 10
+    samples), the ResNet-152 ``int8_chain`` engine at batch 1 and 32; then
+    10 forwards of each under ``utils.metrics.profile_trace``: the kernels'
+    device time over the wall time (the card's busy share, under the
+    profiler).  The kernels' time from the trace is the device time; the
+    chained and event timings include the host's issue time."""
+    import statistics
+
+    import torch
+
+    from resnetc_tpu_torch.serve import bench_latency, bench_local_latency
+    from resnetc_tpu_torch.utils.metrics import annotate, profile_trace
+    from resnetc_tpu_torch.utils.timing import fetch_seconds
+
+    tag = "[local latency]"
+    x = torch.randn((CLI_BATCH, 224, 224, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    out = {}
+    for b in (1, CLI_BATCH):
+        local = bench_local_latency(eng, x[:b], runs=5, iters=16)
+        lat = bench_latency(eng, x[:b], samples=10, warmup=2)
+        fetch_ms = 1e3 * statistics.median(fetch_seconds(eng.logits, x[:b], samples=10))
+        logdir = work / f"trace_b{b}"
+        with profile_trace(str(logdir)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with annotate(f"forwards_b{b}"):
+                for _ in range(10):
+                    eng.logits(x[:b])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = json.loads((logdir / "trace.json").read_text())["traceEvents"]
+        kernel_ms = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel") / 1e3
+        out[b] = {"local_p50_ms": local.p50_ms, "local_mean_ms": local.mean_ms,
+                  "p50_ms": lat.p50_ms, "p99_ms": lat.p99_ms, "fetch_p50_ms": fetch_ms,
+                  "profiled_ms_per_forward": wall_ms / 10, "kernel_ms_per_forward": kernel_ms / 10,
+                  "busy_share": kernel_ms / wall_ms}
+        log(f"{tag} batch {b}: bench_local_latency p50 {local.p50_ms:.3f} ms "
+            f"(mean {local.mean_ms:.3f}); bench_latency p50 {lat.p50_ms:.3f} p99 "
+            f"{lat.p99_ms:.3f} ms; fetch_seconds p50 {fetch_ms:.3f} ms; under the profiler "
+            f"{wall_ms / 10:.3f} ms a forward, {kernel_ms / 10:.3f} of it in kernels: busy "
+            f"share {kernel_ms / wall_ms:.3f}")
+        if not (0 < local.p50_ms < 1e3 and 0 < kernel_ms <= wall_ms):
+            raise AssertionError(f"{tag} bench_local_latency gave {local}; kernels {kernel_ms} "
+                                 f"ms of {wall_ms} ms")
+    return out
+
+
+def phase_debug(cases: list, batch: int, dev) -> dict:
+    """``[debug]``: a ResNet-34 ``int8_chain`` forward (served route) inside
+    ``plain_kernels()`` launches nothing and gives the plain-version
+    forward's logits (``kernels=PLAIN``) bit for bit; outside it, the served
+    route's launches.  ``nan_debug()`` raises at a kernel wrapper whose
+    input holds a NaN (``relu``) and passes a finite forward."""
+    import torch
+
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import relu
+    from resnetc_tpu_torch.ops.cuda.fused import PLAIN, fused_forward_int8_chain
+    from resnetc_tpu_torch.serve import InferenceEngine
+    from resnetc_tpu_torch.utils.debug import nan_debug, plain_kernels
+
+    tag = "[debug]"
+    cfg = resnet.get_config("resnet34")
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    calib = torch.randn((8, 224, 224, 3), generator=torch.Generator().manual_seed(1))
+    eng = InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=calib, device=dev)
+    x = torch.randn((batch, 224, 224, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    with plain_kernels():
+        inside, launches_in = forward_counted(eng, x)
+    with torch.inference_mode():
+        plain = fused_forward_int8_chain(cfg, eng.folded, eng.chain_scales, x, kernels=PLAIN)
+    served, launches = forward_counted(eng, x)
+    want = expected_launches(cases, pp=True)
+    log(f"{tag} inside plain_kernels(): launches {json.dumps(launches_in)}, logits equal to "
+        f"the plain-version forward: {torch.equal(inside, plain)}; outside: "
+        f"{json.dumps(launches)}")
+    if launches_in or not torch.equal(inside, plain) or launches != want:
+        raise AssertionError(f"{tag} plain_kernels() did not run the plain versions alone")
+    with nan_debug():
+        clean, _ = forward_counted(eng, x)
+    if not torch.equal(clean, served):
+        raise AssertionError(f"{tag} the forward under nan_debug differs")
+    log(f"{tag} a finite forward under nan_debug: no error, logits equal")
+    bad = torch.randn((4, 56, 56, 64), generator=torch.Generator().manual_seed(3)).to(dev)
+    bad[1, 2, 3, 4] = float("nan")
+    try:
+        with nan_debug():
+            relu(bad)
+        raise AssertionError(f"{tag} nan_debug did not raise on a NaN input to relu")
+    except FloatingPointError as e:
+        log(f"{tag} nan_debug on a NaN input: FloatingPointError({e})")
+    return {"launches": launches}
+
+
+def phase_train_data_dir(work) -> dict:
+    """``[train data-dir]``: ``train --model resnet18 --data-dir`` on the
+    tree (2 classes), batch 32, 3 steps, in process: three finite losses."""
+    import io
+    import math
+
+    from resnetc_tpu_torch.__main__ import main as cli_main
+
+    tag = "[train data-dir]"
+    buf = io.StringIO()
+    argv = ["train", "--model", "resnet18", "--num-classes", "2", "--batch-size", "32",
+            "--steps", "3", "--log-every", "1", "--data-dir", str(_tree(work))]
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    recs = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    for r in recs:
+        log(f"{tag} {json.dumps(r)}")
+    if rc != 0 or [r["step"] for r in recs] != [1, 2, 3] or not all(
+            math.isfinite(r["loss"]) for r in recs):
+        raise AssertionError(f"{tag} rc {rc}, records {recs}")
+    return {"losses": [r["loss"] for r in recs],
+            "images_per_sec": [r["images_per_sec"] for r in recs]}
+
+
+def run_data_phases(cases: dict, batch: int, dev, add) -> dict:
+    """The data and serving-CLI phases in order, each's seconds printed;
+    ``add`` takes the launches of the forwards counted in them."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_data_"))
+    out = {}
+    try:
+        seconds = out["seconds"] = {}
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            seconds[name] = time.perf_counter() - t0
+            log(f"[phase] {name}: {seconds[name]:.1f} s")
+            return out[name]
+
+        timed("native", lambda: phase_native(work))
+        serve = timed("cli_serve", lambda: phase_cli_serve(work, cases["resnet152"], dev))
+        add(serve["launches"])
+        eng = serve.pop("engine")
+        timed("loader", lambda: phase_loader(work, eng, dev))
+        timed("local_latency", lambda: phase_local_latency(work, eng, dev))
+        del eng
+        debug = timed("debug", lambda: phase_debug(cases["resnet34"], batch, dev))
+        add(debug["launches"])
+        timed("train_data_dir", lambda: phase_train_data_dir(work))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def phase_engine_timing(name: str, runs: list, x, batch: int) -> dict:
     """Throughput and per-batch latency of each (label, engine, flags) on
     the images ``x``."""
@@ -2910,6 +3393,9 @@ def main() -> int:
     for route in dp["launches"]:
         add(route)
     summaries["cli_dp"] = phase_cli_dp()
+    torch.cuda.empty_cache()
+    summaries["data"] = run_data_phases(cases, args.batch, dev, add)
+    torch.cuda.empty_cache()
     kernels, per_case = phase_kernel_timing(args.batch, dev, errs, launches)
     ew = phase_ew_timing(dev)
     total_s = time.perf_counter() - t0

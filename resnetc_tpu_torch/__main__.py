@@ -1,15 +1,24 @@
 """CLI of the port:
 
-  python -m resnetc_tpu_torch train     # training loop on synthetic data
-  python -m resnetc_tpu_torch verify    # parity report against the torch twin
+  python -m resnetc_tpu_torch classify IMG [IMG...]   # files -> top-1 index
+  python -m resnetc_tpu_torch bench                   # serving throughput/latency
+  python -m resnetc_tpu_torch eval DIR                # top-1/top-5 over an ImageFolder tree
+  python -m resnetc_tpu_torch train                   # training loop (synthetic or image dir)
+  python -m resnetc_tpu_torch export-weights DIR      # random/loaded weights -> raw-f32 files
+  python -m resnetc_tpu_torch convert-images SRC DST  # images -> reference .bin files
+  python -m resnetc_tpu_torch verify                  # parity report vs the torch twin
 
-Counterpart of ``resnetc_tpu/__main__.py`` (``train`` :130-283, ``verify``
-:337-369, the parser :372-450), with the same flags.  Both run on the card
-and raise where there is none.  ``train`` trains data-parallel with
-``--data-dim N`` (N ranks on this host) or ``--multihost --coordinator
-host:port --num-processes N --process-id i`` (one rank a process); a
-``--model-dim`` above 1 is refused.  The serving commands (classify, bench,
-eval, export-weights, convert-images) are not ported yet.
+Counterpart of ``resnetc_tpu/__main__.py``, with the same flags and
+defaults (the backend ``fp`` is JAX's ``xla``).  Every command that touches
+a model runs on the card and raises where there is none; each has a
+``run_<command>(args, *, device=None)`` body the tests call with
+``device="cpu"``.  ``train`` trains data-parallel with ``--data-dim N`` (N
+ranks on this host) or ``--multihost --coordinator host:port
+--num-processes N --process-id i`` (one rank a process); a ``--model-dim``
+above 1 is refused.  The serving commands (classify, bench, eval) run in
+one process: they refuse ``--multihost`` as JAX's do, and ``--data-dim`` /
+``--model-dim`` above 1 (serving over spawned ranks is ROADMAP Queue 1
+item 3c).
 """
 
 from __future__ import annotations
@@ -20,17 +29,211 @@ import sys
 import time
 
 
-def _refuse_unported(run, args) -> None:
+def _refuse_unported(run) -> None:
     if run.model_dim > 1:
         raise SystemExit(
             "--model-dim > 1 (channel tensor parallelism) is not ported yet "
             "(ROADMAP Queue 1 item 3b); train data-parallel with --data-dim"
         )
-    if getattr(args, "data_dir", None):
+
+
+def _serving_run(args: argparse.Namespace):
+    """The ``RunConfig`` of a serving command (classify, bench, eval), which
+    runs in one process."""
+    from resnetc_tpu_torch.config import run_config_from_args
+
+    run = run_config_from_args(args)
+    if run.multihost:
+        # The serving commands are single-process: each process would build
+        # the full batch locally and silently benchmark/classify it alone,
+        # which is NOT a distributed run.  Only `train` implements the
+        # multi-process data path.
         raise SystemExit(
-            "--data-dir is not ported yet (ROADMAP Queue 1 item 4: the "
-            "ImageFolder pipeline); omit it to train on synthetic batches"
+            "--multihost/--coordinator are supported by the `train` "
+            "command only; the serving commands run in one process (serving "
+            "over ranks is ROADMAP Queue 1 item 3c)"
         )
+    if run.data_dim * run.model_dim > 1:
+        raise SystemExit(
+            "the serving commands run in one process: serving over spawned ranks "
+            "(--data-dim, --model-dim > 1) is not ported yet (ROADMAP Queue 1 item 3c); "
+            "from Python, InferenceEngine(..., mesh=) serves int8_chain data-parallel"
+        )
+    return run
+
+
+def _model(run):
+    """(model config, variables on the CPU): the weights of
+    ``--weights-dir``, or the model initialised from ``--seed``."""
+    import torch
+
+    from resnetc_tpu_torch import checkpoint
+    from resnetc_tpu_torch.models import resnet
+
+    cfg = resnet.get_config(run.model, num_classes=run.num_classes)
+    if run.weights_dir:
+        return cfg, checkpoint.load_reference_format(cfg, run.weights_dir)
+    return cfg, resnet.init(cfg, torch.Generator().manual_seed(run.seed))
+
+
+def _build_engine(run, device=None):
+    """(model config, ``InferenceEngine``) for a serving command; JAX's
+    ``__main__.py:24-72`` without the mesh."""
+    from resnetc_tpu_torch.serve import InferenceEngine
+    from resnetc_tpu_torch.tensor import policy
+
+    cfg, variables = _model(run)
+    return cfg, InferenceEngine(
+        cfg, variables, policy=policy(run.policy), backend=run.backend,
+        calib_method=run.calib_method, calib_per_channel=run.calib_per_channel,
+        device=device,
+    )
+
+
+def run_classify(args: argparse.Namespace, *, device=None) -> list[str]:
+    """The ``classify`` command's body: one line per file,
+    ``"{path}: class {cls}"`` (and `` ({name})`` from ``--labels-file``),
+    the reference's "max index is N" (main.cu:250)."""
+    from resnetc_tpu_torch.serve import classify_files
+
+    run = _serving_run(args)
+    _, engine = _build_engine(run, device)
+    labels = None
+    if args.labels_file:
+        # One class name per line, line i = class index i (the torchvision
+        # categories format); indices past the file fall back to numbers.
+        with open(args.labels_file) as f:
+            labels = [ln.strip() for ln in f]
+    classes = classify_files(engine, args.images, image_size=run.image_size)
+    lines = []
+    for path, cls in zip(args.images, classes):
+        name = f" ({labels[cls]})" if labels and 0 <= cls < len(labels) else ""
+        lines.append(f"{path}: class {cls}{name}")
+    return lines
+
+
+def cmd_classify(args) -> int:
+    for line in run_classify(args):
+        print(line)
+    return 0
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them
+    (``name, power.limit``), or torch's name where nvidia-smi is absent."""
+    import subprocess
+
+    import torch
+
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        )
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return f"{torch.cuda.get_device_name(0)}, power limit unknown"
+
+
+def run_bench(args: argparse.Namespace, *, device=None) -> dict:
+    """The ``bench`` command's body: throughput over ``--steps`` forwards of
+    a seeded batch, and the latency of one image over
+    ``--latency-samples`` requests, as the JAX CLI's JSON record
+    (``__main__.py:117-126``) plus the card.  Times the card: refuses the
+    CPU."""
+    import numpy as np
+
+    from resnetc_tpu_torch.serve import bench_latency, bench_throughput
+    from resnetc_tpu_torch.tensor import resolve_device
+    from resnetc_tpu_torch.utils.flops import model_flops
+
+    run = _serving_run(args)
+    if resolve_device(device).type != "cuda":
+        raise SystemExit("bench times the card; it does not run on the CPU")
+    cfg, engine = _build_engine(run, device)
+    images = np.random.default_rng(0).standard_normal(
+        (run.batch_size, run.image_size, run.image_size, 3), dtype=np.float32
+    )
+    tp = bench_throughput(engine, images, steps=args.steps)
+    lat = bench_latency(engine, images[:1], samples=args.latency_samples)
+    flops = model_flops(cfg, run.image_size)
+    return {
+        "model": run.model,
+        "backend": run.backend,
+        "batch_size": run.batch_size,
+        "images_per_sec": round(tp.images_per_sec, 2),
+        "p50_latency_ms": round(lat.p50_ms, 3),
+        "p99_latency_ms": round(lat.p99_ms, 3),
+        "gflops_per_image": round(flops / 1e9, 2),
+        "platform": "gpu",
+        "card": card_line(),
+    }
+
+
+def cmd_bench(args) -> int:
+    print(json.dumps(run_bench(args)))
+    return 0
+
+
+def run_eval(args: argparse.Namespace, *, device=None) -> dict:
+    """The ``eval`` command's body: top-1 / top-5 and the image count over
+    the ImageFolder tree ``args.data_dir`` (``data.imagefolder.evaluate``)."""
+    from resnetc_tpu_torch.data import evaluate
+
+    run = _serving_run(args)
+    _, engine = _build_engine(run, device)
+    result = evaluate(engine, args.data_dir, batch_size=run.batch_size,
+                      image_size=run.image_size)
+    return {"model": run.model, **result}
+
+
+def cmd_eval(args) -> int:
+    print(json.dumps(run_eval(args)))
+    return 0
+
+
+def run_export_weights(args: argparse.Namespace) -> int:
+    """The ``export-weights`` command's body: the model's weights
+    (``--weights-dir``, or initialised from ``--seed``) as the reference's
+    raw-f32 files in ``args.out_dir``; returns the number of files.  Host
+    only: no device is touched."""
+    from resnetc_tpu_torch import checkpoint
+    from resnetc_tpu_torch.config import run_config_from_args
+
+    _, variables = _model(run_config_from_args(args))
+    return checkpoint.save_reference_format(variables, args.out_dir)
+
+
+def cmd_export_weights(args) -> int:
+    n = run_export_weights(args)
+    print(f"wrote {n} weight files to {args.out_dir} (save_weights.py format)")
+    return 0
+
+
+def run_convert_images(args: argparse.Namespace) -> int:
+    """The ``convert-images`` command's body: every ``.jpg`` / ``.jpeg`` /
+    ``.png`` in ``args.image_dir`` preprocessed with PIL (the eval
+    transform, 224 px) and written as the reference's ``.bin`` input under
+    ``args.out_dir`` (convert_imgs_to_bin.py); returns the number of
+    files."""
+    from pathlib import Path
+
+    from resnetc_tpu_torch.data.preprocess import preprocess_file, save_input_bin
+
+    out = Path(args.out_dir)
+    n = 0
+    for img in sorted(Path(args.image_dir).iterdir()):
+        if img.suffix.lower() not in (".jpg", ".jpeg", ".png"):
+            continue
+        save_input_bin(preprocess_file(img), out / (img.stem + ".bin"))
+        n += 1
+    return n
+
+
+def cmd_convert_images(args) -> int:
+    n = run_convert_images(args)
+    print(f"converted {n} images to {args.out_dir}")
+    return 0
 
 
 def run_train(args: argparse.Namespace, *, device=None):
@@ -40,19 +243,22 @@ def run_train(args: argparse.Namespace, *, device=None):
     One process: returns the final ``TrainState``.  ``--multihost``: this
     process is rank ``--process-id`` of ``--num-processes``, meeting at
     ``--coordinator``; it draws its own slice of the global batch from
-    ``seed + rank`` (JAX ``__main__.py:194-217``) and returns its final
-    state.  ``--data-dim N`` on one host: N ranks spawned here
-    (``parallel.distributed.spawn``), each taking its slice of the one
-    global batch drawn from ``seed``, so the run logs what the one-rank
-    run logs; returns None.  Rank 0 writes the metrics log to stdout, the
-    checkpoint and the export; the other ranks write their records to
-    stderr."""
+    ``seed + rank`` (JAX ``__main__.py:194-217``), or with ``--data-dir``
+    reads its strided shard of every epoch (``shard=(rank, n)``), and
+    returns its final state.  ``--data-dim N`` on one host: N ranks spawned
+    here (``parallel.distributed.spawn``), each taking its slice of the one
+    global batch (drawn from ``seed``, or read from ``--data-dir``), so the
+    run logs what the one-rank run logs; returns None.  ``--data-dir``:
+    ``ImageFolderLoader(train=True, epochs=10**9, seed=seed)``, its random
+    crops decoded on background threads, ``--steps`` batches.  Rank 0
+    writes the metrics log to stdout, the checkpoint and the export; the
+    other ranks write their records to stderr."""
     from resnetc_tpu_torch.config import run_config_from_args
     from resnetc_tpu_torch.parallel import distributed
     from resnetc_tpu_torch.tensor import resolve_device
 
     run = run_config_from_args(args)
-    _refuse_unported(run, args)
+    _refuse_unported(run)
     if run.multihost:
         dev = distributed.initialize(run.coordinator, run.num_processes, run.process_id,
                                      device=device)
@@ -121,10 +327,13 @@ def _train(run, args, dev, *, parallel: bool, local_batch: bool):
     if local_batch:
         _, batch_size = distributed.global_batch_slice(run.batch_size)
         seed += rank
-    batches = synthetic_batches(
-        batch_size=batch_size, image_size=run.image_size, steps=args.steps,
-        num_classes=run.num_classes, seed=seed, device=dev,
-    )
+    if args.data_dir:
+        batches = _folder_batches(run, args, dev, batch_size, local_batch, rank)
+    else:
+        batches = synthetic_batches(
+            batch_size=batch_size, image_size=run.image_size, steps=args.steps,
+            num_classes=run.num_classes, seed=seed, device=dev,
+        )
     t_last = time.perf_counter()
     for i, (x, y) in enumerate(batches):
         ts, m = step_fn(ts, x, y, sched(ts.step))
@@ -154,6 +363,33 @@ def _train(run, args, dev, *, parallel: bool, local_batch: bool):
     return ts
 
 
+def _folder_batches(run, args, dev, batch_size, local_batch, rank):
+    """``--steps`` (images, labels) batches on ``dev`` from the ImageFolder
+    tree ``--data-dir``.  A ``--multihost`` rank reads its strided shard of
+    every epoch as host arrays (JAX ``__main__.py:196-210``) and moves them
+    itself; every other run reads the whole global batch.  The loader's
+    producer stops when the steps are taken."""
+    import torch
+
+    from resnetc_tpu_torch.data import ImageFolderLoader
+
+    loader = ImageFolderLoader(
+        args.data_dir, batch_size=batch_size, image_size=run.image_size,
+        train=True, epochs=10**9, seed=run.seed, device=dev,
+        shard=(rank, torch.distributed.get_world_size()) if local_batch else None,
+        to_device=not local_batch,
+    )
+    it = iter(loader)
+    try:
+        for _ in range(args.steps):
+            x, y = next(it)
+            if local_batch:
+                x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+            yield x, y
+    finally:
+        it.close()  # stops the producer thread
+
+
 def cmd_train(args) -> int:
     run_train(args)
     return 0
@@ -174,7 +410,7 @@ def run_verify(args: argparse.Namespace, *, device=None) -> dict:
     from resnetc_tpu_torch.verify.twin import build_twin
 
     run = run_config_from_args(args)
-    _refuse_unported(run, args)
+    _refuse_unported(run)
     if run.multihost or run.data_dim > 1:
         raise SystemExit(
             "verify runs in one process, as the JAX CLI's does (it takes no "
@@ -214,7 +450,23 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="resnetc_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    p = sub.add_parser("train", help="training loop (synthetic data)")
+    p = sub.add_parser("classify", help="classify image files (top-1 index)")
+    add_run_args(p)
+    p.add_argument("images", nargs="+")
+    p.add_argument(
+        "--labels-file", default=None,
+        help="class-name file (one name per line, line i = index i) to "
+        "print names alongside indices",
+    )
+    p.set_defaults(fn=cmd_classify)
+
+    p = sub.add_parser("bench", help="serving throughput + latency")
+    add_run_args(p)
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--latency-samples", type=int, default=50)
+    p.set_defaults(fn=cmd_bench)
+
+    p = sub.add_parser("train", help="training loop (synthetic data or an image dir)")
     add_run_args(p)
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--lr", type=float, default=0.1)
@@ -232,7 +484,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default=None, help="checkpoint dir to resume from")
     p.add_argument(
         "--data-dir", default=None,
-        help="ImageFolder tree (not ported yet: the command refuses it)",
+        help="ImageFolder tree (root/<class>/<img>); synthetic data if omitted",
     )
     p.add_argument(
         "--export-weights-dir", default=None,
@@ -240,6 +492,21 @@ def build_parser() -> argparse.ArgumentParser:
         "files (what the serving engines load)",
     )
     p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("eval", help="top-1 accuracy over an ImageFolder tree")
+    add_run_args(p)
+    p.add_argument("data_dir")
+    p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("export-weights", help="write raw-f32 weight files")
+    add_run_args(p)
+    p.add_argument("out_dir")
+    p.set_defaults(fn=cmd_export_weights)
+
+    p = sub.add_parser("convert-images", help="images -> reference .bin inputs")
+    p.add_argument("image_dir")
+    p.add_argument("out_dir")
+    p.set_defaults(fn=cmd_convert_images)
 
     p = sub.add_parser("verify", help="numeric parity vs the torch twin")
     add_run_args(p)

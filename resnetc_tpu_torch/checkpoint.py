@@ -59,16 +59,37 @@ def load_reference_format(
     dtype: torch.dtype = torch.float32,
 ) -> Tree:
     """Load a reference weight directory into a variables tree (CPU).
-    Shapes come from the config; element-count mismatches raise."""
+    Shapes come from the config; a missing file raises
+    ``FileNotFoundError``, an element-count mismatch ``ValueError``.
+
+    The files are read by the native library's thread pool
+    (``native.read_f32_many``) where it built, else one at a time with
+    ``np.fromfile``, as ``resnetc_tpu/checkpoint.py:124-138`` does."""
+    from resnetc_tpu_torch import native
+
     directory = Path(directory)
+    shapes = param_shapes(cfg)
+    for key, shape in shapes.items():
+        if not (directory / key).exists():
+            raise FileNotFoundError(
+                f"missing weight file {directory / key} (expected shape {shape})"
+            )
+    raws = None
+    if native.available("binio"):
+        keys = list(shapes)
+        try:
+            arrays = native.read_f32_many([str(directory / k) for k in keys],
+                                          [int(np.prod(shapes[k])) for k in keys])
+            raws = dict(zip(keys, arrays))
+        except ValueError:
+            pass  # a size mismatch: the per-file read below names the file
+    if raws is None:
+        raws = {k: np.fromfile(directory / k, dtype="<f4") for k in shapes}
     flat: dict[str, torch.Tensor] = {}
-    for key, shape in param_shapes(cfg).items():
-        path = directory / key
-        if not path.exists():
-            raise FileNotFoundError(f"missing weight file {path} (expected shape {shape})")
-        raw = np.fromfile(path, dtype="<f4")
+    for key, shape in shapes.items():
+        raw = raws[key]
         if raw.size != int(np.prod(shape)):
-            raise ValueError(f"{path}: {raw.size} elems, expected shape {shape}")
+            raise ValueError(f"{directory / key}: {raw.size} elems, expected shape {shape}")
         if _is_conv_weight(key, shape):
             h, w, i, o = shape
             arr = raw.reshape(o, i, h, w).transpose(2, 3, 1, 0)  # OIHW -> HWIO

@@ -4,7 +4,9 @@ The port's own copy of ``resnetc_tpu/data/preprocess.py`` (numpy + PIL on
 the host, no framework): resize the short side to 232 (bilinear),
 center-crop 224, scale to [0, 1], normalize with the ImageNet mean and std
 (convert_imgs_to_bin.py:12, through the weights' transform).  The output is
-a numpy array; the engine moves it to its device.
+a numpy array; the engine moves it to its device.  A batch of JPEGs
+takes the native libjpeg ingest where it built
+(``preprocess_files_batch``).
 
 Also reads and writes the reference's input format: a flat, headerless,
 little-endian float32 file holding the preprocessed NCHW tensor
@@ -86,11 +88,28 @@ def preprocess_files_batch(
     *,
     resize: int = DEFAULT_RESIZE,
     crop: int = DEFAULT_CROP,
+    num_threads: int = 4,
 ) -> np.ndarray:
-    """Decode and preprocess every file through PIL -> (N, crop, crop, 3)
-    float32 NHWC.  (The JAX package also has a threaded libjpeg ingest for
-    all-JPEG batches; the port has no native helper yet, so every file takes
-    the PIL path.)"""
+    """Decode and preprocess a batch -> (N, crop, crop, 3) float32 NHWC.
+
+    An all-JPEG batch goes through the native libjpeg ingest
+    (``resnetc_tpu_torch.native``, ``num_threads`` threads) where the
+    library built; any other batch, or a file the ingest refuses, through
+    PIL one file at a time (the error a corrupt file raises is then PIL's).
+    The two paths agree within one uint8 level (tests/test_torch_native.py),
+    as in ``resnetc_tpu/data/preprocess.py:79-107``."""
+    jpeg_only = all(str(p).lower().endswith((".jpg", ".jpeg")) for p in paths)
+    if jpeg_only:
+        from resnetc_tpu_torch import native
+
+        if native.available("ingest"):
+            try:
+                return native.preprocess_files(
+                    [str(p) for p in paths], resize=resize, crop=crop,
+                    mean=IMAGENET_MEAN, std=IMAGENET_STD, num_threads=num_threads,
+                )
+            except ValueError:
+                pass  # a corrupt file: PIL gives the real error
     return np.concatenate([preprocess_file(p, resize=resize, crop=crop) for p in paths])
 
 

@@ -8,7 +8,15 @@ sources and the flags, so an edited source rebuilds and an unchanged one is
 reused.  Nothing outside the repository is needed but the CUDA toolkit.
 
 Also home of the launch counters: every wrapper adds one to
-``LAUNCHES[name]`` where it launches its kernel, and nowhere else.
+``LAUNCHES[name]`` where it launches its kernel, and nowhere else
+(``launched``), and of the two debugging switches every wrapper reads:
+``runs_plain`` (a CPU tensor, or inside ``utils.debug.plain_kernels()``,
+takes the plain version) and ``launched`` (inside
+``utils.debug.nan_debug()`` each kernel's output is checked for NaN after
+its launch, since the launches pass through ctypes, where torch's
+dispatcher does not see them).  Both switches are per thread
+(``SWITCHES``): a context opened by one thread changes nothing for the
+others.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -40,11 +49,38 @@ LAUNCHES: collections.Counter = collections.Counter()
 #: report with ``build_all(verbose=True)``).
 BUILD_LOG: dict[str, str] = {}
 
+
+class _Switches(threading.local):
+    #: Depth of this thread's ``utils.debug.plain_kernels()`` contexts:
+    #: above 0, its wrappers run their plain versions, on the card too.
+    plain_depth = 0
+    #: Set by ``utils.debug.nan_debug()``: each launch's output is checked.
+    nan_check = False
+
+
+#: The debugging switches, one set per thread.
+SWITCHES = _Switches()
+
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+
+
+def runs_plain(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` runs its plain version: ``t`` is off the
+    card, or this thread has a ``plain_kernels()`` context open."""
+    return not t.is_cuda or SWITCHES.plain_depth > 0
+
+
+def launched(name: str, out: torch.Tensor) -> torch.Tensor:
+    """Count one launch of ``name``'s kernel, whose output is ``out``; under
+    ``nan_debug()`` wait for it and raise if ``out`` holds a NaN."""
+    LAUNCHES[name] += 1
+    if SWITCHES.nan_check and out.is_floating_point() and bool(torch.isnan(out).any()):
+        raise FloatingPointError(f"{name}: the kernel's output holds a NaN")
+    return out
 
 
 def _nvcc() -> str:

@@ -432,7 +432,7 @@ def bottleneck_block_chained_int8(
     K-major), made once per engine by ``fused.pack_chain_kmajor``; without
     them the wrapper transposes once per call.
     """
-    if not xq.is_cuda:
+    if _build.runs_plain(xq):
         return bottleneck_block_chained_int8_plain(
             xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales,
             h=h, w_sp=w_sp, emit_i8=emit_i8, emit_mean=emit_mean,
@@ -472,8 +472,7 @@ def bottleneck_block_chained_int8(
         _inv_hw(h, w_sp), _build.stream(),
     )
     _build.check(rc, "bottleneck_block_chained_int8")
-    _build.LAUNCHES["bottleneck_block_chained_int8"] += 1
-    return out
+    return _build.launched("bottleneck_block_chained_int8", out)
 
 
 # ---------------------------------------------------------------------------
@@ -574,7 +573,7 @@ def bottleneck_run_chained_int8(
     swd/bd block 0 is the projection block over xq (rows, cin) and w1q_s
     stacks blocks 1..N-1 only.  ``*_nk``: the weights' K-major copies (see
     ``bottleneck_block_chained_int8``), stacked alike."""
-    if not xq.is_cuda:
+    if _build.runs_plain(xq):
         return bottleneck_run_chained_int8_plain(
             xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s,
             h=h, w_sp=w_sp, emit_i8=emit_i8, w1q0=w1q0, wdq=wdq, swd=swd, bd=bd,
@@ -614,8 +613,7 @@ def bottleneck_run_chained_int8(
         0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
     )
     _build.check(rc, "bottleneck_run_chained_int8")
-    _build.LAUNCHES["bottleneck_run_chained_int8"] += 1
-    return out
+    return _build.launched("bottleneck_run_chained_int8", out)
 
 
 # ---------------------------------------------------------------------------
@@ -708,7 +706,7 @@ def downsample_block_s2_int8(
     itself, as ``_fold_ds`` does, op for op.
     """
     kmajor = dict(w1q_nk=w1q_nk, w2q_nk=w2q_nk, w3q_nk=w3q_nk, wdq_nk=wdq_nk)
-    if not xr.is_cuda:
+    if _build.runs_plain(xr):
         return downsample_block_s2_int8_plain(
             xr, w1q, sw1, b1, w2q, sw2, b2, w3q, sw3, b3, wdq, swd, bd, scales,
             h=h, w_sp=w_sp, emit_i8=emit_i8, **kmajor,
@@ -743,8 +741,7 @@ def downsample_block_s2_int8(
         z1.data_ptr(), z2.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
     )
     _build.check(rc, "downsample_block_s2_int8")
-    _build.LAUNCHES["downsample_block_s2_int8"] += 1
-    return out
+    return _build.launched("downsample_block_s2_int8", out)
 
 
 # ---------------------------------------------------------------------------
@@ -843,7 +840,7 @@ def basic_block_chained_int8(
     per call.  The kernel folds the requant scales itself, as
     ``_fold_basic`` does, op for op.
     """
-    if not xq.is_cuda:
+    if _build.runs_plain(xq):
         return basic_block_chained_int8_plain(
             xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, h=h, w_sp=w_sp, emit_i8=emit_i8,
             w1pq_nk=w1pq_nk, w2pq_nk=w2pq_nk,
@@ -868,8 +865,7 @@ def basic_block_chained_int8(
         0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
     )
     _build.check(rc, "basic_block_chained_int8")
-    _build.LAUNCHES["basic_block_chained_int8"] += 1
-    return out
+    return _build.launched("basic_block_chained_int8", out)
 
 
 def basic_run_chained_int8_plain(
@@ -906,7 +902,7 @@ def basic_run_chained_int8(
     before the last always hand on int8; ``emit_i8`` picks the last one's
     exit.  ``w1pq_nk_s`` / ``w2pq_nk_s``: the stacked K-major copies (see
     ``basic_block_chained_int8``)."""
-    if not xq.is_cuda:
+    if _build.runs_plain(xq):
         return basic_run_chained_int8_plain(
             xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s,
             h=h, w_sp=w_sp, emit_i8=emit_i8, w1pq_nk_s=w1pq_nk_s, w2pq_nk_s=w2pq_nk_s,
@@ -935,8 +931,7 @@ def basic_run_chained_int8(
         0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
     )
     _build.check(rc, "basic_run_chained_int8")
-    _build.LAUNCHES["basic_run_chained_int8"] += 1
-    return out
+    return _build.launched("basic_run_chained_int8", out)
 
 
 def _fold_basic_ds(scales, sw1, b1, sw2p, b2, swd, bd, emit_i8):
@@ -1016,7 +1011,7 @@ def basic_ds_block_s2_int8(
     ``_fold_basic_ds`` does, op for op.
     """
     kmajor = dict(w1pq_nk=w1pq_nk, w2pq_nk=w2pq_nk, wdq_nk=wdq_nk)
-    if not xr.is_cuda:
+    if _build.runs_plain(xr):
         return basic_ds_block_s2_int8_plain(
             xr, w1pq, sw1, b1, w2pq, sw2p, b2, wdq, swd, bd, scales,
             h=h, w_sp=w_sp, emit_i8=emit_i8, **kmajor,
@@ -1050,8 +1045,7 @@ def basic_ds_block_s2_int8(
         0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
     )
     _build.check(rc, "basic_ds_block_s2_int8")
-    _build.LAUNCHES["basic_ds_block_s2_int8"] += 1
-    return out
+    return _build.launched("basic_ds_block_s2_int8", out)
 
 
 # ---------------------------------------------------------------------------
@@ -1270,8 +1264,7 @@ def _pp_call(kernel, xpp, geo, weights, vecs, scales, *, folded, emit_i8, n_bloc
             act[1].data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
         )
     _build.check(rc, kernel)
-    _build.LAUNCHES[kernel] += 1
-    return out
+    return _build.launched(kernel, out)
 
 
 def bottleneck_block_pp_pairs_plain(
@@ -1303,7 +1296,7 @@ def bottleneck_block_pp_pairs(
     (c4p,).  Any int8 values: the kernel is a dense pair-space GEMM.
     Returns (B*hp*wp/2, c4p) pair rows, int8 or bf16, zero on ring halves."""
     kmajor = dict(w1bd_nk=w1bd_nk, w2pp_nk=w2pp_nk, w3bd_nk=w3bd_nk, wdbd_nk=wdbd_nk)
-    if not xpp.is_cuda:
+    if _build.runs_plain(xpp):
         return bottleneck_block_pp_pairs_plain(
             xpp, w1bd, a1, c1, w2pp, a2, c2, w3bd, a3, c3, s_res,
             h=h, w_sp=w_sp, emit_i8=emit_i8, wdbd=wdbd, ad=ad, cd=cd, **kmajor,
@@ -1367,7 +1360,7 @@ def bottleneck_block_chained_int8_pp(
     packs and transposes once per call.  The kernel folds the requant scales
     from the raw vectors and the device scales, as ``_fold_block`` then
     ``_pp_tile`` do, op for op."""
-    if not xq.is_cuda:
+    if _build.runs_plain(xq):
         return bottleneck_block_chained_int8_pp_plain(
             xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales, h=h, w_sp=w_sp,
             emit_i8=emit_i8, wdq=wdq, swd=swd, bd=bd,
@@ -1436,7 +1429,7 @@ def bottleneck_run_pp_pairs(
     GEMMs, as kernel 5."""
     kmajor = dict(w1bd_nk_s=w1bd_nk_s, w2pp_nk_s=w2pp_nk_s, w3bd_nk_s=w3bd_nk_s,
                   w10bd_nk=w10bd_nk, wdbd_nk=wdbd_nk)
-    if not xpp.is_cuda:
+    if _build.runs_plain(xpp):
         return bottleneck_run_pp_pairs_plain(
             xpp, w1bd_s, a1s, c1s, w2pp_s, a2s, c2s, w3bd_s, a3s, c3s, s_res,
             h=h, w_sp=w_sp, emit_i8=emit_i8, w10bd=w10bd, wdbd=wdbd, ad=ad, cd=cd, **kmajor,
@@ -1503,7 +1496,7 @@ def bottleneck_run_chained_int8_pp(
     ``wdbd_nk``): the stacked K-major copies of the pair-space weights (see
     ``bottleneck_block_chained_int8_pp``).  The kernel folds each block's
     scales itself (as ``_fold_run`` then ``_pp_tile`` do)."""
-    if not xq.is_cuda:
+    if _build.runs_plain(xq):
         return bottleneck_run_chained_int8_pp_plain(
             xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s,
             h=h, w_sp=w_sp, emit_i8=emit_i8, w1q0=w1q0, wdq=wdq, swd=swd, bd=bd,
@@ -1583,7 +1576,7 @@ def basic_block_pp_pairs(
     c2), c1, c2 (c2,), s_res (1,) fp32, folded and lane-tiled.  Dense
     pair-space GEMMs on the int8 tile.  Returns (B*hp*wp/2, c2) pair rows,
     int8 or bf16, zero on ring halves."""
-    if not xpp.is_cuda:
+    if _build.runs_plain(xpp):
         return basic_block_pp_pairs_plain(
             xpp, w1pp, a1, c1, w2pp, a2, c2, s_res, h=h, w_sp=w_sp, emit_i8=emit_i8,
             w1pp_nk=w1pp_nk, w2pp_nk=w2pp_nk,
@@ -1602,8 +1595,7 @@ def basic_block_pp_pairs(
         z1.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
     )
     _build.check(rc, "basic_block_chained_int8_pp")
-    _build.LAUNCHES["basic_block_chained_int8_pp"] += 1
-    return out
+    return _build.launched("basic_block_chained_int8_pp", out)
 
 
 def _pp_packed(wpq, c, wpp_nk):
@@ -1682,7 +1674,7 @@ def basic_run_pp_pairs(
     w2pp_s (N, 3c2, 3c2) int8 (their K-major copies ``w1pp_nk_s``,
     ``w2pp_nk_s``, else transposed per call); a1s, a2s (3N, c2), c1s, c2s
     (N, c2), s_res (N,) fp32.  Dense pair-space GEMMs, as kernel 9."""
-    if not xpp.is_cuda:
+    if _build.runs_plain(xpp):
         return basic_run_pp_pairs_plain(
             xpp, w1pp_s, a1s, c1s, w2pp_s, a2s, c2s, s_res, h=h, w_sp=w_sp, emit_i8=emit_i8,
             w1pp_nk_s=w1pp_nk_s, w2pp_nk_s=w2pp_nk_s,
@@ -1704,8 +1696,7 @@ def basic_run_pp_pairs(
         0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
     )
     _build.check(rc, "basic_run_chained_int8_pp")
-    _build.LAUNCHES["basic_run_chained_int8_pp"] += 1
-    return out
+    return _build.launched("basic_run_chained_int8_pp", out)
 
 
 def _basic_run_pp_operands(xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s,
@@ -1825,8 +1816,7 @@ def _fp_launch(x, w1, b1, w2, b2, w3, b3, *, chain, b, h, w_sp, hp, wp, name):
         _FP_KIND[dt], int(chain), b, h, w_sp, hp, wp, c, c4, _build.stream(),
     )
     _build.check(rc, name)
-    _build.LAUNCHES[name] += 1
-    return out
+    return _build.launched(name, out)
 
 
 def bottleneck_block_chained_plain(xr, w1, b1, w2, b2, w3, b3, *, h, w_sp, bt=None,
@@ -1845,7 +1835,7 @@ def bottleneck_block_chained(xr, w1, b1, w2, b2, w3, b3, *, h, w_sp, bt=None, in
     block; w1 (4c, c) or (1, 1, 4c, c), w2 (3, 3, c, c), w3 (c, 4c) or (1,
     1, c, 4c) in xr's type; fp32 biases.  Returns the same layout and type,
     with zeros on the ring rows."""
-    if not xr.is_cuda:
+    if _build.runs_plain(xr):
         return bottleneck_block_chained_plain(xr, w1, b1, w2, b2, w3, b3, h=h, w_sp=w_sp)
     w1, w3 = _fp_weights(xr, w1, w2, w3)
     b, hp, wp = _fp_chain_geometry(xr, h, w_sp)
@@ -1862,7 +1852,7 @@ def bottleneck_block_fused_plain(x, w1, b1, w2, b2, w3, b3, *, bt=None, interpre
 def bottleneck_block_fused(x, w1, b1, w2, b2, w3, b3, *, bt=None, interpret=False):
     """One stride-1 bottleneck block, NHWC (B, H, W, 4c) bf16 / fp32 in and
     out, the zero ring implicit; weights as for ``bottleneck_block_chained``."""
-    if not x.is_cuda:
+    if _build.runs_plain(x):
         return bottleneck_block_fused_plain(x, w1, b1, w2, b2, w3, b3)
     w1, w3 = _fp_weights(x, w1, w2, w3)
     if x.ndim != 4:

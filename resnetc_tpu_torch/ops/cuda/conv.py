@@ -136,8 +136,7 @@ def _conv_launch(x, w, bias, residual, *, stride, relu, out_dtype, name):
         _build.stream(),
     )
     _build.check(rc, name)
-    _build.LAUNCHES[name] += 1
-    return out
+    return _build.launched(name, out)
 
 
 def _check_weight(x: torch.Tensor, w: torch.Tensor, k: int | None) -> None:
@@ -161,7 +160,7 @@ def conv3x3_s1_fused(x, w, bias=None, residual=None, *, relu=False, out_dtype=No
     x (B, H, W, Cin); w (3, 3, Cin, Cout); bias (Cout,); residual (B, H, W,
     Cout).  Output (B, H, W, Cout) in ``out_dtype`` (default x's)."""
     _check_weight(x, w, 3)
-    if not x.is_cuda:
+    if _build.runs_plain(x):
         return _conv_plain(x, w, bias, residual, stride=1, relu=relu, out_dtype=out_dtype)
     return _conv_launch(x, w, bias, residual, stride=1, relu=relu, out_dtype=out_dtype,
                         name="conv3x3_s1_fused")
@@ -179,7 +178,7 @@ def conv_s2_fused(x, w, bias=None, *, relu=False, out_dtype=None, tn=None, bt=No
     """Fused odd-k stride-2 pad-k//2 conv: ``relu(conv(x, w) + bias)``.
     Output (B, (H + 2p - k)//2 + 1, (W + 2p - k)//2 + 1, Cout)."""
     _check_weight(x, w, None)
-    if not x.is_cuda:
+    if _build.runs_plain(x):
         return _conv_plain(x, w, bias, None, stride=2, relu=relu, out_dtype=out_dtype)
     return _conv_launch(x, w, bias, None, stride=2, relu=relu, out_dtype=out_dtype,
                         name="conv_s2_fused")

@@ -86,20 +86,19 @@ def _launch(op: str, a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     rc = _lib().elementwise(_OPS[op], _KIND[a.dtype], a.data_ptr(), _build.ptr(b), out.data_ptr(),
                             a.numel(), _build.stream())
     _build.check(rc, op)
-    _build.LAUNCHES[op] += 1
-    return out
+    return _build.launched(op, out)
 
 
 def relu(x: torch.Tensor, *, interpret: bool = False) -> torch.Tensor:
     """max(x, 0), any shape, bf16 / fp32."""
-    if not x.is_cuda:
+    if _build.runs_plain(x):
         return relu_plain(x)
     return _launch("relu", x, None)
 
 
 def add(a: torch.Tensor, b: torch.Tensor, *, interpret: bool = False) -> torch.Tensor:
     """a + b, two tensors of one shape and type (bf16 / fp32)."""
-    if not a.is_cuda:
+    if _build.runs_plain(a):
         return add_plain(a, b)
     _check_pair(a, b)
     return _launch("add", a, b)
@@ -107,7 +106,7 @@ def add(a: torch.Tensor, b: torch.Tensor, *, interpret: bool = False) -> torch.T
 
 def add_relu(a: torch.Tensor, b: torch.Tensor, *, interpret: bool = False) -> torch.Tensor:
     """max(a + b, 0): the residual join in one pass."""
-    if not a.is_cuda:
+    if _build.runs_plain(a):
         return add_relu_plain(a, b)
     _check_pair(a, b)
     return _launch("add_relu", a, b)

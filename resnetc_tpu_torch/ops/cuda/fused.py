@@ -194,8 +194,9 @@ TUNED_DEFAULTS = _apply_tuned_defaults()
 
 class Kernels(typing.NamedTuple):
     """The kernels of the path.  ``KERNELS`` dispatches on the device
-    (CUDA kernel for a CUDA tensor, plain version on the CPU); ``PLAIN``
-    runs the plain versions anywhere — the on-card reference."""
+    (CUDA kernel for a CUDA tensor, plain version on the CPU or inside
+    ``utils.debug.plain_kernels()``); ``PLAIN`` runs the plain versions
+    anywhere — the on-card reference."""
 
     block: typing.Callable
     run: typing.Callable

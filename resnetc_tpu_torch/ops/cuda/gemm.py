@@ -80,7 +80,7 @@ def matmul(
     if k != k2:
         raise ValueError(f"contraction mismatch: {tuple(x.shape)} @ {tuple(w.shape)}")
     out_dtype = out_dtype or x.dtype
-    if not x.is_cuda:
+    if _build.runs_plain(x):
         return matmul_plain(x, w, bias, residual, relu=relu, out_dtype=out_dtype)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x: dtype {x.dtype}, expected bf16 or fp32")
@@ -111,5 +111,4 @@ def matmul(
         int(out_dtype == torch.bfloat16), m, n, k, int(relu), _build.stream(),
     )
     _build.check(rc, "matmul")
-    _build.LAUNCHES["matmul"] += 1
-    return out
+    return _build.launched("matmul", out)

@@ -80,7 +80,7 @@ def max_pool2d(x: torch.Tensor, *, kernel_size: int, stride: int, padding: int,
                interpret: bool = False) -> torch.Tensor:
     """Max pool, NHWC (B, H, W, C) bf16 / fp32 / int8 -> (B, OH, OW, C)."""
     k, s, p = kernel_size, stride, padding
-    if not x.is_cuda:
+    if _build.runs_plain(x):
         return max_pool2d_plain(x, kernel_size=k, stride=s, padding=p)
     oh, ow = _geometry(x, k, s, p)
     if x.dtype not in _KIND:
@@ -93,8 +93,7 @@ def max_pool2d(x: torch.Tensor, *, kernel_size: int, stride: int, padding: int,
         k, s, p, _build.stream(),
     )
     _build.check(rc, "max_pool2d")
-    _build.LAUNCHES["max_pool2d"] += 1
-    return out
+    return _build.launched("max_pool2d", out)
 
 
 def _inv_k2(k: int) -> float:
@@ -126,7 +125,7 @@ def avg_pool2d(x: torch.Tensor, *, kernel_size: int, stride: int, padding: int =
     """Average pool, NHWC (B, H, W, C) bf16 / fp32 -> (B, OH, OW, C), divisor
     k*k (padded taps count as zeros)."""
     k, s, p = kernel_size, stride, padding
-    if not x.is_cuda:
+    if _build.runs_plain(x):
         return avg_pool2d_plain(x, kernel_size=k, stride=s, padding=p)
     oh, ow = _geometry(x, k, s, p)
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -139,5 +138,4 @@ def avg_pool2d(x: torch.Tensor, *, kernel_size: int, stride: int, padding: int =
         k, s, p, _inv_k2(k), _build.stream(),
     )
     _build.check(rc, "avg_pool2d")
-    _build.LAUNCHES["avg_pool2d"] += 1
-    return out
+    return _build.launched("avg_pool2d", out)

@@ -176,7 +176,7 @@ def int8_matmul(
     k2, n = w_q.shape
     if k != k2:
         raise ValueError(f"contraction mismatch: {tuple(x_q.shape)} @ {tuple(w_q.shape)}")
-    if not x_q.is_cuda:
+    if _build.runs_plain(x_q):
         return int8_matmul_plain(x_q, w_q, scale_x, scale_w, bias, residual,
                                  relu=relu, out_dtype=out_dtype, w_nk=w_nk)
     if out_dtype not in (torch.bfloat16, torch.float32):
@@ -212,8 +212,7 @@ def int8_matmul(
         int(out_dtype == torch.bfloat16), m, n, k, int(relu), _build.stream(),
     )
     _build.check(rc, "int8_matmul")
-    _build.LAUNCHES["int8_matmul"] += 1
-    return out
+    return _build.launched("int8_matmul", out)
 
 
 def conv1x1_int8(

@@ -42,7 +42,9 @@ mesh) serves ``int8_chain`` data-parallel: every rank builds the engine,
 holds its own copy of the weights and calls ``logits`` with the same global
 batch, computes its slice and gets the gathered logits
 (``fused_forward_int8_chain_sharded``).  Benchmarks time on the card only,
-with CUDA events.
+with CUDA events; ``bench_local_latency`` is the engine-local view (the
+marginal time of one of a chain of forwards, host included,
+``utils.timing``).
 """
 
 from __future__ import annotations
@@ -222,7 +224,7 @@ class ThroughputResult:
 @dataclasses.dataclass(frozen=True)
 class LatencyResult:
     p50_ms: float
-    p99_ms: float
+    p99_ms: float | None
     mean_ms: float
     samples: int
 
@@ -286,4 +288,35 @@ def bench_latency(
         p99_ms=float(np.percentile(arr, 99)),
         mean_ms=float(arr.mean()),
         samples=samples,
+    )
+
+
+def bench_local_latency(
+    engine: InferenceEngine, images, *, runs: int = 7, iters: int = 32
+) -> LatencyResult:
+    """Engine-local latency of one forward on the card: each of ``runs``
+    samples is ``utils.timing.chained_seconds_per_iter`` over ``iters``
+    chained forwards, the marginal time of one without the host's wait for
+    a result (``resnetc_tpu/serve.py:322``).  This is host-inclusive, not
+    device time: the eager forward's launches are issued by the host, and
+    where the host issues them slower than the card runs them the sample
+    is the host's time per forward.  For device time, sum the kernels'
+    events of a ``utils.metrics.profile_trace``.  No p99: each sample
+    is already a mean over ``iters`` forwards, and a percentile over a
+    handful of means is not a tail (``bench_latency`` has the tail)."""
+    from resnetc_tpu_torch.utils.timing import chained_seconds_per_iter
+
+    _require_card(engine)
+    images = torch.as_tensor(images)
+    if images.ndim == 3:
+        images = images[None]
+    images = images.to(engine.device)
+    samples = [chained_seconds_per_iter(engine.logits, images, iters=iters)
+               for _ in range(runs)]
+    arr = np.asarray(samples) * 1e3
+    return LatencyResult(
+        p50_ms=float(np.percentile(arr, 50)),
+        p99_ms=None,
+        mean_ms=float(arr.mean()),
+        samples=runs,
     )

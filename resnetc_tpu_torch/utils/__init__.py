@@ -1,1 +1,2 @@
-"""Step metrics (``metrics``) and analytic FLOP counts (``flops``)."""
+"""Step metrics and profiling hooks (``metrics``), analytic FLOP counts
+(``flops``), device timing (``timing``) and debugging aids (``debug``)."""

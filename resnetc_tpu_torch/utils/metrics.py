@@ -1,6 +1,8 @@
-"""Structured step metrics: one JSON line per record, and a wall-clock
-timer.  Counterpart of ``resnetc_tpu/utils/metrics.py:19-43``; the
-profiler helpers are not ported yet."""
+"""Structured step metrics and profiling hooks: one JSON line per record,
+a wall-clock timer, and ``torch.profiler`` traces.  Counterpart of
+``resnetc_tpu/utils/metrics.py``: ``profile_trace`` writes a Chrome trace of
+the host and the card (CPU and CUDA activities) where JAX writes an XProf
+trace, and ``annotate`` names a region in it."""
 
 from __future__ import annotations
 
@@ -35,3 +37,33 @@ def timer() -> Iterator[dict[str, float]]:
         yield box
     finally:
         box["seconds"] = time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str, *, enabled: bool = True) -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace of the block (CPU operations, and
+    the card's kernels and copies where CUDA is available) and write it to
+    ``logdir`` as a Chrome trace (``trace.json``, for chrome://tracing or
+    Perfetto).  ``enabled=False`` runs the block without a profiler."""
+    if not enabled:
+        yield
+        return
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def annotate(name: str):
+    """Decorator/context: name a region in profiler traces."""
+    from torch.profiler import record_function
+
+    return record_function(name)
