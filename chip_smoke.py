@@ -105,7 +105,11 @@ then:
    ``train_step`` at ``tests/test_parallel.py``'s tolerances, then three
    BF16 steps (ms, img/s, the gloo all-reduce's ms, peak memory); ``[cli
    dp]``, ``train --data-dim 2`` and the two-process ``--multihost`` form
-   of the command, the same losses on both ranks of each.  Then the
+   of the command, the same losses on both ranks of each; ``[dp serve
+   backends]``, ``fp``, ``pallas``, ``pallas_block``, ``int8`` and
+   ``int8_static`` on ResNet-50 b32 FP32 over two ranks against one
+   process (float backends rtol 1e-4, atol 1e-4; int8 ones JAX's DP
+   contract), each rank's launches counted, ms per global batch.  Then the
    serving CLI and the data pipeline, each phase's seconds printed:
    ``[native]``, whether the native host library built (it must where
    the libjpeg headers are), its ingest against PIL on 32 seeded JPEGs
@@ -129,7 +133,22 @@ then:
    plain-version forward, the served launches outside it, ``nan_debug``
    passing a finite forward and raising on a NaN input to ``relu``;
    ``[train data-dir]``, ``train --data-dir`` on the tree (ResNet-18,
-   batch 32, 3 steps, finite losses);
+   batch 32, 3 steps, finite losses); ``[cli dp serve]`` (after ``[cli
+   serve resnet152]``), ``classify``, ``eval`` and ``bench`` with
+   ``--data-dim 2`` on the same files, equal to the one-process commands.
+   Then ``[artifact resnet50]``: ResNet-50 exported (``export.py``'s
+   functions, in a child started before the nvcc build, beside the C++
+   runner's build, on seeded weights whose fc bias is centred so that the
+   classes vary over the images) as ``int8_chain`` on the served route at
+   b1 and b32 and ``fp`` at b1, and ResNet-18 as ``int8_chain`` at b8 (the
+   basic-block ops), each AOTInductor package loaded here within 1e-2 of
+   max |logit| of the engine and calling the ops the engine's forward
+   launches, its graph one ``resnetc::`` node per launch of the served
+   route, and the C++ runner's logits within 1e-2 of max |logit| of the
+   engine's, its classes the engine's, its latency beside
+   ``bench_latency``'s.  Every launch of the run goes through the C++ ops
+   library that the runner loads too (``csrc/torch_ops.cpp``), so the
+   kernel checks above hold each of its ops against the plain version;
 3. times the engines (images/s, p50 / p99 ms per batch) for int8_chain on
    both routes (and ResNet-34's BASIC_DS_INT8=False route, ResNet-152's
    per-channel and hybrid routes), int8, pallas, pallas_block and fp, and
@@ -159,6 +178,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import faulthandler
 import json
 import os
 import subprocess
@@ -199,8 +219,8 @@ REPEATS = 5
 def time_ms(fn, iters: int, warmup: int = 2, repeats: int = REPEATS) -> float:
     """ms per call: the median over ``repeats`` of the mean of ``iters``
     back-to-back calls between two CUDA events.  Where the host cannot keep
-    ahead of the card (a short kernel behind a ctypes wrapper) this is the
-    host's time per call."""
+    ahead of the card (a short kernel behind its wrapper and op) this is
+    the host's time per call."""
     import statistics
 
     import torch
@@ -1147,14 +1167,15 @@ def phase_kernels(cases: list) -> dict:
     return errs
 
 
-def main_path_counts(blocks: tuple | None = None) -> dict:
+def main_path_counts(blocks: tuple | None = None, basic: tuple | None = None) -> dict:
     """Launches of each kernel case per forward of its model (ResNet-152
     for the bottleneck cases, or another bottleneck net's ``blocks``, and
-    ResNet-34 for the basic ones) on the route that runs it, by case name."""
+    ResNet-34 for the basic ones, or another basic net's ``basic``) on the
+    route that runs it, by case name."""
     from resnetc_tpu_torch.models import get_config
 
     blocks = blocks or get_config("resnet152").stage_blocks
-    basic = get_config("resnet34").stage_blocks
+    basic = basic or get_config("resnet34").stage_blocks
     return {
         "block/proj/s0": 1,
         "block/identity/s1": blocks[1] - 1,
@@ -1188,11 +1209,12 @@ ROUTE_ONLY = {
 REDUCED_ONLY = {"pp/basic/block/s0"}
 
 
-def expected_launches(cases: list, pp: bool, blocks: tuple | None = None) -> dict:
+def expected_launches(cases: list, pp: bool, blocks: tuple | None = None,
+                      basic: tuple | None = None) -> dict:
     """Launches of each kernel in one forward of the cases' model (or of the
-    bottleneck net with ``blocks``), on the pixel-paired route or the
-    standard one."""
-    counts = main_path_counts(blocks)
+    bottleneck net with ``blocks``, the basic net with ``basic``), on the
+    pixel-paired route or the standard one."""
+    counts = main_path_counts(blocks, basic)
     want: dict = {}
     for case in cases:
         if counts.get(case.name, 0) and case.name not in ROUTE_ONLY[not pp] | REDUCED_ONLY:
@@ -2624,6 +2646,145 @@ def phase_dp_two_ranks(engine_logits, want_launches: dict, dev) -> dict:
             "fp32": fp32, "bf16": bf}
 
 
+#: ``[dp serve backends]``: every backend but int8_chain served over two
+#: ranks, ResNet-50 at 224 px, global batch 32, FP32 as the CPU tests serve
+#: them (tests/test_torch_parallel.py).
+DP_BACKENDS = ("fp", "pallas", "pallas_block", "int8", "int8_static")
+
+
+def _dp_backend_runs(dev, mesh=None) -> tuple:
+    """(forwards, images, scales digest): per backend of ``DP_BACKENDS`` a
+    function of the images giving the logits, ResNet-50 from seed 0 under
+    FP32, in one process (``mesh`` None) or over ``mesh``'s data axis (the
+    engine's ``mesh=``; int8_static through ``fused_forward_sharded``,
+    calibrated on the served batch itself as in ``phase_backends``, the
+    digest of its scales returned); the images from seed 3."""
+    import hashlib
+
+    import torch
+
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused, quant
+    from resnetc_tpu_torch.serve import InferenceEngine
+    from resnetc_tpu_torch.tensor import FP32, flatten_tree, tree_map
+
+    cfg = resnet.get_config("resnet50")
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((DP_SERVE_BATCH, 224, 224, 3),
+                    generator=torch.Generator().manual_seed(3)).to(dev)
+    runs = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the pallas backends' notice
+        for b in DP_BACKENDS[:-1]:
+            runs[b] = InferenceEngine(cfg, variables, backend=b, policy=FP32, device=dev,
+                                      mesh=mesh).logits
+    with torch.inference_mode():
+        folded = resnet.fold_inference_params(cfg, tree_map(lambda a: a.to(dev), variables))
+        scales = fused.calibrate_activation_scales(cfg, folded, x, policy=FP32)
+        tree = quant.pack_kmajor(quant.quantize_folded(folded))
+    digest = hashlib.sha256(b"".join(
+        v.cpu().numpy().tobytes() for _, v in sorted(flatten_tree(scales).items()))).hexdigest()
+
+    def static(xx):
+        with torch.inference_mode():
+            if mesh is None:
+                return fused.fused_forward_int8_static(cfg, tree, scales, xx, policy=FP32)
+            return fused.fused_forward_sharded(cfg, tree, xx, mesh, backend="int8_static",
+                                               scales=scales, policy=FP32)
+
+    runs["int8_static"] = static
+    return runs, x, digest
+
+
+def dp_backends_rank(dev) -> dict:
+    """One of the two ranks of ``[dp serve backends]``: each backend's
+    gathered logits of the global batch (its launches counted on this
+    rank), then the median of three timed forwards (host clock, each ending
+    in a synchronize)."""
+    import torch
+    import torch.distributed as dist
+
+    from resnetc_tpu_torch.parallel import create_mesh
+
+    runs, x, digest = _dp_backend_runs(dev, create_mesh())
+    out = {"rank": dist.get_rank(), "device": str(dev), "backend": dist.get_backend(),
+           "scales_digest": digest}
+    for b, run in runs.items():
+        logits, launches = counted(lambda: run(x))
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(x)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[b] = {"logits": logits.float().cpu().numpy(), "launches": launches,
+                  "ms_per_global_batch": sorted(ms)[1]}
+    return out
+
+
+def phase_dp_serve_backends(card: str, dev) -> dict:
+    """``[dp serve backends]``: ``fp``, ``pallas``, ``pallas_block``,
+    ``int8`` and ``int8_static`` on ResNet-50, 224 px, FP32, the global
+    batch of 32 over two ranks on the one card over gloo
+    (``dp_backends_rank``), against the same forwards in this process with
+    the CPU tests' gates (tests/test_torch_parallel.py): the float backends
+    within rtol 1e-4, atol 1e-4 (tests/test_parallel.py:175-193), the int8
+    ones by JAX's DP serving contract (rel-MAE < 0.02, argmax agreement >=
+    0.85).  Both ranks gather the same logits, launch one forward's kernels
+    of a ResNet-50 forward on its slice (``backend_launches``; int8_static
+    the int8 backend's), and calibrate int8_static's scales alike; each
+    backend's ms per global batch is printed with the card."""
+    import numpy as np
+    import torch
+
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.parallel import distributed
+
+    tag = "[dp serve backends]"
+    cfg = resnet.get_config("resnet50")
+    runs, x, digest = _dp_backend_runs(dev)
+    want = {}
+    for b, run in runs.items():
+        want[b] = run(x).float().cpu().numpy()
+    del runs, x
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = distributed.spawn(dp_backends_rank, 2, timeout=900)
+    secs = time.perf_counter() - t0
+    out = {"seconds": secs, "launches": [], "backends": {}}
+    if not res[0]["scales_digest"] == res[1]["scales_digest"] == digest:
+        raise AssertionError(f"{tag} the ranks calibrated other int8_static scales")
+    for b in DP_BACKENDS:
+        got = res[0][b]["logits"]
+        rel_mae = float(np.mean(np.abs(got - want[b])) / np.mean(np.abs(want[b])))
+        rel_max = float(np.max(np.abs(got - want[b])) / np.max(np.abs(want[b])))
+        agreement = float((got.argmax(-1) == want[b].argmax(-1)).mean())
+        ms = [r[b]["ms_per_global_batch"] for r in res]
+        log(f"{tag} {b} FP32 b{DP_SERVE_BATCH} over two ranks ({res[0]['backend']}): vs one "
+            f"process rel_mae={rel_mae} rel_max={rel_max} argmax_agreement={agreement}; ms per "
+            f"global batch (median of 3, host clock) {ms} on {card}")
+        want_launches = backend_launches(cfg, "int8" if b == "int8_static" else b) \
+            if b != "fp" else {}
+        for r in res:
+            if r[b]["launches"] != want_launches:
+                raise AssertionError(f"{tag} {b} rank {r['rank']} launched {r[b]['launches']}, "
+                                     f"expected {want_launches}")
+        if not np.array_equal(res[1][b]["logits"], got):
+            raise AssertionError(f"{tag} {b}: the ranks gathered different logits")
+        if "int8" in b:
+            ok = rel_mae < 0.02 and agreement >= 0.85
+        else:
+            ok = bool(np.allclose(got, want[b], rtol=1e-4, atol=1e-4))
+        if not ok or got.shape != (DP_SERVE_BATCH, 1000):
+            raise AssertionError(f"{tag} {b}: DP serving outside the gate")
+        out["launches"].append(res[0][b]["launches"])
+        out["backends"][b] = {"rel_mae": rel_mae, "rel_max": rel_max, "argmax": agreement,
+                              "ms_per_global_batch": ms}
+    log(f"{tag} {secs:.1f} s for the two ranks")
+    return out
+
+
 def phase_cli_dp() -> dict:
     """``[cli dp]``: ``python -m resnetc_tpu_torch train --model resnet18
     --steps 3 --log-every 1`` with ``--data-dim 2`` (two ranks spawned by
@@ -2934,7 +3095,42 @@ def phase_cli_serve(work, cases: list, dev) -> dict:
         raise AssertionError(f"{tag} bench printed {bench}")
     return {"engine": eng, "launches": launches, "classes": got, "eval": cli_eval,
             "bench": bench, "classify_files_ms": files_ms, "evaluate_ms": eval_ms,
-            "wall_ms": {k: ms for k, (_, ms) in outs.items()}}
+            "wall_ms": {k: ms for k, (_, ms) in outs.items()}, "inputs": inputs}
+
+
+def phase_cli_dp_serve(work, serve: dict, card: str) -> dict:
+    """``[cli dp serve]``: ``classify``, ``eval`` and ``bench`` with
+    ``--data-dim 2`` (two ranks each, spawned by the command, sharing the
+    card over gloo), all three at once, on ``[cli serve resnet152]``'s
+    ResNet-152 ``int8_chain`` files: classify's indices (three files: the
+    ranks pad the batch to four) and eval's record equal the one-process
+    commands'; bench prints its JSON (platform "gpu").  Each command's wall
+    ms is printed."""
+    tag = "[cli dp serve]"
+    root = os.path.dirname(os.path.abspath(__file__))
+    model = ["--model", "resnet152", "--backend", "int8_chain", "--weights-dir",
+             str(work / "weights"), "--data-dim", "2"]
+    t0 = time.perf_counter()
+    outs = _finish(tag, {
+        "classify": _cli("classify", *model, *serve["inputs"], cwd=root),
+        "eval": _cli("eval", *model, "--batch-size", str(CLI_BATCH), str(_tree(work)), cwd=root),
+        "bench": _cli("bench", *model, "--batch-size", str(CLI_BATCH), "--steps", "10",
+                      "--latency-samples", "10", cwd=root),
+    }, t0)
+    got = [int(ln.rsplit(" ", 1)[1]) for ln in outs["classify"][0].splitlines()]
+    cli_eval = json.loads(outs["eval"][0].splitlines()[-1])
+    bench = json.loads(outs["bench"][0].splitlines()[-1])
+    wall = {k: ms for k, (_, ms) in outs.items()}
+    log(f"{tag} classify {got} (one process {serve['classes']}); eval {json.dumps(cli_eval)}; "
+        f"bench {json.dumps(bench)}; wall ms {json.dumps(wall)} (one process "
+        f"{json.dumps(serve['wall_ms'])}) on {card}")
+    if got != serve["classes"]:
+        raise AssertionError(f"{tag} classify printed {got}, one process {serve['classes']}")
+    if cli_eval != serve["eval"]:
+        raise AssertionError(f"{tag} eval printed {cli_eval}, one process {serve['eval']}")
+    if bench.get("platform") != "gpu" or not bench.get("images_per_sec", 0) > 0:
+        raise AssertionError(f"{tag} bench printed {bench}")
+    return {"classes": got, "eval": cli_eval, "bench": bench, "wall_ms": wall}
 
 
 def phase_loader(work, eng, dev) -> dict:
@@ -3099,7 +3295,7 @@ def phase_train_data_dir(work) -> dict:
             "images_per_sec": [r["images_per_sec"] for r in recs]}
 
 
-def run_data_phases(cases: dict, batch: int, dev, add) -> dict:
+def run_data_phases(cases: dict, batch: int, card: str, dev, add) -> dict:
     """The data and serving-CLI phases in order, each's seconds printed;
     ``add`` takes the launches of the forwards counted in them."""
     import shutil
@@ -3122,6 +3318,7 @@ def run_data_phases(cases: dict, batch: int, dev, add) -> dict:
         serve = timed("cli_serve", lambda: phase_cli_serve(work, cases["resnet152"], dev))
         add(serve["launches"])
         eng = serve.pop("engine")
+        timed("cli_dp_serve", lambda: phase_cli_dp_serve(work, serve, card))
         timed("loader", lambda: phase_loader(work, eng, dev))
         timed("local_latency", lambda: phase_local_latency(work, eng, dev))
         del eng
@@ -3130,6 +3327,244 @@ def run_data_phases(cases: dict, batch: int, dev, add) -> dict:
         timed("train_data_dir", lambda: phase_train_data_dir(work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The serving artifact: [artifact resnet50]
+# ---------------------------------------------------------------------------
+
+#: The exported programs: (name, model, backend, batch) at 224 px on the
+#: served route's flags: ResNet-50 (the JAX exporter's default model) and a
+#: ResNet-18, whose program calls the basic-block ops.
+ARTIFACTS = (("int8_chain_b1", "resnet50", "int8_chain", 1),
+             ("fp_b1", "resnet50", "fp", 1),
+             ("int8_chain_b32", "resnet50", "int8_chain", DP_SERVE_BATCH),
+             ("resnet18_int8_chain_b8", "resnet18", "int8_chain", 8))
+#: The seed of the artifacts' images, and how many the fc bias is centred on.
+ARTIFACT_SEED, ARTIFACT_IMAGES = 11, DP_SERVE_BATCH
+#: Each ``resnetc::`` op of the served routes, by the launch counter of the
+#: wrapper that calls it.
+OP_COUNTER = {"chain_block_int8": "bottleneck_block_chained_int8",
+              "chain_run_int8": "bottleneck_run_chained_int8",
+              "ds_block_s2_int8": "downsample_block_s2_int8",
+              "pp_block_int8": "bottleneck_block_chained_int8_pp",
+              "pp_run_int8": "bottleneck_run_chained_int8_pp",
+              "basic_block_int8": "basic_block_chained_int8",
+              "basic_run_int8": "basic_run_chained_int8",
+              "basic_ds_block_s2_int8": "basic_ds_block_s2_int8",
+              "pp_basic_block_int8": "basic_block_chained_int8_pp",
+              "pp_basic_run_int8": "basic_run_chained_int8_pp",
+              "gemm_f32acc": "matmul"}
+RUNNER_LATENCY_SAMPLES = 20
+
+
+def artifact_images(batch: int):
+    """The artifacts' seeded images: the first ``batch`` of one draw."""
+    import torch
+
+    gen = torch.Generator().manual_seed(ARTIFACT_SEED)
+    return torch.randn((ARTIFACT_IMAGES, 224, 224, 3), generator=gen)[:batch].contiguous()
+
+
+def centred_weights(model: str, path, dev) -> str:
+    """Write ``model``'s seeded weights (seed 0, the exporter's) to the
+    ``.pth`` ``path`` with the fc bias moved by minus the mean of the fp
+    engine's logits over the artifacts' images, and return the path.  The
+    seeded init alone puts every image in one class; centred, the classes
+    vary over the images, so that equal classes say something."""
+    import torch
+
+    from resnetc_tpu_torch import checkpoint, export
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.serve import InferenceEngine
+    from resnetc_tpu_torch.tensor import BF16
+
+    cfg = resnet.get_config(model)
+    variables = export.load_variables(cfg, None)
+    eng = InferenceEngine(cfg, variables, policy=BF16, backend="fp", device=dev)
+    with torch.inference_mode():
+        mean = eng.logits(artifact_images(ARTIFACT_IMAGES).to(dev)).float().mean(0).cpu()
+    variables["fc"]["bias"] = variables["fc"]["bias"] - mean
+    torch.save(checkpoint.torch_state_dict_from_variables(variables), path)
+    return str(path)
+
+
+def build_artifacts(out_dir: str) -> int:
+    """``chip_smoke.py --artifacts DIR``, a child the main run starts before
+    the kernels build (none is launched here: the fp engine that centres
+    the weights runs stock ops): the C++ runner built with g++ in a thread
+    while ``ARTIFACTS`` are exported one after the other
+    (``export.export_artifact``: engine, ``torch.export``, AOTInductor) on
+    ``centred_weights``.  Writes DIR/artifacts.json with the paths, the
+    nodes and the seconds of each step."""
+    import concurrent.futures
+    from pathlib import Path
+
+    import torch
+
+    from resnetc_tpu_torch import export, native
+
+    out = Path(out_dir)
+    t0 = time.perf_counter()
+    res: dict = {"artifacts": {}, "weights": {}}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        runner = pool.submit(native.build_runner)
+        for name, model, backend, batch in ARTIFACTS:
+            if model not in res["weights"]:
+                res["weights"][model] = centred_weights(model, out / f"{model}.pth",
+                                                        torch.device("cuda"))
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)  # calibrated on noise, as the CLI's
+                res["artifacts"][name] = export.export_artifact(
+                    model=model, backend=backend, batch=batch, image_size=224,
+                    out=out / name, weights=res["weights"][model])
+        res["runner"] = str(runner.result())
+        res["runner_built_s"] = time.perf_counter() - t0
+    res["seconds"] = time.perf_counter() - t0
+    (out / "artifacts.json").write_text(json.dumps(res))
+    return 0
+
+
+class _OpCalls:
+    """A dispatch mode counting the ``resnetc::`` op calls made under it,
+    by the launch counter of the wrapper that calls each op (the loaded
+    package calls the ops itself, past the wrappers)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        calls: dict = {}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func.namespace == "resnetc":
+                    name = OP_COUNTER[func._schema.name.split("::")[1]]
+                    calls[name] = calls.get(name, 0) + 1
+                return func(*args, **(kwargs or {}))
+
+        self.calls, self.mode = calls, Mode()
+
+
+def phase_artifact(child, art_dir, cases: dict, card: str, dev) -> dict:
+    """``[artifact resnet50]``: the programs exported by
+    ``build_artifacts`` (started at the beginning of the run) on
+    ``centred_weights``, ResNet-50 as ``int8_chain`` on the served route at
+    b1 and b32 and ``fp`` at b1, and ResNet-18 as ``int8_chain`` at b8, each
+    held against the eager engine built from the same weights in this
+    process: the package loaded here (``aoti_load_package``) within 1e-2 of
+    max |logit| of the engine's logits, calling the ops the engine's
+    forward launches; the graph's ``resnetc::`` nodes one per launch of
+    that forward, the served route's count (``expected_launches``); the C++
+    runner (``native/aoti_serve.cpp``, ``--ops`` the ops library this
+    process loaded) on a raw f32 file of the seeded images, its logits
+    (``--out``) within 1e-2 of max |logit| of the engine's and its classes
+    the engine's, which vary over the images at b > 1; and its latency
+    (each request: upload, run, fetch, argmax) beside ``bench_latency`` of
+    the engine at the same batch.  The export, compile and build seconds
+    are printed with the card."""
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from resnetc_tpu_torch import export
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import _build
+    from resnetc_tpu_torch.serve import bench_latency
+
+    tag = "[artifact resnet50]"
+    t0 = time.perf_counter()
+    try:
+        rc = child.wait(timeout=900)
+    except subprocess.TimeoutExpired:
+        child.kill()
+        raise AssertionError(f"{tag} the export child outlasted 900 s")
+    log_text = (Path(art_dir) / "build.log").read_text()
+    if rc != 0:
+        raise AssertionError(f"{tag} the export child exited {rc}:\n{log_text[-4000:]}")
+    built = json.loads((Path(art_dir) / "artifacts.json").read_text())
+    ops_library = str(_build.build_ops_library())
+    log(f"{tag} export child done {time.perf_counter() - t0:.1f} s after the phases before "
+        f"it ({built['seconds']:.1f} s in all): runner built in {built['runner_built_s']:.1f} s "
+        f"(in a thread beside the exports), on {card}")
+    want_nodes = {
+        "resnet50": expected_launches(cases["resnet152"], pp=True,
+                                      blocks=resnet.get_config("resnet50").stage_blocks),
+        "resnet18": expected_launches(cases["resnet34"], pp=True,
+                                      basic=resnet.get_config("resnet18").stage_blocks),
+    }
+    out = {"built": built, "launches": [], "artifacts": {}}
+    for name, model, backend, batch in ARTIFACTS:
+        art = built["artifacts"][name]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            eng = export.build_engine(model, backend, weights=built["weights"][model], device=dev)
+        x = artifact_images(batch)
+        xpath = Path(art_dir) / f"{name}.f32"
+        lpath = Path(art_dir) / f"{name}.logits.f32"
+        x.numpy().astype("<f4").tofile(xpath)
+        x = x.to(dev)
+        want, eager = counted(lambda: eng.logits(x).float())
+        cmd = [built["runner"], art["path"], str(xpath), str(batch), "224", "224", "3",
+               "--latency", str(RUNNER_LATENCY_SAMPLES), "--out", str(lpath)]
+        if backend == "int8_chain":
+            cmd += ["--ops", ops_library]
+        run = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"{tag} {name}: the runner exited {run.returncode}:\n"
+                                 f"{run.stdout[-2000:]}\n{run.stderr[:4000]}")
+        lines = run.stdout.splitlines()
+        classes = [int(ln.split("class ")[1].split(" ")[0]) for ln in lines[:-1]]
+        runner_lat = json.loads(lines[-1].split(" ", 1)[1])
+        runner_logits = torch.from_numpy(
+            np.fromfile(lpath, dtype="<f4").reshape(tuple(want.shape))).to(dev)
+        runner_err = float((runner_logits - want).abs().max() / want.abs().max())
+        log(f"{tag} {name}: the runner printed {len(classes)} classes, latency_ms "
+            f"{json.dumps(runner_lat)}")
+        loaded = torch._inductor.aoti_load_package(art["path"])
+        with torch.inference_mode():
+            loaded(x)  # the first run loads the program onto the card
+        calls = _OpCalls()
+        with torch.inference_mode(), calls.mode:
+            got = loaded(x)
+        torch.cuda.synchronize()
+        in_proc = calls.calls
+        got = got.float() if torch.is_tensor(got) else got[0].float()
+        err = float((got - want).abs().max() / want.abs().max())
+        nodes = {OP_COUNTER[k]: v for k, v in art["kernel_nodes"].items()}
+        lat = bench_latency(eng, x, samples=RUNNER_LATENCY_SAMPLES, warmup=3)
+        eng_classes = want.argmax(-1).cpu().tolist()
+        row = {"model": model, "export_s": art["export_s"], "compile_s": art["compile_s"],
+               "engine_s": art["engine_s"], "package_mib": Path(art["path"]).stat().st_size / 2**20,
+               "kernel_nodes": art["kernel_nodes"], "eager_launches": eager,
+               "loaded_op_calls": in_proc, "loaded_rel_max_err": err,
+               "runner_rel_max_err": runner_err, "engine_classes": eng_classes,
+               "runner_classes_equal": classes == eng_classes, "runner_latency_ms": runner_lat,
+               "bench_latency_p50_ms": lat.p50_ms, "bench_latency_p99_ms": lat.p99_ms}
+        log(f"{tag} {name}: {model}, export {art['export_s']:.1f} s, AOTInductor compile "
+            f"{art['compile_s']:.1f} s, package {row['package_mib']:.1f} MiB; graph nodes "
+            f"{json.dumps(art['kernel_nodes'])}; eager launches {json.dumps(eager)}, the loaded "
+            f"package's op calls {json.dumps(in_proc)}; max err / max |logit| against the "
+            f"engine: loaded package {err}, runner {runner_err}; engine classes "
+            f"{eng_classes[:8]}{'...' if batch > 8 else ''} ({len(set(eng_classes))} distinct), "
+            f"the runner's equal: {classes == eng_classes}; runner latency_ms "
+            f"{json.dumps(runner_lat)} (upload, run, fetch, argmax) vs in-process bench_latency "
+            f"p50 {lat.p50_ms:.3f} p99 {lat.p99_ms:.3f} ms (CUDA events around engine.logits) "
+            f"at b{batch} on {card}")
+        if backend == "int8_chain" and not nodes == eager == in_proc == want_nodes[model]:
+            raise AssertionError(f"{tag} {name}: graph nodes {nodes}, eager launches {eager}, "
+                                 f"loaded op calls {in_proc}, served route {want_nodes[model]}")
+        if backend == "fp" and (nodes or eager or in_proc):
+            raise AssertionError(f"{tag} {name}: the fp program launched kernels")
+        if batch > 1 and len(set(eng_classes)) == 1:
+            raise AssertionError(f"{tag} {name}: the engine puts every image in one class")
+        if err > 1e-2 or runner_err > 1e-2 or classes != eng_classes:
+            raise AssertionError(f"{tag} {name}: the artifact disagrees with the engine")
+        out["launches"] += [eager]
+        out["artifacts"][name] = row
+        del eng, loaded
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3301,14 +3736,19 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=32, help="end-to-end batch size")
     ap.add_argument("--out", default=None, help="also write all results to this JSON file")
+    ap.add_argument("--artifacts", default=None, help=argparse.SUPPRESS)  # build_artifacts
     args = ap.parse_args()
+    faulthandler.enable()  # a crash in native code prints the Python stack
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to run", file=sys.stderr)
         return 1
-    from resnetc_tpu_torch.ops.cuda import _build
+    if args.artifacts:
+        return build_artifacts(args.artifacts)
+    import shutil
+    import tempfile
 
     # No TF32 setting here: the port's fp32 ops compute in IEEE fp32
     # whatever the process's settings (torch_ops.exact_fp32).
@@ -3318,10 +3758,31 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
+    # The serving artifact's exports and builds, in a child from the start:
+    # they launch no kernel, so they overlap the nvcc build.
+    art_dir = tempfile.mkdtemp(prefix="chip_smoke_artifacts_")
+    with open(os.path.join(art_dir, "build.log"), "w") as art_log:
+        art_child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--artifacts",
+                                      art_dir], stdout=art_log, stderr=subprocess.STDOUT)
+    try:
+        return _run(args, card, dev, art_child, art_dir)
+    finally:
+        if art_child.poll() is None:
+            art_child.kill()
+            art_child.wait()
+        shutil.rmtree(art_dir, ignore_errors=True)
+
+
+def _run(args, card: str, dev, art_child, art_dir) -> int:
+    """The phases, in order (``main``)."""
+    import torch
+
+    from resnetc_tpu_torch.ops.cuda import _build
+
     t0 = time.perf_counter()
     build_dir = _build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
-    log(f"[build] kernels built in {build_s:.1f} s")
+    log(f"[build] kernels and the ops library built in {build_s:.1f} s")
     sass = phase_sass(build_dir)
 
     cases = {name: make(8, dev) for name, _, make in MODELS}
@@ -3393,8 +3854,17 @@ def main() -> int:
     for route in dp["launches"]:
         add(route)
     summaries["cli_dp"] = phase_cli_dp()
+    summaries["dp_serve_backends"] = dpb = phase_dp_serve_backends(card, dev)
+    for route in dpb["launches"]:
+        add(route)
     torch.cuda.empty_cache()
-    summaries["data"] = run_data_phases(cases, args.batch, dev, add)
+    summaries["data"] = run_data_phases(cases, args.batch, card, dev, add)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    summaries["artifact"] = art = phase_artifact(art_child, art_dir, cases, card, dev)
+    for route in art["launches"]:
+        add(route)
+    log(f"[phase] artifact: {time.perf_counter() - t1:.1f} s")
     torch.cuda.empty_cache()
     kernels, per_case = phase_kernel_timing(args.batch, dev, errs, launches)
     ew = phase_ew_timing(dev)

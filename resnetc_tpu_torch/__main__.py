@@ -14,11 +14,13 @@ a model runs on the card and raises where there is none; each has a
 ``run_<command>(args, *, device=None)`` body the tests call with
 ``device="cpu"``.  ``train`` trains data-parallel with ``--data-dim N`` (N
 ranks on this host) or ``--multihost --coordinator host:port
---num-processes N --process-id i`` (one rank a process); a ``--model-dim``
-above 1 is refused.  The serving commands (classify, bench, eval) run in
-one process: they refuse ``--multihost`` as JAX's do, and ``--data-dim`` /
-``--model-dim`` above 1 (serving over spawned ranks is ROADMAP Queue 1
-item 3c).
+--num-processes N --process-id i`` (one rank a process).  The serving
+commands (classify, bench, eval) serve over N ranks spawned on this host
+with ``--data-dim N``: each rank builds the engine with the mesh and takes
+the same global batch, and the command prints what rank 0 returns, which
+is what one process prints.  They refuse ``--multihost`` as JAX's do.  A
+``--model-dim`` above 1 is refused everywhere (channel tensor parallelism,
+ROADMAP Queue 1 item 3b).
 """
 
 from __future__ import annotations
@@ -38,28 +40,58 @@ def _refuse_unported(run) -> None:
 
 
 def _serving_run(args: argparse.Namespace):
-    """The ``RunConfig`` of a serving command (classify, bench, eval), which
-    runs in one process."""
+    """The ``RunConfig`` of a serving command (classify, bench, eval), with
+    the JAX CLI's refusals (``__main__.py:31-59``)."""
     from resnetc_tpu_torch.config import run_config_from_args
 
     run = run_config_from_args(args)
     if run.multihost:
-        # The serving commands are single-process: each process would build
-        # the full batch locally and silently benchmark/classify it alone,
-        # which is NOT a distributed run.  Only `train` implements the
-        # multi-process data path.
+        # The serving commands do not join ranks across processes: each
+        # process would build the full batch locally and silently
+        # benchmark/classify it alone, which is NOT a distributed run.  Only
+        # `train` implements the multi-process data path.
         raise SystemExit(
             "--multihost/--coordinator are supported by the `train` "
-            "command only; the serving commands run in one process (serving "
-            "over ranks is ROADMAP Queue 1 item 3c)"
+            "command only; for serving over ranks on one host use --data-dim"
         )
-    if run.data_dim * run.model_dim > 1:
+    if run.backend == "int8_chain" and run.model_dim > 1:
+        # int8_chain replicates weights and shards only the 'data' axis.
         raise SystemExit(
-            "the serving commands run in one process: serving over spawned ranks "
-            "(--data-dim, --model-dim > 1) is not ported yet (ROADMAP Queue 1 item 3c); "
-            "from Python, InferenceEngine(..., mesh=) serves int8_chain data-parallel"
+            "--backend int8_chain does not support --model-dim > 1 "
+            "(channel TP applies to the XLA backends only); use "
+            f"--data-dim {run.data_dim * run.model_dim} instead"
         )
+    _refuse_unported(run)
     return run
+
+
+def _serving(command: str, args: argparse.Namespace, device):
+    """Run a serving command's body (``_SERVING[command]``) in this process,
+    or with ``--data-dim N`` on N spawned ranks, and return rank 0's
+    result.  ``bench`` refuses the CPU."""
+    from resnetc_tpu_torch.tensor import resolve_device
+
+    run = _serving_run(args)
+    if command == "bench" and resolve_device(device).type != "cuda":
+        raise SystemExit("bench times the card; it does not run on the CPU")
+    if run.data_dim > 1:
+        from resnetc_tpu_torch import __main__ as cli
+        from resnetc_tpu_torch.parallel import distributed
+
+        # Under ``python -m`` this module is ``__main__``, which a spawned
+        # rank does not import: pass the function under the package name.
+        rank_args = argparse.Namespace(**{k: v for k, v in vars(args).items() if k != "fn"})
+        return distributed.spawn(cli._serving_rank, run.data_dim, command, run, rank_args,
+                                 device=device)[0]
+    return _SERVING[command](run, args, device, None)
+
+
+def _serving_rank(dev, command, run, args):
+    """One rank of a ``--data-dim N`` serving command (``spawn``)."""
+    from resnetc_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(run.data_dim, run.model_dim, device_type=dev.type)
+    return _SERVING[command](run, args, dev, mesh)
 
 
 def _model(run):
@@ -76,9 +108,10 @@ def _model(run):
     return cfg, resnet.init(cfg, torch.Generator().manual_seed(run.seed))
 
 
-def _build_engine(run, device=None):
+def _build_engine(run, device=None, mesh=None):
     """(model config, ``InferenceEngine``) for a serving command; JAX's
-    ``__main__.py:24-72`` without the mesh."""
+    ``__main__.py:24-72``, every backend replicated over ``mesh``'s data
+    axis."""
     from resnetc_tpu_torch.serve import InferenceEngine
     from resnetc_tpu_torch.tensor import policy
 
@@ -86,7 +119,7 @@ def _build_engine(run, device=None):
     return cfg, InferenceEngine(
         cfg, variables, policy=policy(run.policy), backend=run.backend,
         calib_method=run.calib_method, calib_per_channel=run.calib_per_channel,
-        device=device,
+        device=device, mesh=mesh,
     )
 
 
@@ -94,10 +127,13 @@ def run_classify(args: argparse.Namespace, *, device=None) -> list[str]:
     """The ``classify`` command's body: one line per file,
     ``"{path}: class {cls}"`` (and `` ({name})`` from ``--labels-file``),
     the reference's "max index is N" (main.cu:250)."""
+    return _serving("classify", args, device)
+
+
+def _classify(run, args, device, mesh) -> list[str]:
     from resnetc_tpu_torch.serve import classify_files
 
-    run = _serving_run(args)
-    _, engine = _build_engine(run, device)
+    _, engine = _build_engine(run, device, mesh)
     labels = None
     if args.labels_file:
         # One class name per line, line i = class index i (the torchvision
@@ -140,17 +176,18 @@ def run_bench(args: argparse.Namespace, *, device=None) -> dict:
     a seeded batch, and the latency of one image over
     ``--latency-samples`` requests, as the JAX CLI's JSON record
     (``__main__.py:117-126``) plus the card.  Times the card: refuses the
-    CPU."""
+    CPU.  Over ranks each forward is the sharded one (the one image of a
+    latency request padded to a copy a rank)."""
+    return _serving("bench", args, device)
+
+
+def _bench(run, args, device, mesh) -> dict:
     import numpy as np
 
     from resnetc_tpu_torch.serve import bench_latency, bench_throughput
-    from resnetc_tpu_torch.tensor import resolve_device
     from resnetc_tpu_torch.utils.flops import model_flops
 
-    run = _serving_run(args)
-    if resolve_device(device).type != "cuda":
-        raise SystemExit("bench times the card; it does not run on the CPU")
-    cfg, engine = _build_engine(run, device)
+    cfg, engine = _build_engine(run, device, mesh)
     images = np.random.default_rng(0).standard_normal(
         (run.batch_size, run.image_size, run.image_size, 3), dtype=np.float32
     )
@@ -178,13 +215,20 @@ def cmd_bench(args) -> int:
 def run_eval(args: argparse.Namespace, *, device=None) -> dict:
     """The ``eval`` command's body: top-1 / top-5 and the image count over
     the ImageFolder tree ``args.data_dir`` (``data.imagefolder.evaluate``)."""
+    return _serving("eval", args, device)
+
+
+def _eval(run, args, device, mesh) -> dict:
     from resnetc_tpu_torch.data import evaluate
 
-    run = _serving_run(args)
-    _, engine = _build_engine(run, device)
+    _, engine = _build_engine(run, device, mesh)
     result = evaluate(engine, args.data_dir, batch_size=run.batch_size,
                       image_size=run.image_size)
     return {"model": run.model, **result}
+
+
+#: The serving commands' bodies: ``(run, args, device, mesh) -> result``.
+_SERVING = {"classify": _classify, "bench": _bench, "eval": _eval}
 
 
 def cmd_eval(args) -> int:

@@ -20,6 +20,11 @@ paths: ``data.preprocess`` decodes with PIL, ``checkpoint`` reads with
 
 - JPEG decode + preprocess (batch, threaded)     <- data/preprocess, loaders
 - raw-f32 weight file IO (parallel slurp)        <- checkpoint
+
+Also the serving binary, ``aoti_serve.cpp`` (``build_runner``): it runs a
+package of ``python -m resnetc_tpu_torch.export`` with no Python in the
+process, built with ``g++`` against the torch wheel's own headers and
+libraries into ``_build/<hash>/resnetc_torch_serve``.
 """
 
 from __future__ import annotations
@@ -98,6 +103,38 @@ def build(name: str) -> Path:
                                    f"{r.stdout}{r.stderr}")
         os.replace(so, lib)  # atomic: a concurrent build sees old or new
     return lib
+
+
+def build_runner() -> Path:
+    """Compile and link ``aoti_serve.cpp`` against the torch wheel (its
+    headers, ``libtorch``, and ``libtorch_cuda`` where the wheel has it) into
+    ``_build/<hash>/resnetc_torch_serve`` if it is not built yet; return its
+    path.  Raises ``RuntimeError`` with the compiler's output on failure."""
+    import torch
+    from torch.utils import cpp_extension
+
+    from resnetc_tpu_torch.ops.cuda._build import torch_cxx_flags
+
+    cxx = _cxx()
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++ not on PATH, CXX unset)")
+    libs = ["-ltorch", "-ltorch_cpu", "-lc10"]
+    if any((Path(p) / "libtorch_cuda.so").exists() for p in cpp_extension.library_paths()):
+        libs = ["-Wl,--no-as-needed", "-ltorch_cuda", "-lc10_cuda", "-Wl,--as-needed", *libs]
+    cmd = [cxx, *torch_cxx_flags(), str(_DIR / "aoti_serve.cpp"), *libs, "-ldl"]
+    h = hashlib.sha256(" ".join(cmd).encode() + torch.__version__.encode())
+    h.update((_DIR / "aoti_serve.cpp").read_bytes())
+    exe = BUILD_ROOT / h.hexdigest()[:16] / "resnetc_torch_serve"
+    if exe.exists():
+        return exe
+    exe.parent.mkdir(parents=True, exist_ok=True)
+    tmp = exe.with_name(f"{exe.name}.{os.getpid()}.tmp")
+    r = subprocess.run([*cmd, "-o", str(tmp)], capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ aoti_serve.cpp failed ({r.returncode}):\n{r.stdout}{r.stderr}")
+    os.replace(tmp, exe)  # atomic: a concurrent build sees old or new
+    return exe
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:

@@ -1,28 +1,40 @@
-"""Build the port's CUDA sources and bind them with ctypes.
+"""Build the port's CUDA sources and the ``resnetc`` custom ops that launch
+them.
 
 Each ``resnetc_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` into its
 own shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds), for ``sm_90a``.  All sources build in parallel, once, at the
-first launch, into ``resnetc_tpu_torch/_build/<hash>/``; the hash covers the
-sources and the flags, so an edited source rebuilds and an unchanged one is
-reused.  Nothing outside the repository is needed but the CUDA toolkit.
+takes seconds), for ``sm_90a``; ``csrc/torch_ops.cpp``, the ops' CUDA
+implementations, is compiled by ``g++`` against the torch wheel's headers
+into ``libresnetc_ops.so``, which opens the kernel libraries at its first
+launch.  All of them build in parallel, once, at the first launch, into
+``resnetc_tpu_torch/_build/<hash>/``; the hashes cover the sources and the
+flags, so an edited source rebuilds and an unchanged one is reused.
+Nothing outside the repository is needed but the CUDA toolkit and g++.
+
+Every ``extern "C"`` launcher is one op of the ``resnetc`` namespace
+(``kernel_op``).  This module defines its schema, its CPU implementation
+(the kernel's plain version) and a fake implementation (its output's shape
+and type); ``libresnetc_ops.so``, loaded into the process before the first
+launch (``call``), adds its CUDA implementation.  So torch's dispatcher
+picks kernel or plain by the tensors' device, a launch passes through no
+Python once the wrapper has called its op, and ``torch.export`` /
+AOTInductor see each launch as one node, which the serving binary (no
+Python) runs through the same library.  No op writes to an input: the
+scratch a kernel needs is allocated inside its op.
 
 Also home of the launch counters: every wrapper adds one to
-``LAUNCHES[name]`` where it launches its kernel, and nowhere else
-(``launched``), and of the two debugging switches every wrapper reads:
-``runs_plain`` (a CPU tensor, or inside ``utils.debug.plain_kernels()``,
-takes the plain version) and ``launched`` (inside
+``LAUNCHES[name]`` where its op launches the kernel, on a tensor on the
+card, and nowhere else (``call``, ``launched``), and of the two debugging switches:
+``runs_plain`` (inside ``utils.debug.plain_kernels()`` a wrapper calls its
+plain version, on the card too, and no op) and ``launched`` (inside
 ``utils.debug.nan_debug()`` each kernel's output is checked for NaN after
-its launch, since the launches pass through ctypes, where torch's
-dispatcher does not see them).  Both switches are per thread
-(``SWITCHES``): a context opened by one thread changes nothing for the
-others.
+its launch).  Both switches are per thread (``SWITCHES``): a context opened
+by one thread changes nothing for the others.
 """
 
 from __future__ import annotations
 
 import collections
-import ctypes
 import hashlib
 import os
 import shutil
@@ -31,6 +43,7 @@ import threading
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -49,6 +62,11 @@ LAUNCHES: collections.Counter = collections.Counter()
 #: report with ``build_all(verbose=True)``).
 BUILD_LOG: dict[str, str] = {}
 
+#: The ``resnetc`` namespace: each op's schema, CPU and fake implementations.
+_LIB = torch.library.Library("resnetc", "DEF")
+_LOAD_LOCK = threading.Lock()
+_OPS_LOADED = False
+
 
 class _Switches(threading.local):
     #: Depth of this thread's ``utils.debug.plain_kernels()`` contexts:
@@ -61,17 +79,54 @@ class _Switches(threading.local):
 #: The debugging switches, one set per thread.
 SWITCHES = _Switches()
 
-_LIBS: dict[str, ctypes.CDLL] = {}
-
 
 def reset_launches() -> None:
     LAUNCHES.clear()
 
 
-def runs_plain(t: torch.Tensor) -> bool:
-    """Whether a wrapper given ``t`` runs its plain version: ``t`` is off the
-    card, or this thread has a ``plain_kernels()`` context open."""
-    return not t.is_cuda or SWITCHES.plain_depth > 0
+def runs_plain() -> bool:
+    """Whether a wrapper calls its plain version itself, on the card too:
+    this thread has a ``plain_kernels()`` context open.  Otherwise it calls
+    its op, whose CPU implementation is that plain version."""
+    return SWITCHES.plain_depth > 0
+
+
+def kernel_op(name: str, schema: str, *, plain, fake):
+    """Define ``resnetc::<name>`` with ``schema`` ("(args) -> Tensor"):
+    ``plain`` on the CPU, ``fake`` for tracing; its CUDA implementation is
+    ``csrc/torch_ops.cpp``'s, loaded by ``call``.  Tagged
+    ``needs_exact_strides``: a compiled graph (AOTInductor) hands the op its
+    inputs with the strides they had when traced, the contiguous ones the
+    wrappers make, and not the padded rows Inductor may otherwise lay out on
+    the card.  Returns the op."""
+    _LIB.define(name + schema, tags=(torch.Tag.needs_exact_strides,))
+    _LIB.impl(name, plain, "CPU")
+    torch.library.register_fake(f"resnetc::{name}", fake, lib=_LIB)
+    return getattr(torch.ops.resnetc, name).default
+
+
+def call(name: str, op, *args) -> torch.Tensor:
+    """``op(*args)``, a ``resnetc`` op, whose first tensor argument picks its
+    implementation.  On the card (a real tensor, not one being traced) the
+    ops' CUDA implementations are loaded first (built on first use) and the
+    launch is counted under ``name`` (``launched``); on the CPU the plain
+    version runs and nothing is counted."""
+    x = next(a for a in args if isinstance(a, torch.Tensor))
+    on_card = x.is_cuda and (type(x) is torch.Tensor or not is_fake(x))
+    if on_card and not _OPS_LOADED:
+        load_ops()
+    out = op(*args)
+    return launched(name, out) if on_card else out
+
+
+def load_ops() -> None:
+    """Load ``libresnetc_ops.so`` into this process, once: it adds the CUDA
+    implementation of every ``resnetc`` op defined here."""
+    global _OPS_LOADED
+    with _LOAD_LOCK:
+        if not _OPS_LOADED:
+            torch.ops.load_library(str(build_ops_library()))
+            _OPS_LOADED = True
 
 
 def launched(name: str, out: torch.Tensor) -> torch.Tensor:
@@ -102,65 +157,82 @@ def _build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
+def torch_cxx_flags() -> list[str]:
+    """g++ flags to compile and link against the torch wheel's headers and
+    libraries (``torch.utils.cpp_extension``'s paths, torch's C++ ABI)."""
+    from torch.utils import cpp_extension
+
+    flags = ["-std=c++17", "-O2", "-fPIC", "-w",
+             f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}"]
+    flags += [f"-I{p}" for p in cpp_extension.include_paths()]
+    for p in cpp_extension.library_paths():
+        flags += [f"-L{p}", f"-Wl,-rpath,{p}"]
+    return flags
+
+
+def _ops_build(kernels: Path) -> tuple[list[str], Path]:
+    """The g++ command (less its output) for ``csrc/torch_ops.cpp`` against
+    the kernel libraries of ``kernels``, and the library's path: its own
+    hash over the command, torch's version and the source."""
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found (set CXX); the ops library cannot be built")
+    source = CSRC / "torch_ops.cpp"
+    cmd = [cxx, "-shared", *torch_cxx_flags(), f"-I{Path(_nvcc()).parents[1] / 'include'}",
+           f'-DRESNETC_KERNEL_DIR="{kernels}"', str(source), "-lc10_cuda", "-ltorch_cpu",
+           "-lc10", "-ldl"]
+    h = hashlib.sha256(" ".join(cmd).encode() + torch.__version__.encode())
+    h.update(source.read_bytes())
+    return cmd, BUILD_ROOT / h.hexdigest()[:16] / "libresnetc_ops.so"
+
+
 def build_all(verbose: bool = False) -> Path:
-    """Compile every source that is not built yet, all in parallel; return
-    the build directory.  Raises with the compiler's output on failure."""
+    """Compile every kernel source and the ops library that is not built
+    yet, all in parallel; return the kernels' build directory.  Raises with
+    the compilers' output on failure."""
     out_dir = _build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = [(name, out_dir / f"lib{name}.so",
+             [_nvcc(), *(["-Xptxas=-v"] if verbose else []), *NVCC_FLAGS,
+              str(CSRC / f"{name}.cu")]) for name in SOURCES]
+    ops_cmd, ops_lib = _ops_build(out_dir)
+    ops_lib.parent.mkdir(parents=True, exist_ok=True)
+    jobs.append(("torch_ops", ops_lib, ops_cmd))
     procs = []
-    for name in SOURCES:
-        lib = out_dir / f"lib{name}.so"
+    for name, lib, cmd in jobs:
         if lib.exists():
             continue
-        tmp = out_dir / f"lib{name}.{os.getpid()}.tmp.so"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp.so")
         procs.append((name, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            [*cmd, "-o", str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
     errors = []
     for name, lib, tmp, proc in procs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            errors.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}")
+            errors.append(f"{Path(proc.args[0]).name} {name} failed ({proc.returncode}):\n{out}")
             continue
-        BUILD_LOG[name] = out
+        if name != "torch_ops":
+            BUILD_LOG[name] = out
         if verbose and out:
-            print(f"[nvcc {name}.cu]\n{out}", flush=True)
+            print(f"[{Path(proc.args[0]).name} {name}]\n{out}", flush=True)
         os.replace(tmp, lib)  # atomic: a concurrent build sees old or new
     if errors:
         raise RuntimeError("\n".join(errors))
     return out_dir
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu`` (built on first use)."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
-        _LIBS[name] = lib
-    return lib
-
-
-def ptr(t: torch.Tensor | None) -> int | None:
-    """Device pointer of a tensor, or None (NULL) for an absent operand."""
-    return None if t is None else t.data_ptr()
-
-
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
-def check(rc: int, what: str) -> None:
-    """Raise on a non-zero cudaError_t returned by a launch."""
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
+def build_ops_library() -> Path:
+    """The path of ``libresnetc_ops.so`` (``csrc/torch_ops.cpp``: the
+    ``resnetc`` ops' CUDA implementations, and their schemas where the
+    process that loads it has not defined them, as the serving binary has
+    not), after ``build_all()``."""
+    return _ops_build(build_all())[1]
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, device: torch.device, shape=None):
-    """Validate what a kernel takes before its pointer is passed on."""
+    """Validate what a kernel takes before its op is called."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:

@@ -51,78 +51,12 @@ ignored.
 """
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from resnetc_tpu_torch.ops.cuda import _build
 from resnetc_tpu_torch.ops.cuda.quant import _fma, _idot, quantize_per_channel
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-
-# ctypes signatures of each library's C functions, in its source's order.
-_ARGTYPES = {
-    "chain_block": {
-        # x; B h w hp wp cin c c4; w1_nk sw1 b1 w2p_nk sw2p b2 w3_nk sw3 b3;
-        # scales unit_y wd_nk swd bd; z1 z2 y; out_kind out inv_hw stream
-        "chain_block_int8": [_P] + [_I] * 8 + [_P] * 9 + [_P, _I, _P, _P, _P] + [_P] * 3
-        + [_I, _P, _F, _P],
-        # x; n_blocks B h w hp wp cin c c4; w1s w10; sw1s b1s w2ps sw2ps b2s w3s
-        # sw3s b3s scales_s; wd swd bd; z1 z2 act0 act1; last_bf16 out stream
-        "chain_run_int8": [_P] + [_I] * 9 + [_P] * 2 + [_P] * 9 + [_P] * 3 + [_P] * 4
-        + [_I, _P, _P],
-        # x; B h w hp wp cin c c4 oh ow hp2 wp2; w1_nk sw1 b1 w2_nk sw2 b2 w3_nk
-        # sw3 b3 wd_nk swd bd; scales unit_y; z1 z2; out_kind out stream
-        "ds_block_s2_int8": [_P] + [_I] * 12 + [_P] * 12 + [_P, _I] + [_P] * 2 + [_I, _P, _P],
-    },
-    "basic_block": {
-        # x; B h w hp wp c; w1_nk sw1p b1 w2_nk sw2p b2 scales; unit_y z1;
-        # out_kind out stream
-        "basic_block_int8": [_P] + [_I] * 6 + [_P] * 7 + [_I, _P] + [_I, _P, _P],
-        # x; n_blocks B h w hp wp c; w1s_nk sw1ps b1s w2s_nk sw2ps b2s scales_s;
-        # z1 act0 act1; last_bf16 out stream
-        "basic_run_int8": [_P] + [_I] * 7 + [_P] * 7 + [_P] * 3 + [_I, _P, _P],
-        # x; B h w hp wp cin c oh ow hp2 wp2; w1_nk sw1 b1 w2_nk sw2p b2 wd_nk
-        # swd bd; scales unit_y z1; out_kind out stream
-        "basic_ds_block_s2_int8": [_P] + [_I] * 11 + [_P] * 9 + [_P, _I, _P] + [_I, _P, _P],
-    },
-    "pp_block": {
-        # x; B h w hp wp cin2 c2 c4p; w1_nk sw1 b1 w2_nk sw2 b2 w3_nk sw3 b3;
-        # scales folded unit_y; wd_nk swd bd; z1 z2; out_kind out stream
-        "pp_block_int8": [_P] + [_I] * 8 + [_P] * 9 + [_P, _I, _I] + [_P] * 3 + [_P] * 2
-        + [_I, _P, _P],
-        # x; n_blocks B h w hp wp cin2 c2 c4p; w1s_nk w10_nk; sw1s b1s w2s_nk sw2s
-        # b2s w3s_nk sw3s b3s scales_s; folded; wd_nk swd bd; z1 z2 act0 act1;
-        # last_bf16 out stream
-        "pp_run_int8": [_P] + [_I] * 9 + [_P] * 2 + [_P] * 9 + [_I] + [_P] * 3 + [_P] * 4
-        + [_I, _P, _P],
-        # x; B h w hp wp c2; w1_nk a1 c1 w2_nk a2 c2 s_res; z1; out_kind out
-        # stream
-        "pp_basic_block_int8": [_P] + [_I] * 6 + [_P] * 7 + [_P] + [_I, _P, _P],
-        # x; n_blocks B h w hp wp c2; w1s_nk a1s c1s w2s_nk a2s c2s s_res;
-        # z1 act0 act1; last_bf16 out stream
-        "pp_basic_run_int8": [_P] + [_I] * 7 + [_P] * 7 + [_P] * 3 + [_I, _P, _P],
-    },
-    "fp_block": {
-        # x w1 b1 w2 b2 w3 b3; z1 z2 out; kind chain B h w hp wp c c4; stream
-        "fp_block": [_P] * 7 + [_P] * 3 + [_I] * 9 + [_P],
-    },
-}
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _build.library(name)
-    for fn_name, argtypes in _ARGTYPES[name].items():
-        fn = getattr(lib, fn_name)
-        if fn.argtypes is None:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return lib
-
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
@@ -275,19 +209,17 @@ def _kh3(z: torch.Tensor, wpq: torch.Tensor, a: torch.Tensor, h: int, w_sp: int)
 
 
 def _check_i8(dev, **tensors):
-    """Validate the int8 operands a kernel reads as 32-bit words."""
+    """Validate the int8 operands a kernel reads (their alignment to 32-bit
+    words is checked where the kernel launches, in its op)."""
     for name, t in tensors.items():
-        if t is None:
-            continue
-        _build.require(t, name, torch.int8, dev)
-        if t.data_ptr() % 4:
-            raise ValueError(f"{name}: must be 4-byte aligned")
+        if t is not None:
+            _build.require(t, name, torch.int8, dev)
 
 
 def _f32_vectors(dev, **vectors) -> dict:
     """fp32 contiguous copies (no copy where they already are) of the
     per-channel vectors a kernel folds itself, each checked against its
-    length; an absent one stays None."""
+    length (or shape, for a stack); an absent one stays None."""
     out = {}
     for name, item in vectors.items():
         if item is None:
@@ -295,9 +227,19 @@ def _f32_vectors(dev, **vectors) -> dict:
             continue
         t, n = item
         t = t.float().contiguous()
-        _build.require(t, name, torch.float32, dev, (n,))
+        _build.require(t, name, torch.float32, dev, n if isinstance(n, tuple) else (n,))
         out[name] = t
     return out
+
+
+def _out_dtype(out_kind: int) -> torch.dtype:
+    """The dtype of a block kernel's output: 0 int8, 1 bf16, 2 fp32 (the
+    head fold's per-image means)."""
+    return (torch.int8, torch.bfloat16, torch.float32)[out_kind]
+
+
+def _kind(emit_i8: bool) -> int:
+    return 0 if emit_i8 else 1
 
 
 def _one(ref: torch.Tensor) -> torch.Tensor:
@@ -432,7 +374,7 @@ def bottleneck_block_chained_int8(
     K-major), made once per engine by ``fused.pack_chain_kmajor``; without
     them the wrapper transposes once per call.
     """
-    if _build.runs_plain(xq):
+    if _build.runs_plain():
         return bottleneck_block_chained_int8_plain(
             xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales,
             h=h, w_sp=w_sp, emit_i8=emit_i8, emit_mean=emit_mean,
@@ -449,30 +391,41 @@ def bottleneck_block_chained_int8(
                      sw3=(sw3, c4), b3=(b3, c4), scales=(scales, 4),
                      swd=(swd, c4) if wdq is not None else None,
                      bd=(bd, c4) if wdq is not None else None)
-    w1q_nk, w2pq_nk = _kmajor(w1q, w1q_nk, "w1q_nk", dev), _kmajor(w2pq, w2pq_nk, "w2pq_nk", dev)
-    w3q_nk, wdq_nk = _kmajor(w3q, w3q_nk, "w3q_nk", dev), _kmajor(wdq, wdq_nk, "wdq_nk", dev)
-    rows = b * hp * wp
-    z1 = torch.empty((rows, c), dtype=torch.int8, device=dev)
-    z2 = torch.empty((rows, c), dtype=torch.int8, device=dev)
-    yscr = None
-    if emit_mean:
-        out = torch.empty((b, c4), dtype=torch.float32, device=dev)
-        yscr = torch.empty((rows, c4), dtype=torch.float32, device=dev)
-        kind = 2
-    else:
-        out = torch.empty((rows, c4), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
-        kind = 0 if emit_i8 else 1
-    rc = _lib("chain_block").chain_block_int8(
-        xq.data_ptr(), b, h, w_sp, hp, wp, cin, c, c4,
-        w1q_nk.data_ptr(), v["sw1"].data_ptr(), v["b1"].data_ptr(),
-        w2pq_nk.data_ptr(), v["sw2p"].data_ptr(), v["b2"].data_ptr(),
-        w3q_nk.data_ptr(), v["sw3"].data_ptr(), v["b3"].data_ptr(),
-        v["scales"].data_ptr(), int(not emit_i8), _build.ptr(wdq_nk), _build.ptr(v["swd"]),
-        _build.ptr(v["bd"]), z1.data_ptr(), z2.data_ptr(), _build.ptr(yscr), kind, out.data_ptr(),
-        _inv_hw(h, w_sp), _build.stream(),
+    return _build.call("bottleneck_block_chained_int8", CHAIN_BLOCK_INT8,
+        xq, _kmajor(w1q, w1q_nk, "w1q_nk", dev), v["sw1"], v["b1"],
+        _kmajor(w2pq, w2pq_nk, "w2pq_nk", dev), v["sw2p"], v["b2"],
+        _kmajor(w3q, w3q_nk, "w3q_nk", dev), v["sw3"], v["b3"], v["scales"],
+        _kmajor(wdq, wdq_nk, "wdq_nk", dev), v["swd"], v["bd"],
+        h, w_sp, 2 if emit_mean else _kind(emit_i8), _inv_hw(h, w_sp),
     )
-    _build.check(rc, "bottleneck_block_chained_int8")
-    return _build.launched("bottleneck_block_chained_int8", out)
+
+
+def _chain_block_plain(x, w1_nk, sw1, b1, w2p_nk, sw2p, b2, w3_nk, sw3, b3, scales,
+                       wd_nk, swd, bd, h, w, out_kind, inv_hw):
+    return bottleneck_block_chained_int8_plain(
+        x, None, sw1, b1, None, sw2p, b2, None, sw3, b3, scales, h=h, w_sp=w,
+        emit_i8=out_kind == 0, emit_mean=out_kind == 2, swd=swd, bd=bd,
+        w1q_nk=w1_nk, w2pq_nk=w2p_nk, w3q_nk=w3_nk, wdq_nk=wd_nk,
+    )
+
+
+def _chain_block_fake(x, w1_nk, sw1, b1, w2p_nk, sw2p, b2, w3_nk, sw3, b3, scales,
+                      wd_nk, swd, bd, h, w, out_kind, inv_hw):
+    if out_kind == 2:
+        hp, wp = chain_meta(0, h, w)
+        return x.new_empty((x.shape[0] // (hp * wp), w3_nk.shape[0]), dtype=torch.float32)
+    return x.new_empty((x.shape[0], w3_nk.shape[0]), dtype=_out_dtype(out_kind))
+
+
+#: Kernel 1 (block.py:718): ``csrc/chain_block.cu``'s ``chain_block_int8``;
+#: ``out_kind`` 0 int8, 1 bf16, 2 the head fold's fp32 means.
+CHAIN_BLOCK_INT8 = _build.kernel_op(
+    "chain_block_int8",
+    "(Tensor x, Tensor w1_nk, Tensor sw1, Tensor b1, Tensor w2p_nk, Tensor sw2p, Tensor b2, "
+    "Tensor w3_nk, Tensor sw3, Tensor b3, Tensor scales, Tensor? wd_nk, Tensor? swd, "
+    "Tensor? bd, int h, int w, int out_kind, float inv_hw) -> Tensor",
+    plain=_chain_block_plain, fake=_chain_block_fake,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -573,7 +526,7 @@ def bottleneck_run_chained_int8(
     swd/bd block 0 is the projection block over xq (rows, cin) and w1q_s
     stacks blocks 1..N-1 only.  ``*_nk``: the weights' K-major copies (see
     ``bottleneck_block_chained_int8``), stacked alike."""
-    if _build.runs_plain(xq):
+    if _build.runs_plain():
         return bottleneck_run_chained_int8_plain(
             xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s,
             h=h, w_sp=w_sp, emit_i8=emit_i8, w1q0=w1q0, wdq=wdq, swd=swd, bd=bd,
@@ -587,33 +540,43 @@ def bottleneck_run_chained_int8(
         raise ValueError(f"channel counts must be multiples of 4, got cin={cin}, c={c}")
     # The kernel folds each block's scales itself (as _fold_run does).
     n = n_blocks
-    v = _f32_vectors(dev, sw1_s=(sw1_s.reshape(-1), n * c), b1_s=(b1_s.reshape(-1), n * c),
-                     sw2p_s=(sw2p_s.reshape(-1), n * 3 * c), b2_s=(b2_s.reshape(-1), n * c),
-                     sw3_s=(sw3_s.reshape(-1), n * c4), b3_s=(b3_s.reshape(-1), n * c4),
-                     scales_s=(scales_s.reshape(-1), n * 4),
+    v = _f32_vectors(dev, sw1_s=(sw1_s, (n, c)), b1_s=(b1_s, (n, c)),
+                     sw2p_s=(sw2p_s, (n, 3 * c)), b2_s=(b2_s, (n, c)),
+                     sw3_s=(sw3_s, (n, c4)), b3_s=(b3_s, (n, c4)), scales_s=(scales_s, (n, 4)),
                      swd=(swd, c4) if wdq is not None else None,
                      bd=(bd, c4) if wdq is not None else None)
-    w1q_nk_s = _kmajor(w1q_s, w1q_nk_s, "w1q_nk_s", dev)
-    w2pq_nk_s = _kmajor(w2pq_s, w2pq_nk_s, "w2pq_nk_s", dev)
-    w3q_nk_s = _kmajor(w3q_s, w3q_nk_s, "w3q_nk_s", dev)
-    w1q0_nk, wdq_nk = _kmajor(w1q0, w1q0_nk, "w1q0_nk", dev), _kmajor(wdq, wdq_nk, "wdq_nk", dev)
-    rows = b * hp * wp
-    z1 = torch.empty((rows, c), dtype=torch.int8, device=dev)
-    z2 = torch.empty((rows, c), dtype=torch.int8, device=dev)
-    act = torch.empty((2, rows, c4), dtype=torch.int8, device=dev)
-    out = torch.empty((rows, c4), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
-    rc = _lib("chain_block").chain_run_int8(
-        xq.data_ptr(), n_blocks, b, h, w_sp, hp, wp, cin, c, c4,
-        w1q_nk_s.data_ptr(), _build.ptr(w1q0_nk),
-        v["sw1_s"].data_ptr(), v["b1_s"].data_ptr(), w2pq_nk_s.data_ptr(),
-        v["sw2p_s"].data_ptr(), v["b2_s"].data_ptr(), w3q_nk_s.data_ptr(),
-        v["sw3_s"].data_ptr(), v["b3_s"].data_ptr(), v["scales_s"].data_ptr(),
-        _build.ptr(wdq_nk), _build.ptr(v["swd"]), _build.ptr(v["bd"]),
-        z1.data_ptr(), z2.data_ptr(), act[0].data_ptr(), act[1].data_ptr(),
-        0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+    return _build.call("bottleneck_run_chained_int8", CHAIN_RUN_INT8,
+        xq, _kmajor(w1q_s, w1q_nk_s, "w1q_nk_s", dev), _kmajor(w1q0, w1q0_nk, "w1q0_nk", dev),
+        v["sw1_s"], v["b1_s"], _kmajor(w2pq_s, w2pq_nk_s, "w2pq_nk_s", dev), v["sw2p_s"],
+        v["b2_s"], _kmajor(w3q_s, w3q_nk_s, "w3q_nk_s", dev), v["sw3_s"], v["b3_s"],
+        v["scales_s"], _kmajor(wdq, wdq_nk, "wdq_nk", dev), v["swd"], v["bd"],
+        h, w_sp, not emit_i8,
     )
-    _build.check(rc, "bottleneck_run_chained_int8")
-    return _build.launched("bottleneck_run_chained_int8", out)
+
+
+def _chain_run_plain(x, w1s_nk, w10_nk, sw1s, b1s, w2ps_nk, sw2ps, b2s, w3s_nk, sw3s, b3s,
+                     scales_s, wd_nk, swd, bd, h, w, last_bf16):
+    return bottleneck_run_chained_int8_plain(
+        x, None, sw1s, b1s, None, sw2ps, b2s, None, sw3s, b3s, scales_s, h=h, w_sp=w,
+        emit_i8=not last_bf16, swd=swd, bd=bd, w1q_nk_s=w1s_nk, w2pq_nk_s=w2ps_nk,
+        w3q_nk_s=w3s_nk, w1q0_nk=w10_nk, wdq_nk=wd_nk,
+    )
+
+
+def _chain_run_fake(x, w1s_nk, w10_nk, sw1s, b1s, w2ps_nk, sw2ps, b2s, w3s_nk, sw3s, b3s,
+                    scales_s, wd_nk, swd, bd, h, w, last_bf16):
+    return x.new_empty((x.shape[0], w3s_nk.shape[1]), dtype=_out_dtype(int(last_bf16)))
+
+
+#: Kernel 2 (block.py:2908): ``csrc/chain_block.cu``'s ``chain_run_int8``,
+#: the per-block vectors stacked (N, .).
+CHAIN_RUN_INT8 = _build.kernel_op(
+    "chain_run_int8",
+    "(Tensor x, Tensor w1s_nk, Tensor? w10_nk, Tensor sw1s, Tensor b1s, Tensor w2ps_nk, "
+    "Tensor sw2ps, Tensor b2s, Tensor w3s_nk, Tensor sw3s, Tensor b3s, Tensor scales_s, "
+    "Tensor? wd_nk, Tensor? swd, Tensor? bd, int h, int w, bool last_bf16) -> Tensor",
+    plain=_chain_run_plain, fake=_chain_run_fake,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -663,7 +626,7 @@ def downsample_block_s2_int8_plain(
     """Plain PyTorch version of ``downsample_block_s2_int8`` (the weights
     read from their K-major copies where given)."""
     w1q, w3q, wdq = _from_kmajor(w1q, w1q_nk), _from_kmajor(w3q, w3q_nk), _from_kmajor(wdq, wdq_nk)
-    w2 = _from_kmajor(_ds_flat(w2q), w2q_nk)
+    w2 = _from_kmajor(None if w2q is None else _ds_flat(w2q), w2q_nk)
     b, hp, wp, cin, oh, ow, hp2, wp2 = _ds_geometry(xr, h, w_sp)
     f = _fold_ds(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8)
     x = xr.reshape(b, hp, wp, cin)[:, 1 : 1 + h, 1 : 1 + w_sp]
@@ -706,7 +669,7 @@ def downsample_block_s2_int8(
     itself, as ``_fold_ds`` does, op for op.
     """
     kmajor = dict(w1q_nk=w1q_nk, w2q_nk=w2q_nk, w3q_nk=w3q_nk, wdq_nk=wdq_nk)
-    if _build.runs_plain(xr):
+    if _build.runs_plain():
         return downsample_block_s2_int8_plain(
             xr, w1q, sw1, b1, w2q, sw2, b2, w3q, sw3, b3, wdq, swd, bd, scales,
             h=h, w_sp=w_sp, emit_i8=emit_i8, **kmajor,
@@ -722,26 +685,45 @@ def downsample_block_s2_int8(
             or tuple(w3q.shape) != (c, c4) or tuple(wdq.shape) != (cin, c4):
         raise ValueError("weights do not match a (cin, c, 4c) transition: "
                          f"{[tuple(w.shape) for w in (w1q, w2q, w3q, wdq)]}")
-    nk = {"w1": _kmajor(w1q, w1q_nk, "w1q_nk", dev), "w2": _kmajor(_ds_flat(w2q), w2q_nk, "w2q_nk", dev),
-          "w3": _kmajor(w3q, w3q_nk, "w3q_nk", dev), "wd": _kmajor(wdq, wdq_nk, "wdq_nk", dev)}
     v = _f32_vectors(dev, sw1=(sw1, c), b1=(b1, c), sw2=(sw2, c), b2=(b2, c), sw3=(sw3, c4),
                      b3=(b3, c4), swd=(swd, c4), bd=(bd, c4), scales=(scales, 4))
-    z1 = torch.empty((b * hp * wp, c), dtype=torch.int8, device=dev)
-    z2 = torch.empty((b * hp2 * wp2, c), dtype=torch.int8, device=dev)
-    out = torch.empty(
-        (b * hp2 * wp2, c4), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev
+    return _build.call("downsample_block_s2_int8", DS_BLOCK_S2_INT8,
+        xr, _kmajor(w1q, w1q_nk, "w1q_nk", dev), v["sw1"], v["b1"],
+        _kmajor(_ds_flat(w2q), w2q_nk, "w2q_nk", dev), v["sw2"], v["b2"],
+        _kmajor(w3q, w3q_nk, "w3q_nk", dev), v["sw3"], v["b3"],
+        _kmajor(wdq, wdq_nk, "wdq_nk", dev), v["swd"], v["bd"], v["scales"],
+        h, w_sp, _kind(emit_i8),
     )
-    rc = _lib("chain_block").ds_block_s2_int8(
-        xr.data_ptr(), b, h, w_sp, hp, wp, cin, c, c4, oh, ow, hp2, wp2,
-        nk["w1"].data_ptr(), v["sw1"].data_ptr(), v["b1"].data_ptr(),
-        nk["w2"].data_ptr(), v["sw2"].data_ptr(), v["b2"].data_ptr(),
-        nk["w3"].data_ptr(), v["sw3"].data_ptr(), v["b3"].data_ptr(),
-        nk["wd"].data_ptr(), v["swd"].data_ptr(), v["bd"].data_ptr(),
-        v["scales"].data_ptr(), int(not emit_i8),
-        z1.data_ptr(), z2.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+
+
+def _ds_plain(x, w1_nk, sw1, b1, w2_nk, sw2, b2, w3_nk, sw3, b3, wd_nk, swd, bd, scales,
+              h, w, out_kind):
+    return downsample_block_s2_int8_plain(
+        x, None, sw1, b1, None, sw2, b2, None, sw3, b3, None, swd, bd, scales, h=h, w_sp=w,
+        emit_i8=out_kind == 0, w1q_nk=w1_nk, w2q_nk=w2_nk, w3q_nk=w3_nk, wdq_nk=wd_nk,
     )
-    _build.check(rc, "downsample_block_s2_int8")
-    return _build.launched("downsample_block_s2_int8", out)
+
+
+def _ds_rows(x, h, w) -> int:
+    """Rows of a transition's output chain."""
+    hp, wp = chain_meta(0, h, w)
+    hp2, wp2 = chain_meta(0, (h + 1) // 2, (w + 1) // 2)
+    return x.shape[0] // (hp * wp) * hp2 * wp2
+
+
+def _ds_fake(x, w1_nk, sw1, b1, w2_nk, sw2, b2, w3_nk, sw3, b3, wd_nk, swd, bd, scales,
+             h, w, out_kind):
+    return x.new_empty((_ds_rows(x, h, w), w3_nk.shape[0]), dtype=_out_dtype(out_kind))
+
+
+#: Kernel 3 (block.py:3460): ``csrc/chain_block.cu``'s ``ds_block_s2_int8``.
+DS_BLOCK_S2_INT8 = _build.kernel_op(
+    "ds_block_s2_int8",
+    "(Tensor x, Tensor w1_nk, Tensor sw1, Tensor b1, Tensor w2_nk, Tensor sw2, Tensor b2, "
+    "Tensor w3_nk, Tensor sw3, Tensor b3, Tensor wd_nk, Tensor swd, Tensor bd, Tensor scales, "
+    "int h, int w, int out_kind) -> Tensor",
+    plain=_ds_plain, fake=_ds_fake,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -840,7 +822,7 @@ def basic_block_chained_int8(
     per call.  The kernel folds the requant scales itself, as
     ``_fold_basic`` does, op for op.
     """
-    if _build.runs_plain(xq):
+    if _build.runs_plain():
         return basic_block_chained_int8_plain(
             xq, w1pq, sw1p, b1, w2pq, sw2p, b2, scales, h=h, w_sp=w_sp, emit_i8=emit_i8,
             w1pq_nk=w1pq_nk, w2pq_nk=w2pq_nk,
@@ -854,18 +836,27 @@ def basic_block_chained_int8(
     nk = _basic_weights(dev, c, (), w1pq=(w1pq, w1pq_nk), w2pq=(w2pq, w2pq_nk))
     v = _f32_vectors(dev, sw1p=(sw1p, 3 * c), b1=(b1, c), sw2p=(sw2p, 3 * c), b2=(b2, c),
                      scales=(scales, 3))
-    rows = b * hp * wp
-    z1 = torch.empty((rows, c), dtype=torch.int8, device=dev)
-    out = torch.empty((rows, c), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
-    rc = _lib("basic_block").basic_block_int8(
-        xq.data_ptr(), b, h, w_sp, hp, wp, c,
-        nk["w1pq"].data_ptr(), v["sw1p"].data_ptr(), v["b1"].data_ptr(),
-        nk["w2pq"].data_ptr(), v["sw2p"].data_ptr(), v["b2"].data_ptr(),
-        v["scales"].data_ptr(), int(not emit_i8), z1.data_ptr(),
-        0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+    return _build.call("basic_block_chained_int8", BASIC_BLOCK_INT8,
+        xq, nk["w1pq"], v["sw1p"], v["b1"], nk["w2pq"], v["sw2p"], v["b2"], v["scales"],
+        h, w_sp, _kind(emit_i8),
     )
-    _build.check(rc, "basic_block_chained_int8")
-    return _build.launched("basic_block_chained_int8", out)
+
+
+def _basic_block_plain(x, w1_nk, sw1p, b1, w2_nk, sw2p, b2, scales, h, w, out_kind):
+    return basic_block_chained_int8_plain(
+        x, None, sw1p, b1, None, sw2p, b2, scales, h=h, w_sp=w, emit_i8=out_kind == 0,
+        w1pq_nk=w1_nk, w2pq_nk=w2_nk,
+    )
+
+
+#: Kernel 7 (block.py:1646): ``csrc/basic_block.cu``'s ``basic_block_int8``.
+BASIC_BLOCK_INT8 = _build.kernel_op(
+    "basic_block_int8",
+    "(Tensor x, Tensor w1_nk, Tensor sw1p, Tensor b1, Tensor w2_nk, Tensor sw2p, Tensor b2, "
+    "Tensor scales, int h, int w, int out_kind) -> Tensor",
+    plain=_basic_block_plain,
+    fake=lambda x, *a: x.new_empty(x.shape, dtype=_out_dtype(a[-1])),
+)
 
 
 def basic_run_chained_int8_plain(
@@ -902,7 +893,7 @@ def basic_run_chained_int8(
     before the last always hand on int8; ``emit_i8`` picks the last one's
     exit.  ``w1pq_nk_s`` / ``w2pq_nk_s``: the stacked K-major copies (see
     ``basic_block_chained_int8``)."""
-    if _build.runs_plain(xq):
+    if _build.runs_plain():
         return basic_run_chained_int8_plain(
             xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s,
             h=h, w_sp=w_sp, emit_i8=emit_i8, w1pq_nk_s=w1pq_nk_s, w2pq_nk_s=w2pq_nk_s,
@@ -916,22 +907,30 @@ def basic_run_chained_int8(
     nk = _basic_weights(dev, c, (n_blocks,), w1pq_s=(w1pq_s, w1pq_nk_s),
                         w2pq_s=(w2pq_s, w2pq_nk_s))
     n = n_blocks
-    v = _f32_vectors(dev, sw1p_s=(sw1p_s.reshape(-1), n * 3 * c), b1_s=(b1_s.reshape(-1), n * c),
-                     sw2p_s=(sw2p_s.reshape(-1), n * 3 * c), b2_s=(b2_s.reshape(-1), n * c),
-                     scales_s=(scales_s.reshape(-1), n * 3))
-    rows = b * hp * wp
-    z1 = torch.empty((rows, c), dtype=torch.int8, device=dev)
-    act = torch.empty((2, rows, c), dtype=torch.int8, device=dev)
-    out = torch.empty((rows, c), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
-    rc = _lib("basic_block").basic_run_int8(
-        xq.data_ptr(), n_blocks, b, h, w_sp, hp, wp, c,
-        nk["w1pq_s"].data_ptr(), v["sw1p_s"].data_ptr(), v["b1_s"].data_ptr(),
-        nk["w2pq_s"].data_ptr(), v["sw2p_s"].data_ptr(), v["b2_s"].data_ptr(),
-        v["scales_s"].data_ptr(), z1.data_ptr(), act[0].data_ptr(), act[1].data_ptr(),
-        0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+    v = _f32_vectors(dev, sw1p_s=(sw1p_s, (n, 3 * c)), b1_s=(b1_s, (n, c)),
+                     sw2p_s=(sw2p_s, (n, 3 * c)), b2_s=(b2_s, (n, c)),
+                     scales_s=(scales_s, (n, 3)))
+    return _build.call("basic_run_chained_int8", BASIC_RUN_INT8,
+        xq, nk["w1pq_s"], v["sw1p_s"], v["b1_s"], nk["w2pq_s"], v["sw2p_s"], v["b2_s"],
+        v["scales_s"], h, w_sp, not emit_i8,
     )
-    _build.check(rc, "basic_run_chained_int8")
-    return _build.launched("basic_run_chained_int8", out)
+
+
+def _basic_run_plain(x, w1s_nk, sw1ps, b1s, w2s_nk, sw2ps, b2s, scales_s, h, w, last_bf16):
+    return basic_run_chained_int8_plain(
+        x, None, sw1ps, b1s, None, sw2ps, b2s, scales_s, h=h, w_sp=w, emit_i8=not last_bf16,
+        w1pq_nk_s=w1s_nk, w2pq_nk_s=w2s_nk,
+    )
+
+
+#: Kernel 8 (block.py:1830): ``csrc/basic_block.cu``'s ``basic_run_int8``.
+BASIC_RUN_INT8 = _build.kernel_op(
+    "basic_run_int8",
+    "(Tensor x, Tensor w1s_nk, Tensor sw1ps, Tensor b1s, Tensor w2s_nk, Tensor sw2ps, "
+    "Tensor b2s, Tensor scales_s, int h, int w, bool last_bf16) -> Tensor",
+    plain=_basic_run_plain,
+    fake=lambda x, *a: x.new_empty(x.shape, dtype=_out_dtype(int(a[-1]))),
+)
 
 
 def _fold_basic_ds(scales, sw1, b1, sw2p, b2, swd, bd, emit_i8):
@@ -965,7 +964,7 @@ def basic_ds_block_s2_int8_plain(
 ):
     """Plain PyTorch version of ``basic_ds_block_s2_int8`` (the weights
     read from their K-major copies where given)."""
-    w1 = _from_kmajor(basic_ds_w1(w1pq), w1pq_nk)
+    w1 = _from_kmajor(None if w1pq is None else basic_ds_w1(w1pq), w1pq_nk)
     w2pq, wdq = _from_kmajor(w2pq, w2pq_nk), _from_kmajor(wdq, wdq_nk)
     b, hp, wp, cin, oh, ow, hp2, wp2 = _ds_geometry(xr, h, w_sp)
     f = _fold_basic_ds(scales, sw1, b1, sw2p, b2, swd, bd, emit_i8)
@@ -1011,7 +1010,7 @@ def basic_ds_block_s2_int8(
     ``_fold_basic_ds`` does, op for op.
     """
     kmajor = dict(w1pq_nk=w1pq_nk, w2pq_nk=w2pq_nk, wdq_nk=wdq_nk)
-    if _build.runs_plain(xr):
+    if _build.runs_plain():
         return basic_ds_block_s2_int8_plain(
             xr, w1pq, sw1, b1, w2pq, sw2p, b2, wdq, swd, bd, scales,
             h=h, w_sp=w_sp, emit_i8=emit_i8, **kmajor,
@@ -1028,24 +1027,31 @@ def basic_ds_block_s2_int8(
                          f"{[tuple(w.shape) for w in (w1pq, w2pq, wdq)]}")
     w1_nk = basic_ds_w1(w1pq).t().contiguous() if w1pq_nk is None else w1pq_nk
     _build.require(w1_nk, "w1pq_nk", torch.int8, dev, (c, 9 * cin))
-    nk = {"w1": w1_nk, "w2": _kmajor(w2pq, w2pq_nk, "w2pq_nk", dev),
-          "wd": _kmajor(wdq, wdq_nk, "wdq_nk", dev)}
     v = _f32_vectors(dev, sw1=(sw1, c), b1=(b1, c), sw2p=(sw2p, 3 * c), b2=(b2, c),
                      swd=(swd, c), bd=(bd, c), scales=(scales, 3))
-    z1 = torch.empty((b * hp2 * wp2, c), dtype=torch.int8, device=dev)
-    out = torch.empty(
-        (b * hp2 * wp2, c), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev
+    return _build.call("basic_ds_block_s2_int8", BASIC_DS_BLOCK_S2_INT8,
+        xr, w1_nk, v["sw1"], v["b1"], _kmajor(w2pq, w2pq_nk, "w2pq_nk", dev), v["sw2p"],
+        v["b2"], _kmajor(wdq, wdq_nk, "wdq_nk", dev), v["swd"], v["bd"], v["scales"],
+        h, w_sp, _kind(emit_i8),
     )
-    rc = _lib("basic_block").basic_ds_block_s2_int8(
-        xr.data_ptr(), b, h, w_sp, hp, wp, cin, c, oh, ow, hp2, wp2,
-        nk["w1"].data_ptr(), v["sw1"].data_ptr(), v["b1"].data_ptr(),
-        nk["w2"].data_ptr(), v["sw2p"].data_ptr(), v["b2"].data_ptr(),
-        nk["wd"].data_ptr(), v["swd"].data_ptr(), v["bd"].data_ptr(),
-        v["scales"].data_ptr(), int(not emit_i8), z1.data_ptr(),
-        0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
+
+
+def _basic_ds_plain(x, w1_nk, sw1, b1, w2_nk, sw2p, b2, wd_nk, swd, bd, scales, h, w, out_kind):
+    return basic_ds_block_s2_int8_plain(
+        x, None, sw1, b1, None, sw2p, b2, None, swd, bd, scales, h=h, w_sp=w,
+        emit_i8=out_kind == 0, w1pq_nk=w1_nk, w2pq_nk=w2_nk, wdq_nk=wd_nk,
     )
-    _build.check(rc, "basic_ds_block_s2_int8")
-    return _build.launched("basic_ds_block_s2_int8", out)
+
+
+#: Kernel 11 (block.py:2542): ``csrc/basic_block.cu``'s ``basic_ds_block_s2_int8``.
+BASIC_DS_BLOCK_S2_INT8 = _build.kernel_op(
+    "basic_ds_block_s2_int8",
+    "(Tensor x, Tensor w1_nk, Tensor sw1, Tensor b1, Tensor w2_nk, Tensor sw2p, Tensor b2, "
+    "Tensor wd_nk, Tensor swd, Tensor bd, Tensor scales, int h, int w, int out_kind) -> Tensor",
+    plain=_basic_ds_plain,
+    fake=lambda x, w1_nk, sw1, *a: x.new_empty((_ds_rows(x, a[-3], a[-2]), sw1.shape[0]),
+                                               dtype=_out_dtype(a[-1])),
+)
 
 
 # ---------------------------------------------------------------------------
@@ -1229,42 +1235,83 @@ def _pp_nk(dev, **weights) -> dict:
     return out
 
 
-def _pp_call(kernel, xpp, geo, weights, vecs, scales, *, folded, emit_i8, n_blocks=None):
-    """Launch ``pp_block_int8`` (``n_blocks`` None) or ``pp_run_int8`` on pair
-    rows xpp: ``geo`` (b, h, w_sp, hp, wp), the K-major pair-space
+def _pp_call(xpp, geo, weights, vecs, scales, *, folded, emit_i8, n_blocks=None):
+    """Call ``resnetc::pp_block_int8`` (``n_blocks`` None) or ``pp_run_int8``
+    on pair rows xpp: ``geo`` (b, h, w_sp, hp, wp), the K-major pair-space
     ``weights`` (w1 [w10] w2 w3 wd) and fp32 ``vecs`` (sw1 b1 sw2 b2 sw3 b3
-    swd bd) in the C order, ``scales`` the device residual scales (folded)
-    or [s_x, s_z1, s_z2, s_y] rows (raw)."""
-    b, h, w_sp, hp, wp = geo
-    rows2, cin2 = xpp.shape
-    cw, c4p = weights["w3"].shape[-1], weights["w3"].shape[-2]
-    dev = xpp.device
+    swd bd), ``scales`` the device residual scales (folded) or [s_x, s_z1,
+    s_z2, s_y] rows (raw)."""
+    _, h, w_sp, _, _ = geo
+    cin2, cw = xpp.shape[1], weights["w3"].shape[-1]
     if cin2 % 8 or cw % 8:
         raise ValueError(f"pair widths must be multiples of 8, got cin2={cin2}, c2={cw}")
-    z1 = torch.empty((rows2, cw), dtype=torch.int8, device=dev)
-    z2 = torch.empty((rows2, cw), dtype=torch.int8, device=dev)
-    out = torch.empty((rows2, c4p), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
-    v = [vecs[k].data_ptr() for k in ("sw1", "b1")] + [weights["w2"].data_ptr()] + [
-        vecs[k].data_ptr() for k in ("sw2", "b2")] + [weights["w3"].data_ptr()] + [
-        vecs[k].data_ptr() for k in ("sw3", "b3")]
-    proj = [_build.ptr(weights["wd"]), _build.ptr(vecs["swd"]), _build.ptr(vecs["bd"])]
-    lib = _lib("pp_block")
+    v = [vecs[k] for k in ("sw1", "b1")] + [weights["w2"]] + [
+        vecs[k] for k in ("sw2", "b2")] + [weights["w3"]] + [vecs[k] for k in ("sw3", "b3")]
+    proj = [weights["wd"], vecs["swd"], vecs["bd"]]
     if n_blocks is None:
-        rc = lib.pp_block_int8(
-            xpp.data_ptr(), b, h, w_sp, hp, wp, cin2, cw, c4p, weights["w1"].data_ptr(), *v,
-            scales.data_ptr(), int(folded), int(not folded and not emit_i8), *proj,
-            z1.data_ptr(), z2.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
-        )
-    else:
-        act = torch.empty((2, rows2, c4p), dtype=torch.int8, device=dev)
-        rc = lib.pp_run_int8(
-            xpp.data_ptr(), n_blocks, b, h, w_sp, hp, wp, cin2, cw, c4p,
-            weights["w1"].data_ptr(), _build.ptr(weights["w10"]), *v, scales.data_ptr(),
-            int(folded), *proj, z1.data_ptr(), z2.data_ptr(), act[0].data_ptr(),
-            act[1].data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
-        )
-    _build.check(rc, kernel)
-    return _build.launched(kernel, out)
+        return _build.call("bottleneck_block_chained_int8_pp", PP_BLOCK_INT8,
+            xpp, weights["w1"], *v, scales, folded, *proj, h, w_sp, _kind(emit_i8))
+    return _build.call("bottleneck_run_chained_int8_pp", PP_RUN_INT8,
+        xpp, weights["w1"], weights["w10"], *v, scales, folded, *proj, h, w_sp, not emit_i8)
+
+
+def _pp_folds(folded, emit_i8, fold, sw1, b1, sw2, b2, sw3, b3, scales, swd, bd) -> dict:
+    """The folded, lane-tiled vectors of a pair-space call: as given
+    (``folded``), else from the raw vectors and scales by ``fold`` then
+    ``_pp_tile``, as the kernel folds them."""
+    if folded:
+        return {"a1": sw1, "c1": b1, "a2": sw2, "c2": b2, "a3": sw3, "c3": b3, "s_res": scales,
+                "ad": swd, "cd": bd}
+    return _pp_tile(fold(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8))
+
+
+def _pp_block_plain(x, w1_nk, sw1, b1, w2_nk, sw2, b2, w3_nk, sw3, b3, scales, folded,
+                    wd_nk, swd, bd, h, w, out_kind):
+    emit_i8 = out_kind == 0
+    f = _pp_folds(folded, emit_i8, _fold_block, sw1, b1, sw2, b2, sw3, b3, scales, swd, bd)
+    return bottleneck_block_pp_pairs_plain(
+        x, None, f["a1"], f["c1"], None, f["a2"], f["c2"], None, f["a3"], f["c3"], f["s_res"],
+        h=h, w_sp=w, emit_i8=emit_i8, ad=f["ad"], cd=f["cd"],
+        w1bd_nk=w1_nk, w2pp_nk=w2_nk, w3bd_nk=w3_nk, wdbd_nk=wd_nk,
+    )
+
+
+#: Kernel 5 (block.py:1113): ``csrc/pp_block.cu``'s ``pp_block_int8``, on
+#: pair rows; ``folded``: the vectors are folded and lane-tiled and
+#: ``scales`` the residual scale, else raw vectors and [s_x, s_z1, s_z2, s_y].
+PP_BLOCK_INT8 = _build.kernel_op(
+    "pp_block_int8",
+    "(Tensor x, Tensor w1_nk, Tensor sw1, Tensor b1, Tensor w2_nk, Tensor sw2, Tensor b2, "
+    "Tensor w3_nk, Tensor sw3, Tensor b3, Tensor scales, bool folded, Tensor? wd_nk, "
+    "Tensor? swd, Tensor? bd, int h, int w, int out_kind) -> Tensor",
+    plain=_pp_block_plain,
+    fake=lambda x, w1_nk, sw1, b1, w2_nk, sw2, b2, w3_nk, *a: x.new_empty(
+        (x.shape[0], w3_nk.shape[0]), dtype=_out_dtype(a[-1])),
+)
+
+
+def _pp_run_plain(x, w1s_nk, w10_nk, sw1, b1, w2s_nk, sw2, b2, w3s_nk, sw3, b3, scales, folded,
+                  wd_nk, swd, bd, h, w, last_bf16):
+    emit_i8 = not last_bf16
+    f = _pp_folds(folded, emit_i8, _fold_run, sw1, b1, sw2, b2, sw3, b3, scales, swd, bd)
+    return bottleneck_run_pp_pairs_plain(
+        x, None, f["a1"], f["c1"], None, f["a2"], f["c2"], None, f["a3"], f["c3"], f["s_res"],
+        h=h, w_sp=w, emit_i8=emit_i8, ad=f["ad"], cd=f["cd"], w1bd_nk_s=w1s_nk,
+        w2pp_nk_s=w2s_nk, w3bd_nk_s=w3s_nk, w10bd_nk=w10_nk, wdbd_nk=wd_nk,
+    )
+
+
+#: Kernel 6 (block.py:1387): ``csrc/pp_block.cu``'s ``pp_run_int8``, the
+#: vectors stacked (N, .) (``sw2`` (3N, c2) folded, (N, 3c) raw).
+PP_RUN_INT8 = _build.kernel_op(
+    "pp_run_int8",
+    "(Tensor x, Tensor w1s_nk, Tensor? w10_nk, Tensor sw1, Tensor b1, Tensor w2s_nk, "
+    "Tensor sw2, Tensor b2, Tensor w3s_nk, Tensor sw3, Tensor b3, Tensor scales, bool folded, "
+    "Tensor? wd_nk, Tensor? swd, Tensor? bd, int h, int w, bool last_bf16) -> Tensor",
+    plain=_pp_run_plain,
+    fake=lambda x, w1s_nk, w10_nk, sw1, b1, w2s_nk, sw2, b2, w3s_nk, *a: x.new_empty(
+        (x.shape[0], w3s_nk.shape[1]), dtype=_out_dtype(int(a[-1]))),
+)
 
 
 def bottleneck_block_pp_pairs_plain(
@@ -1296,7 +1343,7 @@ def bottleneck_block_pp_pairs(
     (c4p,).  Any int8 values: the kernel is a dense pair-space GEMM.
     Returns (B*hp*wp/2, c4p) pair rows, int8 or bf16, zero on ring halves."""
     kmajor = dict(w1bd_nk=w1bd_nk, w2pp_nk=w2pp_nk, w3bd_nk=w3bd_nk, wdbd_nk=wdbd_nk)
-    if _build.runs_plain(xpp):
+    if _build.runs_plain():
         return bottleneck_block_pp_pairs_plain(
             xpp, w1bd, a1, c1, w2pp, a2, c2, w3bd, a3, c3, s_res,
             h=h, w_sp=w_sp, emit_i8=emit_i8, wdbd=wdbd, ad=ad, cd=cd, **kmajor,
@@ -1321,8 +1368,8 @@ def bottleneck_block_pp_pairs(
         if v is not None:
             _build.require(v, name, torch.float32, dev, shapes[name])
     _build.require(s_res, "s_res", torch.float32, dev, (1,))
-    return _pp_call("bottleneck_block_chained_int8_pp", xpp, (b, h, w_sp, hp, wp), weights,
-                    vecs, s_res, folded=True, emit_i8=emit_i8)
+    return _pp_call(xpp, (b, h, w_sp, hp, wp), weights, vecs, s_res, folded=True,
+                    emit_i8=emit_i8)
 
 
 def bottleneck_block_chained_int8_pp_plain(
@@ -1360,7 +1407,7 @@ def bottleneck_block_chained_int8_pp(
     packs and transposes once per call.  The kernel folds the requant scales
     from the raw vectors and the device scales, as ``_fold_block`` then
     ``_pp_tile`` do, op for op."""
-    if _build.runs_plain(xq):
+    if _build.runs_plain():
         return bottleneck_block_chained_int8_pp_plain(
             xq, w1q, sw1, b1, w2pq, sw2p, b2, w3q, sw3, b3, scales, h=h, w_sp=w_sp,
             emit_i8=emit_i8, wdq=wdq, swd=swd, bd=bd,
@@ -1378,9 +1425,8 @@ def bottleneck_block_chained_int8_pp(
                         sw3=(sw3, c4), b3=(b3, c4), scales=(scales, 4),
                         swd=(swd, c4) if wdq is not None else None,
                         bd=(bd, c4) if wdq is not None else None)
-    return _pp_call("bottleneck_block_chained_int8_pp", xq.reshape(-1, 2 * cin),
-                    (b, h, w_sp, hp, wp), weights, vecs, vecs["scales"], folded=False,
-                    emit_i8=emit_i8).reshape(-1, c4)
+    return _pp_call(xq.reshape(-1, 2 * cin), (b, h, w_sp, hp, wp), weights, vecs,
+                    vecs["scales"], folded=False, emit_i8=emit_i8).reshape(-1, c4)
 
 
 # --- Kernel 6: a pixel-paired run of bottleneck blocks ----------------------
@@ -1429,7 +1475,7 @@ def bottleneck_run_pp_pairs(
     GEMMs, as kernel 5."""
     kmajor = dict(w1bd_nk_s=w1bd_nk_s, w2pp_nk_s=w2pp_nk_s, w3bd_nk_s=w3bd_nk_s,
                   w10bd_nk=w10bd_nk, wdbd_nk=wdbd_nk)
-    if _build.runs_plain(xpp):
+    if _build.runs_plain():
         return bottleneck_run_pp_pairs_plain(
             xpp, w1bd_s, a1s, c1s, w2pp_s, a2s, c2s, w3bd_s, a3s, c3s, s_res,
             h=h, w_sp=w_sp, emit_i8=emit_i8, w10bd=w10bd, wdbd=wdbd, ad=ad, cd=cd, **kmajor,
@@ -1459,8 +1505,8 @@ def bottleneck_run_pp_pairs(
         if v is not None:
             _build.require(v, name, torch.float32, dev, shapes[name])
     _build.require(s_res, "s_res", torch.float32, dev, (n_blocks,))
-    return _pp_call("bottleneck_run_chained_int8_pp", xpp, (b, h, w_sp, hp, wp), weights, vecs,
-                    s_res, folded=True, emit_i8=emit_i8, n_blocks=n_blocks)
+    return _pp_call(xpp, (b, h, w_sp, hp, wp), weights, vecs, s_res, folded=True,
+                    emit_i8=emit_i8, n_blocks=n_blocks)
 
 
 def bottleneck_run_chained_int8_pp_plain(
@@ -1496,7 +1542,7 @@ def bottleneck_run_chained_int8_pp(
     ``wdbd_nk``): the stacked K-major copies of the pair-space weights (see
     ``bottleneck_block_chained_int8_pp``).  The kernel folds each block's
     scales itself (as ``_fold_run`` then ``_pp_tile`` do)."""
-    if _build.runs_plain(xq):
+    if _build.runs_plain():
         return bottleneck_run_chained_int8_pp_plain(
             xq, w1q_s, sw1_s, b1_s, w2pq_s, sw2p_s, b2_s, w3q_s, sw3_s, b3_s, scales_s,
             h=h, w_sp=w_sp, emit_i8=emit_i8, w1q0=w1q0, wdq=wdq, swd=swd, bd=bd,
@@ -1513,14 +1559,13 @@ def bottleneck_run_chained_int8_pp(
                "w3": _pp_kmajor(w3q_s, w3bd_nk_s, "w3bd_nk_s", dev),
                "wd": _pp_kmajor(wdq, wdbd_nk, "wdbd_nk", dev)}
     n, has_proj = n_blocks, w1q0 is not None
-    vecs = _f32_vectors(dev, sw1=(sw1_s.reshape(-1), n * c), b1=(b1_s.reshape(-1), n * c),
-                        sw2=(sw2p_s.reshape(-1), n * 3 * c), b2=(b2_s.reshape(-1), n * c),
-                        sw3=(sw3_s.reshape(-1), n * c4), b3=(b3_s.reshape(-1), n * c4),
-                        scales=(scales_s.reshape(-1), n * 4),
+    vecs = _f32_vectors(dev, sw1=(sw1_s, (n, c)), b1=(b1_s, (n, c)),
+                        sw2=(sw2p_s, (n, 3 * c)), b2=(b2_s, (n, c)),
+                        sw3=(sw3_s, (n, c4)), b3=(b3_s, (n, c4)), scales=(scales_s, (n, 4)),
                         swd=(swd, c4) if has_proj else None, bd=(bd, c4) if has_proj else None)
-    return _pp_call("bottleneck_run_chained_int8_pp", xq.reshape(-1, 2 * cin),
-                    (b, h, w_sp, hp, wp), weights, vecs, vecs["scales"], folded=False,
-                    emit_i8=emit_i8, n_blocks=n_blocks).reshape(-1, c4)
+    return _pp_call(xq.reshape(-1, 2 * cin), (b, h, w_sp, hp, wp), weights, vecs,
+                    vecs["scales"], folded=False, emit_i8=emit_i8,
+                    n_blocks=n_blocks).reshape(-1, c4)
 
 
 # --- Kernels 9 and 10: the pixel-paired basic block and run -----------------
@@ -1576,26 +1621,29 @@ def basic_block_pp_pairs(
     c2), c1, c2 (c2,), s_res (1,) fp32, folded and lane-tiled.  Dense
     pair-space GEMMs on the int8 tile.  Returns (B*hp*wp/2, c2) pair rows,
     int8 or bf16, zero on ring halves."""
-    if _build.runs_plain(xpp):
+    if _build.runs_plain():
         return basic_block_pp_pairs_plain(
             xpp, w1pp, a1, c1, w2pp, a2, c2, s_res, h=h, w_sp=w_sp, emit_i8=emit_i8,
             w1pp_nk=w1pp_nk, w2pp_nk=w2pp_nk,
         )
-    b, hp, wp = _pp_geometry(xpp, h, w_sp)
+    _pp_geometry(xpp, h, w_sp)
     nk = _check_basic_pp(xpp, {"a1": a1, "c1": c1, "a2": a2, "c2": c2, "s_res": s_res}, None,
                          w1pp=(w1pp, w1pp_nk), w2pp=(w2pp, w2pp_nk))
-    rows2, cp = xpp.shape
-    dev = xpp.device
-    z1 = torch.empty((rows2, cp), dtype=torch.int8, device=dev)
-    out = torch.empty((rows2, cp), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
-    rc = _lib("pp_block").pp_basic_block_int8(
-        xpp.data_ptr(), b, h, w_sp, hp, wp, cp,
-        nk["w1pp"].data_ptr(), a1.data_ptr(), c1.data_ptr(),
-        nk["w2pp"].data_ptr(), a2.data_ptr(), c2.data_ptr(), s_res.data_ptr(),
-        z1.data_ptr(), 0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
-    )
-    _build.check(rc, "basic_block_chained_int8_pp")
-    return _build.launched("basic_block_chained_int8_pp", out)
+    return _build.call("basic_block_chained_int8_pp", PP_BASIC_BLOCK_INT8,
+        xpp, nk["w1pp"], a1, c1, nk["w2pp"], a2, c2, s_res, h, w_sp, _kind(emit_i8))
+
+
+#: Kernel 9 (block.py:2002): ``csrc/pp_block.cu``'s ``pp_basic_block_int8``,
+#: on pair rows, the vectors folded and lane-tiled.
+PP_BASIC_BLOCK_INT8 = _build.kernel_op(
+    "pp_basic_block_int8",
+    "(Tensor x, Tensor w1_nk, Tensor a1, Tensor c1, Tensor w2_nk, Tensor a2, Tensor c2, "
+    "Tensor s_res, int h, int w, int out_kind) -> Tensor",
+    plain=lambda x, w1_nk, a1, c1, w2_nk, a2, c2, s_res, h, w, out_kind: (
+        basic_block_pp_pairs_plain(x, None, a1, c1, None, a2, c2, s_res, h=h, w_sp=w,
+                                   emit_i8=out_kind == 0, w1pp_nk=w1_nk, w2pp_nk=w2_nk)),
+    fake=lambda x, *a: x.new_empty(x.shape, dtype=_out_dtype(a[-1])),
+)
 
 
 def _pp_packed(wpq, c, wpp_nk):
@@ -1674,29 +1722,28 @@ def basic_run_pp_pairs(
     w2pp_s (N, 3c2, 3c2) int8 (their K-major copies ``w1pp_nk_s``,
     ``w2pp_nk_s``, else transposed per call); a1s, a2s (3N, c2), c1s, c2s
     (N, c2), s_res (N,) fp32.  Dense pair-space GEMMs, as kernel 9."""
-    if _build.runs_plain(xpp):
+    if _build.runs_plain():
         return basic_run_pp_pairs_plain(
             xpp, w1pp_s, a1s, c1s, w2pp_s, a2s, c2s, s_res, h=h, w_sp=w_sp, emit_i8=emit_i8,
             w1pp_nk_s=w1pp_nk_s, w2pp_nk_s=w2pp_nk_s,
         )
-    b, hp, wp = _pp_geometry(xpp, h, w_sp)
-    n_blocks = w1pp_s.shape[0]
+    _pp_geometry(xpp, h, w_sp)
     nk = _check_basic_pp(xpp, {"a1": a1s, "c1": c1s, "a2": a2s, "c2": c2s, "s_res": s_res},
-                         n_blocks, w1pp_s=(w1pp_s, w1pp_nk_s), w2pp_s=(w2pp_s, w2pp_nk_s))
-    rows2, cp = xpp.shape
-    dev = xpp.device
-    z1 = torch.empty((rows2, cp), dtype=torch.int8, device=dev)
-    act = torch.empty((2, rows2, cp), dtype=torch.int8, device=dev)
-    out = torch.empty((rows2, cp), dtype=torch.int8 if emit_i8 else torch.bfloat16, device=dev)
-    rc = _lib("pp_block").pp_basic_run_int8(
-        xpp.data_ptr(), n_blocks, b, h, w_sp, hp, wp, cp,
-        nk["w1pp_s"].data_ptr(), a1s.data_ptr(), c1s.data_ptr(),
-        nk["w2pp_s"].data_ptr(), a2s.data_ptr(), c2s.data_ptr(), s_res.data_ptr(),
-        z1.data_ptr(), act[0].data_ptr(), act[1].data_ptr(),
-        0 if emit_i8 else 1, out.data_ptr(), _build.stream(),
-    )
-    _build.check(rc, "basic_run_chained_int8_pp")
-    return _build.launched("basic_run_chained_int8_pp", out)
+                         w1pp_s.shape[0], w1pp_s=(w1pp_s, w1pp_nk_s), w2pp_s=(w2pp_s, w2pp_nk_s))
+    return _build.call("basic_run_chained_int8_pp", PP_BASIC_RUN_INT8,
+        xpp, nk["w1pp_s"], a1s, c1s, nk["w2pp_s"], a2s, c2s, s_res, h, w_sp, not emit_i8)
+
+
+#: Kernel 10 (block.py:2175): ``csrc/pp_block.cu``'s ``pp_basic_run_int8``.
+PP_BASIC_RUN_INT8 = _build.kernel_op(
+    "pp_basic_run_int8",
+    "(Tensor x, Tensor w1s_nk, Tensor a1s, Tensor c1s, Tensor w2s_nk, Tensor a2s, Tensor c2s, "
+    "Tensor s_res, int h, int w, bool last_bf16) -> Tensor",
+    plain=lambda x, w1s_nk, a1s, c1s, w2s_nk, a2s, c2s, s_res, h, w, last_bf16: (
+        basic_run_pp_pairs_plain(x, None, a1s, c1s, None, a2s, c2s, s_res, h=h, w_sp=w,
+                                 emit_i8=not last_bf16, w1pp_nk_s=w1s_nk, w2pp_nk_s=w2s_nk)),
+    fake=lambda x, *a: x.new_empty(x.shape, dtype=_out_dtype(int(a[-1]))),
+)
 
 
 def _basic_run_pp_operands(xq, w1pq_s, sw1p_s, b1_s, w2pq_s, sw2p_s, b2_s, scales_s,
@@ -1791,7 +1838,8 @@ def _fp_chain_geometry(xr, h, w_sp):
     return b, hp, wp
 
 
-def _fp_launch(x, w1, b1, w2, b2, w3, b3, *, chain, b, h, w_sp, hp, wp, name):
+def _fp_call(x, w1, b1, w2, b2, w3, b3, *, chain, h, w_sp):
+    """Check a bf16 / fp32 block's operands, then call ``resnetc::fp_block``."""
     dt = x.dtype
     if dt not in _FP_KIND:
         raise ValueError(f"x: dtype {dt}, expected bf16 or fp32")
@@ -1807,16 +1855,25 @@ def _fp_launch(x, w1, b1, w2, b2, w3, b3, *, chain, b, h, w_sp, hp, wp, name):
     _build.require(b1, "b1", torch.float32, dev, (c,))
     _build.require(b2, "b2", torch.float32, dev, (c,))
     _build.require(b3, "b3", torch.float32, dev, (c4,))
-    z1 = torch.empty((b * h * w_sp, c), dtype=dt, device=dev)
-    z2 = torch.empty_like(z1)
-    out = torch.empty_like(x)
-    rc = _lib("fp_block").fp_block(
-        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w3.data_ptr(), b3.data_ptr(), z1.data_ptr(), z2.data_ptr(), out.data_ptr(),
-        _FP_KIND[dt], int(chain), b, h, w_sp, hp, wp, c, c4, _build.stream(),
-    )
-    _build.check(rc, name)
-    return _build.launched(name, out)
+    name = "bottleneck_block_chained" if chain else "bottleneck_block_fused"
+    return _build.call(name, FP_BLOCK, x, w1, b1, w2, b2, w3, b3, chain, h, w_sp)
+
+
+def _fp_block_plain(x, w1, b1, w2, b2, w3, b3, chain, h, w):
+    if chain:
+        return bottleneck_block_chained_plain(x, w1, b1, w2, b2, w3, b3, h=h, w_sp=w)
+    return bottleneck_block_fused_plain(x, w1, b1, w2, b2, w3, b3)
+
+
+#: Kernels 17 and 18 (block.py:278, :3688): ``csrc/fp_block.cu``'s
+#: ``fp_block``, over the chain layout (``chain``) or NHWC; counted under the
+#: wrapper's name.
+FP_BLOCK = _build.kernel_op(
+    "fp_block",
+    "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor w3, Tensor b3, bool chain, "
+    "int h, int w) -> Tensor",
+    plain=_fp_block_plain, fake=lambda x, *a: torch.empty_like(x),
+)
 
 
 def bottleneck_block_chained_plain(xr, w1, b1, w2, b2, w3, b3, *, h, w_sp, bt=None,
@@ -1835,12 +1892,11 @@ def bottleneck_block_chained(xr, w1, b1, w2, b2, w3, b3, *, h, w_sp, bt=None, in
     block; w1 (4c, c) or (1, 1, 4c, c), w2 (3, 3, c, c), w3 (c, 4c) or (1,
     1, c, 4c) in xr's type; fp32 biases.  Returns the same layout and type,
     with zeros on the ring rows."""
-    if _build.runs_plain(xr):
+    if _build.runs_plain():
         return bottleneck_block_chained_plain(xr, w1, b1, w2, b2, w3, b3, h=h, w_sp=w_sp)
     w1, w3 = _fp_weights(xr, w1, w2, w3)
-    b, hp, wp = _fp_chain_geometry(xr, h, w_sp)
-    return _fp_launch(xr, w1, b1, w2, b2, w3, b3, chain=True, b=b, h=h, w_sp=w_sp, hp=hp,
-                      wp=wp, name="bottleneck_block_chained")
+    _fp_chain_geometry(xr, h, w_sp)
+    return _fp_call(xr, w1, b1, w2, b2, w3, b3, chain=True, h=h, w_sp=w_sp)
 
 
 def bottleneck_block_fused_plain(x, w1, b1, w2, b2, w3, b3, *, bt=None, interpret=False):
@@ -1852,11 +1908,9 @@ def bottleneck_block_fused_plain(x, w1, b1, w2, b2, w3, b3, *, bt=None, interpre
 def bottleneck_block_fused(x, w1, b1, w2, b2, w3, b3, *, bt=None, interpret=False):
     """One stride-1 bottleneck block, NHWC (B, H, W, 4c) bf16 / fp32 in and
     out, the zero ring implicit; weights as for ``bottleneck_block_chained``."""
-    if _build.runs_plain(x):
+    if _build.runs_plain():
         return bottleneck_block_fused_plain(x, w1, b1, w2, b2, w3, b3)
     w1, w3 = _fp_weights(x, w1, w2, w3)
     if x.ndim != 4:
         raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
-    b, h, w_sp, _ = x.shape
-    return _fp_launch(x, w1, b1, w2, b2, w3, b3, chain=False, b=b, h=h, w_sp=w_sp, hp=h + 2,
-                      wp=w_sp + 2, name="bottleneck_block_fused")
+    return _fp_call(x, w1, b1, w2, b2, w3, b3, chain=False, h=x.shape[1], w_sp=x.shape[2])

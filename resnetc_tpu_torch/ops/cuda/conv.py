@@ -23,26 +23,10 @@ ignored.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
 from resnetc_tpu_torch.ops.cuda import _build, gemm
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_KIND = {None: 0, torch.bfloat16: 1, torch.float32: 2}
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("conv")
-    if lib.conv_fused.argtypes is None:
-        # x w bias res out; in_kind res_kind out_bf16 B H W Cin OH OW Cout k
-        # stride relu; stream
-        lib.conv_fused.argtypes = [_P] * 5 + [_I] * 13 + [_P]
-        lib.conv_fused.restype = ctypes.c_int
-    return lib
 
 
 def conv1x1_fused(
@@ -82,21 +66,24 @@ def _out_hw(h: int, w_sp: int, k: int, stride: int) -> tuple[int, int]:
 
 
 def _conv_plain(x, w, bias, residual, *, stride, relu, out_dtype):
-    """Plain PyTorch version of both kernels: one fp32 product per tap of
-    the zero-padded input (the operands widened, which is exact), summed in
-    tap order as the Pallas kernels do, then + bias, + residual, relu,
-    cast."""
+    """Plain PyTorch version of both kernels: one product per tap of the
+    zero-padded input, each tap's dot summed in float64 and rounded to fp32
+    once, the taps summed in fp32 in tap order as the Pallas kernels do,
+    then + bias, + residual, relu, cast.  (An fp32 dot on the CPU sums in
+    an order that follows the BLAS library's blocking, which follows the
+    thread count and the batch; the int8 backend's per-tensor scales make a
+    last-bit difference a whole int8 step.)"""
     k = w.shape[0]
     p = k // 2
     oh, ow = _out_hw(x.shape[1], x.shape[2], k, stride)
-    xp = F.pad(x.float(), (0, 0, p, p, p, p))
-    wf = w.float()
+    xp = F.pad(x.double(), (0, 0, p, p, p, p))
+    wf = w.double()
     acc = None
     for u in range(k):
         for v in range(k):
             tap = xp[:, u : u + stride * (oh - 1) + 1 : stride,
                      v : v + stride * (ow - 1) + 1 : stride, :]
-            c = torch.matmul(tap, wf[u, v])
+            c = torch.matmul(tap, wf[u, v]).float()
             acc = c if acc is None else acc + c
     if bias is not None:
         acc = acc + bias.float()
@@ -107,7 +94,8 @@ def _conv_plain(x, w, bias, residual, *, stride, relu, out_dtype):
     return acc.to(out_dtype or x.dtype)
 
 
-def _conv_launch(x, w, bias, residual, *, stride, relu, out_dtype, name):
+def _conv_call(x, w, bias, residual, *, stride, relu, out_dtype):
+    """Check and shape a conv's operands, then call ``resnetc::conv_fused``."""
     b, h, w_sp, cin = x.shape
     k, cout = w.shape[0], w.shape[-1]
     oh, ow = _out_hw(h, w_sp, k, stride)
@@ -128,15 +116,34 @@ def _conv_launch(x, w, bias, residual, *, stride, relu, out_dtype, name):
             residual = residual.float()
         residual = residual.contiguous()
         _build.require(residual, "residual", residual.dtype, dev, (b, oh, ow, cout))
-    out = torch.empty((b, oh, ow, cout), dtype=out_dtype, device=dev)
-    rc = _lib().conv_fused(
-        x.data_ptr(), w.data_ptr(), _build.ptr(bias), _build.ptr(residual), out.data_ptr(),
-        _KIND[x.dtype], _KIND[None if residual is None else residual.dtype],
-        int(out_dtype == torch.bfloat16), b, h, w_sp, cin, oh, ow, cout, k, stride, int(relu),
-        _build.stream(),
-    )
-    _build.check(rc, name)
-    return _build.launched(name, out)
+    name = "conv3x3_s1_fused" if stride == 1 else "conv_s2_fused"
+    return _build.call(name, CONV_FUSED,
+        x, w, bias, residual, stride, relu, out_dtype == torch.bfloat16)
+
+
+def _out_dtype(out_bf16: bool) -> torch.dtype:
+    return torch.bfloat16 if out_bf16 else torch.float32
+
+
+def _conv_fused_plain(x, w, bias, residual, stride, relu, out_bf16):
+    return _conv_plain(x, w, bias, residual, stride=stride, relu=relu,
+                       out_dtype=_out_dtype(out_bf16))
+
+
+def _conv_fused_fake(x, w, bias, residual, stride, relu, out_bf16):
+    b, h, w_sp, _ = x.shape
+    oh, ow = _out_hw(h, w_sp, w.shape[0], stride)
+    return x.new_empty((b, oh, ow, w.shape[-1]), dtype=_out_dtype(out_bf16))
+
+
+#: Kernels 13 and 14 (conv.py:150, :287): ``csrc/conv.cu``'s ``conv_fused``,
+#: the stride a template parameter inside; counted under the wrapper's name.
+CONV_FUSED = _build.kernel_op(
+    "conv_fused",
+    "(Tensor x, Tensor w, Tensor? bias, Tensor? residual, int stride, bool relu, "
+    "bool out_bf16) -> Tensor",
+    plain=_conv_fused_plain, fake=_conv_fused_fake,
+)
 
 
 def _check_weight(x: torch.Tensor, w: torch.Tensor, k: int | None) -> None:
@@ -160,10 +167,9 @@ def conv3x3_s1_fused(x, w, bias=None, residual=None, *, relu=False, out_dtype=No
     x (B, H, W, Cin); w (3, 3, Cin, Cout); bias (Cout,); residual (B, H, W,
     Cout).  Output (B, H, W, Cout) in ``out_dtype`` (default x's)."""
     _check_weight(x, w, 3)
-    if _build.runs_plain(x):
+    if _build.runs_plain():
         return _conv_plain(x, w, bias, residual, stride=1, relu=relu, out_dtype=out_dtype)
-    return _conv_launch(x, w, bias, residual, stride=1, relu=relu, out_dtype=out_dtype,
-                        name="conv3x3_s1_fused")
+    return _conv_call(x, w, bias, residual, stride=1, relu=relu, out_dtype=out_dtype)
 
 
 def conv_s2_fused_plain(x, w, bias=None, *, relu=False, out_dtype=None, tn=None, bt=None,
@@ -178,10 +184,9 @@ def conv_s2_fused(x, w, bias=None, *, relu=False, out_dtype=None, tn=None, bt=No
     """Fused odd-k stride-2 pad-k//2 conv: ``relu(conv(x, w) + bias)``.
     Output (B, (H + 2p - k)//2 + 1, (W + 2p - k)//2 + 1, Cout)."""
     _check_weight(x, w, None)
-    if _build.runs_plain(x):
+    if _build.runs_plain():
         return _conv_plain(x, w, bias, None, stride=2, relu=relu, out_dtype=out_dtype)
-    return _conv_launch(x, w, bias, None, stride=2, relu=relu, out_dtype=out_dtype,
-                        name="conv_s2_fused")
+    return _conv_call(x, w, bias, None, stride=2, relu=relu, out_dtype=out_dtype)
 
 
 def conv3x3_s2_fused(x, w, bias=None, *, relu=False, out_dtype=None, tn=None, bt=None,

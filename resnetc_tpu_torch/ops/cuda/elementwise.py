@@ -19,25 +19,12 @@ CPU tensor runs.  The TPU argument ``interpret`` is accepted and ignored.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from resnetc_tpu_torch.ops.cuda import _build
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 _KIND = {torch.bfloat16: 1, torch.float32: 2}
 _OPS = {"relu": 0, "add": 1, "add_relu": 2}
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("elementwise")
-    if lib.elementwise.argtypes is None:
-        # op kind; a b out; n; stream
-        lib.elementwise.argtypes = [_I, _I, _P, _P, _P, ctypes.c_longlong, _P]
-        lib.elementwise.restype = ctypes.c_int
-    return lib
 
 
 def relu_plain(x: torch.Tensor, *, interpret: bool = False) -> torch.Tensor:
@@ -63,50 +50,48 @@ def _check_pair(a: torch.Tensor, b: torch.Tensor) -> None:
                          f"{tuple(b.shape)}")
 
 
-def _out_like(a: torch.Tensor) -> torch.Tensor:
-    """An output for ``a`` whose address has ``a``'s offset mod 16 (the
-    allocator's blocks are 16-byte aligned), so that the kernel takes its
-    vector body for a view that starts off the 16-byte grid too."""
-    off = a.data_ptr() % 16 // a.element_size()
-    if off == 0:
-        return torch.empty_like(a)
-    return torch.empty(a.numel() + off, dtype=a.dtype, device=a.device)[off:].view(a.shape)
+_PLAIN = {0: lambda a, b: relu_plain(a), 1: add_plain, 2: add_relu_plain}
 
 
-def _launch(op: str, a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+#: Kernels 19 and 20 (elementwise.py:29, :53): ``csrc/elementwise.cu``'s
+#: ``elementwise``, ``op`` 0 relu, 1 add, 2 add_relu; counted under that name.
+ELEMENTWISE = _build.kernel_op(
+    "elementwise", "(int op, Tensor a, Tensor? b) -> Tensor",
+    plain=lambda op, a, b: _PLAIN[op](a, b),
+    fake=lambda op, a, b: torch.empty_like(a),
+)
+
+
+def _call(op: str, a: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
     if a.dtype not in _KIND:
         raise ValueError(f"dtype {a.dtype}, expected bf16 or fp32")
     a = a.contiguous()
     if b is not None:
         b = b.contiguous()
         _build.require(b, "b", a.dtype, a.device)
-    out = _out_like(a)
     if a.numel() == 0:
-        return out
-    rc = _lib().elementwise(_OPS[op], _KIND[a.dtype], a.data_ptr(), _build.ptr(b), out.data_ptr(),
-                            a.numel(), _build.stream())
-    _build.check(rc, op)
-    return _build.launched(op, out)
+        return torch.empty_like(a)
+    return _build.call(op, ELEMENTWISE, _OPS[op], a, b)
 
 
 def relu(x: torch.Tensor, *, interpret: bool = False) -> torch.Tensor:
     """max(x, 0), any shape, bf16 / fp32."""
-    if _build.runs_plain(x):
+    if _build.runs_plain():
         return relu_plain(x)
-    return _launch("relu", x, None)
+    return _call("relu", x, None)
 
 
 def add(a: torch.Tensor, b: torch.Tensor, *, interpret: bool = False) -> torch.Tensor:
     """a + b, two tensors of one shape and type (bf16 / fp32)."""
-    if _build.runs_plain(a):
+    if _build.runs_plain():
         return add_plain(a, b)
     _check_pair(a, b)
-    return _launch("add", a, b)
+    return _call("add", a, b)
 
 
 def add_relu(a: torch.Tensor, b: torch.Tensor, *, interpret: bool = False) -> torch.Tensor:
     """max(a + b, 0): the residual join in one pass."""
-    if _build.runs_plain(a):
+    if _build.runs_plain():
         return add_relu_plain(a, b)
     _check_pair(a, b)
-    return _launch("add_relu", a, b)
+    return _call("add_relu", a, b)

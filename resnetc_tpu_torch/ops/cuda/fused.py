@@ -388,14 +388,15 @@ def fused_forward(
     )
 
 
-def _conv_q(x, entry, *, stride, relu, residual=None, policy, kernels):
+def _conv_q(x, entry, *, stride, relu, residual=None, policy, kernels, group=None):
     """Like ``_conv``, but an int8-quantized 1x1 entry goes through the
-    dynamically quantized ``conv1x1_int8``."""
+    dynamically quantized ``conv1x1_int8`` (its scale over ``group``'s
+    global batch)."""
     if "w_q" in entry:
         return quant.conv1x1_int8(
             x, entry["w_q"], entry["scale_w"], entry["bias"], residual,
             stride=stride, relu=relu, out_dtype=policy.compute, w_nk=entry.get("w_nk"),
-            matmul_fn=kernels.int8_matmul,
+            matmul_fn=kernels.int8_matmul, group=group,
         )
     return _conv(x, entry, stride=stride, relu=relu, residual=residual, policy=policy,
                  kernels=kernels)
@@ -409,25 +410,28 @@ def fused_forward_int8(
     policy: DtypePolicy = BF16,
     interpret: bool = False,
     kernels: Kernels = KERNELS,
+    group=None,
 ) -> torch.Tensor:
     """The ``int8`` backend over a ``quantize_folded`` tree: every 1x1 conv
     and the fc through ``int8_matmul`` with a per-tensor scale taken over
     the whole batch at each call, the 3x3 / 7x7 convs in ``policy.compute``
     as in ``fused_forward``.  The K-major weight copies of a
     ``quant.pack_kmajor`` tree (the engine's) go to the kernel; the logits
-    do not depend on them."""
+    do not depend on them.  ``group``: ``x`` is this rank's slice of a
+    global batch split over the group's ranks, and every scale is the
+    global batch's (one ``MAX`` all-reduce per quantization)."""
     x = x.to(policy.compute)
     y = _conv(x, qfolded["conv1"], stride=2, relu=True, policy=policy, kernels=kernels)
     y = kernels.max_pool(y, kernel_size=3, stride=2, padding=1)
 
     def conv_fn(xx, entry, *, stride, relu, residual, site, key):
         return _conv_q(xx, entry, stride=stride, relu=relu, residual=residual, policy=policy,
-                       kernels=kernels)
+                       kernels=kernels, group=group)
 
     y = _residual_blocks(cfg, y, qfolded, conv_fn)
     feats = y.float().mean(dim=(1, 2))
     fc = qfolded["fc"]
-    fq, fscale = quant.quantize_per_tensor(feats)
+    fq, fscale = quant.quantize_per_tensor(feats, group)
     return kernels.int8_matmul(fq, fc["w_q"], fscale, fc["scale_w"], fc["bias"],
                                out_dtype=policy.output, w_nk=fc.get("w_nk"))
 
@@ -1216,6 +1220,72 @@ def fused_forward_int8_chain_sharded(
     logits = fused_forward_int8_chain(cfg, qtree, chain_scales, local, policy=policy,
                                       kernels=kernels)
     return distributed.host_local_to_global(logits, group)
+
+
+#: The backends ``fused_forward_sharded`` serves: the engine's five and
+#: ``int8_static`` (``fused_forward_int8_static`` with its calibrated scales).
+SHARDED_BACKENDS = ("fp", "pallas", "pallas_block", "int8", "int8_static", "int8_chain")
+
+
+def fused_forward_sharded(
+    cfg: ResNetConfig,
+    tree: Tree,
+    x: torch.Tensor,
+    mesh,
+    *,
+    backend: str,
+    scales: Tree | None = None,
+    policy: DtypePolicy = BF16,
+    kernels: Kernels = KERNELS,
+) -> torch.Tensor:
+    """Data-parallel serving of any backend over ``mesh``'s data axis: every
+    rank holds ``tree`` (the backend's: folded for ``fp`` / ``pallas`` /
+    ``pallas_block``, ``quantize_folded`` for ``int8`` / ``int8_static``,
+    the chain tree for ``int8_chain``) and ``scales`` (``int8_static``'s
+    calibrated activation scales, ``int8_chain``'s chain scales: the same on
+    every rank, calibrated on one batch), takes the global batch ``x``, runs
+    the backend on its slice and gets the gathered (B, num_classes) logits
+    (``distributed.host_local_to_global``).  The ``int8`` backend's scales
+    are the global batch's (``fused_forward_int8(group=)``).
+
+    A batch the data axis does not divide is padded with copies of its last
+    image, whose logits are dropped (JAX's XLA backends serve any batch
+    under a mesh, their input not being sharded).  A copy of a real image
+    is what makes this exact for ``int8``: its activations equal the
+    original's at every layer, so no per-tensor absmax moves, where a zero
+    image's bias-driven activations could raise a later one.  It is exact
+    for the static scales of ``int8_static`` and ``int8_chain`` too, so
+    this entry pads for them as well (one image served over two ranks, a
+    classify of three files); ``fused_forward_int8_chain_sharded`` keeps
+    JAX's divisibility requirement (fused.py:1336).  A model axis > 1
+    raises (``pmesh.data_group``)."""
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.parallel import distributed
+    from resnetc_tpu_torch.parallel import mesh as pmesh
+
+    if backend not in SHARDED_BACKENDS:
+        raise ValueError(f"backend must be one of {SHARDED_BACKENDS}, got {backend!r}")
+    group = pmesh.data_group(mesh)
+    n = pmesh.axis_sizes(mesh)[pmesh.DATA_AXIS]
+    b = x.shape[0]
+    if b % n:
+        x = torch.cat([x, x[-1:].expand(n - b % n, *x.shape[1:])])
+    if backend == "int8_chain":
+        return fused_forward_int8_chain_sharded(cfg, tree, scales, x, mesh, policy=policy,
+                                                kernels=kernels)[:b]
+    local = pmesh.batch_sharding(mesh)(x)
+    if backend == "fp":
+        logits = resnet.forward_folded(cfg, tree, local, policy=policy)
+    elif backend in ("pallas", "pallas_block"):
+        logits = fused_forward(cfg, tree, local, policy=policy,
+                               block_fusion=backend == "pallas_block", kernels=kernels)
+    elif backend == "int8":
+        logits = fused_forward_int8(cfg, tree, local, policy=policy, kernels=kernels,
+                                    group=group)
+    else:
+        logits = fused_forward_int8_static(cfg, tree, scales, local, policy=policy,
+                                           kernels=kernels)
+    return distributed.host_local_to_global(logits, group)[:b]
 
 
 def _basic_int8_chain_forward(

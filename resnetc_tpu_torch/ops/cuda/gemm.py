@@ -14,29 +14,9 @@ ignored.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from resnetc_tpu_torch.ops.cuda import _build
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_KIND = {None: 0, torch.bfloat16: 1, torch.float32: 2}
-#: Split-K workspace floats per (M, N, K, bf16) shape, asked of the library once.
-_WS_FLOATS: dict[tuple[int, int, int, int], int] = {}
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("gemm")
-    if lib.gemm_f32acc.argtypes is None:
-        # x w bias res out ws; in_bf16 res_kind out_bf16 M N K relu; stream
-        lib.gemm_f32acc.argtypes = [_P] * 6 + [_I] * 7 + [_P]
-        lib.gemm_f32acc.restype = ctypes.c_int
-        # M N K in_bf16 -> floats of split-K workspace
-        lib.gemm_workspace_floats.argtypes = [_I] * 4
-        lib.gemm_workspace_floats.restype = ctypes.c_longlong
-    return lib
 
 
 def matmul_plain(
@@ -61,6 +41,26 @@ def matmul_plain(
     return out.to(out_dtype or x.dtype)
 
 
+def _out_dtype(out_bf16: bool) -> torch.dtype:
+    return torch.bfloat16 if out_bf16 else torch.float32
+
+
+def _gemm_plain(x, w, bias, residual, relu, out_bf16):
+    return matmul_plain(x, w, bias, residual, relu=relu, out_dtype=_out_dtype(out_bf16))
+
+
+def _gemm_fake(x, w, bias, residual, relu, out_bf16):
+    return x.new_empty((x.shape[0], w.shape[1]), dtype=_out_dtype(out_bf16))
+
+
+#: Kernel 4 (gemm.py:100): ``csrc/gemm.cu``'s ``gemm_f32acc``.
+GEMM_F32ACC = _build.kernel_op(
+    "gemm_f32acc",
+    "(Tensor x, Tensor w, Tensor? bias, Tensor? residual, bool relu, bool out_bf16) -> Tensor",
+    plain=_gemm_plain, fake=_gemm_fake,
+)
+
+
 def matmul(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -80,7 +80,7 @@ def matmul(
     if k != k2:
         raise ValueError(f"contraction mismatch: {tuple(x.shape)} @ {tuple(w.shape)}")
     out_dtype = out_dtype or x.dtype
-    if _build.runs_plain(x):
+    if _build.runs_plain():
         return matmul_plain(x, w, bias, residual, relu=relu, out_dtype=out_dtype)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x: dtype {x.dtype}, expected bf16 or fp32")
@@ -97,18 +97,5 @@ def matmul(
             residual = residual.float()
         residual = residual.contiguous()
         _build.require(residual, "residual", residual.dtype, dev, (m, n))
-    lib = _lib()
-    in_bf16 = int(x.dtype == torch.bfloat16)
-    ws_floats = _WS_FLOATS.get((m, n, k, in_bf16))
-    if ws_floats is None:
-        ws_floats = _WS_FLOATS[m, n, k, in_bf16] = lib.gemm_workspace_floats(m, n, k, in_bf16)
-    ws = torch.empty(ws_floats, dtype=torch.float32, device=dev) if ws_floats else None
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    rc = lib.gemm_f32acc(
-        x.data_ptr(), w.data_ptr(), _build.ptr(bias), _build.ptr(residual),
-        out.data_ptr(), _build.ptr(ws), in_bf16,
-        _KIND[None if residual is None else residual.dtype],
-        int(out_dtype == torch.bfloat16), m, n, k, int(relu), _build.stream(),
-    )
-    _build.check(rc, "matmul")
-    return _build.launched("matmul", out)
+    return _build.call("matmul", GEMM_F32ACC,
+        x, w, bias, residual, relu, out_dtype == torch.bfloat16)

@@ -17,29 +17,13 @@ versions beside them are what a CPU tensor runs.  The TPU argument
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from resnetc_tpu_torch.ops.cuda import _build
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 _KIND = {torch.bfloat16: 1, torch.float32: 2, torch.int8: 3}
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("pool")
-    if lib.max_pool2d_nhwc.argtypes is None:
-        # x out; kind vec B H W C OH OW k s p; stream
-        lib.max_pool2d_nhwc.argtypes = [_P] * 2 + [_I] * 11 + [_P]
-        lib.max_pool2d_nhwc.restype = ctypes.c_int
-        # x out; kind vec B H W C OH OW k s p; inv; stream
-        lib.avg_pool2d_nhwc.argtypes = [_P] * 2 + [_I] * 11 + [ctypes.c_float, _P]
-        lib.avg_pool2d_nhwc.restype = ctypes.c_int
-    return lib
 
 
 def _geometry(x: torch.Tensor, k: int, s: int, p: int) -> tuple[int, int]:
@@ -47,13 +31,6 @@ def _geometry(x: torch.Tensor, k: int, s: int, p: int) -> tuple[int, int]:
         raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
     _, h, w_sp, _ = x.shape
     return (h + 2 * p - k) // s + 1, (w_sp + 2 * p - k) // s + 1
-
-
-def _vec(x: torch.Tensor, out: torch.Tensor) -> int:
-    """1 when each pixel's channel row is whole 16-byte groups, both tensors
-    16-byte aligned: the kernels then move 16 bytes a thread."""
-    return int(x.shape[-1] * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
-               and out.data_ptr() % 16 == 0)
 
 
 def max_pool2d_plain(x: torch.Tensor, *, kernel_size: int, stride: int, padding: int,
@@ -76,24 +53,30 @@ def _tap(xp: torch.Tensor, u: int, v: int, s: int, oh: int, ow: int) -> torch.Te
     return xp[:, u : u + s * (oh - 1) + 1 : s, v : v + s * (ow - 1) + 1 : s, :]
 
 
+def _pool_fake(x, k, s, p):
+    oh, ow = _geometry(x, k, s, p)
+    return x.new_empty((x.shape[0], oh, ow, x.shape[3]))
+
+
+#: Kernel 15 (pool.py:65): ``csrc/pool.cu``'s ``max_pool2d_nhwc``.
+MAX_POOL2D_NHWC = _build.kernel_op(
+    "max_pool2d_nhwc", "(Tensor x, int k, int s, int p) -> Tensor",
+    plain=lambda x, k, s, p: max_pool2d_plain(x, kernel_size=k, stride=s, padding=p),
+    fake=_pool_fake,
+)
+
+
 def max_pool2d(x: torch.Tensor, *, kernel_size: int, stride: int, padding: int,
                interpret: bool = False) -> torch.Tensor:
     """Max pool, NHWC (B, H, W, C) bf16 / fp32 / int8 -> (B, OH, OW, C)."""
     k, s, p = kernel_size, stride, padding
-    if _build.runs_plain(x):
+    if _build.runs_plain():
         return max_pool2d_plain(x, kernel_size=k, stride=s, padding=p)
-    oh, ow = _geometry(x, k, s, p)
+    _geometry(x, k, s, p)
     if x.dtype not in _KIND:
         raise ValueError(f"x: dtype {x.dtype}, expected bf16, fp32 or int8")
     x = x.contiguous()
-    b, h, w_sp, c = x.shape
-    out = torch.empty((b, oh, ow, c), dtype=x.dtype, device=x.device)
-    rc = _lib().max_pool2d_nhwc(
-        x.data_ptr(), out.data_ptr(), _KIND[x.dtype], _vec(x, out), b, h, w_sp, c, oh, ow,
-        k, s, p, _build.stream(),
-    )
-    _build.check(rc, "max_pool2d")
-    return _build.launched("max_pool2d", out)
+    return _build.call("max_pool2d", MAX_POOL2D_NHWC, x, k, s, p)
 
 
 def _inv_k2(k: int) -> float:
@@ -120,22 +103,23 @@ def avg_pool2d_plain(x: torch.Tensor, *, kernel_size: int, stride: int, padding:
     return (acc * inv).to(x.dtype).contiguous()
 
 
+#: Kernel 16 (pool.py:174): ``csrc/pool.cu``'s ``avg_pool2d_nhwc``.
+AVG_POOL2D_NHWC = _build.kernel_op(
+    "avg_pool2d_nhwc", "(Tensor x, int k, int s, int p) -> Tensor",
+    plain=lambda x, k, s, p: avg_pool2d_plain(x, kernel_size=k, stride=s, padding=p),
+    fake=_pool_fake,
+)
+
+
 def avg_pool2d(x: torch.Tensor, *, kernel_size: int, stride: int, padding: int = 0,
                interpret: bool = False) -> torch.Tensor:
     """Average pool, NHWC (B, H, W, C) bf16 / fp32 -> (B, OH, OW, C), divisor
     k*k (padded taps count as zeros)."""
     k, s, p = kernel_size, stride, padding
-    if _build.runs_plain(x):
+    if _build.runs_plain():
         return avg_pool2d_plain(x, kernel_size=k, stride=s, padding=p)
-    oh, ow = _geometry(x, k, s, p)
+    _geometry(x, k, s, p)
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x: dtype {x.dtype}, expected bf16 or fp32")
     x = x.contiguous()
-    b, h, w_sp, c = x.shape
-    out = torch.empty((b, oh, ow, c), dtype=x.dtype, device=x.device)
-    rc = _lib().avg_pool2d_nhwc(
-        x.data_ptr(), out.data_ptr(), _KIND[x.dtype], _vec(x, out), b, h, w_sp, c, oh, ow,
-        k, s, p, _inv_k2(k), _build.stream(),
-    )
-    _build.check(rc, "avg_pool2d")
-    return _build.launched("avg_pool2d", out)
+    return _build.call("avg_pool2d", AVG_POOL2D_NHWC, x, k, s, p)

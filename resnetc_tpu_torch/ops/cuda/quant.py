@@ -22,15 +22,9 @@ Also home of the exact arithmetic the plain versions share (``_idot``,
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from resnetc_tpu_torch.ops.cuda import _build
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
 
 def quantize_per_channel(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """fp weights (K, N) -> (int8 (K, N), per-column scale (N,) f32)."""
@@ -41,11 +35,20 @@ def quantize_per_channel(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def quantize_per_tensor(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_per_tensor(x: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """fp activations -> (int8, 0-d f32 scale): absmax over the whole tensor
-    (so over the whole batch), scale 1 for an all-zero tensor."""
+    (so over the whole batch), scale 1 for an all-zero tensor.  With a
+    process ``group`` (a data axis), the absmax is the ``MAX`` all-reduce of
+    every rank's, so that each rank quantizes its slice of the global batch
+    at the global batch's scale, as the JAX backend's one program does."""
     xf = x.float()
     absmax = xf.abs().max()
+    if group is not None:
+        import torch.distributed as dist
+
+        absmax = absmax.reshape(1)
+        dist.all_reduce(absmax, op=dist.ReduceOp.MAX, group=group)
+        absmax = absmax.reshape(())
     scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -91,24 +94,6 @@ def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 # Kernel 12: int8_matmul
 # ---------------------------------------------------------------------------
 
-_RES_KIND = {None: 0, torch.bfloat16: 1, torch.float32: 2}
-
-
-#: Split-K workspace ints per (M, N, K) shape, asked of the library once.
-_WS_INTS: dict[tuple[int, int, int], int] = {}
-
-
-def _lib() -> ctypes.CDLL:
-    lib = _build.library("int8_gemm")
-    if lib.int8_gemm.argtypes is None:
-        # x w_nk sx sw bias res out ws; res_kind out_bf16 M N K relu; stream
-        lib.int8_gemm.argtypes = [_P] * 8 + [_I] * 6 + [_P]
-        lib.int8_gemm.restype = ctypes.c_int
-        # M N K -> ints of split-K workspace
-        lib.int8_gemm_workspace_ints.argtypes = [_I] * 3
-        lib.int8_gemm_workspace_ints.restype = ctypes.c_longlong
-    return lib
-
 
 def _check_kmajor(w_nk: torch.Tensor, k: int, n: int) -> None:
     if tuple(w_nk.shape) != (n, k):
@@ -152,6 +137,28 @@ def int8_matmul_plain(
     return out.to(out_dtype)
 
 
+def _out_dtype(out_bf16: bool) -> torch.dtype:
+    return torch.bfloat16 if out_bf16 else torch.float32
+
+
+def _int8_gemm_plain(x, w_nk, scale_x, scale_w, bias, residual, relu, out_bf16):
+    return int8_matmul_plain(x, w_nk.t(), scale_x, scale_w, bias, residual, relu=relu,
+                             out_dtype=_out_dtype(out_bf16))
+
+
+def _int8_gemm_fake(x, w_nk, scale_x, scale_w, bias, residual, relu, out_bf16):
+    return x.new_empty((x.shape[0], w_nk.shape[0]), dtype=_out_dtype(out_bf16))
+
+
+#: Kernel 12 (quant.py:78): ``csrc/int8_gemm.cu``'s ``int8_gemm``.
+INT8_GEMM = _build.kernel_op(
+    "int8_gemm",
+    "(Tensor x, Tensor w_nk, Tensor scale_x, Tensor scale_w, Tensor? bias, Tensor? residual, "
+    "bool relu, bool out_bf16) -> Tensor",
+    plain=_int8_gemm_plain, fake=_int8_gemm_fake,
+)
+
+
 def int8_matmul(
     x_q: torch.Tensor,
     w_q: torch.Tensor,
@@ -169,14 +176,13 @@ def int8_matmul(
     accumulation.  x_q (M, K) int8; w_q (K, N) int8; scale_x a scalar
     tensor; scale_w, bias (N,) f32; residual (M, N) bf16 or f32; out bf16
     or f32.  ``w_nk``: the (N, K) contiguous copy of w_q (``pack_kmajor``)
-    that the kernel reads; without it, each call on the card transposes
-    w_q first.  One launch of the counter per call, the split-K sum
-    included."""
+    that the kernel reads; without it, each call transposes w_q first.
+    One launch of the counter per call, the split-K sum included."""
     m, k = x_q.shape
     k2, n = w_q.shape
     if k != k2:
         raise ValueError(f"contraction mismatch: {tuple(x_q.shape)} @ {tuple(w_q.shape)}")
-    if _build.runs_plain(x_q):
+    if _build.runs_plain():
         return int8_matmul_plain(x_q, w_q, scale_x, scale_w, bias, residual,
                                  relu=relu, out_dtype=out_dtype, w_nk=w_nk)
     if out_dtype not in (torch.bfloat16, torch.float32):
@@ -199,20 +205,8 @@ def int8_matmul(
             residual = residual.float()
         residual = residual.contiguous()
         _build.require(residual, "residual", residual.dtype, dev, (m, n))
-    lib = _lib()
-    ws_ints = _WS_INTS.get((m, n, k))
-    if ws_ints is None:
-        ws_ints = _WS_INTS[m, n, k] = lib.int8_gemm_workspace_ints(m, n, k)
-    ws = torch.empty(ws_ints, dtype=torch.int32, device=dev) if ws_ints else None
-    out = torch.empty((m, n), dtype=out_dtype, device=dev)
-    rc = lib.int8_gemm(
-        x_q.data_ptr(), w_nk.data_ptr(), sx.data_ptr(), sw.data_ptr(), _build.ptr(bias),
-        _build.ptr(residual), out.data_ptr(), _build.ptr(ws),
-        _RES_KIND[None if residual is None else residual.dtype],
-        int(out_dtype == torch.bfloat16), m, n, k, int(relu), _build.stream(),
-    )
-    _build.check(rc, "int8_matmul")
-    return _build.launched("int8_matmul", out)
+    return _build.call("int8_matmul", INT8_GEMM,
+        x_q, w_nk, sx, sw, bias, residual, relu, out_dtype == torch.bfloat16)
 
 
 def conv1x1_int8(
@@ -228,16 +222,18 @@ def conv1x1_int8(
     w_nk: torch.Tensor | None = None,
     interpret: bool = False,
     matmul_fn=int8_matmul,
+    group=None,
 ) -> torch.Tensor:
-    """Dynamically quantized 1x1 conv: quantize the activations per tensor,
-    then the int8 GEMM (``matmul_fn``: ``int8_matmul``, or its plain
-    version).  x (B, H, W, Cin) float NHWC; w_q (Cin, Cout) int8; scale_w
-    (Cout,); w_nk the (Cout, Cin) copy of w_q, where the tree has one."""
+    """Dynamically quantized 1x1 conv: quantize the activations per tensor
+    (over ``group``'s global batch, ``quantize_per_tensor``), then the int8
+    GEMM (``matmul_fn``: ``int8_matmul``, or its plain version).  x (B, H,
+    W, Cin) float NHWC; w_q (Cin, Cout) int8; scale_w (Cout,); w_nk the
+    (Cout, Cin) copy of w_q, where the tree has one."""
     if stride > 1:
         x = x[:, ::stride, ::stride, :]
     b, h, w_sp, cin = x.shape
     cout = w_q.shape[-1]
-    x_q, scale_x = quantize_per_tensor(x)
+    x_q, scale_x = quantize_per_tensor(x, group)
     res2d = residual.reshape(b * h * w_sp, cout) if residual is not None else None
     out = matmul_fn(
         x_q.reshape(b * h * w_sp, cin), w_q, scale_x, scale_w, bias, res2d,

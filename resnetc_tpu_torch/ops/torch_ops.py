@@ -69,16 +69,20 @@ def conv2d(
 ) -> torch.Tensor:
     """2-D convolution, NHWC x HWIO -> NHWC, zero-padded, bias-free.
 
-    Accumulates in ``accum_dtype`` regardless of the compute dtype, then
-    casts back.  On the card cuDNN's bf16 convolution already accumulates in
-    fp32; on the CPU the operands are widened first, which is exact (a
-    product of two bf16 values is exact in fp32).  fp32 on the card is
-    IEEE fp32 (``exact_fp32``).
+    Accumulates in ``accum_dtype`` or wider regardless of the compute
+    dtype, then casts back.  On the card cuDNN's bf16 convolution already
+    accumulates in fp32.  On the CPU a narrower input is widened to float64
+    and the sum rounded to its dtype at the end: an fp32 convolution there
+    goes to oneDNN, whose blocking, and so its order of summation, follows
+    the thread count and the batch, and one last-bit difference moves a
+    bf16 rounding, an int8 calibration's absmax and then whole int8 steps
+    downstream.  The float64 sum of bf16 products does not depend on either.
+    fp32 on the card is IEEE fp32 (``exact_fp32``).
 
     Backward (autograd through ``F.conv2d``): on the card a bf16 convolution
     backpropagates as bf16 cuDNN convolutions that accumulate in fp32, the
     contract of the JAX package's ``_mixed_dtype_conv``.  On the CPU the
-    widened path gives fp32 gradients rounded to bf16 at the cast, which
+    widened path gives float64 gradients rounded to bf16 at the cast, which
     differ from JAX's in the last bits.
     """
     xn = x.permute(0, 3, 1, 2)
@@ -88,7 +92,7 @@ def conv2d(
             y = F.conv2d(xn, wn.to(x.dtype), stride=stride, padding=padding, groups=groups)
     else:
         y = F.conv2d(
-            xn.to(accum_dtype), wn.to(accum_dtype),
+            xn.to(torch.float64), wn.to(torch.float64),
             stride=stride, padding=padding, groups=groups,
         ).to(x.dtype)
     return y.permute(0, 2, 3, 1)

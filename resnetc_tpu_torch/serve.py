@@ -38,10 +38,14 @@ then main.cu): image files or ``.bin`` inputs in, class indices out.
 
 The engine runs on the card unless ``device="cpu"`` is asked for; on the
 CPU the kernels' plain versions run.  ``mesh=`` (a ``parallel.create_mesh``
-mesh) serves ``int8_chain`` data-parallel: every rank builds the engine,
+mesh) serves any backend data-parallel: every rank builds the engine,
 holds its own copy of the weights and calls ``logits`` with the same global
 batch, computes its slice and gets the gathered logits
-(``fused_forward_int8_chain_sharded``).  Benchmarks time on the card only,
+(``fused_forward_sharded``: the ``int8`` backend's scales are the global
+batch's, and a batch the axis does not divide is padded with copies of a
+real image).  A model axis above 1 is refused (channel tensor
+parallelism, ROADMAP Queue 1 item 3b).
+Benchmarks time on the card only,
 with CUDA events; ``bench_local_latency`` is the engine-local view (the
 marginal time of one of a chain of forwards, host included,
 ``utils.timing``).
@@ -84,15 +88,10 @@ class InferenceEngine:
     ):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-        if mesh is not None and backend != "int8_chain":
-            # The JAX engine serves the other backends over a mesh through
-            # ``sharding=`` and XLA's partitioner; here that is channel
-            # tensor parallelism, not ported yet.
-            raise ValueError(
-                f"backend {backend!r} does not take a mesh: only int8_chain serves "
-                "data-parallel; the other backends' sharded serving is ROADMAP Queue 1 "
-                "item 3b"
-            )
+        if mesh is not None:
+            from resnetc_tpu_torch.parallel import mesh as pmesh
+
+            pmesh.data_group(mesh)  # refuses a model axis > 1 (item 3b)
         if backend != "fp" and model_cfg.groups > 1:
             raise ValueError(
                 f"backend {backend!r} does not support grouped convolutions (ResNeXt, "
@@ -159,6 +158,13 @@ class InferenceEngine:
             )
         images = images.to(self.device)
         with torch.inference_mode():
+            if self.mesh is not None and self._data_ranks() > 1:
+                from resnetc_tpu_torch.ops.cuda import fused
+
+                return fused.fused_forward_sharded(
+                    self.model_cfg, self.folded, images, self.mesh, backend=self.backend,
+                    scales=self.chain_scales, policy=self.policy,
+                )
             if self.backend == "fp":
                 return resnet.forward_folded(
                     self.model_cfg, self.folded, images, policy=self.policy
@@ -174,15 +180,15 @@ class InferenceEngine:
                 return fused.fused_forward_int8(
                     self.model_cfg, self.folded, images, policy=self.policy
                 )
-            if self.mesh is not None:
-                return fused.fused_forward_int8_chain_sharded(
-                    self.model_cfg, self.folded, self.chain_scales, images, self.mesh,
-                    policy=self.policy,
-                )
             return fused.fused_forward_int8_chain(
                 self.model_cfg, self.folded, self.chain_scales, images,
                 policy=self.policy,
             )
+
+    def _data_ranks(self) -> int:
+        from resnetc_tpu_torch.parallel import mesh as pmesh
+
+        return pmesh.axis_sizes(self.mesh)[pmesh.DATA_AXIS]
 
     def classify(self, images) -> np.ndarray:
         """Argmax class indices — the reference's readout."""

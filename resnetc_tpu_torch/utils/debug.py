@@ -6,11 +6,11 @@ device sync and an error check after every launch (cuda/nn.cu:14 et al.)
 and a manual dump loop (SURVEY.md §5).  Here:
 
 - ``nan_debug()`` raises at the first operation whose output holds a NaN
-  (JAX's ``jax_debug_nans``): torch's operations through a dispatch mode,
-  and the CUDA kernels, which torch's dispatcher does not see (they are
-  launched through ctypes), by a check of each kernel's output after its
-  launch (``ops.cuda._build.launched``).  It synchronises after every
-  operation: debugging only;
+  (JAX's ``jax_debug_nans``): torch's operations and the kernels' ops
+  (``resnetc::``, ``ops.cuda._build.kernel_op``) through a dispatch mode,
+  and each kernel's output also where it is launched
+  (``ops.cuda._build.launched``), which names the kernel.  It
+  synchronises after every operation: debugging only;
 - ``plain_kernels()`` (alias ``interpret_kernels``, JAX's name for its
   Pallas interpret mode): inside it every ``ops.cuda`` wrapper runs its
   plain PyTorch version, on the card too, and launches nothing — a whole

@@ -32,7 +32,7 @@ import re
 import subprocess
 import sys
 import threading
-import types
+import warnings
 from pathlib import Path
 
 import jax
@@ -73,6 +73,17 @@ CLI_AS_MAIN = ("import json, sys, types; import resnetc_tpu_torch.__main__ as pk
                "src = open(pkg.__file__).read().rsplit('if __name__', 1)[0]; "
                "exec(compile(src, pkg.__file__, 'exec'), m.__dict__); "
                "m.run_train(m.build_parser().parse_args(json.loads(sys.argv[1])), device='cpu')")
+#: A serving command's body run the same way, its result printed as JSON.
+SERVE_AS_MAIN = CLI_AS_MAIN.replace(
+    "m.run_train(m.build_parser().parse_args(json.loads(sys.argv[1])), device='cpu')",
+    "a = m.build_parser().parse_args(json.loads(sys.argv[1])); "
+    "print(json.dumps(getattr(m, 'run_' + a.command)(a, device='cpu')))")
+#: The serving commands over two ranks: classify on int8_chain (three files,
+#: a batch the two ranks do not divide), eval on fp under FP32 at batch 3.
+SERVE_DP = {
+    "classify": ["classify", "--backend", "int8_chain", *MODEL],
+    "eval": ["eval", "--backend", "fp", *MODEL, "--policy", "fp32", "--batch-size", "3"],
+}
 
 
 def _image(path, shape, seed):
@@ -108,11 +119,17 @@ def files(tmp_path_factory):
             "eval_tree": str(_tree(d / "eval", 4, 10)), "train_tree": str(_tree(d / "train", 6, 20))}
 
 
+def _serve_argv(files, command: str, argv: list[str]) -> list[str]:
+    inputs = files["inputs"] if command == "classify" else [files["eval_tree"]]
+    return [*argv, "--weights-dir", files["weights"], *inputs]
+
+
 @pytest.fixture(scope="module")
 def launches(files, tmp_path_factory):
     """``train --data-dir`` over ranks: ``--data-dim 2`` and two
-    ``--multihost`` processes, started together; ``wait(name)`` gives a
-    process's (returncode, stdout, stderr)."""
+    ``--multihost`` processes; ``classify`` and ``eval`` with ``--data-dim
+    2``; all started together; ``wait(name)`` gives a process's
+    (returncode, stdout, stderr)."""
     out = tmp_path_factory.mktemp("ranks")
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(REPO))
     base = TRAIN + ["--steps", "3", "--data-dir", files["train_tree"]]
@@ -125,6 +142,9 @@ def launches(files, tmp_path_factory):
                                            stdout=o, stderr=e, cwd=REPO, env=env)
 
     start("data_dim", CLI_AS_MAIN, base + ["--data-dim", "2"])
+    for command, argv in SERVE_DP.items():
+        start(f"serve_{command}", SERVE_AS_MAIN, _serve_argv(files, command, argv)
+              + ["--data-dim", "2"])
     for r in range(2):
         start(f"multihost{r}", CLI, base + ["--multihost", "--coordinator",
                                             f"127.0.0.1:{port}", "--num-processes", "2",
@@ -240,6 +260,28 @@ def test_eval_gives_jax_count_top1_top5(files, capsys):
     assert np.abs(tl - jl).max() <= 1e-4 * np.abs(jl).max()
 
 
+@pytest.mark.parametrize("command", ["classify", "eval", "bench"])
+def test_serving_commands_over_two_ranks(files, launches, command):
+    """``--data-dim 2``: two ranks spawned by the command (defined in a
+    module named ``__main__``, as ``python -m`` defines it) print what one
+    process prints: ``classify``'s lines (int8_chain; three files, padded to
+    four with a copy), ``eval``'s record (fp, FP32, batches of 3).  ``bench``
+    refuses the CPU over ranks as in one process."""
+    if command == "bench":
+        with pytest.raises(SystemExit, match="times the card"):
+            tcli.run_bench(_args("bench", *MODEL, "--data-dim", "2"), device="cpu")
+        return
+    rc, out, err = launches(f"serve_{command}")
+    assert rc == 0, err[-3000:]
+    got = json.loads(out.splitlines()[-1])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # int8_chain calibrated on noise
+        run = {"classify": tcli.run_classify, "eval": tcli.run_eval}[command]
+        want = run(_args(*_serve_argv(files, command, SERVE_DP[command])), device="cpu")
+    assert got == want
+    assert len(got) == 3 if command == "classify" else got["count"] == 6.0
+
+
 def test_bench_refuses_the_cpu():
     with pytest.raises(SystemExit, match="times the card"):
         tcli.run_bench(_args("bench", *MODEL), device="cpu")
@@ -249,12 +291,15 @@ def test_bench_refuses_the_cpu():
 @pytest.mark.parametrize("flags, match", [
     (["--multihost"], "train"),
     (["--coordinator", "127.0.0.1:1", "--num-processes", "2", "--process-id", "0"], "train"),
-    (["--data-dim", "2"], "Queue 1 item 3c"),
-    (["--model-dim", "2"], "Queue 1 item 3c"),
+    (["--model-dim", "2"], "Queue 1 item 3b"),
+    (["--backend", "int8_chain", "--model-dim", "2"], "use --data-dim 2 instead"),
 ])
 def test_serving_commands_run_in_one_process(files, command, flags, match):
     """The counterpart of tests/test_serve.py:88: the serving commands
-    refuse the multi-process flags before any engine is built."""
+    refuse the multi-process flags, and a model axis (channel tensor
+    parallelism; JAX's own message for int8_chain), before any engine is
+    built.  ``--data-dim`` serves over ranks
+    (``test_torch_parallel.py::test_serving_commands_over_two_ranks``)."""
     extra = {"classify": files["inputs"][:1], "eval": [files["eval_tree"]], "bench": []}[command]
     run = {"classify": tcli.run_classify, "bench": tcli.run_bench, "eval": tcli.run_eval}[command]
     with pytest.raises(SystemExit, match=match):
@@ -384,7 +429,7 @@ def test_plain_kernels_runs_the_plain_versions():
     assert tdebug.interpret_kernels is tdebug.plain_kernels
     _build.reset_launches()
     with tdebug.plain_kernels():
-        assert _build.SWITCHES.plain_depth == 1 and _build.runs_plain(x)
+        assert _build.SWITCHES.plain_depth == 1 and _build.runs_plain()
         with tdebug.plain_kernels():
             got = relu(x)
         assert _build.SWITCHES.plain_depth == 1
@@ -394,15 +439,15 @@ def test_plain_kernels_runs_the_plain_versions():
 
 def test_debug_switches_hold_only_for_the_thread_that_opened_them():
     """A thread inside plain_kernels() / nan_debug() leaves another thread's
-    wrappers on their kernels: the other thread still takes the launching
-    branch for a tensor on the card, counts its launch and does not check it."""
-    on_card = types.SimpleNamespace(is_cuda=True)  # runs_plain reads only is_cuda
+    wrappers on their kernels: the other thread still calls the ops (which
+    launch for a tensor on the card), counts its launch and does not check
+    it."""
     nan = torch.tensor([float("nan")])
     inside, release, seen = threading.Event(), threading.Event(), {}
 
     def debugging_thread():
         with tdebug.plain_kernels(), tdebug.nan_debug():
-            seen["own_plain"] = _build.runs_plain(on_card)
+            seen["own_plain"] = _build.runs_plain()
             try:
                 _build.launched("probe", nan)
             except FloatingPointError:
@@ -415,7 +460,7 @@ def test_debug_switches_hold_only_for_the_thread_that_opened_them():
     t.start()
     try:
         assert inside.wait(timeout=30)
-        assert not _build.runs_plain(on_card)
+        assert not _build.runs_plain()
         assert _build.launched("probe", nan) is nan  # counted, not checked
         assert _build.SWITCHES.plain_depth == 0 and not _build.SWITCHES.nan_check
     finally:
@@ -423,6 +468,7 @@ def test_debug_switches_hold_only_for_the_thread_that_opened_them():
         t.join()
     assert seen == {"own_plain": True, "own_raised": True}
     assert _build.LAUNCHES["probe"] == 2
+    _build.reset_launches()  # leave no count for a later test of this worker
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):

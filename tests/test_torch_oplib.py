@@ -112,4 +112,4 @@ def test_op_library_exports_the_pallas_names():
     for name in OP_LIBRARY:
         assert callable(getattr(tops, name)), name
     assert tops.avg_pool2d is tpool.avg_pool2d and tops.add_relu is tew.add_relu
-    assert not _build.LAUNCHES and not _build._LIBS
+    assert not _build.LAUNCHES and not _build._OPS_LOADED

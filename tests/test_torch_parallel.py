@@ -8,8 +8,12 @@ started at once by the ``launches`` fixture (each rank a fresh process that
 imports no JAX, one thread each):
 
 1. two ranks of ``torch_parallel_ranks.library``: sync-BN, the gather, the
-   DP step with and without ``remat`` and DP ``int8_chain`` serving (plain
-   versions) on both routes and through the engine's ``mesh=``;
+   DP step with and without ``remat``, DP ``int8_chain`` serving (plain
+   versions) on both routes and through the engine's ``mesh=``, the
+   ``int8`` backend's scale over ranks, and every other backend served
+   over the ranks (``fp``, ``pallas``, ``pallas_block``, ``int8`` and
+   ``int8_static`` under FP32, an even batch and one the axis does not
+   divide);
 2. the two-process ``train --multihost`` command;
 3. ``train --data-dim 2``, two ranks spawned by the command.
 
@@ -20,9 +24,11 @@ with respect to x, scale and bias.  The DP step against JAX's
 ``train_step`` on the global batch, with ``tests/test_parallel.py``'s
 tolerances: loss rtol 1e-5, grad_norm rtol 1e-4, every parameter and BN
 stat rtol 1e-4, atol 5e-6; the two ranks' replicas equal bit for bit.  DP
-serving against the one-process forward: JAX's serving contract
-(``tests/test_parallel.py:57-65``: rel-MAE < 0.02, argmax agreement >=
-0.85).  The CLI runs (FP32): both ranks log identical losses, within rtol
+serving against the one-process forward (and the JAX package's): JAX's
+serving contract (``tests/test_parallel.py:57-65``: rel-MAE < 0.02,
+argmax agreement >= 0.85) for the int8 backends, and
+``tests/test_parallel.py:175-193``'s rtol 1e-4, atol 1e-4 (FP32) for the
+float ones.  The CLI runs (FP32): both ranks log identical losses, within rtol
 1e-5 of the one-rank run (``--data-dim 2``) or of JAX's
 ``train_step`` on the concatenated ``seed`` / ``seed + 1`` batches
 (``--multihost``) before the first update; after it rtol 1e-4 there (see
@@ -37,6 +43,7 @@ import os
 import pickle
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import jax
@@ -55,11 +62,16 @@ from resnetc_tpu.ops import lax_ops
 from resnetc_tpu.parallel import create_mesh as jcreate_mesh
 from resnetc_tpu.parallel import distributed as jdistributed
 from resnetc_tpu.parallel import param_shardings as jparam_shardings
+from resnetc_tpu.ops.pallas import fused as jfused
+from resnetc_tpu.ops.pallas import quant as jquant
+from resnetc_tpu.serve import InferenceEngine as JEngine
+from resnetc_tpu.tensor import FP32 as JFP32
 from resnetc_tpu_torch import __main__ as tcli
 from resnetc_tpu_torch import checkpoint as tckpt
 from resnetc_tpu_torch import train as ttrain
 from resnetc_tpu_torch.models import resnet as tresnet
 from resnetc_tpu_torch.ops.cuda import fused as tfused
+from resnetc_tpu_torch.ops.cuda import quant as tquant
 from resnetc_tpu_torch.parallel import distributed as tdistributed
 from resnetc_tpu_torch.parallel import mesh as tmesh
 from resnetc_tpu_torch.serve import InferenceEngine
@@ -371,6 +383,109 @@ def test_dp_engine_round_trip(launches, serving):
         _assert_int8_serving_close(r["engine"], want)
 
 
+def test_int8_chain_stage_taps_do_not_depend_on_the_thread_count():
+    """One process's ``int8_chain`` engine (calibration included) at 1 and 4
+    threads: the calibrated scales, every stage's int8 taps and the logits
+    are equal.  (An fp32 convolution on the CPU sums in an order that
+    follows oneDNN's blocking, and so the thread count; the bf16 path sums
+    in float64, ``torch_ops.conv2d``.)"""
+    cfg, variables, x = ranks.serve_inputs()
+    got = {}
+    threads = torch.get_num_threads()
+    try:
+        for n in (1, 4):
+            torch.set_num_threads(n)
+            eng = InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=x,
+                                  device="cpu")
+            taps = []
+            logits = tfused.fused_forward_int8_chain(cfg, eng.folded, eng.chain_scales,
+                                                     torch.from_numpy(x), stage_taps=taps)
+            got[n] = (flatten_tree(eng.chain_scales), taps, logits)
+    finally:
+        torch.set_num_threads(threads)
+    (s1, t1, l1), (s4, t4, l4) = got[1], got[4]
+    assert all(torch.equal(s1[k], s4[k]) for k in s1)
+    assert len(t1) == len(t4) == 4
+    for a, b in zip(t1, t4):
+        assert torch.equal(a, b)
+    assert torch.equal(l1, l4)
+
+
+def test_int8_scale_over_ranks_is_the_whole_batchs(launches):
+    """``quantize_per_tensor(group=)`` on two ranks whose slices lie 5
+    apart: every rank quantizes at the whole batch's scale, not its own."""
+    x = torch.from_numpy(ranks.bn_inputs()[0])
+    q, scale = tquant.quantize_per_tensor(x)
+    assert tquant.quantize_per_tensor(x[:4])[1] != scale
+    for r, res in enumerate(_library(launches)):
+        assert res["quant"]["scale"] == scale.numpy()
+        np.testing.assert_array_equal(res["quant"]["q"], q[4 * r:4 * (r + 1)].numpy())
+
+
+@pytest.fixture(scope="module")
+def dp_references():
+    """Per backend of ``ranks.DP_BACKENDS``: the port's one-process logits
+    of the even and the uneven batch, and the JAX package's (its engine,
+    Pallas in interpret mode; ``int8_static`` through its functions) on the
+    same variables."""
+    cfg, variables, x = ranks.dp_inputs()
+    jcfg = jresnet.get_config(ranks.SERVE_MODEL[0], num_classes=ranks.SERVE_MODEL[1])
+    jvars = jax.tree.map(lambda t: jnp.asarray(t.numpy()), variables)
+    port = {b: ranks.dp_serve(b) for b in ranks.DP_BACKENDS}
+    want = {}
+    jpol = JFP32
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        for b in ranks.DP_BACKENDS:
+            if b == "int8_static":
+                jfold = jresnet.fold_inference_params(jcfg, jvars)
+                jscales = jfused.calibrate_activation_scales(jcfg, jfold, jnp.asarray(x),
+                                                             policy=jpol)
+                jq = jquant.quantize_folded(jfold)
+
+                def run(xx):
+                    return jfused.fused_forward_int8_static(jcfg, jq, jscales, xx, policy=jpol,
+                                                            interpret=True)
+            else:
+                run = JEngine(jcfg, jvars, backend="xla" if b == "fp" else b,
+                              policy=jpol).logits
+            want[b] = {name: np.asarray(run(jnp.asarray(x[:n])), np.float32)
+                       for name, n in ranks.DP_BATCHES.items()}
+    return port, want
+
+
+@pytest.mark.parametrize("batch", list(ranks.DP_BATCHES))
+@pytest.mark.parametrize("backend", list(ranks.DP_BACKENDS))
+def test_dp_serving_every_backend_two_ranks(launches, dp_references, backend, batch):
+    """Each backend over two ranks (``InferenceEngine(mesh=)``; for
+    ``int8_static`` ``fused_forward_sharded``), FP32, against one process of
+    the port and against the JAX package: the float backends within
+    ``tests/test_parallel.py:175-193``'s rtol 1e-4, atol 1e-4, the int8
+    ones by its DP serving gate.  The uneven batch of 7 is padded to
+    8 with a copy of its last image: its logits are the one-process run's
+    on the 7, no more rows.  Both ranks get the same gathered logits, and
+    ``int8_static``'s scales, calibrated on each rank, are equal."""
+    port, jax_ref = dp_references
+    res = [r[f"dp/{backend}"] for r in _library(launches)]
+    got = res[0][batch]
+    np.testing.assert_array_equal(res[1][batch], got)
+    assert got.shape == (ranks.DP_BATCHES[batch], ranks.SERVE_MODEL[1])
+    for want in (port[backend][batch], jax_ref[backend][batch]):
+        if "int8" not in backend:
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            _assert_int8_serving_close(got, want)
+    if backend == "int8_static":
+        # Each rank calibrates on the same batch: equal scales.  Against this
+        # process, which may run more threads: the FP32 calibration's
+        # convolutions sum in oneDNN's order (the fp32 CPU path keeps it).
+        keys = port[backend]["scales"].keys()
+        assert res[1]["scales"].keys() == res[0]["scales"].keys() == keys
+        for k, v in port[backend]["scales"].items():
+            np.testing.assert_array_equal(res[1]["scales"][k], res[0]["scales"][k], err_msg=k)
+            np.testing.assert_allclose(res[0]["scales"][k], v, rtol=1e-5, err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # Launches 2 and 3: the train command
 # ---------------------------------------------------------------------------
@@ -449,9 +564,14 @@ def test_unported_options_name_their_roadmap_items(argv, item):
 
 
 def test_model_axis_and_other_backends_refuse_a_mesh():
+    """A model axis is refused by the DP step and by the engine, for every
+    backend (every backend takes a data axis: ``test_dp_serving_*``)."""
     cfg = ranks.step_config()
     with pytest.raises(NotImplementedError, match="item 3b"):
         ttrain.sharded_train_step(cfg, ttrain.TrainConfig(), {"data": 1, "model": 2})
     variables = tresnet.init(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="item 3b"):
-        InferenceEngine(cfg, variables, backend="fp", device="cpu", mesh={"data": 2, "model": 1})
+    for backend in ("fp", "int8", "int8_chain"):
+        with pytest.raises(NotImplementedError, match="item 3b"):
+            InferenceEngine(cfg, variables, backend=backend, device="cpu",
+                            calib_batch=np.zeros((1, 32, 32, 3), np.float32),
+                            mesh={"data": 1, "model": 2})

@@ -32,6 +32,15 @@ STEP_LR = 0.1
 #: ResNet-50, 11 classes, 64 px, batch 8).
 SERVE_MODEL = ("resnet50", 11)
 
+#: Every other backend served over the ranks, under FP32 as
+#: ``tests/test_parallel.py:175-193`` serves (under BF16 the port's and the
+#: JAX package's int8 logits already stand ~4% apart in one process: XLA
+#: keeps excess precision across bf16 roundings, and the int8 backend's
+#: per-tensor requantization turns that into whole steps).  ResNet-50, 11
+#: classes, 32 px, a global batch of 8 and an uneven one of 7.
+DP_BACKENDS = ("fp", "pallas", "pallas_block", "int8", "int8_static")
+DP_BATCHES = {"even": 8, "uneven": 7}
+
 
 def bn_inputs():
     """(x, scale, bias, running mean, running var, loss weights g) of the
@@ -76,6 +85,52 @@ def serve_inputs():
     return cfg, variables, x
 
 
+def dp_inputs():
+    """(config, variables, images) of the every-backend DP serving checks."""
+    from resnetc_tpu_torch.models import resnet
+
+    cfg = resnet.get_config(SERVE_MODEL[0], num_classes=SERVE_MODEL[1])
+    variables = resnet.init(cfg, torch.Generator().manual_seed(5))
+    x = np.random.default_rng(6).standard_normal((8, 32, 32, 3)).astype(np.float32)
+    return cfg, variables, x
+
+
+def dp_serve(backend: str, mesh=None) -> dict:
+    """``backend``'s logits of the even and the uneven batch: in one process
+    (``mesh`` None) or over ``mesh``'s data axis; for ``int8_static`` also
+    its calibrated scales (calibrated on the even batch, on every rank)."""
+    import warnings
+
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused, quant
+    from resnetc_tpu_torch.serve import InferenceEngine
+    from resnetc_tpu_torch.tensor import FP32, flatten_tree
+
+    cfg, variables, x = dp_inputs()
+    pol = FP32
+    xt = torch.from_numpy(x)
+    res: dict = {}
+    if backend == "int8_static":
+        folded = resnet.fold_inference_params(cfg, variables)
+        scales = fused.calibrate_activation_scales(cfg, folded, xt, policy=pol)
+        tree = quant.pack_kmajor(quant.quantize_folded(folded))
+        res["scales"] = {k: v.numpy() for k, v in flatten_tree(scales).items()}
+
+        def run(b):
+            if mesh is None:
+                return fused.fused_forward_int8_static(cfg, tree, scales, b, policy=pol)
+            return fused.fused_forward_sharded(cfg, tree, b, mesh, backend=backend,
+                                               scales=scales, policy=pol)
+    else:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # the pallas paths' notice
+            run = InferenceEngine(cfg, variables, backend=backend, policy=pol, device="cpu",
+                                  mesh=mesh).logits
+    for name, n in DP_BATCHES.items():
+        res[name] = run(xt[:n]).float().numpy()
+    return res
+
+
 def _flat_np(tree) -> dict:
     from resnetc_tpu_torch.tensor import flatten_tree
 
@@ -83,12 +138,13 @@ def _flat_np(tree) -> dict:
 
 
 def library(mesh) -> dict:
-    """Sync-BN, the gather, the DP step (with and without remat) and DP
-    ``int8_chain`` serving on this rank."""
+    """Sync-BN, the gather, the DP step (with and without remat), DP
+    ``int8_chain`` serving, the ``int8`` backend's global scale and every
+    other backend's DP serving on this rank."""
     from resnetc_tpu_torch import train
     from resnetc_tpu_torch.models import resnet
     from resnetc_tpu_torch.ops import torch_ops
-    from resnetc_tpu_torch.ops.cuda import fused
+    from resnetc_tpu_torch.ops.cuda import fused, quant
     from resnetc_tpu_torch.parallel import batch_sharding, distributed
     from resnetc_tpu_torch.parallel.mesh import data_group
     from resnetc_tpu_torch.serve import InferenceEngine
@@ -134,6 +190,12 @@ def library(mesh) -> dict:
     eng = InferenceEngine(scfg, variables, backend="int8_chain", calib_batch=xs_np, mesh=mesh,
                           device="cpu")
     res["engine"] = eng.logits(xs_np).numpy()
+
+    # The int8 backend's scale over ranks whose slices lie 5 apart.
+    q, scale = quant.quantize_per_tensor(take(x), group)
+    res["quant"] = {"q": q.numpy(), "scale": scale.numpy()}
+    for backend in DP_BACKENDS:
+        res[f"dp/{backend}"] = dp_serve(backend, mesh)
     return res
 
 
