@@ -109,8 +109,20 @@ then:
    backends]``, ``fp``, ``pallas``, ``pallas_block``, ``int8`` and
    ``int8_static`` on ResNet-50 b32 FP32 over two ranks against one
    process (float backends rtol 1e-4, atol 1e-4; int8 ones JAX's DP
-   contract), each rank's launches counted, ms per global batch.  Then the
-   serving CLI and the data pipeline, each phase's seconds printed:
+   contract), each rank's launches counted, ms per global batch.  Then
+   channel tensor parallelism (the mesh's model axis), a 1 x 2 mesh of two
+   gloo ranks on the one card, ResNet-50 at full width, 224 px, FP32,
+   batch 8: ``[tp serve]``, the ``fp``, ``pallas`` and ``pallas_block``
+   engines against one process (rtol 1e-4, atol 1e-4), ``pallas`` launching
+   rows 4, 13, 14 and 15 at shard widths on each rank (counted), ms per
+   global batch; ``[tp train resnet50]``, two TP steps, each against
+   ``train_step`` and the float64 twin's step from the same state, ms per
+   step and the channel collectives' share of an instrumented step; ``[cli
+   tp]``, ``classify --model-dim 2`` printing one process's lines and
+   ``train --model-dim 2 --checkpoint-dir`` whose checkpoint loads in one
+   process within a relative L2 distance of 1e-2 of each param and BN stat
+   of the one-process run's, its momentum norm within 1e-3.  Then
+   the serving CLI and the data pipeline, each phase's seconds printed:
    ``[native]``, whether the native host library built (it must where
    the libjpeg headers are), its ingest against PIL on 32 seeded JPEGs
    (within one uint8 level, > 90% exact), decode img/s at 1 and 4 threads
@@ -134,8 +146,10 @@ then:
    passing a finite forward and raising on a NaN input to ``relu``;
    ``[train data-dir]``, ``train --data-dir`` on the tree (ResNet-18,
    batch 32, 3 steps, finite losses); ``[cli dp serve]`` (after ``[cli
-   serve resnet152]``), ``classify``, ``eval`` and ``bench`` with
-   ``--data-dim 2`` on the same files, equal to the one-process commands.
+   serve resnet152]``), ``classify`` (four files: int8_chain refuses a
+   batch the data axis does not divide), ``eval`` and ``bench`` (``fp``)
+   with ``--data-dim 2`` on the same files, equal to the one-process
+   commands.
    Then ``[artifact resnet50]``: ResNet-50 exported (``export.py``'s
    functions, in a child started before the nvcc build, beside the C++
    runner's build, on seeded weights whose fc bias is centred so that the
@@ -2359,10 +2373,12 @@ def _fp32_case(case, dev, seed: int = 0):
     return cfg, train.TrainConfig(policy_name="fp32", lr=DP_LR), ts, x, y
 
 
-def _exact_step(cfg, ts, x, y) -> tuple[dict, float, float]:
-    """The float64 twin's SGD step (``torch.optim.SGD``, the port's rate,
-    momentum and weight decay) from ``ts`` on (x, y): its leaves, loss and
-    gradient norm."""
+def _exact_step(cfg, ts, x, y, *, lr: float = DP_LR,
+                momentum: bool = False) -> tuple[dict, float, float]:
+    """The float64 twin's SGD step (``torch.optim.SGD`` at ``lr``, the
+    port's momentum and weight decay) from ``ts`` on (x, y): its leaves,
+    loss and gradient norm.  ``momentum``: the step starts from ``ts``'s
+    momentum buffers (a later step), else from none (a first one)."""
     import torch
     import torch.nn.functional as F
 
@@ -2375,7 +2391,11 @@ def _exact_step(cfg, ts, x, y) -> tuple[dict, float, float]:
     sd = checkpoint.torch_state_dict_from_variables(resnet.merge_params_state(ts.params,
                                                                              ts.bn_state))
     twin.load_state_dict({k: v.double() for k, v in sd.items()}, strict=False)
-    opt = torch.optim.SGD(twin.parameters(), lr=DP_LR, momentum=0.9, weight_decay=1e-4)
+    opt = torch.optim.SGD(twin.parameters(), lr=lr, momentum=0.9, weight_decay=1e-4)
+    if momentum:
+        bufs = checkpoint.torch_state_dict_from_variables(ts.momentum)
+        for name, p in twin.named_parameters():
+            opt.state[p]["momentum_buffer"] = bufs[name].double().to(x.device)
     loss = F.cross_entropy(twin(x.double().permute(0, 3, 1, 2)), y.long())
     loss.backward()
     norm = float(torch.linalg.vector_norm(torch.stack([p.grad.norm() for p in twin.parameters()])))
@@ -2837,6 +2857,380 @@ def phase_cli_dp() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Channel tensor parallelism: [tp serve], [tp train resnet50], [cli tp]
+# ---------------------------------------------------------------------------
+
+#: ``[tp ...]``: a 1 x 2 (data, model) mesh of two ranks on the one card over
+#: gloo; ResNet-50 at full width, 224 px, FP32, batch 8; the backends that
+#: take a model axis (fp and pallas split channels, pallas_block runs whole
+#: on both model ranks); the train steps' rate.
+TP_BATCH, TP_BACKENDS, TP_LR = 8, ("fp", "pallas", "pallas_block"), 0.1
+#: The TP logits against one process (tests/test_parallel.py:175-193's
+#: float gate); ``[cli tp]``'s TP train run against the one-process run:
+#: per step the loss's rtol, and each param and BN stat of the checkpoints
+#: within this relative L2 distance.  Under the command's warm-up the first
+#: step's rate is 0, so both checkpoints hold one update from one state;
+#: its fp32 noise through train-mode BN moves single elements (a BN bias's
+#: 1.4% of its leaf's largest on an H100), which ``[tp train resnet50]``
+#: holds to the float64 twin; here a misplaced or missing shard would
+#: stand O(1) off.
+TP_SERVE_RTOL, TP_SERVE_ATOL = 1e-4, 1e-4
+TP_LOSS_RTOL, TP_LEAF_TOL = (1e-5, 1e-4), 1e-2
+#: ``[tp train resnet50]``'s gradient norm against the float64 twin's (and
+#: ``[cli tp]``'s momentum norm against one process's): the second step's
+#: fp32 norm moves ~3e-4 between runs on the card (cuDNN's backward
+#: convolutions are not deterministic), one process's and TP's alike; an
+#: M-fold or a missing gradient moves it by far more.
+TP_NORM_RTOL = 1e-3
+
+
+def _tp_model(dev):
+    """(ResNet-50 config, variables from seed 0, images from seed 3 on the
+    card) of ``[tp serve]``."""
+    import torch
+
+    from resnetc_tpu_torch.models import resnet
+
+    cfg = resnet.get_config("resnet50")
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((TP_BATCH, 224, 224, 3), generator=torch.Generator().manual_seed(3))
+    return cfg, variables, x.to(dev)
+
+
+def _tp_engines(dev, mesh=None):
+    """Each of ``TP_BACKENDS``' engines (FP32) in turn, with the images:
+    yields (backend, engine, x)."""
+    from resnetc_tpu_torch.serve import InferenceEngine
+    from resnetc_tpu_torch.tensor import FP32
+
+    cfg, variables, x = _tp_model(dev)
+    for b in TP_BACKENDS:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the pallas backends' notice
+            eng = InferenceEngine(cfg, variables, backend=b, policy=FP32, device=dev, mesh=mesh)
+        yield b, eng, x
+
+
+def _tp_train_case(dev):
+    """(config, FP32 train config, state from seed 0, batch) of ``[tp train
+    resnet50]``."""
+    from resnetc_tpu_torch import train
+    from resnetc_tpu_torch.data.loader import synthetic_batches
+
+    cfg = _tp_model("cpu")[0]
+    ts = _init_resnet50(dev)
+    x, y = next(iter(synthetic_batches(batch_size=TP_BATCH, steps=1, seed=0, device=dev)))
+    return cfg, train.TrainConfig(policy_name="fp32", lr=TP_LR), ts, x, y
+
+
+def _timed_ms(fn, n: int = 3) -> list:
+    """``fn()`` ``n`` times, each between two synchronizes on the host
+    clock: the ms of each."""
+    import torch
+
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def tp_rank(dev, work: str) -> dict:
+    """One of the two ranks of ``[tp serve]`` and ``[tp train resnet50]``
+    (a 1 x 2 mesh, gloo on the one card): each backend's engine with the
+    mesh, its forward counted and timed, the shape of the fc it holds; then
+    two FP32 TP train steps from seed 0, the whole state gathered and saved
+    after each (``work/step1``, ``work/step2``), three more steps timed,
+    and one step with every channel collective timed (a synchronize before
+    and after each: the collectives' share of a step)."""
+    import torch
+    import torch.distributed as dist
+
+    from resnetc_tpu_torch import checkpoint, train
+    from resnetc_tpu_torch.parallel import create_mesh, tp
+
+    rank = dist.get_rank()
+    mesh = create_mesh(1, 2)
+    out: dict = {"rank": rank, "device": str(dev), "backend": dist.get_backend(), "serve": {}}
+    for b, eng, x in _tp_engines(dev, mesh):
+        logits, launches = counted(lambda: eng.logits(x))
+        out["serve"][b] = {"logits": logits.float().cpu().numpy(), "launches": launches,
+                           "fc": tuple(eng.folded["fc"]["weight"].shape),
+                           "ms": sorted(_timed_ms(lambda: eng.logits(x)))[1]}
+        del eng
+        torch.cuda.empty_cache()
+
+    cfg, tcfg, ts, x, y = _tp_train_case(dev)
+    step, shard_state, _ = train.sharded_train_step(cfg, tcfg, mesh)
+    ts = shard_state(ts)
+    metrics = []
+    for i in range(2):
+        ts, m = step(ts, x, y, TP_LR)
+        metrics.append({k: float(v) for k, v in m.items()})
+        # The whole state after each step, as a one-process checkpoint.
+        checkpoint.save_train_state(os.path.join(work, f"step{i + 1}"),
+                                    train.gather_train_state(cfg, mesh, ts))
+    step_ms = _timed_ms(lambda: step(ts, x, y, TP_LR))
+
+    spent = {"gathers": 0, "ms": 0.0}
+    originals = tp._gather_last, tp._reduce_scatter_last
+
+    def timed(fn):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            spent["gathers"] += 1
+            spent["ms"] += (time.perf_counter() - t0) * 1e3
+            return r
+        return run
+
+    tp._gather_last, tp._reduce_scatter_last = (timed(f) for f in originals)
+    try:
+        instrumented = _timed_ms(lambda: step(ts, x, y, TP_LR), n=1)[0]
+    finally:
+        tp._gather_last, tp._reduce_scatter_last = originals
+    out["train"] = {"metrics": metrics, "ms_per_step": step_ms, "instrumented_ms": instrumented,
+                    "collectives": spent["gathers"], "collectives_ms": spent["ms"],
+                    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return out
+
+
+def phase_tp(card: str, dev) -> dict:
+    """``[tp serve]`` and ``[tp train resnet50]``: two ranks of a 1 x 2
+    (data, model) mesh on the one card over gloo (``tp_rank``), ResNet-50 at
+    full width, 224 px, FP32, batch 8.  Serving: ``fp``, ``pallas`` and
+    ``pallas_block`` against the same engines in this process, within
+    ``TP_SERVE_RTOL`` / ``TP_SERVE_ATOL`` (each error printed against the
+    gate); both ranks' logits equal; ``fp`` and ``pallas`` hold the fc's
+    shard (500 of 1000 classes), ``pallas_block`` the whole fc; each rank's
+    launches those of one forward of its backend (``backend_launches``:
+    ``pallas`` runs rows 4, 13, 14 and 15 at shard widths, ``fp`` no
+    kernel); ms per global batch beside one process's.  Training: each of
+    two TP steps against ``train_step`` and the float64 twin's step from
+    the same state (seed 0, then the TP run's own state after step 1, read
+    from the checkpoint its ranks wrote): the loss within
+    ``DP_LOSS_RTOL`` of one process, the gradient norm within
+    ``TP_NORM_RTOL`` of the twin's, and the farthest param or BN stat from
+    the twin's, in band-widths of rtol ``DP_RTOL``, atol ``DP_ATOL``, no
+    further than twice the one-process step's (or one band-width).  Both
+    steps stand up to ~200
+    band-widths from the twin at their farthest leaf (fp32 noise through
+    train-mode BN at batch 8), and which of the two lands closer on a
+    given leaf is chance, so the bound is over the tree; a fault in the
+    channel collectives (an M-fold or a missing gradient) stands orders
+    of magnitude further.  A single FP32 trajectory at lr 0.1 is chaotic:
+    two runs that differ in the last bits of one step's gradients part by
+    percents a step later, so each step starts from one state.  ms per step (= per global batch) and the
+    channel collectives' share of an instrumented step, with the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from resnetc_tpu_torch import checkpoint, train
+    from resnetc_tpu_torch.parallel import distributed
+
+    want, one_ms = {}, {}
+    for b, eng, x in _tp_engines(dev):
+        want[b] = eng.logits(x).float().cpu().numpy()
+        one_ms[b] = sorted(_timed_ms(lambda: eng.logits(x)))[1]
+        del eng
+    torch.cuda.empty_cache()
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        t0 = time.perf_counter()
+        res = distributed.spawn(tp_rank, 2, work, timeout=900)
+        secs = time.perf_counter() - t0
+        out = {"seconds": secs, "launches": [], "serve": {}}
+        tag = "[tp serve]"
+        cfg = _tp_model("cpu")[0]
+        for b in TP_BACKENDS:
+            got = res[0]["serve"][b]["logits"]
+            err = float(np.max(np.abs(got - want[b])
+                               / (TP_SERVE_ATOL + TP_SERVE_RTOL * np.abs(want[b]))))
+            rel_max = float(np.max(np.abs(got - want[b])) / np.max(np.abs(want[b])))
+            launches = [r["serve"][b]["launches"] for r in res]
+            want_launches = backend_launches(cfg, b) if b != "fp" else {}
+            fc = [r["serve"][b]["fc"] for r in res]
+            log(f"{tag} {b} FP32 b{TP_BATCH} on a 1 x 2 mesh ({res[0]['backend']}): vs one "
+                f"process max |err| / (atol {TP_SERVE_ATOL} + rtol {TP_SERVE_RTOL} |want|) = "
+                f"{err} (gate 1), max err / max |logit| {rel_max}; fc held {fc}; ms per global "
+                f"batch (median of 3, host clock) {[r['serve'][b]['ms'] for r in res]}, one "
+                f"process {one_ms[b]:.3f}, on {card}")
+            for r, n in zip(res, launches):
+                log(f"{tag} {b} rank {r['rank']} launches {json.dumps(n)}")
+            if any(n != want_launches for n in launches):
+                raise AssertionError(f"{tag} {b} launched {launches}, expected {want_launches}")
+            if not np.array_equal(res[1]["serve"][b]["logits"], got):
+                raise AssertionError(f"{tag} {b}: the ranks returned different logits")
+            if fc != [(1000 if b == "pallas_block" else 500, 2048)] * 2:
+                raise AssertionError(f"{tag} {b}: the engines hold fc {fc}")
+            if not err <= 1.0 or got.shape != (TP_BATCH, 1000):
+                raise AssertionError(f"{tag} {b}: TP serving outside the gate")
+            out["launches"] += launches
+            out["serve"][b] = {"err_over_gate": err, "rel_max": rel_max, "one_process_ms":
+                               one_ms[b], "ms": [r["serve"][b]["ms"] for r in res]}
+
+        tag = "[tp train resnet50]"
+        tr = [r["train"] for r in res]
+        if tr[0]["metrics"] != tr[1]["metrics"]:
+            raise AssertionError(f"{tag} the ranks logged different metrics")
+        cfg, tcfg, start, x, y = _tp_train_case(dev)
+        like = _init_resnet50(dev)
+        steps, ok = [], True
+        for i, m in enumerate(tr[0]["metrics"]):
+            got = _flat_state(checkpoint.load_train_state(os.path.join(work, f"step{i + 1}"),
+                                                          like))
+            leaves, exact_loss, exact_norm = _exact_step(cfg, start, x, y, lr=TP_LR,
+                                                         momentum=i > 0)
+            one, mone = train.train_step(cfg, tcfg, start, x, y, TP_LR)
+            ref = _flat_state(one)
+            tp_far, one_far, ratio, rkey = 0.0, 0.0, 0.0, ""
+            for k, e in leaves.items():
+                band = float((DP_ATOL + DP_RTOL * e.abs()).max())
+                d = float((got[k].double().cpu() - e).abs().max())
+                o = float((ref[k].double().cpu() - e).abs().max())
+                tp_far, one_far = max(tp_far, d / band), max(one_far, o / band)
+                if d / max(band, 2 * o) > ratio:
+                    ratio, rkey = d / max(band, 2 * o), k
+            loss_rel = abs(m["loss"] / float(mone["loss"]) - 1)
+            norm_rel = abs(m["grad_norm"] / exact_norm - 1)
+            log(f"{tag} step {i + 1} from {'seed 0' if i == 0 else 'the TP state after step 1'}: "
+                f"loss {m['loss']} vs one process {float(mone['loss'])} (rel {loss_rel}, gate "
+                f"{DP_LOSS_RTOL}), float64 {exact_loss}; grad_norm {m['grad_norm']}, one process "
+                f"{float(mone['grad_norm'])}, float64 {exact_norm} (TP rel {norm_rel}, gate "
+                f"{TP_NORM_RTOL}); farthest leaf from the "
+                f"float64 step, in band-widths: TP {tp_far}, one process {one_far} (gate: TP "
+                f"within max(1, twice the one process's)); leaf by leaf, TP's distance over "
+                f"twice the one process's at most {ratio} ({rkey})")
+            ok = (ok and loss_rel <= DP_LOSS_RTOL and norm_rel <= TP_NORM_RTOL
+                  and tp_far <= max(1.0, 2 * one_far))
+            steps.append({"loss_rel": loss_rel, "norm_rel": norm_rel, "tp_vs_exact": tp_far,
+                          "one_vs_exact": one_far,
+                          "tp_over_twice_one": ratio, "worst_leaf": rkey})
+            if i:  # updates ``one`` in place; it is not read again
+                one_ms = sorted(_timed_ms(lambda: train.train_step(cfg, tcfg, one, x, y, TP_LR)))[1]
+            del one, ref, got, leaves
+            start = checkpoint.load_train_state(os.path.join(work, f"step{i + 1}"), like)
+        del start, like
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    steady = sorted(tr[0]["ms_per_step"])[1]
+    share = tr[0]["collectives_ms"] / tr[0]["instrumented_ms"]
+    log(f"{tag} FP32 b{TP_BATCH} at 224 px, lr {TP_LR}: ms per TP step (= per global batch) "
+        f"{[round(v, 3) for v in tr[0]['ms_per_step']]}, median {steady:.3f} ms "
+        f"({TP_BATCH / (steady / 1e3):.1f} img/s), one process {one_ms:.3f} ms; an "
+        f"instrumented step "
+        f"{tr[0]['instrumented_ms']:.3f} ms of which the {tr[0]['collectives']} channel "
+        f"collectives (gathers and reduce-scatters, gloo through the host) "
+        f"{tr[0]['collectives_ms']:.3f} ms ({share:.1%}); peak memory a rank "
+        f"{[round(t['peak_gib'], 2) for t in tr]} GiB; {secs:.1f} s for the two ranks, on {card}")
+    if not ok:
+        raise AssertionError(f"{tag} a TP step is further from the float64 step than one "
+                             "process's")
+    out["train"] = {"steps": steps, "metrics": tr[0]["metrics"], "one_process_ms": one_ms,
+                    "ms_per_step": tr[0]["ms_per_step"], "collectives_share": share,
+                    "collectives": tr[0]["collectives"]}
+    return out
+
+
+def phase_cli_tp(card: str) -> dict:
+    """``[cli tp]``: ``classify --model-dim 2`` (ResNet-50, fp, FP32, four
+    seeded ``.bin`` images: two ranks spawned by the command) beside the
+    one-process command, and ``train --model-dim 2 --steps 2
+    --checkpoint-dir`` (ResNet-18, FP32, batch 8, 224 px) beside the
+    one-process command, all four at once: classify prints one process's
+    lines; the TP checkpoint loads in this process and equals the
+    one-process run's, its step 2, every param and BN stat within a
+    relative L2 distance of ``TP_LEAF_TOL`` and the momentum buffers'
+    norm within ``TP_NORM_RTOL``; both runs log the same losses within
+    ``TP_LOSS_RTOL``."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from resnetc_tpu_torch import checkpoint, train
+    from resnetc_tpu_torch.data.preprocess import save_input_bin
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.tensor import flatten_tree
+
+    tag = "[cli tp]"
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_"))
+    try:
+        rng = np.random.default_rng(12)
+        bins = []
+        for i in range(4):
+            bins.append(str(work / f"{i}.bin"))
+            save_input_bin(rng.standard_normal((1, 3, 224, 224)).astype(np.float32), bins[-1])
+        serve = ["classify", "--model", "resnet50", "--policy", "fp32", *bins]
+        fit = ["train", "--model", "resnet18", "--policy", "fp32", "--batch-size", "8",
+               "--steps", "2", "--log-every", "1"]
+        t0 = time.perf_counter()
+        outs = _finish(tag, {
+            "classify tp": _cli(*serve, "--model-dim", "2", cwd=root),
+            "classify": _cli(*serve, cwd=root),
+            "train tp": _cli(*fit, "--model-dim", "2", "--checkpoint-dir", str(work / "tp"),
+                             cwd=root),
+            "train": _cli(*fit, "--checkpoint-dir", str(work / "one"), cwd=root),
+        }, t0)
+        lines = {k: outs[k][0].splitlines() for k in ("classify tp", "classify")}
+        log(f"{tag} classify --model-dim 2: {lines['classify tp']}; one process "
+            f"{lines['classify']}")
+        if lines["classify tp"] != lines["classify"] or len(lines["classify"]) != 4:
+            raise AssertionError(f"{tag} classify printed other lines over the model axis")
+        losses = {k: [json.loads(ln)["loss"] for ln in outs[k][0].splitlines()
+                      if ln.startswith('{"tag": "train"')] for k in ("train tp", "train")}
+        cfg = resnet.get_config("resnet18")
+        like = train.init_train_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+        tp_state = checkpoint.load_train_state(work / "tp", like)
+        one_state = checkpoint.load_train_state(work / "one", like)
+        # Each param and BN stat by its relative L2 distance; the farthest
+        # element, against its leaf's largest, is printed beside it.
+        worst, key, far, far_key = 0.0, "", 0.0, ""
+        got, want = _flat_state(tp_state), _flat_state(one_state)
+        for k, w in want.items():
+            e = float((got[k] - w).norm() / w.norm())
+            if e > worst:
+                worst, key = e, k
+            e = float((got[k] - w).abs().max() / w.abs().max())
+            if e > far:
+                far, far_key = e, k
+        # The momentum buffers are sums of raw gradients, whose fp32 noise in
+        # a conv weight ahead of BN is large against the weight's own
+        # gradient: held by their norm, as a step's grad_norm is.
+        norms = [float(torch.linalg.vector_norm(torch.stack([
+            v.norm() for v in flatten_tree(st.momentum).values()]))) for st in (tp_state, one_state)]
+        norm_rel = abs(norms[0] / norms[1] - 1)
+        loss_rel = [abs(a / b - 1) for a, b in zip(losses["train tp"], losses["train"])]
+        log(f"{tag} train --model-dim 2: losses {losses['train tp']}, one process "
+            f"{losses['train']} (rel {loss_rel}); its checkpoint (step {int(tp_state.step)}) "
+            f"loaded in one process: farthest param or BN stat from the one-process "
+            f"checkpoint's, relative L2 {worst} ({key}; gate {TP_LEAF_TOL}), farthest element "
+            f"{far} of its leaf's max ({far_key}), momentum norm "
+            f"{norms[0]} vs {norms[1]} (rel {norm_rel}, gate {TP_NORM_RTOL}); wall ms "
+            f"{json.dumps({k: round(ms) for k, (_, ms) in outs.items()})} on {card}")
+        if (int(tp_state.step) != 2 or worst > TP_LEAF_TOL or norm_rel > TP_NORM_RTOL
+                or len(loss_rel) != 2 or any(r > g for r, g in zip(loss_rel, TP_LOSS_RTOL))):
+            raise AssertionError(f"{tag} the TP train run differs from the one-process run")
+        return {"classify": lines["classify tp"], "losses": losses, "worst_leaf": worst,
+                "seconds": time.perf_counter() - t0}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # The serving CLI and the data pipeline: [native], [cli serve
 # resnet152], [loader], [local latency], [debug], [train data-dir]
 # ---------------------------------------------------------------------------
@@ -3102,30 +3496,33 @@ def phase_cli_dp_serve(work, serve: dict, card: str) -> dict:
     """``[cli dp serve]``: ``classify``, ``eval`` and ``bench`` with
     ``--data-dim 2`` (two ranks each, spawned by the command, sharing the
     card over gloo), all three at once, on ``[cli serve resnet152]``'s
-    ResNet-152 ``int8_chain`` files: classify's indices (three files: the
-    ranks pad the batch to four) and eval's record equal the one-process
-    commands'; bench prints its JSON (platform "gpu").  Each command's wall
-    ms is printed."""
+    ResNet-152 files: classify's indices (``int8_chain``; its three files
+    and the first again: int8_chain refuses a batch the data axis does not
+    divide, as JAX's shard_map does) and eval's record (``int8_chain``)
+    equal the one-process commands'; bench (``fp``: the latency request's
+    one image is such a batch for ``int8_chain``) prints its JSON
+    (platform "gpu").  Each command's wall ms is printed."""
     tag = "[cli dp serve]"
     root = os.path.dirname(os.path.abspath(__file__))
-    model = ["--model", "resnet152", "--backend", "int8_chain", "--weights-dir",
-             str(work / "weights"), "--data-dim", "2"]
+    weights = ["--model", "resnet152", "--weights-dir", str(work / "weights"), "--data-dim", "2"]
+    model = [*weights, "--backend", "int8_chain"]
+    inputs, classes = serve["inputs"] + serve["inputs"][:1], serve["classes"] + serve["classes"][:1]
     t0 = time.perf_counter()
     outs = _finish(tag, {
-        "classify": _cli("classify", *model, *serve["inputs"], cwd=root),
+        "classify": _cli("classify", *model, *inputs, cwd=root),
         "eval": _cli("eval", *model, "--batch-size", str(CLI_BATCH), str(_tree(work)), cwd=root),
-        "bench": _cli("bench", *model, "--batch-size", str(CLI_BATCH), "--steps", "10",
-                      "--latency-samples", "10", cwd=root),
+        "bench": _cli("bench", *weights, "--backend", "fp", "--batch-size", str(CLI_BATCH),
+                      "--steps", "10", "--latency-samples", "10", cwd=root),
     }, t0)
     got = [int(ln.rsplit(" ", 1)[1]) for ln in outs["classify"][0].splitlines()]
     cli_eval = json.loads(outs["eval"][0].splitlines()[-1])
     bench = json.loads(outs["bench"][0].splitlines()[-1])
     wall = {k: ms for k, (_, ms) in outs.items()}
-    log(f"{tag} classify {got} (one process {serve['classes']}); eval {json.dumps(cli_eval)}; "
+    log(f"{tag} classify {got} (one process {classes}); eval {json.dumps(cli_eval)}; "
         f"bench {json.dumps(bench)}; wall ms {json.dumps(wall)} (one process "
         f"{json.dumps(serve['wall_ms'])}) on {card}")
-    if got != serve["classes"]:
-        raise AssertionError(f"{tag} classify printed {got}, one process {serve['classes']}")
+    if got != classes:
+        raise AssertionError(f"{tag} classify printed {got}, one process {classes}")
     if cli_eval != serve["eval"]:
         raise AssertionError(f"{tag} eval printed {cli_eval}, one process {serve['eval']}")
     if bench.get("platform") != "gpu" or not bench.get("images_per_sec", 0) > 0:
@@ -3827,6 +4224,7 @@ def _run(args, card: str, dev, art_child, art_dir) -> int:
         summaries[name] = summary
         del e2e, back, runs
         torch.cuda.empty_cache()
+    log(f"[phase] serving: {time.perf_counter() - t0:.1f} s since the start")
     summaries["reduced_routes"] = phase_reduced_routes(dev)
     for route in summaries["reduced_routes"].values():
         add(route)
@@ -3849,6 +4247,7 @@ def _run(args, card: str, dev, art_child, art_dir) -> int:
     summaries["cli"] = phase_cli()
     summaries["verify_resnet152"] = phase_verify_resnet152()
     torch.cuda.empty_cache()
+    log(f"[phase] training and verification: {time.perf_counter() - t0:.1f} s since the start")
     summaries["dp"] = dp = phase_dp_two_ranks(
         dp_engine_logits, expected_launches(cases["resnet152"], pp=True), dev)
     for route in dp["launches"]:
@@ -3858,6 +4257,14 @@ def _run(args, card: str, dev, art_child, art_dir) -> int:
     for route in dpb["launches"]:
         add(route)
     torch.cuda.empty_cache()
+    log(f"[phase] data parallelism: {time.perf_counter() - t0:.1f} s since the start")
+    t1 = time.perf_counter()
+    summaries["tp"] = tps = phase_tp(card, dev)
+    for route in tps["launches"]:
+        add(route)
+    summaries["cli_tp"] = phase_cli_tp(card)
+    log(f"[phase] tp: {time.perf_counter() - t1:.1f} s")
+    torch.cuda.empty_cache()
     summaries["data"] = run_data_phases(cases, args.batch, card, dev, add)
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
@@ -3866,6 +4273,7 @@ def _run(args, card: str, dev, art_child, art_dir) -> int:
         add(route)
     log(f"[phase] artifact: {time.perf_counter() - t1:.1f} s")
     torch.cuda.empty_cache()
+    log(f"[phase] data, cli and artifact: {time.perf_counter() - t0:.1f} s since the start")
     kernels, per_case = phase_kernel_timing(args.batch, dev, errs, launches)
     ew = phase_ew_timing(dev)
     total_s = time.perf_counter() - t0

@@ -12,15 +12,17 @@ Counterpart of ``resnetc_tpu/__main__.py``, with the same flags and
 defaults (the backend ``fp`` is JAX's ``xla``).  Every command that touches
 a model runs on the card and raises where there is none; each has a
 ``run_<command>(args, *, device=None)`` body the tests call with
-``device="cpu"``.  ``train`` trains data-parallel with ``--data-dim N`` (N
-ranks on this host) or ``--multihost --coordinator host:port
---num-processes N --process-id i`` (one rank a process).  The serving
-commands (classify, bench, eval) serve over N ranks spawned on this host
-with ``--data-dim N``: each rank builds the engine with the mesh and takes
-the same global batch, and the command prints what rank 0 returns, which
-is what one process prints.  They refuse ``--multihost`` as JAX's do.  A
-``--model-dim`` above 1 is refused everywhere (channel tensor parallelism,
-ROADMAP Queue 1 item 3b).
+``device="cpu"``.  ``train`` trains over a (data, model) mesh of
+``--data-dim N --model-dim M`` (N * M ranks on this host) or ``--multihost
+--coordinator host:port --num-processes N --process-id i`` (one rank a
+process, ``--model-dim M`` of them to a replica).  The serving commands
+(classify, bench, eval) serve over N * M ranks spawned on this host: each
+rank builds the engine with the mesh and takes the same global batch, and
+the command prints what rank 0 returns, which is what one process prints.
+They refuse ``--multihost`` as JAX's do.  ``--model-dim M`` splits the
+channels of ``fp`` and ``pallas`` (and of the train step) over M ranks,
+replicates ``pallas_block`` over them, and is refused by ``int8`` and
+``int8_chain``.
 """
 
 from __future__ import annotations
@@ -29,14 +31,6 @@ import argparse
 import json
 import sys
 import time
-
-
-def _refuse_unported(run) -> None:
-    if run.model_dim > 1:
-        raise SystemExit(
-            "--model-dim > 1 (channel tensor parallelism) is not ported yet "
-            "(ROADMAP Queue 1 item 3b); train data-parallel with --data-dim"
-        )
 
 
 def _serving_run(args: argparse.Namespace):
@@ -54,40 +48,61 @@ def _serving_run(args: argparse.Namespace):
             "--multihost/--coordinator are supported by the `train` "
             "command only; for serving over ranks on one host use --data-dim"
         )
-    if run.backend == "int8_chain" and run.model_dim > 1:
-        # int8_chain replicates weights and shards only the 'data' axis.
-        raise SystemExit(
-            "--backend int8_chain does not support --model-dim > 1 "
-            "(channel TP applies to the XLA backends only); use "
-            f"--data-dim {run.data_dim * run.model_dim} instead"
-        )
-    _refuse_unported(run)
+    if run.backend in ("int8", "int8_chain") and run.model_dim > 1:
+        # int8_chain replicates weights and shards only the 'data' axis;
+        # JAX's int8 engine cannot place its tree under a mesh.
+        from resnetc_tpu_torch.ops.cuda.fused import model_axis_refusal
+
+        raise SystemExit(model_axis_refusal(run.backend, run.data_dim * run.model_dim))
+    _check_model_axis(run)
     return run
+
+
+def _check_model_axis(run) -> None:
+    """Refuse, before any rank starts, a model axis that does not divide
+    the model's channels (``parallel.tp.check_config``)."""
+    if run.model_dim > 1:
+        from resnetc_tpu_torch.models import resnet
+        from resnetc_tpu_torch.parallel import tp
+
+        try:
+            tp.check_config(resnet.get_config(run.model), run.model_dim)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
 
 
 def _serving(command: str, args: argparse.Namespace, device):
     """Run a serving command's body (``_SERVING[command]``) in this process,
-    or with ``--data-dim N`` on N spawned ranks, and return rank 0's
-    result.  ``bench`` refuses the CPU."""
+    or with ``--data-dim N --model-dim M`` on N * M spawned ranks, and
+    return rank 0's result.  ``bench`` refuses the CPU, and ``int8_chain``
+    over a data axis: its latency request is one image, which
+    ``int8_chain`` does not split over ranks (JAX's ``shard_map`` raises on
+    it, ``fused_forward_int8_chain_sharded``)."""
     from resnetc_tpu_torch.tensor import resolve_device
 
     run = _serving_run(args)
+    if command == "bench" and run.backend == "int8_chain" and run.data_dim > 1:
+        raise SystemExit("bench --backend int8_chain does not run over --data-dim > 1: its "
+                         "latency request is one image, and int8_chain does not split a "
+                         f"batch that {run.data_dim} data ranks do not divide (JAX's "
+                         "shard_map raises on it)")
     if command == "bench" and resolve_device(device).type != "cuda":
         raise SystemExit("bench times the card; it does not run on the CPU")
-    if run.data_dim > 1:
+    if run.data_dim * run.model_dim > 1:
         from resnetc_tpu_torch import __main__ as cli
         from resnetc_tpu_torch.parallel import distributed
 
         # Under ``python -m`` this module is ``__main__``, which a spawned
         # rank does not import: pass the function under the package name.
         rank_args = argparse.Namespace(**{k: v for k, v in vars(args).items() if k != "fn"})
-        return distributed.spawn(cli._serving_rank, run.data_dim, command, run, rank_args,
-                                 device=device)[0]
+        return distributed.spawn(cli._serving_rank, run.data_dim * run.model_dim, command,
+                                 run, rank_args, device=device)[0]
     return _SERVING[command](run, args, device, None)
 
 
 def _serving_rank(dev, command, run, args):
-    """One rank of a ``--data-dim N`` serving command (``spawn``)."""
+    """One rank of a ``--data-dim N --model-dim M`` serving command
+    (``spawn``)."""
     from resnetc_tpu_torch.parallel import create_mesh
 
     mesh = create_mesh(run.data_dim, run.model_dim, device_type=dev.type)
@@ -110,8 +125,8 @@ def _model(run):
 
 def _build_engine(run, device=None, mesh=None):
     """(model config, ``InferenceEngine``) for a serving command; JAX's
-    ``__main__.py:24-72``, every backend replicated over ``mesh``'s data
-    axis."""
+    ``__main__.py:24-72``: every backend replicated over ``mesh``'s data
+    axis, and ``fp`` / ``pallas`` split over its model axis."""
     from resnetc_tpu_torch.serve import InferenceEngine
     from resnetc_tpu_torch.tensor import policy
 
@@ -177,7 +192,8 @@ def run_bench(args: argparse.Namespace, *, device=None) -> dict:
     ``--latency-samples`` requests, as the JAX CLI's JSON record
     (``__main__.py:117-126``) plus the card.  Times the card: refuses the
     CPU.  Over ranks each forward is the sharded one (the one image of a
-    latency request padded to a copy a rank)."""
+    latency request padded to a copy a rank; ``int8_chain`` refuses a data
+    axis, ``_serving``)."""
     return _serving("bench", args, device)
 
 
@@ -289,20 +305,26 @@ def run_train(args: argparse.Namespace, *, device=None):
     ``--coordinator``; it draws its own slice of the global batch from
     ``seed + rank`` (JAX ``__main__.py:194-217``), or with ``--data-dir``
     reads its strided shard of every epoch (``shard=(rank, n)``), and
-    returns its final state.  ``--data-dim N`` on one host: N ranks spawned
-    here (``parallel.distributed.spawn``), each taking its slice of the one
-    global batch (drawn from ``seed``, or read from ``--data-dir``), so the
-    run logs what the one-rank run logs; returns None.  ``--data-dir``:
-    ``ImageFolderLoader(train=True, epochs=10**9, seed=seed)``, its random
-    crops decoded on background threads, ``--steps`` batches.  Rank 0
-    writes the metrics log to stdout, the checkpoint and the export; the
-    other ranks write their records to stderr."""
+    returns its final state.  ``--data-dim N --model-dim M`` on one host:
+    N * M ranks spawned here (``parallel.distributed.spawn``), each taking
+    its data slice of the one global batch (drawn from ``seed``, or read
+    from ``--data-dir``), so the run logs what the one-rank run logs;
+    returns None.  ``--model-dim M`` splits the channels of the state and
+    the forward over M ranks (``train.sharded_train_step``); under
+    ``--multihost`` the M ranks of one replica (consecutive ranks) draw the
+    same slice.  ``--data-dir``: ``ImageFolderLoader(train=True,
+    epochs=10**9, seed=seed)``, its random crops decoded on background
+    threads, ``--steps`` batches.  Rank 0 writes the metrics log to stdout,
+    the checkpoint and the export, of the whole state gathered over the
+    model axis (what one process writes); the other ranks write their
+    records to stderr.  ``--resume`` loads the whole state on the first
+    replica's ranks, which ``shard_state`` shares and shards."""
     from resnetc_tpu_torch.config import run_config_from_args
     from resnetc_tpu_torch.parallel import distributed
     from resnetc_tpu_torch.tensor import resolve_device
 
     run = run_config_from_args(args)
-    _refuse_unported(run)
+    _check_model_axis(run)
     if run.multihost:
         dev = distributed.initialize(run.coordinator, run.num_processes, run.process_id,
                                      device=device)
@@ -310,7 +332,7 @@ def run_train(args: argparse.Namespace, *, device=None):
             return _train(run, args, dev, parallel=True, local_batch=True)
         finally:
             distributed.shutdown()
-    if run.data_dim > 1:
+    if run.data_dim * run.model_dim > 1:
         # A rank unpickles its target by module name, and under ``python -m``
         # this module is ``__main__``, which a spawned process does not
         # import: pass the function (and no ``args.fn``) under the package
@@ -318,13 +340,15 @@ def run_train(args: argparse.Namespace, *, device=None):
         from resnetc_tpu_torch import __main__ as cli
 
         rank_args = argparse.Namespace(**{k: v for k, v in vars(args).items() if k != "fn"})
-        distributed.spawn(cli._train_rank, run.data_dim, run, rank_args, device=device)
+        distributed.spawn(cli._train_rank, run.data_dim * run.model_dim, run, rank_args,
+                          device=device)
         return None
     return _train(run, args, resolve_device(device), parallel=False, local_batch=False)
 
 
 def _train_rank(dev, run, args) -> None:
-    """One rank of a single-host ``--data-dim N`` run (``spawn``)."""
+    """One rank of a single-host ``--data-dim N --model-dim M`` run
+    (``spawn``)."""
     _train(run, args, dev, parallel=True, local_batch=False)
 
 
@@ -348,18 +372,25 @@ def _train(run, args, dev, *, parallel: bool, local_batch: bool):
     log = MetricsLogger(sys.stdout if rank == 0 else sys.stderr, prefix="train")
 
     ts = train.init_train_state(cfg, torch.Generator().manual_seed(run.seed), device=dev)
-    if args.resume and rank == 0:
+    # The ranks of the first replica (data index 0, ranks 0..M-1 of the
+    # row-major mesh) hold what shard_state shares over the data axis.
+    if args.resume and rank < run.model_dim:
         from resnetc_tpu_torch.checkpoint import load_train_state
 
         ts = load_train_state(args.resume, ts)
-        print(f"resumed from {args.resume} at step {int(ts.step)}")
+        if rank == 0:
+            print(f"resumed from {args.resume} at step {int(ts.step)}")
+    mesh = None
+    shard = (0, 1)  # this rank's (data index, data ranks)
     if parallel:
         from resnetc_tpu_torch.parallel import create_mesh
+        from resnetc_tpu_torch.parallel import mesh as pmesh
 
         # --data-dim sizes the data axis; a --multihost run left at 1 takes
-        # every rank.
+        # every rank the model axis leaves.
         mesh = create_mesh(run.data_dim if run.data_dim > 1 else None, run.model_dim,
                            device_type=dev.type)
+        shard = (mesh.get_local_rank(pmesh.DATA_AXIS), pmesh.axis_sizes(mesh)[pmesh.DATA_AXIS])
         step_fn, shard_state, _ = train.sharded_train_step(cfg, tcfg, mesh,
                                                            local_batch=local_batch)
         ts = shard_state(ts)
@@ -369,10 +400,10 @@ def _train(run, args, dev, *, parallel: bool, local_batch: bool):
 
     batch_size, seed = run.batch_size, run.seed
     if local_batch:
-        _, batch_size = distributed.global_batch_slice(run.batch_size)
-        seed += rank
+        _, batch_size = distributed.global_batch_slice(run.batch_size, pmesh.data_group(mesh))
+        seed += shard[0]
     if args.data_dir:
-        batches = _folder_batches(run, args, dev, batch_size, local_batch, rank)
+        batches = _folder_batches(run, args, dev, batch_size, local_batch, shard)
     else:
         batches = synthetic_batches(
             batch_size=batch_size, image_size=run.image_size, steps=args.steps,
@@ -391,28 +422,33 @@ def _train(run, args, dev, *, parallel: bool, local_batch: bool):
             record["images_per_sec"] = run.batch_size * args.log_every / (now - t_last)
             log.log(record)
             t_last = now
+    if mesh is not None and (args.checkpoint_dir or args.export_weights_dir):
+        whole = train.gather_train_state(cfg, mesh, ts)  # every rank takes part
+    else:
+        whole = ts
     if args.checkpoint_dir:
         from resnetc_tpu_torch.checkpoint import save_train_state
 
-        save_train_state(args.checkpoint_dir, ts)  # rank 0 writes; all ranks wait
+        save_train_state(args.checkpoint_dir, whole)  # rank 0 writes; all ranks wait
         if rank == 0:
             print(f"saved checkpoint to {args.checkpoint_dir}")
     if args.export_weights_dir and rank == 0:
         # The serving engines load this format (load_reference_format).
         from resnetc_tpu_torch.checkpoint import save_reference_format
 
-        variables = resnet.merge_params_state(ts.params, ts.bn_state)
+        variables = resnet.merge_params_state(whole.params, whole.bn_state)
         n = save_reference_format(variables, args.export_weights_dir)
         print(f"exported {n} weight files to {args.export_weights_dir}")
     return ts
 
 
-def _folder_batches(run, args, dev, batch_size, local_batch, rank):
+def _folder_batches(run, args, dev, batch_size, local_batch, shard):
     """``--steps`` (images, labels) batches on ``dev`` from the ImageFolder
-    tree ``--data-dir``.  A ``--multihost`` rank reads its strided shard of
-    every epoch as host arrays (JAX ``__main__.py:196-210``) and moves them
-    itself; every other run reads the whole global batch.  The loader's
-    producer stops when the steps are taken."""
+    tree ``--data-dir``.  A ``--multihost`` rank reads its data index's
+    strided shard of every epoch (``shard``: (index, data ranks)) as host
+    arrays (JAX ``__main__.py:196-210``) and moves them itself; every other
+    run reads the whole global batch.  The loader's producer stops when the
+    steps are taken."""
     import torch
 
     from resnetc_tpu_torch.data import ImageFolderLoader
@@ -420,7 +456,7 @@ def _folder_batches(run, args, dev, batch_size, local_batch, rank):
     loader = ImageFolderLoader(
         args.data_dir, batch_size=batch_size, image_size=run.image_size,
         train=True, epochs=10**9, seed=run.seed, device=dev,
-        shard=(rank, torch.distributed.get_world_size()) if local_batch else None,
+        shard=shard if local_batch else None,
         to_device=not local_batch,
     )
     it = iter(loader)
@@ -454,7 +490,12 @@ def run_verify(args: argparse.Namespace, *, device=None) -> dict:
     from resnetc_tpu_torch.verify.twin import build_twin
 
     run = run_config_from_args(args)
-    _refuse_unported(run)
+    if run.model_dim > 1:
+        raise SystemExit(
+            "verify runs in one process, as the JAX CLI's does (it takes no "
+            "mesh); --model-dim (channel tensor parallelism, ROADMAP Queue 1 "
+            "item 3b) is for train and the serving commands"
+        )
     if run.multihost or run.data_dim > 1:
         raise SystemExit(
             "verify runs in one process, as the JAX CLI's does (it takes no "

@@ -25,6 +25,7 @@ import torch
 import torch.utils.checkpoint
 
 from resnetc_tpu_torch.ops import torch_ops
+from resnetc_tpu_torch.parallel import tp
 from resnetc_tpu_torch.tensor import BF16, DtypePolicy, unflatten_tree
 
 Tree = dict[str, Any]
@@ -235,10 +236,41 @@ def _bn(x, bn_vars, *, train: bool, group=None):
     return out, {"running_mean": new_mean, "running_var": new_var}
 
 
+def _conv(x, w, *, stride, padding, groups=1, model_group=None):
+    """``torch_ops.conv2d`` of an input and weight as the forward holds
+    them.  Under a model group ``x`` is the gathered input and ``w`` this
+    rank's O-shard, except for a grouped convolution, whose input is the
+    local shard: a shard of O needs only its own groups' input channels.
+    Where the axis divides the groups, those channels are exactly this
+    rank's shard of the input (a grouped conv's input and output widths are
+    equal and split alike), so it runs on the shard with ``groups // M``
+    groups.  Otherwise the input and the weight are gathered, the conv runs
+    whole and the output is sliced to the shard."""
+    if model_group is None or groups == 1:
+        return torch_ops.conv2d(x, w, stride=stride, padding=padding, groups=groups)
+    m = torch.distributed.get_world_size(model_group)
+    if groups % m == 0:
+        return torch_ops.conv2d(x, w, stride=stride, padding=padding, groups=groups // m)
+    y = torch_ops.conv2d(tp.gather_for_sharded(x, model_group),
+                         tp.gather_for_sharded(w, model_group),
+                         stride=stride, padding=padding, groups=groups)
+    n = w.shape[-1]
+    return y.narrow(-1, torch.distributed.get_rank(model_group) * n, n)
+
+
+def _logits(cfg, feats, fc, policy, model_group):
+    def linear(f):
+        return torch_ops.linear(f.to(policy.compute), fc["weight"].to(policy.compute), fc["bias"])
+
+    if model_group is None:
+        return linear(feats)
+    return tp.fc(feats, linear, cfg.num_classes, model_group)
+
+
 def _conv_bn_act(x, conv_vars, bn_vars, *, stride, padding, act, train, policy, groups=1,
-                 bn_group=None):
+                 bn_group=None, model_group=None):
     w = conv_vars["weight"].to(policy.compute)
-    y = torch_ops.conv2d(x, w, stride=stride, padding=padding, groups=groups)
+    y = _conv(x, w, stride=stride, padding=padding, groups=groups, model_group=model_group)
     y, new_stats = _bn(y, bn_vars, train=train, group=bn_group)
     if act:
         y = torch_ops.relu(y)
@@ -246,33 +278,40 @@ def _conv_bn_act(x, conv_vars, bn_vars, *, stride, padding, act, train, policy, 
 
 
 def _block_forward(x, blk, cfg: ResNetConfig, stride: int, *, train: bool, policy,
-                   bn_group=None):
+                   bn_group=None, model_group=None):
     """One residual block.  Bottleneck: 1x1 -> bn -> relu, 3x3 stride s
     pad 1 -> bn -> relu, 1x1 -> bn, + shortcut, relu.  Basic: 3x3 stride s
     pad 1 -> bn -> relu, 3x3 pad 1 -> bn, + shortcut, relu.  Returns
-    ``(y, new BN stats of the block)``; ``bn_group`` syncs every BN."""
+    ``(y, new BN stats of the block)``; ``bn_group`` syncs every BN.
+    ``model_group``: ``x`` and the result are channel shards, each conv's
+    input is gathered first (conv1 and the projection share one gather)
+    and the shortcut adds the local shard."""
     new_state: Tree = {}
+    gather = tp.input_gather(model_group)
 
     def bn_step(name, y, conv_name, s, p, act, groups=1):
         y, stats = _conv_bn_act(
             y, blk[conv_name], blk[name], stride=s, padding=p, act=act,
             train=train, policy=policy, groups=groups, bn_group=bn_group,
+            model_group=model_group,
         )
         if stats is not None:
             new_state[name] = stats
         return y
 
+    xg = gather(x)
     if cfg.block == "bottleneck":
-        y = bn_step("bn1", x, "conv1", 1, 0, True)
-        y = bn_step("bn2", y, "conv2", stride, 1, True, groups=cfg.groups)
-        y = bn_step("bn3", y, "conv3", 1, 0, False)
+        y = bn_step("bn1", xg, "conv1", 1, 0, True)
+        y = bn_step("bn2", y if cfg.groups > 1 else gather(y), "conv2", stride, 1, True,
+                    groups=cfg.groups)
+        y = bn_step("bn3", gather(y), "conv3", 1, 0, False)
     else:
-        y = bn_step("bn1", x, "conv1", stride, 1, True)
-        y = bn_step("bn2", y, "conv2", 1, 1, False)
+        y = bn_step("bn1", xg, "conv1", stride, 1, True)
+        y = bn_step("bn2", gather(y), "conv2", 1, 1, False)
 
     if "downsample" in blk:
         w = blk["downsample"]["0"]["weight"].to(policy.compute)
-        short = torch_ops.conv2d(x, w, stride=stride, padding=0)
+        short = torch_ops.conv2d(xg, w, stride=stride, padding=0)
         short, stats = _bn(short, blk["downsample"]["1"], train=train, group=bn_group)
         if stats is not None:
             new_state["downsample"] = {"1": stats}
@@ -292,6 +331,7 @@ def forward(
     policy: DtypePolicy = BF16,
     remat: bool = False,
     bn_group=None,
+    model_group=None,
 ) -> tuple[torch.Tensor, Tree]:
     """Run the network on NHWC ``x``; counterpart of the JAX ``forward``
     (``models/resnet.py:320``).
@@ -310,7 +350,19 @@ def forward(
     train-mode BN over the group's global batch (sync-BN).  Under
     ``remat`` the backward's recomputation all-reduces again; every rank
     recomputes the same blocks in the same order, so the collectives
-    match."""
+    match.
+
+    ``model_group`` (the mesh's model axis, ``parallel.mesh.model_group``):
+    channel tensor parallelism.  ``variables`` is this rank's shard of the
+    tree (``parallel.mesh.shard_tree``), activations flow channel-sharded,
+    each conv and the fc gather their input over the group
+    (``parallel.tp``; the stem's 3-channel input is replicated and is not
+    gathered) and the logits come back whole on every rank.  ``bn_group``
+    stays the data axis: a BN's channels are local to its model rank.
+    Under ``remat`` the backward recomputes the gathers, in the same order
+    on every rank."""
+    if model_group is not None:
+        tp.check_config(cfg, torch.distributed.get_world_size(model_group))
     x = x.to(policy.compute)
     new_state: Tree = {}
 
@@ -332,22 +384,20 @@ def forward(
             if remat:
                 y, blk_state = torch.utils.checkpoint.checkpoint(
                     _block_forward, y, blk, cfg, blk_stride, train=train, policy=policy,
-                    bn_group=bn_group, use_reentrant=False, preserve_rng_state=False,
+                    bn_group=bn_group, model_group=model_group, use_reentrant=False,
+                    preserve_rng_state=False,
                 )
             else:
                 y, blk_state = _block_forward(y, blk, cfg, blk_stride, train=train,
-                                              policy=policy, bn_group=bn_group)
+                                              policy=policy, bn_group=bn_group,
+                                              model_group=model_group)
             if blk_state:
                 layer_state[str(b)] = blk_state
         if layer_state:
             new_state[layer_name] = layer_state
 
     feats = torch_ops.global_avg_pool(y)
-    logits = torch_ops.linear(
-        feats.to(policy.compute),
-        variables["fc"]["weight"].to(policy.compute),
-        variables["fc"]["bias"],
-    )
+    logits = _logits(cfg, feats, variables["fc"], policy, model_group)
     return logits.to(policy.output), new_state
 
 
@@ -384,9 +434,9 @@ def fold_inference_params(cfg: ResNetConfig, variables: Tree) -> Tree:
     return out
 
 
-def _folded_conv(x, entry, *, stride, padding, act, policy, groups=1):
+def _folded_conv(x, entry, *, stride, padding, act, policy, groups=1, model_group=None):
     w = entry["weight"].to(policy.compute)
-    y = torch_ops.conv2d(x, w, stride=stride, padding=padding, groups=groups)
+    y = _conv(x, w, stride=stride, padding=padding, groups=groups, model_group=model_group)
     y = y + entry["bias"].to(y.dtype)
     return torch_ops.relu(y) if act else y
 
@@ -397,12 +447,22 @@ def forward_folded(
     x: torch.Tensor,
     *,
     policy: DtypePolicy = BF16,
+    model_group=None,
 ) -> torch.Tensor:
     """Serving-path fp forward over a BN-folded tree; ``x`` is NHWC.
-    Returns logits in ``policy.output``."""
+    Returns logits in ``policy.output``.  ``model_group``: channel tensor
+    parallelism over this rank's shard of the folded tree, as ``forward``;
+    the logits come back whole on every rank."""
+    if model_group is not None:
+        tp.check_config(cfg, torch.distributed.get_world_size(model_group))
+    gather = tp.input_gather(model_group)
     x = x.to(policy.compute)
     y = _folded_conv(x, folded["conv1"], stride=2, padding=3, act=True, policy=policy)
     y = torch_ops.max_pool2d(y, kernel_size=3, stride=2, padding=1)
+
+    def conv(t, entry, stride, padding, act, groups=1):
+        return _folded_conv(t, entry, stride=stride, padding=padding, act=act, policy=policy,
+                            groups=groups, model_group=model_group)
 
     for stage in range(4):
         blocks = folded[f"layer{stage + 1}"]
@@ -410,28 +470,18 @@ def forward_folded(
         for b in range(cfg.stage_blocks[stage]):
             blk = blocks[str(b)]
             blk_stride = stage_stride if b == 0 else 1
+            yg = gather(y)
             if cfg.block == "bottleneck":
-                z = _folded_conv(y, blk["conv1"], stride=1, padding=0, act=True, policy=policy)
-                z = _folded_conv(
-                    z, blk["conv2"], stride=blk_stride, padding=1, act=True,
-                    policy=policy, groups=cfg.groups,
-                )
-                z = _folded_conv(z, blk["conv3"], stride=1, padding=0, act=False, policy=policy)
+                z = conv(yg, blk["conv1"], 1, 0, True)
+                z = conv(z if cfg.groups > 1 else gather(z), blk["conv2"], blk_stride, 1, True,
+                         groups=cfg.groups)
+                z = conv(gather(z), blk["conv3"], 1, 0, False)
             else:
-                z = _folded_conv(y, blk["conv1"], stride=blk_stride, padding=1, act=True, policy=policy)
-                z = _folded_conv(z, blk["conv2"], stride=1, padding=1, act=False, policy=policy)
-            if "downsample" in blk:
-                short = _folded_conv(
-                    y, blk["downsample"], stride=blk_stride, padding=0, act=False, policy=policy
-                )
-            else:
-                short = y
+                z = conv(yg, blk["conv1"], blk_stride, 1, True)
+                z = conv(gather(z), blk["conv2"], 1, 1, False)
+            short = conv(yg, blk["downsample"], blk_stride, 0, False) if "downsample" in blk else y
             y = torch_ops.relu(torch_ops.add(z, short))
 
     feats = torch_ops.global_avg_pool(y)
-    logits = torch_ops.linear(
-        feats.to(policy.compute),
-        folded["fc"]["weight"].to(policy.compute),
-        folded["fc"]["bias"],
-    )
+    logits = _logits(cfg, feats, folded["fc"], policy, model_group)
     return logits.to(policy.output)

@@ -84,6 +84,7 @@ from resnetc_tpu_torch.models.resnet import ResNetConfig
 from resnetc_tpu_torch.ops import torch_ops
 from resnetc_tpu_torch.ops.cuda import block, conv, gemm, pool, quant
 from resnetc_tpu_torch.ops.cuda.quant import quantize_per_channel, quantize_with_scale
+from resnetc_tpu_torch.parallel import tp
 from resnetc_tpu_torch.tensor import BF16, DtypePolicy
 
 Tree = dict
@@ -298,12 +299,16 @@ def _conv(x, entry, *, stride, relu, residual=None, policy, kernels):
 # ---------------------------------------------------------------------------
 
 
-def _residual_blocks(cfg: ResNetConfig, y, tree: Tree, conv_fn, run_fn=None):
+def _residual_blocks(cfg: ResNetConfig, y, tree: Tree, conv_fn, run_fn=None, gather=None):
     """Every residual block of the network over ``tree``, each conv through
     ``conv_fn(x, entry, stride=, relu=, residual=, site=, key=)``, where
     ``site`` names the block ("layerN", "b") and ``key`` the conv.  With
     ``run_fn``, each run of consecutive stride-1 bottleneck blocks without
-    a projection goes through ``run_fn(y, [block entries])`` instead."""
+    a projection goes through ``run_fn(y, [block entries])`` instead.
+    ``gather`` (channel tensor parallelism): every conv's input goes
+    through it first, the block input's once for conv1 and the projection;
+    the residual is the block input's local shard."""
+    g = gather or tp.input_gather(None)
     for stage in range(4):
         blocks = tree[f"layer{stage + 1}"]
         stage_stride = 1 if stage == 0 else 2
@@ -327,15 +332,16 @@ def _residual_blocks(cfg: ResNetConfig, y, tree: Tree, conv_fn, run_fn=None):
                 return conv_fn(x, blk[key], stride=stride, relu=relu, residual=residual,
                                site=site, key=key)
 
-            short = c(y, "downsample", s, False) if "downsample" in blk else y
+            yg = g(y)
+            short = c(yg, "downsample", s, False) if "downsample" in blk else y
             if cfg.block == "bottleneck":
-                z = c(y, "conv1", 1, True)
-                z = c(z, "conv2", s, True)
+                z = c(yg, "conv1", 1, True)
+                z = c(g(z), "conv2", s, True)
                 # Final 1x1: residual add and relu in the GEMM epilogue.
-                y = c(z, "conv3", 1, True, short)
+                y = c(g(z), "conv3", 1, True, short)
             else:
-                z = c(y, "conv1", s, True)
-                y = c(z, "conv2", 1, True, short)
+                z = c(yg, "conv1", s, True)
+                y = c(g(z), "conv2", 1, True, short)
     return y
 
 
@@ -348,6 +354,7 @@ def fused_forward(
     block_fusion: bool = False,
     interpret: bool = False,
     kernels: Kernels = KERNELS,
+    model_group=None,
 ) -> torch.Tensor:
     """The ``pallas`` backend: every conv of a BN-folded tree through
     ``_conv``, the stem's pool through ``max_pool2d``, global mean and the fc
@@ -356,7 +363,21 @@ def fused_forward(
     backend: each run of stride-1 bottleneck blocks without a projection is
     padded once into the chain layout, runs one ``bottleneck_block_chained``
     per block (weights in ``policy.compute``, fp32 biases) and is unpadded
-    once; a basic net takes the ``pallas`` route unchanged."""
+    once; a basic net takes the ``pallas`` route unchanged.
+
+    ``model_group`` (channel tensor parallelism; not with
+    ``block_fusion``): ``folded`` is this rank's shard
+    (``parallel.mesh.shard_tree``) and the kernels run at shard widths, the
+    stem's pool on its channel shard, each conv on its gathered input
+    (``parallel.tp``), the residual fused into the last conv's epilogue on
+    the block input's local shard; the logits come back whole on every
+    rank.  JAX's partitioner cannot split an opaque ``pallas_call`` and runs
+    each kernel whole on gathered operands: the logits are the same."""
+    if model_group is not None:
+        if block_fusion:
+            raise ValueError("block_fusion fuses a whole block in one kernel and does not "
+                             "split channels: serve pallas_block replicated over a model axis")
+        tp.check_config(cfg, torch.distributed.get_world_size(model_group))
     x = x.to(policy.compute)
     y = _conv(x, folded["conv1"], stride=2, relu=True, policy=policy, kernels=kernels)
     y = kernels.max_pool(y, kernel_size=3, stride=2, padding=1)
@@ -378,14 +399,21 @@ def fused_forward(
             )
         return block.unpad_from_chain(yr, bsz, h, w_sp)
 
-    y = _residual_blocks(cfg, y, folded, conv_fn, run_fn if block_fusion else None)
+    y = _residual_blocks(cfg, y, folded, conv_fn, run_fn if block_fusion else None,
+                         tp.input_gather(model_group))
     feats = y.float().mean(dim=(1, 2)).to(policy.compute)
-    return kernels.matmul(
-        feats,
-        folded["fc"]["weight"].t().to(policy.compute).contiguous(),
-        folded["fc"]["bias"],
-        out_dtype=policy.output,
-    )
+
+    def head(f):
+        return kernels.matmul(
+            f,
+            folded["fc"]["weight"].t().to(policy.compute).contiguous(),
+            folded["fc"]["bias"],
+            out_dtype=policy.output,
+        )
+
+    if model_group is None:
+        return head(feats)
+    return tp.fc(feats, head, cfg.num_classes, model_group)
 
 
 def _conv_q(x, entry, *, stride, relu, residual=None, policy, kernels, group=None):
@@ -1211,10 +1239,14 @@ def fused_forward_int8_chain_sharded(
     ``fused_forward_int8_chain`` on its slice, and the logits are gathered
     in rank order: every rank returns the global (B, num_classes) logits,
     JAX's ``out_specs=P(axis)`` read as one array.  No collective but the
-    gather.  Requires B % data == 0."""
+    gather.  A batch the data axis does not divide raises JAX's
+    ``shard_map`` error."""
     from resnetc_tpu_torch.parallel import distributed
     from resnetc_tpu_torch.parallel import mesh as pmesh
 
+    n = pmesh.axis_sizes(mesh)[pmesh.DATA_AXIS]
+    if x.shape[0] % n:
+        raise ValueError(_undivided_batch(x.shape[0], n))
     group = pmesh.data_group(mesh)
     local = pmesh.batch_sharding(mesh)(x)
     logits = fused_forward_int8_chain(cfg, qtree, chain_scales, local, policy=policy,
@@ -1225,6 +1257,37 @@ def fused_forward_int8_chain_sharded(
 #: The backends ``fused_forward_sharded`` serves: the engine's five and
 #: ``int8_static`` (``fused_forward_int8_static`` with its calibrated scales).
 SHARDED_BACKENDS = ("fp", "pallas", "pallas_block", "int8", "int8_static", "int8_chain")
+
+
+def _undivided_batch(b: int, n: int) -> str:
+    """JAX's ``shard_map`` error for a batch the data axis does not divide
+    (``fused_forward_int8_chain_sharded``'s ``in_specs=P('data')``)."""
+    return (
+        "shard_map applied to the function 'body' was given argument arrays with axis "
+        "sizes that are not evenly divisible by the corresponding mesh axis sizes: "
+        f"array axis 0 (of size {b}) maps to mesh axis 'data' (of size {n}), but {n} "
+        f"does not evenly divide {b}"
+    )
+
+
+#: The backends that split channels over a model axis; ``pallas_block``
+#: replicates over it, and the int8 backends refuse it.
+TP_BACKENDS = ("fp", "pallas")
+
+
+def model_axis_refusal(backend: str, ranks: int) -> str:
+    """Why an int8 backend takes no model axis > 1.  ``int8_chain``: JAX's
+    CLI wording (``resnetc_tpu/__main__.py:51-59``).  ``int8`` /
+    ``int8_static``: JAX's engine cannot place a quantized tree under a
+    mesh (``resnetc_tpu/serve.py:146-147``: its keys are not the folded
+    tree's)."""
+    if backend == "int8_chain":
+        return ("--backend int8_chain does not support --model-dim > 1 (channel TP applies "
+                f"to the XLA backends only); use --data-dim {ranks} instead")
+    return (f"--backend {backend} does not support --model-dim > 1: channel tensor "
+            "parallelism (ROADMAP Queue 1 item 3b) splits fp and pallas and replicates "
+            "pallas_block, and JAX's engine cannot place the quantized tree under a mesh "
+            f"(resnetc_tpu/serve.py:146-147); use --data-dim {ranks} instead")
 
 
 def fused_forward_sharded(
@@ -1238,47 +1301,56 @@ def fused_forward_sharded(
     policy: DtypePolicy = BF16,
     kernels: Kernels = KERNELS,
 ) -> torch.Tensor:
-    """Data-parallel serving of any backend over ``mesh``'s data axis: every
-    rank holds ``tree`` (the backend's: folded for ``fp`` / ``pallas`` /
-    ``pallas_block``, ``quantize_folded`` for ``int8`` / ``int8_static``,
-    the chain tree for ``int8_chain``) and ``scales`` (``int8_static``'s
-    calibrated activation scales, ``int8_chain``'s chain scales: the same on
-    every rank, calibrated on one batch), takes the global batch ``x``, runs
-    the backend on its slice and gets the gathered (B, num_classes) logits
+    """Serving of any backend over ``mesh``: every rank holds ``tree`` (the
+    backend's: folded for ``fp`` / ``pallas`` / ``pallas_block``,
+    ``quantize_folded`` for ``int8`` / ``int8_static``, the chain tree for
+    ``int8_chain``) and ``scales`` (``int8_static``'s calibrated activation
+    scales, ``int8_chain``'s chain scales: the same on every rank,
+    calibrated on one batch), takes the global batch ``x``, runs the
+    backend on its data slice and gets the gathered (B, num_classes) logits
     (``distributed.host_local_to_global``).  The ``int8`` backend's scales
     are the global batch's (``fused_forward_int8(group=)``).
 
-    A batch the data axis does not divide is padded with copies of its last
-    image, whose logits are dropped (JAX's XLA backends serve any batch
-    under a mesh, their input not being sharded).  A copy of a real image
-    is what makes this exact for ``int8``: its activations equal the
-    original's at every layer, so no per-tensor absmax moves, where a zero
-    image's bias-driven activations could raise a later one.  It is exact
-    for the static scales of ``int8_static`` and ``int8_chain`` too, so
-    this entry pads for them as well (one image served over two ranks, a
-    classify of three files); ``fused_forward_int8_chain_sharded`` keeps
-    JAX's divisibility requirement (fused.py:1336).  A model axis > 1
-    raises (``pmesh.data_group``)."""
+    A model axis above 1: ``fp`` and ``pallas`` (``TP_BACKENDS``) split
+    channels, ``tree`` being this rank's shard of the folded tree
+    (``parallel.mesh.shard_tree``) and the forward gathering over the model
+    group; ``pallas_block`` runs whole on every model rank, as JAX's
+    partitioner runs an opaque ``pallas_call`` (the ranks of one data index
+    compute the same slice); the int8 backends raise (``serve`` says why).
+
+    ``int8_chain`` raises on a batch the data axis does not divide, with
+    JAX's ``shard_map`` error (fused.py:1336).  The other backends pad such
+    a batch with copies of its last image, whose logits are dropped (JAX's
+    XLA backends serve any batch under a mesh, their input not being
+    sharded).  A copy of a real image is what makes this exact for
+    ``int8``: its activations equal the original's at every layer, so no
+    per-tensor absmax moves, where a zero image's bias-driven activations
+    could raise a later one."""
     from resnetc_tpu_torch.models import resnet
     from resnetc_tpu_torch.parallel import distributed
     from resnetc_tpu_torch.parallel import mesh as pmesh
 
     if backend not in SHARDED_BACKENDS:
         raise ValueError(f"backend must be one of {SHARDED_BACKENDS}, got {backend!r}")
+    sizes = pmesh.axis_sizes(mesh)
+    n, split = sizes[pmesh.DATA_AXIS], sizes[pmesh.MODEL_AXIS] > 1
+    if split and backend not in TP_BACKENDS + ("pallas_block",):
+        raise ValueError(model_axis_refusal(backend, n * sizes[pmesh.MODEL_AXIS]))
+    if backend == "int8_chain":
+        return fused_forward_int8_chain_sharded(cfg, tree, scales, x, mesh, policy=policy,
+                                                kernels=kernels)
     group = pmesh.data_group(mesh)
-    n = pmesh.axis_sizes(mesh)[pmesh.DATA_AXIS]
     b = x.shape[0]
     if b % n:
         x = torch.cat([x, x[-1:].expand(n - b % n, *x.shape[1:])])
-    if backend == "int8_chain":
-        return fused_forward_int8_chain_sharded(cfg, tree, scales, x, mesh, policy=policy,
-                                                kernels=kernels)[:b]
     local = pmesh.batch_sharding(mesh)(x)
+    model_group = pmesh.model_group(mesh) if split and backend in TP_BACKENDS else None
     if backend == "fp":
-        logits = resnet.forward_folded(cfg, tree, local, policy=policy)
+        logits = resnet.forward_folded(cfg, tree, local, policy=policy, model_group=model_group)
     elif backend in ("pallas", "pallas_block"):
         logits = fused_forward(cfg, tree, local, policy=policy,
-                               block_fusion=backend == "pallas_block", kernels=kernels)
+                               block_fusion=backend == "pallas_block", kernels=kernels,
+                               model_group=model_group)
     elif backend == "int8":
         logits = fused_forward_int8(cfg, tree, local, policy=policy, kernels=kernels,
                                     group=group)

@@ -1,9 +1,11 @@
-"""Data parallelism over ``torch.distributed``: one process a rank, a
-replica of the weights on each, the batch split over the 'data' axis.
+"""Data and channel tensor parallelism over ``torch.distributed``: one
+process a rank, the batch split over the 'data' axis, the channels of every
+parameter over the 'model' axis.
 
 Counterpart of ``resnetc_tpu/parallel`` (same export list).  Process-group
 set-up, the batch slices, the logits gather and the single-host launcher
-are in ``parallel.distributed``.
+are in ``parallel.distributed``; the shards of a tree in ``parallel.mesh``;
+the channel collectives in ``parallel.tp``.
 """
 
 from resnetc_tpu_torch.parallel.mesh import (  # noqa: F401

@@ -5,15 +5,16 @@ Counterpart of ``resnetc_tpu/parallel/mesh.py``.  Axes:
 - ``data``: data parallelism.  The batch dimension is split over the
   ranks of this axis, each rank keeps a replica of the parameters, and the
   gradients are averaged by one all-reduce (``train.sharded_train_step``).
-- ``model``: channel tensor parallelism (the shard dimension of each
-  parameter, ``param_shardings``).  The rules are here; nothing executes
-  them yet (ROADMAP Queue 1 item 3b), so the entry points refuse a model
-  axis larger than 1.
+- ``model``: channel tensor parallelism.  Each rank of the axis keeps the
+  shard of every parameter on the dimension ``param_shardings`` gives it
+  (``shard_tree``); the forward gathers activations over the axis
+  (``parallel.tp``).
 
 JAX places arrays with ``NamedSharding``s and lets XLA partition the
 program.  In the port each rank runs its own program, so the batch and
-label placements become slicing functions, and the replicated placement a
-broadcast from the data axis's first rank.
+label placements become slicing functions, the replicated placement a
+broadcast from the data axis's first rank, and a parameter's sharding over
+the model axis a contiguous copy of the rank's slice.
 """
 
 from __future__ import annotations
@@ -29,13 +30,6 @@ Tree = Any
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
-
-#: The refusal of every path that would execute the model axis.
-MODEL_AXIS_UNPORTED = (
-    "channel tensor parallelism (a model axis > 1) is not ported yet "
-    "(ROADMAP Queue 1 item 3b); use the data axis"
-)
-
 
 def mesh_shape(n_devices: int, n_data: int | None = None, n_model: int = 1) -> tuple[int, int]:
     """(data, model) sizes of a mesh over ``n_devices``: JAX's arithmetic
@@ -78,10 +72,20 @@ def axis_sizes(mesh) -> dict[str, int]:
 
 
 def data_group(mesh):
-    """The process group of the data axis; refuses a model axis > 1."""
-    if axis_sizes(mesh)[MODEL_AXIS] > 1:
-        raise NotImplementedError(MODEL_AXIS_UNPORTED)
+    """The process group of this rank's data axis: the ranks of its model
+    index."""
     return mesh.get_group(DATA_AXIS)
+
+
+def model_group(mesh):
+    """The process group of this rank's model axis: the ranks of its data
+    index, which hold the shards of one replica."""
+    return mesh.get_group(MODEL_AXIS)
+
+
+def model_index(mesh) -> int:
+    """This rank's place on the model axis: the shard it holds."""
+    return mesh.get_local_rank(MODEL_AXIS)
 
 
 def batch_sharding(mesh) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -104,8 +108,9 @@ label_sharding = batch_sharding
 
 
 def replicated(mesh) -> Callable[[list], None]:
-    """Make every rank's copy equal to the first data rank's: broadcasts the
-    given tensors in place (JAX ``P()``: one copy on every device)."""
+    """Make every rank's copy equal to the first data rank's of its model
+    index: broadcasts the given tensors in place over the data axis (JAX
+    ``P()`` over 'data': one copy on every device of the axis)."""
     group = data_group(mesh)
     src = dist.get_global_rank(group, 0)
 
@@ -146,3 +151,52 @@ def param_shardings(mesh, tree: Tree) -> Tree:
         return dim if dim is not None and leaf.shape[dim] % model == 0 else None
 
     return tree_map(rule, tree)
+
+
+def _zip_map(fn, tree: Tree, dims: Tree) -> Tree:
+    """``fn(leaf, dim)`` over a tree and its ``param_shardings``."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, dims[k]) for k, v in tree.items()}
+    return fn(tree, dims)
+
+
+def _slice(leaf: torch.Tensor, dim: int | None, index: int, n: int) -> torch.Tensor:
+    if dim is None:
+        return leaf
+    size = leaf.shape[dim] // n
+    return leaf.narrow(dim, index * size, size).clone(memory_format=torch.contiguous_format)
+
+
+def shard_tree(mesh, tree: Tree) -> Tree:
+    """This rank's shard of a whole tree: each leaf sliced on the dimension
+    ``param_shardings`` gives it, at ``model_index``, as a contiguous copy
+    (an O-slice of an HWIO weight is strided, and the kernels read a weight
+    as it lies in memory), or the leaf itself where it is replicated.  The
+    copy is made once, where a tree is placed, never per call."""
+    n = axis_sizes(mesh)[MODEL_AXIS]
+    if n == 1:
+        return tree
+    i = model_index(mesh)
+    dims = param_shardings(mesh, tree)
+    return _zip_map(lambda leaf, d: _slice(leaf, d, i, n), tree, dims)
+
+
+def gather_tree(mesh, tree: Tree, dims: Tree) -> Tree:
+    """The whole tree from every model rank's ``shard_tree``: each leaf
+    all-gathered over the model group along its dimension in ``dims``
+    (``param_shardings`` of the whole tree: a shard's own shape cannot tell
+    an 11-class fc replicated over 2 from a 22-class one sharded), the
+    others kept.  Every model rank takes part and gets the whole tree."""
+    n = axis_sizes(mesh)[MODEL_AXIS]
+    if n == 1:
+        return tree
+    group = model_group(mesh)
+
+    def gather(leaf, dim):
+        if dim is None:
+            return leaf
+        parts = [torch.empty_like(leaf) for _ in range(n)]
+        dist.all_gather(parts, leaf.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    return _zip_map(gather, tree, dims)

@@ -42,9 +42,14 @@ mesh) serves any backend data-parallel: every rank builds the engine,
 holds its own copy of the weights and calls ``logits`` with the same global
 batch, computes its slice and gets the gathered logits
 (``fused_forward_sharded``: the ``int8`` backend's scales are the global
-batch's, and a batch the axis does not divide is padded with copies of a
-real image).  A model axis above 1 is refused (channel tensor
-parallelism, ROADMAP Queue 1 item 3b).
+batch's; a batch the axis does not divide is padded with copies of a real
+image, except under ``int8_chain``, which raises as JAX's does).  A model
+axis above 1 (channel tensor parallelism): ``fp`` and ``pallas`` keep
+this rank's shard of the folded tree and split every conv's channels over
+the axis; ``pallas_block`` keeps the whole tree on every model rank (its
+block kernel fuses a whole block, which a channel shard would cut, so it
+runs whole, as JAX's partitioner runs an opaque ``pallas_call``); ``int8``
+and ``int8_chain`` refuse it, as JAX's engine and CLI do.
 Benchmarks time on the card only,
 with CUDA events; ``bench_local_latency`` is the engine-local view (the
 marginal time of one of a chain of forwards, host included,
@@ -88,10 +93,16 @@ class InferenceEngine:
     ):
         if backend not in BACKENDS:
             raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+        split = False
         if mesh is not None:
+            from resnetc_tpu_torch.ops.cuda.fused import model_axis_refusal
             from resnetc_tpu_torch.parallel import mesh as pmesh
 
-            pmesh.data_group(mesh)  # refuses a model axis > 1 (item 3b)
+            sizes = pmesh.axis_sizes(mesh)
+            split = sizes[pmesh.MODEL_AXIS] > 1
+            if split and backend in ("int8", "int8_chain"):
+                raise ValueError(model_axis_refusal(
+                    backend, sizes[pmesh.DATA_AXIS] * sizes[pmesh.MODEL_AXIS]))
         if backend != "fp" and model_cfg.groups > 1:
             raise ValueError(
                 f"backend {backend!r} does not support grouped convolutions (ResNeXt, "
@@ -146,6 +157,8 @@ class InferenceEngine:
             from resnetc_tpu_torch.ops.cuda.quant import pack_kmajor, quantize_folded
 
             folded = pack_kmajor(quantize_folded(folded))
+        elif split and backend != "pallas_block":
+            folded = pmesh.shard_tree(mesh, folded)  # this rank's channel shard
         self.folded = folded
 
     def logits(self, images) -> torch.Tensor:
@@ -158,7 +171,7 @@ class InferenceEngine:
             )
         images = images.to(self.device)
         with torch.inference_mode():
-            if self.mesh is not None and self._data_ranks() > 1:
+            if self.mesh is not None and self._ranks() > 1:
                 from resnetc_tpu_torch.ops.cuda import fused
 
                 return fused.fused_forward_sharded(
@@ -185,10 +198,11 @@ class InferenceEngine:
                 policy=self.policy,
             )
 
-    def _data_ranks(self) -> int:
+    def _ranks(self) -> int:
         from resnetc_tpu_torch.parallel import mesh as pmesh
 
-        return pmesh.axis_sizes(self.mesh)[pmesh.DATA_AXIS]
+        sizes = pmesh.axis_sizes(self.mesh)
+        return sizes[pmesh.DATA_AXIS] * sizes[pmesh.MODEL_AXIS]
 
     def classify(self, images) -> np.ndarray:
         """Argmax class indices — the reference's readout."""

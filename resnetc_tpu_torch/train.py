@@ -10,9 +10,11 @@ matches ``torch.optim.SGD`` (weight decay folded into the gradient, fp32
 momentum buffers, optional Nesterov).  No Pallas kernel lies on the JAX
 package's training path, so none is ported here.
 
-``sharded_train_step`` is the data-parallel step: one process a rank, each
-on its slice of the global batch, with sync-BN over the ranks and the
-gradients averaged by one all-reduce (``resnetc_tpu_torch.parallel``).
+``sharded_train_step`` is the step over a (data, model) mesh: one process a
+rank, each on its data slice of the global batch, with sync-BN over the
+data axis and the gradients averaged over it by one all-reduce; over the
+model axis each rank holds the channel shard of the state and the forward
+gathers activations (``resnetc_tpu_torch.parallel``).
 """
 
 from __future__ import annotations
@@ -188,13 +190,15 @@ def loss_fn(
     policy: DtypePolicy = BF16,
     remat: bool = False,
     bn_group=None,
+    model_group=None,
 ) -> tuple[torch.Tensor, tuple[Tree, torch.Tensor]]:
     """Differentiable loss; aux = (updated BN stats, logits).  ``bn_group``
-    syncs every BN over a process group (``resnet.forward``)."""
+    syncs every BN over a process group, ``model_group`` splits channels
+    over one (``resnet.forward``)."""
     variables = resnet.merge_params_state(params, bn_state)
     logits, new_stats = resnet.forward(
         model_cfg, variables, images, train=True, policy=policy, remat=remat,
-        bn_group=bn_group,
+        bn_group=bn_group, model_group=model_group,
     )
     # In train mode every BN layer reports its updated running stats, with
     # exactly bn_state's structure, so they replace the old state wholesale.
@@ -231,7 +235,8 @@ def train_step(
     return _apply_update(train_cfg, ts, keys, grads, new_bn_state, lr, images.device), metrics
 
 
-def _loss_and_grads(model_cfg, train_cfg, ts, images, labels, bn_group=None):
+def _loss_and_grads(model_cfg, train_cfg, ts, images, labels, bn_group=None,
+                    model_group=None):
     """Forward and backward under ``exact_fp32``: (loss, new BN state,
     logits, parameter keys, gradients in the keys' order)."""
     flat = flatten_tree(ts.params)
@@ -240,7 +245,7 @@ def _loss_and_grads(model_cfg, train_cfg, ts, images, labels, bn_group=None):
         loss, (new_bn_state, logits) = loss_fn(
             model_cfg, unflatten_tree(leaves), ts.bn_state, images, labels,
             label_smoothing=train_cfg.label_smoothing, policy=train_cfg.policy,
-            remat=train_cfg.remat, bn_group=bn_group,
+            remat=train_cfg.remat, bn_group=bn_group, model_group=model_group,
         )
         grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss, new_bn_state, logits, list(leaves), grads
@@ -267,6 +272,32 @@ def _apply_update(train_cfg, ts, keys, grads, new_bn_state, lr, device) -> Train
     )
 
 
+def state_shardings(model_cfg: resnet.ResNetConfig, mesh) -> tuple[Tree, Tree]:
+    """(params, BN state) of ``parallel.mesh.param_shardings``: the
+    dimension of each leaf sharded over the model axis, or None.  The
+    momentum mirrors the params."""
+    from resnetc_tpu_torch.parallel import mesh as pmesh
+
+    whole = unflatten_tree({k: torch.empty(shape, device="meta")  # shapes, no storage
+                            for k, shape in resnet.param_shapes(model_cfg).items()})
+    return resnet.split_params_state(pmesh.param_shardings(mesh, whole))
+
+
+def gather_train_state(model_cfg: resnet.ResNetConfig, mesh, ts: TrainState) -> TrainState:
+    """The whole state from every model rank's shard (``shard_state``'s
+    inverse; ``parallel.mesh.gather_tree``): what one process would hold.
+    Every rank of the model group takes part and gets it."""
+    from resnetc_tpu_torch.parallel import mesh as pmesh
+
+    p_dims, s_dims = state_shardings(model_cfg, mesh)
+    return TrainState(
+        step=ts.step,
+        params=pmesh.gather_tree(mesh, ts.params, p_dims),
+        bn_state=pmesh.gather_tree(mesh, ts.bn_state, s_dims),
+        momentum=pmesh.gather_tree(mesh, ts.momentum, p_dims),
+    )
+
+
 def sharded_train_step(
     model_cfg: resnet.ResNetConfig,
     train_cfg: TrainConfig,
@@ -274,44 +305,68 @@ def sharded_train_step(
     *,
     local_batch: bool = False,
 ):
-    """The data-parallel train step over ``mesh``'s data axis; counterpart of
-    the JAX ``sharded_train_step`` (``train.py:239``).  Returns ``(step,
+    """The train step over ``mesh``'s (data, model) axes; counterpart of the
+    JAX ``sharded_train_step`` (``train.py:239``).  Returns ``(step,
     shard_state, batch_slicers)``, as JAX does:
 
-    - ``shard_state(ts)`` makes every rank's state rank 0's (params, BN
-      state, momentum and step, broadcast in place) and returns it;
+    - ``shard_state(ts)`` takes a whole state, makes every rank's equal to
+      the first data rank's of its model index (params, BN state, momentum
+      and step, broadcast in place over the data axis) and returns this
+      rank's channel shard of it (``parallel.mesh.shard_tree``; the whole
+      state under a model axis of 1);
     - ``step(ts, images, labels, lr)`` takes the global batch and computes
-      on this rank's slice of it (with ``local_batch=True``, the rank's own
-      slice, as multi-host loading draws it): ``loss_fn`` with sync-BN over
-      the data group, then one all-reduce over a flat buffer of the
-      gradients, the loss and the accuracy, averaged over the ranks, so
-      that ``grad_norm`` is the averaged gradient's; then ``train_step``'s
-      in-place SGD update.  It equals ``train_step`` on the global batch
-      up to summation order (the ranks' slices are equal, so the average
-      of their means is the global mean);
-    - ``batch_slicers``: (images, labels) -> this rank's slice.
+      on this rank's data slice of it (with ``local_batch=True``, the
+      rank's own slice, as multi-host loading draws it): ``loss_fn`` with
+      sync-BN over the data group and channels split over the model group,
+      then one all-reduce over the data group of a flat buffer of the
+      gradients, the loss and the accuracy, averaged over the data ranks;
+      then ``train_step``'s in-place SGD update of the rank's shards.  It
+      equals ``train_step`` on the global batch up to summation order (the
+      ranks' slices are equal, so the average of their means is the global
+      mean).  ``grad_norm`` is the whole model's: the sharded leaves' sums
+      of squares summed over the model group, the replicated leaves counted
+      once.  Loss and accuracy come from the whole logits, equal on every
+      model rank;
+    - ``batch_slicers``: (images, labels) -> this rank's data slice.
 
     Every rank must call the step with the same arguments in the same
-    order.  A model axis > 1 is refused (``parallel.mesh``)."""
+    order.  ``gather_train_state`` gives back the whole state."""
     import torch.distributed as dist
 
     from resnetc_tpu_torch.parallel import mesh as pmesh
 
     group = pmesh.data_group(mesh)
     world = dist.get_world_size(group)
+    split = pmesh.axis_sizes(mesh)[pmesh.MODEL_AXIS] > 1
+    model_group = pmesh.model_group(mesh) if split else None
     share = pmesh.replicated(mesh)
     slicers = (pmesh.batch_sharding(mesh), pmesh.label_sharding(mesh))
+    # The gradients that are shards: their squares sum over the model group.
+    sharded = {k for k, d in flatten_tree(state_shardings(model_cfg, mesh)[0]).items()
+               if d is not None}
 
     def shard_state(ts: TrainState) -> TrainState:
         share([ts.step] + [t for name in ("params", "bn_state", "momentum")
                            for t in flatten_tree(getattr(ts, name)).values()])
-        return ts
+        return TrainState(step=ts.step, params=pmesh.shard_tree(mesh, ts.params),
+                          bn_state=pmesh.shard_tree(mesh, ts.bn_state),
+                          momentum=pmesh.shard_tree(mesh, ts.momentum))
+
+    def grad_norm(keys, grads):
+        if not split:
+            return _global_norm(grads)
+        sq = [g.float().square().sum() for g in grads]
+        zero = sq[0].new_zeros(())
+        own = sum((q for k, q in zip(keys, sq) if k in sharded), zero)
+        dist.all_reduce(own, group=model_group)
+        return torch.sqrt(own + sum((q for k, q in zip(keys, sq) if k not in sharded), zero))
 
     def step(ts, images, labels, lr):
         if not local_batch:
             images, labels = slicers[0](images), slicers[1](labels)
         loss, new_bn_state, logits, keys, grads = _loss_and_grads(
-            model_cfg, train_cfg, ts, images, labels, bn_group=group)
+            model_cfg, train_cfg, ts, images, labels, bn_group=group if world > 1 else None,
+            model_group=model_group)
         with torch.no_grad():
             accuracy = (logits.argmax(-1) == labels.long()).float().mean()
             buf = torch.cat([g.float().reshape(-1) for g in grads]
@@ -321,7 +376,7 @@ def sharded_train_step(
             parts = buf.split([g.numel() for g in grads] + [1, 1])
             grads = [p.view_as(g) for p, g in zip(parts, grads)]
             metrics = {"loss": parts[-2][0], "accuracy": parts[-1][0],
-                       "grad_norm": _global_norm(grads)}
+                       "grad_norm": grad_norm(keys, grads)}
         return _apply_update(train_cfg, ts, keys, grads, new_bn_state, lr, images.device), metrics
 
     return step, shard_state, slicers

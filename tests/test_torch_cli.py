@@ -79,7 +79,8 @@ SERVE_AS_MAIN = CLI_AS_MAIN.replace(
     "a = m.build_parser().parse_args(json.loads(sys.argv[1])); "
     "print(json.dumps(getattr(m, 'run_' + a.command)(a, device='cpu')))")
 #: The serving commands over two ranks: classify on int8_chain (three files,
-#: a batch the two ranks do not divide), eval on fp under FP32 at batch 3.
+#: a batch the two ranks do not divide: refused, as JAX's shard_map refuses
+#: it), eval on fp under FP32 at batch 3.
 SERVE_DP = {
     "classify": ["classify", "--backend", "int8_chain", *MODEL],
     "eval": ["eval", "--backend", "fp", *MODEL, "--policy", "fp32", "--batch-size", "3"],
@@ -264,14 +265,18 @@ def test_eval_gives_jax_count_top1_top5(files, capsys):
 def test_serving_commands_over_two_ranks(files, launches, command):
     """``--data-dim 2``: two ranks spawned by the command (defined in a
     module named ``__main__``, as ``python -m`` defines it) print what one
-    process prints: ``classify``'s lines (int8_chain; three files, padded to
-    four with a copy), ``eval``'s record (fp, FP32, batches of 3).  ``bench``
-    refuses the CPU over ranks as in one process."""
+    process prints: ``eval``'s record (fp, FP32, batches of 3).
+    ``classify`` of three files on int8_chain fails in the ranks with JAX's
+    ``shard_map`` error (two data ranks do not divide three images).
+    ``bench`` refuses the CPU over ranks as in one process."""
     if command == "bench":
         with pytest.raises(SystemExit, match="times the card"):
             tcli.run_bench(_args("bench", *MODEL, "--data-dim", "2"), device="cpu")
         return
     rc, out, err = launches(f"serve_{command}")
+    if command == "classify":
+        assert rc != 0 and "but 2 does not evenly divide 3" in err, err[-3000:]
+        return
     assert rc == 0, err[-3000:]
     got = json.loads(out.splitlines()[-1])
     with warnings.catch_warnings():
@@ -287,18 +292,27 @@ def test_bench_refuses_the_cpu():
         tcli.run_bench(_args("bench", *MODEL), device="cpu")
 
 
+def test_bench_refuses_int8_chain_over_a_data_axis():
+    """The latency request's one image is a batch two data ranks do not
+    divide, which int8_chain refuses, as JAX's shard_map does: refused
+    before any rank starts."""
+    with pytest.raises(SystemExit, match="does not run over --data-dim > 1"):
+        tcli.run_bench(_args("bench", *MODEL, "--backend", "int8_chain", "--data-dim", "2"),
+                       device="cpu")
+
+
 @pytest.mark.parametrize("command", ["classify", "bench", "eval"])
 @pytest.mark.parametrize("flags, match", [
     (["--multihost"], "train"),
     (["--coordinator", "127.0.0.1:1", "--num-processes", "2", "--process-id", "0"], "train"),
-    (["--model-dim", "2"], "Queue 1 item 3b"),
+    (["--backend", "int8", "--model-dim", "2"], "Queue 1 item 3b"),
     (["--backend", "int8_chain", "--model-dim", "2"], "use --data-dim 2 instead"),
 ])
 def test_serving_commands_run_in_one_process(files, command, flags, match):
     """The counterpart of tests/test_serve.py:88: the serving commands
-    refuse the multi-process flags, and a model axis (channel tensor
-    parallelism; JAX's own message for int8_chain), before any engine is
-    built.  ``--data-dim`` serves over ranks
+    refuse the multi-process flags, and a model axis on the int8 backends
+    (JAX's own message for int8_chain; for int8, that JAX's engine cannot
+    place the quantized tree under a mesh), before any engine is built.  ``--data-dim`` serves over ranks
     (``test_torch_parallel.py::test_serving_commands_over_two_ranks``)."""
     extra = {"classify": files["inputs"][:1], "eval": [files["eval_tree"]], "bench": []}[command]
     run = {"classify": tcli.run_classify, "bench": tcli.run_bench, "eval": tcli.run_eval}[command]

@@ -551,7 +551,7 @@ def test_data_dim_cli_logs_what_one_rank_logs(launches, capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["train", "--model-dim", "2"], "Queue 1 item 3b"),
+    (["verify", "--model-dim", "2"], "Queue 1 item 3b"),
     (["verify", "--data-dim", "2"], "Queue 1 item 3"),
     (["verify", "--multihost", "--coordinator", "127.0.0.1:1", "--num-processes", "2",
       "--process-id", "0"], "Queue 1 item 3"),
@@ -564,14 +564,14 @@ def test_unported_options_name_their_roadmap_items(argv, item):
 
 
 def test_model_axis_and_other_backends_refuse_a_mesh():
-    """A model axis is refused by the DP step and by the engine, for every
-    backend (every backend takes a data axis: ``test_dp_serving_*``)."""
+    """A model axis is refused by the int8 engines, with JAX's reasons
+    (``fp``, ``pallas`` and ``pallas_block`` take it:
+    ``test_torch_tp.py``; every backend takes a data axis:
+    ``test_dp_serving_*``)."""
     cfg = ranks.step_config()
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        ttrain.sharded_train_step(cfg, ttrain.TrainConfig(), {"data": 1, "model": 2})
     variables = tresnet.init(cfg, torch.Generator().manual_seed(0))
-    for backend in ("fp", "int8", "int8_chain"):
-        with pytest.raises(NotImplementedError, match="item 3b"):
+    for backend in ("int8", "int8_chain"):
+        with pytest.raises(ValueError, match="does not support --model-dim > 1"):
             InferenceEngine(cfg, variables, backend=backend, device="cpu",
                             calib_batch=np.zeros((1, 32, 32, 3), np.float32),
                             mesh={"data": 1, "model": 2})

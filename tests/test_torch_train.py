@@ -378,8 +378,11 @@ def test_cli_train_resume_continues_the_step_count(tmp_path, capsys):
 
 
 def test_cli_train_refuses_what_is_not_ported():
-    with pytest.raises(SystemExit, match="Queue 1 item 3b"):
-        tcli.run_train(_train_args("--steps", "1", "--model-dim", "2"), device="cpu")
+    """A model axis that does not divide the channels (JAX's partitioner
+    would replicate such layers; the port refuses), before any rank
+    starts."""
+    with pytest.raises(SystemExit, match="does not divide the channels"):
+        tcli.run_train(_train_args("--steps", "1", "--model-dim", "3"), device="cpu")
 
 
 def test_training_entry_points_without_cuda_raise():
