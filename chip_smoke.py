@@ -6,17 +6,19 @@
 Builds the CUDA kernels from ``resnetc_tpu_torch/csrc``, checks that the
 tensor-core kernels hold wgmma instructions in their SASS (HGMMA in the
 bf16 tile's instantiations for rows 4, 13 and 14, stride 1 and stride 2
-counted apart, and for row 17's bf16 block; IGMMA in the int8 tile of row
-12 and in the block tile of rows 1-3 and 5-11, each library's
-instantiations apart; no dp4a ``igemm_kernel`` left in the libraries of
-the int8 blocks, and no serialized wgmma, C7515, in ptxas's report), and
-then:
+counted apart, in the split-fp32 tile's for the same rows in fp32, and
+for row 17's bf16 block; IGMMA in the int8 tile of row 12 and in the block
+tile of rows 1-3 and 5-11, each library's instantiations apart; no dp4a
+``igemm_kernel`` left in the libraries of the int8 blocks, no CUDA-core
+``conv_f32_kernel`` / ``gemm_f32_kernel`` left, and no serialized wgmma,
+C7515, in ptxas's report), and then:
 
 1. holds every kernel of the serving paths against its plain PyTorch
    version on the card, at the shapes of ResNet-152 (the bottleneck
-   kernels, every 1x1 conv and the fc for ``int8_matmul`` and ``matmul``)
-   and ResNet-34 (the basic kernels), both models' 3x3 shapes for the
-   fused convolutions and the stem pool, 224 px, batch 8: int8 and bf16
+   kernels, every 1x1 conv and the fc for ``int8_matmul`` and ``matmul``,
+   the latter in bf16 and fp32) and ResNet-34 (the basic kernels), both
+   models' 3x3 shapes for the fused convolutions (ResNet-152's in fp32
+   too) and the stem pool, 224 px, batch 8: int8 and bf16
    block outputs, ``int8_matmul`` and ``max_pool2d`` must be equal, the
    fused convolutions (and the bf16 GEMM) within 1 bf16 ulp or, in fp32,
    rtol 1e-4, fp32 per-image means and the fp32 GEMM within rtol 1e-4.  The
@@ -165,7 +167,8 @@ then:
    kernel checks above hold each of its ops against the plain version;
 3. times the engines (images/s, p50 / p99 ms per batch) for int8_chain on
    both routes (and ResNet-34's BASIC_DS_INT8=False route, ResNet-152's
-   per-channel and hybrid routes), int8, pallas, pallas_block and fp, and
+   per-channel and hybrid routes), int8, pallas, pallas_block (and on
+   ResNet-152 the three under FP32) and fp, and
    each kernel per launch at the main paths'
    shapes: on the card (``ms``: ten launches queued behind a spin kernel,
    so that they run back to back, the median of five runs) and as called
@@ -177,7 +180,10 @@ then:
    and for the average pool's shapes, with its ratio to F.avg_pool2d), and a
    library call that the port never makes, timed like ``ms``:
    torch.matmul for the GEMM, torch._int_mm for int8_matmul (int32 out, no
-   epilogue), F.conv2d (bf16, channels-last) for the fused convolutions,
+   epilogue), F.conv2d (bf16, channels-last) for the fused convolutions
+   (on fp32 operands both with TF32 off for cuDNN and cuBLAS, their TF32
+   time logged beside, labelled; the fp32 cases' bound at the split
+   product's 165 TFLOP/s, and their times summed per FP32 forward),
    F.max_pool2d and F.avg_pool2d for the pools, torch.relu and torch.add
    for relu and add (none computes add_relu or a whole block).  Rows 19-20
    are then printed case by case, beside torch.relu / torch.add, the
@@ -205,7 +211,15 @@ import warnings
 PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
+#: The fp32 forms of matmul and the fused convolutions run three TF32
+#: tensor-core products per fp32 product (the split-fp32 tile,
+#: csrc/tf32x3_tile.cuh): 495 TFLOP/s of TF32 / 3.
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
+#: How each peak is named in the log.
+PEAK_NAMES = {PEAK_INT8_OPS: "int8 tensor cores", PEAK_BF16_FLOPS: "bf16 tensor cores",
+              PEAK_F32_FLOPS: "fp32 CUDA cores",
+              PEAK_TF32X3_FLOPS: "split fp32: 495 TFLOP/s of TF32 / 3 products"}
 
 # ResNet-152 at 224 px: (h, c, c4) per stage after the stem and pool.
 STAGES = [(56, 64, 256), (28, 128, 512), (14, 256, 1024), (7, 512, 2048)]
@@ -336,11 +350,40 @@ class Case:
         epilogue; it takes M > 16 and K, N multiples of 8), F.conv2d with
         the bias in bf16 / fp32 channels-last for the fused convolutions
         (no residual), F.max_pool2d and F.avg_pool2d (channels-last) for the
-        pools, torch.relu and torch.add."""
+        pools, torch.relu and torch.add.  On fp32 operands it runs with TF32
+        off for cuDNN and cuBLAS (IEEE fp32, the kernels' arithmetic)."""
         import torch
         import torch.nn.functional as F
 
         a = self.args
+        call = self._library_call(torch, F, a)
+        if call is None or a[0].dtype != torch.float32:
+            return call
+        from resnetc_tpu_torch.ops.torch_ops import exact_fp32
+
+        def ieee():  # TF32 off for cuDNN and cuBLAS: an fp32 yardstick
+            with exact_fp32():
+                return call()
+
+        return ieee
+
+    def library_tf32(self):
+        """The fp32 cases' library call with TF32 on for cuDNN and cuBLAS
+        (reported beside the IEEE one, labelled), or None."""
+        import torch
+        import torch.nn.functional as F
+
+        call = self._library_call(torch, F, self.args)
+        if call is None or self.args[0].dtype != torch.float32:
+            return None
+
+        def tf32():
+            with tf32_on():
+                return call()
+
+        return tf32
+
+    def _library_call(self, torch, F, a):
         if self.kernel == "matmul":
             return lambda: torch.matmul(a[0], a[1])
         if self.kernel == "int8_matmul":
@@ -776,9 +819,11 @@ def make_backend_cases(b: int, dev) -> list:
     """The kernels of the int8 and pallas backends at the main paths'
     shapes: every 1x1 conv and the fc of ResNet-152 through int8_matmul
     (given the K-major weight copy, as the int8 engine's packed tree gives
-    it; and, for the pallas backend, through matmul in bf16), every 3x3 of
-    ResNet-152 and ResNet-34 through the fused convolutions (bf16, plus an
-    fp32 form of two shapes, off the served path), and the stem pool."""
+    it; and, for the pallas backend, through matmul in bf16 and in fp32,
+    the FP32 route's, given the split (N, K) copy the FP32 engine keeps),
+    every 3x3 of ResNet-152 and ResNet-34 through the fused convolutions in
+    bf16, ResNet-152's also in fp32 (the FP32 routes': pallas, int8,
+    int8_static), two fp32 shapes off every route, and the stem pool."""
     import torch
 
     from resnetc_tpu_torch.ops.cuda import conv, gemm, pool, quant
@@ -788,6 +833,19 @@ def make_backend_cases(b: int, dev) -> list:
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    def f32_matmul(label, m, k, n, res, relu, count):
+        # The FP32 route's GEMM: fp32 operands and residual, fp32 out, given
+        # w_nk (gemm.pack_nk) as the FP32 engine's tree gives it.
+        w = randn(k, n, scale=k**-0.5, dtype=torch.float32)
+        cases.append(Case(
+            label, "matmul", gemm.matmul, gemm.matmul_plain,
+            (randn(m, k, dtype=torch.float32), w, randn(n, scale=0.1, dtype=torch.float32),
+             randn(m, n, dtype=torch.float32) if res else None),
+            dict(relu=relu, w_nk=gemm.pack_nk(w)), 2 * m * k * n,
+            4 * (m * k + k * n + n + m * n * (2 if res else 1)), PEAK_TF32X3_FLOPS, "f32",
+            per_forward=count,
+        ))
 
     for label, h, k, n, res, relu, count in _one_by_one_shapes():
         m = b * h * h
@@ -809,6 +867,7 @@ def make_backend_cases(b: int, dev) -> list:
             2 * m * k * n, 2 * (m * k + k * n) + 4 * n + m * n * (4 if res else 2),
             PEAK_BF16_FLOPS, "bf16ulp", per_forward=count,
         ))
+        f32_matmul(f"pallas/{label}/fp32", m, k, n, res, relu, count)
     m, k, n = b, 2048, 1000
     wq = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8).to(dev)
     cases.append(Case(
@@ -820,6 +879,7 @@ def make_backend_cases(b: int, dev) -> list:
         m * k + k * n + 8 * n + 4 * m * n,
         PEAK_INT8_OPS, "f32eq", per_forward=1,
     ))
+    f32_matmul("pallas/fc/fp32", m, k, n, False, False, 1)
 
     def conv_case(label, kernel, h, cin, cout, k, stride, count, *, res=False,
                   dtype=torch.bfloat16):
@@ -833,10 +893,14 @@ def make_backend_cases(b: int, dev) -> list:
         size = 2 if dtype == torch.bfloat16 else 4
         nbytes = size * (b * h * h * cin + k * k * cin * cout
                          + b * oh * oh * cout * (2 if res else 1))
+        # fp32: given w_nk (gemm.pack_nk), as the FP32 engine's tree gives
+        # it.
+        kwargs = dict(relu=True) if dtype == torch.bfloat16 else dict(relu=True,
+                                                                       w_nk=gemm.pack_nk(w))
         cases.append(Case(
-            label, kernel, fn, plain, args, dict(relu=True),
+            label, kernel, fn, plain, args, kwargs,
             2 * b * oh * oh * k * k * cin * cout, nbytes + 4 * cout,
-            PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS,
+            PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32X3_FLOPS,
             "bf16ulp" if dtype == torch.bfloat16 else "f32", per_forward=count,
         ))
 
@@ -855,9 +919,18 @@ def make_backend_cases(b: int, dev) -> list:
         conv_case(f"conv_s2/r152/s{s}", "conv_s2_fused", 2 * h, c, c, 3, 2, 1)
         h, c = BASIC_STAGES[s]
         conv_case(f"conv_s2/r34/s{s}", "conv_s2_fused", 2 * h, c // 2, c, 3, 2, 1)
-    conv_case("conv3x3/fp32/s1", "conv3x3_s1_fused", 28, 128, 128, 3, 1, 0, res=True,
-              dtype=torch.float32)
-    conv_case("conv_s2/fp32/s1", "conv_s2_fused", 56, 128, 128, 3, 2, 0, dtype=torch.float32)
+    # The FP32 route's convolutions (pallas, int8 and int8_static under
+    # FP32) at ResNet-152's shapes, and the two fp32 cases timed before the
+    # split-fp32 tile (off every route: a stride-1 3x3 with a residual).
+    f32 = torch.float32
+    for s, (h, c, _) in enumerate(STAGES):
+        conv_case(f"conv3x3/r152/s{s}/fp32", "conv3x3_s1_fused", h, c, c, 3, 1,
+                  blocks[s] - (s > 0), dtype=f32)
+    for s in (1, 2, 3):
+        h, c, _ = STAGES[s]
+        conv_case(f"conv_s2/r152/s{s}/fp32", "conv_s2_fused", 2 * h, c, c, 3, 2, 1, dtype=f32)
+    conv_case("conv3x3/fp32/s1", "conv3x3_s1_fused", 28, 128, 128, 3, 1, 0, res=True, dtype=f32)
+    conv_case("conv_s2/fp32/s1", "conv_s2_fused", 56, 128, 128, 3, 2, 0, dtype=f32)
 
     x = randn(b, 112, 112, 64)
     cases.append(Case(
@@ -1089,8 +1162,12 @@ SASS_CHECKS = (
     # rows 13 and 14: conv3x3_s1_fused, conv_s2_fused (bf16)
     ("libconv.so", r"tile_kernel.*ConvALoaderILi\d+ELb[01]ELi1E", "HGMMA"),
     ("libconv.so", r"tile_kernel.*ConvALoaderILi\d+ELb[01]ELi2E", "HGMMA"),
-    # row 4: matmul (bf16)
+    # rows 13 and 14 in fp32: the split-fp32 tile (TF32 wgmma)
+    ("libconv.so", r"tf32x3_kernel.*ConvA32LoaderILi\d+ELb[01]ELi1E", "HGMMA"),
+    ("libconv.so", r"tf32x3_kernel.*ConvA32LoaderILi\d+ELb[01]ELi2E", "HGMMA"),
+    # row 4: matmul (bf16, and fp32 on the split-fp32 tile)
     ("libgemm.so", r"tile_kernel.*GemmALoader", "HGMMA"),
+    ("libgemm.so", r"tf32x3_kernel.*GemmA32Loader", "HGMMA"),
     # row 12: int8_matmul
     ("libint8_gemm.so", r"s8_tile_kernel", "IGMMA"),
     # rows 17 and 18: bottleneck_block_chained / _fused in bf16 (conv1 and
@@ -1110,6 +1187,8 @@ SASS_CHECKS = (
 #: Libraries that must hold no dp4a implicit GEMM (``igemm_kernel``, the
 #: CUDA-core kernel the int8 blocks ran before the int8 tile) any more.
 NO_IGEMM = ("libchain_block.so", "libbasic_block.so", "libpp_block.so")
+#: The CUDA-core fp32 tiles that the split-fp32 tile replaced: gone.
+GONE = (("libconv.so", "conv_f32_kernel"), ("libgemm.so", "gemm_f32_kernel"))
 
 
 def _sass_functions(path) -> dict:
@@ -1159,6 +1238,11 @@ def phase_sass(build_dir) -> dict:
         if left:
             raise AssertionError(f"{lib}: still holds the dp4a kernel {left[0]}")
         log(f"[sass] {lib}: no igemm_kernel")
+    for lib, kernel in GONE:
+        left = [name for name in libs[lib] if kernel in name]
+        if left:
+            raise AssertionError(f"{lib}: still holds {left[0]}")
+        log(f"[sass] {lib}: no {kernel}")
     # ptxas's C7515 ("wgmma ... serialized") in any source built this run.
     built = sorted(_build.BUILD_LOG)
     serialized = [name for name in built if "C7515" in _build.BUILD_LOG[name]]
@@ -4061,6 +4145,8 @@ def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[li
                 lib_ms = device_ms(lib, iters=20) or time_ms(lib, iters=20)
             except RuntimeError as e:  # a library call that refuses the shape
                 log(f"[timing] {case.name}: library call refused: {e}")
+        tf32 = case.library_tf32()
+        lib_tf32_ms = device_ms(tf32, iters=20) if tf32 is not None else None
         per_forward = case.per_forward if case.per_forward is not None else counts.get(case.name, 0)
         row = {
             "case": case.name, "kernel": case.kernel, "batch": batch,
@@ -4068,18 +4154,36 @@ def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[li
             "bound_ms": case.bound_ms, "bound_by": case.bound_by, "library_ms": lib_ms,
             "ops": case.ops, "bytes": case.nbytes,
             "tflops": case.ops / ms * 1e-9, "bound_share": case.bound_ms / ms,
+            "peak": case.peak,
         }
+        if tf32 is not None:
+            row["library_tf32_ms"] = lib_tf32_ms
         per_case.append(row)
         log(f"[timing] {json.dumps(row)}")
         if case.kernel in TILE_KERNELS:
-            vs = f", {ms / lib_ms:.2f}x the library's {lib_ms:.4f} ms" if lib_ms else ""
+            ieee = " (IEEE fp32: TF32 off for cuDNN and cuBLAS)" if tf32 is not None else ""
+            vs = f", {ms / lib_ms:.2f}x the library's {lib_ms:.4f} ms{ieee}" if lib_ms else ""
+            if lib_tf32_ms:
+                vs += f"; the library in TF32 {lib_tf32_ms:.4f} ms"
             rate = "TOP/s" if case.peak == PEAK_INT8_OPS else "TFLOP/s"
             log(f"[tile] {case.name}: {ms:.4f} ms, {row['tflops']:.1f} {rate}, "
-                f"{100 * row['bound_share']:.1f}% of the bound{vs}")
+                f"{100 * row['bound_share']:.1f}% of the bound at {case.peak / 1e12:.0f} "
+                f"{rate} ({PEAK_NAMES[case.peak]}){vs}")
         elif case.kernel == "avg_pool2d":
             vs = f", {ms / lib_ms:.2f}x F.avg_pool2d's {lib_ms:.4f} ms" if lib_ms else ""
             log(f"[pool] {case.name}: {ms:.4f} ms, {100 * row['bound_share']:.1f}% of the "
                 f"bound{vs}")
+
+    # The FP32 routes' fp32 GEMMs and convolutions, summed per forward of
+    # ResNet-152 at this batch (the cases' per_forward weights).
+    for kernel in ("matmul", "conv3x3_s1_fused", "conv_s2_fused"):
+        rows = [r for r in per_case if r["kernel"] == kernel and r["case"].endswith("/fp32")
+                and r["per_forward"] > 0]
+        tot = {key: sum(r[key] * r["per_forward"] for r in rows)
+               for key in ("ms", "bound_ms", "library_ms", "library_tf32_ms")
+               if all(r.get(key) is not None for r in rows)}
+        log(f"[fp32] {kernel}: {sum(r['per_forward'] for r in rows)} launches a forward, "
+            f"{json.dumps(tot)} ms a forward (library in IEEE fp32 and in TF32)")
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -4216,6 +4320,9 @@ def _run(args, card: str, dev, art_child, art_dir) -> int:
                          {"BASIC_DS_INT8": False, "L1_PIXEL_PAIR": False}))
         runs += [(label, back["engines"][label], {})
                  for label in ("int8", "pallas", "pallas_block")]
+        if name == "resnet152":  # the FP32 routes: the split-fp32 tile's forwards
+            runs += [(label, back["engines"][label], {})
+                     for label in ("int8/fp32", "pallas/fp32", "pallas_block/fp32")]
         runs.append(("fp", e2e["fp"], {}))
         engine_times[name] = phase_engine_timing(name, runs, e2e["x"], args.batch)
         for route in list(e2e["launches"].values()) + list(back["launches"].values()):

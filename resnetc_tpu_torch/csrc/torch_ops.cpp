@@ -108,16 +108,17 @@ int pp_basic_run_int8(const int8_t* x, int n_blocks, int B, int h, int w, int hp
                       const float* s_res, int8_t* z1, int8_t* act0, int8_t* act1,
                       int last_bf16, void* out, cudaStream_t stream);
 long long gemm_workspace_floats(int M, int N, int K, int in_bf16);
-int gemm_f32acc(const void* x, const void* w, const float* bias, const void* res, void* out,
-                float* ws, int in_bf16, int res_kind, int out_bf16, int M, int N, int K,
-                int relu, cudaStream_t stream);
+int gemm_f32acc(const void* x, const void* w, const float* w_nk, const float* bias,
+                const void* res, void* out, float* ws, int in_bf16, int res_kind, int out_bf16,
+                int M, int N, int K, int relu, cudaStream_t stream);
 long long int8_gemm_workspace_ints(int M, int N, int K);
 int int8_gemm(const int8_t* x, const int8_t* w_nk, const float* sx, const float* sw,
               const float* bias, const void* res, void* out, int* ws, int res_kind,
               int out_bf16, int M, int N, int K, int relu, cudaStream_t stream);
-int conv_fused(const void* x, const void* w, const float* bias, const void* res, void* out,
-               int in_kind, int res_kind, int out_bf16, int B, int H, int W, int Cin, int OH,
-               int OW, int Cout, int k, int stride, int relu, cudaStream_t stream);
+int conv_fused(const void* x, const void* w, const float* w_nk, const float* bias,
+               const void* res, void* out, int in_kind, int res_kind, int out_bf16, int B, int H,
+               int W, int Cin, int OH, int OW, int Cout, int k, int stride, int relu,
+               cudaStream_t stream);
 int max_pool2d_nhwc(const void* x, void* out, int kind, int vec, int B, int H, int W, int C,
                     int OH, int OW, int k, int s, int p, cudaStream_t stream);
 int avg_pool2d_nhwc(const void* x, void* out, int kind, int vec, int B, int H, int W, int C,
@@ -472,17 +473,32 @@ Tensor pp_basic_run_int8_op(const Tensor& x, const Tensor& w1s_nk, const Tensor&
 
 // --- csrc/gemm.cu, int8_gemm.cu, conv.cu, pool.cu, fp_block.cu, elementwise.cu
 
-Tensor gemm_f32acc_op(const Tensor& x, const Tensor& w, const OptTensor& bias,
-                      const OptTensor& residual, bool relu, bool out_bf16) {
+// What the fp32 tile reads in place of w: w_nk, the TF32 heads and tails of
+// its (N, K) copy (an HWIO conv weight's as (Cout, k*k*Cin)), (2, N, K),
+// made by the wrapper (ops/cuda/gemm.py pack_nk).
+Tensor checked_w_nk(const Tensor& w, const OptTensor& w_nk) {
+  TORCH_CHECK(w_nk.has_value(), "an fp32 weight needs w_nk (ops/cuda/gemm.py pack_nk)");
+  const int64_t n = w.size(w.dim() - 1), k = w.numel() / n;
+  TORCH_CHECK(w_nk->scalar_type() == at::kFloat && w_nk->is_cuda() && w_nk->dim() == 3 &&
+                  w_nk->size(0) == 2 && w_nk->size(1) == n && w_nk->size(2) == k,
+              "w_nk: an fp32 CUDA tensor of shape (2, N, K)");
+  return *w_nk;
+}
+
+Tensor gemm_f32acc_op(const Tensor& x, const Tensor& w, const OptTensor& w_nk,
+                      const OptTensor& bias, const OptTensor& residual, bool relu,
+                      bool out_bf16) {
   on_card(x, "gemm_f32acc");
-  dense("gemm_f32acc", x, w, bias, residual);
   const int64_t m_ = x.size(0), k = x.size(1), n = w.size(1);
   const int in_bf16 = x.scalar_type() == at::kBFloat16;
+  const Tensor wt = in_bf16 ? Tensor() : checked_w_nk(w, w_nk);
+  dense("gemm_f32acc", x, w, bias, residual);
+  if (!in_bf16) dense("gemm_f32acc", wt);
   const long long ws_floats = LAUNCHER("gemm", gemm_workspace_floats)(i(m_), i(n), i(k), in_bf16);
   Tensor ws = ws_floats ? empty({ws_floats}, at::kFloat, x) : Tensor();
   Tensor out = empty({m_, n}, out_bf16 ? at::kBFloat16 : at::kFloat, x);
   const auto launch = LAUNCHER("gemm", gemm_f32acc);
-  check(launch(x.data_ptr(), w.data_ptr(), p<float>(bias),
+  check(launch(x.data_ptr(), w.data_ptr(), in_bf16 ? nullptr : p<float>(wt), p<float>(bias),
         residual.has_value() ? residual->data_ptr() : nullptr, out.data_ptr(),
         ws.defined() ? m<float>(ws) : nullptr, in_bf16, res_kind(residual), out_bf16, i(m_), i(n),
         i(k), relu, stream()), "gemm_f32acc");
@@ -506,16 +522,20 @@ Tensor int8_gemm_op(const Tensor& x, const Tensor& w_nk, const Tensor& scale_x,
   return out;
 }
 
-Tensor conv_fused_op(const Tensor& x, const Tensor& w, const OptTensor& bias,
-                     const OptTensor& residual, int64_t stride, bool relu, bool out_bf16) {
+Tensor conv_fused_op(const Tensor& x, const Tensor& w, const OptTensor& w_nk,
+                     const OptTensor& bias, const OptTensor& residual, int64_t stride, bool relu,
+                     bool out_bf16) {
   on_card(x, "conv_fused");
+  const bool in_bf16 = x.scalar_type() == at::kBFloat16;
+  const Tensor wt = in_bf16 ? Tensor() : checked_w_nk(w, w_nk);
   dense("conv_fused", x, w, bias, residual);
+  if (!in_bf16) dense("conv_fused", wt);
   const int64_t b = x.size(0), h = x.size(1), ws = x.size(2), cin = x.size(3);
   const int64_t k = w.size(0), cout = w.size(3), pad = k / 2;
   const int64_t oh = (h + 2 * pad - k) / stride + 1, ow = (ws + 2 * pad - k) / stride + 1;
   Tensor out = empty({b, oh, ow, cout}, out_bf16 ? at::kBFloat16 : at::kFloat, x);
   const auto launch = LAUNCHER("conv", conv_fused);
-  check(launch(x.data_ptr(), w.data_ptr(), p<float>(bias),
+  check(launch(x.data_ptr(), w.data_ptr(), in_bf16 ? nullptr : p<float>(wt), p<float>(bias),
         residual.has_value() ? residual->data_ptr() : nullptr, out.data_ptr(), kind_of(x),
         res_kind(residual), out_bf16, i(b), i(h), i(ws), i(cin), i(oh), i(ow), i(cout), i(k),
         i(stride), relu, stream()), "conv_fused");
@@ -628,12 +648,12 @@ void define_schemas(torch::Library& m) {
         "Tensor a2, Tensor c2, Tensor s_res, int h, int w, int out_kind) -> Tensor");
   m.def("pp_basic_run_int8(Tensor x, Tensor w1s_nk, Tensor a1s, Tensor c1s, Tensor w2s_nk, "
         "Tensor a2s, Tensor c2s, Tensor s_res, int h, int w, bool last_bf16) -> Tensor");
-  m.def("gemm_f32acc(Tensor x, Tensor w, Tensor? bias, Tensor? residual, bool relu, "
-        "bool out_bf16) -> Tensor");
+  m.def("gemm_f32acc(Tensor x, Tensor w, Tensor? w_nk, Tensor? bias, Tensor? residual, "
+        "bool relu, bool out_bf16) -> Tensor");
   m.def("int8_gemm(Tensor x, Tensor w_nk, Tensor scale_x, Tensor scale_w, Tensor? bias, "
         "Tensor? residual, bool relu, bool out_bf16) -> Tensor");
-  m.def("conv_fused(Tensor x, Tensor w, Tensor? bias, Tensor? residual, int stride, bool relu, "
-        "bool out_bf16) -> Tensor");
+  m.def("conv_fused(Tensor x, Tensor w, Tensor? w_nk, Tensor? bias, Tensor? residual, "
+        "int stride, bool relu, bool out_bf16) -> Tensor");
   m.def("max_pool2d_nhwc(Tensor x, int k, int s, int p) -> Tensor");
   m.def("avg_pool2d_nhwc(Tensor x, int k, int s, int p) -> Tensor");
   m.def("fp_block(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor w3, Tensor b3, "

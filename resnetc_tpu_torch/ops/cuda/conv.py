@@ -15,9 +15,12 @@ implicit GEMM, the stride a template parameter.  In bf16 both run on the
 tensor cores through the wgmma tile of ``csrc/bf16_tile.cuh``, whose
 im2col loader tests each tap against the image, so ``conv_s2_fused``
 takes any odd k (9 and up included) and any Cin (off the 8-channel grid,
-as the Cin = 3 of a stem-like 7x7, value by value); in fp32 both keep the
-CUDA-core FMA tile.  The plain versions beside them are what a CPU tensor
-runs.  The TPU arguments ``tn``, ``bt`` and ``interpret`` are accepted and
+as the Cin = 3 of a stem-like 7x7, value by value); in fp32 both run on
+the tensor cores through the split-fp32 tile of ``csrc/tf32x3_tile.cuh``,
+which reads the weight from ``w_nk``, the TF32 heads and tails of its
+(Cout, k*k*Cin) copy (``gemm.pack_nk``: the engine makes it once, the
+wrapper per call where it is not given).  The plain versions beside them
+are what a CPU tensor runs.  The TPU arguments ``tn``, ``bt`` and ``interpret`` are accepted and
 ignored.
 """
 
@@ -40,10 +43,12 @@ def conv1x1_fused(
     out_dtype: torch.dtype | None = None,
     interpret: bool = False,
     matmul_fn=gemm.matmul,
+    w_nk: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """1x1 conv (+bias+residual+relu) as one epilogue-fused GEMM
     (``matmul_fn``: ``gemm.matmul``, or its plain version).  x (B, H, W,
-    Cin); w (1, 1, Cin, Cout) or (Cin, Cout); residual (B, OH, OW, Cout)."""
+    Cin); w (1, 1, Cin, Cout) or (Cin, Cout); residual (B, OH, OW, Cout);
+    ``w_nk`` (fp32): ``gemm.pack_nk(w)``, which the fp32 kernel reads."""
     if w.ndim == 4:
         if tuple(w.shape[:2]) != (1, 1):
             raise ValueError(f"not a 1x1 weight: {tuple(w.shape)}")
@@ -55,7 +60,7 @@ def conv1x1_fused(
     res2d = residual.reshape(b * h * w_sp, cout) if residual is not None else None
     out = matmul_fn(
         x.reshape(b * h * w_sp, cin).contiguous(), w.contiguous(), bias, res2d,
-        relu=relu, out_dtype=out_dtype,
+        relu=relu, out_dtype=out_dtype, w_nk=w_nk,
     )
     return out.reshape(b, h, w_sp, cout)
 
@@ -94,8 +99,9 @@ def _conv_plain(x, w, bias, residual, *, stride, relu, out_dtype):
     return acc.to(out_dtype or x.dtype)
 
 
-def _conv_call(x, w, bias, residual, *, stride, relu, out_dtype):
-    """Check and shape a conv's operands, then call ``resnetc::conv_fused``."""
+def _conv_call(x, w, bias, residual, *, stride, relu, out_dtype, w_nk):
+    """Check and shape a conv's operands, then call ``resnetc::conv_fused``
+    (in fp32 with ``w_nk``, ``gemm.pack_nk(w)`` where it is not given)."""
     b, h, w_sp, cin = x.shape
     k, cout = w.shape[0], w.shape[-1]
     oh, ow = _out_hw(h, w_sp, k, stride)
@@ -108,6 +114,11 @@ def _conv_call(x, w, bias, residual, *, stride, relu, out_dtype):
     x, w = x.contiguous(), w.contiguous()
     _build.require(x, "x", x.dtype, dev)
     _build.require(w, "w", x.dtype, dev, (k, k, cin, cout))
+    if x.dtype == torch.float32:
+        w_nk = gemm.pack_nk(w) if w_nk is None else w_nk
+        _build.require(w_nk, "w_nk", torch.float32, dev, (2, cout, k * k * cin))
+    elif w_nk is not None:
+        raise ValueError("w_nk: the bf16 kernel reads w as it lies; only fp32 takes w_nk")
     if bias is not None:
         bias = bias.float().contiguous()
         _build.require(bias, "bias", torch.float32, dev, (cout,))
@@ -118,19 +129,19 @@ def _conv_call(x, w, bias, residual, *, stride, relu, out_dtype):
         _build.require(residual, "residual", residual.dtype, dev, (b, oh, ow, cout))
     name = "conv3x3_s1_fused" if stride == 1 else "conv_s2_fused"
     return _build.call(name, CONV_FUSED,
-        x, w, bias, residual, stride, relu, out_dtype == torch.bfloat16)
+        x, w, w_nk, bias, residual, stride, relu, out_dtype == torch.bfloat16)
 
 
 def _out_dtype(out_bf16: bool) -> torch.dtype:
     return torch.bfloat16 if out_bf16 else torch.float32
 
 
-def _conv_fused_plain(x, w, bias, residual, stride, relu, out_bf16):
+def _conv_fused_plain(x, w, w_nk, bias, residual, stride, relu, out_bf16):
     return _conv_plain(x, w, bias, residual, stride=stride, relu=relu,
                        out_dtype=_out_dtype(out_bf16))
 
 
-def _conv_fused_fake(x, w, bias, residual, stride, relu, out_bf16):
+def _conv_fused_fake(x, w, w_nk, bias, residual, stride, relu, out_bf16):
     b, h, w_sp, _ = x.shape
     oh, ow = _out_hw(h, w_sp, w.shape[0], stride)
     return x.new_empty((b, oh, ow, w.shape[-1]), dtype=_out_dtype(out_bf16))
@@ -140,8 +151,8 @@ def _conv_fused_fake(x, w, bias, residual, stride, relu, out_bf16):
 #: the stride a template parameter inside; counted under the wrapper's name.
 CONV_FUSED = _build.kernel_op(
     "conv_fused",
-    "(Tensor x, Tensor w, Tensor? bias, Tensor? residual, int stride, bool relu, "
-    "bool out_bf16) -> Tensor",
+    "(Tensor x, Tensor w, Tensor? w_nk, Tensor? bias, Tensor? residual, int stride, "
+    "bool relu, bool out_bf16) -> Tensor",
     plain=_conv_fused_plain, fake=_conv_fused_fake,
 )
 
@@ -155,41 +166,44 @@ def _check_weight(x: torch.Tensor, w: torch.Tensor, k: int | None) -> None:
 
 
 def conv3x3_s1_fused_plain(x, w, bias=None, residual=None, *, relu=False, out_dtype=None,
-                           tn=None, bt=None, interpret=False):
-    """Plain PyTorch version of ``conv3x3_s1_fused``."""
+                           w_nk=None, tn=None, bt=None, interpret=False):
+    """Plain PyTorch version of ``conv3x3_s1_fused`` (``w_nk`` is not read)."""
     _check_weight(x, w, 3)
     return _conv_plain(x, w, bias, residual, stride=1, relu=relu, out_dtype=out_dtype)
 
 
 def conv3x3_s1_fused(x, w, bias=None, residual=None, *, relu=False, out_dtype=None,
-                     tn=None, bt=None, interpret=False):
+                     w_nk=None, tn=None, bt=None, interpret=False):
     """Fused 3x3 stride-1 pad-1 conv: ``relu(conv(x, w) + bias + residual)``.
     x (B, H, W, Cin); w (3, 3, Cin, Cout); bias (Cout,); residual (B, H, W,
-    Cout).  Output (B, H, W, Cout) in ``out_dtype`` (default x's)."""
+    Cout).  Output (B, H, W, Cout) in ``out_dtype`` (default x's).
+    ``w_nk`` (fp32): ``gemm.pack_nk(w)``, what the fp32 kernel reads."""
     _check_weight(x, w, 3)
     if _build.runs_plain():
         return _conv_plain(x, w, bias, residual, stride=1, relu=relu, out_dtype=out_dtype)
-    return _conv_call(x, w, bias, residual, stride=1, relu=relu, out_dtype=out_dtype)
+    return _conv_call(x, w, bias, residual, stride=1, relu=relu, out_dtype=out_dtype,
+                      w_nk=w_nk)
 
 
-def conv_s2_fused_plain(x, w, bias=None, *, relu=False, out_dtype=None, tn=None, bt=None,
-                        interpret=False):
-    """Plain PyTorch version of ``conv_s2_fused``."""
+def conv_s2_fused_plain(x, w, bias=None, *, relu=False, out_dtype=None, w_nk=None, tn=None,
+                        bt=None, interpret=False):
+    """Plain PyTorch version of ``conv_s2_fused`` (``w_nk`` is not read)."""
     _check_weight(x, w, None)
     return _conv_plain(x, w, bias, None, stride=2, relu=relu, out_dtype=out_dtype)
 
 
-def conv_s2_fused(x, w, bias=None, *, relu=False, out_dtype=None, tn=None, bt=None,
+def conv_s2_fused(x, w, bias=None, *, relu=False, out_dtype=None, w_nk=None, tn=None, bt=None,
                   interpret=False):
     """Fused odd-k stride-2 pad-k//2 conv: ``relu(conv(x, w) + bias)``.
-    Output (B, (H + 2p - k)//2 + 1, (W + 2p - k)//2 + 1, Cout)."""
+    Output (B, (H + 2p - k)//2 + 1, (W + 2p - k)//2 + 1, Cout).  ``w_nk``
+    as ``conv3x3_s1_fused``'s."""
     _check_weight(x, w, None)
     if _build.runs_plain():
         return _conv_plain(x, w, bias, None, stride=2, relu=relu, out_dtype=out_dtype)
-    return _conv_call(x, w, bias, None, stride=2, relu=relu, out_dtype=out_dtype)
+    return _conv_call(x, w, bias, None, stride=2, relu=relu, out_dtype=out_dtype, w_nk=w_nk)
 
 
-def conv3x3_s2_fused(x, w, bias=None, *, relu=False, out_dtype=None, tn=None, bt=None,
-                     interpret=False):
+def conv3x3_s2_fused(x, w, bias=None, *, relu=False, out_dtype=None, w_nk=None, tn=None,
+                     bt=None, interpret=False):
     """3x3 stride-2 pad-1 conv: the 3x3 case of ``conv_s2_fused``."""
-    return conv_s2_fused(x, w, bias, relu=relu, out_dtype=out_dtype)
+    return conv_s2_fused(x, w, bias, relu=relu, out_dtype=out_dtype, w_nk=w_nk)

@@ -276,22 +276,54 @@ def _conv(x, entry, *, stride, relu, residual=None, policy, kernels):
     """Route one folded conv (+bias+residual+relu) to a kernel: 1x1 to
     ``conv1x1_fused``, 3x3/1 to ``conv3x3_s1_fused``, 3x3/2 without a
     residual to ``conv3x3_s2_fused``, anything else (the 7x7 stem) to a
-    stock convolution."""
+    stock convolution.  In fp32 the kernels read the entry's split (N, K)
+    copy ``weight_nk`` (``pack_f32_kmajor``) where the tree has one."""
     w = entry["weight"].to(policy.compute)
     bias = entry["bias"]
+    w_nk = entry.get("weight_nk") if w.dtype == torch.float32 else None
     kh, kw_ = w.shape[:2]
     if (kh, kw_) == (1, 1):
         return conv.conv1x1_fused(
-            x, w, bias, residual, stride=stride, relu=relu, matmul_fn=kernels.matmul
+            x, w, bias, residual, stride=stride, relu=relu, matmul_fn=kernels.matmul,
+            w_nk=w_nk,
         )
     if (kh, kw_) == (3, 3) and stride == 1:
-        return kernels.conv3x3_s1(x, w, bias, residual, relu=relu)
+        return kernels.conv3x3_s1(x, w, bias, residual, relu=relu, w_nk=w_nk)
     if (kh, kw_) == (3, 3) and stride == 2 and residual is None:
-        return kernels.conv_s2(x, w, bias, relu=relu)
+        return kernels.conv_s2(x, w, bias, relu=relu, w_nk=w_nk)
     y = _xla_conv(x, entry, stride=stride, relu=False, policy=policy)
     if residual is not None:
         y = y + residual.to(y.dtype)
     return torch_ops.relu(y) if relu else y
+
+
+def _fc_nk(tree: Tree, policy: DtypePolicy):
+    """The fc's ``pack_f32_kmajor`` entry for the fp32 GEMM where the tree
+    has one; None in bf16."""
+    return tree["fc"].get("weight_nk") if policy.compute == torch.float32 else None
+
+
+def pack_f32_kmajor(tree: Tree) -> Tree:
+    """A copy of a folded (or ``quantize_folded``) tree with ``"weight_nk"``
+    (``gemm.pack_nk``: the TF32 heads and tails of the weight's (N, K) copy,
+    (2, N, K)) beside the weight of every 1x1 and 3x3 conv and of the fc
+    (whose (num_classes, features) weight is the (N, K) order already):
+    what the fp32 kernels of ``matmul`` and the fused convolutions read
+    (TF32 wgmma takes both operands K-major), made once per engine instead
+    of once per call.  The other leaves are shared, not copied."""
+
+    def walk(node, key=None):
+        if not isinstance(node, dict):
+            return node
+        w = node.get("weight")
+        if isinstance(w, torch.Tensor) and w.ndim == 4 and w.shape[0] == w.shape[1] \
+                and w.shape[0] in (1, 3):
+            return {**node, "weight_nk": gemm.pack_nk(w.float())}
+        if key == "fc" and isinstance(w, torch.Tensor) and w.ndim == 2:
+            return {**node, "weight_nk": gemm.pack_nk(w.float().t())}
+        return {k: walk(v, k) for k, v in node.items()}
+
+    return walk(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -409,6 +441,7 @@ def fused_forward(
             folded["fc"]["weight"].t().to(policy.compute).contiguous(),
             folded["fc"]["bias"],
             out_dtype=policy.output,
+            w_nk=_fc_nk(folded, policy),
         )
 
     if model_group is None:
@@ -1016,6 +1049,7 @@ def _head(qtree: Tree, feats: torch.Tensor, policy: DtypePolicy, kernels: Kernel
         qtree["fc"]["weight"].t().to(policy.compute).contiguous(),
         qtree["fc"]["bias"],
         out_dtype=policy.output,
+        w_nk=_fc_nk(qtree, policy),
     )
 
 

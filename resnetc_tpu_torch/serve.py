@@ -159,6 +159,10 @@ class InferenceEngine:
             folded = pack_kmajor(quantize_folded(folded))
         elif split and backend != "pallas_block":
             folded = pmesh.shard_tree(mesh, folded)  # this rank's channel shard
+        if backend in ("pallas", "pallas_block", "int8") and policy.compute == torch.float32:
+            from resnetc_tpu_torch.ops.cuda.fused import pack_f32_kmajor
+
+            folded = pack_f32_kmajor(folded)  # the split (N, K) copies the fp32 kernels read
         self.folded = folded
 
     def logits(self, images) -> torch.Tensor:

@@ -22,7 +22,11 @@ zero to fp32 rounding).
 The port's fp32 ``conv2d`` / ``linear`` (``ops.torch_ops``) are IEEE
 fp32 with TF32 turned on in the process: within 1e-5 of float64.
 The bf16 ``matmul`` splits K over a workspace at the fc and sums the slices
-in a fixed order: two calls give the same bits.  ``int8_matmul`` (the int8
+in a fixed order: two calls give the same bits.  The fp32 forms of
+``matmul`` and the fused convolutions (the split-fp32 tile) keep those
+tolerances at ResNet-152's longest sums (K = 4608 and the fc), and two
+calls, or the engine's (N, K) weight copy and a per-call one, give the same
+bits.  ``int8_matmul`` (the int8
 wgmma tile) splits K over an int32 workspace, exactly: it equals its plain
 version at every shape, the fc included, and two calls, or the engine's
 (N, K) weight copy and a per-call transpose, give the same bits.
@@ -321,6 +325,58 @@ def test_matmul_tile_shapes_close_to_plain(cuda, gen, m, k, n, bias, res, relu, 
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
     else:
         assert _bf16_within_one_ulp(got, want)
+
+
+# (id, op, shape, residual): the fp32 form of matmul and the fused
+# convolutions (the split-fp32 tile) at ResNet-152's longest sums, batch 2
+# (32 at the fc): the stage-3 3x3, K = 4608; its stride-2 3x3 (K = 2304);
+# a stage-3 1x1 at K = 2048 (N = 1024, the 128 x 128 tile) with an fp32
+# residual; and the fc at batch 32, K = 2048, split over the workspace.
+F32_TILE_CASES = [
+    ("conv3x3-s3-k4608", "conv3x3_s1", (2, 14, 14, 512, 512), False),
+    ("conv-s2-s3-k2304", "conv_s2", (2, 28, 28, 256, 256), False),
+    ("1x1-k2048-res", "matmul", (2 * 196, 2048, 1024), True),
+    ("fc-b32-splitk", "matmul", (32, 2048, 1000), False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,shape,res", [c[1:] for c in F32_TILE_CASES],
+                         ids=[c[0] for c in F32_TILE_CASES])
+def test_fp32_tile_longest_sums_close_to_plain_and_repeatable(cuda, gen, op, shape, res):
+    """Within the fp32 tolerances (matmul rtol 1e-5 / atol 1e-4, the
+    convolutions 1e-4 / 1e-4) of the plain versions (float64 sums); a second
+    call, and a call given the (N, K) copy the engine makes instead of the
+    wrapper's per-call one, give the same bits; one launch a call."""
+    from resnetc_tpu_torch.ops.cuda import conv
+
+    def t(shape, scale=1.0):
+        return torch.from_numpy((gen.standard_normal(shape) * scale).astype(np.float32)).to(cuda)
+
+    if op == "matmul":
+        m, k, n = shape
+        args = (t((m, k)), t((k, n), k**-0.5), t((n,), 0.1), t((m, n)) if res else None)
+        kw = {"relu": res, "out_dtype": torch.float32}
+        fn, plain, name = gemm.matmul, gemm.matmul_plain, "matmul"
+    else:
+        b, h, w, cin, cout = shape
+        args = (t((b, h, w, cin)), t((3, 3, cin, cout), (9 * cin) ** -0.5), t((cout,), 0.1))
+        kw = {"relu": True}
+        fn = getattr(conv, op + "_fused")
+        plain, name = getattr(conv, op + "_fused_plain"), op + "_fused"
+    _build.reset_launches()
+    got = fn(*args, **kw)
+    assert dict(_build.LAUNCHES) == {name: 1}
+    again = fn(*args, **kw)
+    packed = fn(*args, **kw, w_nk=gemm.pack_nk(args[1]))
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, packed)
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    if op == "matmul":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    else:
+        _assert_conv_close(got, want)
 
 
 BASIC_SCALES = np.asarray([4.0 / 127, 3.0 / 127, 5.0 / 127], np.float32)
