@@ -7,10 +7,11 @@ Builds the CUDA kernels from ``resnetc_tpu_torch/csrc``, checks that the
 tensor-core kernels hold wgmma instructions in their SASS (HGMMA in the
 bf16 tile's instantiations for rows 4, 13 and 14, stride 1 and stride 2
 counted apart, in the split-fp32 tile's for the same rows in fp32, and
-for row 17's bf16 block; IGMMA in the int8 tile of row 12 and in the block
-tile of rows 1-3 and 5-11, each library's instantiations apart; no dp4a
-``igemm_kernel`` left in the libraries of the int8 blocks, no CUDA-core
-``conv_f32_kernel`` / ``gemm_f32_kernel`` left, and no serialized wgmma,
+for row 17's block in bf16 and in fp32; IGMMA in the int8 tile of row 12
+and in the block tile of rows 1-3 and 5-11, each library's instantiations
+apart; no dp4a ``igemm_kernel`` left in the libraries of the int8 blocks,
+no CUDA-core ``conv_f32_kernel`` / ``gemm_f32_kernel`` / ``fp_block_step``
+left, no spill in the split-fp32 tile's kernels, and no serialized wgmma,
 C7515, in ptxas's report), and then:
 
 1. holds every kernel of the serving paths against its plain PyTorch
@@ -28,14 +29,17 @@ C7515, in ptxas's report), and then:
    bytes) from the engine's K-major copies also against a per-call
    transpose (equal).  The kernels of the ``pallas_block`` backend and the
    op library at batch 8: ``bottleneck_block_chained`` at ResNet-152's four
-   stage shapes in bf16, one in fp32, and as a 3-block chain at 7x7 (wp = w
-   + 1) whose input ring holds NaN; ``bottleneck_block_fused`` at the four
-   stage shapes; ``avg_pool2d`` (the 7x7 head pool in fp32 and bf16, and
+   stage shapes in bf16 and in fp32 (given the FP32 engine's split weight
+   copies), and as a 3-block chain at 7x7 (wp = w + 1) whose input ring
+   holds NaN, in both; ``bottleneck_block_fused`` at the four stage shapes
+   in both (in fp32 also equal bit for bit to the chained form's interior);
+   ``avg_pool2d`` (the 7x7 head pool in fp32 and bf16, and
    3x3/2/p1); ``relu``, ``add`` and ``add_relu`` at (32, 56, 56, 256),
    (3, 17, 50), a ragged (7, 37, 41, 67) and the same as views one element
    into their buffers, the last two holding NaN, +-Inf and -0, in bf16 and
    fp32.  The blocks within max error / max |plain| 1e-2 in bf16 (z1 and z2
-   are rounded to bf16 inside the block) and rtol 1e-4 in fp32, the pool
+   are rounded to bf16 inside the block) and 1e-4 in fp32 (and rtol 1e-4),
+   the pool
    and the elementwise ops equal (bit for bit where they hold NaN or -0);
 2. prints the TUNED.json flags the port laid over its code defaults (they
    must turn on L1_PIXEL_PAIR and BASIC_DS_INT8), then serves ResNet-152
@@ -964,14 +968,16 @@ def _repeat(fn, n: int):
 
 def make_fp_cases(b: int, dev) -> list:
     """The kernels of the pallas_block backend (bottleneck_block_chained at
-    ResNet-152's four stage shapes in bf16, one stage in fp32, and a chain of
-    three at 7x7, where wp = w + 1, whose input ring holds NaN) and of the
-    op library: bottleneck_block_fused at the four stage shapes, the 7x7
-    head pool (fp32 and bf16) and the 3x3/2/p1 pool, and relu / add /
-    add_relu (``make_ew_cases``)."""
+    ResNet-152's four stage shapes in bf16 and in fp32, the latter given the
+    split (N, K) weight copies the FP32 engine keeps, and a chain of three
+    at 7x7, where wp = w + 1, whose input ring holds NaN, in both) and of
+    the op library: bottleneck_block_fused at the four stage shapes in both
+    (in fp32 also equal bit for bit to the chained form between a pad and an
+    unpad), the 7x7 head pool (fp32 and bf16) and the 3x3/2/p1 pool, and
+    relu / add / add_relu (``make_ew_cases``)."""
     import torch
 
-    from resnetc_tpu_torch.ops.cuda import block, pool
+    from resnetc_tpu_torch.ops.cuda import block, gemm, pool
     from resnetc_tpu_torch.ops.cuda.block import chain_meta
 
     gen = torch.Generator().manual_seed(8765)
@@ -986,31 +992,47 @@ def make_fp_cases(b: int, dev) -> list:
         h, c, c4 = STAGES[s]
         size = 2 if dtype == torch.bfloat16 else 4
         x = randn(b, h, h, c4, dtype=dtype)
+        ws = _fp_block_weights(randn, c, c4, dtype)
+        # fp32: the split copies, as the FP32 engine's tree gives them.
+        kw = {} if dtype == torch.bfloat16 else {
+            "w1_nk": gemm.pack_nk(ws[0]), "w2_nk": gemm.pack_nk(ws[2]),
+            "w3_nk": gemm.pack_nk(ws[4])}
+        twin = None
         if kernel == "bottleneck_block_chained":
             hp, wp = chain_meta(b, h, h)
             x = block.pad_for_chain(x)
             if nan_ring:
                 ring = ~block.pad_for_chain(torch.ones((b, h, h, 1), device=dev)).bool()[:, 0]
                 x[ring] = float("nan")
-            kw = dict(h=h, w_sp=h)
+            kw.update(h=h, w_sp=h)
             rows = b * hp * wp
         else:
-            kw, rows = {}, b * h * h
+            rows = b * h * h
+            if dtype == torch.float32:
+                def twin(xx, *ww, **kk):  # the chained form's interior
+                    yr = block.bottleneck_block_chained(block.pad_for_chain(xx), *ww, h=h,
+                                                        w_sp=h, **kk)
+                    return block.unpad_from_chain(yr, b, h, h)
         fn, plain = getattr(block, kernel), getattr(block, kernel + "_plain")
         if n > 1:
             fn, plain = _repeat(fn, n), _repeat(plain, n)
         cases.append(Case(
-            label, kernel, fn, plain, (x, *_fp_block_weights(randn, c, c4, dtype)), kw,
+            label, kernel, fn, plain, (x, *ws), kw,
             n * 2 * b * h * h * 17 * c * c,
             size * (2 * rows * c4 + 17 * c * c) + 4 * (2 * c + c4),
-            PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS,
-            "rel" if dtype == torch.bfloat16 else "f32", per_forward=count,
+            PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32X3_FLOPS,
+            "rel" if dtype == torch.bfloat16 else "rel32", per_forward=count, twin=twin,
         ))
 
+    # The bf16 cases, the fp32 stage-1 block and the pools draw the inputs
+    # they drew before the fp32 block's redesign (the same generator, in
+    # the same order); the other fp32 block cases come last.  The FP32
+    # pallas_block route's 46 launches are the four fp32 stage shapes'.
     for s in range(4):
         fp_case(f"fp_block/s{s}", "bottleneck_block_chained", s, torch.bfloat16,
                 count=blocks[s] - 1)
-    fp_case("fp_block/fp32/s1", "bottleneck_block_chained", 1, torch.float32)
+    fp_case("fp_block/s1/fp32", "bottleneck_block_chained", 1, torch.float32,
+            count=blocks[1] - 1)
     fp_case("fp_block/chain3/nan_ring/s3", "bottleneck_block_chained", 3, torch.bfloat16, n=3,
             nan_ring=True)
     for s in range(4):
@@ -1030,6 +1052,13 @@ def make_fp_cases(b: int, dev) -> list:
             "bf16" if dtype == torch.bfloat16 else "f32eq",
         ))
 
+    for s in (0, 2, 3):
+        fp_case(f"fp_block/s{s}/fp32", "bottleneck_block_chained", s, torch.float32,
+                count=blocks[s] - 1)
+    fp_case("fp_block/chain3/nan_ring/s3/fp32", "bottleneck_block_chained", 3, torch.float32,
+            n=3, nan_ring=True)
+    for s in range(4):
+        fp_case(f"fp_block_fused/s{s}/fp32", "bottleneck_block_fused", s, torch.float32)
     return cases + make_ew_cases(dev)
 
 
@@ -1130,6 +1159,17 @@ def check_case(case) -> float:
         if not rel <= 1e-2:
             raise AssertionError(f"{case.name}: max error / max |plain| {rel} > 1e-2")
         log(f"[kernels] {case.name}: max error / max |plain| = {rel}")
+    elif case.check == "rel32":
+        # The fp32 blocks: rtol 1e-4 elementwise, and max error / max |plain|
+        # within 1e-4 (FP_BLOCK_TOL), finite where the plain version is.
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{case.name}: {m}")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{case.name}: non-finite output")
+        rel = err / float(want.abs().max())
+        if not rel <= 1e-4:
+            raise AssertionError(f"{case.name}: max error / max |plain| {rel} > 1e-4")
+        log(f"[kernels] {case.name}: max error / max |plain| = {rel}")
     elif case.check == "bf16ulp":
         # The same fp32 sums in another order, rounded to bf16: within one
         # bf16 step of the larger magnitude, or of zero where relu cuts a
@@ -1167,13 +1207,18 @@ SASS_CHECKS = (
     ("libconv.so", r"tf32x3_kernel.*ConvA32LoaderILi\d+ELb[01]ELi2E", "HGMMA"),
     # row 4: matmul (bf16, and fp32 on the split-fp32 tile)
     ("libgemm.so", r"tile_kernel.*GemmALoader", "HGMMA"),
-    ("libgemm.so", r"tf32x3_kernel.*GemmA32Loader", "HGMMA"),
+    ("libgemm.so", r"tf32x3_kernel.*GemmA32LoaderT", "HGMMA"),
     # row 12: int8_matmul
     ("libint8_gemm.so", r"s8_tile_kernel", "IGMMA"),
     # rows 17 and 18: bottleneck_block_chained / _fused in bf16 (conv1 and
     # conv3 through the GEMM loader, conv2 through the im2col one)
     ("libfp_block.so", r"tile_kernel.*GemmALoader", "HGMMA"),
     ("libfp_block.so", r"tile_kernel.*ConvALoader", "HGMMA"),
+    # rows 17 and 18 in fp32: the split-fp32 tile (conv1 and conv3 through
+    # its GEMM loader over the chain row maps, ChainA32Loader, conv2 through
+    # its im2col one)
+    ("libfp_block.so", r"tf32x3_kernel.*GemmA32LoaderTILi\d+ELb[01]ELb1E", "HGMMA"),
+    ("libfp_block.so", r"tf32x3_kernel.*ConvA32Loader", "HGMMA"),
     # rows 1-3: bottleneck_block_chained_int8, the run and the stride-2
     # transition downsample_block_s2_int8
     ("libchain_block.so", r"chain_tile_kernel", "IGMMA"),
@@ -1187,8 +1232,12 @@ SASS_CHECKS = (
 #: Libraries that must hold no dp4a implicit GEMM (``igemm_kernel``, the
 #: CUDA-core kernel the int8 blocks ran before the int8 tile) any more.
 NO_IGEMM = ("libchain_block.so", "libbasic_block.so", "libpp_block.so")
+#: Sources whose split-fp32 tile kernels must not spill (ptxas's report of
+#: a source built in this run).
+NO_SPILL = ("gemm", "conv", "fp_block")
 #: The CUDA-core fp32 tiles that the split-fp32 tile replaced: gone.
-GONE = (("libconv.so", "conv_f32_kernel"), ("libgemm.so", "gemm_f32_kernel"))
+GONE = (("libconv.so", "conv_f32_kernel"), ("libgemm.so", "gemm_f32_kernel"),
+        ("libfp_block.so", "fp_block_step"))
 
 
 def _sass_functions(path) -> dict:
@@ -1208,13 +1257,32 @@ def _sass_functions(path) -> dict:
     return funcs
 
 
+def _spills(report: str) -> dict:
+    """{kernel: (bytes of spill stores, of spill loads)} from ptxas's -v
+    report of one source."""
+    import re
+
+    out, cur = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur] = (int(m.group(1)), int(m.group(2)))
+            cur = None
+    return out
+
+
 def phase_sass(build_dir) -> dict:
     """The tensor-core kernels hold wgmma instructions in their SASS
     (``SASS_CHECKS``): HGMMA in the bf16 tile's instantiations, IGMMA in
     the int8 tiles.  Counted per kernel, not per library, so another
     kernel's wgmma cannot stand in.  ``NO_IGEMM``'s libraries hold no dp4a
-    kernel, and ptxas reported no serialized wgmma (C7515) for a source
-    built in this run."""
+    kernel, ptxas reported no serialized wgmma (C7515) for a source built
+    in this run, and no spill in the split-fp32 tile's kernels of
+    ``NO_SPILL``'s sources built in this run."""
     import re
 
     from resnetc_tpu_torch.ops.cuda import _build
@@ -1250,6 +1318,17 @@ def phase_sass(build_dir) -> dict:
         raise AssertionError(f"ptxas serialized wgmma (C7515) in {serialized}")
     log(f"[sass] no C7515 in the ptxas output of {len(built)} sources built in this run"
         + ("" if built else " (every library was already built)"))
+    for name in NO_SPILL:
+        if name not in _build.BUILD_LOG:
+            log(f"[sass] lib{name}.so was already built: its spills are not checked")
+            continue
+        tile = {k: v for k, v in _spills(_build.BUILD_LOG[name]).items() if "tf32x3_kernel" in k}
+        if not tile:
+            raise AssertionError(f"{name}: no ptxas report of a tf32x3_kernel")
+        spilled = [k for k, v in tile.items() if v != (0, 0)]
+        if spilled:
+            raise AssertionError(f"{name}: ptxas spilled in {spilled[0]} ({tile[spilled[0]]})")
+        log(f"[sass] {name}: {len(tile)} tf32x3_kernel instantiations, no spill")
     return counts
 
 
@@ -1260,6 +1339,7 @@ def phase_kernels(cases: list) -> dict:
         twin = " and to its twin" if case.twin else ""
         how = {"bf16ulp": "within 1 bf16 ulp of", "f32": "within rtol 1e-4 of",
                "rel": "within 1e-2 of max |plain| of",
+               "rel32": "within rtol 1e-4 and 1e-4 of max |plain| of",
                "bits": "equal bit for bit to"}.get(case.check, "equal to")
         log(f"[kernels] {case.name}: {how} plain{twin}, max_abs_err={errs[case.name]}")
     return errs
@@ -4111,7 +4191,8 @@ MEMBERS = {"add, add_relu": ("add", "add_relu")}
 #: their TFLOP/s (TOP/s for int8), share of the bound and ratio to the
 #: library call are printed per shape.
 TILE_KERNELS = ("conv3x3_s1_fused", "conv_s2_fused", "matmul", "int8_matmul",
-                "bottleneck_block_chained", "bottleneck_block_chained_int8",
+                "bottleneck_block_chained", "bottleneck_block_fused",
+                "bottleneck_block_chained_int8",
                 "bottleneck_run_chained_int8", "downsample_block_s2_int8",
                 "bottleneck_block_chained_int8_pp", "bottleneck_run_chained_int8_pp",
                 "basic_block_chained_int8", "basic_run_chained_int8",
@@ -4174,9 +4255,9 @@ def phase_kernel_timing(batch: int, dev, errs: dict, launches: dict) -> tuple[li
             log(f"[pool] {case.name}: {ms:.4f} ms, {100 * row['bound_share']:.1f}% of the "
                 f"bound{vs}")
 
-    # The FP32 routes' fp32 GEMMs and convolutions, summed per forward of
-    # ResNet-152 at this batch (the cases' per_forward weights).
-    for kernel in ("matmul", "conv3x3_s1_fused", "conv_s2_fused"):
+    # The FP32 routes' fp32 GEMMs, convolutions and blocks, summed per
+    # forward of ResNet-152 at this batch (the cases' per_forward weights).
+    for kernel in ("matmul", "conv3x3_s1_fused", "conv_s2_fused", "bottleneck_block_chained"):
         rows = [r for r in per_case if r["kernel"] == kernel and r["case"].endswith("/fp32")
                 and r["per_forward"] > 0]
         tot = {key: sum(r[key] * r["per_forward"] for r in rows)

@@ -1,13 +1,17 @@
 // The fp32 tensor-core tile of the fused GEMM (gemm.cu: `matmul`,
-// resnetc_tpu/ops/pallas/gemm.py:100) and the fused convolutions (conv.cu:
+// resnetc_tpu/ops/pallas/gemm.py:100), the fused convolutions (conv.cu:
 // `conv3x3_s1_fused`, resnetc_tpu/ops/pallas/conv.py:150, and
-// `conv_s2_fused`, conv.py:287) on fp32 operands:
+// `conv_s2_fused`, conv.py:287) and the bottleneck block (fp_block.cu:
+// `bottleneck_block_chained` / `_fused`, resnetc_tpu/ops/pallas/
+// block.py:278 / :3688, three launches) on fp32 operands:
 //
 //     C[M, N] = A[M, K] @ B[K, N]   (fp32 operands, fp32 sums)
 //
-// with A filled as the bf16 tile fills it (a row-major matrix, or the
+// with A filled as the bf16 tile fills it (a row-major matrix, its rows
+// optionally picked through the chain layout's pixel <-> row map, or the
 // implicit im2col of an NHWC image at stride 1 or 2) and B given as w_nk,
-// the TF32 heads and tails of its (N, K) copy, (2, N, K).
+// the TF32 heads and tails of its (N, K) copy, (2, N, K).  Over a chain
+// (ChainA32Loader, Epi::ring) a ring row of the output is written as zeros.
 //
 // What bounds it.  fp32 on the CUDA cores peaks at 67 TFLOP/s on an H100;
 // the card's TF32 tensor cores run 495 TFLOP/s but keep 10 bits of each
@@ -75,6 +79,8 @@
 // NaN), cast.
 
 #pragma once
+
+#include <type_traits>
 
 #include "bf16_tile.cuh"
 
@@ -198,18 +204,39 @@ struct GemmA32 {
   int M, K;
 };
 
-template <int BM, bool VEC>
-struct GemmA32Loader {
-  using Params = GemmA32;
+// A = rows of x (row stride K) through `map` (geometry g; bf16_tile.cuh's
+// RowMap): the block's conv1 reads a pixel's chain row, its conv3 a chain
+// row's pixel.
+struct ChainA32 {
+  const float* x;
+  int M, K;
+  int map;
+  Chain g;
+};
+
+// MAP: the ChainA32 form.  Only its rows can be chain rows, so only its
+// epilogue tests Epi::ring (kChain): the GEMM's code is that of a loader
+// without maps.
+template <int BM, bool VEC, bool MAP>
+struct GemmA32LoaderT {
+  using Params = std::conditional_t<MAP, ChainA32, GemmA32>;
+  static constexpr bool kChain = MAP;
   const float* base;
-  const float* row[4];  // nullptr past M
+  const float* row[4];  // nullptr past M and where the map finds no row
   int K, c;
 
-  __device__ GemmA32Loader(const GemmA32& p, int m0, int tid) : base(p.x), K(p.K), c(tid & 7) {
+  __device__ GemmA32LoaderT(const Params& p, int m0, int tid) : base(p.x), K(p.K), c(tid & 7) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int m = m0 + tid / 8 + i * (BM / 4);
-      row[i] = m < p.M ? p.x + static_cast<size_t>(m) * p.K : nullptr;
+      if constexpr (MAP) {
+        int src = m < p.M ? m : -1;
+        if (src >= 0 && p.map == MAP_PIXEL_TO_CHAIN) src = chain_row(p.g, src);
+        if (src >= 0 && p.map == MAP_CHAIN_TO_PIXEL) src = pixel_of(p.g, src);
+        row[i] = src >= 0 ? p.x + static_cast<size_t>(src) * p.K : nullptr;
+      } else {
+        row[i] = m < p.M ? p.x + static_cast<size_t>(m) * p.K : nullptr;
+      }
     }
   }
 
@@ -232,6 +259,11 @@ struct GemmA32Loader {
   }
 };
 
+template <int BM, bool VEC>
+using GemmA32Loader = GemmA32LoaderT<BM, VEC, false>;
+template <int BM, bool VEC>
+using ChainA32Loader = GemmA32LoaderT<BM, VEC, true>;
+
 // A = the implicit im2col of x NHWC (B, H, W, Cin) for a k x k convolution,
 // stride S, zero padding k/2 (bf16_tile.cuh's ConvALoader over fp32: a
 // 16-byte chunk is 4 channels of one tap).
@@ -243,6 +275,7 @@ struct ConvA32 {
 template <int BM, bool VEC, int S>
 struct ConvA32Loader {
   using Params = ConvA32;
+  static constexpr bool kChain = false;
   const float* base;       // x: the source of zero-fill copies
   const float* corner[4];  // the row's tap (0, 0) pixel, which may lie outside the image
   int iy0[4], ix0[4];      // its coordinates; iy0 = H past M, so that no tap is inside
@@ -445,6 +478,10 @@ tf32x3_kernel(typename AL::Params ap, const float* __restrict__ w_nk, Epi ep, in
     const int r = e / (BN / 8), cc = 8 * (e % (BN / 8));
     const int m = m0 + r, n = n0 + cc;
     if (m >= ep.M || n >= ep.N) continue;
+    if (AL::kChain && ep.ring.wp && pixel_of(ep.ring, m) < 0) {
+      zero8(ep, m, n);
+      continue;
+    }
     const float4 lo = *reinterpret_cast<const float4*>(tile + r * LD + cc);
     const float4 hi = *reinterpret_cast<const float4*>(tile + r * LD + cc + 4);
     float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};

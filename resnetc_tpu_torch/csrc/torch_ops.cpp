@@ -123,9 +123,10 @@ int max_pool2d_nhwc(const void* x, void* out, int kind, int vec, int B, int H, i
                     int OH, int OW, int k, int s, int p, cudaStream_t stream);
 int avg_pool2d_nhwc(const void* x, void* out, int kind, int vec, int B, int H, int W, int C,
                     int OH, int OW, int k, int s, int p, float inv, cudaStream_t stream);
-int fp_block(const void* x, const void* w1, const float* b1, const void* w2, const float* b2,
-             const void* w3, const float* b3, void* z1, void* z2, void* out, int kind, int chain,
-             int B, int h, int w, int hp, int wp, int c, int c4, cudaStream_t stream);
+int fp_block(const void* x, const void* w1, const float* w1_nk, const float* b1, const void* w2,
+             const float* w2_nk, const float* b2, const void* w3, const float* w3_nk,
+             const float* b3, void* z1, void* z2, void* out, int kind, int chain, int B, int h,
+             int w, int hp, int wp, int c, int c4, cudaStream_t stream);
 int elementwise(int op, int kind, const void* a, const void* b, void* out, long long n,
                 cudaStream_t stream);
 }
@@ -579,10 +580,17 @@ Tensor avg_pool2d_nhwc_op(const Tensor& x, int64_t k, int64_t s, int64_t pad) {
 }
 
 Tensor fp_block_op(const Tensor& x, const Tensor& w1, const Tensor& b1, const Tensor& w2,
-                   const Tensor& b2, const Tensor& w3, const Tensor& b3, bool chain, int64_t h,
+                   const Tensor& b2, const Tensor& w3, const Tensor& b3, const OptTensor& w1_nk,
+                   const OptTensor& w2_nk, const OptTensor& w3_nk, bool chain, int64_t h,
                    int64_t w) {
   on_card(x, "fp_block");
   dense("fp_block", x, w1, b1, w2, b2, w3, b3);
+  // fp32 reads each weight's split (N, K) copy in its place.
+  const bool f32 = x.scalar_type() == at::kFloat;
+  const Tensor n1 = f32 ? checked_w_nk(w1, w1_nk) : Tensor();
+  const Tensor n2 = f32 ? checked_w_nk(w2, w2_nk) : Tensor();
+  const Tensor n3 = f32 ? checked_w_nk(w3, w3_nk) : Tensor();
+  if (f32) dense("fp_block", n1, n2, n3);
   int64_t b, hp, wp;
   if (chain) {
     std::tie(hp, wp) = chain_meta(h, w);
@@ -594,9 +602,10 @@ Tensor fp_block_op(const Tensor& x, const Tensor& w1, const Tensor& b1, const Te
   Tensor z1 = empty({b * h * w, c}, x.scalar_type(), x), z2 = at::empty_like(z1);
   Tensor out = at::empty_like(x);
   const auto launch = LAUNCHER("fp_block", fp_block);
-  check(launch(x.data_ptr(), w1.data_ptr(), p<float>(b1), w2.data_ptr(), p<float>(b2),
-        w3.data_ptr(), p<float>(b3), z1.data_ptr(), z2.data_ptr(), out.data_ptr(), kind_of(x),
-        chain, i(b), i(h), i(w), i(hp), i(wp), i(c), i(c4), stream()), "fp_block");
+  check(launch(x.data_ptr(), w1.data_ptr(), f32 ? p<float>(n1) : nullptr, p<float>(b1),
+        w2.data_ptr(), f32 ? p<float>(n2) : nullptr, p<float>(b2), w3.data_ptr(),
+        f32 ? p<float>(n3) : nullptr, p<float>(b3), z1.data_ptr(), z2.data_ptr(), out.data_ptr(),
+        kind_of(x), chain, i(b), i(h), i(w), i(hp), i(wp), i(c), i(c4), stream()), "fp_block");
   return out;
 }
 
@@ -657,7 +666,7 @@ void define_schemas(torch::Library& m) {
   m.def("max_pool2d_nhwc(Tensor x, int k, int s, int p) -> Tensor");
   m.def("avg_pool2d_nhwc(Tensor x, int k, int s, int p) -> Tensor");
   m.def("fp_block(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor w3, Tensor b3, "
-        "bool chain, int h, int w) -> Tensor");
+        "Tensor? w1_nk, Tensor? w2_nk, Tensor? w3_nk, bool chain, int h, int w) -> Tensor");
   m.def("elementwise(int op, Tensor a, Tensor? b) -> Tensor");
 }
 

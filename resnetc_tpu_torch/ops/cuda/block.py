@@ -34,8 +34,9 @@ The bf16 / fp32 stride-1 bottleneck of the ``pallas_block`` backend and the
 op library (CUDA in ``csrc/fp_block.cu``, one piece of code for both; see
 the section comment below): ``bottleneck_block_chained`` (block.py:278),
 over the chain layout, and ``bottleneck_block_fused`` (:3688), NHWC in and
-out.
-  A wrapper runs the plain version when
+out; in fp32 the kernel reads each weight's split (N, K) copy
+(``gemm.pack_nk``: ``w1_nk``, ``w2_nk``, ``w3_nk``, the engine's or made per
+call).  A wrapper runs the plain version when
 its input lies on the CPU, and launches the kernel for a CUDA tensor, or
 raises; there is no fallback.  The scalar requant scales are folded into
 per-channel vectors exactly as the JAX wrapper does (block.py:789-797,
@@ -55,7 +56,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from resnetc_tpu_torch.ops.cuda import _build
+from resnetc_tpu_torch.ops.cuda import _build, gemm
 from resnetc_tpu_torch.ops.cuda.quant import _fma, _idot, quantize_per_channel
 
 def _round_up(x: int, m: int) -> int:
@@ -1800,23 +1801,27 @@ _FP_KIND = {torch.bfloat16: 1, torch.float32: 2}
 
 
 def _fp_block_nhwc_plain(x, w1, b1, w2, b2, w3, b3):
-    """The block on a (B, h, w, 4c) interior, every dot an fp32 matmul of
-    upcast operands (bf16 products are exact in fp32)."""
+    """The block on a (B, h, w, 4c) interior.  Each dot (conv1, each kernel
+    row's partial P_kh of conv2, conv3) sums the exactly widened operands in
+    float64 and is rounded to fp32 once; the partials are added in fp32 as
+    (P0 + P1) + P2; z1, z2 and the output are rounded to the compute type.
+    (An fp32 product on the CPU sums in an order that follows the BLAS
+    library's blocking and so the thread count, and on the card the TF32
+    settings: float64 follows neither.)"""
     dt = x.dtype
     _, h, w_sp, _ = x.shape
     c = w1.shape[-1]
-    xf = x.float()
-    z1 = torch.relu(torch.matmul(xf, w1.float()) + b1.float()).to(dt)
-    zp = F.pad(z1.float(), (0, 0, 1, 1, 1, 1))
-    w2f = w2.float()
+    z1 = torch.relu(torch.matmul(x.double(), w1.double()).float() + b1.float()).to(dt)
+    zp = F.pad(z1.double(), (0, 0, 1, 1, 1, 1))
+    w2d = w2.double()
     acc = None
     for kh in range(3):
         taps = torch.cat([zp[:, kh : kh + h, kw : kw + w_sp] for kw in range(3)], dim=-1)
-        part = torch.matmul(taps, w2f[kh].reshape(3 * c, c))
+        part = torch.matmul(taps, w2d[kh].reshape(3 * c, c)).float()
         acc = part if acc is None else acc + part
     z2 = torch.relu(acc + b2.float()).to(dt)
-    y = torch.matmul(z2.float(), w3.float()) + b3.float()
-    return torch.relu(y + xf).to(dt)
+    y = torch.matmul(z2.double(), w3.double()).float() + b3.float()
+    return torch.relu(y + x.float()).to(dt)
 
 
 def _fp_weights(x, w1, w2, w3):
@@ -1838,8 +1843,23 @@ def _fp_chain_geometry(xr, h, w_sp):
     return b, hp, wp
 
 
-def _fp_call(x, w1, b1, w2, b2, w3, b3, *, chain, h, w_sp):
-    """Check a bf16 / fp32 block's operands, then call ``resnetc::fp_block``."""
+def _fp_copies(w1, w2, w3, w_nks):
+    """The fp32 kernel's split (N, K) copies of w1 (4c, c), w2 (3, 3, c, c)
+    and w3 (c, 4c): each as given (the engine's, ``fused.pack_f32_kmajor``)
+    or ``gemm.pack_nk`` of its weight for this call; a copy whose shape is
+    not its weight's (2, N, K) raises."""
+    out = []
+    for name, w, w_nk in zip(("w1_nk", "w2_nk", "w3_nk"), (w1, w2, w3), w_nks):
+        w_nk = gemm.pack_nk(w) if w_nk is None else w_nk
+        _build.require(w_nk, name, torch.float32, w.device,
+                       (2, w.shape[-1], w.numel() // w.shape[-1]))
+        out.append(w_nk)
+    return out
+
+
+def _fp_call(x, w1, b1, w2, b2, w3, b3, w_nks, *, chain, h, w_sp):
+    """Check a bf16 / fp32 block's operands, then call ``resnetc::fp_block``
+    (in fp32 with the weights' split copies, ``_fp_copies``)."""
     dt = x.dtype
     if dt not in _FP_KIND:
         raise ValueError(f"x: dtype {dt}, expected bf16 or fp32")
@@ -1855,62 +1875,78 @@ def _fp_call(x, w1, b1, w2, b2, w3, b3, *, chain, h, w_sp):
     _build.require(b1, "b1", torch.float32, dev, (c,))
     _build.require(b2, "b2", torch.float32, dev, (c,))
     _build.require(b3, "b3", torch.float32, dev, (c4,))
+    if dt == torch.float32:
+        w_nks = _fp_copies(w1, w2, w3, w_nks)
+    elif any(w_nk is not None for w_nk in w_nks):
+        raise ValueError("w*_nk: the bf16 kernel reads the weights as they lie; only fp32 "
+                         "takes their split copies")
     name = "bottleneck_block_chained" if chain else "bottleneck_block_fused"
-    return _build.call(name, FP_BLOCK, x, w1, b1, w2, b2, w3, b3, chain, h, w_sp)
+    return _build.call(name, FP_BLOCK, x, w1, b1, w2, b2, w3, b3, *w_nks, chain, h, w_sp)
 
 
-def _fp_block_plain(x, w1, b1, w2, b2, w3, b3, chain, h, w):
+def _fp_block_plain(x, w1, b1, w2, b2, w3, b3, w1_nk, w2_nk, w3_nk, chain, h, w):
     if chain:
         return bottleneck_block_chained_plain(x, w1, b1, w2, b2, w3, b3, h=h, w_sp=w)
     return bottleneck_block_fused_plain(x, w1, b1, w2, b2, w3, b3)
 
 
 #: Kernels 17 and 18 (block.py:278, :3688): ``csrc/fp_block.cu``'s
-#: ``fp_block``, over the chain layout (``chain``) or NHWC; counted under the
-#: wrapper's name.
+#: ``fp_block``, over the chain layout (``chain``) or NHWC; in fp32 it reads
+#: ``w1_nk`` / ``w2_nk`` / ``w3_nk`` (the plain version does not); counted
+#: under the wrapper's name.
 FP_BLOCK = _build.kernel_op(
     "fp_block",
-    "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor w3, Tensor b3, bool chain, "
-    "int h, int w) -> Tensor",
+    "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor w3, Tensor b3, "
+    "Tensor? w1_nk, Tensor? w2_nk, Tensor? w3_nk, bool chain, int h, int w) -> Tensor",
     plain=_fp_block_plain, fake=lambda x, *a: torch.empty_like(x),
 )
 
 
 def bottleneck_block_chained_plain(xr, w1, b1, w2, b2, w3, b3, *, h, w_sp, bt=None,
-                                   interpret=False):
-    """Plain PyTorch version of ``bottleneck_block_chained``."""
+                                   interpret=False, w1_nk=None, w2_nk=None, w3_nk=None):
+    """Plain PyTorch version of ``bottleneck_block_chained`` (the ``w*_nk``
+    copies are not read)."""
     w1, w3 = _fp_weights(xr, w1, w2, w3)
     b, hp, wp = _fp_chain_geometry(xr, h, w_sp)
     x = xr.reshape(b, hp, wp, xr.shape[-1])[:, 1 : 1 + h, 1 : 1 + w_sp]
     return _chain_from_interior(_fp_block_nhwc_plain(x, w1, b1, w2, b2, w3, b3), hp, wp)
 
 
-def bottleneck_block_chained(xr, w1, b1, w2, b2, w3, b3, *, h, w_sp, bt=None, interpret=False):
+def bottleneck_block_chained(xr, w1, b1, w2, b2, w3, b3, *, h, w_sp, bt=None, interpret=False,
+                             w1_nk=None, w2_nk=None, w3_nk=None):
     """One stride-1 bottleneck block over the chained padded-row layout.
 
     xr: (B*Hp*Wp, 4c) bf16 / fp32 from ``pad_for_chain`` or a previous
     block; w1 (4c, c) or (1, 1, 4c, c), w2 (3, 3, c, c), w3 (c, 4c) or (1,
-    1, c, 4c) in xr's type; fp32 biases.  Returns the same layout and type,
-    with zeros on the ring rows."""
+    1, c, 4c) in xr's type; fp32 biases.  ``w1_nk``, ``w2_nk``, ``w3_nk``
+    (fp32 only): ``gemm.pack_nk`` of each weight, (2, c, 4c), (2, c, 9c),
+    (2, 4c, c), what the fp32 kernel reads; made per call where not given.
+    Returns the same layout and type, with zeros on the ring rows."""
     if _build.runs_plain():
         return bottleneck_block_chained_plain(xr, w1, b1, w2, b2, w3, b3, h=h, w_sp=w_sp)
     w1, w3 = _fp_weights(xr, w1, w2, w3)
     _fp_chain_geometry(xr, h, w_sp)
-    return _fp_call(xr, w1, b1, w2, b2, w3, b3, chain=True, h=h, w_sp=w_sp)
+    return _fp_call(xr, w1, b1, w2, b2, w3, b3, (w1_nk, w2_nk, w3_nk), chain=True, h=h,
+                    w_sp=w_sp)
 
 
-def bottleneck_block_fused_plain(x, w1, b1, w2, b2, w3, b3, *, bt=None, interpret=False):
-    """Plain PyTorch version of ``bottleneck_block_fused``."""
+def bottleneck_block_fused_plain(x, w1, b1, w2, b2, w3, b3, *, bt=None, interpret=False,
+                                 w1_nk=None, w2_nk=None, w3_nk=None):
+    """Plain PyTorch version of ``bottleneck_block_fused`` (the ``w*_nk``
+    copies are not read)."""
     w1, w3 = _fp_weights(x, w1, w2, w3)
     return _fp_block_nhwc_plain(x, w1, b1, w2, b2, w3, b3)
 
 
-def bottleneck_block_fused(x, w1, b1, w2, b2, w3, b3, *, bt=None, interpret=False):
+def bottleneck_block_fused(x, w1, b1, w2, b2, w3, b3, *, bt=None, interpret=False, w1_nk=None,
+                           w2_nk=None, w3_nk=None):
     """One stride-1 bottleneck block, NHWC (B, H, W, 4c) bf16 / fp32 in and
-    out, the zero ring implicit; weights as for ``bottleneck_block_chained``."""
+    out, the zero ring implicit; weights and their copies as for
+    ``bottleneck_block_chained``."""
     if _build.runs_plain():
         return bottleneck_block_fused_plain(x, w1, b1, w2, b2, w3, b3)
     w1, w3 = _fp_weights(x, w1, w2, w3)
     if x.ndim != 4:
         raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
-    return _fp_call(x, w1, b1, w2, b2, w3, b3, chain=False, h=x.shape[1], w_sp=x.shape[2])
+    return _fp_call(x, w1, b1, w2, b2, w3, b3, (w1_nk, w2_nk, w3_nk), chain=False,
+                    h=x.shape[1], w_sp=x.shape[2])

@@ -421,13 +421,18 @@ def fused_forward(
     def run_fn(yy, run):
         bsz, h, w_sp, _ = yy.shape
         yr = block.pad_for_chain(yy)
+        f32 = policy.compute == torch.float32
         for blk in run:
+            # In fp32 the kernel reads the split (N, K) copies where the tree
+            # has them (pack_f32_kmajor), as _conv does.
+            nk = {f"w{i}_nk": blk[f"conv{i}"].get("weight_nk") if f32 else None
+                  for i in (1, 2, 3)}
             yr = kernels.fp_block(
                 yr,
                 blk["conv1"]["weight"].to(policy.compute), blk["conv1"]["bias"],
                 blk["conv2"]["weight"].to(policy.compute), blk["conv2"]["bias"],
                 blk["conv3"]["weight"].to(policy.compute), blk["conv3"]["bias"],
-                h=h, w_sp=w_sp,
+                h=h, w_sp=w_sp, **nk,
             )
         return block.unpad_from_chain(yr, bsz, h, w_sp)
 

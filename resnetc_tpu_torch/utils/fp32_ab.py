@@ -1,5 +1,6 @@
-"""The fp32 forms of ``matmul`` and the fused convolutions, and the FP32
-forwards that run them, timed on the card for one checkout.
+"""The fp32 forms of ``matmul``, the fused convolutions and the bottleneck
+block, and the FP32 forwards that run them, timed on the card for one
+checkout.
 
     python3 resnetc_tpu_torch/utils/fp32_ab.py [--root DIR] [--batch 32] [--samples 20]
 
@@ -8,18 +9,20 @@ ResNet-152's shapes and batch 32: every fp32 ``matmul`` of the FP32
 ``pallas`` route (its 20 1x1 shapes and the fc), the fp32
 ``conv3x3_s1_fused`` at its four stride-1 3x3 shapes and ``conv_s2_fused``
 at its three stride-2 ones, and two fp32 convolutions off every route (a
-28x28x128 3x3 with a residual, a 56x56x128 3x3/2).  Each kernel's time is
+28x28x128 3x3 with a residual, a 56x56x128 3x3/2), and the fp32
+``bottleneck_block_chained`` of the FP32 ``pallas_block`` route at its four
+stage shapes (2, 7, 35 and 2 launches a forward).  Each kernel's time is
 device time (ten launches queued behind a spin kernel, the median of five
 runs), with its largest error against its plain version (``matmul_plain``
-and the convolutions' plain versions, float64 sums), beside the same
-function as one PyTorch call (``torch.matmul`` / ``F.conv2d``
-channels-last) with TF32 off (IEEE fp32) and on, and beside the bound at
-the split product's 165 TFLOP/s and 3.35 TB/s.  A tree whose
-wrappers take ``w_nk`` is given what its FP32 engine keeps
-(``gemm.pack_nk``).  Then ``serve.bench_latency``'s p50 / p99
-of ResNet-152's ``pallas``, ``int8`` and ``pallas_block`` engines under
-FP32 and of the served ``int8_chain`` under BF16 (seeded weights, batch
-32).  Prints the card's name and power limit, then one JSON line.  Run two
+and the convolutions' and the block's plain versions, float64 sums), beside
+the same function as one PyTorch call (``torch.matmul`` / ``F.conv2d``
+channels-last; none for the block) with TF32 off (IEEE fp32) and on, and
+beside the bound at the split product's 165 TFLOP/s and 3.35 TB/s.  A tree
+whose wrappers take ``w_nk`` (the block's ``w1_nk`` / ``w2_nk`` /
+``w3_nk``) is given what its FP32 engine keeps (``gemm.pack_nk``).  Then
+``serve.bench_latency``'s p50 / p99 of ResNet-152's ``pallas``, ``int8``
+and ``pallas_block`` engines under FP32 and of the served ``int8_chain``
+under BF16 (seeded weights, batch 32).  Prints the card's name and power limit, then one JSON line.  Run two
 checkouts in one call, in turns (parent, change, change, parent), to
 compare them: ``--root`` imports the package from another checkout.
 """
@@ -90,10 +93,11 @@ def _cases(batch: int):
     import torch
     import torch.nn.functional as F
 
-    from resnetc_tpu_torch.ops.cuda import conv, gemm
+    from resnetc_tpu_torch.ops.cuda import block, conv, gemm
 
     gen = torch.Generator().manual_seed(5678)
     takes_nk = "w_nk" in inspect.signature(gemm.matmul).parameters
+    block_takes_nk = "w1_nk" in inspect.signature(block.bottleneck_block_chained).parameters
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen) * scale).cuda()
@@ -156,6 +160,23 @@ def _cases(batch: int):
         conv_case(f"conv_s2/r152/s{s}", 2 * h, c, c, 2, 1)
     conv_case("conv3x3/fp32/s1", 28, 128, 128, 1, 0, res=True)
     conv_case("conv_s2/fp32/s1", 56, 128, 128, 2, 0)
+
+    for s, (h, c, c4) in enumerate(STAGES):
+        hp, wp = block.chain_meta(batch, h, h)
+        xr = block.pad_for_chain(randn(batch, h, h, c4))
+        ws = (randn(c4, c, scale=c4**-0.5), randn(c, scale=0.1),
+              randn(3, 3, c, c, scale=(9 * c) ** -0.5), randn(c, scale=0.1),
+              randn(c, c4, scale=c**-0.5), randn(c4, scale=0.1))
+        kw = dict(h=h, w_sp=h)
+        if block_takes_nk:
+            kw.update(w1_nk=gemm.pack_nk(ws[0]), w2_nk=gemm.pack_nk(ws[2]),
+                      w3_nk=gemm.pack_nk(ws[4]))
+        out.append((f"fp_block/s{s}", "bottleneck_block_chained", BLOCKS[s] - 1,
+                    lambda xr=xr, ws=ws, kw=kw: block.bottleneck_block_chained(xr, *ws, **kw),
+                    lambda xr=xr, ws=ws, h=h: block.bottleneck_block_chained_plain(
+                        xr, *ws, h=h, w_sp=h),
+                    None, 2 * batch * h * h * 17 * c * c,
+                    4 * (2 * batch * hp * wp * c4 + 17 * c * c + 2 * c + c4)))
     return out
 
 
@@ -213,10 +234,12 @@ def main() -> int:
         got, want = fn(), plain()
         err = float((got - want).abs().max())
         ms = _device_ms(fn)
-        with _precision("ieee"):
-            lib_ms = _device_ms(lib, iters=20)
-        with _precision("tf32"):
-            lib_tf32_ms = _device_ms(lib, iters=20)
+        lib_ms = lib_tf32_ms = None
+        if lib is not None:
+            with _precision("ieee"):
+                lib_ms = _device_ms(lib, iters=20)
+            with _precision("tf32"):
+                lib_tf32_ms = _device_ms(lib, iters=20)
         bound = max(ops / PEAK_TF32X3_FLOPS, nbytes / PEAK_BYTES) * 1e3
         row = {"case": label, "kernel": kernel, "per_forward": count, "ms": ms,
                "library_ieee_ms": lib_ms, "library_tf32_ms": lib_tf32_ms, "bound_ms": bound,
@@ -228,7 +251,7 @@ def main() -> int:
                                      "library_tf32_ms": 0.0, "bound_ms": 0.0})
         s["launches"] += count
         for key in ("ms", "library_ieee_ms", "library_tf32_ms", "bound_ms"):
-            s[key] += count * row[key]
+            s[key] = None if s[key] is None or row[key] is None else s[key] + count * row[key]
     for kernel, s in sums.items():
         print(f"[fp32_ab] per forward: {kernel} {json.dumps(s)}", flush=True)
     engines = _engines(args.batch, args.samples)

@@ -44,7 +44,10 @@ engine's pair copies as from per-call packing).
 The bf16 / fp32 bottleneck blocks (``bottleneck_block_chained``,
 ``bottleneck_block_fused``) round z1 and z2 to the compute type inside the
 block, so a summation-order difference can move a value by one bf16 step:
-max error / max |plain| within 1e-2 in bf16, 1e-4 in fp32.  The average
+max error / max |plain| within 1e-2 in bf16, 1e-4 in fp32 (the split-fp32
+tile, against float64 sums); the chained form's interior equals the fused
+form bit for bit, and in fp32 the engine's weight copies give the bits of
+per-call ones.  The average
 pool and ``relu`` / ``add`` / ``add_relu`` are EQUAL to their plain versions
 (NaN where they have NaN; the elementwise ops bit for bit at ragged sizes,
 views off the 16-byte grid and operands holding NaN, +-Inf and -0).  With a NaN pixel and a -Inf pixel in the
@@ -1209,10 +1212,13 @@ def _fp_block_args(gen, dev, b, h, c, dtype):
     )
 
 
-# (h, c, dtype): wp = w + 1 at h = 7, odd sizes, widths off the 64-wide tile.
+# (h, c, dtype): wp = w + 1 at h = 7, odd sizes, widths off the 64-wide tile;
+# fp32 also at two ResNet-152 stage widths (the split-fp32 tile's 128 x 128
+# plans).
 FP_BLOCK_CASES = [(8, 16, torch.bfloat16), (7, 32, torch.bfloat16), (9, 16, torch.float32),
                   (14, 64, torch.bfloat16), (7, 64, torch.float32),
-                  (14, 256, torch.bfloat16), (7, 512, torch.bfloat16), (28, 128, torch.bfloat16)]
+                  (14, 256, torch.bfloat16), (7, 512, torch.bfloat16), (28, 128, torch.bfloat16),
+                  (14, 256, torch.float32), (28, 128, torch.float32)]
 
 
 @pytest.mark.cuda
@@ -1246,6 +1252,22 @@ def test_bottleneck_block_fused_kernel_close_to_plain(cuda, gen, h, c, dtype):
     # an unpad.
     chained = block.bottleneck_block_chained(block.pad_for_chain(x), *ws, h=h, w_sp=h)
     assert torch.equal(block.unpad_from_chain(chained, 2, h, h), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,c", [(9, 16), (14, 256)])
+def test_fp32_block_engine_copies_equal_per_call_copies(cuda, gen, h, c):
+    """The fp32 block from the weights' split (N, K) copies, as the FP32
+    engine keeps them (``gemm.pack_nk``), and from the copies its wrapper
+    makes per call: the same bits, chained and fused."""
+    x, ws = _fp_block_args(gen, cuda, 2, h, c, torch.float32)
+    nk = {"w1_nk": gemm.pack_nk(ws[0]), "w2_nk": gemm.pack_nk(ws[2]),
+          "w3_nk": gemm.pack_nk(ws[4])}
+    xr = block.pad_for_chain(x)
+    assert torch.equal(block.bottleneck_block_chained(xr, *ws, h=h, w_sp=h, **nk),
+                       block.bottleneck_block_chained(xr, *ws, h=h, w_sp=h))
+    assert torch.equal(block.bottleneck_block_fused(x, *ws, **nk),
+                       block.bottleneck_block_fused(x, *ws))
 
 
 # (b, k, s, p, h, c, dtype): ResNet-152's head pool at batch 2 and at the

@@ -12,6 +12,14 @@ chain whose input ring holds NaN, interiors compared.  Then
 (2, 2, 1, 1) blocks at stem width 16, 32x32, batch 2 (one eligible block in
 each of stages 0 and 1), with its kernel counts, and the engines.
 
+The plain versions sum each dot in float64 and round once, so they give
+the same bits at any thread count.  The fp32 kernel's own order (the
+split-fp32 tile of ``csrc/tf32x3_tile.cuh``: three TF32 products per fp32
+product, every 32 values of K drained into one fp32 total) is emulated here
+at ResNet-152's widest block and held to the plain version; the kernel reads
+each weight's split (N, K) copy (``w1_nk``, ``w2_nk``, ``w3_nk``), which the
+FP32 engine keeps and passes (a wrong-shaped copy raises).
+
 Tolerances.  Every dot sums in another order than XLA's.  FP32 outputs and
 logits are held to a relative max error (max |error| / max |want|) of 1e-4
 (measured: ~1.5e-7 for the blocks).  Under BF16 z1 and z2 are rounded to
@@ -42,6 +50,7 @@ from resnetc_tpu_torch import serve as tserve
 from resnetc_tpu_torch.models import resnet as tresnet
 from resnetc_tpu_torch.ops.cuda import block as tblock
 from resnetc_tpu_torch.ops.cuda import fused as tfused
+from resnetc_tpu_torch.ops.cuda import gemm as tgemm
 from resnetc_tpu_torch.tensor import BF16, FP32
 
 DTYPES = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -129,6 +138,102 @@ def test_fused_block_matches_pallas(h, dtype):
     assert torch.equal(tblock.unpad_from_chain(chained, 2, h, h), got)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_block_does_not_depend_on_the_thread_count(dtype):
+    """Both plain forms at one and at four threads: the same bits (each dot
+    sums in float64 and rounds to fp32 once; at this size fp32 matmuls gave
+    other bits at four threads)."""
+    h, b = 7, 2
+    (_, tx), _, targs = _block_inputs(h, dtype, c=256)
+    threads = torch.get_num_threads()
+    out = {}
+    try:
+        for n in (1, 4):
+            torch.set_num_threads(n)
+            chained = tblock.bottleneck_block_chained_plain(tblock.pad_for_chain(tx), *targs,
+                                                            h=h, w_sp=h)
+            out[n] = (chained, tblock.bottleneck_block_fused_plain(tx, *targs))
+    finally:
+        torch.set_num_threads(threads)
+    for one, four in zip(out[1], out[4]):
+        assert torch.equal(one, four)
+    assert torch.equal(tblock.unpad_from_chain(out[1][0], b, h, h), out[1][1])
+
+
+def _split_sum(a: torch.Tensor, w_nk: torch.Tensor, span: int = 32) -> torch.Tensor:
+    """The split-fp32 tile's sum of ``a`` (M, K) against the split copy
+    ``w_nk`` (2, N, K): per span of 32 values of K the three TF32 products
+    (``a_lo*w_hi + a_hi*w_lo + a_hi*w_hi``) summed exactly (float64 here),
+    rounded to fp32 and drained into one fp32 total in K order."""
+    ah, al = tgemm.tf32_split(a)
+    wh, wl = w_nk[0].double().t(), w_nk[1].double().t()
+    total = torch.zeros(a.shape[0], w_nk.shape[1])
+    for k0 in range(0, a.shape[1], span):
+        s = slice(k0, k0 + span)
+        part = (al[:, s].double() @ wh[s] + ah[:, s].double() @ wl[s]
+                + ah[:, s].double() @ wh[s])
+        total = total + part.float()
+    return total
+
+
+def _split_block(x, w1, b1, w2, b2, w3, b3):
+    """The fp32 kernel's three launches on an NHWC interior, in plain
+    PyTorch: conv1 and conv3 as split sums, conv2 as one split sum over K
+    = 9c in (kh, kw, ci) order (the im2col loader's), the same epilogues."""
+    bsz, h, w_sp, c4 = x.shape
+    c = w1.shape[-1]
+    z1 = torch.relu(_split_sum(x.reshape(-1, c4), tgemm.pack_nk(w1)) + b1)
+    zp = torch.nn.functional.pad(z1.reshape(bsz, h, w_sp, c), (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([zp[:, u:u + h, v:v + w_sp] for u in range(3) for v in range(3)], dim=-1)
+    z2 = torch.relu(_split_sum(cols.reshape(-1, 9 * c), tgemm.pack_nk(w2)) + b2)
+    y = _split_sum(z2, tgemm.pack_nk(w3)) + b3 + x.reshape(-1, c4)
+    return torch.relu(y).reshape(x.shape)
+
+
+def test_split_sum_order_close_to_plain_at_the_widest_block():
+    """ResNet-152's widest block (c = 512: conv2 sums K = 4608, conv1 K =
+    2048) on a few pixels: the kernel's sum order within 1e-4 of max |plain|
+    of the float64 plain version (the card's tolerance, FP_BLOCK_TOL)."""
+    rng = np.random.default_rng(19)
+    c, c4 = 512, 2048
+
+    def t(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+    x = t((1, 3, 3, c4), 1.0)
+    ws = (t((c4, c), c4**-0.5), t((c,), 0.1), t((3, 3, c, c), (9 * c) ** -0.5), t((c,), 0.1),
+          t((c, c4), c**-0.5), t((c4,), 0.1))
+    want = tblock.bottleneck_block_fused_plain(x, *ws)
+    got = _split_block(x, *ws)
+    rel = _rel_max(got.numpy(), want.numpy())
+    assert rel <= 1e-4, rel
+    assert not torch.equal(got, want)  # another order: the emulation is not the plain sum
+
+
+@pytest.mark.parametrize("form", ["chained", "fused"])
+@pytest.mark.parametrize("bad", ["w1_nk", "w2_nk", "w3_nk"])
+def test_wrong_shaped_copy_raises(form, bad):
+    h = 9
+    (_, tx), _, targs = _block_inputs(h, "fp32")
+    w1, _, w2, _, w3, _ = targs
+    nk = {"w1_nk": tgemm.pack_nk(w1), "w2_nk": tgemm.pack_nk(w2), "w3_nk": tgemm.pack_nk(w3)}
+    # The unsplit (N, K) copy, or the (K, N) weight split: never the (2, N, K) copy.
+    nk[bad] = nk[bad][0] if bad == "w2_nk" else tgemm.pack_nk(nk[bad][0])
+    if form == "chained":
+        call = lambda: tblock.bottleneck_block_chained(  # noqa: E731
+            tblock.pad_for_chain(tx), *targs, h=h, w_sp=h, **nk)
+    else:
+        call = lambda: tblock.bottleneck_block_fused(tx, *targs, **nk)  # noqa: E731
+    with pytest.raises(ValueError, match=bad):
+        call()
+
+
+def test_bf16_block_refuses_the_fp32_copies():
+    (_, tx), _, targs = _block_inputs(9, "bf16")
+    with pytest.raises(ValueError, match="only fp32"):
+        tblock.bottleneck_block_fused(tx, *targs, w2_nk=tgemm.pack_nk(targs[2].float()))
+
+
 def _counting(kernels, counts):
     def spy(name, fn):
         def call(*args, **kwargs):
@@ -174,6 +279,40 @@ def test_block_fusion_forward_matches_jax(cut_net, policy):
     tol = 1e-4 if policy == "fp32" else 5e-2
     assert _rel_max(got, want) < tol, _rel_max(got, want)
     np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_fp32_pallas_block_engine_passes_its_copies(cut_net):
+    """The FP32 ``pallas_block`` engine keeps the split (N, K) copies of
+    every block weight and hands them to ``fp_block``; its forward equals
+    the same forward on the tree without them and stays within 1e-4 of the
+    JAX package's ``pallas_block`` engine."""
+    jcfg, tcfg, tvars, tfold, _ = cut_net
+    x = _x(10)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        teng = tserve.InferenceEngine(tcfg, tvars, policy=FP32, backend="pallas_block",
+                                      device="cpu")
+        jeng = jserve.InferenceEngine(jcfg, jax.tree.map(lambda t: jnp.asarray(t.numpy()), tvars),
+                                      policy=JFP32, backend="pallas_block")
+    seen = []
+
+    def fp_block(*args, **kwargs):
+        seen.append({k: v for k, v in kwargs.items() if k.endswith("_nk")})
+        return tfused.KERNELS.fp_block(*args, **kwargs)
+
+    got = tfused.fused_forward(tcfg, teng.folded, torch.from_numpy(x), policy=FP32,
+                               block_fusion=True,
+                               kernels=tfused.KERNELS._replace(fp_block=fp_block))
+    blocks = [teng.folded["layer1"]["1"], teng.folded["layer2"]["1"]]
+    assert len(seen) == len(blocks)
+    for nk, blk in zip(seen, blocks):
+        for i in (1, 2, 3):
+            assert nk[f"w{i}_nk"] is blk[f"conv{i}"]["weight_nk"]
+    bare = tfused.fused_forward(tcfg, tfold, torch.from_numpy(x), policy=FP32, block_fusion=True)
+    assert torch.equal(got, bare)
+    assert torch.equal(got, teng.logits(x))
+    want = np.asarray(jeng.logits(jnp.asarray(x)), np.float32)
+    assert _rel_max(got.numpy(), want) < 1e-4, _rel_max(got.numpy(), want)
 
 
 def test_pallas_block_engine_classify_matches_jax_engine(cut_net):
