@@ -86,6 +86,7 @@ from resnetc_tpu_torch.ops.cuda import block, conv, gemm, pool, quant
 from resnetc_tpu_torch.ops.cuda.quant import quantize_per_channel, quantize_with_scale
 from resnetc_tpu_torch.parallel import tp
 from resnetc_tpu_torch.tensor import BF16, DtypePolicy
+from resnetc_tpu_torch.utils.metrics import HEAD, STAGES, STEM, annotate
 
 Tree = dict
 
@@ -1141,6 +1142,10 @@ def fused_forward_int8_chain(
     activation after each stage (then the tail block exits bf16 and the
     head pools outside the kernel, as in the JAX package).  ``kernels``
     picks the implementations (``PLAIN`` for the on-card reference).
+
+    Under a running profiler the stem (with any hybrid prefix), each stage
+    and the head are spans (``utils.metrics.STEM``, ``STAGES``, ``HEAD``),
+    on the basic forward too.
     """
     _require_ungrouped(cfg)
     if cfg.block != "bottleneck":
@@ -1149,116 +1154,120 @@ def fused_forward_int8_chain(
         )
     scale_row, s_after = _chain_scale_lookups(cfg, chain_scales)
     xla_stages = _hybrid_stages(qtree)
-    if xla_stages:
-        yr, bsz, h, w_sp = _hybrid_chain(cfg, qtree, chain_scales, x, xla_stages, policy,
-                                         stage_taps)
-    else:
-        yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy)
+    with annotate(STEM):
+        if xla_stages:
+            yr, bsz, h, w_sp = _hybrid_chain(cfg, qtree, chain_scales, x, xla_stages, policy,
+                                             stage_taps)
+        else:
+            yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy)
     packed_pp = qtree.get("runs", {}).get("layer1")  # stage 0's pair operands, if packed
 
     head_folded = False
     for stage in range(len(xla_stages), 4):
-        blocks = qtree[f"layer{stage + 1}"]
-        nb = cfg.stage_blocks[stage]
+        with annotate(STAGES[stage]):
+            blocks = qtree[f"layer{stage + 1}"]
+            nb = cfg.stage_blocks[stage]
 
-        # Whole-stage fusion (stage 0 only, fused.py:1125-1179): the
-        # projection block 0 joins the identity run, all of layer1 one
-        # kernel; the pixel-paired form under L1_PIXEL_PAIR at c = 64.
-        stage_fused = False
-        if stage == 0 and nb > 1 and stage in RUN_FUSE_STAGES and STAGE_FUSE_PROJ:
-            blk0 = blocks["0"]
-            if "wdq" in blk0:
-                _, wp = block.chain_meta(0, h, w_sp)
-                c = blocks["1"]["w1q"].shape[-1]
-                use_pp = L1_PIXEL_PAIR and c == 64 and wp % 2 == 0
-                run = [blocks[str(i)] for i in range(nb)]
-                if use_pp:
-                    args, nk = pp_run_operands(run, packed_pp, 0)
-                else:
-                    args = [_stack(run[1:], "w1q"), *(_stack(run, k) for k in KEYS[1:])]
-                    nk = kmajor_run_kwargs(run, proj=True)
-                yr = (kernels.run_pp if use_pp else kernels.run)(
-                    yr, *args,
-                    torch.stack([scale_row(stage, i) for i in range(nb)]),
-                    h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None,
-                    w1q0=blk0["w1q"], wdq=blk0["wdq"], swd=blk0["swd"], bd=blk0["bd"], **nk,
-                )
-                stage_fused = True
-
-        if not stage_fused:
-            blk = blocks["0"]
-            last0 = s_after(stage, 0) is None
-            if stage > 0:
-                yr = kernels.ds(
-                    yr,
-                    blk["w1q"], blk["sw1"], blk["b1"],
-                    blk["w2q"], blk["sw2"], blk["b2"],
-                    blk["w3q"], blk["sw3"], blk["b3"],
-                    blk["wdq"], blk["swd"], blk["bd"],
-                    scale_row(stage, 0),
-                    h=h, w_sp=w_sp, emit_i8=not last0, **kmajor_kwargs(blk),
-                )
-                h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
-            else:
-                # Pixel-paired only at c = 64: wide variants run stage 0 at
-                # c >= 128 through the standard kernel.
-                pp0 = L1_PIXEL_PAIR and blk["w1q"].shape[-1] == 64
-                yr = (kernels.block_pp if pp0 else kernels.block)(
-                    yr,
-                    *(blk[k] for k in KEYS),
-                    scale_row(stage, 0),
-                    h=h, w_sp=w_sp, emit_i8=not last0,
-                    wdq=blk.get("wdq"), swd=blk.get("swd"), bd=blk.get("bd"),
-                    **kmajor_kwargs(blk, pp=pp0),
-                )
-
-            # Blocks 1..nb-1: one run kernel, or per block.  Under
-            # L1_PIXEL_PAIR a stage 0 at c != 64 takes no run fusion
-            # (fused.py:1250).  The JAX package also falls back to per-block
-            # kernels when a run would not fit VMEM; the card has no such
-            # limit.
-            use_run = False
-            pp_stage = stage == 0 and L1_PIXEL_PAIR
-            if nb > 1 and stage in RUN_FUSE_STAGES:
-                if pp_stage:
+            # Whole-stage fusion (stage 0 only, fused.py:1125-1179): the
+            # projection block 0 joins the identity run, all of layer1 one
+            # kernel; the pixel-paired form under L1_PIXEL_PAIR at c = 64.
+            stage_fused = False
+            if stage == 0 and nb > 1 and stage in RUN_FUSE_STAGES and STAGE_FUSE_PROJ:
+                blk0 = blocks["0"]
+                if "wdq" in blk0:
                     _, wp = block.chain_meta(0, h, w_sp)
-                    use_run = blocks["1"]["w1q"].shape[-1] == 64 and wp % 2 == 0
-                else:
-                    use_run = True
-            if use_run:
-                run = [blocks[str(i)] for i in range(1, nb)]
-                if pp_stage:
-                    args, nk = pp_run_operands([blocks["0"], *run], packed_pp, 1)
-                else:
-                    args, nk = [_stack(run, k) for k in KEYS], kmajor_run_kwargs(run, proj=False)
-                yr = (kernels.run_pp if pp_stage else kernels.run)(
-                    yr, *args,
-                    torch.stack([scale_row(stage, i) for i in range(1, nb)]),
-                    h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None, **nk,
-                )
-            else:
-                for i in range(1, nb):
-                    blk = blocks[str(i)]
-                    last_i = s_after(stage, i) is None
-                    # Head fold on the tail block (not when taps are asked
-                    # for): the kernel emits (B, 4c) pooled features.
-                    fold_head = last_i and stage_taps is None
-                    args = (yr, *(blk[k] for k in KEYS), scale_row(stage, i))
-                    if pp_stage and not fold_head and blk["w1q"].shape[-1] == 64:
-                        yr = kernels.block_pp(*args, h=h, w_sp=w_sp, emit_i8=not last_i,
-                                              **kmajor_kwargs(blk, pp=True))
+                    c = blocks["1"]["w1q"].shape[-1]
+                    use_pp = L1_PIXEL_PAIR and c == 64 and wp % 2 == 0
+                    run = [blocks[str(i)] for i in range(nb)]
+                    if use_pp:
+                        args, nk = pp_run_operands(run, packed_pp, 0)
                     else:
-                        yr = kernels.block(*args, h=h, w_sp=w_sp, emit_i8=not last_i,
-                                           emit_mean=fold_head, **kmajor_kwargs(blk))
-                        head_folded = head_folded or fold_head
+                        args = [_stack(run[1:], "w1q"), *(_stack(run, k) for k in KEYS[1:])]
+                        nk = kmajor_run_kwargs(run, proj=True)
+                    yr = (kernels.run_pp if use_pp else kernels.run)(
+                        yr, *args,
+                        torch.stack([scale_row(stage, i) for i in range(nb)]),
+                        h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None,
+                        w1q0=blk0["w1q"], wdq=blk0["wdq"], swd=blk0["swd"], bd=blk0["bd"], **nk,
+                    )
+                    stage_fused = True
 
-        _tap(stage_taps, yr, bsz, h, w_sp, s_after(stage, nb - 1))
+            if not stage_fused:
+                blk = blocks["0"]
+                last0 = s_after(stage, 0) is None
+                if stage > 0:
+                    yr = kernels.ds(
+                        yr,
+                        blk["w1q"], blk["sw1"], blk["b1"],
+                        blk["w2q"], blk["sw2"], blk["b2"],
+                        blk["w3q"], blk["sw3"], blk["b3"],
+                        blk["wdq"], blk["swd"], blk["bd"],
+                        scale_row(stage, 0),
+                        h=h, w_sp=w_sp, emit_i8=not last0, **kmajor_kwargs(blk),
+                    )
+                    h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
+                else:
+                    # Pixel-paired only at c = 64: wide variants run stage 0 at
+                    # c >= 128 through the standard kernel.
+                    pp0 = L1_PIXEL_PAIR and blk["w1q"].shape[-1] == 64
+                    yr = (kernels.block_pp if pp0 else kernels.block)(
+                        yr,
+                        *(blk[k] for k in KEYS),
+                        scale_row(stage, 0),
+                        h=h, w_sp=w_sp, emit_i8=not last0,
+                        wdq=blk.get("wdq"), swd=blk.get("swd"), bd=blk.get("bd"),
+                        **kmajor_kwargs(blk, pp=pp0),
+                    )
 
-    if head_folded:
-        feats = yr.to(policy.compute)  # (B, 4c): pooled in-kernel
-    else:
-        feats = _mean_feats(yr, bsz, h, w_sp, policy)
-    return _head(qtree, feats, policy, kernels)
+                # Blocks 1..nb-1: one run kernel, or per block.  Under
+                # L1_PIXEL_PAIR a stage 0 at c != 64 takes no run fusion
+                # (fused.py:1250).  The JAX package also falls back to per-block
+                # kernels when a run would not fit VMEM; the card has no such
+                # limit.
+                use_run = False
+                pp_stage = stage == 0 and L1_PIXEL_PAIR
+                if nb > 1 and stage in RUN_FUSE_STAGES:
+                    if pp_stage:
+                        _, wp = block.chain_meta(0, h, w_sp)
+                        use_run = blocks["1"]["w1q"].shape[-1] == 64 and wp % 2 == 0
+                    else:
+                        use_run = True
+                if use_run:
+                    run = [blocks[str(i)] for i in range(1, nb)]
+                    if pp_stage:
+                        args, nk = pp_run_operands([blocks["0"], *run], packed_pp, 1)
+                    else:
+                        args = [_stack(run, k) for k in KEYS]
+                        nk = kmajor_run_kwargs(run, proj=False)
+                    yr = (kernels.run_pp if pp_stage else kernels.run)(
+                        yr, *args,
+                        torch.stack([scale_row(stage, i) for i in range(1, nb)]),
+                        h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None, **nk,
+                    )
+                else:
+                    for i in range(1, nb):
+                        blk = blocks[str(i)]
+                        last_i = s_after(stage, i) is None
+                        # Head fold on the tail block (not when taps are asked
+                        # for): the kernel emits (B, 4c) pooled features.
+                        fold_head = last_i and stage_taps is None
+                        args = (yr, *(blk[k] for k in KEYS), scale_row(stage, i))
+                        if pp_stage and not fold_head and blk["w1q"].shape[-1] == 64:
+                            yr = kernels.block_pp(*args, h=h, w_sp=w_sp, emit_i8=not last_i,
+                                                  **kmajor_kwargs(blk, pp=True))
+                        else:
+                            yr = kernels.block(*args, h=h, w_sp=w_sp, emit_i8=not last_i,
+                                               emit_mean=fold_head, **kmajor_kwargs(blk))
+                            head_folded = head_folded or fold_head
+
+            _tap(stage_taps, yr, bsz, h, w_sp, s_after(stage, nb - 1))
+
+    with annotate(HEAD):
+        if head_folded:
+            feats = yr.to(policy.compute)  # (B, 4c): pooled in-kernel
+        else:
+            feats = _mean_feats(yr, bsz, h, w_sp, policy)
+        return _head(qtree, feats, policy, kernels)
 
 
 def fused_forward_int8_chain_sharded(
@@ -1424,65 +1433,68 @@ def _basic_int8_chain_forward(
     has no such limit, so the kernel route is always taken (at every size
     served here the JAX guards pass too, and the two routes agree)."""
     scale_row, s_after = _chain_scale_lookups(cfg, chain_scales)
-    yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy)
+    with annotate(STEM):
+        yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy)
 
     for stage in range(4):
-        blocks = qtree[f"layer{stage + 1}"]
-        nb = cfg.stage_blocks[stage]
-        start = 0
-        if stage > 0 and BASIC_DS_INT8:
-            blk = blocks["0"]
-            yr = kernels.basic_ds(
-                yr,
-                blk["w1pq"], blk["sw1"], blk["b1"],
-                blk["w2pq"], blk["sw2p"], blk["b2"],
-                blk["wdq"], blk["swd"], blk["bd"],
-                scale_row(stage, 0),
-                h=h, w_sp=w_sp, emit_i8=s_after(stage, 0) is not None,
-                **{k: blk[k] for k in ("w1pq_nk", "w2pq_nk", "wdq_nk") if k in blk},
-            )
-            h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
-            start = 1
-        elif stage > 0:
-            blk = blocks["0"]
-            s_in = chain_scales[f"layer{stage + 1}"]["0"]["in"]
-            y = (block.unpad_from_chain(yr, bsz, h, w_sp).float() * s_in).to(policy.compute)
-
-            def c(xx, key, stride, relu, residual=None):
-                return _conv(xx, blk[key], stride=stride, relu=relu, residual=residual,
-                             policy=policy, kernels=kernels)
-
-            short = c(y, "downsample", 2, False) if "downsample" in blk else y
-            y = c(c(y, "conv1", 2, True), "conv2", 1, True, short)
-            h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
-            s_out0 = s_after(stage, 0)
-            yr = block.pad_for_chain(y if s_out0 is None else quantize_with_scale(y, s_out0))
-            start = 1
-
-        # Pixel-paired stage 0 (fused.py:935-986): c = 64 and an even wp.
-        pp_stage = (
-            stage == 0 and L1_PIXEL_PAIR
-            and blocks[str(start)]["sw1p"].shape[-1] // 3 == 64
-            and block.chain_meta(0, h, w_sp)[1] % 2 == 0
-        )
-        if nb - start > 1 and stage in BASIC_RUN_FUSE_STAGES:
-            args, kw = _basic_run_operands(
-                [blocks[str(i)] for i in range(start, nb)],
-                qtree.get("runs", {}).get(f"layer{stage + 1}"), pp_stage,
-            )
-            yr = (kernels.basic_run_pp if pp_stage else kernels.basic_run)(
-                yr, *args, torch.stack([scale_row(stage, i) for i in range(start, nb)]),
-                h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None, **kw,
-            )
-        else:
-            for i in range(start, nb):
-                blk = blocks[str(i)]
-                yr = (kernels.basic_block_pp if pp_stage else kernels.basic_block)(
-                    yr, *(blk[k] for k in BASIC_KEYS), scale_row(stage, i),
-                    h=h, w_sp=w_sp, emit_i8=s_after(stage, i) is not None,
-                    **_basic_kmajor_kwargs(blk, pp_stage),
+        with annotate(STAGES[stage]):
+            blocks = qtree[f"layer{stage + 1}"]
+            nb = cfg.stage_blocks[stage]
+            start = 0
+            if stage > 0 and BASIC_DS_INT8:
+                blk = blocks["0"]
+                yr = kernels.basic_ds(
+                    yr,
+                    blk["w1pq"], blk["sw1"], blk["b1"],
+                    blk["w2pq"], blk["sw2p"], blk["b2"],
+                    blk["wdq"], blk["swd"], blk["bd"],
+                    scale_row(stage, 0),
+                    h=h, w_sp=w_sp, emit_i8=s_after(stage, 0) is not None,
+                    **{k: blk[k] for k in ("w1pq_nk", "w2pq_nk", "wdq_nk") if k in blk},
                 )
+                h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
+                start = 1
+            elif stage > 0:
+                blk = blocks["0"]
+                s_in = chain_scales[f"layer{stage + 1}"]["0"]["in"]
+                y = (block.unpad_from_chain(yr, bsz, h, w_sp).float() * s_in).to(policy.compute)
 
-        _tap(stage_taps, yr, bsz, h, w_sp, s_after(stage, nb - 1))
+                def c(xx, key, stride, relu, residual=None):
+                    return _conv(xx, blk[key], stride=stride, relu=relu, residual=residual,
+                                 policy=policy, kernels=kernels)
 
-    return _head(qtree, _mean_feats(yr, bsz, h, w_sp, policy), policy, kernels)
+                short = c(y, "downsample", 2, False) if "downsample" in blk else y
+                y = c(c(y, "conv1", 2, True), "conv2", 1, True, short)
+                h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
+                s_out0 = s_after(stage, 0)
+                yr = block.pad_for_chain(y if s_out0 is None else quantize_with_scale(y, s_out0))
+                start = 1
+
+            # Pixel-paired stage 0 (fused.py:935-986): c = 64 and an even wp.
+            pp_stage = (
+                stage == 0 and L1_PIXEL_PAIR
+                and blocks[str(start)]["sw1p"].shape[-1] // 3 == 64
+                and block.chain_meta(0, h, w_sp)[1] % 2 == 0
+            )
+            if nb - start > 1 and stage in BASIC_RUN_FUSE_STAGES:
+                args, kw = _basic_run_operands(
+                    [blocks[str(i)] for i in range(start, nb)],
+                    qtree.get("runs", {}).get(f"layer{stage + 1}"), pp_stage,
+                )
+                yr = (kernels.basic_run_pp if pp_stage else kernels.basic_run)(
+                    yr, *args, torch.stack([scale_row(stage, i) for i in range(start, nb)]),
+                    h=h, w_sp=w_sp, emit_i8=s_after(stage, nb - 1) is not None, **kw,
+                )
+            else:
+                for i in range(start, nb):
+                    blk = blocks[str(i)]
+                    yr = (kernels.basic_block_pp if pp_stage else kernels.basic_block)(
+                        yr, *(blk[k] for k in BASIC_KEYS), scale_row(stage, i),
+                        h=h, w_sp=w_sp, emit_i8=s_after(stage, i) is not None,
+                        **_basic_kmajor_kwargs(blk, pp_stage),
+                    )
+
+            _tap(stage_taps, yr, bsz, h, w_sp, s_after(stage, nb - 1))
+
+    with annotate(HEAD):
+        return _head(qtree, _mean_feats(yr, bsz, h, w_sp, policy), policy, kernels)

@@ -66,6 +66,7 @@ import torch
 
 from resnetc_tpu_torch.models import resnet
 from resnetc_tpu_torch.tensor import BF16, DtypePolicy, resolve_device, tree_map
+from resnetc_tpu_torch.utils.metrics import CLASSIFY, FORWARD, LOGITS, READOUT, UPLOAD, annotate
 
 Tree = dict
 BACKENDS = ("fp", "pallas", "pallas_block", "int8", "int8_chain")
@@ -167,40 +168,41 @@ class InferenceEngine:
 
     def logits(self, images) -> torch.Tensor:
         """(B, num_classes) logits for NHWC images (numpy or tensor)."""
-        images = torch.as_tensor(images)
-        if images.ndim != 4 or images.shape[-1] != 3:
-            raise ValueError(
-                f"expected NHWC images [B, H, W, 3], got {tuple(images.shape)} — "
-                "NCHW inputs must go through resnetc_tpu_torch.tensor.nchw_to_nhwc"
-            )
-        images = images.to(self.device)
-        with torch.inference_mode():
-            if self.mesh is not None and self._ranks() > 1:
-                from resnetc_tpu_torch.ops.cuda import fused
+        with annotate(LOGITS):
+            with annotate(UPLOAD):
+                images = torch.as_tensor(images)
+                if images.ndim != 4 or images.shape[-1] != 3:
+                    raise ValueError(
+                        f"expected NHWC images [B, H, W, 3], got {tuple(images.shape)} — "
+                        "NCHW inputs must go through resnetc_tpu_torch.tensor.nchw_to_nhwc"
+                    )
+                images = images.to(self.device)
+            with annotate(FORWARD), torch.inference_mode():
+                return self._forward(images)
 
-                return fused.fused_forward_sharded(
-                    self.model_cfg, self.folded, images, self.mesh, backend=self.backend,
-                    scales=self.chain_scales, policy=self.policy,
-                )
-            if self.backend == "fp":
-                return resnet.forward_folded(
-                    self.model_cfg, self.folded, images, policy=self.policy
-                )
+    def _forward(self, images: torch.Tensor) -> torch.Tensor:
+        if self.mesh is not None and self._ranks() > 1:
             from resnetc_tpu_torch.ops.cuda import fused
 
-            if self.backend in ("pallas", "pallas_block"):
-                return fused.fused_forward(
-                    self.model_cfg, self.folded, images, policy=self.policy,
-                    block_fusion=self.backend == "pallas_block",
-                )
-            if self.backend == "int8":
-                return fused.fused_forward_int8(
-                    self.model_cfg, self.folded, images, policy=self.policy
-                )
-            return fused.fused_forward_int8_chain(
-                self.model_cfg, self.folded, self.chain_scales, images,
-                policy=self.policy,
+            return fused.fused_forward_sharded(
+                self.model_cfg, self.folded, images, self.mesh, backend=self.backend,
+                scales=self.chain_scales, policy=self.policy,
             )
+        if self.backend == "fp":
+            return resnet.forward_folded(self.model_cfg, self.folded, images, policy=self.policy)
+        from resnetc_tpu_torch.ops.cuda import fused
+
+        if self.backend in ("pallas", "pallas_block"):
+            return fused.fused_forward(
+                self.model_cfg, self.folded, images, policy=self.policy,
+                block_fusion=self.backend == "pallas_block",
+            )
+        if self.backend == "int8":
+            return fused.fused_forward_int8(self.model_cfg, self.folded, images,
+                                            policy=self.policy)
+        return fused.fused_forward_int8_chain(
+            self.model_cfg, self.folded, self.chain_scales, images, policy=self.policy,
+        )
 
     def _ranks(self) -> int:
         from resnetc_tpu_torch.parallel import mesh as pmesh
@@ -210,7 +212,10 @@ class InferenceEngine:
 
     def classify(self, images) -> np.ndarray:
         """Argmax class indices — the reference's readout."""
-        return self.logits(images).argmax(dim=-1).cpu().numpy()
+        with annotate(CLASSIFY):
+            logits = self.logits(images)
+            with annotate(READOUT):
+                return logits.argmax(dim=-1).cpu().numpy()
 
 
 def classify_files(

@@ -1,16 +1,34 @@
 """Structured step metrics and profiling hooks: one JSON line per record,
-a wall-clock timer, and ``torch.profiler`` traces.  Counterpart of
+and ``torch.profiler`` traces.  Counterpart of
 ``resnetc_tpu/utils/metrics.py``: ``profile_trace`` writes a Chrome trace of
 the host and the card (CPU and CUDA activities) where JAX writes an XProf
-trace, and ``annotate`` names a region in it."""
+trace, and ``annotate`` names a region in it.
+
+The serving path's spans (``annotate``, named by the constants below) mark
+its layer boundaries on the profiler's timeline, on the clock of the
+device operations they launch.  A request is one root span, ``CLASSIFY``
+(or ``LOGITS`` where the caller calls ``logits`` itself), around ``UPLOAD``,
+``FORWARD`` (``STEM``, ``STAGES``, ``HEAD`` inside it on the int8_chain
+forwards) and ``READOUT``.  Their names start with ``resnetc.``, never with
+``resnetc::``, the prefix of the kernels' custom ops."""
 
 from __future__ import annotations
 
 import contextlib
 import json
 import sys
-import time
 from typing import Any, Iterator, TextIO
+
+from torch.autograd import profiler as _profiler
+
+CLASSIFY = "resnetc.classify"
+LOGITS = "resnetc.logits"
+UPLOAD = "resnetc.upload"
+FORWARD = "resnetc.forward"
+READOUT = "resnetc.readout"
+STEM = "resnetc.stem"
+STAGES = ("resnetc.stage0", "resnetc.stage1", "resnetc.stage2", "resnetc.stage3")
+HEAD = "resnetc.head"
 
 
 class MetricsLogger:
@@ -25,18 +43,6 @@ class MetricsLogger:
             record = {"tag": self.prefix, **record}
         self.stream.write(json.dumps(record, default=float) + "\n")
         self.stream.flush()
-
-
-@contextlib.contextmanager
-def timer() -> Iterator[dict[str, float]]:
-    """``with timer() as t: ...; t['seconds']`` (host clock: the caller
-    synchronises the card inside the block where it times device work)."""
-    box: dict[str, float] = {}
-    t0 = time.perf_counter()
-    try:
-        yield box
-    finally:
-        box["seconds"] = time.perf_counter() - t0
 
 
 @contextlib.contextmanager
@@ -62,8 +68,13 @@ def profile_trace(logdir: str, *, enabled: bool = True) -> Iterator[None]:
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def annotate(name: str):
-    """Decorator/context: name a region in profiler traces."""
-    from torch.profiler import record_function
+_OFF = contextlib.nullcontext()
 
-    return record_function(name)
+
+def annotate(name: str):
+    """Context: name a region in profiler traces.  While a profiler runs it
+    is ``record_function(name)``; otherwise one shared null context, so a
+    span off costs one flag check and no dispatcher call."""
+    if _profiler._is_profiler_enabled:
+        return _profiler.record_function(name)
+    return _OFF
