@@ -19,8 +19,9 @@ C7515, in ptxas's report), and then:
    kernels, every 1x1 conv and the fc for ``int8_matmul`` and ``matmul``,
    the latter in bf16 and fp32) and ResNet-34 (the basic kernels), both
    models' 3x3 shapes for the fused convolutions (ResNet-152's in fp32
-   too) and the stem pool, 224 px, batch 8: int8 and bf16
-   block outputs, ``int8_matmul`` and ``max_pool2d`` must be equal, the
+   too), the stem pool and the int8_chain stem's tail (``stem_pool_int8``,
+   both models), 224 px, batch 8: int8 and bf16 block outputs,
+   ``int8_matmul``, ``max_pool2d`` and ``stem_pool_int8`` must be equal, the
    fused convolutions (and the bf16 GEMM) within 1 bf16 ulp or, in fp32,
    rtol 1e-4, fp32 per-image means and the fp32 GEMM within rtol 1e-4.  The
    pixel-paired stage-0 kernels are also held against their standard twins
@@ -407,6 +408,8 @@ class Case:
             pool = F.max_pool2d if self.kernel == "max_pool2d" else F.avg_pool2d
             return lambda: pool(x, self.kwargs["kernel_size"], self.kwargs["stride"],
                                 self.kwargs["padding"])
+        if self.kernel == "stem_pool_int8":  # the composition the kernel replaced
+            return lambda: self.plain(*a)
         if self.kernel == "relu":
             return lambda: torch.relu(a[0])
         if self.kernel == "add":
@@ -649,7 +652,26 @@ def make_cases(b: int, dev) -> list:
              cd=bias(c4p)),
         n * twin_ops, b * hp * wp * (c0 + c40), PEAK_INT8_OPS, "int8",
     ))
+    cases.append(_stem_case("stem/r152", gen, b, dev))
     return cases
+
+
+def _stem_case(label, gen, b, dev):
+    """The int8_chain stem's tail at 224 px: the stem convolution's bias-free
+    bf16 output (b, 112, 112, 64), the folded bias, the first block's input
+    scale on the card.  Bound by bytes: the bf16 map read once, the pooled
+    int8 map written once (``gpubench/metrics/roofline_pct.stem_pool_int8.py``
+    counts the same)."""
+    import torch
+
+    from resnetc_tpu_torch.ops.cuda import pool
+
+    y = torch.randn((b, 112, 112, 64), generator=gen).to(dev, torch.bfloat16)
+    bias = (torch.randn(64, generator=gen) * 0.1).to(dev)
+    s_in = torch.tensor(0.02, device=dev)
+    return Case(label, "stem_pool_int8", pool.stem_pool_int8, pool.stem_pool_int8_plain,
+                (y, bias, s_in), {}, 0, b * 64 * (2 * 112 * 112 + 56 * 56) + 2 * 64,
+                PEAK_INT8_OPS, "int8")
 
 
 def _basic_weights(gen, cin, c, dev, *, ds=False):
@@ -798,6 +820,7 @@ def make_basic_cases(b: int, dev) -> list:
          wq(n, 3 * c2, 3 * c2), mul(3 * n, c2, k=3 * c2), bias(n, c2), s_res),
         dict(h=h0, w_sp=h0), n * twin_ops, 2 * b * hp * wp * c0, PEAK_INT8_OPS, "int8",
     ))
+    cases.append(_stem_case("basic/stem", gen, b, dev))
     return cases
 
 
@@ -1374,6 +1397,8 @@ def main_path_counts(blocks: tuple | None = None, basic: tuple | None = None) ->
         "basic/matmul/fc": 1,
         "pp/basic/run/n3/s0": 1,
         "pp/basic/block/s0": basic[0],
+        "stem/r152": 1,
+        "basic/stem": 1,
     }
 
 
@@ -1684,7 +1709,8 @@ def phase_basic_ds_off(e2e: dict, dev) -> dict:
     eng, x = e2e["engine"], e2e["x"]
     flags = dict(BASIC_DS_INT8=False, L1_PIXEL_PAIR=False)
     logits, launches = forward_counted(eng, x, **flags)
-    want = {"basic_run_chained_int8": 1, "basic_block_chained_int8": sum(cfg.stage_blocks[1:]) - 3,
+    want = {"stem_pool_int8": 1, "basic_run_chained_int8": 1,
+            "basic_block_chained_int8": sum(cfg.stage_blocks[1:]) - 3,
             "conv3x3_s1_fused": 3, "conv_s2_fused": 3, "matmul": 4}
     log(f"{tag} launches in one int8_chain forward, BASIC_DS_INT8=False route: "
         f"{json.dumps(launches)}")
@@ -1713,8 +1739,10 @@ def phase_reduced_routes(dev) -> dict:
     from resnetc_tpu_torch.serve import InferenceEngine
 
     tag = "[e2e reduced]"
-    rest = {"downsample_block_s2_int8": 3, "bottleneck_block_chained_int8": 3, "matmul": 1}
-    basic_rest = {"basic_ds_block_s2_int8": 3, "basic_block_chained_int8": 3, "matmul": 1}
+    rest = {"stem_pool_int8": 1, "downsample_block_s2_int8": 3,
+            "bottleneck_block_chained_int8": 3, "matmul": 1}
+    basic_rest = {"stem_pool_int8": 1, "basic_ds_block_s2_int8": 3,
+                  "basic_block_chained_int8": 3, "matmul": 1}
     routes = {
         "resnet152": [
             ("stage_fuse_proj/pp", dict(STAGE_FUSE_PROJ=True),
@@ -3916,7 +3944,8 @@ OP_COUNTER = {"chain_block_int8": "bottleneck_block_chained_int8",
               "basic_ds_block_s2_int8": "basic_ds_block_s2_int8",
               "pp_basic_block_int8": "basic_block_chained_int8_pp",
               "pp_basic_run_int8": "basic_run_chained_int8_pp",
-              "gemm_f32acc": "matmul"}
+              "gemm_f32acc": "matmul",
+              "stem_pool_int8": "stem_pool_int8"}
 RUNNER_LATENCY_SAMPLES = 20
 
 
@@ -4176,6 +4205,12 @@ SOURCES = {
     "conv_s2_fused": ("resnetc_tpu_torch/csrc/conv.cu", "resnetc_tpu/ops/pallas/conv.py:287"),
     "max_pool2d": ("resnetc_tpu_torch/csrc/pool.cu", "resnetc_tpu/ops/pallas/pool.py:65"),
     "avg_pool2d": ("resnetc_tpu_torch/csrc/pool.cu", "resnetc_tpu/ops/pallas/pool.py:174"),
+    # No Pallas kernel: XLA's fusion of the stem's bias, relu, quantize, pool
+    # and chain pad; bound by bytes (the bf16 map read once, the pooled int8
+    # map written once); one thread an 8-channel column over a band of rows,
+    # the window's max before the quantizer (see the source's header).
+    "stem_pool_int8": ("resnetc_tpu_torch/csrc/pool.cu",
+                       "none: XLA's fusion of resnetc_tpu/ops/pallas/fused.py:857-863"),
     "bottleneck_block_chained": ("resnetc_tpu_torch/csrc/fp_block.cu",
                                  "resnetc_tpu/ops/pallas/block.py:278"),
     "bottleneck_block_fused": ("resnetc_tpu_torch/csrc/fp_block.cu",

@@ -38,6 +38,33 @@
 // the output is the same to the bit.  Channel groups are 16 bytes, or 8
 // where 16-byte groups would leave fewer than AVG_FILL threads (the head
 // pool in bf16).
+//
+// - the int8_chain stem's tail (stem_pool_int8): from the stem convolution's
+//   bias-free output y (B, H1, W1, C), bf16 or fp32, to the zero-ring chain
+//   rows (B * hp * wp, C) int8 of the 3x3/2 (pad 1) max pool of
+//   q(v) = clamp(rint(relu(T(v + T(bias))) / s), -127, 127), T the rounding
+//   to y's type, s the first block's input scale read from its device
+//   pointer.  It replaces no Pallas kernel: the JAX package leaves this
+//   tail to XLA, which fuses it (resnetc_tpu/ops/pallas/fused.py:857-863),
+//   and the port ran it as a dozen eager torch passes over the 112 px map
+//   (bias, relu, an fp32 cast, divide, round, clamp, the int8 cast, a pool
+//   in fp32 with its casts and permutes, the chain pad).  Every step of q
+//   is monotone non-decreasing (the correctly rounded add, relu, the IEEE
+//   divide by s > 0, rint, clamp), so the max of q over a window is q of the
+//   window's max: each thread takes the max of the raw inputs and applies
+//   the bias, the rounding, relu and the quantizer once per output value,
+//   the same bits as the composition (finite inputs) at a ninth of the
+//   arithmetic.  Bytes-bound: read y once (2 bytes a value in bf16), write
+//   the pooled int8 once, B*H1*W1*C*2 + B*H2*W2*C bytes (~0.14 ms at b256,
+//   224 px, 3.35 TB/s).  Design: one thread per chain column and 8-channel
+//   group (16 bytes of bf16 a load) over a band of STEM_BAND chain rows of
+//   one image; neighbouring threads take neighbouring channel groups, so the
+//   loads and the 8-byte stores are coalesced; down the band the thread
+//   carries each shared input row (2r + 1 of output row r is 2(r+1) - 1 of
+//   the next) in registers, so within a band every input row is read once,
+//   and the left neighbour's column comes from L1.  The kernel writes every
+//   byte of the chain rows, ring rows and columns too, so the output needs
+//   no memset.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -304,6 +331,114 @@ int launch_avg(const void* x, void* out, int vec, int B, int H, int W, int C, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// --- the int8_chain stem's tail (stem_pool_int8) --------------------------
+
+constexpr int STEM_THREADS = 128;
+// Chain rows a thread covers: its band re-reads one input row of the band
+// above (1 in 2 * STEM_BAND, mostly from L2).
+constexpr int STEM_BAND = 4;
+
+// v rounded to T (bf16: round to nearest even, as .to(bf16) does).
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
+}
+
+// 8 channels from p (16-byte aligned), through the read-only path.
+template <typename T>
+__device__ __forceinline__ Vec<T, 8> load8(const T* p) {
+  Vec<T, 8> v;
+  auto* d = reinterpret_cast<uint4*>(v.v);
+  const auto* src = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int i = 0; i < (int)sizeof(Vec<T, 8>) / 16; ++i) d[i] = __ldg(src + i);
+  return v;
+}
+
+// The max over the window's columns 2c - 1, 2c, 2c + 1 (those in the image)
+// of input row `row`, 8 channels.
+template <typename T>
+__device__ __forceinline__ Vec<T, 8> window_row(const T* __restrict__ row, int c2, int W1,
+                                                int C) {
+  const T* p = row + (size_t)(2 * c2) * C;
+  Vec<T, 8> m = load8(p);
+  if (2 * c2 + 1 < W1) take_max(m, load8(p + C));
+  if (c2 > 0) take_max(m, load8(p - C));
+  return m;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(STEM_THREADS)
+stem_pool_int8_kernel(const T* __restrict__ y, const float* __restrict__ bias,
+                      const float* __restrict__ s_in, int8_t* __restrict__ out, int H1, int W1,
+                      int C, int H2, int W2, int hp, int wp) {
+  const int groups = C / 8;
+  const int t = blockIdx.x * STEM_THREADS + threadIdx.x;
+  if (t >= wp * groups) return;
+  const int g = t % groups, cc = t / groups;
+  const int b = blockIdx.z;
+  const int rr0 = blockIdx.y * STEM_BAND, rr1 = min(rr0 + STEM_BAND, hp);
+  int8_t* o = out + ((size_t)b * hp * wp + cc) * C + g * 8;
+  const size_t row_step = (size_t)wp * C;
+
+  if (cc == 0 || cc > W2) {  // a ring column
+    for (int rr = rr0; rr < rr1; ++rr)
+      *reinterpret_cast<uint2*>(o + rr * row_step) = make_uint2(0u, 0u);
+    return;
+  }
+  const int c2 = cc - 1;
+  float bv[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) bv[i] = round_to<T>(bias[g * 8 + i]);
+  const float s = *s_in;
+  const T* img = y + (size_t)b * H1 * W1 * C + g * 8;
+  const size_t in_row = (size_t)W1 * C;
+
+  Vec<T, 8> carry;  // row 2r + 1 of the previous output row r, once read
+  bool have = false;
+  for (int rr = rr0; rr < rr1; ++rr) {
+    union { int8_t q[8]; uint2 u; } res;
+    if (rr == 0 || rr > H2) {  // a ring row
+      res.u = make_uint2(0u, 0u);
+    } else {
+      const int r = rr - 1;  // rows 2r - 1, 2r, 2r + 1; 2r < H1 always
+      Vec<T, 8> m = window_row(img + 2 * r * in_row, c2, W1, C);
+      if (have) {
+        take_max(m, carry);
+      } else if (r > 0) {
+        take_max(m, window_row(img + (2 * r - 1) * in_row, c2, W1, C));
+      }
+      have = 2 * r + 1 < H1;
+      if (have) {
+        carry = window_row(img + (2 * r + 1) * in_row, c2, W1, C);
+        take_max(m, carry);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float v = round_to<T>(__fadd_rn(static_cast<float>(key(m.v[i])), bv[i]));
+        v = v > 0.f ? v : 0.f;
+        const float q = fminf(fmaxf(rintf(__fdiv_rn(v, s)), -127.f), 127.f);
+        res.q[i] = static_cast<int8_t>(__float2int_rn(q));
+      }
+    }
+    *reinterpret_cast<uint2*>(o + rr * row_step) = res.u;
+  }
+}
+
+template <typename T>
+int launch_stem(const void* y, const float* bias, const float* s_in, int8_t* out, int B, int H1,
+                int W1, int C, int H2, int W2, int hp, int wp, cudaStream_t stream) {
+  const dim3 grid((wp * (C / 8) + STEM_THREADS - 1) / STEM_THREADS,
+                  (hp + STEM_BAND - 1) / STEM_BAND, B);
+  if (B == 0) return 0;
+  stem_pool_int8_kernel<T><<<grid, STEM_THREADS, 0, stream>>>(
+      static_cast<const T*>(y), bias, s_in, out, H1, W1, C, H2, W2, hp, wp);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // vec: 1 when C * sizeof(T) is a multiple of 16 and x, out are 16-byte
@@ -333,6 +468,24 @@ extern "C" int avg_pool2d_nhwc(const void* x, void* out, int kind, int vec, int 
       return launch_avg<__nv_bfloat16>(x, out, vec, B, H, W, C, OH, OW, k, s, p, inv, stream);
     case KIND_F32:
       return launch_avg<float>(x, out, vec, B, H, W, C, OH, OW, k, s, p, inv, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The int8_chain stem's tail: y (B, H1, W1, C) bf16 (kind 1) or fp32 (kind
+// 2), C a multiple of 16, y 16-byte aligned; bias (C,) fp32; s_in one fp32
+// on the card; out the (B * hp * wp, C) int8 chain rows of the pooled
+// (H2, W2) map, every byte written.
+extern "C" int stem_pool_int8(const void* y, const float* bias, const float* s_in, int8_t* out,
+                              int kind, int B, int H1, int W1, int C, int H2, int W2, int hp,
+                              int wp, cudaStream_t stream) {
+  switch (kind) {
+    case KIND_BF16:
+      return launch_stem<__nv_bfloat16>(y, bias, s_in, out, B, H1, W1, C, H2, W2, hp, wp,
+                                        stream);
+    case KIND_F32:
+      return launch_stem<float>(y, bias, s_in, out, B, H1, W1, C, H2, W2, hp, wp, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -123,6 +123,9 @@ int max_pool2d_nhwc(const void* x, void* out, int kind, int vec, int B, int H, i
                     int OH, int OW, int k, int s, int p, cudaStream_t stream);
 int avg_pool2d_nhwc(const void* x, void* out, int kind, int vec, int B, int H, int W, int C,
                     int OH, int OW, int k, int s, int p, float inv, cudaStream_t stream);
+int stem_pool_int8(const void* y, const float* bias, const float* s_in, int8_t* out, int kind,
+                   int B, int H1, int W1, int C, int H2, int W2, int hp, int wp,
+                   cudaStream_t stream);
 int fp_block(const void* x, const void* w1, const float* w1_nk, const float* b1, const void* w2,
              const float* w2_nk, const float* b2, const void* w3, const float* w3_nk,
              const float* b3, void* z1, void* z2, void* out, int kind, int chain, int B, int h,
@@ -579,6 +582,32 @@ Tensor avg_pool2d_nhwc_op(const Tensor& x, int64_t k, int64_t s, int64_t pad) {
   return out;
 }
 
+// The int8_chain stem's tail: bias, relu, quantize at s_in, the 3x3/2 max
+// pool and the chain pad of the stem convolution's output y, into the
+// pooled map's zero-ring chain rows (every byte written by the kernel).
+Tensor stem_pool_int8_op(const Tensor& y, const Tensor& bias, const Tensor& s_in) {
+  on_card(y, "stem_pool_int8");
+  dense("stem_pool_int8", bias, s_in);
+  TORCH_CHECK(bias.is_cuda() && s_in.is_cuda() && bias.scalar_type() == at::kFloat &&
+              s_in.scalar_type() == at::kFloat && s_in.numel() == 1,
+              "stem_pool_int8: bias and s_in must be fp32 on the card, s_in one value");
+  TORCH_CHECK(y.dim() == 4 && y.size(3) % 16 == 0 && bias.numel() == y.size(3),
+              "stem_pool_int8: y must be (B, H, W, C), C a multiple of 16, bias (C,)");
+  TORCH_CHECK(y.scalar_type() == at::kBFloat16 || y.scalar_type() == at::kFloat,
+              "stem_pool_int8: y must be bf16 or fp32");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(y.data_ptr()) % 16 == 0,
+              "stem_pool_int8: y is not 16-byte aligned");
+  TORCH_CHECK(y.size(0) <= 65535, "stem_pool_int8: at most 65535 images a launch");
+  const int64_t b = y.size(0), h1 = y.size(1), w1 = y.size(2), c = y.size(3);
+  const int64_t h2 = (h1 - 1) / 2 + 1, w2 = (w1 - 1) / 2 + 1;
+  const auto [hp, wp] = chain_meta(h2, w2);
+  Tensor out = empty({b * hp * wp, c}, at::kChar, y);
+  const auto launch = LAUNCHER("pool", stem_pool_int8);
+  check(launch(y.data_ptr(), p<float>(bias), p<float>(s_in), m<int8_t>(out), kind_of(y), i(b),
+        i(h1), i(w1), i(c), i(h2), i(w2), i(hp), i(wp), stream()), "stem_pool_int8");
+  return out;
+}
+
 Tensor fp_block_op(const Tensor& x, const Tensor& w1, const Tensor& b1, const Tensor& w2,
                    const Tensor& b2, const Tensor& w3, const Tensor& b3, const OptTensor& w1_nk,
                    const OptTensor& w2_nk, const OptTensor& w3_nk, bool chain, int64_t h,
@@ -665,6 +694,7 @@ void define_schemas(torch::Library& m) {
         "int stride, bool relu, bool out_bf16) -> Tensor");
   m.def("max_pool2d_nhwc(Tensor x, int k, int s, int p) -> Tensor");
   m.def("avg_pool2d_nhwc(Tensor x, int k, int s, int p) -> Tensor");
+  m.def("stem_pool_int8(Tensor y, Tensor bias, Tensor s_in) -> Tensor");
   m.def("fp_block(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, Tensor w3, Tensor b3, "
         "Tensor? w1_nk, Tensor? w2_nk, Tensor? w3_nk, bool chain, int h, int w) -> Tensor");
   m.def("elementwise(int op, Tensor a, Tensor? b) -> Tensor");
@@ -698,6 +728,7 @@ TORCH_LIBRARY_IMPL(resnetc, CUDA, m) {
   m.impl("conv_fused", &conv_fused_op);
   m.impl("max_pool2d_nhwc", &max_pool2d_nhwc_op);
   m.impl("avg_pool2d_nhwc", &avg_pool2d_nhwc_op);
+  m.impl("stem_pool_int8", &stem_pool_int8_op);
   m.impl("fp_block", &fp_block_op);
   m.impl("elementwise", &elementwise_op);
 }

@@ -28,9 +28,10 @@ through ``int8_matmul``; ``fused_forward_int8_static`` takes calibrated
 scales instead.
 
 The int8_chain bottleneck forward: the 7x7 stem is a stock convolution
-(XLA's in the JAX package); its output is quantized at the first block's
-input scale BEFORE the 3x3/2 max pool (max commutes with the monotone
-quantizer), pooled in int8, padded once into the chain layout, and from
+without its bias (XLA's in the JAX package); one kernel, ``stem_pool_int8``,
+then adds the bias, applies relu, quantizes at the first block's input
+scale (as the JAX package does BEFORE the 3x3/2 max pool: max commutes with
+the monotone quantizer), pools and writes the chain layout, and from
 there every bottleneck block is an int8 kernel — the layer1 projection
 block and every identity block of stages 2-4 through
 ``bottleneck_block_chained_int8``, layer1 blocks 1..n-1 through
@@ -216,6 +217,7 @@ class Kernels(typing.NamedTuple):
     conv_s2: typing.Callable
     max_pool: typing.Callable
     fp_block: typing.Callable
+    stem_pool: typing.Callable
 
 
 KERNELS = Kernels(
@@ -235,6 +237,7 @@ KERNELS = Kernels(
     conv.conv_s2_fused,
     pool.max_pool2d,
     block.bottleneck_block_chained,
+    pool.stem_pool_int8,
 )
 PLAIN = Kernels(
     block.bottleneck_block_chained_int8_plain,
@@ -253,6 +256,7 @@ PLAIN = Kernels(
     conv.conv_s2_fused_plain,
     pool.max_pool2d_plain,
     block.bottleneck_block_chained_plain,
+    pool.stem_pool_int8_plain,
 )
 
 
@@ -1038,15 +1042,16 @@ def _chain_scale_lookups(cfg: ResNetConfig, chain_scales: Tree):
 # ---------------------------------------------------------------------------
 
 
-def _stem_chain(qtree: Tree, x: torch.Tensor, s_in: torch.Tensor, policy: DtypePolicy):
-    """Stem conv, quantize at the first block's input scale, int8 max pool,
-    chain pad.  Returns (chain rows, B, h, w)."""
+def _stem_chain(qtree: Tree, x: torch.Tensor, s_in: torch.Tensor, policy: DtypePolicy,
+                kernels: Kernels):
+    """Stem conv without its bias, then ``kernels.stem_pool``: bias, relu,
+    quantize at the first block's input scale, 3x3/2 max pool, chain pad.
+    Returns (chain rows, B, h, w)."""
     x = x.to(policy.compute)
-    y = _xla_conv(x, qtree["conv1"], stride=2, relu=True, policy=policy)
-    yq = quantize_with_scale(y, s_in)
-    yq = torch_ops.max_pool2d(yq, kernel_size=3, stride=2, padding=1)
-    bsz, h, w_sp, _ = yq.shape
-    return block.pad_for_chain(yq), bsz, h, w_sp
+    w = qtree["conv1"]["weight"].to(policy.compute)
+    y = torch_ops.conv2d(x, w, stride=2, padding=w.shape[0] // 2).contiguous()
+    h, w_sp, _, _ = pool.stem_pool_geometry(y)
+    return kernels.stem_pool(y, qtree["conv1"]["bias"], s_in), y.shape[0], h, w_sp
 
 
 def _head(qtree: Tree, feats: torch.Tensor, policy: DtypePolicy, kernels: Kernels):
@@ -1159,7 +1164,8 @@ def fused_forward_int8_chain(
             yr, bsz, h, w_sp = _hybrid_chain(cfg, qtree, chain_scales, x, xla_stages, policy,
                                              stage_taps)
         else:
-            yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy)
+            yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy,
+                                           kernels)
     packed_pp = qtree.get("runs", {}).get("layer1")  # stage 0's pair operands, if packed
 
     head_folded = False
@@ -1434,7 +1440,8 @@ def _basic_int8_chain_forward(
     served here the JAX guards pass too, and the two routes agree)."""
     scale_row, s_after = _chain_scale_lookups(cfg, chain_scales)
     with annotate(STEM):
-        yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy)
+        yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy,
+                                       kernels)
 
     for stage in range(4):
         with annotate(STAGES[stage]):

@@ -10,7 +10,12 @@ stride s:
   kw per kernel row, the rows summed in order, one multiply by the fp32
   value of 1/k^2).
 
-Both kernels are CUDA C++ in ``resnetc_tpu_torch/csrc/pool.cu``; the plain
+Also ``stem_pool_int8``, the ``int8_chain`` stem's tail after its
+convolution (bias, relu, quantize, 3x3/2 max pool, chain pad in one pass),
+which replaces no Pallas kernel: the JAX package leaves it to XLA
+(``resnetc_tpu/ops/pallas/fused.py:857-863``).
+
+The kernels are CUDA C++ in ``resnetc_tpu_torch/csrc/pool.cu``; the plain
 versions beside them are what a CPU tensor runs.  The TPU argument
 ``interpret`` is accepted and ignored.
 """
@@ -21,7 +26,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from resnetc_tpu_torch.ops.cuda import _build
+from resnetc_tpu_torch.ops import torch_ops
+from resnetc_tpu_torch.ops.cuda import _build, block
+from resnetc_tpu_torch.ops.cuda.quant import quantize_with_scale
 
 _KIND = {torch.bfloat16: 1, torch.float32: 2, torch.int8: 3}
 
@@ -123,3 +130,49 @@ def avg_pool2d(x: torch.Tensor, *, kernel_size: int, stride: int, padding: int =
         raise ValueError(f"x: dtype {x.dtype}, expected bf16 or fp32")
     x = x.contiguous()
     return _build.call("avg_pool2d", AVG_POOL2D_NHWC, x, k, s, p)
+
+
+def stem_pool_int8_plain(y: torch.Tensor, bias: torch.Tensor, s_in: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: the composition the ``int8_chain`` stem ran
+    before the kernel (``fused._xla_conv``'s bias and relu, then
+    ``quantize_with_scale``, ``torch_ops.max_pool2d`` and
+    ``block.pad_for_chain``)."""
+    y = torch_ops.relu(y + bias.to(y.dtype))
+    yq = torch_ops.max_pool2d(quantize_with_scale(y, s_in), kernel_size=3, stride=2, padding=1)
+    return block.pad_for_chain(yq)
+
+
+def stem_pool_geometry(y: torch.Tensor) -> tuple[int, int, int, int]:
+    """(h, w) of the stem's pooled map and (hp, wp) of its chain rows."""
+    h, w_sp = _geometry(y, 3, 2, 1)
+    return (h, w_sp, *block.chain_meta(y.shape[0], h, w_sp))
+
+
+def _stem_pool_fake(y, bias, s_in):
+    _, _, hp, wp = stem_pool_geometry(y)
+    return y.new_empty((y.shape[0] * hp * wp, y.shape[3]), dtype=torch.int8)
+
+
+#: The int8_chain stem's tail: ``csrc/pool.cu``'s ``stem_pool_int8``.
+STEM_POOL_INT8 = _build.kernel_op(
+    "stem_pool_int8", "(Tensor y, Tensor bias, Tensor s_in) -> Tensor",
+    plain=stem_pool_int8_plain, fake=_stem_pool_fake,
+)
+
+
+def stem_pool_int8(y: torch.Tensor, bias: torch.Tensor, s_in: torch.Tensor) -> torch.Tensor:
+    """The stem convolution's bias-free output ``y`` (B, H, W, C), bf16 or
+    fp32, C a multiple of 16, contiguous -> the zero-ring chain rows
+    (B * hp * wp, C) int8 of ``max_pool2d(quantize_with_scale(relu(y +
+    bias.to(y.dtype)), s_in), 3, 2, 1)``; ``bias`` (C,) fp32 and ``s_in``
+    0-d fp32 on y's device (the kernel reads the scale there)."""
+    if _build.runs_plain():
+        return stem_pool_int8_plain(y, bias, s_in)
+    if y.ndim != 4 or y.shape[3] % 16:
+        raise ValueError(f"y: shape {tuple(y.shape)}, expected (B, H, W, C), C % 16 == 0")
+    if y.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"y: dtype {y.dtype}, expected bf16 or fp32")
+    _build.require(y, "y", y.dtype, y.device)
+    _build.require(bias, "bias", torch.float32, y.device, (y.shape[3],))
+    _build.require(s_in, "s_in", torch.float32, y.device, ())
+    return _build.call("stem_pool_int8", STEM_POOL_INT8, y, bias, s_in)

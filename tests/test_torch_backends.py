@@ -181,8 +181,8 @@ def test_basic_ds_int8_off_route_matches_jax(models, policy, monkeypatch):
         tcfg, tq, tscales, torch.from_numpy(x), policy=tpol, stage_taps=ttaps,
         kernels=_counting(tfused.KERNELS, counts),
     )
-    assert counts == {"basic_run": 1, "conv_s2": 3, "conv3x3_s1": 3, "matmul": 4,
-                      "basic_block": 3}, counts
+    assert counts == {"stem_pool": 1, "basic_run": 1, "conv_s2": 3, "conv3x3_s1": 3,
+                      "matmul": 4, "basic_block": 3}, counts
     _check_logits(got, want, policy)
     tap_tol = 1e-3 if policy == "fp32" else 5e-2
     assert len(ttaps) == len(jtaps) == 4

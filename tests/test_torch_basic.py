@@ -394,7 +394,8 @@ def test_basic_int8_chain_forward_matches_jax(setup, policy, monkeypatch):
         tcfg, tq, tscales, torch.from_numpy(x), policy=tpol, stage_taps=ttaps,
         kernels=_counting(tfused.KERNELS, counts),
     ).numpy()
-    assert counts == {"basic_run": 1, "basic_ds": 3, "basic_block": 3, "matmul": 1}, counts
+    assert counts == {"stem_pool": 1, "basic_run": 1, "basic_ds": 3, "basic_block": 3,
+                      "matmul": 1}, counts
 
     tol = 1e-4 if policy == "fp32" else 5e-2
     tap_tol = 1e-3 if policy == "fp32" else 5e-2
@@ -497,8 +498,8 @@ def test_basic_ds_int8_off_runs_and_equals_plain(setup, monkeypatch):
     counts: dict = {}
     got = tfused.fused_forward_int8_chain(tcfg, tq, scales, torch.from_numpy(x),
                                           kernels=_counting(tfused.KERNELS, counts))
-    assert counts == {"basic_run": 1, "conv_s2": 3, "conv3x3_s1": 3, "matmul": 4,
-                      "basic_block": 3}, counts
+    assert counts == {"stem_pool": 1, "basic_run": 1, "conv_s2": 3, "conv3x3_s1": 3,
+                      "matmul": 4, "basic_block": 3}, counts
     want = tfused.fused_forward_int8_chain(tcfg, tq, scales, torch.from_numpy(x),
                                            kernels=tfused.PLAIN)
     assert got.shape == (2, 11) and torch.isfinite(got).all()

@@ -54,6 +54,10 @@ views off the 16-byte grid and operands holding NaN, +-Inf and -0).  With a NaN 
 input, the fused convolutions, the GEMM, the int8 GEMM (NaN in its
 residual) and the float max pool give NaN and +-Inf exactly where their
 plain versions do, the other values within the tolerances above.
+The int8_chain stem's tail (``stem_pool_int8``) EQUALS its plain version,
+the composition it replaced, at every served batch and at odd sizes, in
+bf16 and fp32, over a block the allocator hands back dirty; the served
+ResNet-152 and ResNet-34 give the parent stem's logits bit for bit.
 """
 
 from __future__ import annotations
@@ -561,8 +565,9 @@ def test_tiny_engine_on_the_card_matches_plain(cuda, monkeypatch):
     _build.reset_launches()
     got = eng.logits(x)
     counts = dict(_build.LAUNCHES)
-    assert counts == {"bottleneck_block_chained_int8": 4, "bottleneck_run_chained_int8": 1,
-                      "downsample_block_s2_int8": 3, "matmul": 1}, counts
+    assert counts == {"stem_pool_int8": 1, "bottleneck_block_chained_int8": 4,
+                      "bottleneck_run_chained_int8": 1, "downsample_block_s2_int8": 3,
+                      "matmul": 1}, counts
     want = fused_forward_int8_chain(cfg, eng.folded, eng.chain_scales, x.to(cuda), kernels=PLAIN)
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
@@ -592,8 +597,9 @@ def test_tiny_basic_engine_on_the_card_matches_plain(cuda, monkeypatch):
     _build.reset_launches()
     got = eng.logits(x)
     counts = dict(_build.LAUNCHES)
-    assert counts == {"basic_run_chained_int8": 1, "basic_ds_block_s2_int8": 3,
-                      "basic_block_chained_int8": 3, "matmul": 1}, counts
+    assert counts == {"stem_pool_int8": 1, "basic_run_chained_int8": 1,
+                      "basic_ds_block_s2_int8": 3, "basic_block_chained_int8": 3,
+                      "matmul": 1}, counts
     want = fused_forward_int8_chain(cfg, eng.folded, eng.chain_scales, x.to(cuda), kernels=PLAIN)
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
@@ -851,9 +857,10 @@ def _pp_route(cfg_name, stage_blocks, cuda, monkeypatch):
 @pytest.mark.cuda
 def test_pp_route_logits_equal_standard_route(cuda, monkeypatch):
     out = _pp_route("resnet50", (3, 2, 2, 2), cuda, monkeypatch)
-    assert out[False][1] == {"bottleneck_block_chained_int8": 4, "bottleneck_run_chained_int8": 1,
+    assert out[False][1] == {"stem_pool_int8": 1, "bottleneck_block_chained_int8": 4,
+                             "bottleneck_run_chained_int8": 1,
                              "downsample_block_s2_int8": 3, "matmul": 1}, out[False][1]
-    assert out[True][1] == {"bottleneck_block_chained_int8_pp": 1,
+    assert out[True][1] == {"stem_pool_int8": 1, "bottleneck_block_chained_int8_pp": 1,
                             "bottleneck_run_chained_int8_pp": 1,
                             "bottleneck_block_chained_int8": 3,
                             "downsample_block_s2_int8": 3, "matmul": 1}, out[True][1]
@@ -890,9 +897,11 @@ def test_pp_packed_tree_equals_unpacked_on_the_card(cuda, monkeypatch, stage_fus
 @pytest.mark.cuda
 def test_pp_basic_route_logits_equal_standard_route(cuda, monkeypatch):
     out = _pp_route("resnet34", (3, 2, 2, 2), cuda, monkeypatch)
-    assert out[False][1] == {"basic_run_chained_int8": 1, "basic_ds_block_s2_int8": 3,
+    assert out[False][1] == {"stem_pool_int8": 1, "basic_run_chained_int8": 1,
+                             "basic_ds_block_s2_int8": 3,
                              "basic_block_chained_int8": 3, "matmul": 1}, out[False][1]
-    assert out[True][1] == {"basic_run_chained_int8_pp": 1, "basic_ds_block_s2_int8": 3,
+    assert out[True][1] == {"stem_pool_int8": 1, "basic_run_chained_int8_pp": 1,
+                            "basic_ds_block_s2_int8": 3,
                             "basic_block_chained_int8": 3, "matmul": 1}, out[True][1]
     assert torch.equal(out[True][0], out[False][0])
 
@@ -1177,8 +1186,9 @@ def test_basic_ds_int8_off_route_on_the_card_matches_plain(cuda, monkeypatch):
     _build.reset_launches()
     got = eng.logits(x)
     counts = dict(_build.LAUNCHES)
-    assert counts == {"basic_run_chained_int8": 1, "conv_s2_fused": 3, "conv3x3_s1_fused": 3,
-                      "matmul": 4, "basic_block_chained_int8": 3}, counts
+    assert counts == {"stem_pool_int8": 1, "basic_run_chained_int8": 1, "conv_s2_fused": 3,
+                      "conv3x3_s1_fused": 3, "matmul": 4,
+                      "basic_block_chained_int8": 3}, counts
     want = fused.fused_forward_int8_chain(cfg, eng.folded, eng.chain_scales, x.to(cuda),
                                           kernels=fused.PLAIN)
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
@@ -1396,3 +1406,178 @@ def test_tiny_pallas_block_engine_on_the_card_matches_plain(cuda, policy):
                                kernels=fused.PLAIN)
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+# ---------------------------------------------------------------------------
+# The int8_chain stem's tail (stem_pool_int8)
+# ---------------------------------------------------------------------------
+
+STEM_SHAPES = [(1, 112, 112, 64), (32, 112, 112, 64), (128, 112, 112, 64), (256, 112, 112, 64),
+               (1, 7, 9, 64), (3, 15, 15, 128), (2, 113, 111, 16), (5, 8, 10, 32)]
+
+
+def _stem_input(shape, dtype, seed, dev):
+    """y on a 0.25 grid in [-40, 40] (.5 ties of v / 0.5), 5% far beyond
+    127 s of either sign, a block of every image below zero; a 0.25-grid
+    bias, every seventh channel off the grid."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, h, w, c = shape
+    y = torch.randint(-160, 161, shape, generator=g, device=dev).float() * 0.25
+    far = torch.rand(shape, generator=g, device=dev) < 0.05
+    pick = torch.tensor([-1e4, -300.0, 100.0, 300.0, 1e4], device=dev)
+    y = torch.where(far, pick[torch.randint(0, 5, shape, generator=g, device=dev)], y)
+    blk = y[:, h // 3 : h // 3 + 4, w // 3 : w // 3 + 4]
+    blk.copy_(-torch.rand(blk.shape, generator=g, device=dev) - 0.25)
+    bias = torch.randint(-2, 3, (c,), generator=g, device=dev).float() * 0.25
+    bias[::7] += 0.01
+    return y.to(dtype), bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [0.5, 0.0371])
+@pytest.mark.parametrize("shape", STEM_SHAPES, ids=["x".join(map(str, s)) for s in STEM_SHAPES])
+def test_stem_pool_kernel_equals_plain(cuda, shape, s):
+    from resnetc_tpu_torch.ops.cuda import pool
+
+    y, bias = _stem_input(shape, torch.bfloat16, sum(shape), cuda)
+    s_in = torch.tensor(s, dtype=torch.float32, device=cuda)
+    _build.reset_launches()
+    got = pool.stem_pool_int8(y, bias, s_in)
+    assert dict(_build.LAUNCHES) == {"stem_pool_int8": 1}
+    want = pool.stem_pool_int8_plain(y, bias, s_in)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert (want == 127).any() and (want == 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 112, 112, 64), (1, 7, 9, 64), (3, 15, 15, 128)],
+                         ids=["4x112", "1x7x9", "3x15"])
+def test_stem_pool_kernel_fp32_equals_plain(cuda, shape):
+    """The FP32 policy's stem output (fp32 y: no bf16 rounding of the add)."""
+    from resnetc_tpu_torch.ops.cuda import pool
+
+    y, bias = _stem_input(shape, torch.float32, 7, cuda)
+    y = y + torch.rand(shape, device=cuda) * 1e-3  # off the bf16 grid
+    s_in = torch.tensor(0.0371, dtype=torch.float32, device=cuda)
+    got = pool.stem_pool_int8(y, bias, s_in)
+    want = pool.stem_pool_int8_plain(y, bias, s_in)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 112, 112, 64), (3, 15, 15, 128)], ids=["32x112", "3x15"])
+def test_stem_pool_writes_the_ring_over_a_dirty_buffer(cuda, shape):
+    """The kernel writes every byte of the chain rows: with the allocator
+    handing back a block first filled with 0x7f, the ring is zero and the
+    output equals the plain version."""
+    from resnetc_tpu_torch.ops.cuda import block, pool
+
+    y, bias = _stem_input(shape, torch.bfloat16, 11, cuda)
+    s_in = torch.tensor(0.0371, dtype=torch.float32, device=cuda)
+    h, w_sp, hp, wp = pool.stem_pool_geometry(y)
+    dirty = torch.full((shape[0] * hp * wp, shape[3]), 0x7F, dtype=torch.int8, device=cuda)
+    ptr = dirty.data_ptr()
+    del dirty
+    got = pool.stem_pool_int8(y, bias, s_in)
+    assert got.data_ptr() == ptr  # the caching allocator's block, 0x7f before the launch
+    want = pool.stem_pool_int8_plain(y, bias, s_in)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    ring = torch.ones((shape[0], hp, wp), dtype=torch.bool, device=cuda)
+    ring[:, 1 : 1 + h, 1 : 1 + w_sp] = False
+    assert not got.reshape(shape[0], hp, wp, shape[3])[ring].any()
+    assert torch.equal(block.unpad_from_chain(got, shape[0], h, w_sp),
+                       block.unpad_from_chain(want, shape[0], h, w_sp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fp16", "int8", "3d", "c24", "strided", "bias_cpu",
+                                  "bias_bf16", "scale_cpu", "scale_shape"])
+def test_stem_pool_wrapper_rejects_what_the_kernel_does_not_take(cuda, case):
+    from resnetc_tpu_torch.ops.cuda import pool
+
+    y = torch.zeros((2, 9, 9, 32), dtype=torch.bfloat16, device=cuda)
+    bias = torch.zeros(32, device=cuda)
+    s_in = torch.tensor(0.5, device=cuda)
+    if case == "fp16":
+        y = y.half()
+    elif case == "int8":
+        y = y.to(torch.int8)
+    elif case == "3d":
+        y = y[0]
+    elif case == "c24":
+        y, bias = y[..., :24].contiguous(), bias[:24]
+    elif case == "strided":
+        y = torch.zeros((2, 9, 32, 9), dtype=torch.bfloat16, device=cuda).transpose(2, 3)
+    elif case == "bias_cpu":
+        bias = bias.cpu()
+    elif case == "bias_bf16":
+        bias = bias.to(torch.bfloat16)
+    elif case == "scale_cpu":
+        s_in = s_in.cpu()
+    else:
+        s_in = s_in.reshape(1)
+    _build.reset_launches()
+    with pytest.raises(ValueError):
+        pool.stem_pool_int8(y, bias, s_in)
+    assert not _build.LAUNCHES
+
+
+def _parent_stem_chain(qtree, x, s_in, policy, kernels):
+    """The stem before ``stem_pool_int8``: the biased, relu'd stock
+    convolution, quantize, the int8 pool through fp32, the chain pad."""
+    from resnetc_tpu_torch.ops.cuda import fused
+    from resnetc_tpu_torch.ops.cuda.quant import quantize_with_scale
+
+    x = x.to(policy.compute)
+    y = fused._xla_conv(x, qtree["conv1"], stride=2, relu=True, policy=policy)
+    yq = torch_ops.max_pool2d(quantize_with_scale(y, s_in), kernel_size=3, stride=2, padding=1)
+    bsz, h, w_sp, _ = yq.shape
+    return block.pad_for_chain(yq), bsz, h, w_sp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["resnet152", "resnet34"])
+def test_served_logits_equal_the_parent_stem(cuda, model, monkeypatch):
+    """ResNet-152 and ResNet-34 at 224 px, b32, on the served route (the
+    TUNED.json overlay): one ``stem_pool_int8`` a forward, and the logits of
+    the composition it replaced, bit for bit."""
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.ops.cuda import fused
+    from resnetc_tpu_torch.serve import InferenceEngine
+
+    monkeypatch.setattr(fused, "L1_PIXEL_PAIR", True)
+    monkeypatch.setattr(fused, "BASIC_DS_INT8", True)
+    cfg = resnet.get_config(model)
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((32, 224, 224, 3), generator=torch.Generator().manual_seed(1))
+    eng = InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=x[:8])
+    _build.reset_launches()
+    got = eng.logits(x)
+    assert _build.LAUNCHES["stem_pool_int8"] == 1
+    monkeypatch.setattr(fused, "_stem_chain", _parent_stem_chain)
+    want = eng.logits(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_chain_export_holds_the_stem_pool(cuda, monkeypatch):
+    """The exported int8_chain program on the card holds one
+    ``resnetc.stem_pool_int8`` node, and its logits equal the engine's."""
+    from resnetc_tpu_torch import export
+    from resnetc_tpu_torch.ops.cuda import fused
+
+    monkeypatch.setattr(fused, "L1_PIXEL_PAIR", True)
+    monkeypatch.setattr(fused, "BASIC_DS_INT8", True)
+    eng = export.build_engine("resnet18", "int8_chain", device=cuda)
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(2)).to(cuda)
+    want = eng.logits(x).float()
+    program = export.export_program(eng, 2, 64)
+    assert export.kernel_nodes(program)["stem_pool_int8"] == 1
+    got = program.module()(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -123,7 +123,7 @@ def op_calls():
 
 
 def test_every_launcher_is_an_op_reached_by_a_route(op_calls):
-    assert len(LAUNCHERS) == 17
+    assert len(LAUNCHERS) == 18
     registered = {n for n in dir(torch.ops.resnetc) if n not in ("name",)
                   and isinstance(getattr(torch.ops.resnetc, n), torch._ops.OpOverloadPacket)}
     assert registered == set(LAUNCHERS)
@@ -190,9 +190,9 @@ def test_a_wrapper_on_the_cpu_runs_the_plain_version_and_counts_nothing():
 
 def test_int8_chain_export_holds_the_served_route(monkeypatch):
     """ResNet-18 at 32 px on the served route: one ``resnetc::`` node per
-    kernel call of the eager forward (stage 0 one pixel-paired run, three
-    transitions, three blocks, the fc), and the program's logits equal the
-    engine's bit for bit."""
+    kernel call of the eager forward (the stem's tail, stage 0 one
+    pixel-paired run, three transitions, three blocks, the fc), and the
+    program's logits equal the engine's bit for bit."""
     for k, v in SERVED.items():
         monkeypatch.setattr(tfused, k, v)
     with warnings.catch_warnings():
@@ -204,8 +204,9 @@ def test_int8_chain_export_holds_the_served_route(monkeypatch):
         want = eng.logits(x).float()
     program = texport.export_program(eng, 2, 32)
     nodes = texport.kernel_nodes(program)
-    assert nodes == rec.counts == {"pp_basic_run_int8": 1, "basic_ds_block_s2_int8": 3,
-                                   "basic_block_int8": 3, "gemm_f32acc": 1}
+    assert nodes == rec.counts == {"stem_pool_int8": 1, "pp_basic_run_int8": 1,
+                                   "basic_ds_block_s2_int8": 3, "basic_block_int8": 3,
+                                   "gemm_f32acc": 1}
     assert torch.equal(program.module()(torch.from_numpy(x)), want)
 
 
@@ -224,8 +225,9 @@ def test_int8_chain_package_runs_the_ops_in_process(tmp_path, monkeypatch):
     rec = _Calls()
     with rec:
         got = torch._inductor.aoti_load_package(str(path))(x)
-    assert rec.counts == {"pp_basic_run_int8": 1, "basic_ds_block_s2_int8": 3,
-                          "basic_block_int8": 3, "gemm_f32acc": 1}
+    assert rec.counts == {"stem_pool_int8": 1, "pp_basic_run_int8": 1,
+                          "basic_ds_block_s2_int8": 3, "basic_block_int8": 3,
+                          "gemm_f32acc": 1}
     assert torch.equal(got, eng.logits(x).float())
 
 

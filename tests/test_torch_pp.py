@@ -525,9 +525,11 @@ def test_pp_forward_matches_jax(bottleneck_model, basic_model, family, policy, m
     )
     got, counts = _forward(tcfg, tq, tscales, x, tpol)
     if family == "bottleneck":
-        assert counts == {"block_pp": 1, "run_pp": 1, "ds": 3, "block": 3, "matmul": 1}, counts
+        assert counts == {"stem_pool": 1, "block_pp": 1, "run_pp": 1, "ds": 3, "block": 3,
+                          "matmul": 1}, counts
     else:
-        assert counts == {"basic_run_pp": 1, "basic_ds": 3, "basic_block": 3, "matmul": 1}, counts
+        assert counts == {"stem_pool": 1, "basic_run_pp": 1, "basic_ds": 3, "basic_block": 3,
+                          "matmul": 1}, counts
     got = got.float().numpy()
     tol = 1e-4 if policy == "fp32" else 5e-2
     assert got.shape == (2, 11) and np.isfinite(got).all()
@@ -538,15 +540,15 @@ def test_pp_forward_matches_jax(bottleneck_model, basic_model, family, policy, m
 # (id, family, flags, launches of the route with L1_PIXEL_PAIR on)
 ROUTES = [
     ("bottleneck-run", "bottleneck", {},
-     {"block_pp": 1, "run_pp": 1, "ds": 3, "block": 3, "matmul": 1}),
+     {"stem_pool": 1, "block_pp": 1, "run_pp": 1, "ds": 3, "block": 3, "matmul": 1}),
     ("bottleneck-per-block", "bottleneck", {"RUN_FUSE_STAGES": ()},
-     {"block_pp": 2, "ds": 3, "block": 3, "matmul": 1}),
+     {"stem_pool": 1, "block_pp": 2, "ds": 3, "block": 3, "matmul": 1}),
     ("bottleneck-stage-fuse-proj", "bottleneck", {"STAGE_FUSE_PROJ": True},
-     {"run_pp": 1, "ds": 3, "block": 3, "matmul": 1}),
+     {"stem_pool": 1, "run_pp": 1, "ds": 3, "block": 3, "matmul": 1}),
     ("basic-run", "basic", {},
-     {"basic_run_pp": 1, "basic_ds": 3, "basic_block": 3, "matmul": 1}),
+     {"stem_pool": 1, "basic_run_pp": 1, "basic_ds": 3, "basic_block": 3, "matmul": 1}),
     ("basic-per-block", "basic", {"BASIC_RUN_FUSE_STAGES": ()},
-     {"basic_block_pp": 2, "basic_ds": 3, "basic_block": 3, "matmul": 1}),
+     {"stem_pool": 1, "basic_block_pp": 2, "basic_ds": 3, "basic_block": 3, "matmul": 1}),
 ]
 
 
@@ -584,7 +586,7 @@ def test_pp_basic_packed_tree_equals_unpacked(fp32_trees, run_stages, monkeypatc
     got, counts = _forward(tcfg, packed, tscales, x)
     want, _ = _forward(tcfg, tq, tscales, x)
     assert counts == ({"basic_run_pp": 1} if run_stages else {"basic_block_pp": 2}) | {
-        "basic_ds": 3, "basic_block": 3, "matmul": 1}, counts
+        "stem_pool": 1, "basic_ds": 3, "basic_block": 3, "matmul": 1}, counts
     assert torch.equal(got, want)
 
 
@@ -604,7 +606,7 @@ def test_bottleneck_packed_tree_equals_unpacked(fp32_trees, pp, stage_fuse_proj,
     want, _ = _forward(tcfg, tq, tscales, x)
     suffix = "_pp" if pp else ""
     stage0 = {"run" + suffix: 1} if stage_fuse_proj else {"block" + suffix: 1, "run" + suffix: 1}
-    want_counts = {"ds": 3, "block": 3, "matmul": 1}
+    want_counts = {"stem_pool": 1, "ds": 3, "block": 3, "matmul": 1}
     for k, v in stage0.items():
         want_counts[k] = want_counts.get(k, 0) + v
     assert counts == want_counts, counts
@@ -618,10 +620,11 @@ def test_pp_is_inert_on_a_wide_stage_0(monkeypatch):
     jcfg, tcfg, jfold, x = _model("wide_resnet50_2", (2, 1, 1, 1))
     _, _, tq, tscales = _served(jcfg, jfold, x[:1], JFP32)
     base, base_counts = _forward(tcfg, tq, tscales, x[:1])
-    assert base_counts == {"block": 1, "run": 1, "ds": 3, "matmul": 1}, base_counts
+    assert base_counts == {"stem_pool": 1, "block": 1, "run": 1, "ds": 3,
+                           "matmul": 1}, base_counts
     monkeypatch.setattr(tfused, "L1_PIXEL_PAIR", True)
     pp, counts = _forward(tcfg, tq, tscales, x[:1])
-    assert counts == {"block": 2, "ds": 3, "matmul": 1}, counts
+    assert counts == {"stem_pool": 1, "block": 2, "ds": 3, "matmul": 1}, counts
     assert torch.equal(pp, base)
 
 
