@@ -42,6 +42,9 @@ C7515, in ptxas's report), and then:
    are rounded to bf16 inside the block) and 1e-4 in fp32 (and rtol 1e-4),
    the pool
    and the elementwise ops equal (bit for bit where they hold NaN or -0);
+   ResNeXt-101 32x8d's grouped blocks (rows 21-22) at its stage shapes,
+   batch 128, equal to their plain versions, with their ms a launch, and
+   the served ResNeXt-101's launches a forward (``phase_grouped``);
 2. prints the TUNED.json flags the port laid over its code defaults (they
    must turn on L1_PIXEL_PAIR and BASIC_DS_INT8), then serves ResNet-152
    and ResNet-34 at full width and depth (random weights from seed 0) at
@@ -228,6 +231,8 @@ PEAK_NAMES = {PEAK_INT8_OPS: "int8 tensor cores", PEAK_BF16_FLOPS: "bf16 tensor 
 
 # ResNet-152 at 224 px: (h, c, c4) per stage after the stem and pool.
 STAGES = [(56, 64, 256), (28, 128, 512), (14, 256, 1024), (7, 512, 2048)]
+# ResNeXt-101 32x8d at 224 px: (h, W = C, group width) per stage.
+GROUPED_STAGES = [(56, 256, 8), (28, 512, 16), (14, 1024, 32), (7, 2048, 64)]
 # ResNet-34 at 224 px: (h, c) per stage.
 BASIC_STAGES = [(56, 64), (28, 128), (14, 256), (7, 512)]
 
@@ -1251,6 +1256,10 @@ SASS_CHECKS = (
     # rows 5, 6, 9 and 10: the pixel-paired bottleneck and basic blocks and
     # runs
     ("libpp_block.so", r"chain_tile_kernel", "IGMMA"),
+    # rows 21 and 22: the ResNeXt blocks, grouped_block_int8 and
+    # grouped_ds_block_s2_int8 (their 1x1s, and the grouped 3x3 apart)
+    ("libgrouped_block.so", r"chain_tile_kernel", "IGMMA"),
+    ("libgrouped_block.so", r"grouped_tile_kernel", "IGMMA"),
 )
 #: Libraries that must hold no dp4a implicit GEMM (``igemm_kernel``, the
 #: CUDA-core kernel the int8 blocks ran before the int8 tile) any more.
@@ -4349,6 +4358,105 @@ def phase_ew_timing(dev) -> dict:
     return out
 
 
+def phase_grouped(dev, batch: int = 128) -> dict:
+    """The ResNeXt blocks at ResNeXt-101 32x8d's stage shapes, batch 128:
+    each stage's stride-1 block and transition (stage 0's projection block)
+    equal to its plain version, its device ms a launch and its share of the
+    int8 peak and of its roofline (operations and bytes counted from the
+    model's shapes, conv2 at its grouped MACs), and its launches a forward
+    of the served ResNeXt-101 (30 stride-1, 3 stride-2, no other block
+    kernel), the forward's ms and images/s."""
+    import warnings
+
+    import torch
+
+    from resnetc_tpu_torch.models import get_config
+    from resnetc_tpu_torch.models import resnet as tresnet
+    from resnetc_tpu_torch.ops.cuda import _build, block
+    from resnetc_tpu_torch.ops.cuda.fused import grouped_kmajor_copies
+    from resnetc_tpu_torch.serve import InferenceEngine
+
+    gen = torch.Generator().manual_seed(2024)
+    scales = torch.full((4,), 0.05, dtype=torch.float32, device=dev)
+    keys = ("w1q", "sw1", "b1", "w2q", "sw2", "b2", "w3q", "sw3", "b3")
+
+    def weights(cin, w, c, gw, proj):
+        def entry(shape):
+            return {"weight": torch.randn(shape, generator=gen) * 0.05,
+                    "bias": torch.randn(shape[-1], generator=gen) * 0.1}
+
+        blk = {"conv1": entry((1, 1, cin, w)), "conv2": entry((3, 3, gw, w)),
+               "conv3": entry((1, 1, w, c))}
+        if proj:
+            blk["downsample"] = entry((1, 1, cin, c))
+        return {k: v.to(dev) for k, v in block.quantize_grouped_block(blk).items()}
+
+    out = {"kernels": {}}
+    for s, (h, w, gw) in enumerate(GROUPED_STAGES):
+        # (op, input side, input width, the stage's first block: a projection)
+        forms = [("grouped_ds_block_s2_int8", 2 * h, w // 2, True) if s else
+                 ("grouped_block_int8", h, 64, True), ("grouped_block_int8", h, w, False)]
+        for name, hin, ci, proj in forms:
+            q = weights(ci, w, w, gw, proj)
+            x = _chain(gen, batch, hin, ci, dev)
+            kw = dict(h=hin, w_sp=hin, **grouped_kmajor_copies(q))
+            if name == "grouped_ds_block_s2_int8":
+                args = (x, *(q[k] for k in keys), q["wdq"], q["swd"], q["bd"], scales)
+                fn, plain = block.grouped_ds_block_s2_int8, block.grouped_ds_block_s2_int8_plain
+            else:
+                args = (x, *(q[k] for k in keys), scales)
+                kw.update(wdq=q.get("wdq"), swd=q.get("swd"), bd=q.get("bd"))
+                fn, plain = block.grouped_block_int8, block.grouped_block_int8_plain
+            got = fn(*args, **kw)
+            want = plain(*args, **kw)
+            torch.cuda.synchronize()
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(f"[grouped] {name} at stage {s}: differs from plain")
+            if int(torch.unique(got).numel()) < 20:
+                raise AssertionError(f"[grouped] {name} at stage {s}: degenerate output")
+            del want
+            ms = device_ms(lambda: fn(*args, **kw), 10)
+            px, px_in = batch * h * h, batch * hin * hin
+            conv2 = 9 * w * gw
+            ops = 2 * (px_in * ci * w + px * (conv2 + w * w + (ci * w if proj else 0)))
+            wbytes = ci * w + conv2 + w * w + (ci * w if proj else 0)
+            nbytes = px_in * ci + px * w + wbytes
+            least = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3
+            tag = f"{name}/s{s}" + ("/first" if proj else "")
+            out["kernels"][tag] = {"ms": ms, "roofline_pct": 100 * least / ms,
+                                   "int8_peak_pct": 100 * ops / PEAK_INT8_OPS / (ms / 1e3),
+                                   "conv2_padding": max(32, gw) // gw}
+            log(f"[grouped] {tag}: equal to plain; {ms:.4f} ms a launch, "
+                f"{100 * least / ms:.1f}% of its roofline, conv2 tiles {max(32, gw) // gw}x "
+                f"its grouped MACs")
+            del got, x, q
+            torch.cuda.empty_cache()
+
+    cfg = get_config("resnext101_32x8d")
+    variables = tresnet.init(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((batch, 224, 224, 3), generator=torch.Generator().manual_seed(1)).to(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        eng = InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=x[:8],
+                              device=dev)
+    eng.logits(x)
+    _build.reset_launches()
+    eng.logits(x)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    want = {"stem_pool_int8": 1, "grouped_block_int8": 30, "grouped_ds_block_s2_int8": 3,
+            "matmul": 1}
+    if launches != want:
+        raise AssertionError(f"[grouped] ResNeXt-101 launches {launches}, expected {want}")
+    ms = time_ms(lambda: eng.logits(x), 5)
+    out.update(launches=launches, forward_ms=ms, images_per_s=batch * 1e3 / ms)
+    log(f"[grouped] ResNeXt-101 32x8d int8_chain b{batch}: launches a forward {launches}; "
+        f"{ms:.3f} ms a forward, {batch * 1e3 / ms:.1f} images/s")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=32, help="end-to-end batch size")
@@ -4401,6 +4509,8 @@ def _run(args, card: str, dev, art_child, art_dir) -> int:
     build_s = time.perf_counter() - t0
     log(f"[build] kernels and the ops library built in {build_s:.1f} s")
     sass = phase_sass(build_dir)
+    grouped = phase_grouped(dev)
+    torch.cuda.empty_cache()
 
     cases = {name: make(8, dev) for name, _, make in MODELS}
     errs = phase_kernels([c for cs in cases.values() for c in cs] + make_backend_cases(8, dev)
@@ -4505,7 +4615,7 @@ def _run(args, card: str, dev, art_child, art_dir) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s, "sass": sass, "total_s": total_s,
-                       "tuned": tuned,
+                       "tuned": tuned, "grouped": grouped,
                        "e2e": summaries, "engines": engine_times, "cases": per_case,
                        "kernels": kernels, "max_abs_err": errs, "elementwise": ew}, f, indent=1)
     log(card)

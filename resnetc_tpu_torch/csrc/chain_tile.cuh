@@ -13,6 +13,8 @@
 //     3x3s and the identity shortcut; and the stride-2 transition
 //     (basic_ds_block_s2_int8, :2542): conv1 3x3/2 as one nine-tap sum,
 //     conv2 3x3 with the 1x1/2 projection as a fourth sum;
+//   - grouped_block.cu: the ResNeXt bottleneck blocks, whose conv2 is the
+//     grouped 3x3 sum below (GRP), stride 1 and stride 2;
 //   - pp_block.cu: the pixel-paired bottleneck block and run
 //     (bottleneck_block_chained_int8_pp, :1113; bottleneck_run_chained_int8_pp,
 //     :1387) and BasicBlock and run (basic_block_chained_int8_pp, :2002;
@@ -45,6 +47,18 @@
 // next row's left one).  The BasicBlock transition's conv1 reads x itself
 // the same way (off = -wp - 1, seg = 3cin, seg_rows = wp), under the mask
 // below.
+//
+// The grouped sum (the kernel's GRP; its launch's only sum, grouped_block.cu).
+// A grouped 3x3 of group width gw maps output channel n to the input
+// channels of its own group only, so the column tile [n0, n0 + BN), whole
+// groups (gw divides BN), reads input channels [n0, n0 + BN) alone: K is
+// the nine taps of those BN channels, K index k in tap q = k / BN (kh = q /
+// 3, kw = q % 3) at channel n0 + k % BN, read at the chain row base + off +
+// kh * seg_rows + kw (base: the pixel's chain row, or with S2 the stride-2
+// source row; off = -wp - 1, seg_rows = wp).  B is the tile's (N, 9 BN)
+// copy, zero where input and output lie in different groups.  The last K
+// stage issues only the k32 products that hold K values (9 BN is no
+// multiple of 128), so the tensor cores do BN / gw times the grouped MACs.
 //
 // Where a 3x3 or a pair-space 1x1 reads a buffer whose ring may hold
 // anything (the BasicBlock's conv1 reads x itself: "chain ring garbage must
@@ -309,14 +323,17 @@ __device__ __forceinline__ uint32_t interior(const Chain& g, long long t) {
 // fma(P0, a0, P1*a1) is formed as soon as P1 is done).  The A loads of the
 // sums in MASK skip source pixels off the image, those in S2 read at the
 // stride-2 source row, and with PAIR the GEMM rows are pair rows (see the
-// header).  MASK, S2 and PAIR are template parameters so that a kernel
-// without them carries no test of theirs.
-template <int BM, int BN, bool VEC, int NG, int EPI, int MASK, bool PAIR, int S2>
+// header).  With GRP the one sum is the grouped 3x3 (see the header).  MASK,
+// S2, PAIR and GRP are template parameters so that a kernel without them
+// carries no test of theirs.
+template <int BM, int BN, bool VEC, int NG, int EPI, int MASK, bool PAIR, int S2,
+          bool GRP = false>
 __device__ __forceinline__ void chain_tile(const TileArgs& p) {
   using namespace s8tile;
   static_assert(!(MASK & S2) || NG == 1, "a masked stride-2 sum is its launch's only sum");
   static_assert(EPI != TE_KH3_PROJ || NG == 4,
                 "TE_KH3_PROJ folds three kernel rows and a projection");
+  static_assert(!GRP || (NG == 1 && MASK == 0 && !PAIR), "the grouped sum is alone and unmasked");
   extern __shared__ uint8_t smem_raw[];
   __shared__ int row_t[BM];       // the tile row's GEMM row in the output
   __shared__ int row_in[BM];      // ... and which of its pixels are interior (finish8)
@@ -421,6 +438,12 @@ __device__ __forceinline__ void chain_tile(const TileArgs& p) {
   // The flat index into sum g's buffer of K index k of this thread's row i.
   auto src_index = [&](int g, int i, int k) -> long long {
     const S8Sum& s = p.sum[g];
+    if constexpr (GRP) {  // tap q = (kh, kw) of channel n0 + k % BN
+      const int q = k / BN, kh = q / 3;
+      const long long base = S2 ? static_cast<long long>(srow[i]) : arow[i];
+      return (base + s.off + static_cast<long long>(kh) * s.seg_rows + (q - 3 * kh)) * s.lda +
+             n0 + (k - q * BN);
+    }
     if ((S2 >> g) & 1) {
       const int q = k / s.seg;
       return (static_cast<long long>(srow[i]) + s.off + static_cast<long long>(q) * s.seg_rows) *
@@ -488,6 +511,7 @@ __device__ __forceinline__ void chain_tile(const TileArgs& p) {
   // across the boundary all the same.
   int i = 0, end = 0;
   auto run_sum = [&](int g) {
+    const int first = end;
     end += nk[g];
     int scale = 0;
     for (; i < end; ++i) {
@@ -498,12 +522,16 @@ __device__ __forceinline__ void chain_tile(const TileArgs& p) {
       cp_async_commit();
       const uint32_t sa = ring + (i % STAGES) * STAGE_BYTES + wg * 64 * 128;
       const uint32_t sb = ring + (i % STAGES) * STAGE_BYTES + A_BYTES;
+      // The K values this stage holds (GRP: the last stage of 9 BN is short).
+      const int kleft = GRP ? p.sum[g].K - (i - first) * BK8 : BK8;
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < BK8 / 32; ++ks) {
-        WgmmaS8<BN>::mma(acc, desc_sw128(sa + ks * 32, 16, 1024),
-                         desc_sw128(sb + ks * 32, 16, 1024), scale);
-        scale = 1;
+        if (!GRP || ks * 32 < kleft) {
+          WgmmaS8<BN>::mma(acc, desc_sw128(sa + ks * 32, 16, 1024),
+                           desc_sw128(sb + ks * 32, 16, 1024), scale);
+          scale = 1;
+        }
       }
       wgmma_commit();
       wgmma_wait<1>();

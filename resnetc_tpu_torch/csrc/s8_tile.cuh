@@ -3,7 +3,8 @@
 // block tile (chain_tile.cuh: the stride-1 int8 bottleneck and basic blocks,
 // resnetc_tpu/ops/pallas/block.py:718, :1646, :2002): the PTX of
 //
-//     wgmma.mma_async.m64nNk32.s32.s8.s8   (N = 64 or 128)
+//     wgmma.mma_async.m64nNk32.s32.s8.s8   (N = 32, 64 or 128; 32 for the
+//                                           grouped 3x3 of grouped_block.cu)
 //
 // with A and B both K-major in shared memory (for 8-bit types wgmma has no
 // transpose bit: the PTX ISA gives it to f16 / bf16 only), and the loader
@@ -30,6 +31,22 @@ constexpr int BK8 = 128;  // int8 K values per stage: one 128-byte swizzle row
 // K-major in shared memory (8-bit wgmma has no transpose bit).
 template <int N>
 struct WgmmaS8;
+
+template <>
+struct WgmmaS8<32> {
+  static __device__ __forceinline__ void mma(int (&d)[16], uint64_t da, uint64_t db,
+                                           int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 
 template <>
 struct WgmmaS8<64> {

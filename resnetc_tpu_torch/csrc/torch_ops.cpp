@@ -97,6 +97,21 @@ int pp_run_int8(const int8_t* x, int n_blocks, int B, int h, int w, int hp, int 
                 const float* scales_s, int folded, const int8_t* wd_nk, const float* swd,
                 const float* bd, int8_t* z1, int8_t* z2, int8_t* act0, int8_t* act1,
                 int last_bf16, void* out, cudaStream_t stream);
+int grouped_block_int8(const int8_t* x, int B, int h, int w, int hp, int wp, int cin, int c,
+                       int c4, const int8_t* w1_nk, const float* sw1, const float* b1,
+                       const int8_t* w2g_nk, int k2, const float* sw2, const float* b2,
+                       const int8_t* w3_nk, const float* sw3, const float* b3,
+                       const float* scales, int unit_y, const int8_t* wd_nk, const float* swd,
+                       const float* bd, int8_t* z1, int8_t* z2, int out_kind, void* out,
+                       cudaStream_t stream);
+int grouped_ds_block_s2_int8(const int8_t* x, int B, int h, int w, int hp, int wp, int cin,
+                             int c, int c4, int oh, int ow, int hp2, int wp2,
+                             const int8_t* w1_nk, const float* sw1, const float* b1,
+                             const int8_t* w2g_nk, int k2, const float* sw2, const float* b2,
+                             const int8_t* w3_nk, const float* sw3, const float* b3,
+                             const int8_t* wd_nk, const float* swd, const float* bd,
+                             const float* scales, int unit_y, int8_t* z1, int8_t* z2,
+                             int out_kind, void* out, cudaStream_t stream);
 int pp_basic_block_int8(const int8_t* x, int B, int h, int w, int hp, int wp, int c2,
                         const int8_t* w1_nk, const float* a1, const float* c1,
                         const int8_t* w2_nk, const float* a2, const float* c2v,
@@ -318,6 +333,61 @@ Tensor ds_block_s2_int8_op(const Tensor& x, const Tensor& w1_nk, const Tensor& s
         p<float>(sw2), p<float>(b2), p<int8_t>(w3_nk), p<float>(sw3), p<float>(b3),
         p<int8_t>(wd_nk), p<float>(swd), p<float>(bd), p<float>(scales), out_kind != 0,
         m<int8_t>(z1), m<int8_t>(z2), i(out_kind), out.data_ptr(), stream()), "ds_block_s2_int8");
+  return out;
+}
+
+// --- csrc/grouped_block.cu -------------------------------------------------
+
+Tensor grouped_block_int8_op(const Tensor& x, const Tensor& w1_nk, const Tensor& sw1,
+                             const Tensor& b1, const Tensor& w2g_nk, const Tensor& sw2,
+                             const Tensor& b2, const Tensor& w3_nk, const Tensor& sw3,
+                             const Tensor& b3, const Tensor& scales, const OptTensor& wd_nk,
+                             const OptTensor& swd, const OptTensor& bd, int64_t h, int64_t w,
+                             int64_t out_kind) {
+  on_card(x, "grouped_block_int8");
+  dense("grouped_block_int8", x, w1_nk, sw1, b1, w2g_nk, sw2, b2, w3_nk, sw3, b3, scales, wd_nk,
+        swd, bd);
+  aligned("grouped_block_int8", x, w1_nk, w2g_nk, w3_nk, wd_nk);
+  auto [hp, wp] = chain_meta(h, w);
+  const int64_t rows = x.size(0), cin = x.size(1), b = rows / (hp * wp);
+  const int64_t c = w1_nk.size(0), c4 = w3_nk.size(0);
+  Tensor z1 = empty({rows, c}, at::kChar, x), z2 = empty({rows, c}, at::kChar, x);
+  Tensor out = empty({rows, c4}, out_dtype(out_kind), x);
+  const auto launch = LAUNCHER("grouped_block", grouped_block_int8);
+  check(launch(p<int8_t>(x), i(b), i(h), i(w), i(hp), i(wp), i(cin), i(c), i(c4),
+        p<int8_t>(w1_nk), p<float>(sw1), p<float>(b1), p<int8_t>(w2g_nk), i(w2g_nk.size(1)),
+        p<float>(sw2), p<float>(b2), p<int8_t>(w3_nk), p<float>(sw3), p<float>(b3),
+        p<float>(scales), out_kind != 0, p<int8_t>(wd_nk), p<float>(swd), p<float>(bd),
+        m<int8_t>(z1), m<int8_t>(z2), i(out_kind), out.data_ptr(), stream()),
+        "grouped_block_int8");
+  return out;
+}
+
+Tensor grouped_ds_block_s2_int8_op(const Tensor& x, const Tensor& w1_nk, const Tensor& sw1,
+                                   const Tensor& b1, const Tensor& w2g_nk, const Tensor& sw2,
+                                   const Tensor& b2, const Tensor& w3_nk, const Tensor& sw3,
+                                   const Tensor& b3, const Tensor& wd_nk, const Tensor& swd,
+                                   const Tensor& bd, const Tensor& scales, int64_t h, int64_t w,
+                                   int64_t out_kind) {
+  on_card(x, "grouped_ds_block_s2_int8");
+  dense("grouped_ds_block_s2_int8", x, w1_nk, sw1, b1, w2g_nk, sw2, b2, w3_nk, sw3, b3, wd_nk,
+        swd, bd, scales);
+  aligned("grouped_ds_block_s2_int8", x, w1_nk, w2g_nk, w3_nk, wd_nk);
+  auto [hp, wp] = chain_meta(h, w);
+  const int64_t oh = (h + 1) / 2, ow = (w + 1) / 2;
+  auto [hp2, wp2] = chain_meta(oh, ow);
+  const int64_t cin = x.size(1), b = x.size(0) / (hp * wp);
+  const int64_t c = w1_nk.size(0), c4 = w3_nk.size(0);
+  Tensor z1 = empty({b * hp * wp, c}, at::kChar, x);
+  Tensor z2 = empty({b * hp2 * wp2, c}, at::kChar, x);
+  Tensor out = empty({b * hp2 * wp2, c4}, out_dtype(out_kind), x);
+  const auto launch = LAUNCHER("grouped_block", grouped_ds_block_s2_int8);
+  check(launch(p<int8_t>(x), i(b), i(h), i(w), i(hp), i(wp), i(cin), i(c), i(c4), i(oh), i(ow),
+        i(hp2), i(wp2), p<int8_t>(w1_nk), p<float>(sw1), p<float>(b1), p<int8_t>(w2g_nk),
+        i(w2g_nk.size(1)), p<float>(sw2), p<float>(b2), p<int8_t>(w3_nk), p<float>(sw3),
+        p<float>(b3), p<int8_t>(wd_nk), p<float>(swd), p<float>(bd), p<float>(scales),
+        out_kind != 0, m<int8_t>(z1), m<int8_t>(z2), i(out_kind), out.data_ptr(), stream()),
+        "grouped_ds_block_s2_int8");
   return out;
 }
 
@@ -668,6 +738,13 @@ void define_schemas(torch::Library& m) {
   m.def("ds_block_s2_int8(Tensor x, Tensor w1_nk, Tensor sw1, Tensor b1, Tensor w2_nk, "
         "Tensor sw2, Tensor b2, Tensor w3_nk, Tensor sw3, Tensor b3, Tensor wd_nk, Tensor swd, "
         "Tensor bd, Tensor scales, int h, int w, int out_kind) -> Tensor");
+  m.def("grouped_block_int8(Tensor x, Tensor w1_nk, Tensor sw1, Tensor b1, Tensor w2g_nk, "
+        "Tensor sw2, Tensor b2, Tensor w3_nk, Tensor sw3, Tensor b3, Tensor scales, "
+        "Tensor? wd_nk, Tensor? swd, Tensor? bd, int h, int w, int out_kind) -> Tensor");
+  m.def("grouped_ds_block_s2_int8(Tensor x, Tensor w1_nk, Tensor sw1, Tensor b1, "
+        "Tensor w2g_nk, Tensor sw2, Tensor b2, Tensor w3_nk, Tensor sw3, Tensor b3, "
+        "Tensor wd_nk, Tensor swd, Tensor bd, Tensor scales, int h, int w, int out_kind) "
+        "-> Tensor");
   m.def("basic_block_int8(Tensor x, Tensor w1_nk, Tensor sw1p, Tensor b1, Tensor w2_nk, "
         "Tensor sw2p, Tensor b2, Tensor scales, int h, int w, int out_kind) -> Tensor");
   m.def("basic_run_int8(Tensor x, Tensor w1s_nk, Tensor sw1ps, Tensor b1s, Tensor w2s_nk, "
@@ -716,6 +793,8 @@ TORCH_LIBRARY_IMPL(resnetc, CUDA, m) {
   m.impl("chain_block_int8", &chain_block_int8_op);
   m.impl("chain_run_int8", &chain_run_int8_op);
   m.impl("ds_block_s2_int8", &ds_block_s2_int8_op);
+  m.impl("grouped_block_int8", &grouped_block_int8_op);
+  m.impl("grouped_ds_block_s2_int8", &grouped_ds_block_s2_int8_op);
   m.impl("basic_block_int8", &basic_block_int8_op);
   m.impl("basic_run_int8", &basic_run_int8_op);
   m.impl("basic_ds_block_s2_int8", &basic_ds_block_s2_int8_op);

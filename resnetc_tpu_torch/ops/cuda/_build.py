@@ -48,8 +48,8 @@ from torch._subclasses.fake_tensor import is_fake
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("chain_block", "basic_block", "pp_block", "gemm", "int8_gemm", "conv", "pool",
-           "fp_block", "elementwise")
+SOURCES = ("chain_block", "basic_block", "grouped_block", "pp_block", "gemm", "int8_gemm",
+           "conv", "pool", "fp_block", "elementwise")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -19,14 +19,21 @@ The basic family, ResNet-18/34 (CUDA in ``csrc/basic_block.cu``):
 - ``basic_ds_block_s2_int8``         (block.py:2542) — the stride-2
   transition.
 
+The grouped family, ResNeXt (CUDA in ``csrc/grouped_block.cu``; no JAX
+kernel exists, the plain versions here are the specification):
+
+- ``grouped_block_int8``             — one stride-1 block whose conv2 is a
+  grouped 3x3 (identity or 1x1 projection shortcut);
+- ``grouped_ds_block_s2_int8``       — the stride-2 transition.
+
 The pixel-paired twins for stage 0 at c = 64 (CUDA in ``csrc/pp_block.cu``;
 see the section comment below): ``bottleneck_block_chained_int8_pp``
 (block.py:1113), ``bottleneck_run_chained_int8_pp`` (:1387),
 ``basic_block_chained_int8_pp`` (:2002) and ``basic_run_chained_int8_pp``
 (:2175).
 
-Every int8 block kernel (the stride-1 blocks of both families and their
-runs, the two transitions, the four pixel-paired kernels) runs on the int8
+Every int8 block kernel (the stride-1 blocks of the three families and
+their runs, the three transitions, the four pixel-paired kernels) runs on the int8
 tensor-core tile of ``csrc/chain_tile.cuh`` (its header gives the design
 and what bounds it).
 
@@ -587,7 +594,8 @@ CHAIN_RUN_INT8 = _build.kernel_op(
 
 def _fold_ds(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8):
     """Host-side scale folding of block.py:3545-3554, op for op (the plain
-    version's; the kernel folds in its epilogue)."""
+    version's; the kernel folds in its epilogue).  ``swd`` None: no
+    projection (a grouped stride-1 block's identity shortcut)."""
     s_x, s_z1, s_z2 = scales[0], scales[1], scales[2]
     s_y = scales[3] if emit_i8 else _one(scales)
     return {
@@ -597,8 +605,8 @@ def _fold_ds(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8):
         "c2": b2.float() * (1.0 / s_z2),
         "a3": sw3.float() * (s_z2 / s_y),
         "c3": b3.float() * (1.0 / s_y),
-        "ad": swd.float() * (s_x / s_y),
-        "cd": bd.float() * (1.0 / s_y),
+        "ad": None if swd is None else swd.float() * (s_x / s_y),
+        "cd": None if swd is None else bd.float() * (1.0 / s_y),
     }
 
 
@@ -724,6 +732,297 @@ DS_BLOCK_S2_INT8 = _build.kernel_op(
     "Tensor w3_nk, Tensor sw3, Tensor b3, Tensor wd_nk, Tensor swd, Tensor bd, Tensor scales, "
     "int h, int w, int out_kind) -> Tensor",
     plain=_ds_plain, fake=_ds_fake,
+)
+
+
+# ---------------------------------------------------------------------------
+# The grouped family (ResNeXt): csrc/grouped_block.cu
+# ---------------------------------------------------------------------------
+#
+# conv2 is a grouped 3x3 of group width gw (HWIO (3, 3, gw, W)), quantized
+# per output channel jointly over its nine taps and its group's gw inputs,
+# as the stride-2 transition's 3x3 is, and summed as ONE int32 sum.  The
+# kernel computes it in column tiles of bn = grouped_tile_n(gw) channels,
+# whole groups, each reading only the bn input channels of its own groups:
+# the weight is the (W, 9 bn) K-major copy of pack_grouped_nk, row n the
+# nine taps (kh, kw) of its tile's bn input channels, zero outside n's
+# group.  The plain versions compute the same tiles from that copy; the
+# tests hold them to torch's grouped convolution.
+
+
+def grouped_tile_n(gw: int) -> int:
+    """The grouped kernel's column tile for group width ``gw``: whole
+    groups, and at least 32 channels (the narrowest int8 wgmma it issues), so
+    the tensor cores do max(32, gw) / gw times the grouped MACs."""
+    bn = max(32, gw)
+    if bn not in (32, 64) or bn % gw:
+        raise ValueError(f"the grouped int8 kernel takes group widths that divide 32, or 64; "
+                         f"got {gw}")
+    return bn
+
+
+def quantize_grouped_block(blk: dict) -> dict:
+    """Quantize one BN-folded ResNeXt block (either stride): 1x1s per
+    output channel, the grouped 3x3 (3, 3, gw, W) per output channel jointly
+    over its nine taps and gw inputs; the projection where the block has
+    one."""
+    w2 = blk["conv2"]["weight"]
+    _, _, gw, c = w2.shape
+    grouped_tile_n(gw)
+    w1q, sw1 = quantize_per_channel(_as_1x1(blk["conv1"]["weight"]))
+    w2q, sw2 = quantize_per_channel(w2.reshape(9 * gw, c))
+    w3q, sw3 = quantize_per_channel(_as_1x1(blk["conv3"]["weight"]))
+    out = {
+        "w1q": w1q, "sw1": sw1, "b1": blk["conv1"]["bias"],
+        "w2q": w2q.reshape(3, 3, gw, c), "sw2": sw2, "b2": blk["conv2"]["bias"],
+        "w3q": w3q, "sw3": sw3, "b3": blk["conv3"]["bias"],
+    }
+    if "downsample" in blk:
+        out["wdq"], out["swd"] = quantize_per_channel(_as_1x1(blk["downsample"]["weight"]))
+        out["bd"] = blk["downsample"]["bias"]
+    return out
+
+
+def pack_grouped_nk(w2q: torch.Tensor) -> torch.Tensor:
+    """The grouped 3x3 (3, 3, gw, W) as the kernel's (W, 9 bn) K-major
+    copy: row n, column q * bn + i holds tap q = (kh, kw) of input channel
+    i of n's column tile (channel (n // bn) * bn + i), which is n's group's
+    input (i - s) at s = its group's first channel in the tile, zero
+    elsewhere."""
+    _, _, gw, c = w2q.shape
+    bn = grouped_tile_n(gw)
+    if c % bn:
+        raise ValueError(f"width {c} is not a whole number of {bn}-channel tiles")
+    n = torch.arange(c, device=w2q.device)
+    start = (n // gw) * gw - (n // bn) * bn
+    cols = (start[:, None] + torch.arange(gw, device=w2q.device)[None, :])[:, None, :]
+    out = torch.zeros((c, 9, bn), dtype=w2q.dtype, device=w2q.device)
+    out.scatter_(2, cols.expand(c, 9, gw), w2q.reshape(9, gw, c).permute(2, 0, 1))
+    return out.reshape(c, 9 * bn)
+
+
+def _grouped_nk(w2q, w2g_nk, dev=None):
+    """``w2g_nk`` as given (the engine's, checked against ``w2q``), else
+    packed from ``w2q`` for this call."""
+    if w2g_nk is None:
+        w2g_nk = pack_grouped_nk(w2q)
+    elif w2q is not None:
+        gw, c = w2q.shape[2:]
+        if tuple(w2g_nk.shape) != (c, 9 * grouped_tile_n(gw)):
+            raise ValueError(f"w2g_nk: shape {tuple(w2g_nk.shape)} is not the grouped copy "
+                             f"of {tuple(w2q.shape)}")
+    if dev is not None:
+        _check_i8(dev, w2g_nk=w2g_nk)
+    return w2g_nk
+
+
+def _grouped_3x3(taps: list, w2g_nk: torch.Tensor) -> torch.Tensor:
+    """The grouped 3x3's exact int32 sums from its nine (B, h, w, W) int8
+    taps in (kh, kw) order: column tile t of bn channels is the dot of the
+    nine taps of channels [t bn, (t + 1) bn) with rows [t bn, (t + 1) bn) of
+    the (W, 9 bn) copy, as the kernel's tile computes it."""
+    c, k2 = w2g_nk.shape
+    bn = k2 // 9
+    lead = taps[0].shape[:-1]
+    a = torch.stack(taps, dim=-2).reshape(-1, 9, c // bn, bn).permute(2, 0, 1, 3)
+    w = w2g_nk.reshape(c // bn, bn, k2).transpose(-1, -2)
+    out = _idot(a.reshape(c // bn, -1, k2), w)  # (tiles, pixels, bn)
+    return out.permute(1, 0, 2).reshape(*lead, c)
+
+
+def _fold_grouped(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8):
+    """The kernel's epilogue constants, op for op: the transition's
+    folding (conv2 one joint sum), the identity residual's scale s_x / s_y
+    where there is no projection."""
+    s_y = scales[3] if emit_i8 else _one(scales)
+    f = _fold_ds(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8)
+    f["s_res"] = (scales[0] / s_y).float().reshape(1)
+    return f
+
+
+def _grouped_tail(x, taps, w2g, w3q, wdq, f, hp2, wp2, emit_i8):
+    """conv2 over its taps, conv3, the shortcut (``x``: the identity, or
+    the projection's input pixels), relu, the chain out."""
+    z2 = _requant(torch.relu(_fma(_grouped_3x3(taps, w2g).float(), f["a2"], f["c2"])))
+    y = _fma(_idot(z2, w3q).float(), f["a3"], f["c3"])
+    if wdq is None:
+        y = _fma(x.float(), f["s_res"], y)
+    else:
+        y = y + _fma(_idot(x, wdq).float(), f["ad"], f["cd"])
+    y = torch.relu(y)
+    return _chain_from_interior(_requant(y) if emit_i8 else y.to(torch.bfloat16), hp2, wp2)
+
+
+def grouped_block_int8_plain(
+    xq, w1q, sw1, b1, w2q, sw2, b2, w3q, sw3, b3, scales, *,
+    h, w_sp, emit_i8=True, wdq=None, swd=None, bd=None,
+    w1q_nk=None, w2g_nk=None, w3q_nk=None, wdq_nk=None,
+):
+    """Plain PyTorch version of ``grouped_block_int8`` (the weights read
+    from their K-major copies where given)."""
+    w1q, w3q, wdq = _from_kmajor(w1q, w1q_nk), _from_kmajor(w3q, w3q_nk), _from_kmajor(wdq, wdq_nk)
+    w2g = _grouped_nk(w2q, w2g_nk)
+    b, hp, wp, cin, _, _ = _block_geometry(xq, w1q, w3q, wdq, h, w_sp, emit_i8, False)
+    f = _fold_grouped(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8)
+    x = xq.reshape(b, hp, wp, cin)[:, 1 : 1 + h, 1 : 1 + w_sp]
+    z1 = _requant(torch.relu(_fma(_idot(x, w1q).float(), f["a1"], f["c1"])))
+    z1p = F.pad(z1, (0, 0, 1, 1, 1, 1))
+    taps = [z1p[:, kh : kh + h, kw : kw + w_sp] for kh in range(3) for kw in range(3)]
+    return _grouped_tail(x, taps, w2g, w3q, wdq, f, hp, wp, emit_i8)
+
+
+def _grouped_check(xq, dev, w1q, w2q, w3q, wdq, cin):
+    c, c4 = w1q.shape[-1], w3q.shape[-1]
+    _check_i8(dev, xq=xq, w1q=w1q, w2q=w2q, w3q=w3q, wdq=wdq)
+    if cin % 4 or c % 4:
+        raise ValueError(f"channel counts must be multiples of 4, got cin={cin}, c={c}")
+    if w2q.shape[:2] != (3, 3) or w2q.shape[-1] != c or c % w2q.shape[2]:
+        raise ValueError(f"conv2 {tuple(w2q.shape)} is not a grouped 3x3 of width {c}")
+    return c, c4
+
+
+def grouped_block_int8(
+    xq, w1q, sw1, b1, w2q, sw2, b2, w3q, sw3, b3, scales, *,
+    h, w_sp, emit_i8=True, wdq=None, swd=None, bd=None,
+    w1q_nk=None, w2g_nk=None, w3q_nk=None, wdq_nk=None,
+):
+    """Int8 stride-1 ResNeXt bottleneck block over the chained padded-row
+    layout.
+
+    xq: (B*Hp*Wp, cin) int8 chain at scale scales[0]; w1q (cin, W), w2q the
+    grouped 3x3 (3, 3, gw, W), w3q (W, C) int8 with per-output-channel
+    scales (``quantize_grouped_block``); biases f32; scales (4,) = [s_x,
+    s_z1, s_z2, s_y].  With wdq/swd/bd the shortcut is the 1x1 projection
+    instead of identity.  Returns the same chain layout, int8 at s_y
+    (emit_i8) or unscaled bf16.
+
+    ``w1q_nk``, ``w3q_nk``, ``wdq_nk``: the K-major (N, K) copies, and
+    ``w2g_nk`` the grouped 3x3's (W, 9 bn) copy (``pack_grouped_nk``), made
+    once per engine by ``fused.pack_chain_kmajor``; without them the wrapper
+    makes them per call.  The kernel folds the requant scales itself, as
+    ``_fold_grouped`` does, op for op.
+    """
+    kmajor = dict(w1q_nk=w1q_nk, w2g_nk=w2g_nk, w3q_nk=w3q_nk, wdq_nk=wdq_nk)
+    if _build.runs_plain():
+        return grouped_block_int8_plain(
+            xq, w1q, sw1, b1, w2q, sw2, b2, w3q, sw3, b3, scales, h=h, w_sp=w_sp,
+            emit_i8=emit_i8, wdq=wdq, swd=swd, bd=bd, **kmajor,
+        )
+    _, _, _, cin, _, _ = _block_geometry(xq, w1q, w3q, wdq, h, w_sp, emit_i8, False)
+    dev = xq.device
+    c, c4 = _grouped_check(xq, dev, w1q, w2q, w3q, wdq, cin)
+    v = _f32_vectors(dev, sw1=(sw1, c), b1=(b1, c), sw2=(sw2, c), b2=(b2, c), sw3=(sw3, c4),
+                     b3=(b3, c4), scales=(scales, 4),
+                     swd=(swd, c4) if wdq is not None else None,
+                     bd=(bd, c4) if wdq is not None else None)
+    return _build.call("grouped_block_int8", GROUPED_BLOCK_INT8,
+        xq, _kmajor(w1q, w1q_nk, "w1q_nk", dev), v["sw1"], v["b1"],
+        _grouped_nk(w2q, w2g_nk, dev), v["sw2"], v["b2"],
+        _kmajor(w3q, w3q_nk, "w3q_nk", dev), v["sw3"], v["b3"], v["scales"],
+        _kmajor(wdq, wdq_nk, "wdq_nk", dev), v["swd"], v["bd"],
+        h, w_sp, _kind(emit_i8),
+    )
+
+
+def _grouped_block_plain(x, w1_nk, sw1, b1, w2g_nk, sw2, b2, w3_nk, sw3, b3, scales,
+                         wd_nk, swd, bd, h, w, out_kind):
+    return grouped_block_int8_plain(
+        x, None, sw1, b1, None, sw2, b2, None, sw3, b3, scales, h=h, w_sp=w,
+        emit_i8=out_kind == 0, swd=swd, bd=bd,
+        w1q_nk=w1_nk, w2g_nk=w2g_nk, w3q_nk=w3_nk, wdq_nk=wd_nk,
+    )
+
+
+def _grouped_block_fake(x, w1_nk, sw1, b1, w2g_nk, sw2, b2, w3_nk, sw3, b3, scales,
+                        wd_nk, swd, bd, h, w, out_kind):
+    return x.new_empty((x.shape[0], w3_nk.shape[0]), dtype=_out_dtype(out_kind))
+
+
+#: ``csrc/grouped_block.cu``'s ``grouped_block_int8``; ``out_kind`` 0 int8,
+#: 1 bf16.
+GROUPED_BLOCK_INT8 = _build.kernel_op(
+    "grouped_block_int8",
+    "(Tensor x, Tensor w1_nk, Tensor sw1, Tensor b1, Tensor w2g_nk, Tensor sw2, Tensor b2, "
+    "Tensor w3_nk, Tensor sw3, Tensor b3, Tensor scales, Tensor? wd_nk, Tensor? swd, "
+    "Tensor? bd, int h, int w, int out_kind) -> Tensor",
+    plain=_grouped_block_plain, fake=_grouped_block_fake,
+)
+
+
+def grouped_ds_block_s2_int8_plain(
+    xr, w1q, sw1, b1, w2q, sw2, b2, w3q, sw3, b3, wdq, swd, bd, scales, *,
+    h, w_sp, emit_i8=True, w1q_nk=None, w2g_nk=None, w3q_nk=None, wdq_nk=None,
+):
+    """Plain PyTorch version of ``grouped_ds_block_s2_int8`` (the weights
+    read from their K-major copies where given)."""
+    w1q, w3q, wdq = _from_kmajor(w1q, w1q_nk), _from_kmajor(w3q, w3q_nk), _from_kmajor(wdq, wdq_nk)
+    w2g = _grouped_nk(w2q, w2g_nk)
+    b, hp, wp, cin, oh, ow, hp2, wp2 = _ds_geometry(xr, h, w_sp)
+    f = _fold_grouped(scales, sw1, b1, sw2, b2, sw3, b3, swd, bd, emit_i8)
+    x = xr.reshape(b, hp, wp, cin)[:, 1 : 1 + h, 1 : 1 + w_sp]
+    z1 = _requant(torch.relu(_fma(_idot(x, w1q).float(), f["a1"], f["c1"])))
+    z1p = F.pad(z1, (0, 0, 1, 1, 1, 1))
+    taps = [z1p[:, u : u + 2 * oh - 1 : 2, v : v + 2 * ow - 1 : 2]
+            for u in range(3) for v in range(3)]
+    return _grouped_tail(x[:, ::2, ::2], taps, w2g, w3q, wdq, f, hp2, wp2, emit_i8)
+
+
+def grouped_ds_block_s2_int8(
+    xr, w1q, sw1, b1, w2q, sw2, b2, w3q, sw3, b3, wdq, swd, bd, scales, *,
+    h, w_sp, emit_i8=True, w1q_nk=None, w2g_nk=None, w3q_nk=None, wdq_nk=None,
+):
+    """Whole stride-2 ResNeXt transition block, chain to chain.
+
+    xr: (B*Hp*Wp, cin) int8 chain of the (h, w_sp) input stage at scale
+    scales[0]; weights per ``quantize_grouped_block`` (the projection
+    required); scales [s_x, s_z1, s_z2, s_y].  Output: the (ceil(h/2),
+    ceil(w_sp/2)) stage's chain, (.., C).  Output pixel (i, j) taps z1 at
+    (2i+u-1, 2j+v-1), zero outside the image; the shortcut reads x[2i, 2j].
+    The K-major copies as ``grouped_block_int8``'s.
+    """
+    kmajor = dict(w1q_nk=w1q_nk, w2g_nk=w2g_nk, w3q_nk=w3q_nk, wdq_nk=wdq_nk)
+    if _build.runs_plain():
+        return grouped_ds_block_s2_int8_plain(
+            xr, w1q, sw1, b1, w2q, sw2, b2, w3q, sw3, b3, wdq, swd, bd, scales,
+            h=h, w_sp=w_sp, emit_i8=emit_i8, **kmajor,
+        )
+    _, _, _, cin, _, _, _, _ = _ds_geometry(xr, h, w_sp)
+    dev = xr.device
+    c, c4 = _grouped_check(xr, dev, w1q, w2q, w3q, wdq, cin)
+    if tuple(w1q.shape) != (cin, c) or tuple(wdq.shape) != (cin, c4):
+        raise ValueError("weights do not match a (cin, W, C) transition: "
+                         f"{[tuple(w.shape) for w in (w1q, w2q, w3q, wdq)]}")
+    v = _f32_vectors(dev, sw1=(sw1, c), b1=(b1, c), sw2=(sw2, c), b2=(b2, c), sw3=(sw3, c4),
+                     b3=(b3, c4), swd=(swd, c4), bd=(bd, c4), scales=(scales, 4))
+    return _build.call("grouped_ds_block_s2_int8", GROUPED_DS_BLOCK_S2_INT8,
+        xr, _kmajor(w1q, w1q_nk, "w1q_nk", dev), v["sw1"], v["b1"],
+        _grouped_nk(w2q, w2g_nk, dev), v["sw2"], v["b2"],
+        _kmajor(w3q, w3q_nk, "w3q_nk", dev), v["sw3"], v["b3"],
+        _kmajor(wdq, wdq_nk, "wdq_nk", dev), v["swd"], v["bd"], v["scales"],
+        h, w_sp, _kind(emit_i8),
+    )
+
+
+def _grouped_ds_plain(x, w1_nk, sw1, b1, w2g_nk, sw2, b2, w3_nk, sw3, b3, wd_nk, swd, bd,
+                      scales, h, w, out_kind):
+    return grouped_ds_block_s2_int8_plain(
+        x, None, sw1, b1, None, sw2, b2, None, sw3, b3, None, swd, bd, scales, h=h, w_sp=w,
+        emit_i8=out_kind == 0, w1q_nk=w1_nk, w2g_nk=w2g_nk, w3q_nk=w3_nk, wdq_nk=wd_nk,
+    )
+
+
+def _grouped_ds_fake(x, w1_nk, sw1, b1, w2g_nk, sw2, b2, w3_nk, sw3, b3, wd_nk, swd, bd,
+                     scales, h, w, out_kind):
+    return x.new_empty((_ds_rows(x, h, w), w3_nk.shape[0]), dtype=_out_dtype(out_kind))
+
+
+#: ``csrc/grouped_block.cu``'s ``grouped_ds_block_s2_int8``.
+GROUPED_DS_BLOCK_S2_INT8 = _build.kernel_op(
+    "grouped_ds_block_s2_int8",
+    "(Tensor x, Tensor w1_nk, Tensor sw1, Tensor b1, Tensor w2g_nk, Tensor sw2, Tensor b2, "
+    "Tensor w3_nk, Tensor sw3, Tensor b3, Tensor wd_nk, Tensor swd, Tensor bd, Tensor scales, "
+    "int h, int w, int out_kind) -> Tensor",
+    plain=_grouped_ds_plain, fake=_grouped_ds_fake,
 )
 
 
@@ -945,8 +1244,8 @@ def _fold_basic_ds(scales, sw1, b1, sw2p, b2, swd, bd, emit_i8):
         "c1": b1.float() * (1.0 / s_z1),
         "a2": (sw2p.float() * (s_z1 / s_y)).reshape(3, c),
         "c2": b2.float() * (1.0 / s_y),
-        "ad": swd.float() * (s_x / s_y),
-        "cd": bd.float() * (1.0 / s_y),
+        "ad": None if swd is None else swd.float() * (s_x / s_y),
+        "cd": None if swd is None else bd.float() * (1.0 / s_y),
     }
 
 

@@ -58,6 +58,14 @@ K-major weight copies and each stage's stacked run from the engine's tree
 (``pack_chain_kmajor``) where it has them, and make them per call where it
 does not.
 
+The int8_chain grouped forward (ResNeXt, ``groups > 1``) shares the stem,
+the chain, the head and the fc: every block is one
+``grouped_block_int8`` (stage 0's projection block and every stride-1
+block) or ``grouped_ds_block_s2_int8`` (the first block of stages 1-3),
+whose conv2 is the grouped 3x3 on the int8 tile; the last block exits bf16
+and the head pools outside the kernel.  The pixel-paired, run and hybrid
+routes are the ungrouped nets' only.
+
 Under ``HYBRID_XLA_STAGES`` (a prefix of the stages, off by default and
 not in TUNED.json) the bottleneck forward serves those stages as stock
 convolutions over the bf16 copies of the folded fp entries that
@@ -218,6 +226,8 @@ class Kernels(typing.NamedTuple):
     max_pool: typing.Callable
     fp_block: typing.Callable
     stem_pool: typing.Callable
+    grouped_block: typing.Callable
+    grouped_ds: typing.Callable
 
 
 KERNELS = Kernels(
@@ -238,6 +248,8 @@ KERNELS = Kernels(
     pool.max_pool2d,
     block.bottleneck_block_chained,
     pool.stem_pool_int8,
+    block.grouped_block_int8,
+    block.grouped_ds_block_s2_int8,
 )
 PLAIN = Kernels(
     block.bottleneck_block_chained_int8_plain,
@@ -257,22 +269,27 @@ PLAIN = Kernels(
     pool.max_pool2d_plain,
     block.bottleneck_block_chained_plain,
     pool.stem_pool_int8_plain,
+    block.grouped_block_int8_plain,
+    block.grouped_ds_block_s2_int8_plain,
 )
 
 
-def _require_ungrouped(cfg: ResNetConfig) -> None:
+def _require_ungrouped(cfg: ResNetConfig, route: str) -> None:
+    """Refuse a grouped net (ResNeXt) on a route that computes every 3x3 as
+    a dense one."""
     if cfg.groups != 1:
         raise ValueError(
-            "int8 chain serving does not support grouped convolutions "
-            "(ResNeXt); use the fp backend"
+            f"{route} does not support grouped convolutions (ResNeXt, groups={cfg.groups}); "
+            "the int8_chain and fp backends serve grouped models"
         )
 
 
-def _xla_conv(x, entry, *, stride, relu, policy):
+def _xla_conv(x, entry, *, stride, relu, policy, groups=1):
     """A folded conv(+bias)(+relu) as a stock convolution (XLA's in the JAX
-    package): the 7x7 stem, and every conv of the fp calibration passes."""
+    package): the 7x7 stem, and every conv of the fp calibration passes
+    (``groups``: a ResNeXt conv2)."""
     w = entry["weight"].to(policy.compute)
-    y = torch_ops.conv2d(x, w, stride=stride, padding=w.shape[0] // 2)
+    y = torch_ops.conv2d(x, w, stride=stride, padding=w.shape[0] // 2, groups=groups)
     y = y + entry["bias"].to(y.dtype)
     return torch_ops.relu(y) if relu else y
 
@@ -344,7 +361,8 @@ def _residual_blocks(cfg: ResNetConfig, y, tree: Tree, conv_fn, run_fn=None, gat
     a projection goes through ``run_fn(y, [block entries])`` instead.
     ``gather`` (channel tensor parallelism): every conv's input goes
     through it first, the block input's once for conv1 and the projection;
-    the residual is the block input's local shard."""
+    the residual is the block input's local shard.  Ungrouped nets only."""
+    _require_ungrouped(cfg, "the pallas, pallas_block, int8 and int8_static forwards")
     g = gather or tp.input_gather(None)
     for stage in range(4):
         blocks = tree[f"layer{stage + 1}"]
@@ -669,7 +687,6 @@ def calibrate_chain_scales(
     """
     if method not in ("absmax", "percentile", "mse"):
         raise ValueError(f"unknown calibration method {method!r}")
-    _require_ungrouped(cfg)
 
     def stat(act, channels: int):
         """The statistic /127 of |act| over (rows, channels) columns."""
@@ -707,7 +724,8 @@ def calibrate_chain_scales(
                 )
                 if cfg.block == "bottleneck":
                     z1 = _xla_conv(y, blk["conv1"], stride=1, relu=True, policy=policy)
-                    z2 = _xla_conv(z1, blk["conv2"], stride=s, relu=True, policy=policy)
+                    z2 = _xla_conv(z1, blk["conv2"], stride=s, relu=True, policy=policy,
+                                   groups=cfg.groups)
                     layer_scales[str(b)] = {"in": s_of(y), "z1": s_interior(z1),
                                             "z2": s_interior(z2)}
                     z = _xla_conv(z2, blk["conv3"], stride=1, relu=False, policy=policy)
@@ -735,13 +753,17 @@ def quantize_chain(cfg: ResNetConfig, folded: Tree) -> Tree:
     beside them (``HYBRID_XLA_STAGES`` serves those, fused.py:688-700).
     Basic: stride-1 blocks for the basic block kernel, stride-2 blocks for
     the basic transition kernel (with their folded fp entries kept, as in
-    JAX).  Other entries (stem, fc) pass through."""
-    _require_ungrouped(cfg)
+    JAX).  Grouped (ResNeXt): every block for the grouped kernels
+    (``block.quantize_grouped_block``), no fp entries kept.  Other entries
+    (stem, fc) pass through."""
     out = {k: v for k, v in folded.items() if not k.startswith("layer")}
     for stage in range(4):
         blocks = folded[f"layer{stage + 1}"]
         qblocks = {}
         for b_str, blk in blocks.items():
+            if cfg.groups > 1:
+                qblocks[b_str] = block.quantize_grouped_block(blk)
+                continue
             if cfg.block != "bottleneck":
                 transition = b_str == "0" and stage > 0
                 qblocks[b_str] = (
@@ -758,7 +780,7 @@ def quantize_chain(cfg: ResNetConfig, folded: Tree) -> Tree:
                 q["wdq"], q["swd"] = quantize_per_channel(wd[0, 0] if wd.ndim == 4 else wd)
                 q["bd"] = blk["downsample"]["bias"]
             qblocks[b_str] = q
-        if cfg.block == "bottleneck" and stage in HYBRID_KEPT_STAGES:
+        if cfg.block == "bottleneck" and cfg.groups == 1 and stage in HYBRID_KEPT_STAGES:
             for b_str, blk in blocks.items():
                 qblocks[b_str].update(_bf16_entries(blk))
         out[f"layer{stage + 1}"] = qblocks
@@ -787,8 +809,15 @@ def bake_interior_scales(cfg: ResNetConfig, folded: Tree, scales_pc: Tree) -> tu
     one = torch.ones((), dtype=torch.float32, device=scales_pc["layer1"]["0"]["in"].device)
 
     def prescale(entry, vec):
-        # The input-channel axis is -2 of a (cin, cout) and an HWIO weight.
-        return {"weight": entry["weight"] * vec[:, None], "bias": entry["bias"]}
+        # The input-channel axis is -2 of a (cin, cout) and an HWIO weight;
+        # of a grouped (3, 3, gw, W) weight, output n's input i is channel
+        # (n // gw) * gw + i of the vector.
+        w = entry["weight"]
+        gw = w.shape[-2]
+        if gw != vec.shape[0]:
+            vec = vec.reshape(-1, gw).t().repeat_interleave(gw, dim=1)  # (gw, W)
+            return {"weight": w * vec, "bias": entry["bias"]}
+        return {"weight": w * vec[:, None], "bias": entry["bias"]}
 
     folded2 = {k: v for k, v in folded.items() if not k.startswith("layer")}
     runtime: Tree = {}
@@ -821,10 +850,10 @@ def bake_interior_scales(cfg: ResNetConfig, folded: Tree, scales_pc: Tree) -> tu
                 q["b1"] = q["b1"] / st["z1"]
                 if "sw2p" in q:  # stride-1 block: conv2's scales per (kh, j)
                     q["sw2p"] = q["sw2p"] / st["z2"].repeat(3)
-                else:  # transition: joint per-j scales over the nine taps
+                else:  # transition, grouped block: joint per-j scales over the nine taps
                     q["sw2"] = q["sw2"] / st["z2"]
                 q["b2"] = q["b2"] / st["z2"]
-                if stage in HYBRID_KEPT_STAGES:
+                if stage in HYBRID_KEPT_STAGES and cfg.groups == 1:
                     q.update(_bf16_entries(orig))
             elif "wdq" in q:  # basic transition: conv1's joint per-j scales
                 q["sw1"] = q["sw1"] / st["z1"]
@@ -840,6 +869,10 @@ def bake_interior_scales(cfg: ResNetConfig, folded: Tree, scales_pc: Tree) -> tu
 #: of their K-major copies (a transition's 3x3 ``w2q`` as its (9c, c) matrix).
 KMAJOR_KEYS = {"w1q": "w1q_nk", "w2pq": "w2pq_nk", "w2q": "w2q_nk", "w3q": "w3q_nk",
                "wdq": "wdq_nk"}
+#: The 1x1 weights of a grouped block and the keys of their K-major copies.
+GROUPED_KMAJOR_KEYS = {"w1q": "w1q_nk", "w3q": "w3q_nk", "wdq": "wdq_nk"}
+#: The per-block keys of a grouped block's operands, in the kernels' order.
+GROUPED_KEYS = ("w1q", "sw1", "b1", "w2q", "sw2", "b2", "w3q", "sw3", "b3")
 #: The keys of the K-major copies of a pixel-paired block's pair-space weights.
 PP_KMAJOR_KEYS = ("w1bd_nk", "w2pp_nk", "w3bd_nk", "wdbd_nk")
 #: The per-block keys of a bottleneck block's operands, in the kernels' order.
@@ -853,15 +886,17 @@ def pack_chain_kmajor(cfg: ResNetConfig, qtree: Tree) -> Tree:
     takes both operands K-major), ``w1q_nk``, ``w2pq_nk`` (row kh*c + j:
     output j of kernel row kh) or a transition's ``w2q_nk`` (c, 9c),
     ``w3q_nk`` and ``wdq_nk``; and at c = 64 stage 0's pixel-paired
-    operands (``_pack_pp_stage0``).  Basic: see ``_pack_basic``.  Other
-    entries are shared, not copied."""
+    operands (``_pack_pp_stage0``).  Grouped: the 1x1s' copies and the
+    grouped 3x3's (W, 9 bn) copy ``w2g_nk`` (``block.pack_grouped_nk``).
+    Basic: see ``_pack_basic``.  Other entries are shared, not copied."""
     if cfg.block != "bottleneck":
         return _pack_basic(qtree)
     out = dict(qtree)
+    copies = grouped_kmajor_copies if cfg.groups > 1 else kmajor_copies
     for stage in range(4):
         name = f"layer{stage + 1}"
-        out[name] = {b: {**blk, **kmajor_copies(blk)} for b, blk in qtree[name].items()}
-    if out["layer1"]["0"]["w1q"].shape[-1] == 64:
+        out[name] = {b: {**blk, **copies(blk)} for b, blk in qtree[name].items()}
+    if cfg.groups == 1 and out["layer1"]["0"]["w1q"].shape[-1] == 64:
         out["layer1"], out["runs"] = _pack_pp_stage0(out["layer1"])
     return out
 
@@ -983,6 +1018,13 @@ def _basic_kmajor_kwargs(blk: dict, pp: bool) -> dict:
     ones for the pixel-paired kernel), as keyword arguments."""
     keys = ("w1pp_nk", "w2pp_nk") if pp else ("w1pq_nk", "w2pq_nk")
     return {k: blk[k] for k in keys if k in blk}
+
+
+def grouped_kmajor_copies(blk: dict) -> dict:
+    """The copies a grouped block's kernel reads, by their keys: the 1x1s'
+    K-major copies and the grouped 3x3's ``w2g_nk``."""
+    return {**{nk: blk[k].t().contiguous() for k, nk in GROUPED_KMAJOR_KEYS.items() if k in blk},
+            "w2g_nk": block.pack_grouped_nk(blk["w2q"])}
 
 
 def kmajor_copies(blk: dict) -> dict:
@@ -1150,9 +1192,12 @@ def fused_forward_int8_chain(
 
     Under a running profiler the stem (with any hybrid prefix), each stage
     and the head are spans (``utils.metrics.STEM``, ``STAGES``, ``HEAD``),
-    on the basic forward too.
+    on the basic and grouped forwards too.
     """
-    _require_ungrouped(cfg)
+    if cfg.groups > 1:
+        return _grouped_int8_chain_forward(
+            cfg, qtree, chain_scales, x, policy=policy, stage_taps=stage_taps, kernels=kernels,
+        )
     if cfg.block != "bottleneck":
         return _basic_int8_chain_forward(
             cfg, qtree, chain_scales, x, policy=policy, stage_taps=stage_taps, kernels=kernels,
@@ -1274,6 +1319,49 @@ def fused_forward_int8_chain(
         else:
             feats = _mean_feats(yr, bsz, h, w_sp, policy)
         return _head(qtree, feats, policy, kernels)
+
+
+def _grouped_int8_chain_forward(
+    cfg: ResNetConfig,
+    qtree: Tree,
+    chain_scales: Tree,
+    x: torch.Tensor,
+    *,
+    policy: DtypePolicy,
+    stage_taps: list | None,
+    kernels: Kernels,
+) -> torch.Tensor:
+    """``fused_forward_int8_chain`` for a grouped net (ResNeXt): the stem
+    into the chain, every block one grouped kernel (the transition's at the
+    first block of stages 1-3), the last exiting bf16, then the head pool
+    and the fc."""
+    if HYBRID_XLA_STAGES:
+        raise ValueError("HYBRID_XLA_STAGES serves ungrouped bottleneck nets only; a grouped "
+                         "net enters the int8 chain at the stem")
+    scale_row, s_after = _chain_scale_lookups(cfg, chain_scales)
+    with annotate(STEM):
+        yr, bsz, h, w_sp = _stem_chain(qtree, x, chain_scales["layer1"]["0"]["in"], policy,
+                                       kernels)
+    for stage in range(4):
+        with annotate(STAGES[stage]):
+            blocks = qtree[f"layer{stage + 1}"]
+            nb = cfg.stage_blocks[stage]
+            for i in range(nb):
+                blk = blocks[str(i)]
+                args = (yr, *(blk[k] for k in GROUPED_KEYS))
+                kw = dict(h=h, w_sp=w_sp, emit_i8=s_after(stage, i) is not None,
+                          w1q_nk=blk.get("w1q_nk"), w2g_nk=blk.get("w2g_nk"),
+                          w3q_nk=blk.get("w3q_nk"), wdq_nk=blk.get("wdq_nk"))
+                if stage > 0 and i == 0:
+                    yr = kernels.grouped_ds(*args, blk["wdq"], blk["swd"], blk["bd"],
+                                            scale_row(stage, 0), **kw)
+                    h, w_sp = (h + 1) // 2, (w_sp + 1) // 2
+                else:
+                    yr = kernels.grouped_block(*args, scale_row(stage, i), wdq=blk.get("wdq"),
+                                               swd=blk.get("swd"), bd=blk.get("bd"), **kw)
+            _tap(stage_taps, yr, bsz, h, w_sp, s_after(stage, nb - 1))
+    with annotate(HEAD):
+        return _head(qtree, _mean_feats(yr, bsz, h, w_sp, policy), policy, kernels)
 
 
 def fused_forward_int8_chain_sharded(

@@ -70,6 +70,10 @@ from resnetc_tpu_torch.utils.metrics import CLASSIFY, FORWARD, LOGITS, READOUT, 
 
 Tree = dict
 BACKENDS = ("fp", "pallas", "pallas_block", "int8", "int8_chain")
+#: The backends that serve grouped models (ResNeXt): cuDNN's grouped
+#: convolutions, and the grouped int8 block kernels.
+GROUPED_BACKENDS = ("fp", "int8_chain")
+_REFUSE_GROUPS = tuple(repr(b) for b in BACKENDS if b not in GROUPED_BACKENDS)
 
 
 class InferenceEngine:
@@ -104,10 +108,11 @@ class InferenceEngine:
             if split and backend in ("int8", "int8_chain"):
                 raise ValueError(model_axis_refusal(
                     backend, sizes[pmesh.DATA_AXIS] * sizes[pmesh.MODEL_AXIS]))
-        if backend != "fp" and model_cfg.groups > 1:
+        if backend not in GROUPED_BACKENDS and model_cfg.groups > 1:
             raise ValueError(
                 f"backend {backend!r} does not support grouped convolutions (ResNeXt, "
-                f"groups={model_cfg.groups}); serve grouped models with backend='fp'"
+                f"groups={model_cfg.groups}): {', '.join(_REFUSE_GROUPS)} refuse them; serve "
+                "grouped models with backend='int8_chain' (the grouped int8 kernels) or 'fp'"
             )
         if backend in ("pallas", "pallas_block"):
             # The JAX engine's deprecation notice (serve.py:69-82), with the

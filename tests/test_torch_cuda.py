@@ -54,6 +54,9 @@ views off the 16-byte grid and operands holding NaN, +-Inf and -0).  With a NaN 
 input, the fused convolutions, the GEMM, the int8 GEMM (NaN in its
 residual) and the float max pool give NaN and +-Inf exactly where their
 plain versions do, the other values within the tolerances above.
+The ResNeXt blocks (``grouped_block_int8``, ``grouped_ds_block_s2_int8``)
+EQUAL their plain versions at ResNeXt-101 32x8d's stage shapes at batch
+128 and off them, and the served ResNeXt-101 the plain forward's logits.
 The int8_chain stem's tail (``stem_pool_int8``) EQUALS its plain version,
 the composition it replaced, at every served batch and at odd sizes, in
 bf16 and fp32, over a block the allocator hands back dirty; the served
@@ -533,6 +536,99 @@ def test_basic_ds_ring_garbage_never_reaches_the_interior(cuda, gen, h, w, cin, 
         got = block.basic_ds_block_s2_int8(dirty, *args[1:], h=h, w_sp=w, emit_i8=emit_i8)
         want = block.basic_ds_block_s2_int8(clean, *args[1:], h=h, w_sp=w, emit_i8=emit_i8)
         _assert_equal(got, want)
+
+
+def _grouped_quantized(gen, cin, w, c, gw, dev, *, proj):
+    def entry(shape):
+        return {
+            "weight": torch.from_numpy((gen.standard_normal(shape) * 0.1).astype(np.float32)),
+            "bias": torch.from_numpy((gen.standard_normal(shape[-1]) * 0.1).astype(np.float32)),
+        }
+
+    blk = {"conv1": entry((1, 1, cin, w)), "conv2": entry((3, 3, gw, w)),
+           "conv3": entry((1, 1, w, c))}
+    if proj:
+        blk["downsample"] = entry((1, 1, cin, c))
+    return {k: v.to(dev) for k, v in block.quantize_grouped_block(blk).items()}
+
+
+# (id, b, h, cin, W, C, gw, stride, proj, emit_i8): ResNeXt-101 32x8d's
+# blocks at batch 128, 224 px (each stage's first block and an identity
+# one), and small ones at odd sizes and bf16 exits.
+GROUPED_CASES = [
+    ("s0-proj-b128", 128, 56, 64, 256, 256, 8, 1, True, True),
+    ("s0-identity-b128", 128, 56, 256, 256, 256, 8, 1, False, True),
+    ("s1-ds-b128", 128, 56, 256, 512, 512, 16, 2, True, True),
+    ("s1-identity-b128", 128, 28, 512, 512, 512, 16, 1, False, True),
+    ("s2-ds-b128", 128, 28, 512, 1024, 1024, 32, 2, True, True),
+    ("s2-identity-b128", 128, 14, 1024, 1024, 1024, 32, 1, False, True),
+    ("s3-ds-b128", 128, 14, 1024, 2048, 2048, 64, 2, True, True),
+    ("s3-identity-b128", 128, 7, 2048, 2048, 2048, 64, 1, False, True),
+    ("s3-bf16-exit-b128", 128, 7, 2048, 2048, 2048, 64, 1, False, False),
+    ("proj-gw8-h7", 2, 7, 32, 64, 64, 8, 1, True, True),
+    ("identity-gw16-h9-bf16", 2, 9, 64, 64, 64, 16, 1, False, False),
+    ("ds-gw16-h9", 2, 9, 64, 64, 128, 16, 2, True, True),
+    ("ds-gw32-h8-bf16", 2, 8, 64, 64, 64, 32, 2, True, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,cin,w,c,gw,stride,proj,emit_i8", [k[1:] for k in GROUPED_CASES],
+                         ids=[k[0] for k in GROUPED_CASES])
+def test_grouped_kernel_equals_plain(cuda, gen, b, h, cin, w, c, gw, stride, proj, emit_i8):
+    """The ResNeXt blocks on the int8 tile, one launch a call: equal to the
+    plain version with random bytes in x's ring rows, and the engine's
+    copies (``fused.grouped_kmajor_copies``) give the bits of per-call
+    packing, as does a second call."""
+    from resnetc_tpu_torch.ops.cuda.fused import grouped_kmajor_copies
+
+    q = _grouped_quantized(gen, cin, w, c, gw, cuda, proj=proj or stride == 2)
+    keys = ("w1q", "sw1", "b1", "w2q", "sw2", "b2", "w3q", "sw3", "b3")
+    scales = torch.from_numpy(SCALES).to(cuda)
+    x = _chain(gen, b, h, cin, cuda)
+    kw = dict(h=h, w_sp=h, emit_i8=emit_i8)
+    if stride == 1:
+        name, fn, plain = ("grouped_block_int8", block.grouped_block_int8,
+                           block.grouped_block_int8_plain)
+        args = (x, *(q[k] for k in keys), scales)
+        kw.update(wdq=q.get("wdq"), swd=q.get("swd"), bd=q.get("bd"))
+    else:
+        name, fn, plain = ("grouped_ds_block_s2_int8", block.grouped_ds_block_s2_int8,
+                           block.grouped_ds_block_s2_int8_plain)
+        args = (x, *(q[k] for k in keys), q["wdq"], q["swd"], q["bd"], scales)
+    _build.reset_launches()
+    got = fn(*args, **kw)
+    assert dict(_build.LAUNCHES) == {name: 1}
+    _assert_equal(got, plain(*args, **kw))
+    for _ in range(2):
+        _assert_equal(fn(*args, **kw, **grouped_kmajor_copies(q)), got)
+
+
+@pytest.mark.cuda
+def test_resnext101_engine_on_the_card_matches_plain(cuda):
+    """ResNeXt-101 32x8d served through int8_chain at batch 8, 224 px: 30
+    stride-1 and 3 stride-2 grouped launches a forward, no other block
+    kernel, and the logits of the plain versions' forward (within 1e-4 of
+    the largest, the same classes)."""
+    from resnetc_tpu_torch.models import resnet as tresnet
+    from resnetc_tpu_torch.ops.cuda import fused
+    from resnetc_tpu_torch.serve import InferenceEngine
+
+    cfg = tresnet.get_config("resnext101_32x8d")
+    variables = tresnet.init(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn((8, 224, 224, 3), generator=torch.Generator().manual_seed(1)).to(cuda)
+    eng = InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=x, device=cuda)
+    eng.logits(x)
+    _build.reset_launches()
+    got = eng.logits(x)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"stem_pool_int8": 1, "grouped_block_int8": 30,
+                                     "grouped_ds_block_s2_int8": 3, "matmul": 1}
+    want = fused.fused_forward_int8_chain(cfg, eng.folded, eng.chain_scales, x,
+                                          policy=eng.policy, kernels=fused.PLAIN)
+    # The blocks are exact; the fc sums in another order than its plain version.
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-4
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
 
 
 @pytest.mark.cuda

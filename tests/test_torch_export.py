@@ -58,6 +58,11 @@ SERVED = {"L1_PIXEL_PAIR": True, "BASIC_DS_INT8": True}
 #: pairing's) at reduced depth.
 CUT_BOTTLENECK = tresnet.ResNetConfig(name="cut_bottleneck", block="bottleneck",
                                       stage_blocks=(3, 1, 1, 2), num_classes=10)
+#: A ResNeXt (4 groups of 8 channels at stage 0) at reduced depth: the
+#: grouped blocks' route.
+CUT_GROUPED = tresnet.ResNetConfig(name="cut_grouped", block="bottleneck",
+                                   stage_blocks=(2, 1, 1, 1), num_classes=10, groups=4,
+                                   width_per_group=8)
 
 
 class _Calls(TorchDispatchMode):
@@ -101,6 +106,7 @@ def op_calls():
         (basic, "int8_chain", {"L1_PIXEL_PAIR": False, "BASIC_DS_INT8": True}),
         (basic, "int8_chain", {"L1_PIXEL_PAIR": True, "BASIC_RUN_FUSE_STAGES": ()}),
         (basic, "int8_chain", SERVED),
+        (CUT_GROUPED, "int8_chain", {}),
         (CUT_BOTTLENECK, "int8", {}),
         (CUT_BOTTLENECK, "pallas_block", {}),
     ]
@@ -123,7 +129,7 @@ def op_calls():
 
 
 def test_every_launcher_is_an_op_reached_by_a_route(op_calls):
-    assert len(LAUNCHERS) == 18
+    assert len(LAUNCHERS) == 20
     registered = {n for n in dir(torch.ops.resnetc) if n not in ("name",)
                   and isinstance(getattr(torch.ops.resnetc, n), torch._ops.OpOverloadPacket)}
     assert registered == set(LAUNCHERS)

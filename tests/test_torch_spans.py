@@ -34,6 +34,10 @@ BOTTLENECK = tresnet.ResNetConfig(name="tiny", block="bottleneck", stage_blocks=
                                   num_classes=11, stem_width=16)
 BASIC = tresnet.ResNetConfig(name="tiny_basic", block="basic", stage_blocks=(2, 2, 2, 2),
                              num_classes=11, stem_width=16)
+#: A tiny ResNeXt (4 groups of 8 channels at stage 0): the grouped route.
+GROUPED = tresnet.ResNetConfig(name="tiny_grouped", block="bottleneck",
+                               stage_blocks=(2, 1, 1, 1), num_classes=11, groups=4,
+                               width_per_group=8)
 NAMES = (tmetrics.CLASSIFY, tmetrics.LOGITS, tmetrics.UPLOAD, tmetrics.FORWARD,
          tmetrics.READOUT, tmetrics.STEM, *tmetrics.STAGES, tmetrics.HEAD)
 REQUESTS = 2
@@ -51,7 +55,8 @@ def _engine(cfg, device="cpu", size=64):
                                calib_batch=_x(size, seed=9))
 
 
-@pytest.fixture(scope="module", params=[BOTTLENECK, BASIC], ids=["bottleneck", "basic"])
+@pytest.fixture(scope="module", params=[BOTTLENECK, BASIC, GROUPED],
+                ids=["bottleneck", "basic", "grouped"])
 def served(request):
     """An engine, its input, the logits with no profiler, and a profile of
     ``REQUESTS`` ``classify`` calls inside the harness's span mark."""
@@ -117,6 +122,29 @@ def test_spans_nest_as_the_layers_do(served):
         assert by[tmetrics.READOUT].start_ns() >= logits.end_ns()
         layers = sorted(_children(forward, inside), key=lambda e: e.start_ns())
         assert [e.name() for e in layers] == [tmetrics.STEM, *tmetrics.STAGES, tmetrics.HEAD]
+
+
+def test_the_grouped_route_launches_only_the_grouped_blocks_in_its_stages():
+    """Each stage span of the grouped route holds its blocks' ops and no
+    other kernel op: ``grouped_ds_block_s2_int8`` first in stages 1-3,
+    ``grouped_block_int8`` for the rest; the stem pool in the stem span."""
+    eng, x = _engine(GROUPED), _x()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.logits(x)
+    evs = list(prof.profiler.kineto_results.events())
+    ops = sorted((e for e in evs if e.name().startswith(trace.OP_PREFIX)
+                  and not e.is_user_annotation()), key=lambda e: e.start_ns())
+
+    def inside(span):
+        s = next(e for e in evs if e.name() == span and e.is_user_annotation())
+        return [e.name()[len(trace.OP_PREFIX):] for e in ops
+                if s.start_ns() <= e.start_ns() and e.end_ns() <= s.end_ns()]
+
+    assert inside(tmetrics.STEM) == ["stem_pool_int8"]
+    assert inside(tmetrics.STAGES[0]) == ["grouped_block_int8"] * 2
+    for stage in (1, 2, 3):
+        assert inside(tmetrics.STAGES[stage]) == ["grouped_ds_block_s2_int8"]
+    assert inside(tmetrics.HEAD) == ["gemm_f32acc"]
 
 
 def _reading(prof) -> run.Reading:
