@@ -202,6 +202,16 @@ def _apply_tuned_defaults() -> dict:
 #: What TUNED.json set at import (empty when absent or disabled).
 TUNED_DEFAULTS = _apply_tuned_defaults()
 
+#: The flags ``fused_forward_int8_chain`` reads at forward time, and so what
+#: a captured forward (``serve.InferenceEngine.classify``) is keyed on.
+ROUTE_FLAGS = ("RUN_FUSE_STAGES", "BASIC_RUN_FUSE_STAGES", "BASIC_DS_INT8", "L1_PIXEL_PAIR",
+               "STAGE_FUSE_PROJ", "HYBRID_XLA_STAGES")
+
+
+def route_flags() -> tuple:
+    """The current values of ``ROUTE_FLAGS``, in their order."""
+    return tuple(globals()[k] for k in ROUTE_FLAGS)
+
 
 class Kernels(typing.NamedTuple):
     """The kernels of the path.  ``KERNELS`` dispatches on the device

@@ -50,7 +50,9 @@ the axis; ``pallas_block`` keeps the whole tree on every model rank (its
 block kernel fuses a whole block, which a channel shard would cut, so it
 runs whole, as JAX's partitioner runs an opaque ``pallas_call``); ``int8``
 and ``int8_chain`` refuse it, as JAX's engine and CLI do.
-Benchmarks time on the card only,
+On the card, ``int8_chain``'s ``classify`` replays a captured CUDA graph
+of the forward per repeated input shape (``_Graphs``); ``logits`` and every
+other backend run eagerly.  Benchmarks time on the card only,
 with CUDA events; ``bench_local_latency`` is the engine-local view (the
 marginal time of one of a chain of forwards, host included,
 ``utils.timing``).
@@ -59,6 +61,7 @@ marginal time of one of a chain of forwards, host included,
 from __future__ import annotations
 
 import dataclasses
+import threading
 import warnings
 
 import numpy as np
@@ -66,7 +69,9 @@ import torch
 
 from resnetc_tpu_torch.models import resnet
 from resnetc_tpu_torch.tensor import BF16, DtypePolicy, resolve_device, tree_map
-from resnetc_tpu_torch.utils.metrics import CLASSIFY, FORWARD, LOGITS, READOUT, UPLOAD, annotate
+from resnetc_tpu_torch.utils.metrics import (
+    CAPTURE, CLASSIFY, FORWARD, LOGITS, READOUT, REPLAY, UPLOAD, annotate,
+)
 
 Tree = dict
 BACKENDS = ("fp", "pallas", "pallas_block", "int8", "int8_chain")
@@ -81,7 +86,13 @@ class InferenceEngine:
     resident on the device.  The kernel backends serve every ungrouped
     config of ``models.resnet`` (``int8_chain``: ResNet-18/34 through the
     basic kernels, the bottleneck nets through theirs); ``fp`` serves every
-    config."""
+    config.
+
+    On the card an ``int8_chain`` engine outside a mesh of several ranks
+    keeps ``graphs`` (``_Graphs``), the captured forwards that ``classify``
+    replays; ``logits`` runs eagerly unless told otherwise.  A graph holds
+    the addresses of ``self.folded`` and ``self.chain_scales``: code that
+    rebinds either must drop the graphs (``self.graphs.clear()``)."""
 
     def __init__(
         self,
@@ -170,9 +181,18 @@ class InferenceEngine:
 
             folded = pack_f32_kmajor(folded)  # the split (N, K) copies the fp32 kernels read
         self.folded = folded
+        self.graphs = (_Graphs() if self.device.type == "cuda" and backend == "int8_chain"
+                       and (mesh is None or self._ranks() == 1) else None)
+        self._classify_lock = threading.Lock()
 
-    def logits(self, images) -> torch.Tensor:
-        """(B, num_classes) logits for NHWC images (numpy or tensor)."""
+    def logits(self, images, *, transient: bool = False) -> torch.Tensor:
+        """(B, num_classes) logits for NHWC images (numpy or tensor).
+
+        By default the forward runs eagerly and the result is the caller's.
+        ``transient=True`` says the caller is done with the result before
+        its next call, as ``classify`` is: where the engine keeps ``graphs``
+        the result may then be a captured graph's output, which the next
+        replay of that shape overwrites."""
         with annotate(LOGITS):
             with annotate(UPLOAD):
                 images = torch.as_tensor(images)
@@ -183,6 +203,8 @@ class InferenceEngine:
                     )
                 images = images.to(self.device)
             with annotate(FORWARD), torch.inference_mode():
+                if transient and self.graphs is not None:
+                    return self.graphs.run(self._forward, images)
                 return self._forward(images)
 
     def _forward(self, images: torch.Tensor) -> torch.Tensor:
@@ -216,11 +238,70 @@ class InferenceEngine:
         return sizes[pmesh.DATA_AXIS] * sizes[pmesh.MODEL_AXIS]
 
     def classify(self, images) -> np.ndarray:
-        """Argmax class indices — the reference's readout."""
-        with annotate(CLASSIFY):
-            logits = self.logits(images)
+        """Argmax class indices — the reference's readout.  The logits are
+        read on the device and never leave the call, so the forward may be
+        a replayed graph; one lock holds the copy into the graph's input,
+        the replay and the readout together against another thread."""
+        with annotate(CLASSIFY), self._classify_lock:
+            logits = self.logits(images, transient=True)
             with annotate(READOUT):
                 return logits.argmax(dim=-1).cpu().numpy()
+
+
+class _Graphs:
+    """An engine's captured forwards: one CUDA graph per key, the images'
+    shape, strides and dtype and the route flags the forward reads
+    (``fused.route_flags()``), so a flag changed between calls is never
+    replayed stale.  A key's first call runs the forward eagerly, which
+    loads its kernels, sets their ``sized`` flags and lets cuDNN pick the
+    stem's algorithm; its second captures the forward (``torch.cuda.graph``,
+    on a side stream) from a static input and replays it; every later call
+    copies the images into that input and replays.  A key seen once, such
+    as a last partial batch, is never captured.  Inside the debugging
+    contexts (``utils.debug.plain_kernels``, ``nan_debug``) the forward runs
+    eagerly, as they need."""
+
+    def __init__(self):
+        from resnetc_tpu_torch.ops.cuda import _build, fused
+
+        self._build, self._route_flags = _build, fused.route_flags
+        #: Keys run once, eagerly.
+        self.seen: set = set()
+        #: key -> (graph, static input, static output).
+        self.captured: dict = {}
+
+    def clear(self) -> None:
+        self.seen.clear()
+        self.captured.clear()
+
+    def run(self, forward, images: torch.Tensor) -> torch.Tensor:
+        """``forward(images)``, eagerly or as a replay; a replay's output is
+        the graph's own buffer."""
+        if self._build.runs_plain() or self._build.SWITCHES.nan_check:
+            return forward(images)
+        key = (tuple(images.shape), images.stride(), images.dtype, self._route_flags())
+        entry = self.captured.get(key)
+        if entry is None:
+            if key not in self.seen:
+                self.seen.add(key)
+                return forward(images)
+            with annotate(CAPTURE):
+                entry = self.captured[key] = _capture(forward, images)
+        graph, static_in, static_out = entry
+        static_in.copy_(images)
+        with annotate(REPLAY):
+            graph.replay()
+        return static_out
+
+
+def _capture(forward, images: torch.Tensor) -> tuple:
+    """A CUDA graph of ``forward`` over a static input shaped as ``images``:
+    (graph, input, output)."""
+    static_in = torch.empty_like(images)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = forward(static_in)
+    return graph, static_in, static_out
 
 
 def classify_files(

@@ -9,8 +9,12 @@ its layer boundaries on the profiler's timeline, on the clock of the
 device operations they launch.  A request is one root span, ``CLASSIFY``
 (or ``LOGITS`` where the caller calls ``logits`` itself), around ``UPLOAD``,
 ``FORWARD`` (``STEM``, ``STAGES``, ``HEAD`` inside it on the int8_chain
-forwards) and ``READOUT``.  Their names start with ``resnetc.``, never with
-``resnetc::``, the prefix of the kernels' custom ops."""
+forwards) and ``READOUT``.  Where ``classify`` replays a captured graph of
+the forward (``serve.InferenceEngine``), ``FORWARD`` holds ``CAPTURE``
+around the capture, once per input shape, and ``REPLAY`` around each
+replay; the stem, stage and head spans then appear only in the capture.
+Their names start with ``resnetc.``, never with ``resnetc::``, the prefix
+of the kernels' custom ops."""
 
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ READOUT = "resnetc.readout"
 STEM = "resnetc.stem"
 STAGES = ("resnetc.stage0", "resnetc.stage1", "resnetc.stage2", "resnetc.stage3")
 HEAD = "resnetc.head"
+REPLAY = "resnetc.replay"
+CAPTURE = "resnetc.capture"
 
 
 class MetricsLogger:

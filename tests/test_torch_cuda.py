@@ -61,6 +61,11 @@ The int8_chain stem's tail (``stem_pool_int8``) EQUALS its plain version,
 the composition it replaced, at every served batch and at odd sizes, in
 bf16 and fp32, over a block the allocator hands back dirty; the served
 ResNet-152 and ResNet-34 give the parent stem's logits bit for bit.
+``classify``'s replayed CUDA graphs give the eager forward's logits bit for
+bit (ResNet-152 at b1 and b32, ResNet-34 at b32, a tiny ResNeXt), for
+distinct inputs in turn and after a route flag flips; a replay runs no
+wrapper and no ``resnetc::`` op on the host, and ``logits`` launches after
+``classify`` what it launched before.
 """
 
 from __future__ import annotations
@@ -1677,3 +1682,184 @@ def test_int8_chain_export_holds_the_stem_pool(cuda, monkeypatch):
     got = program.module()(x)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# classify's captured forwards (serve._Graphs)
+# ---------------------------------------------------------------------------
+
+#: The tiny nets, as ``tests/test_torch_spans.py`` has them.
+GRAPH_TINY = {"bottleneck": dict(stage_blocks=(3, 2, 2, 2), stem_width=16),
+              "grouped": dict(stage_blocks=(2, 1, 1, 1), groups=4, width_per_group=8)}
+
+
+def _graph_engine(model: str):
+    from resnetc_tpu_torch.models import resnet
+    from resnetc_tpu_torch.serve import InferenceEngine
+
+    if model in GRAPH_TINY:
+        cfg = resnet.ResNetConfig(name=f"tiny_{model}", block="bottleneck", num_classes=11,
+                                  **GRAPH_TINY[model])
+        size = 64
+    else:
+        cfg, size = resnet.get_config(model), 224
+    variables = resnet.init(cfg, torch.Generator().manual_seed(0))
+    calib = torch.randn((8, size, size, 3), generator=torch.Generator().manual_seed(1))
+    return InferenceEngine(cfg, variables, backend="int8_chain", calib_batch=calib,
+                           device="cuda"), size
+
+
+@pytest.fixture(scope="module")
+def graph_engines():
+    """Served engines by model, built once: ResNet-152, ResNet-34, and the
+    tiny bottleneck net and ResNeXt."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    cache = {}
+
+    def get(model):
+        if model not in cache:
+            cache[model] = _graph_engine(model)
+        eng, size = cache[model]
+        eng.graphs.clear()
+        return eng, size
+
+    return get
+
+
+def _served_route(monkeypatch):
+    from resnetc_tpu_torch.ops.cuda import fused
+
+    monkeypatch.setattr(fused, "L1_PIXEL_PAIR", True)
+    monkeypatch.setattr(fused, "BASIC_DS_INT8", True)
+
+
+def _images(batch, size, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((batch, size, size, 3), generator=g).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,batch", [("resnet152", 1), ("resnet152", 32), ("resnet34", 32),
+                                         ("grouped", 8)])
+def test_replayed_classify_logits_equal_the_eager_forward(graph_engines, monkeypatch, model,
+                                                          batch):
+    """The served route at 224 px (the tiny ResNeXt at 64): the third
+    ``classify``-path forward of a shape is a replay, and its logits equal
+    the eager forward's bit for bit; ``classify`` gives their argmax."""
+    _served_route(monkeypatch)
+    eng, size = graph_engines(model)
+    x = _images(batch, size, 5)
+    want = eng.logits(x)
+    for _ in range(3):
+        got = eng.logits(x, transient=True)
+    torch.cuda.synchronize()
+    assert len(eng.graphs.captured) == 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    np.testing.assert_array_equal(eng.classify(x), want.argmax(-1).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_distinct_inputs_replayed_in_turn_equal_their_eager_logits(graph_engines, monkeypatch):
+    _served_route(monkeypatch)
+    eng, size = graph_engines("resnet152")
+    xs = [_images(1, size, 10 + i) for i in range(8)]
+    want = [eng.logits(x) for x in xs]
+    for _ in range(2):
+        for x in xs:
+            eng.classify(x)
+    assert len(eng.graphs.captured) == 1
+    for x, w in zip(xs, want):
+        got = eng.logits(x, transient=True).clone()
+        torch.cuda.synchronize()
+        assert torch.equal(got, w)
+
+
+@pytest.mark.cuda
+def test_first_call_eager_second_captures_third_replays_on_the_card(graph_engines,
+                                                                     monkeypatch):
+    """``_build.LAUNCHES`` a call: the eager forward's, the capture's (its
+    wrappers run once, their launches recorded), then none: the replay runs
+    no wrapper."""
+    _served_route(monkeypatch)
+    eng, size = graph_engines("bottleneck")
+    x = _images(2, size, 3)
+    counts, captured = [], []
+    for _ in range(3):
+        _build.reset_launches()
+        eng.classify(x)
+        counts.append(dict(_build.LAUNCHES))
+        captured.append(len(eng.graphs.captured))
+    assert counts[0] and counts[1] == counts[0] and counts[2] == {}
+    assert captured == [0, 1, 1]
+
+
+@pytest.mark.cuda
+def test_a_route_flag_flipped_between_calls_captures_afresh(graph_engines, monkeypatch):
+    from resnetc_tpu_torch.ops.cuda import fused
+
+    _served_route(monkeypatch)
+    eng, size = graph_engines("bottleneck")
+    x = _images(2, size, 4)
+    for _ in range(3):
+        eng.logits(x, transient=True)
+    monkeypatch.setattr(fused, "STAGE_FUSE_PROJ", not fused.STAGE_FUSE_PROJ)
+    _build.reset_launches()
+    want = eng.logits(x)
+    eager = dict(_build.LAUNCHES)
+    for _ in range(3):
+        got = eng.logits(x, transient=True)
+    torch.cuda.synchronize()
+    assert len(eng.graphs.captured) == 2
+    assert torch.equal(got, want)
+    _build.reset_launches()
+    eng.logits(x)
+    assert dict(_build.LAUNCHES) == eager
+
+
+@pytest.mark.cuda
+def test_logits_after_classify_launches_what_it_launched_before(graph_engines, monkeypatch):
+    _served_route(monkeypatch)
+    eng, size = graph_engines("resnet34")
+    x = _images(32, size, 6)
+    _build.reset_launches()
+    want = eng.logits(x)
+    before = dict(_build.LAUNCHES)
+    for _ in range(3):
+        eng.classify(x)
+    _build.reset_launches()
+    got = eng.logits(x)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == before
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_a_replayed_request_under_the_profiler(graph_engines, monkeypatch):
+    """One replayed ``classify`` under ``torch.profiler``: one
+    ``resnetc.replay`` inside ``resnetc.forward``, no ``resnetc::`` op on
+    the host, and the graph's kernels on the device's timeline."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from resnetc_tpu_torch.utils import metrics as tmetrics
+
+    _served_route(monkeypatch)
+    eng, size = graph_engines("resnet152")
+    x = _images(1, size, 7)
+    for _ in range(2):
+        eng.classify(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.classify(x)
+        torch.cuda.synchronize()
+    evs = list(prof.profiler.kineto_results.events())
+    host = [e for e in evs if e.device_type() != torch.autograd.DeviceType.CUDA]
+    replays = [e for e in host if e.name() == tmetrics.REPLAY]
+    forwards = [e for e in host if e.name() == tmetrics.FORWARD]
+    assert len(replays) == 1 and len(forwards) == 1
+    assert forwards[0].start_ns() <= replays[0].start_ns()
+    assert replays[0].end_ns() <= forwards[0].end_ns()
+    assert not any(e.name().startswith("resnetc::") for e in host)
+    kernels = [e for e in evs if e.device_type() == torch.autograd.DeviceType.CUDA
+               and "chain_tile_kernel" in e.name()]
+    assert len(kernels) >= 40
